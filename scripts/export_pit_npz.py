@@ -1,0 +1,84 @@
+"""Export the settled 10k ball pit as a JAX-free ``.npz`` for the PyTorch
+port.
+
+Loads the committed settled checkpoint through ``bench.physics_steady_setup
+(10_000)`` (caches dropped as the bench drops them), builds the bench's
+``chained_ps`` configuration, warms that configuration with six JAX
+``step_checked`` frames, then runs three reference frames from the
+checkpoint state under the warmed configuration. Writes
+``artifacts/ball_pit10k_settled.npz`` with
+
+- the checkpoint state as ``wgmath_tpu_torch.convert.state_to_arrays``
+  named arrays,
+- ``config_json``: the warmed configuration,
+- ``ref.<f>.{translation,rotation,linear,angular,pair_count,config_json}``
+  for reference frames f = 0, 1, 2.
+
+Runs on the CPU (several minutes at 10k bodies)::
+
+    JAX_PLATFORMS=cpu python scripts/export_pit_npz.py
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import time
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+
+import bench  # noqa: E402
+from wgmath_tpu.pipeline import step_checked  # noqa: E402
+from wgmath_tpu_torch.convert import state_to_arrays  # noqa: E402
+
+WARM_FRAMES = 6
+REF_FRAMES = 3
+OUT = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
+
+
+def _config_json(cfg) -> str:
+    return json.dumps(dataclasses.asdict(cfg))
+
+
+def main():
+    t0 = time.time()
+    state0, params, _, ladder = bench.physics_steady_setup(10_000)
+    cfg = dataclasses.replace(ladder, gs_chained=True, gs_rhs_in_rung=True,
+                              gs_pair_slots=True)
+    st = state0
+    for f in range(WARM_FRAMES):
+        st, cfg = step_checked(st, params, cfg)
+        print(f"warm frame {f}: pair_count[:5]="
+              f"{np.asarray(st.pair_count)[:5].tolist()} "
+              f"({time.time() - t0:.0f} s)", flush=True)
+    arrays = state_to_arrays(state0)
+    arrays["config_json"] = np.asarray(_config_json(cfg))
+    ref, c = state0, cfg
+    for f in range(REF_FRAMES):
+        ref, c = step_checked(ref, params, c)
+        arrays[f"ref.{f}.translation"] = np.asarray(
+            ref.bodies.poses.translation)
+        arrays[f"ref.{f}.rotation"] = np.asarray(ref.bodies.poses.rotation)
+        arrays[f"ref.{f}.linear"] = np.asarray(ref.bodies.vels.linear)
+        arrays[f"ref.{f}.angular"] = np.asarray(ref.bodies.vels.angular)
+        arrays[f"ref.{f}.pair_count"] = np.asarray(ref.pair_count, np.int32)
+        arrays[f"ref.{f}.config_json"] = np.asarray(_config_json(c))
+        print(f"reference frame {f}: pair_count[:5]="
+              f"{np.asarray(ref.pair_count)[:5].tolist()} "
+              f"({time.time() - t0:.0f} s)", flush=True)
+    np.savez_compressed(OUT, **arrays)
+    print(f"wrote {OUT} ({os.path.getsize(OUT) / 1e6:.2f} MB)")
+
+
+if __name__ == "__main__":
+    main()

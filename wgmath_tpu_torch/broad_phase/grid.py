@@ -1,0 +1,163 @@
+"""Uniform-grid broad phase by sorted cell keys (counterpart of
+``wgmath_tpu/broad_phase/grid.py:find_pairs_grid``).
+
+1. Outliers (extent > 3× the median) go to a dense global list of at most
+   ``global_cap`` bodies; the cell size is the largest remaining extent.
+2. Bodies sort by packed cell key (stable); each scans its 27 neighbour
+   cells, reading up to ``cell_cap`` occupants per cell.
+3. The first ``cand_budget`` occupied slots per body are kept, the global
+   columns appended, and exact AABB (plus sphere, for ball pairs) tests
+   run on them.
+4. Up to ``max_per_body`` hits per body compact into the output buffer.
+
+Any exceeded budget makes the count negative (host regrows the budgets).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from wgmath_tpu_torch.broad_phase.brute_force import PairList, compact_hits
+
+
+def _neighbor_offsets(device) -> torch.Tensor:
+    r = torch.arange(-1, 2, device=device)
+    g = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1)
+    return g.reshape(27, 3)
+
+
+def _pack_key(cells: torch.Tensor) -> torch.Tensor:
+    """10 bits per axis; wraparound only adds candidates."""
+    c = cells & 1023
+    return c[..., 0] | (c[..., 1] << 10) | (c[..., 2] << 20)
+
+
+def top_k_desc(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: values descending, ties broken
+    toward the lower index (a stable descending sort)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
+                    capacity: int, max_per_body: int = 16, cell_cap: int = 8,
+                    global_cap: int = 64, cand_budget: int = 48,
+                    ball_radius=None, margin: float = 0.0,
+                    dynamic=None) -> PairList:
+    """All overlapping AABB pairs (i < j) via the sorted uniform grid."""
+    n = mins.shape[0]
+    dev = mins.device
+    n_off = 27
+    ext_max = torch.amax(maxs - mins, dim=-1)
+    ext_sorted = torch.sort(ext_max).values
+    med = ext_sorted[n // 2]
+    glob_thr = torch.where(torch.isfinite(med), 3.0 * med,
+                           torch.full_like(med, float("inf")))
+    is_global = ext_max > glob_thr
+    cell = (torch.amax(torch.where(~is_global, ext_max,
+                                   torch.zeros_like(ext_max)))
+            * 1.0001 + 1e-6)
+    center = 0.5 * (mins + maxs)
+    glob_overflow = is_global.sum() > global_cap
+    gcap = min(global_cap, n)
+    ids = torch.arange(n, device=dev)
+    gscore = torch.where(is_global, n - ids, torch.zeros_like(ids))
+    gtop = top_k_desc(gscore, gcap)[0]
+    g_ids = torch.where(gtop > 0, n - gtop, torch.full_like(gtop, n - 1))
+    g_valid = gtop > 0
+
+    cells = torch.floor(center / cell).to(torch.int64)
+    key = torch.where(~is_global, _pack_key(cells),
+                      torch.full_like(ids, 0x7FFFFFFF))
+    skey, sid = torch.sort(key, stable=True)
+
+    nkeys = _pack_key(cells[:, None, :]
+                      + _neighbor_offsets(dev)[None, :, :])  # [N, 27]
+    dup = nkeys[:, :, None] == nkeys[:, None, :]
+    earlier = torch.tril(torch.ones((n_off, n_off), dtype=torch.bool,
+                                    device=dev), diagonal=-1)
+    fresh = ~torch.any(dup & earlier[None], dim=-1)
+
+    lo = torch.searchsorted(skey, nkeys.reshape(-1)).reshape(n, n_off)
+    spos = torch.arange(n, device=dev)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          skey[1:] != skey[:-1]])
+    start_of_run = torch.cummax(
+        torch.where(is_start, spos, torch.zeros_like(spos)), 0).values
+    is_end = torch.cat([skey[1:] != skey[:-1],
+                        torch.ones(1, dtype=torch.bool, device=dev)])
+    end_of_run = torch.flip(torch.cummin(torch.flip(
+        torch.where(is_end, spos, torch.full_like(spos, n - 1)), [0]),
+        0).values, [0])
+    run_len = end_of_run - start_of_run + 1
+    lo_c = torch.clamp(lo, max=n - 1)
+    found = skey[lo_c] == nkeys
+    cnt = torch.where(found, run_len[lo_c], torch.zeros_like(lo_c))
+    cell_overflow = torch.any(cnt > cell_cap)
+
+    slots = torch.arange(cell_cap, device=dev)
+    pos = torch.clamp(lo[:, :, None] + slots[None, None, :], max=n - 1)
+    in_cell = (slots[None, None, :] < cnt[:, :, None]) & fresh[:, :, None]
+
+    # the first cand_budget occupied slots, in slot order
+    wide = n_off * cell_cap
+    c_budget = min(cand_budget, wide)
+    in_cell = in_cell.reshape(n, wide)
+    slot_ids = torch.arange(wide, device=dev)
+    occ_score = torch.where(in_cell, wide - slot_ids,
+                            torch.zeros_like(slot_ids))
+    otop, osel = top_k_desc(occ_score, c_budget)
+    cand_valid = otop > 0
+    cand_overflow = torch.any(in_cell.sum(-1) > c_budget)
+    pos_sel = torch.gather(pos.reshape(n, wide), 1, osel)
+    cand_sel = sid[pos_sel]
+
+    cand_f = torch.cat([cand_sel, g_ids[None, :].expand(n, gcap)], dim=1)
+    mask_f = torch.cat([cand_valid, g_valid[None, :].expand(n, gcap)], dim=1)
+    w = cand_f.shape[1]
+    rows = ids[:, None]
+    is_glob_row = is_global[:, None]
+    grid_cols = torch.arange(w, device=dev) < c_budget
+    is_glob_col = ~grid_cols[None, :]
+    # grid-grid pairs from the higher index; grid-global from the grid side
+    order_ok = torch.where(is_glob_col & ~is_glob_row, True, rows > cand_f)
+    mask_f = mask_f & order_ok & (cand_f != rows)
+    mask_f = mask_f & ~(is_glob_row & grid_cols[None, :])
+    if dynamic is not None:
+        mask_f = mask_f & (dynamic[:, None] | dynamic[cand_f])
+    c_mins, c_maxs = mins[cand_f], maxs[cand_f]
+    overlap = torch.ones_like(mask_f)
+    for a in range(3):
+        overlap &= ((mins[:, a:a + 1] <= c_maxs[..., a])
+                    & (c_mins[..., a] <= maxs[:, a:a + 1]))
+    if ball_radius is not None:
+        c_center = center[cand_f]
+        d2 = torch.zeros_like(c_center[..., 0])
+        for a in range(3):
+            da = center[:, a:a + 1] - c_center[..., a]
+            d2 = d2 + da * da
+        lim = ball_radius[:, None] + ball_radius[cand_f] + margin
+        overlap = torch.where(torch.isfinite(lim), overlap & (d2 <= lim * lim),
+                              overlap)
+    mask_f = mask_f & overlap
+
+    row_counts = mask_f.sum(-1)
+    kk = min(max_per_body, w)
+    row_overflow = torch.any(row_counts > kk) | cand_overflow
+    if kk * 4 >= w * 3:
+        hit, b_ids = mask_f, cand_f
+        kk = w
+    else:
+        top = top_k_desc(torch.where(mask_f, n - cand_f,
+                                     torch.zeros_like(cand_f)), kk)[0]
+        hit, b_ids = top > 0, n - top
+    a_ids = rows.expand(n, kk)
+    out_a, out_b, emit = compact_hits(hit, a_ids, b_ids, capacity)
+    true_count = row_counts.sum()
+    overflow = row_overflow | cell_overflow | glob_overflow
+    count = torch.where(overflow, -torch.clamp(true_count, min=1),
+                        true_count)
+    valid = torch.arange(capacity, device=dev) < torch.clamp(emit,
+                                                             max=capacity)
+    return PairList(torch.minimum(out_a, out_b), torch.maximum(out_a, out_b),
+                    valid, count)

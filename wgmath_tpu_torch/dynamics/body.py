@@ -1,0 +1,142 @@
+"""Rigid-body state and integration, structure of arrays (counterpart of
+``wgmath_tpu/dynamics/body.py``, 3D).
+
+- ``inv_mass`` is a per-axis vector (axis locking).
+- Local inertia is (principal frame quaternion, inverse principal inertia);
+  world inverse inertia is R diag R^T.
+- Velocity integration is semi-implicit Euler about the COM with a
+  quaternion exponential map.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from wgmath_tpu_torch.geometry import quat
+from wgmath_tpu_torch.geometry import sim as sim_ops
+from wgmath_tpu_torch.geometry.sim import Sim
+
+
+@dataclasses.dataclass
+class Velocity:
+    linear: torch.Tensor  # [N, 3]
+    angular: torch.Tensor  # [N, 3]
+
+    @staticmethod
+    def zero(n: int, *, device=None) -> "Velocity":
+        return Velocity(torch.zeros((n, 3), device=device),
+                        torch.zeros((n, 3), device=device))
+
+
+@dataclasses.dataclass
+class LocalMassProperties:
+    inv_mass: torch.Tensor  # [N, 3] per axis
+    com: torch.Tensor  # [N, 3]
+    inertia_ref_frame: torch.Tensor  # [N, 4]
+    inv_principal_inertia: torch.Tensor  # [N, 3]
+
+
+@dataclasses.dataclass
+class WorldMassProperties:
+    inv_mass: torch.Tensor  # [N, 3]
+    com: torch.Tensor  # [N, 3]
+    inv_inertia: torch.Tensor  # [N, 3, 3]
+
+
+@dataclasses.dataclass
+class Bodies:
+    """All rigid bodies. ``kinematic`` marks one-way-coupled bodies: zero
+    inverse mass, but their prescribed velocity is kept through the solve
+    and integrates their pose."""
+
+    poses: Sim
+    vels: Velocity
+    local_mprops: LocalMassProperties
+    kinematic: torch.Tensor | None = None  # [N] bool
+
+    @property
+    def num_bodies(self) -> int:
+        return self.poses.translation.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.poses.translation.shape[-1]
+
+    def is_dynamic(self) -> torch.Tensor:
+        """[N] bool — any unlocked translation axis."""
+        return torch.any(self.local_mprops.inv_mass != 0.0, dim=-1)
+
+    def is_kinematic(self) -> torch.Tensor:
+        if self.kinematic is None:
+            return torch.zeros(self.num_bodies, dtype=torch.bool,
+                               device=self.poses.translation.device)
+        return self.kinematic
+
+    def is_moving(self) -> torch.Tensor:
+        """[N] bool — bodies whose pose integrates (dynamic ∪ kinematic)."""
+        return self.is_dynamic() | self.is_kinematic()
+
+
+def update_mprops(poses: Sim,
+                  local: LocalMassProperties) -> WorldMassProperties:
+    """World-space mass properties from the pose."""
+    world_com = sim_ops.mul_pt(poses, local.com)
+    r = quat.to_matrix(quat.mul(poses.rotation, local.inertia_ref_frame))
+    inv_inertia = torch.einsum("nik,nk,njk->nij", r,
+                               local.inv_principal_inertia, r)
+    return WorldMassProperties(local.inv_mass, world_com, inv_inertia)
+
+
+def integrate_velocity(poses: Sim, vels: Velocity, local_com: torch.Tensor,
+                       dt: float) -> Sim:
+    """Semi-implicit Euler pose update about the COM."""
+    init_com = sim_ops.mul_pt(poses, local_com)
+    init_tra = poses.translation
+    delta_ang = quat.from_scaled_axis(vels.angular * dt)
+    rotated = quat.mul_vec(delta_ang, init_tra - init_com)
+    new_rot = quat.normalize(quat.mul(delta_ang, poses.rotation))
+    new_tra = init_com + rotated * poses.scale[..., None] + vels.linear * dt
+    return Sim(new_rot, new_tra, poses.scale)
+
+
+def ball_local_mprops(radius: torch.Tensor, density: float = 1.0, *,
+                      dynamic=None) -> LocalMassProperties:
+    """Uniform 3D ball mass properties."""
+    radius = radius.to(torch.float32)
+    n = radius.shape[0]
+    dev = radius.device
+    mass = density * (4.0 / 3.0) * math.pi * radius ** 3
+    inertia = 0.4 * mass * radius ** 2
+    dyn = (torch.ones(n, dtype=torch.bool, device=dev) if dynamic is None
+           else torch.as_tensor(dynamic, device=dev))
+    inv_m = torch.where(dyn, 1.0 / mass, torch.zeros_like(mass))
+    inv_i = torch.where(dyn, 1.0 / inertia, torch.zeros_like(inertia))
+    return LocalMassProperties(inv_m[:, None].repeat(1, 3),
+                               torch.zeros((n, 3), device=dev),
+                               quat.identity((n,), device=dev),
+                               inv_i[:, None].repeat(1, 3))
+
+
+def cuboid_local_mprops(half_extents: torch.Tensor, density: float = 1.0,
+                        *, dynamic=None) -> LocalMassProperties:
+    """Uniform 3D box mass properties, [N, 3] half extents."""
+    he = half_extents.to(torch.float32)
+    n = he.shape[0]
+    dev = he.device
+    sides = 2.0 * he
+    mass = density * sides[:, 0] * sides[:, 1] * sides[:, 2]
+    ix = mass / 12.0 * (sides[:, 1] ** 2 + sides[:, 2] ** 2)
+    iy = mass / 12.0 * (sides[:, 0] ** 2 + sides[:, 2] ** 2)
+    iz = mass / 12.0 * (sides[:, 0] ** 2 + sides[:, 1] ** 2)
+    inertia = torch.stack([ix, iy, iz], dim=-1)
+    dyn = (torch.ones(n, dtype=torch.bool, device=dev) if dynamic is None
+           else torch.as_tensor(dynamic, device=dev))
+    inv_m = torch.where(dyn, 1.0 / mass, torch.zeros_like(mass))
+    inv_i = torch.where(dyn[:, None], 1.0 / inertia,
+                        torch.zeros_like(inertia))
+    return LocalMassProperties(inv_m[:, None].repeat(1, 3),
+                               torch.zeros((n, 3), device=dev),
+                               quat.identity((n,), device=dev), inv_i)

@@ -1,0 +1,287 @@
+"""Gauss-Seidel impulse math for one colour rung with the substep rhs rebuilt
+in kernel (counterpart of ``wgmath_tpu/dynamics/gs_pallas.py``:
+``gs_math_block_rhs`` and its Pallas kernel ``_gs_math_rhs_pallas_call``).
+
+On a CUDA tensor :func:`gs_math_block_rhs` launches the hand-written kernel
+``csrc/gs_math.cu`` (one thread per constraint row) and raises if it
+cannot; on a CPU tensor it runs :func:`_gs_math_rhs_torch`, the plain
+PyTorch transcription of ``_cm_rhs`` + ``_cm_point_updates``. ``LAUNCHES``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCHES = 0
+
+# substep-invariant solver fields packed into one [C, K] f32 matrix, in
+# this column order (the JAX package's _PACK_FIELDS); the kernel's column
+# table (csrc/gs_math.cu Field) follows it
+PACK_FIELDS = ("dir_a", "tangent_a", "im_a", "im_b", "limit",
+               "n_torque_a", "n_torque_b", "n_ii_torque_a", "n_ii_torque_b",
+               "n_r", "t_torque_a", "t_torque_b", "t_ii_torque_a",
+               "t_ii_torque_b", "t_r", "local_pt_a", "local_pt_b",
+               "info_dist", "info_normal_vel", "t_rhs_wo_bias")
+
+
+def _size(tail) -> int:
+    k = 1
+    for t in tail:
+        k *= t
+    return k
+
+
+def pack_meta(p_max: int, s_len: int = 2) -> dict:
+    """name → (first column, trailing shape) of the packed matrix."""
+    tails = {"dir_a": (3,), "tangent_a": (s_len, 3), "im_a": (3,),
+             "im_b": (3,), "limit": (), "n_torque_a": (p_max, 3),
+             "n_torque_b": (p_max, 3), "n_ii_torque_a": (p_max, 3),
+             "n_ii_torque_b": (p_max, 3), "n_r": (p_max,),
+             "t_torque_a": (p_max, s_len, 3),
+             "t_torque_b": (p_max, s_len, 3),
+             "t_ii_torque_a": (p_max, s_len, 3),
+             "t_ii_torque_b": (p_max, s_len, 3), "t_r": (p_max, 3),
+             "local_pt_a": (p_max, 3), "local_pt_b": (p_max, 3),
+             "info_dist": (p_max,), "info_normal_vel": (p_max,),
+             "t_rhs_wo_bias": (p_max, s_len)}
+    meta, at = {}, 0
+    for f in PACK_FIELDS:
+        meta[f] = (at, tails[f])
+        at += _size(tails[f])
+    return meta
+
+
+def _fields(win2d: torch.Tensor, meta: dict) -> dict:
+    """Row-major views [L, *tail] of the packed fields."""
+    L = win2d.shape[0]
+    return {name: win2d[:, at:at + _size(tail)].reshape((L,) + tuple(tail))
+            for name, (at, tail) in meta.items()}
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def _mul_pt(pose: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """sim.mul_pt on [L, 8] poses (quat xyzw | translation | scale)."""
+    ux, uy, uz, w = pose[:, 0], pose[:, 1], pose[:, 2], pose[:, 3]
+    vx, vy, vz = v[:, 0], v[:, 1], v[:, 2]
+    cx = uy * vz - uz * vy
+    cy = uz * vx - ux * vz
+    cz = ux * vy - uy * vx
+    dx = uy * cz - uz * cy
+    dy = uz * cx - ux * cz
+    dz = ux * cy - uy * cx
+    rot = torch.stack([vx + 2.0 * (w * cx + dx), vy + 2.0 * (w * cy + dy),
+                       vz + 2.0 * (w * cz + dz)], dim=-1)
+    return pose[:, 7:8] * rot + pose[:, 4:7]
+
+
+def _gs_math_rhs_torch(win2d, meta, num_points, active, p1, p2, prev_n,
+                       prev_t, *, mode, consts, pose1=None, pose2=None,
+                       n_rhs_wo=None, p_max, s_len):
+    """Plain PyTorch version of the kernel (row-major)."""
+    f = _fields(win2d, meta)
+    inv_dt, erp_inv_dt, allowed, max_corr, cfm_factor = consts
+    dir_a, tang = f["dir_a"], f["tangent_a"]
+    if mode == "biased":
+        n_rhs, rhs_wo, t_rhs = [], [], []
+        for k in range(p_max):
+            drift = (_mul_pt(pose1, f["local_pt_a"][:, k])
+                     - _mul_pt(pose2, f["local_pt_b"][:, k]))
+            dist = f["info_dist"][:, k] + _dot(drift, dir_a)
+            wo = f["info_normal_vel"][:, k] + torch.clamp(dist, min=0.0) \
+                * inv_dt
+            bias = torch.clamp((dist + allowed) * erp_inv_dt, -max_corr, 0.0)
+            n_rhs.append(wo + bias)
+            rhs_wo.append(wo)
+            t_rhs.append(torch.stack(
+                [f["t_rhs_wo_bias"][:, k, j]
+                 + _dot(drift, tang[:, j]) * inv_dt for j in range(s_len)],
+                dim=-1))
+        n_rhs = torch.stack(n_rhs, dim=1)
+        rhs_wo = torch.stack(rhs_wo, dim=1)
+        t_rhs = torch.stack(t_rhs, dim=1)
+        cfm = cfm_factor
+    else:
+        n_rhs = n_rhs_wo
+        t_rhs = f["t_rhs_wo_bias"]
+        cfm = 1.0
+    v1l, v1a = p1[:, :3], p1[:, 3:6]
+    v2l, v2a = p2[:, :3], p2[:, 3:6]
+    w1l, w1a, w2l, w2a = v1l, v1a, v2l, v2a
+    im_a, im_b, friction = f["im_a"], f["im_b"], f["limit"]
+    nump = num_points.to(torch.float32)
+    new_n, new_t = [], []
+    for k in range(p_max):
+        on = active & (nump > k)
+        prev = prev_n[:, k]
+        dvel = (_dot(dir_a, w1l) + _dot(f["n_torque_a"][:, k], w1a)
+                - _dot(dir_a, w2l) + _dot(f["n_torque_b"][:, k], w2a)
+                + n_rhs[:, k])
+        cand = cfm * torch.clamp(prev - f["n_r"][:, k] * dvel, min=0.0)
+        new_imp = torch.where(on, cand, prev)
+        d_imp = (new_imp - prev)[:, None]
+        w1l = w1l + dir_a * (im_a * d_imp)
+        w1a = w1a + f["n_ii_torque_a"][:, k] * d_imp
+        w2l = w2l - dir_a * (im_b * d_imp)
+        w2a = w2a + f["n_ii_torque_b"][:, k] * d_imp
+        limit = new_imp * friction
+        new_n.append(new_imp)
+
+        t_r = f["t_r"][:, k]
+        ta, tb = f["t_torque_a"][:, k], f["t_torque_b"][:, k]
+        ia, ib = f["t_ii_torque_a"][:, k], f["t_ii_torque_b"][:, k]
+        tp = prev_t[:, k]
+        dd = [(_dot(tang[:, j], w1l) + _dot(ta[:, j], w1a)
+               - _dot(tang[:, j], w2l) + _dot(tb[:, j], w2a)
+               + t_rhs[:, k, j]) for j in range(2)]
+        d00, d11, d01 = dd[0] * dd[0], dd[1] * dd[1], dd[0] * dd[1]
+        lhs = d00 * t_r[:, 0] + d11 * t_r[:, 1] + d01 * t_r[:, 2]
+        ok = torch.abs(lhs) > 1e-20
+        inv_lhs = (d00 + d11) * torch.where(
+            ok, 1.0 / torch.where(ok, lhs, torch.ones_like(lhs)),
+            torch.zeros_like(lhs))
+        raw = tp - torch.stack([inv_lhs * dd[0], inv_lhs * dd[1]], dim=-1)
+        nrm = torch.sqrt(torch.sum(raw * raw, dim=-1))
+        scale = torch.where(nrm > limit,
+                            limit / torch.clamp(nrm, min=1e-30),
+                            torch.ones_like(nrm))
+        t_new = torch.where(on[:, None], raw * scale[:, None], tp)
+        dl = t_new - tp
+        lin_dir = tang[:, 0] * dl[:, 0:1] + tang[:, 1] * dl[:, 1:2]
+        w1l = w1l + lin_dir * im_a
+        w1a = w1a + ia[:, 0] * dl[:, 0:1] + ia[:, 1] * dl[:, 1:2]
+        w2l = w2l - lin_dir * im_b
+        w2a = w2a + ib[:, 0] * dl[:, 0:1] + ib[:, 1] * dl[:, 1:2]
+        new_t.append(t_new)
+    res = (torch.stack(new_n, dim=1), torch.stack(new_t, dim=1),
+           torch.cat([w1l - v1l, w1a - v1a], dim=-1),
+           torch.cat([w2l - v2l, w2a - v2a], dim=-1))
+    return res + (rhs_wo,) if mode == "biased" else res
+
+
+def _rows(x: torch.Tensor, L: int, width: int, what: str):
+    """(tensor, leading dimension) of ``x`` viewed as [L, width] with a
+    unit inner stride; raises on anything else."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what}: float32 expected, got {x.dtype}")
+    try:
+        v = x.view(L, width)
+    except RuntimeError as e:
+        raise ValueError(f"{what}: not viewable as [{L}, {width}] "
+                         f"rows") from e
+    if width > 1 and v.stride(1) != 1:
+        raise ValueError(f"{what}: inner dimension must be contiguous")
+    return v, v.stride(0)
+
+
+_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p]
+             + [ctypes.c_void_p, ctypes.c_int] * 6
+             + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 5
+             + [ctypes.c_void_p])
+
+
+def _launch(win2d, meta, num_points, active, p1, p2, prev_n, prev_t, *,
+            mode, consts, pose1=None, pose2=None, n_rhs_wo=None, p_max,
+            s_len):
+    global LAUNCHES
+    from wgmath_tpu_torch.core import cuda_build
+
+    L, K = win2d.shape
+    dev = win2d.device
+    if s_len != 2 or p_max not in (1, 4):
+        raise ValueError(f"gs_math kernel: (p_max={p_max}, s_len={s_len}) "
+                         "not instantiated (p_max 1 or 4, s_len 2)")
+    want = pack_meta(p_max, s_len)
+    for name in PACK_FIELDS:
+        tail = want[name][1]
+        if name not in meta or tuple(meta[name][1]) != tail:
+            raise ValueError(f"gs_math kernel: packed field {name} missing "
+                             "or of the wrong shape")
+        if not 0 <= int(meta[name][0]) <= K - _size(tail):
+            raise ValueError(f"gs_math kernel: field {name} lies outside "
+                             f"the {K}-column window")
+    offs = (ctypes.c_int * len(PACK_FIELDS))(
+        *[int(meta[nm][0]) for nm in PACK_FIELDS])
+    biased = mode == "biased"
+    aux = (("pose1", pose1), ("pose2", pose2)) if biased else (
+        ("n_rhs_wo", n_rhs_wo),)
+    win, ld_win = _rows(win2d, L, K, "win2d")
+    for nm, t in (("num_points", num_points), ("active", active),
+                  ("p1", p1), ("p2", p2), ("prev_n", prev_n),
+                  ("prev_t", prev_t)) + aux:
+        if t is None or t.device != dev:
+            raise ValueError(f"gs_math kernel: {nm} missing or not on "
+                             f"the window's device {dev}")
+    if num_points.dtype != torch.int64 or num_points.shape != (L,) \
+            or not num_points.is_contiguous():
+        raise ValueError("num_points: contiguous int64 [L] expected")
+    if active.dtype != torch.bool or active.shape != (L,) \
+            or not active.is_contiguous():
+        raise ValueError("active: contiguous bool [L] expected")
+    p1v, ld_p1 = _rows(p1, L, 6, "p1")
+    p2v, ld_p2 = _rows(p2, L, 6, "p2")
+    pnv, ld_pn = _rows(prev_n, L, p_max, "prev_n")
+    ptv, ld_pt = _rows(prev_t, L, p_max * s_len, "prev_t")
+    if biased:
+        auxv, ld_aux = _rows(pose1, L, 8, "pose1")
+        p2pose, ld_pose2 = _rows(pose2, L, 8, "pose2")
+        pose2_ptr = p2pose.data_ptr()
+    else:
+        auxv, ld_aux = _rows(n_rhs_wo, L, p_max, "n_rhs_wo")
+        pose2_ptr, ld_pose2 = None, 0
+    new_n = torch.empty((L, p_max), device=dev)
+    new_t = torch.empty((L, p_max, s_len), device=dev)
+    d1 = torch.empty((L, 6), device=dev)
+    d2 = torch.empty((L, 6), device=dev)
+    rhs_wo = torch.empty((L, p_max), device=dev) if biased else None
+    lib = cuda_build.load("gs_math")
+    fn = lib.gs_math_rhs_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(p_max, int(biased), L, win.data_ptr(), ld_win, offs,
+             num_points.data_ptr(), active.data_ptr(),
+             p1v.data_ptr(), ld_p1, p2v.data_ptr(), ld_p2,
+             pnv.data_ptr(), ld_pn, ptv.data_ptr(), ld_pt,
+             auxv.data_ptr(), ld_aux, pose2_ptr, ld_pose2,
+             new_n.data_ptr(), new_t.data_ptr(), d1.data_ptr(),
+             d2.data_ptr(), None if rhs_wo is None else rhs_wo.data_ptr(),
+             *[float(c) for c in consts], stream)
+    if err != 0:
+        raise RuntimeError(f"gs_math kernel launch failed: error {err}")
+    LAUNCHES += 1
+    res = (new_n, new_t, d1, d2)
+    return res + (rhs_wo,) if biased else res
+
+
+def gs_math_block_rhs(win2d, meta, num_points, active, p1, p2, prev_n,
+                      prev_t, *, mode: str, consts: tuple, pose1=None,
+                      pose2=None, n_rhs_wo=None, p_max: int, s_len: int):
+    """GS impulse update of one rung with in-kernel rhs relinearization.
+
+    ``win2d`` [L, K] packed fields (``meta``: name → (column, tail)),
+    ``num_points`` [L], ``active`` [L] bool, ``p1``/``p2`` [L, 6] the
+    sides' velocities, ``prev_n`` [L, P], ``prev_t`` [L, P, S].
+    ``mode`` "biased" rebuilds n_rhs/t_rhs from ``pose1``/``pose2`` [L, 8]
+    and also returns ``rhs_wo`` [L, P]; "unbiased" consumes ``n_rhs_wo``
+    [L, P] and the packed t_rhs_wo_bias with cfm = 1.
+    ``consts`` = (inv_dt, erp_inv_dt, allowed_err, max_corr, cfm_factor).
+    Returns row-major (new_n, new_t, d1 [L, 6], d2 [L, 6][, rhs_wo])."""
+    if mode not in ("biased", "unbiased"):
+        raise ValueError(f"gs_math_block_rhs: unknown mode {mode!r}")
+    kw = dict(mode=mode, consts=consts, pose1=pose1, pose2=pose2,
+              n_rhs_wo=n_rhs_wo, p_max=p_max, s_len=s_len)
+    if win2d.device.type == "cuda":
+        return _launch(win2d, meta, num_points, active, p1, p2, prev_n,
+                       prev_t, **kw)
+    if win2d.device.type == "cpu":
+        return _gs_math_rhs_torch(win2d, meta, num_points, active, p1, p2,
+                                  prev_n, prev_t, **kw)
+    raise ValueError(f"gs_math_block_rhs: unsupported device {win2d.device}")

@@ -1,0 +1,439 @@
+"""One physics frame: mass properties → broad phase (slack cache, repair,
+refresh) → narrow phase → constraints → chained Gauss-Seidel solve →
+integration (counterpart of ``wgmath_tpu/pipeline.py``: ``PhysicsState``,
+``PipelineConfig``, ``step``, ``step_checked``, ``fine_bucket``).
+
+The JAX step is one jitted program whose branches are ``lax.cond`` /
+``lax.switch``; here each branch is a Python branch on a host value (one
+counted host sync each, ``core.dispatch.host_int``). This slice runs the
+configuration the bench calls ``chained_ps``: the grid (or brute) broad
+phase with its ``bp_slack`` cache and cached pair colours, pair-slot
+contacts, the ``gs_windows`` ladder, ``gs_chained`` and
+``gs_rhs_in_rung``. ``step`` refuses any other flag with
+``NotImplementedError``.
+
+``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
+2 full), tail class, bc/sat/pfm compaction demand, class counts...].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from wgmath_tpu_torch.broad_phase.brute_force import (
+    PairList,
+    compact_hits,
+    find_pairs,
+)
+from wgmath_tpu_torch.broad_phase.grid import find_pairs_grid, top_k_desc
+from wgmath_tpu_torch.core.dispatch import (
+    capacity_bucket,
+    host_int,
+    host_list,
+)
+from wgmath_tpu_torch.dynamics.body import Bodies, update_mprops
+from wgmath_tpu_torch.dynamics.constraint import ContactConstraints
+from wgmath_tpu_torch.dynamics.sim_params import SimParams
+from wgmath_tpu_torch.dynamics.solver import (
+    assign_new_pair_colors,
+    color_pairs,
+    solve,
+    transfer_pair_colors,
+)
+from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
+from wgmath_tpu_torch.shapes.shape import (
+    BALL,
+    SUPPORTED_KINDS,
+    ShapeSet,
+    ball_radii_or_nan,
+    world_aabbs,
+)
+
+
+@dataclasses.dataclass
+class PhysicsState:
+    """World state. ``bp_colors`` = (pair colours, gs_cmax, max_colors,
+    slot flag) with the knobs as host ints; ``solve_cache`` is the solve
+    bundle reused on broad-phase cache hits."""
+
+    bodies: Bodies
+    shapes: ShapeSet
+    prev_constraints: ContactConstraints | None
+    pair_count: torch.Tensor
+    prev_colors: torch.Tensor | None = None
+    bp_pairs: PairList | None = None
+    bp_ref: tuple | None = None  # (mins, maxs) reference boxes
+    bp_colors: tuple | None = None
+    solve_cache: tuple | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Static configuration; field names and defaults follow the JAX
+    package so a configuration carries across as JSON."""
+
+    pair_capacity: int = 1024
+    contact_capacity: int = 0
+    use_jacobi: bool = False
+    max_colors: int = 32
+    max_per_body: int = 32
+    broad_phase_block: int = 256
+    broad_phase_max_per_row: int = 64
+    sat_pair_capacity: int = 0
+    pfm_pair_capacity: int = 0
+    bc_pair_capacity: int = 0
+    gs_cmax: int = 0
+    mesh_pair_capacity: int = 512
+    mesh_k_best: int = 4
+    bp_algo: str = "auto"
+    bp_cell_cap: int = 8
+    bp_global_cap: int = 16
+    bp_cand_budget: int = 48
+    manifold_points: int = 0
+    bp_slack: float = 0.0
+    bp_vel_slack: float = 0.33
+    bp_vel_slack_cap: float = 0.1
+    bp_recolor_cap: int = 128
+    bp_claim_rounds: int = 4
+    gs_pair_slots: bool = False
+    gs_static_slots: bool = False
+    bp_min_color_sweeps: int = 0
+    bp_repair_cap: int = 32
+    bp_force: str | None = None
+    gs_tail_window: int = 0
+    gs_split: int = 8
+    gs_windows: tuple = ()
+    gs_fused: bool = False
+    gs_fused_pallas: bool = False
+    gs_rung0: int = 256
+    gs_chained: bool = False
+    gs_rhs_in_rung: bool = False
+    fine_capacities: bool = False
+    gs_rung_quantum: int = 256
+    gs_rung_headroom: float = 1.15
+
+    @staticmethod
+    def from_dict(d: dict) -> "PipelineConfig":
+        d = dict(d)
+        d["gs_windows"] = tuple(d.get("gs_windows", ()))
+        return PipelineConfig(**d)
+
+
+def _check_slice(state: PhysicsState, config: PipelineConfig,
+                 shard) -> None:
+    """Refuse every flag outside the chained pair-slot configuration."""
+    bad = []
+    if shard is not None:
+        bad.append("shard")
+    if state.bodies.dim != 3:
+        bad.append("2D")
+    if not state.shapes.kinds <= SUPPORTED_KINDS:
+        bad.append(f"shape kinds {sorted(state.shapes.kinds)}")
+    if config.use_jacobi:
+        bad.append("use_jacobi")
+    if config.gs_fused:
+        bad.append("gs_fused")
+    if config.gs_static_slots:
+        bad.append("gs_static_slots")
+    if config.bp_min_color_sweeps:
+        bad.append("bp_min_color_sweeps")
+    if config.bp_algo not in ("auto", "grid", "brute"):
+        bad.append(f"bp_algo={config.bp_algo}")
+    if not (config.gs_windows and config.gs_chained and config.gs_rhs_in_rung
+            and config.gs_pair_slots):
+        bad.append("a solver other than gs_windows + gs_chained + "
+                   "gs_rhs_in_rung + gs_pair_slots")
+    if not (config.bp_slack > 0 and config.gs_cmax > 0):
+        bad.append("bp_slack <= 0 or gs_cmax == 0 (no cached pair colours)")
+    if bad:
+        raise NotImplementedError(
+            "wgmath_tpu_torch.pipeline.step covers the chained pair-slot "
+            "configuration only; refused: " + ", ".join(bad))
+
+
+def new_state(bodies: Bodies, shapes: ShapeSet) -> PhysicsState:
+    return PhysicsState(bodies, shapes, None,
+                        torch.zeros(8, dtype=torch.int64,
+                                    device=bodies.poses.translation.device))
+
+
+def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
+         warmstart: bool = True, shard=None) -> PhysicsState:
+    """Advance one frame of ``params.dt``."""
+    _check_slice(state, config, shard)
+    bodies = state.bodies
+    dev = bodies.poses.translation.device
+    mprops = update_mprops(bodies.poses, bodies.local_mprops)
+    mins, maxs = world_aabbs(state.shapes, bodies.poses,
+                             margin=params.prediction_distance)
+    radii = (ball_radii_or_nan(state.shapes, bodies.poses)
+             if BALL in state.shapes.kinds else None)
+    n_bodies = mins.shape[0]
+    use_grid = config.bp_algo == "grid" or (config.bp_algo == "auto"
+                                            and n_bodies >= 1024)
+    slack = config.bp_slack
+    dim_sqrt = float(math.sqrt(3))
+    dyn_mask = bodies.is_dynamic()
+    move_mask = bodies.is_moving()
+    mc = config.max_colors
+
+    # velocity-aware slack, quantized to three levels so consecutive
+    # refreshes reuse bitwise-identical thresholds
+    speed = torch.sqrt(torch.sum(bodies.vels.linear ** 2, dim=-1,
+                                 keepdim=True))
+    cap_v = config.bp_vel_slack_cap
+    t1 = 0.25 * cap_v / config.bp_vel_slack
+    t2 = 0.75 * cap_v / config.bp_vel_slack
+    infl = slack + 0.5 * cap_v * ((speed > t1).to(torch.float32)
+                                  + (speed > t2).to(torch.float32))
+    radii_bp = radii + dim_sqrt * infl[:, 0] if radii is not None else None
+    sphere_margin = params.prediction_distance
+
+    def run_bp(mn, mx):
+        if use_grid:
+            return find_pairs_grid(
+                mn, mx, capacity=config.pair_capacity,
+                max_per_body=config.broad_phase_max_per_row,
+                cell_cap=config.bp_cell_cap,
+                global_cap=config.bp_global_cap,
+                cand_budget=config.bp_cand_budget, ball_radius=radii_bp,
+                margin=sphere_margin, dynamic=dyn_mask)
+        return find_pairs(mn, mx, capacity=config.pair_capacity,
+                          block=config.broad_phase_block,
+                          max_per_row=config.broad_phase_max_per_row,
+                          ball_radius=radii_bp, margin=sphere_margin,
+                          dynamic=dyn_mask)
+
+    def recolor(p):
+        return color_pairs(p.body_a, p.body_b, p.valid, dyn_mask[p.body_a],
+                           dyn_mask[p.body_b], n_bodies, max_colors=mc,
+                           claim_rounds=config.bp_claim_rounds,
+                           class_cap=config.gs_cmax)
+
+    def carry_colors(p, prev_p, prev_cols, knobs_ok: bool):
+        """Surviving pairs keep their colour; up to bp_recolor_cap new
+        pairs are coloured greedily; more churn recolours in full."""
+        mapped = transfer_pair_colors(p.body_a, p.body_b, p.valid,
+                                      prev_p.body_a, prev_p.body_b,
+                                      prev_p.valid, prev_cols)
+        n_new = host_int((p.valid & (mapped == 0)).sum())
+        if knobs_ok and n_new == 0:
+            return mapped
+        if knobs_ok and n_new <= config.bp_recolor_cap:
+            return assign_new_pair_colors(
+                p.body_a, p.body_b, p.valid, mapped, dyn_mask[p.body_a],
+                dyn_mask[p.body_b], n_bodies, max_colors=mc,
+                class_cap=config.gs_cmax, new_cap=config.bp_recolor_cap,
+                n_new=n_new)
+        return recolor(p)
+
+    def sort_pairs_cm(p, cols):
+        """Colour-major pair order: valid pairs by colour (residue 0
+        first), invalid tail; stable."""
+        key = torch.where(p.valid, torch.clamp(cols, 0, mc),
+                          torch.full_like(cols, mc + 1))
+        perm = torch.argsort(key, stable=True)
+        return (PairList(p.body_a[perm], p.body_b[perm], p.valid[perm],
+                         p.count),
+                (cols[perm], config.gs_cmax, mc, 1))
+
+    def colored_bp(mn, mx, reuse=None):
+        p = run_bp(mn, mx)
+        if reuse is None:
+            cols = recolor(p)
+        else:
+            prev_p, prev_tag = reuse
+            knobs_ok = (prev_tag[1] == config.gs_cmax
+                        and prev_tag[2] == mc)
+            cols = carry_colors(p, prev_p, prev_tag[0], knobs_ok)
+        p, tag = sort_pairs_cm(p, cols)
+        return p, (mn, mx), tag
+
+    def repair_bp():
+        """Recompute the pair rows of the bodies nearest their reference
+        box walls (every escaped body first) against the others' cached
+        reference boxes, and merge them into the cached list."""
+        ref0, ref1 = state.bp_ref
+        ecap = min(config.bp_repair_cap, n_bodies)
+        margin = torch.amin(torch.minimum(mins - ref0, ref1 - maxs), dim=1)
+        urgency = torch.where(move_mask, -margin,
+                              torch.full_like(margin, -math.inf))
+        e_ids = top_k_desc(urgency, ecap)[1]
+        sel = torch.zeros(n_bodies, dtype=torch.bool, device=dev)
+        sel[e_ids] = True
+        r0 = torch.where(sel[:, None], mins - infl, ref0)
+        r1 = torch.where(sel[:, None], maxs + infl, ref1)
+        op = state.bp_pairs
+        keep = op.valid & ~sel[op.body_a] & ~sel[op.body_b]
+        cols = torch.arange(n_bodies, device=dev)
+        ov = torch.all((r0[e_ids][:, None, :] <= r1[None])
+                       & (r0[None] <= r1[e_ids][:, None, :]), dim=-1)
+        ov &= cols[None, :] != e_ids[:, None]
+        ov &= dyn_mask[e_ids][:, None] | dyn_mask[None, :]
+        ov &= (~sel[cols])[None, :] | (cols[None, :] > e_ids[:, None])
+        if radii is not None:
+            refc = 0.5 * (r0 + r1)
+            he = 0.5 * torch.amax(r1 - r0, dim=1)
+            reach = radii + dim_sqrt * (he - radii)
+            d2 = torch.sum((refc[e_ids][:, None, :] - refc[None]) ** 2,
+                           dim=-1)
+            lim = reach[e_ids][:, None] + reach[None] + sphere_margin
+            finite = torch.isfinite(radii)
+            both_ball = finite[e_ids][:, None] & finite[None]
+            ov &= (d2 <= lim * lim) | ~both_ball
+        row_counts = ov.sum(-1)
+        kk = min(max(64, config.broad_phase_max_per_row), n_bodies)
+        row_overflow = torch.any(row_counts > kk)
+        sc2 = torch.where(ov, n_bodies - cols[None, :],
+                          torch.zeros_like(cols)[None, :])
+        top2 = top_k_desc(sc2, kk)[0]
+        hit2 = top2 > 0
+        nb = torch.where(hit2, n_bodies - top2, torch.zeros_like(top2))
+        na = e_ids[:, None].expand_as(nb)
+        cap = config.pair_capacity
+        all_a = torch.cat([op.body_a, torch.minimum(na, nb).reshape(-1)])
+        all_b = torch.cat([op.body_b, torch.maximum(na, nb).reshape(-1)])
+        all_v = torch.cat([keep, hit2.reshape(-1)])
+        out_a, out_b, total = compact_hits(all_v, all_a, all_b, cap)
+        count = torch.where(row_overflow, -torch.clamp(total, min=1), total)
+        valid = torch.arange(cap, device=dev) < torch.clamp(total, max=cap)
+        p = PairList(out_a, out_b, valid, count)
+        cols_out = carry_colors(p, op, state.bp_colors[0], True)
+        p, tag = sort_pairs_cm(p, cols_out)
+        return p, (r0, r1), tag
+
+    cache_ok = (state.bp_pairs is not None and state.bp_ref is not None
+                and state.bp_pairs.body_a.shape[0] == config.pair_capacity
+                and state.bp_colors is not None)
+    if cache_ok:
+        n_esc = host_int(torch.any((mins < state.bp_ref[0])
+                                   | (maxs > state.bp_ref[1]), dim=1).sum())
+        tag = state.bp_colors
+        knobs_ok = (tag[1] == config.gs_cmax and tag[2] == mc
+                    and len(tag) > 3 and tag[3] == 1)
+        if knobs_ok and n_esc == 0:
+            bp_path = 0
+        elif (knobs_ok and config.bp_repair_cap > 0
+              and n_esc <= config.bp_repair_cap):
+            bp_path = 1
+        else:
+            bp_path = 2
+        bp_path = {"hit": 0, "repair": 1, "miss": 2}.get(config.bp_force,
+                                                         bp_path)
+        if bp_path == 0:
+            pairs, bp_ref, bp_colors = (state.bp_pairs, state.bp_ref,
+                                        state.bp_colors)
+        elif bp_path == 1:
+            pairs, bp_ref, bp_colors = repair_bp()
+        else:
+            pairs, bp_ref, bp_colors = colored_bp(
+                mins - infl, maxs + infl,
+                reuse=(state.bp_pairs, state.bp_colors))
+    else:
+        bp_path = 2
+        pairs, bp_ref, bp_colors = colored_bp(mins - infl, maxs + infl)
+
+    contacts, np_needed = narrow_phase(
+        bodies.poses, state.shapes, pairs, params.prediction_distance,
+        p_max=config.manifold_points or 4,
+        bc_capacity=config.bc_pair_capacity)
+    contact_count = contacts.valid.sum()
+    prev = state.prev_constraints if warmstart else None
+    if prev is not None and prev.n_impulse.shape[1] != contacts.dist.shape[1]:
+        prev = None
+    poses, vels, cons, max_class, colors, solve_cache = solve(
+        bodies, mprops, contacts, params, max_colors=mc,
+        warmstart_from=prev, gs_cmax=config.gs_cmax,
+        colors_in=bp_colors[0], layout_valid=pairs.valid,
+        stable_hint=bp_path == 0,
+        cache_in=state.solve_cache if warmstart else None,
+        gs_windows=config.gs_windows)
+    new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
+    head = torch.stack([pairs.count.to(torch.int64), contact_count,
+                        max_class[0],
+                        torch.tensor(bp_path, dtype=torch.int64, device=dev),
+                        max_class[1]])
+    counts = torch.cat([head, np_needed, max_class[2:]])
+    return PhysicsState(new_bodies, state.shapes, cons, counts, colors,
+                        pairs, bp_ref, bp_colors, solve_cache)
+
+
+def fine_bucket(n: int, *, floor: int = 2048, quantum: int = 1024,
+                headroom: float = 1.10) -> int:
+    """``headroom``·n rounded up to a ``quantum`` multiple."""
+    return max(floor, -(-int(int(n) * headroom) // quantum) * quantum)
+
+
+def step_checked(state: PhysicsState, params: SimParams,
+                 config: PipelineConfig, stats=None):
+    """Step, then re-bucket every capacity the device counts overflowed and
+    re-run the frame. Returns ``(state, config)``."""
+    first_frame = state.prev_constraints is None
+    new = step(state, params, config, warmstart=not first_frame)
+    counts = host_list(new.pair_count)
+    regrow = {}
+    if counts[0] < 0:
+        grown = {
+            "broad_phase_max_per_row": min(
+                config.broad_phase_max_per_row * 2, 512),
+            "bp_cell_cap": min(config.bp_cell_cap * 2, 32),
+            "bp_global_cap": min(config.bp_global_cap * 2, 64),
+            "bp_cand_budget": min(config.bp_cand_budget * 3 // 2, 432),
+        }
+        if all(getattr(config, k) == v for k, v in grown.items()):
+            if stats is not None:
+                stats.bump("bp_budget_saturated")
+            import warnings
+
+            warnings.warn(
+                "broad-phase budgets saturated at their caps while still "
+                "overflowing; pair list may be truncated this frame")
+            if new.bp_ref is not None:
+                new = dataclasses.replace(new, bp_ref=(
+                    torch.full_like(new.bp_ref[0], math.inf),
+                    torch.full_like(new.bp_ref[1], -math.inf)))
+        else:
+            regrow.update(grown)
+        counts[0] = -counts[0]
+    bucket = fine_bucket if config.fine_capacities else capacity_bucket
+    if counts[0] > config.pair_capacity:
+        regrow["pair_capacity"] = bucket(counts[0])
+    if config.gs_cmax and counts[2] > config.gs_cmax:
+        regrow["gs_cmax"] = capacity_bucket(counts[2], floor=256)
+    for i, knob in ((5, "bc_pair_capacity"), (6, "sat_pair_capacity"),
+                    (7, "pfm_pair_capacity")):
+        cap = getattr(config, knob)
+        if cap and counts[i] > cap:
+            regrow[knob] = capacity_bucket(counts[i], floor=256)
+    if config.gs_windows and len(counts) >= 8 + config.max_colors + 2:
+        cc = counts[8:8 + config.max_colors + 2]
+        rungs = list(config.gs_windows[:config.max_colors])
+        while len(rungs) < config.max_colors:
+            rungs.append(rungs[-1] if rungs else 256)
+        changed = False
+        q = config.gs_rung_quantum
+        hr = config.gs_rung_headroom
+        for c in range(config.max_colors):
+            occ = cc[c + 1]
+            if occ > rungs[c]:
+                rungs[c] = max(q, -(-int(occ * hr) // q) * q)
+                changed = True
+        last = max((c for c in range(config.max_colors) if cc[c + 1] > 0),
+                   default=-1)
+        for c in range(last + 2, config.max_colors):
+            if rungs[c]:
+                rungs[c] = 0
+                changed = True
+        if changed:
+            regrow["gs_windows"] = tuple(rungs)
+    if regrow:
+        config = dataclasses.replace(config, **regrow)
+        if stats is not None:
+            stats.bump("capacity_regrowths")
+        new = step(state, params, config, warmstart=not first_frame)
+    if stats is not None:
+        stats.bump("steps")
+    return new, config

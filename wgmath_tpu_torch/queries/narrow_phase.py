@@ -1,0 +1,185 @@
+"""Narrow phase for ball/cuboid scenes: collision pairs → one-point contact
+manifolds (counterpart of ``wgmath_tpu/queries/narrow_phase.py``: the
+ball-ball and ball-cuboid kernels, gated on ``ShapeSet.kinds``).
+
+Contacts reuse the pair slots 1:1. Each type-pair kernel is a masked
+vectorized pass over the pair list; ball-cuboid pairs are optionally
+compacted into a ``bc_capacity`` batch first (their unclamped count is
+returned so the host can regrow that capacity).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from wgmath_tpu_torch.broad_phase.brute_force import PairList
+from wgmath_tpu_torch.dynamics.constraint import Contacts
+from wgmath_tpu_torch.geometry import sim as sim_ops
+from wgmath_tpu_torch.geometry.quat import norm
+from wgmath_tpu_torch.geometry.sim import Sim
+from wgmath_tpu_torch.shapes import shape as shp
+
+
+def ball_ball(pose_a: Sim, pose_b: Sim, ra, rb):
+    """Single-point ball-ball manifold: (normal, point) in A's local frame
+    and the signed distance."""
+    ra_eff = ra * pose_a.scale
+    rb_eff = rb * pose_b.scale
+    d = pose_b.translation - pose_a.translation
+    center_dist = norm(d)
+    dist = center_dist - (ra_eff + rb_eff)
+    safe = center_dist > 1e-9
+    x_axis = torch.zeros_like(d)
+    x_axis[..., 0] = 1.0
+    n_world = torch.where(
+        safe[..., None], d / torch.clamp(center_dist, min=1e-30)[..., None],
+        x_axis)
+    pt_world = pose_a.translation + n_world * ra_eff[..., None]
+    n_local = sim_ops.inv_mul_unit_vec(pose_a, n_world)
+    pt_local = sim_ops.inv_mul_pt(pose_a, pt_world)
+    return n_local, pt_local, dist
+
+
+def ball_cuboid(pose_ball: Sim, pose_box: Sim, radius, half_extents):
+    """Single-point ball-cuboid manifold by point-box projection in the
+    box frame. Returns (point on box, normal box→ball, dist), world frame."""
+    c_local = sim_ops.inv_mul_pt(pose_box, pose_ball.translation)
+    he = half_extents
+    clamped = torch.maximum(torch.minimum(c_local, he), -he)
+    delta = c_local - clamped
+    d_out = norm(delta)
+    outside = d_out > 1e-9
+    gap = he - torch.abs(c_local)
+    axis = torch.argmin(gap, dim=-1, keepdim=True)
+    sign = torch.where(torch.gather(c_local, -1, axis) >= 0, 1.0, -1.0)
+    n_in = torch.zeros_like(c_local).scatter(-1, axis, sign)
+    depth_in = -torch.gather(gap, -1, axis)[..., 0]
+    n_local_box = torch.where(
+        outside[..., None], delta / torch.clamp(d_out, min=1e-30)[..., None],
+        n_in)
+    dist_surface = torch.where(outside, d_out, depth_in)
+    dist = dist_surface - radius * pose_ball.scale
+    pt_box_local = torch.where(outside[..., None], clamped,
+                               c_local - n_in * depth_in[..., None])
+    pt_world = sim_ops.mul_pt(pose_box, pt_box_local)
+    n_world = sim_ops.mul_unit_vec(pose_box, n_local_box)
+    return pt_world, n_world, dist
+
+
+def _compact_mask(mask: torch.Tensor, capacity: int):
+    """Indices of up to ``capacity`` set entries of ``mask``, their active
+    flags, and the unclamped match count."""
+    n = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    slot = torch.where(mask & (pos < capacity), pos,
+                       torch.full_like(pos, capacity))
+    sel = torch.zeros(capacity + 1, dtype=torch.int64, device=mask.device)
+    sel.scatter_(0, slot, torch.arange(n, device=mask.device))
+    sel = sel[:capacity]
+    total = mask.sum()
+    active = torch.arange(capacity, device=mask.device) < torch.clamp(
+        total, max=capacity)
+    return sel, active, total
+
+
+def _set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+              drop: int) -> torch.Tensor:
+    """``dst.at[idx].set(src, mode="drop")`` with ``drop`` = out of range;
+    kept rows are unique."""
+    pad = torch.zeros((1,) + dst.shape[1:], dtype=dst.dtype,
+                      device=dst.device)
+    out = torch.cat([dst, pad])
+    out[idx] = src.to(dst.dtype)
+    return out[:drop]
+
+
+def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
+                 prediction_distance: float, *, p_max: int = 1,
+                 bc_capacity: int = 0):
+    """One manifold per pair slot. Returns ``(contacts, np_needed)`` with
+    ``np_needed`` = [bc, sat, pfm] unclamped compaction demands (sat/pfm
+    are always 0 here: their kernels lie outside this slice)."""
+    kinds = shapes.kinds
+    if not kinds <= shp.SUPPORTED_KINDS:
+        raise NotImplementedError(
+            f"narrow phase: shape kinds {sorted(kinds)} outside ball/cuboid")
+    if shp.CUBOID in kinds and p_max > 1:
+        raise NotImplementedError(
+            "narrow phase: cuboid-cuboid SAT manifolds (p_max > 1)")
+    dev = poses.translation.device
+    a, b = pairs.body_a, pairs.body_b
+    pose_a, pose_b = poses.take(a), poses.take(b)
+    par_a, par_b = shapes.params[a], shapes.params[b]
+    tag_a, tag_b = shapes.tag[a], shapes.tag[b]
+    c = pairs.capacity
+    normal_a = torch.zeros((c, 3), device=dev)
+    points_a = torch.zeros((c, p_max, 3), device=dev)
+    dist = torch.full((c, p_max), 1e9, device=dev)
+    num_points = torch.zeros((c,), dtype=torch.int64, device=dev)
+    bc_needed = torch.zeros((), dtype=torch.int64, device=dev)
+    has_ball = shp.BALL in kinds
+    has_cuboid = shp.CUBOID in kinds
+
+    if has_ball:
+        bb = (tag_a == shp.BALL) & (tag_b == shp.BALL)
+        n_l, p_l, d_bb = ball_ball(pose_a, pose_b, par_a[:, 0], par_b[:, 0])
+        normal_a = torch.where(bb[:, None], n_l, normal_a)
+        points_a[:, 0] = torch.where(bb[:, None], p_l, points_a[:, 0])
+        dist[:, 0] = torch.where(bb, d_bb, dist[:, 0])
+        num_points = torch.where(bb, 1, num_points)
+
+    if has_ball and has_cuboid and bc_capacity:
+        m = (((tag_a == shp.BALL) & (tag_b == shp.CUBOID))
+             | ((tag_a == shp.CUBOID) & (tag_b == shp.BALL))) & pairs.valid
+        sel, act, bc_needed = _compact_mask(m, bc_capacity)
+        swap = tag_a[sel] == shp.CUBOID
+        pa_s, pb_s = poses.take(a[sel]), poses.take(b[sel])
+        pball = Sim(torch.where(swap[:, None], pb_s.rotation, pa_s.rotation),
+                    torch.where(swap[:, None], pb_s.translation,
+                                pa_s.translation),
+                    torch.where(swap, pb_s.scale, pa_s.scale))
+        pbox = Sim(torch.where(swap[:, None], pa_s.rotation, pb_s.rotation),
+                   torch.where(swap[:, None], pa_s.translation,
+                               pb_s.translation),
+                   torch.where(swap, pa_s.scale, pb_s.scale))
+        r = torch.where(swap, par_b[sel, 0], par_a[sel, 0])
+        he = torch.where(swap[:, None], par_a[sel, :3], par_b[sel, :3])
+        pt_w, n_w, d_bc = ball_cuboid(pball, pbox, r, he)
+        n_ab = torch.where(swap[:, None], n_w, -n_w)
+        n_loc = sim_ops.inv_mul_unit_vec(pa_s, n_ab)
+        pt_ball_w = pball.translation - n_w * (r * pball.scale)[:, None]
+        pt_a_w = torch.where(swap[:, None], pt_w, pt_ball_w)
+        p_loc = sim_ops.inv_mul_pt(pa_s, pt_a_w)
+        sel_drop = torch.where(act, sel, torch.full_like(sel, c))
+        normal_a = _set_rows(normal_a, sel_drop, n_loc, c)
+        pts0 = _set_rows(points_a[:, 0].clone(), sel_drop, p_loc, c)
+        points_a[:, 0] = pts0
+        d0 = _set_rows(dist[:, 0].clone(), sel_drop, d_bc, c)
+        dist[:, 0] = d0
+        num_points = _set_rows(num_points, sel_drop,
+                               torch.ones_like(sel_drop), c)
+    elif has_ball and has_cuboid:
+        for swap in (False, True):
+            if swap:
+                m = (tag_a == shp.CUBOID) & (tag_b == shp.BALL)
+                pb, pc = pose_b, pose_a
+                r, he = par_b[:, 0], par_a[:, :3]
+            else:
+                m = (tag_a == shp.BALL) & (tag_b == shp.CUBOID)
+                pb, pc = pose_a, pose_b
+                r, he = par_a[:, 0], par_b[:, :3]
+            pt_w, n_w, d_bc = ball_cuboid(pb, pc, r, he)
+            n_ab = n_w if swap else -n_w
+            n_loc = sim_ops.inv_mul_unit_vec(pose_a, n_ab)
+            pt_ball_w = pb.translation - n_w * (r * pb.scale)[:, None]
+            pt_a_w = pt_w if swap else pt_ball_w
+            p_loc = sim_ops.inv_mul_pt(pose_a, pt_a_w)
+            normal_a = torch.where(m[:, None], n_loc, normal_a)
+            points_a[:, 0] = torch.where(m[:, None], p_loc, points_a[:, 0])
+            dist[:, 0] = torch.where(m, d_bc, dist[:, 0])
+            num_points = torch.where(m, 1, num_points)
+
+    valid = pairs.valid & (num_points > 0) & (dist[:, 0] < prediction_distance)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    contacts = Contacts(a, b, normal_a, points_a, dist, num_points, valid)
+    return contacts, torch.stack([bc_needed.to(torch.int64), zero, zero])
