@@ -13,9 +13,15 @@ Three phases; any failed check ends the run with a non-zero exit:
    card, on seeded random inputs at the main path's shapes (max abs error,
    tolerance, device time per launch);
 3. path: the settled 10k-body ball pit (``artifacts/ball_pit10k_settled
-   .npz``) stepped with ``step_checked`` under its stored ``chained_ps``
-   configuration, frame by frame against the JAX package's reference frames
-   stored beside it, then timed over further frames.
+   .npz``) stepped with ``step_checked`` under four solver configurations
+   of the bench: ``chained_ps`` and ``ladder`` under their stored warmed
+   configurations, frame by frame against the JAX package's reference
+   frames stored beside them; ``chained`` and ``chained_rr`` warmed on the
+   card. Each is warmed by six frames and timed over further frames. Then
+   the bench's own gates: ``chained_ps`` against ``ladder`` over three
+   steps from one warmed state, ``chained`` / ``chained_rr`` against the
+   ladder's end positions, and the kinetic-energy / penetration envelopes
+   of ``chained_ps`` against the ladder's.
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -24,6 +30,7 @@ Without a CUDA device the script exits 1 before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -31,6 +38,7 @@ import subprocess
 import sys
 import time
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -38,25 +46,34 @@ import torch
 from wgmath_tpu_torch.convert import state_from_arrays
 from wgmath_tpu_torch.core import cuda_build, dispatch
 from wgmath_tpu_torch.dynamics import gs_math
-from wgmath_tpu_torch.dynamics.gs_math import pack_meta
+from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
-from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked
+from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
+NPZ_LADDER = os.path.join(ROOT, "artifacts", "ball_pit10k_ladder.npz")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense f32 (non-tensor) rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # the JAX package's own tolerance for this math (tests/test_physics.py)
 RTOL, ATOL = 1e-4, 1e-5
-KERNEL_SOURCES = ("gs_math",)
+KERNEL_SOURCES = ("gs_math", "gs_math_block")
 # frame-by-frame limits against the JAX reference: GS sums reorder on the
 # card, and a pure reordering alone moves velocities by ~3e-5 after one
 # step at 10k and ~3e-4 after two
 TRANSLATION_LIMITS = (1e-4, 1e-3, 1e-3)
 COUNT_REL_LIMIT = 1e-3
-TIMED_FRAMES = 30
+WARM_FRAMES = 6  # the bench warms every candidate by six checked frames
+TIMED_FRAMES = 50  # the bench's K
+# the bench's gates (bench.py bench_physics): a short-gated candidate
+# against the ladder over three steps from one warmed state; a K-gated one
+# against the ladder's end positions; the envelope of a short-gated one
+# against the ladder's run of the same length
+SHORT_GATE_STEPS, SHORT_GATE_LIMIT = 3, 1e-2
+END_GATE_LIMIT = 5e-2
+ENVELOPE_PEN_SLACK, ENVELOPE_KE_FACTOR, ENVELOPE_KE_SLACK = 5e-3, 2.0, 0.1
 N_STATIC = 5  # ground + four walls lead the pit's body table
 BALL_RADIUS = 0.5
 
@@ -229,6 +246,52 @@ def gs_math_work(L: int, p_max: int, mode: str) -> tuple[int, int]:
     return L * (row_in + row_out), L * flops
 
 
+def gs_block_inputs(rng: np.random.Generator, L: int, p_max: int,
+                    device) -> tuple[tuple, dict]:
+    """Seeded inputs for ``gs_math_block`` laid out as the ladder sweep lays
+    them out: the window a row slice of the wider field matrix (built as
+    :func:`gs_math_inputs` builds it), both sides' velocities the halves of
+    one gathered [2L, 6] block, the impulses column views of the merged
+    impulse matrix, and cfm / n_rhs / t_rhs contiguous as
+    ``update_rhs_sorted`` returns them."""
+    (win, meta, num_points, active, p1, p2, prev_n, prev_t), _ = \
+        gs_math_inputs(rng, L, p_max, "unbiased", device)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+
+    pp = torch.cat([p1, p2]).contiguous()
+    view = SimpleNamespace(
+        cfm_factor=t(rng.uniform(0.9, 1.0, L)),
+        n_rhs=t(rng.uniform(-1.0, 1.0, (L, p_max))),
+        t_rhs=t(rng.uniform(-0.1, 0.1, (L, p_max, 2))),
+        num_points=num_points)
+    return ((win, meta, view, active, pp[:L], pp[L:], prev_n, prev_t),
+            dict(p_max=p_max, s_len=2))
+
+
+def gs_block_plain(win, meta, view, active, p1, p2, prev_n, prev_t, **kw):
+    return gs_math._gs_math_torch(win, meta, view.cfm_factor, view.n_rhs,
+                                  view.t_rhs, view.num_points, active, p1,
+                                  p2, prev_n, prev_t, **kw)
+
+
+def gs_block_work(L: int, p_max: int) -> tuple[int, int]:
+    """(bytes, flops) one ``gs_math_block`` launch needs: the point
+    update's packed fields, cfm, both rhs, both velocity rows, the previous
+    impulses, the point count and the active flag read once; the outputs
+    written once."""
+    s_len = 2
+    meta = pack_meta(p_max, s_len)
+    cols = sum(int(np.prod(meta[f][1])) if meta[f][1] else 1
+               for f in UPDATE_FIELDS)
+    imp = p_max * (1 + s_len)
+    row_in = 4 * (cols + 1 + imp + 12 + imp) + 8 + 1
+    row_out = 4 * (imp + 12)
+    return (L * (row_in + row_out),
+            L * (GS_FLOPS_ROW + p_max * GS_FLOPS_UPDATE))
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S
     t_f = flops / F32_FLOP_PER_S
@@ -261,54 +324,87 @@ def setup_phase() -> dict:
     return {"nvidia_smi": smi, "build_s": wall}
 
 
-def kernel_phase(ladder: tuple) -> dict:
-    """gs_math against its plain version at the listed shapes and at every
-    rung of the main path's ladder, both modes. Returns the kernel's
-    summary over one substep of the ladder (every rung, both modes)."""
+def _compare(name: str, label: str, fn, plain, args, kw, work) -> tuple:
+    """One shape of one kernel: agreement with the plain version and both
+    device times. Returns (max abs err, kernel ms, plain ms, bytes,
+    flops)."""
+    got, want = fn(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    # worst |diff| / (atol + rtol |plain|): allclose holds at <= 1
+    ratio = max(float(((g - w).abs() / (ATOL + RTOL * w.abs())).max())
+                for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    k_ms = statistics.median(device_times_ms(lambda: fn(*args, **kw)))
+    p_ms = statistics.median(device_times_ms(lambda: plain(*args, **kw)))
+    nbytes, flops = work
+    b_ms, _ = bound_ms(nbytes, flops)
+    print(f"{name} {label} max|d|={err:.3e} "
+          f"tol-ratio {ratio:.3f} (rtol {RTOL}, atol {ATOL}) "
+          f"kernel {k_ms * 1e3:8.2f} us "
+          f"plain {p_ms * 1e3:9.2f} us bound {b_ms * 1e3:6.2f} us "
+          f"({nbytes / max(k_ms, 1e-9) / 1e6:7.1f} GB/s)")
+    check(ratio <= 1.0 and finite,
+          f"{name} {label}: kernel disagrees with its plain version (max "
+          f"abs diff {err:.3e}, {ratio:.2f}x the tolerance)")
+    return err, k_ms, p_ms, nbytes, flops
+
+
+def _substep_summary(rows: list, max_err: float, work: str) -> dict:
+    nbytes = sum(r[3] for r in rows)
+    flops = sum(r[4] for r in rows)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return {"max_abs_err": max_err, "ms": sum(r[1] for r in rows),
+            "plain_ms": sum(r[2] for r in rows), "bound_ms": b_ms,
+            "bound_by": b_by, "work": work}
+
+
+def kernel_phase(ladders: dict) -> dict:
+    """Each kernel against its plain version at the listed shapes and at
+    every rung of its path's ladder. Returns each kernel's summary over one
+    substep of that ladder (every rung, biased and unbiased sweep)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(20260)
+    out = {}
+
+    # gs_math (rhs rebuilt in kernel), both modes
+    ladder = ladders["chained_ps"]
     shapes = [(128, 1), (1024, 1), (4096, 1), (1024, 4)]
     shapes += [(w, 1) for w in sorted(set(ladder)) if w
                and (w, 1) not in shapes]
-    rows = {}
-    max_err = 0.0
+    rows, max_err = {}, 0.0
     for L, p_max in shapes:
         for mode in ("biased", "unbiased"):
             args, kw = gs_math_inputs(rng, L, p_max, mode, dev)
-            got = gs_math.gs_math_block_rhs(*args, **kw)
-            want = gs_math._gs_math_rhs_torch(*args, **kw)
-            torch.cuda.synchronize()
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            # worst |diff| / (atol + rtol |plain|): allclose holds at <= 1
-            ratio = max(float(((g - w).abs() / (ATOL + RTOL * w.abs()))
-                              .max()) for g, w in zip(got, want))
-            close = ratio <= 1.0
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
-            max_err = max(max_err, err)
-            k_ms = statistics.median(device_times_ms(
-                lambda: gs_math.gs_math_block_rhs(*args, **kw)))
-            p_ms = statistics.median(device_times_ms(
-                lambda: gs_math._gs_math_rhs_torch(*args, **kw)))
-            nbytes, flops = gs_math_work(L, p_max, mode)
-            b_ms, _ = bound_ms(nbytes, flops)
-            rows[(L, p_max, mode)] = (k_ms, p_ms, b_ms, nbytes, flops)
-            print(f"gs_math L={L:5d} P={p_max} {mode:8s} max|d|={err:.3e} "
-                  f"tol-ratio {ratio:.3f} (rtol {RTOL}, atol {ATOL}) "
-                  f"kernel {k_ms * 1e3:8.2f} us "
-                  f"plain {p_ms * 1e3:9.2f} us bound {b_ms * 1e3:6.2f} us "
-                  f"({nbytes / max(k_ms, 1e-9) / 1e6:7.1f} GB/s)")
-            check(close and finite,
-                  f"gs_math L={L} P={p_max} {mode}: kernel disagrees with "
-                  f"its plain version (max abs diff {err:.3e})")
+            rows[(L, p_max, mode)] = r = _compare(
+                "gs_math", f"L={L:5d} P={p_max} {mode:8s}",
+                gs_math.gs_math_block_rhs, gs_math._gs_math_rhs_torch, args,
+                kw, gs_math_work(L, p_max, mode))
+            max_err = max(max_err, r[0])
     rungs = [w for w in ladder if w]
-    sub = [rows[(w, 1, m)] for w in rungs for m in ("biased", "unbiased")]
-    nbytes = sum(r[3] for r in sub)
-    flops = sum(r[4] for r in sub)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    return {"max_abs_err": max_err, "ms": sum(r[0] for r in sub),
-            "plain_ms": sum(r[1] for r in sub), "bound_ms": b_ms,
-            "bound_by": b_by, "work": f"one substep of the main path: "
-            f"{len(rungs)} rungs ({sum(rungs)} rows) x 2 modes, P=1"}
+    out["gs_math_rhs"] = _substep_summary(
+        [rows[(w, 1, m)] for w in rungs for m in ("biased", "unbiased")],
+        max_err, f"one substep of chained_ps: {len(rungs)} rungs "
+        f"({sum(rungs)} rows) x 2 modes, P=1")
+
+    # gs_math_block (rhs passed in): every rung of the ladder path at
+    # P = 1, one size at P = 4
+    ladder = ladders["ladder"]
+    shapes = [(w, 1) for w in sorted(set(ladder), reverse=True) if w]
+    shapes.append((1024, 4))
+    rows, max_err = {}, 0.0
+    for L, p_max in shapes:
+        args, kw = gs_block_inputs(rng, L, p_max, dev)
+        rows[(L, p_max)] = r = _compare(
+            "gs_math_block", f"L={L:5d} P={p_max}", gs_math.gs_math_block,
+            gs_block_plain, args, kw, gs_block_work(L, p_max))
+        max_err = max(max_err, r[0])
+    rungs = [w for w in ladder if w]
+    out["gs_math_block"] = _substep_summary(
+        [rows[(w, 1)] for w in rungs for _ in range(2)], max_err,
+        f"one substep of the ladder: {len(rungs)} rungs ({sum(rungs)} "
+        f"rows) x 2 sweeps, P=1")
+    return out
 
 
 def _envelopes(state) -> tuple[float, float]:
@@ -331,79 +427,183 @@ def _finite(state) -> bool:
                 b.vels.angular))
 
 
-def path_phase(frames: int):
-    """Reference frames against the JAX package's, then ``frames`` timed
-    frames. Returns (metrics, state, config, params)."""
-    z = dict(np.load(NPZ))
-    params = SimParams()
-    cfg = PipelineConfig.from_dict(json.loads(str(z["config_json"])))
-    state = state_from_arrays(z, device="cuda")
-    n_ref = sum(1 for k in z if k.startswith("ref.")
-                and k.endswith(".translation"))
+def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
+             refs: dict | None, expect: tuple) -> dict:
+    """One configuration from the settled state: ``WARM_FRAMES`` checked
+    frames (the first ones held against the JAX reference frames in
+    ``refs`` where there are any), then ``TIMED_FRAMES`` timed frames.
+    ``expect`` names the kernel counter this path must move. The counts
+    are set to 0 just before the path runs and read just after."""
+    state = state_from_arrays(arrays, device="cuda")
+    n_ref = 0 if refs is None else sum(
+        1 for k in refs if k.startswith("ref.")
+        and k.endswith(".translation"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-
-    # every count starts at 0 just before the main path runs
     gs_math.LAUNCHES = 0
+    gs_math.LAUNCHES_BLOCK = 0
     dispatch.HOST_SYNCS = 0
-    for f in range(n_ref):
+    trail = []  # translations after each warm frame
+    for f in range(WARM_FRAMES):
         t0 = time.perf_counter()
         state, cfg = step_checked(state, params, cfg)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        trail.append(state.bodies.poses.translation)
+        check(_finite(state), f"{name} warm frame {f}: non-finite state")
+        if f >= n_ref:
+            continue
         pc = state.pair_count.cpu().numpy()
-        ref_pc = z[f"ref.{f}.pair_count"]
+        ref_pc = refs[f"ref.{f}.pair_count"]
         tr = state.bodies.poses.translation.cpu().numpy()
-        d_tr = float(np.abs(tr - z[f"ref.{f}.translation"]).max())
+        d_tr = float(np.abs(tr - refs[f"ref.{f}.translation"]).max())
         d_v = float(np.abs(state.bodies.vels.linear.cpu().numpy()
-                           - z[f"ref.{f}.linear"]).max())
+                           - refs[f"ref.{f}.linear"]).max())
         rel = [abs(int(pc[i]) - int(ref_pc[i])) / max(abs(int(ref_pc[i])), 1)
                for i in (0, 1)]
-        print(f"reference frame {f}: pairs {pc[0]} (ref {ref_pc[0]}) "
+        print(f"{name} reference frame {f}: pairs {pc[0]} (ref {ref_pc[0]}) "
               f"contacts {pc[1]} (ref {ref_pc[1]}) bp_path {pc[3]} "
               f"max|dx| {d_tr:.3e} (limit {TRANSLATION_LIMITS[f]:.0e}) "
               f"max|dv| {d_v:.3e} host {dt * 1e3:.1f} ms")
-        check(_finite(state), f"reference frame {f}: non-finite state")
         check(max(rel) <= COUNT_REL_LIMIT,
-              f"reference frame {f}: pair/contact counts off by "
+              f"{name} reference frame {f}: pair/contact counts off by "
               f"{max(rel):.2e} (limit {COUNT_REL_LIMIT})")
         check(d_tr <= TRANSLATION_LIMITS[f],
-              f"reference frame {f}: translations off by {d_tr:.3e}")
+              f"{name} reference frame {f}: translations off by {d_tr:.3e}")
+    warmed = (state, cfg)
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     counts = []
     torch.cuda.synchronize()
+    warm_launches = (gs_math.LAUNCHES, gs_math.LAUNCHES_BLOCK)
+    warm_syncs = dispatch.HOST_SYNCS
     t0 = time.perf_counter()
     start.record()
-    for _ in range(frames):
+    for _ in range(TIMED_FRAMES):
         state, cfg = step_checked(state, params, cfg)
         counts.append(state.pair_count)
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches, syncs = gs_math.LAUNCHES, dispatch.HOST_SYNCS
-    total_frames = n_ref + frames
-    check(_finite(state), "timed frames: non-finite state")
-    check(launches > 0, "gs_math kernel was never launched on the path")
+    launches = {"gs_math_rhs": gs_math.LAUNCHES,
+                "gs_math_block": gs_math.LAUNCHES_BLOCK}
+    syncs = dispatch.HOST_SYNCS
+    check(_finite(state), f"{name} timed frames: non-finite state")
+    for kernel, n in launches.items():
+        check((n > 0) == (kernel in expect),
+              f"{name}: kernel {kernel} launched {n} times on this path "
+              f"(expected {'some' if kernel in expect else 'none'})")
     counts = [c.cpu().numpy() for c in counts]
     mc = cfg.max_colors
-    colours = max(int(np.count_nonzero(c[9:9 + mc])) for c in counts)
     ke, pen = _envelopes(state)
-    ms = start.elapsed_time(end) / frames
-    return {
-        "frames_timed": frames, "ms_per_step": ms,
-        "steps_per_s": 1e3 / ms, "host_ms_per_step": 1e3 * host_s / frames,
+    ms = start.elapsed_time(end) / TIMED_FRAMES
+    metrics = {
+        "frames_timed": TIMED_FRAMES, "ms_per_step": ms,
+        "steps_per_s": 1e3 / ms,
+        "host_ms_per_step": 1e3 * host_s / TIMED_FRAMES,
         "pairs": int(counts[-1][0]), "contacts": int(counts[-1][1]),
-        "colours_in_use": colours,
-        "bp_path_mix": {name: sum(int(c[3]) == i for c in counts)
-                        for i, name in enumerate(("hit", "repair", "full"))},
-        "host_syncs_per_step": syncs / total_frames,
-        "gs_math_launches": launches,
-        "gs_math_launches_per_step": launches / total_frames,
+        "colours_in_use": max(int(np.count_nonzero(c[9:9 + mc]))
+                              for c in counts),
+        "bp_path_mix": {nm: sum(int(c[3]) == i for c in counts)
+                        for i, nm in enumerate(("hit", "repair", "full"))},
+        "host_syncs_per_step": (syncs - warm_syncs) / TIMED_FRAMES,
+        "launches": launches,
+        "gs_math_rhs_launches_per_step":
+            (launches["gs_math_rhs"] - warm_launches[0]) / TIMED_FRAMES,
+        "gs_math_block_launches_per_step":
+            (launches["gs_math_block"] - warm_launches[1]) / TIMED_FRAMES,
         "kinetic_energy": ke, "max_penetration": pen,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "ladder": [w for w in cfg.gs_windows if w],
-    }, state, cfg, params
+    }
+    print(f"config {name}: {ms:.2f} ms/step ({1e3 / ms:.2f} steps/s) over "
+          f"{TIMED_FRAMES} frames by CUDA events; gs_math_rhs "
+          f"{metrics['gs_math_rhs_launches_per_step']:.1f} and "
+          f"gs_math_block "
+          f"{metrics['gs_math_block_launches_per_step']:.1f} launches/step; "
+          f"{metrics['host_syncs_per_step']:.2f} host syncs/step; KE "
+          f"{ke:.4f}, max penetration {pen:.5f}")
+    return {"metrics": metrics, "warmed": warmed, "end": (state, cfg),
+            "trail": trail}
+
+
+def _max_dp(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def gates(runs: dict, params) -> dict:
+    """The bench's candidate gates, run by the port on the card."""
+    out = {}
+    lad = runs["ladder"]
+    lad_end = lad["end"][0].bodies.poses.translation
+    # short gate: the candidate and the ladder, three plain steps each from
+    # the candidate's warmed state
+    st, cfg_ps = runs["chained_ps"]["warmed"]
+    lad_cfg = lad["warmed"][1]
+    ends = []
+    for cfg in (cfg_ps, lad_cfg):
+        s = st
+        for _ in range(SHORT_GATE_STEPS):
+            s = step(s, params, cfg)
+        ends.append(s.bodies.poses.translation)
+    err = _max_dp(*ends)
+    out["chained_ps_vs_ladder_3_steps"] = err
+    print(f"gate chained_ps vs ladder over {SHORT_GATE_STEPS} steps from "
+          f"one warmed state: max|dp| {err:.3e} (limit {SHORT_GATE_LIMIT})")
+    check(np.isfinite(err) and err <= SHORT_GATE_LIMIT,
+          f"chained_ps diverges from the ladder by {err:.3e} m over "
+          f"{SHORT_GATE_STEPS} steps")
+    # end-position gate after WARM_FRAMES + TIMED_FRAMES frames
+    for name in ("chained", "chained_rr"):
+        err = _max_dp(runs[name]["end"][0].bodies.poses.translation, lad_end)
+        first = _max_dp(runs[name]["trail"][0], lad["trail"][0])
+        warm = _max_dp(runs[name]["trail"][-1], lad["trail"][-1])
+        out[f"{name}_vs_ladder"] = {
+            "after_1_frame": first, f"after_{WARM_FRAMES}_frames": warm,
+            f"after_{WARM_FRAMES + TIMED_FRAMES}_frames": err}
+        print(f"gate {name} vs ladder: max|dp| {first:.3e} after 1 frame, "
+              f"{warm:.3e} after {WARM_FRAMES}, {err:.3e} after "
+              f"{WARM_FRAMES + TIMED_FRAMES} (limit {END_GATE_LIMIT})")
+        check(np.isfinite(err) and err <= END_GATE_LIMIT,
+              f"{name} diverges from the ladder by {err:.3e} m after "
+              f"{WARM_FRAMES + TIMED_FRAMES} frames")
+    # envelope gate: trajectories diverge chaotically, the settled pile's
+    # aggregates must not
+    m_ps = runs["chained_ps"]["metrics"]
+    m_lad = lad["metrics"]
+    ke_c, pen_c = m_ps["kinetic_energy"], m_ps["max_penetration"]
+    ke_l, pen_l = m_lad["kinetic_energy"], m_lad["max_penetration"]
+    out["envelopes"] = {"chained_ps": {"ke": ke_c, "pen": pen_c},
+                        "ladder": {"ke": ke_l, "pen": pen_l}}
+    print(f"gate chained_ps envelopes after {WARM_FRAMES + TIMED_FRAMES} "
+          f"frames: KE {ke_c:.4f} vs ladder {ke_l:.4f}, max penetration "
+          f"{pen_c:.5f} vs {pen_l:.5f}")
+    check(pen_c <= pen_l + ENVELOPE_PEN_SLACK
+          and ke_c <= ENVELOPE_KE_FACTOR * ke_l + ENVELOPE_KE_SLACK,
+          "chained_ps envelope exceeds the ladder's (drift)")
+    return out
+
+
+def path_phase() -> dict:
+    """The four configurations, then the gates. Returns name → run."""
+    z = dict(np.load(NPZ))
+    zl = dict(np.load(NPZ_LADDER))
+    params = SimParams()
+    cfg_ps = PipelineConfig.from_dict(json.loads(str(z["config_json"])))
+    cfg_lad = PipelineConfig.from_dict(json.loads(str(zl["config_json"])))
+    rep = dataclasses.replace
+    plan = (
+        ("chained_ps", cfg_ps, z, ("gs_math_rhs",)),
+        ("ladder", cfg_lad, zl, ("gs_math_block",)),
+        ("chained", rep(cfg_lad, gs_chained=True), None,
+         ("gs_math_block",)),
+        ("chained_rr", rep(cfg_lad, gs_chained=True, gs_rhs_in_rung=True),
+         None, ("gs_math_rhs",)),
+    )
+    runs = {name: run_path(name, z, cfg, params, refs, expect)
+            for name, cfg, refs, expect in plan}
+    runs["gates"] = gates(runs, params)
+    return runs
 
 
 def profile_window(state, cfg, params, frames: int = 3) -> dict:
@@ -450,6 +650,17 @@ def profile_window(state, cfg, params, frames: int = 3) -> dict:
                          for us, c, k in host[:10]]}
 
 
+KERNEL_TABLE = (
+    ("gs_math_rhs", "chained_ps", "wgmath_tpu_torch/csrc/gs_math.cu",
+     "wgmath_tpu/dynamics/gs_pallas.py:330",
+     "dynamics/gs_pallas.py:_gs_math_rhs_pallas_call"),
+    ("gs_math_block", "ladder", "wgmath_tpu_torch/csrc/gs_math_block.cu",
+     "wgmath_tpu/dynamics/gs_pallas.py:246",
+     "dynamics/gs_pallas.py:_gs_math_pallas_call"),
+)
+CONFIGS = ("chained_ps", "ladder", "chained", "chained_rr")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
@@ -457,31 +668,47 @@ def main() -> int:
         return 1
     try:
         setup = setup_phase()
-        cfg0 = json.loads(str(np.load(NPZ)["config_json"]))
-        ladder = tuple(cfg0["gs_windows"][:cfg0["max_colors"]])
-        summary = kernel_phase(ladder)
-        path, state, cfg, params = path_phase(TIMED_FRAMES)
+        ladders = {}
+        for name, path in (("chained_ps", NPZ), ("ladder", NPZ_LADDER)):
+            cfg0 = json.loads(str(np.load(path)["config_json"]))
+            ladders[name] = tuple(cfg0["gs_windows"][:cfg0["max_colors"]])
+        summaries = kernel_phase(ladders)
+        runs = path_phase()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    try:
-        path["profile"] = profile_window(state, cfg, params)
-    except Exception as e:  # the profiler is untried on this machine
-        path["profile"] = f"not measured ({type(e).__name__}: {e})"
-    print(json.dumps({"path": path}))
+    params = SimParams()
+    paths = {}
+    for name in CONFIGS:
+        paths[name] = runs[name]["metrics"]
+        try:
+            prof = profile_window(*runs[name]["end"], params)
+            paths[name]["profile"] = prof
+            # the profiler stretches the step: the busy share of the
+            # timed, unprofiled step is kernel time over that step
+            paths[name]["device_busy_share"] = (
+                prof["device_ms_per_step"] / paths[name]["ms_per_step"])
+        except Exception as e:  # the profiler is untried on this machine
+            paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
+                                      f"{e})")
+    print(json.dumps({"paths": paths, "gates": runs["gates"]}))
     print(setup["nvidia_smi"])
-    kernels = [{
-        "name": "gs_math_rhs", "route": "cuda",
-        "source": "wgmath_tpu_torch/csrc/gs_math.cu",
-        "replaces": "wgmath_tpu/dynamics/gs_pallas.py:330",
-        "tpu_source": "dynamics/gs_pallas.py:_gs_math_rhs_pallas_call",
-        "launches": path["gs_math_launches"],
-        "launches_per_step": path["gs_math_launches_per_step"],
-        "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"], "bound_ms": summary["bound_ms"],
-        "bound_by": summary["bound_by"], "library_ms": None,
-        "work": summary["work"],
-    }]
+    kernels = []
+    for name, path, source, replaces, tpu_source in KERNEL_TABLE:
+        m, summary = paths[path], summaries[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "tpu_source": tpu_source,
+            "launches": m["launches"][name],
+            "launches_per_step": m[f"{name}_launches_per_step"],
+            "launches_by_path": {c: paths[c]["launches"][name]
+                                 for c in CONFIGS},
+            "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
+            "plain_ms": summary["plain_ms"],
+            "bound_ms": summary["bound_ms"],
+            "bound_by": summary["bound_by"], "library_ms": None,
+            "work": summary["work"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-"""Export the settled 10k ball pit as a JAX-free ``.npz`` for the PyTorch
+"""Export the settled 10k ball pit as JAX-free ``.npz`` files for the PyTorch
 port.
 
 Loads the committed settled checkpoint through ``bench.physics_steady_setup
-(10_000)`` (caches dropped as the bench drops them), builds the bench's
-``chained_ps`` configuration, warms that configuration with six JAX
+(10_000)`` (caches dropped as the bench drops them). For each exported
+configuration of the bench it warms the configuration with six JAX
 ``step_checked`` frames, then runs three reference frames from the
-checkpoint state under the warmed configuration. Writes
-``artifacts/ball_pit10k_settled.npz`` with
+checkpoint state under the warmed configuration.
+
+``artifacts/ball_pit10k_settled.npz`` (the bench's ``chained_ps``) holds
 
 - the checkpoint state as ``wgmath_tpu_torch.convert.state_to_arrays``
   named arrays,
@@ -14,13 +15,18 @@ checkpoint state under the warmed configuration. Writes
 - ``ref.<f>.{translation,rotation,linear,angular,pair_count,config_json}``
   for reference frames f = 0, 1, 2.
 
-Runs on the CPU (several minutes at 10k bodies)::
+``artifacts/ball_pit10k_ladder.npz`` (the bench's ``ladder``) holds the same
+``config_json`` and ``ref.<f>.*`` entries and no state: the state is read
+from the settled file.
 
-    JAX_PLATFORMS=cpu python scripts/export_pit_npz.py
+Runs on the CPU (several minutes at 10k bodies for each file)::
+
+    JAX_PLATFORMS=cpu python scripts/export_pit_npz.py [--only settled|ladder]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -43,25 +49,24 @@ from wgmath_tpu_torch.convert import state_to_arrays  # noqa: E402
 
 WARM_FRAMES = 6
 REF_FRAMES = 3
-OUT = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
+OUT = {name: os.path.join(ROOT, "artifacts", f"ball_pit10k_{name}.npz")
+       for name in ("settled", "ladder")}
 
 
 def _config_json(cfg) -> str:
     return json.dumps(dataclasses.asdict(cfg))
 
 
-def main():
-    t0 = time.time()
-    state0, params, _, ladder = bench.physics_steady_setup(10_000)
-    cfg = dataclasses.replace(ladder, gs_chained=True, gs_rhs_in_rung=True,
-                              gs_pair_slots=True)
+def export(name: str, state0, params, cfg, with_state: bool, t0: float):
+    """Warm ``cfg`` from ``state0``, record the reference frames, write the
+    file."""
     st = state0
     for f in range(WARM_FRAMES):
         st, cfg = step_checked(st, params, cfg)
-        print(f"warm frame {f}: pair_count[:5]="
+        print(f"{name} warm frame {f}: pair_count[:5]="
               f"{np.asarray(st.pair_count)[:5].tolist()} "
               f"({time.time() - t0:.0f} s)", flush=True)
-    arrays = state_to_arrays(state0)
+    arrays = state_to_arrays(state0) if with_state else {}
     arrays["config_json"] = np.asarray(_config_json(cfg))
     ref, c = state0, cfg
     for f in range(REF_FRAMES):
@@ -73,11 +78,26 @@ def main():
         arrays[f"ref.{f}.angular"] = np.asarray(ref.bodies.vels.angular)
         arrays[f"ref.{f}.pair_count"] = np.asarray(ref.pair_count, np.int32)
         arrays[f"ref.{f}.config_json"] = np.asarray(_config_json(c))
-        print(f"reference frame {f}: pair_count[:5]="
+        print(f"{name} reference frame {f}: pair_count[:5]="
               f"{np.asarray(ref.pair_count)[:5].tolist()} "
               f"({time.time() - t0:.0f} s)", flush=True)
-    np.savez_compressed(OUT, **arrays)
-    print(f"wrote {OUT} ({os.path.getsize(OUT) / 1e6:.2f} MB)")
+    np.savez_compressed(OUT[name], **arrays)
+    print(f"wrote {OUT[name]} ({os.path.getsize(OUT[name]) / 1e6:.2f} MB)")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=sorted(OUT), default=None,
+                    help="write this file only (default: both)")
+    only = ap.parse_args().only
+    t0 = time.time()
+    state0, params, _, ladder = bench.physics_steady_setup(10_000)
+    if only in (None, "settled"):
+        chained_ps = dataclasses.replace(
+            ladder, gs_chained=True, gs_rhs_in_rung=True, gs_pair_slots=True)
+        export("settled", state0, params, chained_ps, True, t0)
+    if only in (None, "ladder"):
+        export("ladder", state0, params, ladder, False, t0)
 
 
 if __name__ == "__main__":

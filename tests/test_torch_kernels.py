@@ -1,20 +1,24 @@
 """The port's GS impulse math (``wgmath_tpu_torch.dynamics.gs_math``) against
-the JAX package's ``gs_math_block_rhs``: the Pallas kernel run in interpret
-mode and its plain XLA twin, on the same seeded inputs.
+the JAX package's ``gs_math_block_rhs`` and ``gs_math_block``: each Pallas
+kernel run in interpret mode and its plain XLA twin, on the same seeded
+inputs.
 
 On the CPU the port's wrapper runs its plain PyTorch version; the CUDA
 kernel itself is held against that version on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from wgmath_tpu.dynamics.gs_pallas import gs_math_block as jax_block
 from wgmath_tpu.dynamics.gs_pallas import gs_math_block_rhs as jax_rhs
 from wgmath_tpu_torch.dynamics import gs_math
-from wgmath_tpu_torch.dynamics.gs_math import pack_meta
+from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 
 # the JAX package's tolerance for this math (test_cm_gs_math_matches_row_major)
 RTOL, ATOL = 1e-4, 1e-5
@@ -125,3 +129,75 @@ def test_gs_math_wrapper_refuses_uninstantiated_shapes():
                         mode="biased", consts=CONSTS, pose1=t["pose1"],
                         pose2=t["pose2"], n_rhs_wo=None, p_max=1,
                         s_len=S_LEN)
+
+
+def _block_inputs(seed, L, p_max, layout):
+    """Inputs of ``gs_math_block``: the packed window plus the per-substep
+    ``cfm_factor`` / ``n_rhs`` / ``t_rhs``. ``layout`` "full" is the
+    66-column matrix of the rhs-in-rung kernel; "update_only" packs just
+    the fields the point update reads, in another column order, so the
+    column offsets must come from ``meta``."""
+    x = _inputs(seed, L, p_max)
+    rng = np.random.default_rng(seed + 1)
+    if layout == "update_only":
+        full, src = x["meta"], x["win2d"]
+        meta, cols, at = {}, [], 0
+        for name in reversed(UPDATE_FIELDS):
+            a0, tail = full[name]
+            k = int(np.prod(tail)) if tail else 1
+            meta[name] = (at, tail)
+            cols.append(src[:, a0:a0 + k])
+            at += k
+        x["meta"], x["win2d"] = meta, np.concatenate(cols, axis=1)
+    x["cfm_factor"] = rng.uniform(0.5, 1.0, L).astype(np.float32)
+    x["n_rhs"] = rng.normal(size=(L, p_max)).astype(np.float32)
+    x["t_rhs"] = rng.normal(size=(L, p_max, S_LEN)).astype(np.float32)
+    return x
+
+
+def _call_block(fn, conv, x, p_max, **extra):
+    view = SimpleNamespace(**{k: conv(x[k]) for k in
+                              ("cfm_factor", "n_rhs", "t_rhs",
+                               "num_points")})
+    return fn(conv(x["win2d"]), x["meta"], view, conv(x["active"]),
+              conv(x["p1"]), conv(x["p2"]), conv(x["prev_n"]),
+              conv(x["prev_t"]), p_max=p_max, s_len=S_LEN, **extra)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["pallas_interpret", "xla"])
+@pytest.mark.parametrize("layout", ["full", "update_only"])
+@pytest.mark.parametrize("L", [256, 200])
+@pytest.mark.parametrize("p_max", [1, 4])
+def test_gs_math_block_plain_matches_jax(p_max, L, layout, use_pallas):
+    x = _block_inputs(13 * p_max + L, L, p_max, layout)
+    want = _call_block(jax_block, jnp.asarray, x, p_max,
+                       use_pallas=use_pallas)
+    launches = gs_math.LAUNCHES_BLOCK
+    got = _call_block(gs_math.gs_math_block, _torch, x, p_max)
+    assert gs_math.LAUNCHES_BLOCK == launches, "CPU tensors never launch"
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    # an inactive row returns its previous impulses bit for bit
+    off = ~x["active"]
+    np.testing.assert_array_equal(got[0].numpy()[off], x["prev_n"][off])
+    np.testing.assert_array_equal(got[1].numpy()[off], x["prev_t"][off])
+
+
+def test_gs_math_block_wrapper_refuses_uninstantiated_shapes():
+    x = _block_inputs(5, 128, 2, "full")
+    t = {k: _torch(v) for k, v in x.items() if k != "meta"}
+    args = lambda meta: (t["win2d"], meta, t["cfm_factor"], t["n_rhs"],
+                         t["t_rhs"], t["num_points"], t["active"], t["p1"],
+                         t["p2"], t["prev_n"], t["prev_t"])
+    with pytest.raises(ValueError, match="not instantiated"):
+        gs_math._launch_block(*args(x["meta"]), p_max=2, s_len=S_LEN)
+    x = _block_inputs(6, 128, 1, "update_only")
+    t = {k: _torch(v) for k, v in x.items() if k != "meta"}
+    meta = dict(x["meta"])
+    meta["t_r"] = (t["win2d"].shape[1] - 1, (1, 3))
+    with pytest.raises(ValueError, match="t_r lies outside"):
+        gs_math._launch_block(*args(meta), p_max=1, s_len=S_LEN)

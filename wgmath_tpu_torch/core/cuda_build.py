@@ -5,6 +5,7 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``wgmath_tpu_torch/_build/<name>-<source hash>.so`` (a directory git
 ignores), so a changed source rebuilds and an unchanged one loads at once.
+The hash covers the shared ``csrc/*.cuh`` headers too.
 :func:`build_all` starts one ``nvcc`` per source, all together.
 No fast-math flags: the kernels' epsilon tests must behave as in the
 reference. ``--fmad=false`` keeps every product rounded on its own, as in
@@ -47,9 +48,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:12]
     return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 

@@ -4,7 +4,8 @@
 // Replaces the TPU kernel wgmath_tpu/dynamics/gs_pallas.py
 // _gs_math_rhs_pallas_call (reached through gs_math_block_rhs). Computes
 // exactly _gs_math_rhs_xla: _cm_rhs (biased mode) then _cm_point_updates
-// for P contact points with S = 2 friction directions.
+// for P contact points with S = 2 friction directions. The point update
+// is gs_point_updates.cuh, shared with gs_math_block.cu.
 //
 // Layout: row-major, one constraint row per thread. Row i reads
 //   win[i, 0:K]        packed substep-invariant fields (gs_math.PACK_FIELDS,
@@ -35,30 +36,15 @@
 // ~20 m from the origin, and a fused multiply-add on either side moves it
 // by ~1e-6, which inv_dt amplifies past the plain version's tolerance.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gs_point_updates.cuh"
 
 namespace {
 
-enum Field {
-  F_DIR_A = 0, F_TANGENT_A, F_IM_A, F_IM_B, F_LIMIT,
-  F_N_TORQUE_A, F_N_TORQUE_B, F_N_II_TORQUE_A, F_N_II_TORQUE_B, F_N_R,
-  F_T_TORQUE_A, F_T_TORQUE_B, F_T_II_TORQUE_A, F_T_II_TORQUE_B, F_T_R,
-  F_LOCAL_PT_A, F_LOCAL_PT_B, F_INFO_DIST, F_INFO_NORMAL_VEL,
-  F_T_RHS_WO_BIAS, N_FIELDS
-};
-
-struct Offsets {
-  int o[N_FIELDS];
-};
+using namespace gs;
 
 struct Consts {
   float inv_dt, erp_inv_dt, allowed, max_corr, cfm;
 };
-
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
 
 // sim.mul_pt: scale * rot(q, v) + translation; pose = [x y z w, t, s]
 __device__ __forceinline__ void mul_pt(const float* pose, const float* v,
@@ -88,31 +74,15 @@ __global__ void __launch_bounds__(256) gs_math_rhs_kernel(
     float* __restrict__ new_n, float* __restrict__ new_t,
     float* __restrict__ d1, float* __restrict__ d2,
     float* __restrict__ rhs_wo, Consts c) {
-  constexpr int S = 2;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
   const float* f = win + (size_t)i * ld_win;
 
   float v1l[3], v1a[3], v2l[3], v2a[3];
-  const float* r1 = p1 + (size_t)i * ld_p1;
-  const float* r2 = p2 + (size_t)i * ld_p2;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    v1l[a] = r1[a];
-    v1a[a] = r1[3 + a];
-    v2l[a] = r2[a];
-    v2a[a] = r2[3 + a];
-  }
-  float dir[3], im_a[3], im_b[3], tang[S][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    dir[a] = f[off.o[F_DIR_A] + a];
-    im_a[a] = f[off.o[F_IM_A] + a];
-    im_b[a] = f[off.o[F_IM_B] + a];
-#pragma unroll
-    for (int j = 0; j < S; ++j) tang[j][a] = f[off.o[F_TANGENT_A] + 3 * j + a];
-  }
-  const float friction = f[off.o[F_LIMIT]];
+  load_vel(p1 + (size_t)i * ld_p1, v1l, v1a);
+  load_vel(p2 + (size_t)i * ld_p2, v2l, v2a);
+  RowFields r;
+  load_row_fields(f, off, r);
   const bool act = active[i] != 0;
   const float np_f = (float)nump[i];
 
@@ -135,7 +105,7 @@ __global__ void __launch_bounds__(256) gs_math_rhs_kernel(
       mul_pt(pose2r, f + off.o[F_LOCAL_PT_B] + 3 * k, p2w);
 #pragma unroll
       for (int a = 0; a < 3; ++a) drift[a] = p1w[a] - p2w[a];
-      const float dist = f[off.o[F_INFO_DIST] + k] + dot3(drift, dir);
+      const float dist = f[off.o[F_INFO_DIST] + k] + dot3(drift, r.dir);
       const float wo = f[off.o[F_INFO_NORMAL_VEL] + k]
                        + fmaxf(dist, 0.0f) * c.inv_dt;
       const float bias = fminf(fmaxf((dist + c.allowed) * c.erp_inv_dt,
@@ -145,7 +115,7 @@ __global__ void __launch_bounds__(256) gs_math_rhs_kernel(
 #pragma unroll
       for (int j = 0; j < S; ++j)
         t_rhs[k][j] = f[off.o[F_T_RHS_WO_BIAS] + S * k + j]
-                      + dot3(drift, tang[j]) * c.inv_dt;
+                      + dot3(drift, r.tang[j]) * c.inv_dt;
     }
     cfm = c.cfm;
   } else {
@@ -168,79 +138,12 @@ __global__ void __launch_bounds__(256) gs_math_rhs_kernel(
     w2l[a] = v2l[a];
     w2a[a] = v2a[a];
   }
-  const float* pn = prev_n + (size_t)i * ld_pn;
-  const float* ptr = prev_t + (size_t)i * ld_pt;
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const bool pt_active = act && (np_f > (float)k);
-    // normal part
-    const float* td_a = f + off.o[F_N_TORQUE_A] + 3 * k;
-    const float* td_b = f + off.o[F_N_TORQUE_B] + 3 * k;
-    const float* iitd_a = f + off.o[F_N_II_TORQUE_A] + 3 * k;
-    const float* iitd_b = f + off.o[F_N_II_TORQUE_B] + 3 * k;
-    const float r = f[off.o[F_N_R] + k];
-    const float prev = pn[k];
-    const float dvel = dot3(dir, w1l) + dot3(td_a, w1a) - dot3(dir, w2l)
-                       + dot3(td_b, w2a) + n_rhs[k];
-    const float cand = cfm * fmaxf(prev - r * dvel, 0.0f);
-    const float new_imp = pt_active ? cand : prev;
-    const float d_imp = new_imp - prev;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      w1l[a] = w1l[a] + dir[a] * (im_a[a] * d_imp);
-      w1a[a] = w1a[a] + iitd_a[a] * d_imp;
-      w2l[a] = w2l[a] - dir[a] * (im_b[a] * d_imp);
-      w2a[a] = w2a[a] + iitd_b[a] * d_imp;
-    }
-    const float limit = new_imp * friction;
-    new_n[(size_t)i * P + k] = new_imp;
-
-    // tangent (friction) part, S = 2, coupled 2x2 projection
-    const float* t_r = f + off.o[F_T_R] + 3 * k;
-    const float* ta0 = f + off.o[F_T_TORQUE_A] + (k * S + 0) * 3;
-    const float* ta1 = f + off.o[F_T_TORQUE_A] + (k * S + 1) * 3;
-    const float* tb0 = f + off.o[F_T_TORQUE_B] + (k * S + 0) * 3;
-    const float* tb1 = f + off.o[F_T_TORQUE_B] + (k * S + 1) * 3;
-    const float* ia0 = f + off.o[F_T_II_TORQUE_A] + (k * S + 0) * 3;
-    const float* ia1 = f + off.o[F_T_II_TORQUE_A] + (k * S + 1) * 3;
-    const float* ib0 = f + off.o[F_T_II_TORQUE_B] + (k * S + 0) * 3;
-    const float* ib1 = f + off.o[F_T_II_TORQUE_B] + (k * S + 1) * 3;
-    const float tp0 = ptr[k * S + 0];
-    const float tp1 = ptr[k * S + 1];
-    const float dd0 = dot3(tang[0], w1l) + dot3(ta0, w1a) - dot3(tang[0], w2l)
-                      + dot3(tb0, w2a) + t_rhs[k][0];
-    const float dd1 = dot3(tang[1], w1l) + dot3(ta1, w1a) - dot3(tang[1], w2l)
-                      + dot3(tb1, w2a) + t_rhs[k][1];
-    const float d00 = dd0 * dd0, d11 = dd1 * dd1, d01 = dd0 * dd1;
-    const float lhs = d00 * t_r[0] + d11 * t_r[1] + d01 * t_r[2];
-    const bool ok = fabsf(lhs) > 1e-20f;
-    const float inv_lhs = (d00 + d11) * (ok ? 1.0f / lhs : 0.0f);
-    const float raw0 = tp0 - inv_lhs * dd0;
-    const float raw1 = tp1 - inv_lhs * dd1;
-    const float nrm = sqrtf(raw0 * raw0 + raw1 * raw1);
-    const float scale = nrm > limit ? limit / fmaxf(nrm, 1e-30f) : 1.0f;
-    const float t0n = pt_active ? raw0 * scale : tp0;
-    const float t1n = pt_active ? raw1 * scale : tp1;
-    const float dl0 = t0n - tp0;
-    const float dl1 = t1n - tp1;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float lin_dir = tang[0][a] * dl0 + tang[1][a] * dl1;
-      w1l[a] = w1l[a] + lin_dir * im_a[a];
-      w1a[a] = w1a[a] + ia0[a] * dl0 + ia1[a] * dl1;
-      w2l[a] = w2l[a] - lin_dir * im_b[a];
-      w2a[a] = w2a[a] + ib0[a] * dl0 + ib1[a] * dl1;
-    }
-    new_t[((size_t)i * P + k) * S + 0] = t0n;
-    new_t[((size_t)i * P + k) * S + 1] = t1n;
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    d1[(size_t)i * 6 + a] = w1l[a] - v1l[a];
-    d1[(size_t)i * 6 + 3 + a] = w1a[a] - v1a[a];
-    d2[(size_t)i * 6 + a] = w2l[a] - v2l[a];
-    d2[(size_t)i * 6 + 3 + a] = w2a[a] - v2a[a];
-  }
+  gs_point_updates<P>(f, off, r, act, np_f, cfm, n_rhs, t_rhs,
+                      prev_n + (size_t)i * ld_pn, prev_t + (size_t)i * ld_pt,
+                      w1l, w1a, w2l, w2a, new_n + (size_t)i * P,
+                      new_t + (size_t)i * P * S);
+  store_delta(d1 + (size_t)i * 6, w1l, w1a, v1l, v1a);
+  store_delta(d2 + (size_t)i * 6, w2l, w2a, v2l, v2a);
 }
 
 template <int P, bool BIASED>

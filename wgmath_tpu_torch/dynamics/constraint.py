@@ -206,3 +206,121 @@ def build_constraints(poses: Sim, vels: Velocity,
         t_impulse=zeros_ps.clone(), t_impulse_jacobi=zeros_ps.clone(),
         t_r=stk(t_r), local_pt_a=stk(lpa), local_pt_b=stk(lpb),
         info_dist=stk(i_dist), info_normal_vel=n_rhs_t.clone())
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over a last axis of 3, summed left to right. A
+    ``torch.sum`` reduction may add in another order on the card; this one
+    is the order of the impulse kernels' ``dot3``, so the rhs built here
+    and the rhs rebuilt in kernel agree bit for bit."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def update_rhs_sorted(ss, poses: Sim, params: SimParams):
+    """Substep rhs relinearization over colour-sorted field views (a
+    namespace with body_a/b, dir_a, tangent_a, local_pt_a/b, info_dist,
+    info_normal_vel, t_rhs_wo_bias): both anchors carried to the world by
+    the substep's poses, their drift projected on the normal and the
+    friction basis. Every operation is in the order of the in-kernel
+    rebuild (``csrc/gs_math.cu``), so the ladder and the rhs-in-rung sweep
+    see the same bits. Returns ``(n_rhs, n_rhs_wo_bias, t_rhs)``."""
+    c = ss.body_a.shape[0]
+    # one gather of [rot | trans | scale] rows for both sides
+    packed = torch.cat([poses.rotation, poses.translation,
+                        poses.scale[:, None]], dim=-1)
+    pp = packed[torch.cat([ss.body_a, ss.body_b])]
+    pose1 = Sim(pp[:c, None, :4], pp[:c, None, 4:7], pp[:c, None, 7])
+    pose2 = Sim(pp[c:, None, :4], pp[c:, None, 4:7], pp[c:, None, 7])
+    inv_dt = params.inv_dt
+    p1 = sim_ops.mul_pt(pose1, ss.local_pt_a)
+    p2 = sim_ops.mul_pt(pose2, ss.local_pt_b)
+    drift = p1 - p2  # [C, P, 3]
+    dist = ss.info_dist + _dot3(drift, ss.dir_a[:, None, :])
+    rhs_wo_bias = ss.info_normal_vel + torch.clamp(dist, min=0.0) * inv_dt
+    rhs_bias = torch.clamp((dist + params.allowed_linear_error)
+                           * params.contact_erp_inv_dt,
+                           -params.max_corrective_velocity, 0.0)
+    t_bias = _dot3(drift[:, :, None, :], ss.tangent_a[:, None, :, :]) * inv_dt
+    return rhs_wo_bias + rhs_bias, rhs_wo_bias, ss.t_rhs_wo_bias + t_bias
+
+
+def remove_cfm_and_bias(cons: ContactConstraints) -> ContactConstraints:
+    """The constraints of the unbiased sweep: rhs without bias, cfm 1."""
+    return dataclasses.replace(
+        cons, n_rhs=cons.n_rhs_wo_bias, t_rhs=cons.t_rhs_wo_bias,
+        cfm_factor=torch.ones_like(cons.cfm_factor))
+
+
+def compact_contacts(contacts: Contacts, capacity: int, extra=None,
+                     sort_by_extra: bool = False, static_windows=None):
+    """Compact valid manifolds into a ``capacity``-sized buffer; every
+    solver pass then costs the live contact count, not the pair count.
+    Returns ``(contacts, true_count)``; a count above ``capacity`` is the
+    overflow signal.
+
+    ``extra``: per-slot integers compacted alongside (the cached pair
+    colours); returned third. ``sort_by_extra`` orders the buffer by
+    ascending ``extra``, slot order within equal values: with colours the
+    buffer comes out colour-major and the solver needs no sort of its own.
+    ``static_windows`` is the fused solver's rung-padded layout, which is
+    not ported."""
+    if static_windows is not None:
+        raise NotImplementedError(
+            "compact_contacts: static_windows (fused layout) is not ported")
+    c = contacts.capacity
+    dev = contacts.body_a.device
+    flags = contacts.valid
+    count = flags.sum()
+    valid_out = torch.arange(capacity, device=dev) < torch.clamp(
+        count, max=capacity)
+    if sort_by_extra:
+        assert extra is not None and c < (1 << 24)
+        # one sort compacts and orders: key = (colour << 24) | slot for
+        # valid entries (unique), one shared maximum for the rest; stable,
+        # so invalid slots follow in slot order as in the JAX sort
+        idx = torch.arange(c, device=dev)
+        key = torch.where(flags, (torch.clamp(extra, 0, 127) << 24) | idx,
+                          torch.full_like(idx, 0x7FFFFFFF))
+        skey, take = torch.sort(key, stable=True)
+        skey, take = skey[:capacity], take[:capacity]
+        # one wide row gather for every float field
+        p_shape = contacts.points_a.shape[1:]
+        big = torch.cat([contacts.normal_a, contacts.points_a.reshape(c, -1),
+                         contacts.dist], dim=1)[take]
+        w0, w1 = 3, 3 + contacts.points_a[0].numel()
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        out = Contacts(
+            body_a=torch.where(valid_out, contacts.body_a[take], zero),
+            body_b=torch.where(valid_out, contacts.body_b[take], zero),
+            normal_a=big[:, :w0],
+            points_a=big[:, w0:w1].reshape((capacity,) + tuple(p_shape)),
+            dist=torch.where(valid_out[:, None], big[:, w1:],
+                             torch.full((), 1e9, device=dev)),
+            num_points=torch.where(valid_out, contacts.num_points[take],
+                                   zero),
+            valid=valid_out)
+        colors_out = torch.where(valid_out, (skey >> 24) & 0x7F, zero)
+        return out, count, colors_out
+
+    pos = torch.cumsum(flags.to(torch.int64), 0) - 1
+    slot = torch.where(flags & (pos < capacity), pos,
+                       torch.full_like(pos, capacity))
+
+    def scatter(x, fill=0):
+        # row `capacity` takes every dropped entry and is cut off; the
+        # kept rows are written once each
+        base = torch.full((capacity + 1,) + tuple(x.shape[1:]), fill,
+                          dtype=x.dtype, device=dev)
+        base[slot] = x
+        return base[:capacity]
+
+    out = Contacts(
+        body_a=scatter(contacts.body_a), body_b=scatter(contacts.body_b),
+        normal_a=scatter(contacts.normal_a),
+        points_a=scatter(contacts.points_a),
+        dist=scatter(contacts.dist, fill=1e9),
+        num_points=scatter(contacts.num_points), valid=valid_out)
+    if extra is not None:
+        return out, count, scatter(extra)
+    return out, count

@@ -1,12 +1,19 @@
-"""Gauss-Seidel impulse math for one colour rung with the substep rhs rebuilt
-in kernel (counterpart of ``wgmath_tpu/dynamics/gs_pallas.py``:
-``gs_math_block_rhs`` and its Pallas kernel ``_gs_math_rhs_pallas_call``).
+"""Gauss-Seidel impulse math for one colour rung (counterpart of
+``wgmath_tpu/dynamics/gs_pallas.py``).
 
-On a CUDA tensor :func:`gs_math_block_rhs` launches the hand-written kernel
-``csrc/gs_math.cu`` (one thread per constraint row) and raises if it
-cannot; on a CPU tensor it runs :func:`_gs_math_rhs_torch`, the plain
-PyTorch transcription of ``_cm_rhs`` + ``_cm_point_updates``. ``LAUNCHES``
-counts kernel launches.
+- :func:`gs_math_block_rhs` rebuilds the substep rhs in kernel
+  (``_gs_math_rhs_pallas_call``): on a CUDA tensor it launches
+  ``csrc/gs_math.cu``, on a CPU tensor it runs :func:`_gs_math_rhs_torch`,
+  the plain PyTorch transcription of ``_cm_rhs`` + ``_cm_point_updates``.
+- :func:`gs_math_block` takes ``cfm_factor`` / ``n_rhs`` / ``t_rhs`` from
+  the caller (``_gs_math_pallas_call``): ``csrc/gs_math_block.cu`` on a
+  CUDA tensor, :func:`_gs_math_torch` on a CPU tensor.
+
+Both kernels run one thread per constraint row and share their point
+update (``csrc/gs_point_updates.cuh``), as the plain versions share
+:func:`_point_updates`. A CUDA tensor launches the kernel or raises; there
+is no other path. ``LAUNCHES`` / ``LAUNCHES_BLOCK`` count the launches of
+the two kernels.
 """
 
 from __future__ import annotations
@@ -15,16 +22,19 @@ import ctypes
 
 import torch
 
-LAUNCHES = 0
+LAUNCHES = 0  # csrc/gs_math.cu (rhs rebuilt in kernel)
+LAUNCHES_BLOCK = 0  # csrc/gs_math_block.cu (rhs passed in)
 
 # substep-invariant solver fields packed into one [C, K] f32 matrix, in
-# this column order (the JAX package's _PACK_FIELDS); the kernel's column
-# table (csrc/gs_math.cu Field) follows it
+# this column order (the JAX package's _PACK_FIELDS); the kernels' column
+# table (csrc/gs_point_updates.cuh Field) follows it
 PACK_FIELDS = ("dir_a", "tangent_a", "im_a", "im_b", "limit",
                "n_torque_a", "n_torque_b", "n_ii_torque_a", "n_ii_torque_b",
                "n_r", "t_torque_a", "t_torque_b", "t_ii_torque_a",
                "t_ii_torque_b", "t_r", "local_pt_a", "local_pt_b",
                "info_dist", "info_normal_vel", "t_rhs_wo_bias")
+# the fields the point update reads; the rest serve the rhs rebuild only
+UPDATE_FIELDS = PACK_FIELDS[:15]
 
 
 def _size(tail) -> int:
@@ -55,7 +65,8 @@ def pack_meta(p_max: int, s_len: int = 2) -> dict:
 
 
 def _fields(win2d: torch.Tensor, meta: dict) -> dict:
-    """Row-major views [L, *tail] of the packed fields."""
+    """Row-major views [L, *tail] of the packed fields (the JAX package's
+    ``_unpack_window``)."""
     L = win2d.shape[0]
     return {name: win2d[:, at:at + _size(tail)].reshape((L,) + tuple(tail))
             for name, (at, tail) in meta.items()}
@@ -110,6 +121,17 @@ def _gs_math_rhs_torch(win2d, meta, num_points, active, p1, p2, prev_n,
         n_rhs = n_rhs_wo
         t_rhs = f["t_rhs_wo_bias"]
         cfm = 1.0
+    res = _point_updates(f, cfm, n_rhs, t_rhs, num_points, active, p1, p2,
+                         prev_n, prev_t, p_max)
+    return res + (rhs_wo,) if mode == "biased" else res
+
+
+def _point_updates(f, cfm, n_rhs, t_rhs, num_points, active, p1, p2, prev_n,
+                   prev_t, p_max):
+    """``_cm_point_updates`` row-major: ``f`` the field views, ``cfm`` a
+    float or [L], ``n_rhs`` [L, P], ``t_rhs`` [L, P, 2]. Returns (new_n,
+    new_t, d1, d2)."""
+    dir_a, tang = f["dir_a"], f["tangent_a"]
     v1l, v1a = p1[:, :3], p1[:, 3:6]
     v2l, v2a = p2[:, :3], p2[:, 3:6]
     w1l, w1a, w2l, w2a = v1l, v1a, v2l, v2a
@@ -158,10 +180,20 @@ def _gs_math_rhs_torch(win2d, meta, num_points, active, p1, p2, prev_n,
         w2l = w2l - lin_dir * im_b
         w2a = w2a + ib[:, 0] * dl[:, 0:1] + ib[:, 1] * dl[:, 1:2]
         new_t.append(t_new)
-    res = (torch.stack(new_n, dim=1), torch.stack(new_t, dim=1),
-           torch.cat([w1l - v1l, w1a - v1a], dim=-1),
-           torch.cat([w2l - v2l, w2a - v2a], dim=-1))
-    return res + (rhs_wo,) if mode == "biased" else res
+    return (torch.stack(new_n, dim=1), torch.stack(new_t, dim=1),
+            torch.cat([w1l - v1l, w1a - v1a], dim=-1),
+            torch.cat([w2l - v2l, w2a - v2a], dim=-1))
+
+
+def _gs_math_torch(win2d, meta, cfm_factor, n_rhs, t_rhs, num_points, active,
+                   p1, p2, prev_n, prev_t, *, p_max, s_len):
+    """Plain PyTorch version of the ``gs_math_block`` kernel (row-major)."""
+    L = win2d.shape[0]
+    f = _fields(win2d, {k: meta[k] for k in UPDATE_FIELDS})
+    return _point_updates(f, cfm_factor.reshape(L), n_rhs.reshape(L, p_max),
+                          t_rhs.reshape(L, p_max, s_len), num_points, active,
+                          p1, p2, prev_n.reshape(L, p_max),
+                          prev_t.reshape(L, p_max, s_len), p_max)
 
 
 def _rows(x: torch.Tensor, L: int, width: int, what: str):
@@ -179,12 +211,55 @@ def _rows(x: torch.Tensor, L: int, width: int, what: str):
     return v, v.stride(0)
 
 
+def _column_offsets(kernel: str, win2d, meta, names, p_max: int,
+                    s_len: int):
+    """The kernel's column table (one int per ``PACK_FIELDS`` entry, -1 for
+    a field it does not read) after checking that the instantiation exists
+    and that every field in ``names`` lies inside the window at its
+    shape."""
+    if s_len != 2 or p_max not in (1, 4):
+        raise ValueError(f"{kernel} kernel: (p_max={p_max}, s_len={s_len}) "
+                         "not instantiated (p_max 1 or 4, s_len 2)")
+    K = win2d.shape[1]
+    want = pack_meta(p_max, s_len)
+    for name in names:
+        tail = want[name][1]
+        if name not in meta or tuple(meta[name][1]) != tail:
+            raise ValueError(f"{kernel} kernel: packed field {name} missing "
+                             "or of the wrong shape")
+        if not 0 <= int(meta[name][0]) <= K - _size(tail):
+            raise ValueError(f"{kernel} kernel: field {name} lies outside "
+                             f"the {K}-column window")
+    return (ctypes.c_int * len(PACK_FIELDS))(
+        *[int(meta[nm][0]) if nm in names else -1 for nm in PACK_FIELDS])
+
+
+def _check_row_inputs(kernel: str, L: int, dev, num_points, active,
+                      tensors) -> None:
+    for nm, t in (("num_points", num_points), ("active", active)) + tensors:
+        if t is None or t.device != dev:
+            raise ValueError(f"{kernel} kernel: {nm} missing or not on "
+                             f"the window's device {dev}")
+    if num_points.dtype != torch.int64 or num_points.shape != (L,) \
+            or not num_points.is_contiguous():
+        raise ValueError("num_points: contiguous int64 [L] expected")
+    if active.dtype != torch.bool or active.shape != (L,) \
+            or not active.is_contiguous():
+        raise ValueError("active: contiguous bool [L] expected")
+
+
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p]
              + [ctypes.c_void_p, ctypes.c_int] * 6
              + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 5
              + [ctypes.c_void_p])
+_ARGTYPES_BLOCK = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_void_p]
+                   + [ctypes.c_void_p, ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2
+                   + [ctypes.c_void_p, ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 5)
 
 
 def _launch(win2d, meta, num_points, active, p1, p2, prev_n, prev_t, *,
@@ -195,36 +270,14 @@ def _launch(win2d, meta, num_points, active, p1, p2, prev_n, prev_t, *,
 
     L, K = win2d.shape
     dev = win2d.device
-    if s_len != 2 or p_max not in (1, 4):
-        raise ValueError(f"gs_math kernel: (p_max={p_max}, s_len={s_len}) "
-                         "not instantiated (p_max 1 or 4, s_len 2)")
-    want = pack_meta(p_max, s_len)
-    for name in PACK_FIELDS:
-        tail = want[name][1]
-        if name not in meta or tuple(meta[name][1]) != tail:
-            raise ValueError(f"gs_math kernel: packed field {name} missing "
-                             "or of the wrong shape")
-        if not 0 <= int(meta[name][0]) <= K - _size(tail):
-            raise ValueError(f"gs_math kernel: field {name} lies outside "
-                             f"the {K}-column window")
-    offs = (ctypes.c_int * len(PACK_FIELDS))(
-        *[int(meta[nm][0]) for nm in PACK_FIELDS])
+    offs = _column_offsets("gs_math", win2d, meta, PACK_FIELDS, p_max, s_len)
     biased = mode == "biased"
     aux = (("pose1", pose1), ("pose2", pose2)) if biased else (
         ("n_rhs_wo", n_rhs_wo),)
     win, ld_win = _rows(win2d, L, K, "win2d")
-    for nm, t in (("num_points", num_points), ("active", active),
-                  ("p1", p1), ("p2", p2), ("prev_n", prev_n),
-                  ("prev_t", prev_t)) + aux:
-        if t is None or t.device != dev:
-            raise ValueError(f"gs_math kernel: {nm} missing or not on "
-                             f"the window's device {dev}")
-    if num_points.dtype != torch.int64 or num_points.shape != (L,) \
-            or not num_points.is_contiguous():
-        raise ValueError("num_points: contiguous int64 [L] expected")
-    if active.dtype != torch.bool or active.shape != (L,) \
-            or not active.is_contiguous():
-        raise ValueError("active: contiguous bool [L] expected")
+    _check_row_inputs("gs_math", L, dev, num_points, active,
+                      (("p1", p1), ("p2", p2), ("prev_n", prev_n),
+                       ("prev_t", prev_t)) + aux)
     p1v, ld_p1 = _rows(p1, L, 6, "p1")
     p2v, ld_p2 = _rows(p2, L, 6, "p2")
     pnv, ld_pn = _rows(prev_n, L, p_max, "prev_n")
@@ -285,3 +338,66 @@ def gs_math_block_rhs(win2d, meta, num_points, active, p1, p2, prev_n,
         return _gs_math_rhs_torch(win2d, meta, num_points, active, p1, p2,
                                   prev_n, prev_t, **kw)
     raise ValueError(f"gs_math_block_rhs: unsupported device {win2d.device}")
+
+
+def _launch_block(win2d, meta, cfm_factor, n_rhs, t_rhs, num_points, active,
+                  p1, p2, prev_n, prev_t, *, p_max, s_len):
+    global LAUNCHES_BLOCK
+    from wgmath_tpu_torch.core import cuda_build
+
+    L, K = win2d.shape
+    dev = win2d.device
+    offs = _column_offsets("gs_math_block", win2d, meta, UPDATE_FIELDS,
+                           p_max, s_len)
+    win, ld_win = _rows(win2d, L, K, "win2d")
+    _check_row_inputs("gs_math_block", L, dev, num_points, active,
+                      (("cfm_factor", cfm_factor), ("n_rhs", n_rhs),
+                       ("t_rhs", t_rhs), ("p1", p1), ("p2", p2),
+                       ("prev_n", prev_n), ("prev_t", prev_t)))
+    cfv, ld_cf = _rows(cfm_factor, L, 1, "cfm_factor")
+    nrv, ld_nr = _rows(n_rhs, L, p_max, "n_rhs")
+    trv, ld_tr = _rows(t_rhs, L, p_max * s_len, "t_rhs")
+    p1v, ld_p1 = _rows(p1, L, 6, "p1")
+    p2v, ld_p2 = _rows(p2, L, 6, "p2")
+    pnv, ld_pn = _rows(prev_n, L, p_max, "prev_n")
+    ptv, ld_pt = _rows(prev_t, L, p_max * s_len, "prev_t")
+    new_n = torch.empty((L, p_max), device=dev)
+    new_t = torch.empty((L, p_max, s_len), device=dev)
+    d1 = torch.empty((L, 6), device=dev)
+    d2 = torch.empty((L, 6), device=dev)
+    lib = cuda_build.load("gs_math_block")
+    fn = lib.gs_math_block_launch
+    fn.argtypes = _ARGTYPES_BLOCK
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(p_max, L, win.data_ptr(), ld_win, offs,
+             cfv.data_ptr(), ld_cf, nrv.data_ptr(), ld_nr,
+             trv.data_ptr(), ld_tr, num_points.data_ptr(),
+             active.data_ptr(), p1v.data_ptr(), ld_p1, p2v.data_ptr(), ld_p2,
+             pnv.data_ptr(), ld_pn, ptv.data_ptr(), ld_pt,
+             new_n.data_ptr(), new_t.data_ptr(), d1.data_ptr(),
+             d2.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"gs_math_block kernel launch failed: error "
+                           f"{err}")
+    LAUNCHES_BLOCK += 1
+    return new_n, new_t, d1, d2
+
+
+def gs_math_block(win2d, meta, view, active, p1, p2, prev_n, prev_t, *,
+                  p_max: int, s_len: int):
+    """GS impulse update of one rung with the substep's rhs passed in.
+
+    ``win2d`` [L, K] packed fields (``meta``: name → (column, tail); the
+    rhs-relinearization columns need not be there), ``view`` carries the
+    per-substep ``cfm_factor`` [L], ``n_rhs`` [L, P], ``t_rhs`` [L, P, S]
+    and ``num_points`` [L]; ``active`` [L] bool, ``p1``/``p2`` [L, 6] the
+    sides' velocities, ``prev_n`` [L, P], ``prev_t`` [L, P, S]. Returns
+    row-major (new_n [L, P], new_t [L, P, S], d1 [L, 6], d2 [L, 6])."""
+    args = (win2d, meta, view.cfm_factor, view.n_rhs, view.t_rhs,
+            view.num_points, active, p1, p2, prev_n, prev_t)
+    if win2d.device.type == "cuda":
+        return _launch_block(*args, p_max=p_max, s_len=s_len)
+    if win2d.device.type == "cpu":
+        return _gs_math_torch(*args, p_max=p_max, s_len=s_len)
+    raise ValueError(f"gs_math_block: unsupported device {win2d.device}")

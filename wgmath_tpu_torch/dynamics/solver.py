@@ -1,18 +1,24 @@
-"""Contact solver for the chained pair-slot configuration (counterpart of
+"""Contact solver for the window-ladder configurations (counterpart of
 ``wgmath_tpu/dynamics/solver.py``: colouring, warmstart, the colour-major
-layout and chain, and the chained rhs-in-rung Gauss-Seidel sweep).
+layout and chain, and the Gauss-Seidel sweeps under ``gs_windows``).
 
 - **Colouring** (``color_pairs``): per colour, a few Luby claim rounds;
   each candidate edge scatter-mins a hashed priority into its dynamic
   bodies and wins when it owns both. The hash is the JAX package's uint32
   arithmetic, emulated in int64 with a 32-bit mask after every step.
-- **Layout**: contacts sit at their colour-major pair slots; colour c's
-  class is the window ``[offsets[c], offsets[c] + windows[c-1])``.
-- **Chained sweep** (``gs_color_major_pass``): velocities live in a stream
-  (body table + one static 2w-row segment per colour). Each rung gathers
-  its bodies' latest rows through the cached last-writer chain, runs the
-  impulse kernel (``gs_math.gs_math_block_rhs``) and writes both sides'
-  updated rows to its own segment — no scatter-add.
+- **Layout**: constraints in colour-major order; colour c's class is the
+  window ``[offsets[c], offsets[c] + windows[c-1])``. Pair-slot and
+  colour-compacted contacts arrive in that order
+  (``pad_solver_fields_packed``); otherwise one sort and one row gather put
+  them there (``build_color_layout``, ``sort_solver_fields_packed``).
+- **Sweeps** (``gs_color_major_pass``), one impulse kernel launch per rung:
+  the *ladder* gathers both sides' velocities by body index and adds the
+  deltas back with one unique-index scatter-add; the *chained* sweep keeps
+  velocities in a stream (body table + one 2w-row segment per colour),
+  gathers through the cached last-writer chain and writes each rung's rows
+  to its own segment. The rhs comes from ``update_rhs_sorted`` once per
+  substep (``gs_math.gs_math_block``) or, with rhs-in-rung, is rebuilt in
+  the kernel from poses riding the stream (``gs_math.gs_math_block_rhs``).
 
 Every ``lax.cond`` of the JAX solve is a Python branch on a host value.
 """
@@ -22,10 +28,9 @@ from __future__ import annotations
 import dataclasses
 from types import SimpleNamespace
 
-import numpy as np
 import torch
 
-from wgmath_tpu_torch.core.dispatch import host_list
+from wgmath_tpu_torch.core.dispatch import host_int, host_list
 from wgmath_tpu_torch.dynamics.body import (
     Bodies,
     Velocity,
@@ -36,8 +41,14 @@ from wgmath_tpu_torch.dynamics.constraint import (
     ContactConstraints,
     Contacts,
     build_constraints,
+    update_rhs_sorted,
 )
-from wgmath_tpu_torch.dynamics.gs_math import PACK_FIELDS, gs_math_block_rhs
+from wgmath_tpu_torch.dynamics.gs_math import (
+    PACK_FIELDS,
+    _size,
+    gs_math_block,
+    gs_math_block_rhs,
+)
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 
 _MASK32 = 0xFFFFFFFF
@@ -233,6 +244,30 @@ def _ws_apply(vels: Velocity, packed, sides) -> Velocity:
     return Velocity(vels.linear + seg[:, :3], vels.angular + seg[:, 3:])
 
 
+def _dyn_sides(cons):
+    """Dynamic flags of both sides from the inverse masses (statics have
+    zero inverse mass on every axis)."""
+    return (torch.any(cons.im_a != 0.0, dim=-1),
+            torch.any(cons.im_b != 0.0, dim=-1))
+
+
+def build_sorted_sides(cons: ContactConstraints, n: int):
+    """Per-frame prep for :func:`warmstart_apply_sorted`: the 2C constraint
+    sides ordered by body, and each body's [left, right) segment."""
+    dyn_a, dyn_b = _dyn_sides(cons)
+    return _build_sides(cons.body_a, cons.body_b, dyn_a, dyn_b, cons.valid,
+                        n)
+
+
+def warmstart_apply_sorted(cons: ContactConstraints, vels: Velocity,
+                           sides) -> Velocity:
+    """Apply the constraints' own impulses to the velocities through the
+    body-sorted sides: gathers and one prefix sum, no scatter-adds."""
+    deltas = _ws_deltas(cons, cons.n_impulse, cons.t_impulse, cons.valid,
+                        cons.n_impulse.shape[1])
+    return _ws_apply(vels, deltas, sides)
+
+
 def slotwise_warmstart(cons: ContactConstraints, prev: ContactConstraints,
                        params: SimParams) -> ContactConstraints:
     """Impulse carry-over when slot i holds the same pair as last frame."""
@@ -286,37 +321,98 @@ _F32_SORT_FIELDS = PACK_FIELDS + (
     "cfm_factor", "n_rhs", "t_rhs", "n_rhs_wo_bias")
 
 
-def pad_solver_fields_packed(cons: ContactConstraints, pad: int):
-    """Constraints already in colour-major order: one concat builds the
-    [C + pad, K_all] field matrix; ``pad`` zero rows keep every rung window
-    in bounds. Returns (fields namespace, (packed window block, meta))."""
+def build_color_layout(colors, valid, *, max_colors: int, cmax: int):
+    """Colour-major constraint ordering: ``order`` sorted by colour
+    (stable; invalid slots last) with per-colour ``offsets`` / ``counts``;
+    ``cmax`` padding entries (= C) keep every rung window in bounds.
+    Returns (order_padded, offsets, counts)."""
+    c = colors.shape[0]
+    dev = colors.device
+    key = torch.where(valid, colors, torch.full_like(colors, max_colors + 1))
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(max_colors + 2, dtype=torch.int64,
+                         device=dev).index_add_(0, key,
+                                                valid.to(torch.int64))
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(counts, 0)[:-1]])
+    order_padded = torch.cat([order, torch.full((cmax,), c,
+                                                dtype=torch.int64,
+                                                device=dev)])
+    return order_padded, offsets, counts
+
+
+def pack_sorted_fields(ss):
+    """The substep-invariant solver fields of ``ss`` as one [C, K] f32
+    matrix and its layout map name → (first column, trailing shape)."""
+    c = ss.body_a.shape[0]
+    cols, meta, at = [], {}, 0
+    for f in PACK_FIELDS:
+        v = getattr(ss, f)
+        tail = tuple(v.shape[1:])
+        meta[f] = (at, tail)
+        cols.append(v.reshape(c, _size(tail)).to(torch.float32))
+        at += _size(tail)
+    return torch.cat(cols, dim=1), meta
+
+
+def _field_matrix(cons: ContactConstraints):
+    """Every float field the solver reads as one [C, K_all] matrix (the
+    ``PACK_FIELDS`` first) and its layout map."""
     c = cons.body_a.shape[0]
-    dev = cons.body_a.device
     cols, meta, at = [], {}, 0
     for f in _F32_SORT_FIELDS:
         v = getattr(cons, f)
         tail = tuple(v.shape[1:])
-        k = int(np.prod(tail)) if tail else 1
         meta[f] = (at, tail)
-        cols.append(v.reshape(c, k).to(torch.float32))
-        at += k
-    big = torch.cat(cols, dim=1)
-    big = torch.cat([big, torch.zeros((pad, big.shape[1]), device=dev)])
-    n = c + pad
-    fields = {f: big[:, a0:a0 + (int(np.prod(t)) if t else 1)].reshape(
-        (n,) + t) for f, (a0, t) in meta.items()}
-    zpad = torch.zeros(pad, dtype=torch.int64, device=dev)
-    fields["body_a"] = torch.cat([cons.body_a, zpad])
-    fields["body_b"] = torch.cat([cons.body_b, zpad])
-    fields["num_points"] = torch.cat([cons.num_points, zpad])
-    fields["valid"] = torch.cat([cons.valid,
-                                 torch.zeros(pad, dtype=torch.bool,
-                                             device=dev)])
+        cols.append(v.reshape(c, _size(tail)).to(torch.float32))
+        at += _size(tail)
+    return torch.cat(cols, dim=1), meta
+
+
+def _sorted_namespace(big, meta, ints: dict):
+    """(fields namespace, (packed window block, its map)): the float fields
+    are column views of ``big``."""
+    n = big.shape[0]
+    fields = {f: big[:, a0:a0 + _size(t)].reshape((n,) + t)
+              for f, (a0, t) in meta.items()}
+    fields.update(ints)
     last = PACK_FIELDS[-1]
-    k_pack = meta[last][0] + int(np.prod(meta[last][1]))
-    packed2d = big[:, :k_pack]
-    return SimpleNamespace(**fields), (packed2d,
+    k_pack = meta[last][0] + _size(meta[last][1])
+    return SimpleNamespace(**fields), (big[:, :k_pack],
                                        {f: meta[f] for f in PACK_FIELDS})
+
+
+def sort_solver_fields_packed(cons: ContactConstraints, order_padded):
+    """Colour-major sort of every solver-read field by one row gather of
+    the [C, K_all] field matrix; padding entries of ``order_padded`` (= C)
+    become invalid rows with no points. Returns as
+    :func:`pad_solver_fields_packed`."""
+    c = cons.body_a.shape[0]
+    idx = torch.clamp(order_padded, max=c - 1)
+    pad = order_padded >= c
+    big, meta = _field_matrix(cons)
+    num_points = cons.num_points[idx]
+    return _sorted_namespace(big[idx], meta, dict(
+        body_a=cons.body_a[idx], body_b=cons.body_b[idx],
+        num_points=torch.where(pad, torch.zeros_like(num_points),
+                               num_points),
+        valid=cons.valid[idx] & ~pad))
+
+
+def pad_solver_fields_packed(cons: ContactConstraints, pad: int):
+    """Constraints already in colour-major order: one concat builds the
+    [C + pad, K_all] field matrix; ``pad`` zero rows keep every rung window
+    in bounds. Returns (fields namespace, (packed window block, meta))."""
+    dev = cons.body_a.device
+    big, meta = _field_matrix(cons)
+    big = torch.cat([big, torch.zeros((pad, big.shape[1]), device=dev)])
+    zpad = torch.zeros(pad, dtype=torch.int64, device=dev)
+    return _sorted_namespace(big, meta, dict(
+        body_a=torch.cat([cons.body_a, zpad]),
+        body_b=torch.cat([cons.body_b, zpad]),
+        num_points=torch.cat([cons.num_points, zpad]),
+        valid=torch.cat([cons.valid, torch.zeros(pad, dtype=torch.bool,
+                                                 device=dev)])))
 
 
 def build_gs_chain(body_a_s, body_b_s, dyn_a_s, dyn_b_s, offsets, counts,
@@ -356,141 +452,272 @@ def build_gs_chain(body_a_s, body_b_s, dyn_a_s, dyn_b_s, offsets, counts,
 
 
 # ---------------------------------------------------------------------------
-# Chained rhs-in-rung sweep
+# Gauss-Seidel sweeps over the window ladder
 # ---------------------------------------------------------------------------
+
+
+def _rung_start(offsets, ci: int, w: int, total: int) -> int:
+    """First row of colour ``ci``'s window, clamped into the buffer."""
+    return min(max(offsets[ci], 0), total - w)
+
+
+def rung_active_masks(valid_s, layout_host, windows: tuple) -> dict:
+    """colour → [w] bool: the slot lies inside the class (positional) and
+    its row holds a live contact. In pair-slot layouts a window row can be
+    a cached pair whose contact is inactive this frame; it passes
+    velocities through with its impulses kept."""
+    offsets, counts = layout_host
+    total = valid_s.shape[0]
+    out = {}
+    for ci, w in enumerate(windows, start=1):
+        if w:
+            start = _rung_start(offsets, ci, w, total)
+            out[ci] = ((torch.arange(w, device=valid_s.device) < counts[ci])
+                       & valid_s[start:start + w])
+    return out
+
+
+def ladder_rung_index(sorted_cons, layout_host, windows: tuple,
+                      n_bodies: int, rung_active: dict) -> dict:
+    """colour → (gather rows [2w], scatter rows [2w]) of the ladder sweep's
+    velocity table ``[n_bodies + 2·max(windows), 6]``. The gather reads
+    ``[body_a; body_b]``. The scatter keeps a side's body row only where the
+    slot is active and the side dynamic; every other side goes to a scratch
+    row of its own (``n + slot`` for a-sides, ``n + w + slot`` for
+    b-sides). Same-colour constraints share no dynamic body, so the 2w
+    scatter rows are all distinct."""
+    offsets, _ = layout_host
+    total = sorted_cons.body_a.shape[0]
+    dyn_a, dyn_b = _dyn_sides(sorted_cons)
+    out = {}
+    for ci, w in enumerate(windows, start=1):
+        if not w:
+            continue
+        start = _rung_start(offsets, ci, w, total)
+        rows = slice(start, start + w)
+        ba, bb = sorted_cons.body_a[rows], sorted_cons.body_b[rows]
+        trash = n_bodies + torch.arange(w, device=ba.device)
+        on = rung_active[ci]
+        out[ci] = (torch.cat([ba, bb]),
+                   torch.cat([torch.where(on & dyn_a[rows], ba, trash),
+                              torch.where(on & dyn_b[rows], bb, trash + w)]))
+    return out
 
 
 def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
-                        layout_host, windows: tuple, chain, *, rhs_mode: str,
-                        packed_fields, rhs_consts: tuple, rhs_store,
-                        pose_tab=None, rung_active=None):
-    """One chained PGS sweep over the colour-major constraints.
+                        layout_host, windows: tuple, chain=None, *,
+                        packed_fields, rhs_mode: str | None = None,
+                        rhs_consts: tuple | None = None, rhs_store=None,
+                        pose_tab=None, rung_active=None, rung_index=None):
+    """One PGS sweep over the colour-major constraints, colour by colour
+    along the window ladder.
 
-    ``layout_host`` = (offsets, counts) as host ints; ``rhs_mode`` "biased"
-    rebuilds each rung's rhs from the poses riding the stream
-    (``pose_tab``) and stores rhs_wo_bias; "unbiased" consumes the store
-    with cfm = 1. Impulses stay in sorted space. Returns
-    (vels, n_imp_s, t_imp_s, rhs_store)."""
-    offsets, counts = layout_host
+    ``layout_host`` = (offsets, counts) as host ints. ``chain`` =
+    (src, last_writer) from :func:`build_gs_chain` selects the chained
+    sweep; ``None`` the ladder sweep (gather by body index, one
+    unique-index scatter-add per rung). ``rhs_mode`` (chained only):
+    "biased" rebuilds each rung's rhs in the kernel from the poses riding
+    the stream (``pose_tab``) and stores rhs_wo_bias; "unbiased" consumes
+    that store with cfm = 1; ``None`` takes ``cfm_factor`` / ``n_rhs`` /
+    ``t_rhs`` from ``sorted_cons``. ``rung_active`` / ``rung_index`` are
+    the per-solve tables of :func:`rung_active_masks` /
+    :func:`ladder_rung_index` (built here when absent). Impulses stay in
+    sorted space. Returns (vels, n_imp_s, t_imp_s[, rhs_store])."""
+    offsets, _ = layout_host
     p_max = n_imp_s.shape[1]
     s_len = sorted_cons.tangent_a.shape[-2]
     pf2d, pf_meta = packed_fields
-    src_all, last_writer = chain
     n_bodies = vels.linear.shape[0]
     dev = vels.linear.device
     total = pf2d.shape[0]
+    if rung_active is None:
+        rung_active = rung_active_masks(sorted_cons.valid, layout_host,
+                                        windows)
     packed0 = torch.cat([vels.linear, vels.angular], dim=-1)
-    if rhs_mode == "biased":
-        packed0 = torch.cat([packed0, pose_tab], dim=-1)
-    width = packed0.shape[-1]
-    stream = torch.cat([packed0, torch.zeros((2 * sum(windows), width),
-                                             device=dev)])
+    if rhs_mode is not None:
+        assert chain is not None and rhs_consts is not None \
+            and rhs_store is not None
+        if rhs_mode == "biased":
+            packed0 = torch.cat([packed0, pose_tab], dim=-1)
+    if chain is not None:
+        # the buffer is the velocity stream: body table + one 2w-row
+        # segment per colour
+        src_all, last_writer = chain
+        pad_rows = 2 * sum(windows)
+    else:
+        # scratch rows take the writes of static and inactive sides, so
+        # every scatter-add below has distinct rows
+        pad_rows = 2 * max(windows)
+        if rung_index is None:
+            rung_index = ladder_rung_index(sorted_cons, layout_host, windows,
+                                           n_bodies, rung_active)
+    buf = torch.cat([packed0, torch.zeros((pad_rows, packed0.shape[-1]),
+                                          device=dev)])
     pt = p_max * s_len
-    imp = torch.cat([n_imp_s, t_imp_s.reshape(t_imp_s.shape[0], -1),
-                     rhs_store], dim=1)
+    # the impulses travel as one merged [C, P·(1+S)] matrix (the
+    # rhs-in-rung store rides it as trailing columns)
+    imp_cols = [n_imp_s, t_imp_s.reshape(t_imp_s.shape[0], -1)]
+    if rhs_mode is not None:
+        imp_cols.append(rhs_store)
+    imp = torch.cat(imp_cols, dim=1)
     w_off = 0
     for ci, w in enumerate(windows, start=1):
         if w == 0:
+            # pruned rung (step_checked zeroes rungs past the last occupied
+            # class): a class that re-occupies it waits one frame for the
+            # rung to regrow
             continue
-        start = min(max(offsets[ci], 0), total - w)
+        # Every other rung runs, occupied or not. The JAX ladder skips an
+        # empty class under lax.cond, which here would be a host sync per
+        # colour; an empty class has no active slot, so the masked math
+        # rewrites its previous impulses and adds zero deltas to scratch
+        # rows (or writes stream rows nothing chains from).
+        start = _rung_start(offsets, ci, w, total)
         rows = slice(start, start + w)
-        if rung_active is not None:
-            active = rung_active[ci]
-        else:
-            active = ((torch.arange(w, device=dev) < counts[ci])
-                      & sorted_cons.valid[rows])
+        active = rung_active[ci]
         win_i = imp[rows]
         prev_n = win_i[:, :p_max]
         prev_t = win_i[:, p_max:p_max + pt].reshape(w, p_max, s_len)
-        pp = stream[src_all[2 * w_off:2 * w_off + 2 * w]]
-        p1, p2 = pp[:w], pp[w:]
-        num_pts = sorted_cons.num_points[rows]
-        kw = dict(mode=rhs_mode, consts=rhs_consts, p_max=p_max,
-                  s_len=s_len)
-        if rhs_mode == "biased":
-            new_n, new_t, d1, d2, rhs_wo = gs_math_block_rhs(
-                pf2d[rows], pf_meta, num_pts, active, p1[:, :6], p2[:, :6],
-                prev_n, prev_t, pose1=p1[:, 6:], pose2=p2[:, 6:], **kw)
+        if chain is not None:
+            pp = buf[src_all[2 * w_off:2 * w_off + 2 * w]]
         else:
-            rhs_wo = win_i[:, p_max + pt:]
-            new_n, new_t, d1, d2 = gs_math_block_rhs(
-                pf2d[rows], pf_meta, num_pts, active, p1[:, :6], p2[:, :6],
-                prev_n, prev_t, n_rhs_wo=rhs_wo, **kw)
-        # both sides' updated rows go to this rung's own stream segment;
-        # pose columns ride through unchanged
-        seg0 = n_bodies + 2 * w_off
-        seg = stream[seg0:seg0 + 2 * w]
-        seg.copy_(pp)
-        seg[:w, :6] += d1
-        seg[w:, :6] += d2
-        new_i = torch.cat([new_n, new_t.reshape(w, -1), rhs_wo], dim=1)
-        imp[rows] = new_i
+            gather_rows, scatter_rows = rung_index[ci]
+            pp = buf[gather_rows]
+        p1, p2 = pp[:w], pp[w:]
+        if rhs_mode is not None:
+            kw = dict(mode=rhs_mode, consts=rhs_consts, p_max=p_max,
+                      s_len=s_len)
+            num_pts = sorted_cons.num_points[rows]
+            if rhs_mode == "biased":
+                new_n, new_t, d1, d2, rhs_wo = gs_math_block_rhs(
+                    pf2d[rows], pf_meta, num_pts, active, p1[:, :6],
+                    p2[:, :6], prev_n, prev_t, pose1=p1[:, 6:],
+                    pose2=p2[:, 6:], **kw)
+            else:
+                rhs_wo = win_i[:, p_max + pt:]
+                new_n, new_t, d1, d2 = gs_math_block_rhs(
+                    pf2d[rows], pf_meta, num_pts, active, p1[:, :6],
+                    p2[:, :6], prev_n, prev_t, n_rhs_wo=rhs_wo, **kw)
+            new_cols = [new_n, new_t.reshape(w, -1), rhs_wo]
+        else:
+            view = SimpleNamespace(
+                cfm_factor=sorted_cons.cfm_factor[rows],
+                n_rhs=sorted_cons.n_rhs[rows], t_rhs=sorted_cons.t_rhs[rows],
+                num_points=sorted_cons.num_points[rows])
+            new_n, new_t, d1, d2 = gs_math_block(
+                pf2d[rows], pf_meta, view, active, p1, p2, prev_n, prev_t,
+                p_max=p_max, s_len=s_len)
+            new_cols = [new_n, new_t.reshape(w, -1)]
+        if chain is not None:
+            # both sides' updated rows go to this rung's own stream
+            # segment; pose columns ride through unchanged
+            seg0 = n_bodies + 2 * w_off
+            seg = buf[seg0:seg0 + 2 * w]
+            seg.copy_(pp)
+            seg[:w, :6] += d1
+            seg[w:, :6] += d2
+        else:
+            # the 2w rows are distinct by construction (ladder_rung_index),
+            # so the order of the adds cannot matter: the result is
+            # deterministic
+            buf.index_add_(0, scatter_rows, torch.cat([d1, d2]))
+        imp[rows] = torch.cat(new_cols, dim=1)
         w_off += w
-    packed = stream[last_writer]
-    vels = Velocity(packed[:, :3], packed[:, 3:6])
-    n_imp_s = imp[:, :p_max]
-    t_imp_s = imp[:, p_max:p_max + pt].reshape(t_imp_s.shape)
-    return vels, n_imp_s, t_imp_s, imp[:, p_max + pt:]
+    packed = buf[last_writer] if chain is not None else buf[:n_bodies]
+    out = (Velocity(packed[:, :3], packed[:, 3:6]), imp[:, :p_max],
+           imp[:, p_max:p_max + pt].reshape(t_imp_s.shape))
+    if rhs_mode is not None:
+        return out + (imp[:, p_max + pt:],)
+    return out
 
 
 # ---------------------------------------------------------------------------
-# Full TGS-soft solve, chained pair-slot configuration
+# Full TGS-soft solve under the window ladder
 # ---------------------------------------------------------------------------
 
 
-def _layout_sides(cons, colors, layout_valid, bodies: Bodies, *,
-                  max_colors: int, cmax: int, windows: tuple):
+def _layout_sides(cons, colors, bodies: Bodies, *, max_colors: int,
+                  cmax: int, windows: tuple, presorted: bool, layout_valid,
+                  chained: bool):
     """The solve bundle (order_padded, offsets, counts, side order, left,
-    right, chain src, last writer) and its offsets + counts on the host.
-    Depends only on the cached pair list, its colours and the body table,
-    never on per-frame contact data."""
+    right[, chain src, last writer]) and its offsets + counts on the host.
+
+    ``presorted``: the constraints are colour-major already, so the order
+    is the identity. ``layout_valid`` (pair slots) is the PAIR validity:
+    layout, sides and chain then cover every cached pair and read no
+    per-frame contact data, so the bundle can be cached while the
+    broad-phase cache holds."""
     dev = colors.device
     c_cap = cons.body_a.shape[0]
     n = bodies.num_bodies
-    lv = layout_valid
-    key = torch.where(lv, torch.clamp(colors, 0, max_colors),
-                      torch.full_like(colors, max_colors + 1))
-    counts = torch.zeros(max_colors + 2, dtype=torch.int64,
-                         device=dev).index_add_(0, key, lv.to(torch.int64))
-    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                         torch.cumsum(counts, 0)[:-1]])
-    order_padded = torch.cat([torch.arange(c_cap, device=dev),
-                              torch.full((cmax,), c_cap, dtype=torch.int64,
-                                         device=dev)])
-    dyn_bodies = bodies.is_dynamic()
-    dyn_a = dyn_bodies[cons.body_a]
-    dyn_b = dyn_bodies[cons.body_b]
+    if presorted:
+        lv = layout_valid if layout_valid is not None else cons.valid
+        key = torch.where(lv, torch.clamp(colors, 0, max_colors),
+                          torch.full_like(colors, max_colors + 1))
+        counts = torch.zeros(max_colors + 2, dtype=torch.int64,
+                             device=dev).index_add_(0, key,
+                                                    lv.to(torch.int64))
+        offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                             torch.cumsum(counts, 0)[:-1]])
+        order_padded = torch.cat([torch.arange(c_cap, device=dev),
+                                  torch.full((cmax,), c_cap,
+                                             dtype=torch.int64, device=dev)])
+    else:
+        order_padded, offsets, counts = build_color_layout(
+            colors, cons.valid, max_colors=max_colors, cmax=cmax)
+    if layout_valid is not None:
+        # dynamic flags from the body table, not from cons.im (the same
+        # bits: statics have zero inverse mass on every axis)
+        dyn_bodies = bodies.is_dynamic()
+        dyn_a, dyn_b = dyn_bodies[cons.body_a], dyn_bodies[cons.body_b]
+        lv_s = layout_valid
+    else:
+        dyn_a, dyn_b = _dyn_sides(cons)
+        lv_s = cons.valid
     idxp = torch.clamp(order_padded, max=c_cap - 1)
     padv = order_padded >= c_cap
     ba_p, bb_p = cons.body_a[idxp], cons.body_b[idxp]
     dyn_a_p, dyn_b_p = dyn_a[idxp], dyn_b[idxp]
-    sides = _build_sides(ba_p, bb_p, dyn_a_p, dyn_b_p,
-                         torch.where(padv, False, lv[idxp]), n)
+    bundle = (order_padded, offsets, counts) + _build_sides(
+        ba_p, bb_p, dyn_a_p, dyn_b_p, lv_s[idxp] & ~padv, n)
     off_h = host_list(torch.cat([offsets, counts]))
-    chain = build_gs_chain(ba_p, bb_p, dyn_a_p, dyn_b_p,
-                           off_h[:max_colors + 2], off_h[max_colors + 2:],
-                           windows, n)
-    return (order_padded, offsets, counts) + sides + chain, off_h
+    if chained:
+        bundle += build_gs_chain(ba_p, bb_p, dyn_a_p, dyn_b_p,
+                                 off_h[:max_colors + 2],
+                                 off_h[max_colors + 2:], windows, n)
+    return bundle, off_h
 
 
-def _bundle_shapes(c_cap, cmax, max_colors, n, windows):
-    return [(c_cap + cmax,), (max_colors + 2,), (max_colors + 2,),
-            (2 * (c_cap + cmax),), (n,), (n,), (2 * sum(windows),), (n,)]
+def _bundle_shapes(c_cap, cmax, max_colors, n, windows, chained: bool):
+    shapes = [(c_cap + cmax,), (max_colors + 2,), (max_colors + 2,),
+              (2 * (c_cap + cmax),), (n,), (n,)]
+    if chained:
+        shapes += [(2 * sum(windows),), (n,)]
+    return shapes
 
 
 def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           params: SimParams, *, max_colors: int,
           warmstart_from: ContactConstraints | None, gs_cmax: int,
-          colors_in: torch.Tensor, layout_valid: torch.Tensor,
-          stable_hint: bool | None, cache_in, gs_windows: tuple):
-    """Complete constraint solve for one frame of the chained pair-slot
-    configuration (``gs_windows`` + ``gs_chained`` + ``gs_rhs_in_rung`` +
-    ``gs_pair_slots``). Returns ``(poses, vels, constraints, max_class,
-    colors, solve_cache)``.
+          colors_in: torch.Tensor, gs_windows: tuple, layout_valid=None,
+          stable_hint: bool | None = None, cache_in=None,
+          presorted: bool = False, chained: bool = False,
+          rhs_in_rung: bool = False):
+    """Complete constraint solve for one frame under the window ladder
+    (``gs_windows``) with pre-coloured contacts (``colors_in``). Returns
+    ``(poses, vels, constraints, max_class, colors, solve_cache)``.
 
-    ``stable_hint`` is the host's "broad-phase cache hit" flag: pair slots
-    are then bitwise stable, so the cached bundle and the slotwise
-    warmstart apply."""
+    ``presorted``: the contacts (hence the constraints and ``colors_in``)
+    are colour-major already (pair slots, or
+    ``compact_contacts(sort_by_extra=True)``): identity layout, no field
+    sort. ``layout_valid`` (given exactly when contacts sit at their cached
+    pair slots) is the pair validity, and ``stable_hint`` (the host's
+    "broad-phase cache hit") then says the slots are bitwise stable.
+    Without pair slots that predicate is the bitwise equality of this
+    frame's pair keys with last frame's (one host sync). Stable slots reuse the cached
+    bundle and warmstart slot by slot; otherwise the bundle is rebuilt and
+    impulses transfer by key. ``chained`` selects the chained sweep,
+    ``rhs_in_rung`` (chained only) the in-kernel rhs rebuild."""
     sub = params.substep().with_dim(3)
     n = bodies.num_bodies
     dev = bodies.poses.translation.device
@@ -498,10 +725,19 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     cons = build_constraints(bodies.poses, bodies.vels, mprops, contacts,
                              params)
     same = None
-    if (stable_hint is not None and warmstart_from is not None
+    if (warmstart_from is not None
             and warmstart_from.body_a.shape == cons.body_a.shape):
-        same = bool(stable_hint)
+        if layout_valid is not None:
+            if stable_hint is not None:
+                same = bool(stable_hint)
+        else:
+            prev = warmstart_from
+            same = bool(host_int(torch.all(
+                pair_key(cons.body_a, cons.body_b, cons.valid)
+                == pair_key(prev.body_a, prev.body_b, prev.valid))))
     if warmstart_from is not None:
+        # slot i holds last frame's manifold exactly when the keys are
+        # stable (no mesh shapes here, whose manifolds re-pick triangles)
         if same:
             cons = slotwise_warmstart(cons, warmstart_from, params)
         else:
@@ -520,71 +756,104 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     windows = tuple(gs_windows[:max_colors])
     cmax = max(windows)
     c_cap = cons.body_a.shape[0]
+    use_rhs_rung = rhs_in_rung and chained
 
-    def fresh_bundle():
-        return _layout_sides(cons, colors, layout_valid, bodies,
-                             max_colors=max_colors, cmax=cmax,
-                             windows=windows)
-
-    if same and cache_in is not None and len(cache_in) == 8 and all(
-            tuple(x.shape) == s for x, s in zip(
-                cache_in, _bundle_shapes(c_cap, cmax, max_colors, n,
-                                         windows))):
+    if same and cache_in is not None and [tuple(x.shape) for x in
+                                          cache_in] == _bundle_shapes(
+            c_cap, cmax, max_colors, n, windows, chained):
         bundle = tuple(cache_in)
         off_h = host_list(torch.cat([bundle[1], bundle[2]]))
     else:
-        bundle, off_h = fresh_bundle()
-    layout_counts = bundle[2]
+        bundle, off_h = _layout_sides(
+            cons, colors, bodies, max_colors=max_colors, cmax=cmax,
+            windows=windows, presorted=presorted, layout_valid=layout_valid,
+            chained=chained)
+    order_padded, _, class_counts = bundle[:3]
     ws_sides = bundle[3:6]
-    chain = bundle[6:8]
+    chain = bundle[6:8] if chained else None
     layout_host = (off_h[:max_colors + 2], off_h[max_colors + 2:])
 
-    ss, packed_fields = pad_solver_fields_packed(cons, cmax)
+    # everything below lives in colour-sorted space for the whole solve
+    if presorted:
+        ss, packed_fields = pad_solver_fields_packed(cons, cmax)
+        n_imp_s = torch.cat([cons.n_impulse, torch.zeros(
+            (cmax,) + cons.n_impulse.shape[1:], device=dev)])
+        t_imp_s = torch.cat([cons.t_impulse, torch.zeros(
+            (cmax,) + cons.t_impulse.shape[1:], device=dev)])
+    else:
+        ss, packed_fields = sort_solver_fields_packed(cons, order_padded)
+        idx_s0 = torch.clamp(order_padded, max=c_cap - 1)
+        n_imp_s = cons.n_impulse[idx_s0]
+        t_imp_s = cons.t_impulse[idx_s0]
     total = ss.body_a.shape[0]
-    # per-rung active masks are substep-invariant: build them once
-    rung_active = {}
-    for ci, w in enumerate(windows, start=1):
-        if w:
-            start = min(max(layout_host[0][ci], 0), total - w)
-            rung_active[ci] = ((torch.arange(w, device=dev)
-                                < layout_host[1][ci])
-                               & ss.valid[start:start + w])
-    rhs_consts = (float(sub.inv_dt), float(sub.contact_erp_inv_dt),
-                  float(sub.allowed_linear_error),
-                  float(sub.max_corrective_velocity),
-                  float(sub.contact_cfm_factor))
     p_max = cons.n_impulse.shape[1]
-    n_imp_s = torch.cat([cons.n_impulse,
-                         torch.zeros((cmax, p_max), device=dev)])
-    t_imp_s = torch.cat([cons.t_impulse,
-                         torch.zeros((cmax,) + cons.t_impulse.shape[1:],
-                                     device=dev)])
+    # the per-rung masks and index tables are substep-invariant
+    rung_active = rung_active_masks(ss.valid, layout_host, windows)
+    sweep_kw = dict(packed_fields=packed_fields, rung_active=rung_active)
+    if chain is None:
+        sweep_kw["rung_index"] = ladder_rung_index(ss, layout_host, windows,
+                                                   n, rung_active)
     poses = bodies.poses
     com = bodies.local_mprops.com
+    if use_rhs_rung:
+        sweep_kw["rhs_consts"] = (
+            float(sub.inv_dt), float(sub.contact_erp_inv_dt),
+            float(sub.allowed_linear_error),
+            float(sub.max_corrective_velocity),
+            float(sub.contact_cfm_factor))
+    else:
+        cfm_biased = torch.full((total,), sub.contact_cfm_factor, device=dev)
+        cfm_one = torch.ones(total, device=dev)
     for _ in range(params.num_solver_iterations):
         vels = Velocity(vels.linear + inc, vels.angular)
+        if not use_rhs_rung:
+            # relinearize the rhs in sorted space, once per substep
+            n_rhs, n_rhs_wo_bias, t_rhs = update_rhs_sorted(ss, poses, sub)
         n_imp_s = n_imp_s * sub.warmstart_coefficient
         t_imp_s = t_imp_s * sub.warmstart_coefficient
         deltas = _ws_deltas(ss, n_imp_s, t_imp_s, ss.valid, p_max)
         vels = _ws_apply(vels, deltas, ws_sides)
-        pose_tab = torch.cat([poses.rotation, poses.translation,
-                              poses.scale[:, None]], dim=-1)
-        rhs0 = torch.zeros((total, p_max), device=dev)
-        vels, n_imp_s, t_imp_s, rhs_store = gs_color_major_pass(
-            ss, vels, n_imp_s, t_imp_s, layout_host, windows, chain,
-            rhs_mode="biased", packed_fields=packed_fields,
-            rhs_consts=rhs_consts, rhs_store=rhs0, pose_tab=pose_tab,
-            rung_active=rung_active)
-        poses = integrate_velocity(poses, vels, com, sub.dt)
-        vels, n_imp_s, t_imp_s, _ = gs_color_major_pass(
-            ss, vels, n_imp_s, t_imp_s, layout_host, windows, chain,
-            rhs_mode="unbiased", packed_fields=packed_fields,
-            rhs_consts=rhs_consts, rhs_store=rhs_store,
-            rung_active=rung_active)
-    cons = dataclasses.replace(cons, n_impulse=n_imp_s[:c_cap],
-                               t_impulse=t_imp_s[:c_cap])
-    class_counts = layout_counts
+        if use_rhs_rung:
+            pose_tab = torch.cat([poses.rotation, poses.translation,
+                                  poses.scale[:, None]], dim=-1)
+            vels, n_imp_s, t_imp_s, rhs_store = gs_color_major_pass(
+                ss, vels, n_imp_s, t_imp_s, layout_host, windows, chain,
+                rhs_mode="biased", pose_tab=pose_tab,
+                rhs_store=torch.zeros((total, p_max), device=dev),
+                **sweep_kw)
+            poses = integrate_velocity(poses, vels, com, sub.dt)
+            vels, n_imp_s, t_imp_s, _ = gs_color_major_pass(
+                ss, vels, n_imp_s, t_imp_s, layout_host, windows, chain,
+                rhs_mode="unbiased", rhs_store=rhs_store, **sweep_kw)
+        else:
+            biased = SimpleNamespace(**vars(ss))
+            biased.n_rhs, biased.t_rhs = n_rhs, t_rhs
+            biased.cfm_factor = cfm_biased
+            vels, n_imp_s, t_imp_s = gs_color_major_pass(
+                biased, vels, n_imp_s, t_imp_s, layout_host, windows, chain,
+                **sweep_kw)
+            poses = integrate_velocity(poses, vels, com, sub.dt)
+            unbiased = SimpleNamespace(**vars(ss))
+            unbiased.n_rhs, unbiased.t_rhs = n_rhs_wo_bias, ss.t_rhs_wo_bias
+            unbiased.cfm_factor = cfm_one
+            vels, n_imp_s, t_imp_s = gs_color_major_pass(
+                unbiased, vels, n_imp_s, t_imp_s, layout_host, windows,
+                chain, **sweep_kw)
+    # un-sort the impulses once (next frame's warmstart source)
+    if presorted:
+        n_imp, t_imp = n_imp_s[:c_cap], t_imp_s[:c_cap]
+    else:
+        # order_padded holds every slot once; its padding entries land on
+        # one extra row that is cut off
+        n_imp = torch.zeros((c_cap + 1,) + n_imp_s.shape[1:], device=dev)
+        t_imp = torch.zeros((c_cap + 1,) + t_imp_s.shape[1:], device=dev)
+        n_imp[order_padded] = n_imp_s
+        t_imp[order_padded] = t_imp_s
+        n_imp, t_imp = n_imp[:c_cap], t_imp[:c_cap]
+    cons = dataclasses.replace(cons, n_impulse=n_imp, t_impulse=t_imp)
     head = torch.amax(class_counts[1:max_colors + 1])
+    # uncoloured residue (segment 0 is not swept): report it through the
+    # head so the host regrows gs_cmax
     head = head + torch.where(class_counts[0] > 0, cmax + class_counts[0],
                               torch.zeros_like(head))
     max_class = torch.cat([torch.stack([head, torch.zeros_like(head)]),

@@ -1,16 +1,26 @@
 """One physics frame: mass properties → broad phase (slack cache, repair,
-refresh) → narrow phase → constraints → chained Gauss-Seidel solve →
-integration (counterpart of ``wgmath_tpu/pipeline.py``: ``PhysicsState``,
-``PipelineConfig``, ``step``, ``step_checked``, ``fine_bucket``).
+refresh) → narrow phase → constraints → Gauss-Seidel solve under the
+window ladder → integration (counterpart of ``wgmath_tpu/pipeline.py``:
+``PhysicsState``, ``PipelineConfig``, ``step``, ``step_checked``,
+``fine_bucket``).
 
 The JAX step is one jitted program whose branches are ``lax.cond`` /
 ``lax.switch``; here each branch is a Python branch on a host value (one
-counted host sync each, ``core.dispatch.host_int``). This slice runs the
-configuration the bench calls ``chained_ps``: the grid (or brute) broad
-phase with its ``bp_slack`` cache and cached pair colours, pair-slot
-contacts, the ``gs_windows`` ladder, ``gs_chained`` and
-``gs_rhs_in_rung``. ``step`` refuses any other flag with
-``NotImplementedError``.
+counted host sync each, ``core.dispatch.host_int``). ``step`` runs the
+grid (or brute) broad phase with its ``bp_slack`` cache and cached pair
+colours under the ``gs_windows`` ladder, in the four solver
+configurations the bench calls
+
+- ``ladder``: contacts compacted colour-major (``contact_capacity``), or
+  sorted in the solve when ``contact_capacity == 0``; gather and
+  unique-index scatter-add per rung;
+- ``chained`` (``gs_chained``): the same layout, velocity stream and
+  last-writer chain;
+- ``chained_rr`` (+ ``gs_rhs_in_rung``): the rhs rebuilt in the kernel;
+- ``chained_ps`` (+ ``gs_pair_slots``): contacts stay at their cached
+  colour-major pair slots.
+
+Any other solver flag is refused with ``NotImplementedError``.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -35,7 +45,10 @@ from wgmath_tpu_torch.core.dispatch import (
     host_list,
 )
 from wgmath_tpu_torch.dynamics.body import Bodies, update_mprops
-from wgmath_tpu_torch.dynamics.constraint import ContactConstraints
+from wgmath_tpu_torch.dynamics.constraint import (
+    ContactConstraints,
+    compact_contacts,
+)
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.dynamics.solver import (
     assign_new_pair_colors,
@@ -124,7 +137,7 @@ class PipelineConfig:
 
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
-    """Refuse every flag outside the chained pair-slot configuration."""
+    """Refuse every flag outside the window-ladder configurations."""
     bad = []
     if shard is not None:
         bad.append("shard")
@@ -142,16 +155,14 @@ def _check_slice(state: PhysicsState, config: PipelineConfig,
         bad.append("bp_min_color_sweeps")
     if config.bp_algo not in ("auto", "grid", "brute"):
         bad.append(f"bp_algo={config.bp_algo}")
-    if not (config.gs_windows and config.gs_chained and config.gs_rhs_in_rung
-            and config.gs_pair_slots):
-        bad.append("a solver other than gs_windows + gs_chained + "
-                   "gs_rhs_in_rung + gs_pair_slots")
+    if not config.gs_windows:
+        bad.append("no gs_windows ladder (uniform or split windows)")
     if not (config.bp_slack > 0 and config.gs_cmax > 0):
         bad.append("bp_slack <= 0 or gs_cmax == 0 (no cached pair colours)")
     if bad:
         raise NotImplementedError(
-            "wgmath_tpu_torch.pipeline.step covers the chained pair-slot "
-            "configuration only; refused: " + ", ".join(bad))
+            "wgmath_tpu_torch.pipeline.step covers the gs_windows ladder "
+            "with cached pair colours only; refused: " + ", ".join(bad))
 
 
 def new_state(bodies: Bodies, shapes: ShapeSet) -> PhysicsState:
@@ -179,6 +190,9 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     dyn_mask = bodies.is_dynamic()
     move_mask = bodies.is_moving()
     mc = config.max_colors
+    # pair-slot layout: the cached pair list is kept colour-major and the
+    # contacts stay at their pair slots
+    use_pair_slots = config.gs_pair_slots and config.gs_chained
 
     # velocity-aware slack, quantized to three levels so consecutive
     # refreshes reuse bitwise-identical thresholds
@@ -249,8 +263,14 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
             knobs_ok = (prev_tag[1] == config.gs_cmax
                         and prev_tag[2] == mc)
             cols = carry_colors(p, prev_p, prev_tag[0], knobs_ok)
-        p, tag = sort_pairs_cm(p, cols)
-        return p, (mn, mx), tag
+        return finish_bp(p, cols, (mn, mx))
+
+    def finish_bp(p, cols, ref):
+        if use_pair_slots:
+            p, tag = sort_pairs_cm(p, cols)
+        else:
+            tag = (cols, config.gs_cmax, mc, 0)
+        return p, ref, tag
 
     def repair_bp():
         """Recompute the pair rows of the bodies nearest their reference
@@ -302,8 +322,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         valid = torch.arange(cap, device=dev) < torch.clamp(total, max=cap)
         p = PairList(out_a, out_b, valid, count)
         cols_out = carry_colors(p, op, state.bp_colors[0], True)
-        p, tag = sort_pairs_cm(p, cols_out)
-        return p, (r0, r1), tag
+        return finish_bp(p, cols_out, (r0, r1))
 
     cache_ok = (state.bp_pairs is not None and state.bp_ref is not None
                 and state.bp_pairs.body_a.shape[0] == config.pair_capacity
@@ -312,8 +331,11 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         n_esc = host_int(torch.any((mins < state.bp_ref[0])
                                    | (maxs > state.bp_ref[1]), dim=1).sum())
         tag = state.bp_colors
-        knobs_ok = (tag[1] == config.gs_cmax and tag[2] == mc
-                    and len(tag) > 3 and tag[3] == 1)
+        knobs_ok = tag[1] == config.gs_cmax and tag[2] == mc
+        if use_pair_slots:
+            # the pair-slot layout needs a cached list sorted colour-major
+            # (flag 1); a cache written by another configuration refreshes
+            knobs_ok = knobs_ok and len(tag) > 3 and tag[3] == 1
         if knobs_ok and n_esc == 0:
             bp_path = 0
         elif (knobs_ok and config.bp_repair_cap > 0
@@ -340,17 +362,33 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         bodies.poses, state.shapes, pairs, params.prediction_distance,
         p_max=config.manifold_points or 4,
         bc_capacity=config.bc_pair_capacity)
-    contact_count = contacts.valid.sum()
+    contact_colors = bp_colors[0]
+    if use_pair_slots:
+        # no compaction: the constraint buffer spans pair_capacity and
+        # contact-invalid rows are masked in the solve
+        contact_count = contacts.valid.sum()
+        presorted = True
+    elif config.contact_capacity:
+        # colour-major compaction: the solve needs no sort of its own
+        contacts, contact_count, contact_colors = compact_contacts(
+            contacts, config.contact_capacity, extra=contact_colors,
+            sort_by_extra=True)
+        presorted = True
+    else:
+        contact_count = contacts.valid.sum()
+        presorted = False
     prev = state.prev_constraints if warmstart else None
     if prev is not None and prev.n_impulse.shape[1] != contacts.dist.shape[1]:
         prev = None
     poses, vels, cons, max_class, colors, solve_cache = solve(
         bodies, mprops, contacts, params, max_colors=mc,
         warmstart_from=prev, gs_cmax=config.gs_cmax,
-        colors_in=bp_colors[0], layout_valid=pairs.valid,
-        stable_hint=bp_path == 0,
+        colors_in=contact_colors, gs_windows=config.gs_windows,
+        layout_valid=pairs.valid if use_pair_slots else None,
+        stable_hint=bp_path == 0 if use_pair_slots else None,
         cache_in=state.solve_cache if warmstart else None,
-        gs_windows=config.gs_windows)
+        presorted=presorted, chained=config.gs_chained,
+        rhs_in_rung=config.gs_rhs_in_rung)
     new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
     head = torch.stack([pairs.count.to(torch.int64), contact_count,
                         max_class[0],
@@ -401,6 +439,10 @@ def step_checked(state: PhysicsState, params: SimParams,
     bucket = fine_bucket if config.fine_capacities else capacity_bucket
     if counts[0] > config.pair_capacity:
         regrow["pair_capacity"] = bucket(counts[0])
+    if (config.contact_capacity and not config.gs_pair_slots
+            and counts[1] > config.contact_capacity):
+        # (the pair-slot layout spans pair_capacity and ignores this knob)
+        regrow["contact_capacity"] = bucket(counts[1])
     if config.gs_cmax and counts[2] > config.gs_cmax:
         regrow["gs_cmax"] = capacity_bucket(counts[2], floor=256)
     for i, knob in ((5, "bc_pair_capacity"), (6, "sat_pair_capacity"),
