@@ -8,14 +8,20 @@ Three phases; any failed check ends the run with a non-zero exit:
 
 1. setup: the card's name and power limit, torch/CUDA versions, and the
    build of every hand-written kernel from ``wgmath_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together; the Triton kernel compiles at
+   its first launch);
 2. kernel: each kernel's wrapper against its plain PyTorch version on the
-   card, on seeded random inputs at the main path's shapes (max abs error,
-   tolerance, device time per launch);
-3. path: the settled 10k-body ball pit (``artifacts/ball_pit10k_settled
-   .npz``) stepped with ``step_checked`` under four solver configurations
-   of the bench: ``chained_ps`` and ``ladder`` under their stored warmed
-   configurations, frame by frame against the JAX package's reference
+   card, on seeded random inputs at the main paths' shapes (max abs error,
+   tolerance, device time per launch, its bound, and the one PyTorch call
+   that computes the same function where there is one);
+3. path: the linear-algebra paths of the bench at its own sizes (the chained
+   GEMM at n = 1024 and 4096 with ``gemm_split`` beside it, the GEMM ->
+   sqnorm -> normalize graph at n = 2048 through the module registry, and
+   the op-assign entry point at 2048 x 2048), each against the same chain
+   through the plain versions; then the settled 10k-body ball pit
+   (``artifacts/ball_pit10k_settled.npz``) stepped with ``step_checked``
+   under four solver configurations of the bench: ``chained_ps`` and
+   ``ladder`` under their stored warmed configurations, frame by frame against the JAX package's reference
    frames stored beside them; ``chained`` and ``chained_rr`` warmed on the
    card. Each is warmed by six frames and timed over further frames. Then
    the bench's own gates: ``chained_ps`` against ``ladder`` over three
@@ -31,6 +37,7 @@ Without a CUDA device the script exits 1 before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import statistics
@@ -50,16 +57,27 @@ from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 
+# the ops package re-exports functions under its submodules' names, so the
+# modules (which hold the launch counters) are fetched by their full names
+core_module = importlib.import_module("wgmath_tpu_torch.core.module")
+gemm_ops = importlib.import_module("wgmath_tpu_torch.ops.gemm")
+reduce_ops = importlib.import_module("wgmath_tpu_torch.ops.reduce")
+elementwise_ops = importlib.import_module("wgmath_tpu_torch.ops.elementwise")
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
 NPZ_LADDER = os.path.join(ROOT, "artifacts", "ball_pit10k_ladder.npz")
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and dense f32 (non-tensor) rate
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense f32 (non-tensor) rate, and
+# the dense tensor-core rates in TF32 and bf16
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 # the JAX package's own tolerance for this math (tests/test_physics.py)
 RTOL, ATOL = 1e-4, 1e-5
-KERNEL_SOURCES = ("gs_math", "gs_math_block")
+KERNEL_SOURCES = ("gs_math", "gs_math_block", "gemm", "gemm_split",
+                  "reduce")
 # frame-by-frame limits against the JAX reference: GS sums reorder on the
 # card, and a pure reordering alone moves velocities by ~3e-5 after one
 # step at 10k and ~3e-4 after two
@@ -292,9 +310,12 @@ def gs_block_work(L: int, p_max: int) -> tuple[int, int]:
             L * (GS_FLOPS_ROW + p_max * GS_FLOPS_UPDATE))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    """Least time for the work: its bytes at the memory rate or its
+    operations at the peak rate of their type, whichever is larger."""
     t_b = nbytes / HBM_BYTES_PER_S
-    t_f = flops / F32_FLOP_PER_S
+    t_f = flops / flop_rate
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
@@ -405,6 +426,501 @@ def kernel_phase(ladders: dict) -> dict:
         f"one substep of the ladder: {len(rungs)} rungs ({sum(rungs)} "
         f"rows) x 2 sweeps, P=1")
     return out
+
+
+# ---------------------------------------------------------------------------
+# linear-algebra layer: kernels B3 (gemm), B4 (gemm_split), B7 (reduce),
+# B8 (op_assign) and the bench's two paths through them
+# ---------------------------------------------------------------------------
+
+# the reference's golden tolerance for GEMM-class results, and what one
+# rounding to bf16 of sums taken in another order can differ by (one bf16
+# ulp is 2^-7 of the value)
+GEMM_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1.6e-2, 1e-2)}
+# gemm_split against an f64 product, as a share of the mean magnitude: the
+# JAX package's limits at K = 256 (tests/test_ops.py); at K = 4096 the f32
+# accumulation error of any f32 product grows by sqrt(4096 / 256) = 4
+# accumulation error of any f32 product grows by sqrt(4096 / 256) = 4, and
+# the worst of 65,536 entries gets a factor 2 (torch.matmul in f32 is
+# printed beside it as the yardstick)
+SPLIT_F64_LIMITS_K256 = {6: 5e-6, 3: 1e-3}
+SPLIT_F64_LIMITS_K4096 = {6: 4e-5, 3: 1e-3}
+# kernel against plain version, f32 terms added in another order: for sum
+# and sqnorm a share of the sum of the terms' magnitudes (the signed sum
+# itself nearly cancels), for prod a share of the result (4e6 factors near
+# 1; tests/test_ops.py gives prod 5e-3 at 4,096 factors), min and max exact
+REDUCE_TOL = {"sum": 1e-6, "sqnorm": 1e-6, "prod": 5e-3, "min": 0.0,
+              "max": 0.0}
+# Triton's f32 division is within 2 ulp of the rounded quotient
+OP_ASSIGN_RTOL = 1e-6
+GEMM_PATH_SIZES = ((1024, 64), (4096, 8))  # n, chained iterations K
+GEMM_SPLIT_ITERS = 4
+GRAPH_N, GRAPH_ITERS = 2048, 16
+REDUCE_N = GRAPH_N * GRAPH_N
+OP_ASSIGN_SHAPE = (2048, 2048)
+CHAIN_RTOL = 1e-3  # end of a chain against the plain chain, of max |value|
+
+
+def _cuda(x, dtype=np.float32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x.astype(dtype))).cuda()
+
+
+def _median_ms(fn) -> float:
+    return statistics.median(device_times_ms(fn))
+
+
+def _tol_ratio(got, want, rtol, atol) -> float:
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def gemm_work(nb, m, n, k, itemsize, passes=3, rate=TF32_FLOP_PER_S):
+    """(bytes, flops, bound ms, bound by, f32-pipe bound ms) of one product.
+    The bound is the card's least time for a result inside the reference's
+    tolerance: ``passes`` tensor-core passes at ``rate`` (3 x TF32 for f32
+    inputs, one bf16 pass for bf16 inputs). The f32-pipe bound is what a
+    kernel without tensor cores can reach."""
+    nbytes = nb * (m * k + k * n + m * n) * itemsize
+    flops = 2 * nb * m * n * k
+    b_ms, b_by = bound_ms(nbytes, passes * flops, rate)
+    return nbytes, flops, b_ms, b_by, bound_ms(nbytes, flops)[0]
+
+
+def _gemm_case(label, a, b, *, ta=False, tb=False, library=False) -> dict:
+    """B3 on one shape: agreement with ``gemm_torch`` and device times."""
+    kw = dict(transpose_a=ta, transpose_b=tb)
+    got = gemm_ops.gemm(a, b, impl="cuda", **kw)
+    want = gemm_ops.gemm_torch(a, b, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = GEMM_TOL[a.dtype]
+    err = float((got.float() - want.float()).abs().max())
+    ratio = _tol_ratio(got, want, rtol, atol)
+    m, k = gemm_ops._op_shape(a, ta)
+    n = gemm_ops._op_shape(b, tb)[1]
+    nb = max(a.numel() // (m * k), b.numel() // (k * n))
+    bf16 = a.dtype == torch.bfloat16
+    nbytes, flops, b_ms, b_by, fma_ms = gemm_work(
+        nb, m, n, k, a.element_size(), 1 if bf16 else 3,
+        BF16_FLOP_PER_S if bf16 else TF32_FLOP_PER_S)
+    k_ms = _median_ms(lambda: gemm_ops.gemm(a, b, **kw))
+    p_ms = _median_ms(lambda: gemm_ops.gemm_torch(a, b, **kw))
+    row = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_ms_f32_fma": fma_ms,
+           "tflops": flops / k_ms / 1e9, "library_ms": None}
+    lib = ""
+    if library:
+        # the one PyTorch call for the same function: matmul in full f32,
+        # and with TF32 allowed (what "default" may use), set for this
+        # timing only
+        row["library_ms"] = _median_ms(lambda: torch.matmul(a, b))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            row["library_tf32_ms"] = _median_ms(lambda: torch.matmul(a, b))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        lib = (f" matmul f32 {row['library_ms']:.4f} ms, tf32 "
+               f"{row['library_tf32_ms']:.4f} ms")
+    print(f"gemm {label} max|d|={err:.3e} tol-ratio {ratio:.3f} (rtol "
+          f"{rtol}, atol {atol}) kernel {k_ms:.4f} ms "
+          f"({row['tflops']:.2f} TFLOP/s) plain {p_ms:.4f} ms bound "
+          f"{b_ms:.4f} ms by {b_by} (f32 pipes {fma_ms:.4f} ms){lib}")
+    check(ratio <= 1.0 and bool(torch.isfinite(got.float()).all()),
+          f"gemm {label}: kernel disagrees with its plain version (max abs "
+          f"diff {err:.3e}, {ratio:.2f}x the tolerance)")
+    return row
+
+
+def gemm_kernel_phase(rng) -> dict:
+    rows = {}
+    for n in (1024, 2048, 4096):
+        a = _cuda(rng.normal(size=(n, n)))
+        b = _cuda(rng.normal(size=(n, n)) / np.sqrt(n))
+        rows[n] = _gemm_case(f"n={n} f32", a, b, library=True)
+    # the four transpose variants: at a small batched shape, and at a size
+    # where the arithmetic, not the launch, is the cost
+    for ta in (False, True):
+        for tb in (False, True):
+            tag = ("t" if ta else "n") + ("t" if tb else "n")
+            a = _cuda(rng.normal(size=(2, 256, 512) if ta else (2, 512, 256)))
+            b = _cuda(rng.normal(size=(2, 384, 256) if tb else (2, 256, 384)))
+            rows[tag] = _gemm_case(f"2x512x256.2x256x384 {tag} f32", a, b,
+                                   ta=ta, tb=tb)
+            a = _cuda(rng.normal(size=(2048, 2048)))
+            b = _cuda(rng.normal(size=(2048, 2048)) / np.sqrt(2048))
+            rows[tag + "2048"] = _gemm_case(f"n=2048 {tag} f32", a, b,
+                                            ta=ta, tb=tb)
+    a = _cuda(rng.normal(size=(3, 65, 100)))
+    rows["ragged"] = _gemm_case("3x65x100.3x100x49 f32 (ragged)", a,
+                                _cuda(rng.normal(size=(3, 100, 49))))
+    rows["broadcast"] = _gemm_case("3x65x100.100x49 f32 (one b for all)", a,
+                                   _cuda(rng.normal(size=(100, 49))))
+    rows["bf16"] = _gemm_case(
+        "4x512x384.4x384x256 bf16",
+        _cuda(rng.normal(size=(4, 512, 384))).bfloat16(),
+        _cuda(rng.normal(size=(4, 384, 256)) / np.sqrt(384)).bfloat16())
+    head = dict(rows[4096])
+    head["max_abs_err"] = max(r["max_abs_err"] for k, r in rows.items()
+                              if k != "bf16")
+    head["work"] = ("one 4096^3 f32 product (path 1); bound: 3 TF32 "
+                    "tensor-core passes, which meet the 1e-3 contract")
+    head["by_shape"] = {str(k): {f: r[f] for f in
+                                 ("ms", "plain_ms", "bound_ms",
+                                  "bound_ms_f32_fma", "tflops",
+                                  "library_ms", "max_abs_err")}
+                        for k, r in rows.items()}
+    return head
+
+
+def gemm_split_kernel_phase(rng) -> dict:
+    n = 4096
+    a = _cuda(rng.normal(size=(n, n)))
+    b = _cuda(rng.normal(size=(n, n)) / np.sqrt(n))
+    ap, bp = gemm_ops._split3(a), gemm_ops._split3(b)
+    check(torch.equal(ap.float().sum(0), a),
+          "gemm_split: the three planes do not sum back to the operand")
+    corner = a[:256].double() @ b[:, :256].double()
+    scale = float(corner.abs().mean())
+    lib_ms = _median_ms(lambda: torch.matmul(a, b))
+    lib_f64 = float((torch.matmul(a, b)[:256, :256].double() - corner)
+                    .abs().max()) / scale
+    out = {}
+    for passes in (6, 3):
+        got = gemm_ops.gemm_split(a, b, n_passes=passes)
+        want = gemm_ops._gemm_split_torch(ap, bp, passes)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ratio = _tol_ratio(got, want, 1e-5, 1e-5)
+        f64 = float((got[:256, :256].double() - corner).abs().max()) / scale
+        n_split = 3 if passes == 6 else 2
+        nbytes = 2 * n_split * 2 * n * n + 4 * n * n
+        flops = passes * 2 * n ** 3
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        k_ms = _median_ms(
+            lambda: gemm_ops._gemm_split_cuda(ap, bp, passes))
+        p_ms = _median_ms(
+            lambda: gemm_ops._gemm_split_torch(ap, bp, passes))
+        print(f"gemm_split n={n} passes={passes} max|d|={err:.3e} "
+              f"tol-ratio {ratio:.3f} (rtol 1e-5, atol 1e-5: f32 sums in "
+              f"another order) vs f64 on a 256^2 corner {f64:.3e} of the "
+              f"mean magnitude (limit {SPLIT_F64_LIMITS_K4096[passes]}; "
+              f"torch.matmul f32 reads {lib_f64:.3e}) kernel {k_ms:.3f} ms "
+              f"({flops / k_ms / 1e9:.2f} TFLOP/s of plane products) plain "
+              f"{p_ms:.3f} ms bound {b_ms:.4f} ms by {b_by} matmul f32 "
+              f"{lib_ms:.4f} ms")
+        check(ratio <= 1.0 and f64 <= SPLIT_F64_LIMITS_K4096[passes],
+              f"gemm_split passes={passes}: off its plain version by "
+              f"{err:.3e} or off the f64 product by {f64:.3e}")
+        out[passes] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": lib_ms, "f64_rel": f64}
+    # the JAX package's own check, at its own size
+    a2 = _cuda(rng.normal(size=(256, 256)))
+    b2 = _cuda(rng.normal(size=(256, 256)) / 16)
+    ref = a2.double() @ b2.double()
+    for passes in (6, 3):
+        f64 = float((gemm_ops.gemm_split(a2, b2, n_passes=passes).double()
+                     - ref).abs().max() / ref.abs().mean())
+        print(f"gemm_split n=256 passes={passes} vs f64 {f64:.3e} of the "
+              f"mean magnitude (limit {SPLIT_F64_LIMITS_K256[passes]})")
+        check(f64 <= SPLIT_F64_LIMITS_K256[passes],
+              f"gemm_split passes={passes} at 256: {f64:.3e} off f64")
+    head = dict(out[6])
+    head["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    head["work"] = ("one 4096^3 product in six bf16-plane passes (path 1); "
+                    "bound: six bf16 tensor-core passes")
+    head["three_passes"] = out[3]
+    return head
+
+
+_LIBRARY_REDUCE = {"sum": torch.sum, "prod": torch.prod, "min": torch.amin,
+                   "max": torch.amax, "sqnorm": lambda x: torch.dot(x, x)}
+
+
+def reduce_kernel_phase(rng) -> dict:
+    out = {}
+    for n in (REDUCE_N, 1_000_003):
+        # factors near 1 keep the product of n of them in range
+        x = _cuda(rng.uniform(0.999, 1.001, size=n)
+                  * rng.choice([-1.0, 1.0], size=n))
+        for op in reduce_ops._OPS:
+            got = reduce_ops.reduce(x, op, impl="cuda")
+            again = reduce_ops.reduce(x, op, impl="cuda")
+            want = reduce_ops._reduce_torch(x, op)
+            torch.cuda.synchronize()
+            err = abs(float(got) - float(want))
+            pre = reduce_ops._OPS[op][0]
+            scale = (abs(float(want)) if op in ("prod", "min", "max")
+                     else float(pre(x).abs().sum()))
+            tol = REDUCE_TOL[op] * scale
+            k_ms = _median_ms(lambda: reduce_ops.reduce(x, op))
+            p_ms = _median_ms(lambda: reduce_ops._reduce_torch(x, op))
+            l_ms = _median_ms(lambda: _LIBRARY_REDUCE[op](x))
+            b_ms, b_by = bound_ms(4 * n + 4, (2 if op == "sqnorm" else 1) * n)
+            print(f"reduce n={n} {op:6s} kernel {float(got):.7g} plain "
+                  f"{float(want):.7g} |d|={err:.3e} (limit {tol:.3e}) "
+                  f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us "
+                  f"library {l_ms * 1e3:.2f} us bound {b_ms * 1e3:.2f} us "
+                  f"by {b_by}")
+            check(np.isfinite(float(got)) and err <= tol,
+                  f"reduce {op} n={n}: kernel {float(got)} vs plain "
+                  f"{float(want)}")
+            check(bool(got == again),
+                  f"reduce {op} n={n}: two runs gave different bits")
+            out[(n, op)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": l_ms}
+    head = dict(out[(REDUCE_N, "sqnorm")])
+    head["work"] = (f"sqnorm of {REDUCE_N} f32 (path 2), input warm in L2 "
+                    "as after the product that wrote it")
+    head["by_op_us"] = {op: out[(REDUCE_N, op)]["ms"] * 1e3
+                        for op in reduce_ops._OPS}
+    return head
+
+
+def redirect_op():
+    """A caller's own redirect: any ``@triton.jit`` binary function."""
+    import triton
+
+    @triton.jit
+    def twice_plus(a, b):
+        return a * 2.0 + b
+
+    return twice_plus, (lambda a, b: a * 2.0 + b)
+
+
+_LIBRARY_OP = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+               "div": torch.div, "copy": lambda a, b: b.clone()}
+
+
+def op_assign_kernel_phase(rng) -> dict:
+    a = _cuda(rng.normal(size=OP_ASSIGN_SHAPE))
+    b = _cuda(np.abs(rng.normal(size=OP_ASSIGN_SHAPE)) + 0.5)
+    t0 = time.perf_counter()
+    elementwise_ops.op_assign_kernel(a, b, "add")
+    torch.cuda.synchronize()
+    print(f"op_assign: Triton compile and first launch "
+          f"{time.perf_counter() - t0:.2f} s")
+    jitted, plain = redirect_op()
+    out = {}
+    for op in list(elementwise_ops.VARIANTS) + ["redirect"]:
+        # copy never reads a
+        nbytes = (2 if op == "copy" else 3) * a.numel() * 4
+        k_op, p_op = (jitted, plain) if op == "redirect" else (op, op)
+        got = elementwise_ops.op_assign_kernel(a, b, k_op)
+        want = elementwise_ops.op_assign(a, b, p_op)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ratio = _tol_ratio(got, want, OP_ASSIGN_RTOL, 1e-30)
+        k_ms = _median_ms(
+            lambda: elementwise_ops.op_assign_kernel(a, b, k_op))
+        p_ms = _median_ms(lambda: elementwise_ops.op_assign(a, b, p_op))
+        l_ms = (_median_ms(lambda: _LIBRARY_OP[op](a, b))
+                if op in _LIBRARY_OP else None)
+        b_ms, b_by = bound_ms(nbytes, a.numel())
+        lib = "none" if l_ms is None else f"{l_ms * 1e3:.2f} us"
+        print(f"op_assign {OP_ASSIGN_SHAPE} {op:8s} max|d|={err:.3e} "
+              f"tol-ratio {ratio:.3f} (rtol {OP_ASSIGN_RTOL}) kernel "
+              f"{k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us library {lib} "
+              f"bound {b_ms * 1e3:.2f} us by {b_by} "
+              f"({nbytes / k_ms / 1e6:.0f} GB/s)")
+        check(ratio <= 1.0 and bool(torch.isfinite(got).all())
+              and got.shape == a.shape,
+              f"op_assign {op}: kernel disagrees with its plain version "
+              f"(max abs diff {err:.3e})")
+        out[op] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+    head = dict(out["add"])
+    head["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    head["work"] = "add over 2048 x 2048 f32 (the entry-point phase)"
+    head["by_op_us"] = {op: o["ms"] * 1e3 for op, o in out.items()}
+    return head
+
+
+def linalg_kernel_phase() -> dict:
+    rng = np.random.default_rng(20263)
+    return {"gemm": gemm_kernel_phase(rng),
+            "gemm_split": gemm_split_kernel_phase(rng),
+            "reduce": reduce_kernel_phase(rng),
+            "op_assign": op_assign_kernel_phase(rng)}
+
+
+LINALG_COUNTERS = (("gemm", gemm_ops, "LAUNCHES_GEMM"),
+                   ("gemm_split", gemm_ops, "LAUNCHES_GEMM_SPLIT"),
+                   ("reduce", reduce_ops, "LAUNCHES_REDUCE"),
+                   ("op_assign", elementwise_ops, "LAUNCHES_OP_ASSIGN"))
+
+
+def _zero_linalg_counts() -> None:
+    for _, mod, attr in LINALG_COUNTERS:
+        setattr(mod, attr, 0)
+    dispatch.HOST_SYNCS = 0
+
+
+def _linalg_counts() -> dict:
+    return {name: getattr(mod, attr) for name, mod, attr in LINALG_COUNTERS}
+
+
+def _chain_end_check(name: str, got, start, plain_body, iters: int) -> float:
+    """The end of the chain against the same chain through the plain
+    versions on the card, as a share of its largest value."""
+    want = start
+    for _ in range(iters):
+        want = plain_body(want)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(bool(torch.isfinite(got).all()) and got.shape == start.shape,
+          f"{name}: non-finite or misshapen end value")
+    check(rel <= CHAIN_RTOL,
+          f"{name}: end of the chain off the plain chain by {rel:.3e} of "
+          f"its largest value (limit {CHAIN_RTOL})")
+    return rel
+
+
+def chain_path(name: str, body, plain_body, start, iters: int, n: int,
+               expect: dict, profile_iters: int = 0, runs: int = 2) -> dict:
+    """One linear-algebra path: ``iters`` chained iterations of ``body``
+    from ``start`` after a warm-up, ``runs`` times, each whole chain between
+    two CUDA events. The counts are set to 0 just before the chains run and
+    read just after; ``expect`` gives the launches per iteration the path
+    must show (a kernel not named there must show none), and no host sync
+    is allowed. The end value is then held against the plain chain."""
+    c = start
+    for _ in range(2):
+        c = body(c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_linalg_counts()
+    times = []
+    for _ in range(runs):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        c = start
+        ev0.record()
+        for _ in range(iters):
+            c = body(c)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1) / iters)
+    launches, syncs = _linalg_counts(), dispatch.HOST_SYNCS
+    peak = torch.cuda.max_memory_allocated()
+    per_iter = {k: v / (runs * iters) for k, v in launches.items()}
+    check(all(per_iter[k] == expect.get(k, 0) for k in per_iter)
+          and syncs == 0,
+          f"{name}: {per_iter} launches per iteration and {syncs} host "
+          f"syncs (expected {expect} and no sync)")
+    rel = _chain_end_check(name, c, start, plain_body, iters)
+    tflops = [2 * n ** 3 / t / 1e9 for t in times]
+    out = {"ms_per_iteration": times, "iterations": iters, "tflops": tflops,
+           "launches": launches, "launches_per_iteration": per_iter,
+           "host_syncs_per_iteration": syncs / (runs * iters),
+           "end_vs_plain_chain": rel, "peak_mem_gb": peak / 1e9, "end": c}
+    extra = ""
+    if profile_iters:
+        box = [start]
+
+        def one():
+            box[0] = body(box[0])
+
+        prof = profile_window(one, profile_iters)
+        # the profiler stretches the host side: the busy share of the
+        # timed, unprofiled chain is kernel time over that chain's time
+        busy = prof["device_ms_per_step"] / statistics.median(times)
+        out.update(device_busy_share=busy,
+                   kernels_per_iteration=prof["kernels_per_step"],
+                   device_ms_per_iteration=prof["device_ms_per_step"],
+                   profile_top=prof["top"][:6])
+        extra = (f"; {prof['device_ms_per_step']:.4f} ms of kernel time in "
+                 f"{prof['kernels_per_step']:.1f} device kernels per "
+                 f"iteration (profiled window): device busy {busy:.3f}")
+    print(f"path {name}: {' / '.join(f'{t:.4f}' for t in times)} "
+          f"ms/iteration ({' / '.join(f'{f:.2f}' for f in tflops)} TFLOP/s "
+          f"as 2n^3/t) over {iters} chained iterations, {runs} runs; "
+          f"launches per iteration "
+          f"{ {k: v for k, v in per_iter.items() if v} }, {syncs} host "
+          f"syncs; end vs plain chain {rel:.2e} of the largest value (limit "
+          f"{CHAIN_RTOL}); peak memory {peak / 1e9:.3f} GB{extra}")
+    return out
+
+
+def linalg_path_phase() -> dict:
+    """The bench's GEMM section, its composition graph and the op-assign
+    entry point, through the port's public functions. Returns name ->
+    metrics with the launch counts of each path."""
+    paths = {}
+    rng = np.random.default_rng(0)  # the bench's seed for the GEMM section
+    for n, iters in GEMM_PATH_SIZES:
+        a = _cuda(rng.normal(size=(n, n)))
+        b = _cuda(rng.normal(size=(n, n)) / np.sqrt(n))
+        for prec in ("highest", "default"):
+            paths[f"gemm{n}_{prec}"] = chain_path(
+                f"gemm n={n} {prec}",
+                lambda c: gemm_ops.gemm(c, b, precision=prec),
+                lambda c: gemm_ops.gemm_torch(c, b), a, iters, n,
+                {"gemm": 1}, profile_iters=4 if prec == "highest" else 0)
+        if n != 4096:
+            continue
+        b_planes = gemm_ops._split3(b)
+        for passes in (6, 3):
+            paths[f"gemm_split{n}_{passes}"] = chain_path(
+                f"gemm_split n={n} passes={passes} (split included)",
+                lambda c: gemm_ops.gemm_split(c, b, n_passes=passes),
+                lambda c: gemm_ops._gemm_split_torch(
+                    gemm_ops._split3(c), b_planes, passes),
+                a, GEMM_SPLIT_ITERS, n, {"gemm_split": 1})
+
+    # composition graph: GEMM -> sqnorm -> normalize through the registry
+    ns = {}
+    ns.update(core_module.compose("linalg.gemm"))
+    ns.update(core_module.compose("linalg.reduce"))
+    gemm, reduce_ = ns["gemm"], ns["reduce"]
+    rng = np.random.default_rng(2)  # the bench's seed for this section
+    n = GRAPH_N
+    a = _cuda(rng.normal(size=(n, n)))
+    b = _cuda(rng.normal(size=(n, n)))
+
+    def graph(c):
+        c = gemm(c, b, precision="default")
+        s = reduce_(c.reshape(-1), "sqnorm")
+        return c * torch.rsqrt(s + 1e-12)
+
+    def graph_plain(c):
+        c = gemm_ops.gemm_torch(c, b)
+        s = reduce_ops._reduce_torch(c.reshape(-1), "sqnorm")
+        return c * torch.rsqrt(s + 1e-12)
+
+    g = paths["graph2048"] = chain_path(
+        "graph (gemm -> sqnorm -> normalize) n=2048", graph, graph_plain, a,
+        GRAPH_ITERS, n, {"gemm": 1, "reduce": 1}, profile_iters=8)
+    norm = float(reduce_ops._reduce_torch(g["end"].reshape(-1), "sqnorm"))
+    check(abs(norm - 1.0) <= 1e-4,
+          f"graph: the normalized end value has squared norm {norm}")
+    g["end_sqnorm"] = norm
+
+    # entry points off those paths: op_assign_kernel, five variants and one
+    # redirected function
+    rng = np.random.default_rng(3)
+    x = _cuda(rng.normal(size=OP_ASSIGN_SHAPE))
+    y = _cuda(np.abs(rng.normal(size=OP_ASSIGN_SHAPE)) + 0.5)
+    jitted, plain = redirect_op()
+    _zero_linalg_counts()
+    worst = 0.0
+    for k_op, p_op in [(v, v) for v in elementwise_ops.VARIANTS] + \
+            [(jitted, plain)]:
+        got = elementwise_ops.op_assign_kernel(x, y, k_op)
+        ratio = _tol_ratio(got, elementwise_ops.op_assign(x, y, p_op),
+                           OP_ASSIGN_RTOL, 1e-30)
+        check(ratio <= 1.0, f"op_assign entry point {k_op}: off its plain "
+              f"version by {ratio:.2f}x the tolerance")
+        worst = max(worst, ratio)
+    counts = _linalg_counts()
+    check(counts["op_assign"] == 6 and dispatch.HOST_SYNCS == 0,
+          f"op_assign entry points: {counts} launches")
+    paths["op_assign2048"] = {"launches": counts, "worst_tol_ratio": worst}
+    print(f"path op_assign {OP_ASSIGN_SHAPE}: {counts['op_assign']} "
+          f"launches (five variants and one redirect), worst tol-ratio "
+          f"{worst:.3f} (rtol {OP_ASSIGN_RTOL})")
+    for m in paths.values():
+        m.pop("end", None)
+    return paths
 
 
 def _envelopes(state) -> tuple[float, float]:
@@ -606,10 +1122,10 @@ def path_phase() -> dict:
     return runs
 
 
-def profile_window(state, cfg, params, frames: int = 3) -> dict:
+def profile_window(run_once, frames: int = 3) -> dict:
     """Device time by kernel and host time by operator over a short
-    steady window (informational: the checked numbers come from the
-    phases above)."""
+    steady window of ``frames`` calls of ``run_once`` (informational: the
+    checked numbers come from the phases above)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -620,7 +1136,7 @@ def profile_window(state, cfg, params, frames: int = 3) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(frames):
-                state, cfg = step_checked(state, params, cfg)
+                run_once()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         averages = prof.key_averages()
@@ -658,7 +1174,33 @@ KERNEL_TABLE = (
      "wgmath_tpu/dynamics/gs_pallas.py:246",
      "dynamics/gs_pallas.py:_gs_math_pallas_call"),
 )
+# name, route, source, file:line of the pallas_call, TPU function, and the
+# path whose launch count is the kernel's `launches`
+LINALG_KERNEL_TABLE = (
+    ("gemm", "cuda", "wgmath_tpu_torch/csrc/gemm.cu",
+     "wgmath_tpu/ops/gemm.py:196", "ops/gemm.py:_gemm_pallas",
+     "gemm4096_highest"),
+    ("gemm_split", "cuda", "wgmath_tpu_torch/csrc/gemm_split.cu",
+     "wgmath_tpu/ops/gemm.py:302", "ops/gemm.py:gemm_split",
+     "gemm_split4096_6"),
+    ("reduce", "cuda", "wgmath_tpu_torch/csrc/reduce.cu",
+     "wgmath_tpu/ops/reduce.py:74", "ops/reduce.py:_reduce_pallas",
+     "graph2048"),
+    ("op_assign", "triton", "wgmath_tpu_torch/ops/elementwise.py",
+     "wgmath_tpu/ops/elementwise.py:54",
+     "ops/elementwise.py:op_assign_pallas", "op_assign2048"),
+)
 CONFIGS = ("chained_ps", "ladder", "chained", "chained_rr")
+
+
+def _pit_stepper(state, cfg, params):
+    """One checked frame per call, carrying the state along."""
+    box = [state, cfg]
+
+    def one():
+        box[0], box[1] = step_checked(box[0], params, box[1])
+
+    return one
 
 
 def main() -> int:
@@ -673,6 +1215,8 @@ def main() -> int:
             cfg0 = json.loads(str(np.load(path)["config_json"]))
             ladders[name] = tuple(cfg0["gs_windows"][:cfg0["max_colors"]])
         summaries = kernel_phase(ladders)
+        summaries.update(linalg_kernel_phase())
+        linalg_paths = linalg_path_phase()
         runs = path_phase()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -682,7 +1226,7 @@ def main() -> int:
     for name in CONFIGS:
         paths[name] = runs[name]["metrics"]
         try:
-            prof = profile_window(*runs[name]["end"], params)
+            prof = profile_window(_pit_stepper(*runs[name]["end"], params))
             paths[name]["profile"] = prof
             # the profiler stretches the step: the busy share of the
             # timed, unprofiled step is kernel time over that step
@@ -691,7 +1235,8 @@ def main() -> int:
         except Exception as e:  # the profiler is untried on this machine
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
-    print(json.dumps({"paths": paths, "gates": runs["gates"]}))
+    print(json.dumps({"paths": paths, "linalg_paths": linalg_paths,
+                      "gates": runs["gates"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:
@@ -709,6 +1254,20 @@ def main() -> int:
             "bound_by": summary["bound_by"], "library_ms": None,
             "work": summary["work"],
         })
+    for name, route, source, replaces, tpu_source, path in \
+            LINALG_KERNEL_TABLE:
+        summary = summaries[name]
+        kernels.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "tpu_source": tpu_source,
+            "launches": linalg_paths[path]["launches"][name],
+            "launches_by_path": {p: m["launches"][name]
+                                 for p, m in linalg_paths.items()},
+            **summary,
+        })
+    for k in kernels:
+        check(k["launches"] > 0, f"kernel {k['name']} was launched no time "
+              "on its main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch version,
-and the port's own step on the card against the same step on the CPU.
+"""The port on the card: each CUDA or Triton kernel against its plain
+PyTorch version, and the port's own step on the card against the same step
+on the CPU.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so the machine with the card runs them without the repository's conftest::
@@ -15,12 +16,20 @@ import pytest
 import torch
 
 from chip_smoke import (
+    GEMM_TOL,
     NPZ,
     NPZ_LADDER,
+    OP_ASSIGN_RTOL,
+    REDUCE_TOL,
+    redirect_op,
+    elementwise_ops,
+    gemm_ops,
     gs_block_inputs,
     gs_block_plain,
     gs_math_inputs,
+    reduce_ops,
 )
+from wgmath_tpu_torch.core.module import compile_check
 from wgmath_tpu_torch.convert import state_from_arrays
 from wgmath_tpu_torch.dynamics import gs_math
 from wgmath_tpu_torch.dynamics.constraint import update_rhs_sorted
@@ -142,3 +151,168 @@ def test_pit10k_frames_on_card_match_cpu(path):
     np.testing.assert_allclose(
         sg.bodies.poses.translation.cpu().numpy(),
         sc.bodies.poses.translation.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# --- the linear-algebra kernels ---------------------------------------------
+
+
+def _normal(seed, *shape, scale=1.0, dtype=torch.float32):
+    x = np.random.default_rng(seed).normal(size=shape) * scale
+    return torch.from_numpy(x.astype(np.float32)).cuda().to(dtype)
+
+
+def _gemm_agrees(a, b, **kw):
+    launches = gemm_ops.LAUNCHES_GEMM
+    got = gemm_ops.gemm(a, b, impl="cuda", **kw)
+    want = gemm_ops.gemm_torch(a, b, **kw)
+    torch.cuda.synchronize()
+    assert gemm_ops.LAUNCHES_GEMM == launches + 1
+    assert got.dtype == a.dtype and got.shape == want.shape
+    rtol, atol = GEMM_TOL[a.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+def test_gemm_kernel_matches_plain_on_card_square(n):
+    _need_card()
+    _gemm_agrees(_normal(n, n, n), _normal(n + 1, n, n, scale=n ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta", [False, True])
+@pytest.mark.parametrize("tb", [False, True])
+def test_gemm_kernel_matches_plain_on_card_transposes(tb, ta):
+    _need_card()
+    a = _normal(1, *((2, 256, 512) if ta else (2, 512, 256)))
+    b = _normal(2, *((2, 384, 256) if tb else (2, 256, 384)))
+    _gemm_agrees(a, b, transpose_a=ta, transpose_b=tb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_a,shape_b,dtype", [
+    ((3, 65, 100), (3, 100, 49), torch.float32),  # ragged edges
+    ((3, 65, 100), (100, 49), torch.float32),  # one b for the whole batch
+    ((1, 1), (1, 1), torch.float32),
+    ((2, 3, 130, 17), (2, 3, 17, 257), torch.float32),  # two batch dims
+    ((4, 512, 384), (4, 384, 256), torch.bfloat16),
+    ((3, 65, 100), (3, 100, 49), torch.bfloat16),
+])
+def test_gemm_kernel_matches_plain_on_card_shapes(shape_a, shape_b, dtype):
+    _need_card()
+    k = shape_a[-1]
+    _gemm_agrees(_normal(3, *shape_a, dtype=dtype),
+                 _normal(4, *shape_b, scale=k ** -0.5, dtype=dtype))
+
+
+@pytest.mark.cuda
+def test_gemm_kernel_takes_strided_rows_without_a_copy():
+    _need_card()
+    wide = _normal(5, 300, 200)
+    _gemm_agrees(wide[:, :64], _normal(6, 64, 50))  # row stride 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_passes", [6, 3])
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (33, 70, 17)])
+def test_gemm_split_kernel_matches_plain_on_card(m, k, n, n_passes):
+    """f32 sums of exact bf16 products in another order."""
+    _need_card()
+    a, b = _normal(7, m, k), _normal(8, k, n, scale=k ** -0.5)
+    launches = gemm_ops.LAUNCHES_GEMM_SPLIT
+    got = gemm_ops.gemm_split(a, b, n_passes=n_passes)
+    want = gemm_ops._gemm_split_torch(gemm_ops._split3(a),
+                                      gemm_ops._split3(b), n_passes)
+    torch.cuda.synchronize()
+    assert gemm_ops.LAUNCHES_GEMM_SPLIT == launches + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4_194_304, 1_000_003, 1027, 1])
+@pytest.mark.parametrize("op", ["sum", "prod", "min", "max", "sqnorm"])
+def test_reduce_kernel_matches_plain_and_repeats_bitwise_on_card(op, n):
+    _need_card()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.uniform(0.999, 1.001, size=n)
+                          * rng.choice([-1.0, 1.0], size=n))
+                         .astype(np.float32)).cuda()
+    launches = reduce_ops.LAUNCHES_REDUCE
+    got = reduce_ops.reduce(x, op, impl="cuda")
+    again = reduce_ops.reduce(x, op)
+    want = reduce_ops._reduce_torch(x, op)
+    torch.cuda.synchronize()
+    assert reduce_ops.LAUNCHES_REDUCE == launches + 2
+    assert got.shape == () and got.dtype == torch.float32
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    pre = reduce_ops._OPS[op][0]
+    scale = (abs(float(want)) if op in ("prod", "min", "max")
+             else float(pre(x).abs().sum()))
+    assert abs(float(got) - float(want)) <= REDUCE_TOL[op] * scale
+
+
+@pytest.mark.cuda
+def test_reduce_kernel_nan_and_unaligned_views_on_card():
+    _need_card()
+    x = _normal(9, 10_001)
+    # a view that starts off the 16-byte grid takes the scalar loads
+    torch.testing.assert_close(reduce_ops.reduce(x[1:], "sum", impl="cuda"),
+                               reduce_ops._reduce_torch(x[1:], "sum"),
+                               rtol=1e-4, atol=1e-3)
+    x[77] = float("nan")
+    assert torch.isnan(reduce_ops.reduce(x, "min", impl="cuda"))
+    assert torch.isnan(reduce_ops.reduce(x, "max", impl="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div", "copy",
+                                "redirect"])
+@pytest.mark.parametrize("shape", [(2048, 2048), (3, 5, 7)])
+def test_op_assign_kernel_matches_plain_on_card(shape, op):
+    _need_card()
+    a = _normal(10, *shape)
+    b = _normal(11, *shape).abs() + 0.5
+    k_op, p_op = redirect_op() if op == "redirect" else (op, op)
+    launches = elementwise_ops.LAUNCHES_OP_ASSIGN
+    got = elementwise_ops.op_assign_kernel(a, b, k_op)
+    want = elementwise_ops.op_assign(a, b, p_op)
+    torch.cuda.synchronize()
+    assert elementwise_ops.LAUNCHES_OP_ASSIGN == launches + 1
+    assert got.shape == a.shape and got.dtype == a.dtype
+    torch.testing.assert_close(got, want, rtol=OP_ASSIGN_RTOL, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_op_assign_kernel_refuses_a_plain_callable_on_card():
+    _need_card()
+    a = _normal(12, 64)
+    with pytest.raises(TypeError, match="triton.jit"):
+        elementwise_ops.op_assign_kernel(a, a, lambda x, y: x + y)
+
+
+@pytest.mark.cuda
+def test_cuda_impl_raises_on_cpu_tensors():
+    _need_card()
+    a = torch.ones((4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        gemm_ops.gemm(a, a, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        reduce_ops.reduce(a, "sum", impl="cuda")
+    with pytest.raises(ValueError):
+        gemm_ops.gemm(a.cuda(), a.cuda(), precision="high", impl="cuda")
+    with pytest.raises(ValueError):
+        gemm_ops.gemm(a.cuda().double(), a.cuda().double(), impl="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", ["linalg.gemm", "linalg.reduce",
+                                 "linalg.op_assign"])
+def test_compile_check_launches_the_kernels_on_card(mod):
+    _need_card()
+    counters = ((gemm_ops, "LAUNCHES_GEMM"), (reduce_ops, "LAUNCHES_REDUCE"),
+                (elementwise_ops, "LAUNCHES_OP_ASSIGN"))
+    before = sum(getattr(m, a) for m, a in counters)
+    checked = compile_check(mod)
+    assert checked and sum(getattr(m, a) for m, a in counters) \
+        == before + len(checked)

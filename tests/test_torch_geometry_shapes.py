@@ -19,7 +19,9 @@ from wgmath_tpu.geometry import quat as jquat
 from wgmath_tpu.geometry import sim as jsim
 from wgmath_tpu.scenes.builders import ball_pit as jax_ball_pit
 from wgmath_tpu.shapes import shape as jshape
+from wgmath_tpu_torch import ops
 from wgmath_tpu_torch.core import dispatch as tdispatch
+from wgmath_tpu_torch.core import compile_check, view_of
 from wgmath_tpu_torch.dynamics import body as tbody
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import quat as tquat
@@ -165,6 +167,19 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a CUDA device is present: the default is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
         ball_pit(8)
+    # the linear-algebra entry points: an array that is not yet a tensor
+    # goes to the card, and compile_check runs there unless told otherwise
+    eye = np.eye(4, dtype=np.float32)
+    for call in (lambda: ops.gemm(eye, eye),
+                 lambda: ops.reduce(eye, "sum"),
+                 lambda: ops.op_assign_kernel(eye, eye, "add"),
+                 lambda: compile_check("linalg.gemm"),
+                 lambda: view_of(eye)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # a CPU tensor, or device="cpu", is the way to ask for the CPU
+    assert float(ops.reduce(torch.from_numpy(eye), "sum")) == 4.0
+    assert compile_check("linalg.reduce", device="cpu")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -178,6 +193,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "chip_smoke.gs_math_inputs, chip_smoke.gs_math_work\n"
+        "chip_smoke.linalg_kernel_phase, chip_smoke.linalg_path_phase\n"
+        "for m in ('core.module', 'core.tensor', 'core.testing',\n"
+        "          'ops.gemm', 'ops.reduce', 'ops.elementwise'):\n"
+        "    assert 'wgmath_tpu_torch.' + m in sys.modules, m\n"
+        "assert 'triton' not in sys.modules\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'wgmath_tpu'))\n"
         "assert not bad, bad\n"

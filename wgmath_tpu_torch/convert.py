@@ -7,6 +7,11 @@ fields by name only, so it accepts this package's ``PhysicsState`` and the
 JAX package's alike. :func:`state_from_arrays` builds this package's
 state from such a dict. Keys outside the state are ignored, so one ``.npz``
 can carry a state beside other arrays.
+
+The linear-algebra layer (``ops/``, ``core/tensor.py``) has no parameters
+and no state besides its operands, so it needs nothing here: a ``View`` is
+built from an array by ``core.tensor.view_of`` and read back by its
+``to_array``.
 """
 
 from __future__ import annotations

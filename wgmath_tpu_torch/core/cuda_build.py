@@ -12,7 +12,10 @@ reference. ``--fmad=false`` keeps every product rounded on its own, as in
 the plain PyTorch versions: the GS rhs rebuild subtracts two world points
 of the size of the pit (~20 m) to get a millimetre drift, and contracting
 either side into a fused multiply-add moves that drift by ~1e-6, which
-the 1/dt factor turns into a visible impulse difference.
+the 1/dt factor turns into a visible impulse difference. The flag is one
+for every source; the product kernels (``gemm.cu``, ``gemm_split.cu``)
+write ``fmaf()`` where they want the fused operation, which the flag does
+not touch.
 """
 
 from __future__ import annotations
@@ -87,6 +90,12 @@ def build_all(names) -> None:
     started = {n: _start(n) for n in names}
     for n, s in started.items():
         _finish(n, s)
+
+
+def drop_loaded() -> None:
+    """Forget every loaded library, so the next :func:`load` hashes its
+    source again and an edited ``.cu`` is rebuilt and picked up."""
+    _LIBS.clear()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -10,6 +10,10 @@ never a silent fallback.
 Every host read of a device value on the step path goes through
 :func:`host_int` / :func:`host_list`, so a run can count its host syncs
 (each ``lax.cond`` / ``lax.switch`` of the JAX step became one).
+
+:func:`as_tensor` and :func:`check_kernel_operand` are what the kernel
+wrappers of ``ops/`` share: array-likes go to the card, and a kernel is
+handed only what it can take.
 """
 
 from __future__ import annotations
@@ -52,6 +56,27 @@ def resolve_device(device=None) -> torch.device:
             "wgmath_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A tensor is returned as it is, on whatever device it lies; anything
+    else (numpy array, list, scalar) goes to ``device``, which defaults to
+    the card."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))
+
+
+def check_kernel_operand(x: torch.Tensor, what: str, dtypes) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of one of ``dtypes``:
+    what every hand-written kernel of ``ops/`` is given."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: a CUDA tensor expected, got one on "
+                         f"{x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{what}: dtype {x.dtype} not among {list(dtypes)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: contiguous tensor expected")
 
 
 def host_int(x) -> int:
