@@ -16,18 +16,25 @@ Three phases; any failed check ends the run with a non-zero exit:
    that computes the same function where there is one);
 3. path: the linear-algebra paths of the bench at its own sizes (the chained
    GEMM at n = 1024 and 4096 with ``gemm_split`` beside it, the GEMM ->
-   sqnorm -> normalize graph at n = 2048 through the module registry, and
-   the op-assign entry point at 2048 x 2048), each against the same chain
-   through the plain versions; then the settled 10k-body ball pit
+   sqnorm -> normalize graph at n = 2048 through the module registry, the
+   op-assign entry point at 2048 x 2048, and the chained GEMV at n = 4096,
+   plain and transposed), each against the same chain through the plain
+   versions; the bench's geometry section (the SoA quaternion rotate chain
+   and the component-major similarity chain at 1,000,000, against their
+   invariants and the same code on the CPU) and its raycast section
+   (100,000 rays against balls, cuboids and capsules, the first cast
+   against the JAX package's, stored in ``artifacts/rays100k_jax.npz``);
+   then the settled 10k-body ball pit
    (``artifacts/ball_pit10k_settled.npz``) stepped with ``step_checked``
    under four solver configurations of the bench: ``chained_ps`` and
-   ``ladder`` under their stored warmed configurations, frame by frame against the JAX package's reference
-   frames stored beside them; ``chained`` and ``chained_rr`` warmed on the
-   card. Each is warmed by six frames and timed over further frames. Then
-   the bench's own gates: ``chained_ps`` against ``ladder`` over three
-   steps from one warmed state, ``chained`` / ``chained_rr`` against the
-   ladder's end positions, and the kinetic-energy / penetration envelopes
-   of ``chained_ps`` against the ladder's.
+   ``ladder`` under their stored warmed configurations, frame by frame
+   against the JAX package's reference frames stored beside them;
+   ``chained`` and ``chained_rr`` warmed on the card. Each is warmed by six
+   frames and timed over further frames. Then the bench's own gates:
+   ``chained_ps`` against ``ladder`` over three steps from one warmed
+   state, ``chained`` / ``chained_rr`` against the ladder's end positions,
+   and the kinetic-energy / penetration envelopes of ``chained_ps``
+   against the ladder's.
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -55,18 +62,25 @@ from wgmath_tpu_torch.core import cuda_build, dispatch
 from wgmath_tpu_torch.dynamics import gs_math
 from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
+from wgmath_tpu_torch.geometry import quat
+from wgmath_tpu_torch.geometry import sim as sim_ops
+from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
+from wgmath_tpu_torch.queries import ray
+from wgmath_tpu_torch.shapes import shape as shp
 
 # the ops package re-exports functions under its submodules' names, so the
 # modules (which hold the launch counters) are fetched by their full names
 core_module = importlib.import_module("wgmath_tpu_torch.core.module")
 gemm_ops = importlib.import_module("wgmath_tpu_torch.ops.gemm")
+gemv_ops = importlib.import_module("wgmath_tpu_torch.ops.gemv")
 reduce_ops = importlib.import_module("wgmath_tpu_torch.ops.reduce")
 elementwise_ops = importlib.import_module("wgmath_tpu_torch.ops.elementwise")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
 NPZ_LADDER = os.path.join(ROOT, "artifacts", "ball_pit10k_ladder.npz")
+NPZ_RAYS = os.path.join(ROOT, "artifacts", "rays100k_jax.npz")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense f32 (non-tensor) rate, and
 # the dense tensor-core rates in TF32 and bf16
@@ -77,7 +91,7 @@ BF16_FLOP_PER_S = 989e12
 # the JAX package's own tolerance for this math (tests/test_physics.py)
 RTOL, ATOL = 1e-4, 1e-5
 KERNEL_SOURCES = ("gs_math", "gs_math_block", "gemm", "gemm_split",
-                  "reduce")
+                  "reduce", "gemv")
 # frame-by-frame limits against the JAX reference: GS sums reorder on the
 # card, and a pure reordering alone moves velocities by ~3e-5 after one
 # step at 10k and ~3e-4 after two
@@ -736,16 +750,98 @@ def op_assign_kernel_phase(rng) -> dict:
     return head
 
 
+# B5 / B6 against the plain version: f32 terms added in another order, as a
+# share of the sum of the terms' magnitudes of each output (as B7's sum)
+GEMV_TOL = 1e-5
+GEMV_N, GEMV_ITERS = 4096, 64
+# label, stored shape of A, shape of x: for A x, then for A^T x
+GEMV_SHAPES = {
+    False: (("4096^2", (4096, 4096), (4096,)),
+            ("1000x777 (ragged)", (1000, 777), (777,)),
+            ("5x64x96 (batched, one x for all)", (5, 64, 96), (96,)),
+            ("M=1", (1, 300), (300,)),
+            ("K=1", (300, 1), (1,))),
+    True: (("4096^2", (4096, 4096), (4096,)),
+           ("1000x777 (ragged)", (1000, 777), (1000,)),
+           ("5x64x96 (batched, one x for all)", (5, 64, 96), (64,)),
+           ("M=1", (300, 1), (300,)),
+           ("K=1", (1, 300), (1,))),
+}
+
+
+def gemv_work(a_shape) -> tuple:
+    """(bytes, operations) of one product over a stored ``[..., r, c]``:
+    A, x and y each moved once."""
+    *batch, r, c = a_shape
+    nb = int(np.prod(batch)) if batch else 1
+    return 4 * nb * (r * c + r + c), 2 * nb * r * c
+
+
+def _gemv_case(label, a, x, tr) -> dict:
+    """B5 (``tr`` False) or B6 on one shape: agreement with ``gemv_torch``
+    per output, two launches bit for bit, and device times."""
+    got = gemv_ops.gemv(a, x, transpose_a=tr, impl="cuda")
+    again = gemv_ops.gemv(a, x, transpose_a=tr, impl="cuda")
+    want = gemv_ops.gemv_torch(a, x, transpose_a=tr)
+    scale = gemv_ops.gemv_torch(a.abs(), x.abs(), transpose_a=tr)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ratio = float((diff / (GEMV_TOL * scale).clamp(min=1e-30)).max())
+    nbytes, flops = gemv_work(tuple(a.shape))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    k_ms = _median_ms(lambda: gemv_ops.gemv(a, x, transpose_a=tr))
+    p_ms = _median_ms(lambda: gemv_ops.gemv_torch(a, x, transpose_a=tr))
+    l_ms = None
+    if a.ndim == 2:  # the one library call: cuBLAS gemv
+        at = a.t() if tr else a
+        l_ms = _median_ms(lambda: torch.mv(at, x))
+    name = "gemv_tr" if tr else "gemv"
+    lib = "none" if l_ms is None else f"{l_ms * 1e3:.2f} us"
+    print(f"{name} {label} max|d|={err:.3e} tol-ratio {ratio:.3f} (1e-5 of "
+          f"sum |a x|) bitwise-repeatable {bool(torch.equal(got, again))} "
+          f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us torch.mv "
+          f"{lib} bound {b_ms * 1e3:.2f} us by {b_by} "
+          f"({nbytes / k_ms / 1e6:.0f} GB/s)")
+    check(ratio <= 1.0 and bool(torch.isfinite(got).all())
+          and got.shape == want.shape,
+          f"{name} {label}: kernel disagrees with its plain version (max "
+          f"abs diff {err:.3e}, {ratio:.2f}x the tolerance)")
+    check(torch.equal(got, again),
+          f"{name} {label}: two launches gave different bits")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+
+
+def gemv_kernel_phase(rng) -> dict:
+    out = {tr: {label: _gemv_case(label, _cuda(rng.normal(size=a_shape)),
+                                  _cuda(rng.normal(size=x_shape)), tr)
+                for label, a_shape, x_shape in cases}
+           for tr, cases in GEMV_SHAPES.items()}
+    heads = {}
+    for tr, name in ((False, "gemv"), (True, "gemv_tr")):
+        head = dict(out[tr]["4096^2"])
+        head["max_abs_err"] = max(r["max_abs_err"] for r in out[tr].values())
+        head["work"] = (f"one {'transposed ' if tr else ''}product at "
+                        f"4096^2 f32 (the gemv path)")
+        head["by_shape"] = out[tr]
+        heads[name] = head
+    return heads
+
+
 def linalg_kernel_phase() -> dict:
     rng = np.random.default_rng(20263)
     return {"gemm": gemm_kernel_phase(rng),
             "gemm_split": gemm_split_kernel_phase(rng),
             "reduce": reduce_kernel_phase(rng),
-            "op_assign": op_assign_kernel_phase(rng)}
+            "op_assign": op_assign_kernel_phase(rng),
+            **gemv_kernel_phase(rng)}
 
 
 LINALG_COUNTERS = (("gemm", gemm_ops, "LAUNCHES_GEMM"),
                    ("gemm_split", gemm_ops, "LAUNCHES_GEMM_SPLIT"),
+                   ("gemv", gemv_ops, "LAUNCHES_GEMV"),
+                   ("gemv_tr", gemv_ops, "LAUNCHES_GEMV_TR"),
                    ("reduce", reduce_ops, "LAUNCHES_REDUCE"),
                    ("op_assign", elementwise_ops, "LAUNCHES_OP_ASSIGN"))
 
@@ -760,44 +856,54 @@ def _linalg_counts() -> dict:
     return {name: getattr(mod, attr) for name, mod, attr in LINALG_COUNTERS}
 
 
-def _chain_end_check(name: str, got, start, plain_body, iters: int) -> float:
-    """The end of the chain against the same chain through the plain
-    versions on the card, as a share of its largest value."""
-    want = start
-    for _ in range(iters):
-        want = plain_body(want)
-    torch.cuda.synchronize()
-    rel = float((got - want).abs().max() / want.abs().max())
-    check(bool(torch.isfinite(got).all()) and got.shape == start.shape,
-          f"{name}: non-finite or misshapen end value")
-    check(rel <= CHAIN_RTOL,
-          f"{name}: end of the chain off the plain chain by {rel:.3e} of "
-          f"its largest value (limit {CHAIN_RTOL})")
-    return rel
+def _plain_chain_check(name: str, start, plain_body, iters: int):
+    """A ``check_end`` for :func:`chain_path`: the end of the chain against
+    the same chain through the plain versions on the card, as a share of
+    its largest value."""
+    def check_end(got) -> dict:
+        want = start
+        for _ in range(iters):
+            want = plain_body(want)
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(bool(torch.isfinite(got).all()) and got.shape == start.shape,
+              f"{name}: non-finite or misshapen end value")
+        check(rel <= CHAIN_RTOL,
+              f"{name}: end of the chain off the plain chain by {rel:.3e} of "
+              f"its largest value (limit {CHAIN_RTOL})")
+        print(f"path {name}: end vs plain chain {rel:.2e} of the largest "
+              f"value (limit {CHAIN_RTOL})")
+        return {"end_vs_plain_chain": rel}
+    return check_end
 
 
-def chain_path(name: str, body, plain_body, start, iters: int, n: int,
-               expect: dict, profile_iters: int = 0, runs: int = 2) -> dict:
-    """One linear-algebra path: ``iters`` chained iterations of ``body``
-    from ``start`` after a warm-up, ``runs`` times, each whole chain between
-    two CUDA events. The counts are set to 0 just before the chains run and
+def chain_path(name: str, body, start, iters: int, expect: dict, *,
+               rate: tuple, check_end, profile_iters: int = 0,
+               runs: int = 2) -> dict:
+    """One bench path: ``iters`` chained iterations of ``body`` from
+    ``start`` after a warm-up, ``runs`` times, each whole chain between two
+    CUDA events. The counts are set to 0 just before the chains run and
     read just after; ``expect`` gives the launches per iteration the path
     must show (a kernel not named there must show none), and no host sync
-    is allowed. The end value is then held against the plain chain."""
+    is allowed. ``rate`` is (unit, work of one iteration in that unit per
+    second); ``check_end`` holds the chain's end value and returns its
+    metrics."""
     c = start
     for _ in range(2):
         c = body(c)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_linalg_counts()
-    times = []
+    times, host = [], []
     for _ in range(runs):
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         c = start
+        t0 = time.perf_counter()
         ev0.record()
         for _ in range(iters):
             c = body(c)
         ev1.record()
+        host.append((time.perf_counter() - t0) * 1e3 / iters)
         torch.cuda.synchronize()
         times.append(ev0.elapsed_time(ev1) / iters)
     launches, syncs = _linalg_counts(), dispatch.HOST_SYNCS
@@ -807,12 +913,15 @@ def chain_path(name: str, body, plain_body, start, iters: int, n: int,
           and syncs == 0,
           f"{name}: {per_iter} launches per iteration and {syncs} host "
           f"syncs (expected {expect} and no sync)")
-    rel = _chain_end_check(name, c, start, plain_body, iters)
-    tflops = [2 * n ** 3 / t / 1e9 for t in times]
-    out = {"ms_per_iteration": times, "iterations": iters, "tflops": tflops,
-           "launches": launches, "launches_per_iteration": per_iter,
+    unit, work = rate
+    rates = [work / (t / 1e3) for t in times]
+    out = {"ms_per_iteration": times, "host_enqueue_ms_per_iteration": host,
+           "iterations": iters, "rate": rates,
+           "rate_unit": unit, "launches": launches,
+           "launches_per_iteration": per_iter,
            "host_syncs_per_iteration": syncs / (runs * iters),
-           "end_vs_plain_chain": rel, "peak_mem_gb": peak / 1e9, "end": c}
+           "peak_mem_gb": peak / 1e9}
+    out.update(check_end(c))
     extra = ""
     if profile_iters:
         box = [start]
@@ -831,13 +940,12 @@ def chain_path(name: str, body, plain_body, start, iters: int, n: int,
         extra = (f"; {prof['device_ms_per_step']:.4f} ms of kernel time in "
                  f"{prof['kernels_per_step']:.1f} device kernels per "
                  f"iteration (profiled window): device busy {busy:.3f}")
-    print(f"path {name}: {' / '.join(f'{t:.4f}' for t in times)} "
-          f"ms/iteration ({' / '.join(f'{f:.2f}' for f in tflops)} TFLOP/s "
-          f"as 2n^3/t) over {iters} chained iterations, {runs} runs; "
-          f"launches per iteration "
-          f"{ {k: v for k, v in per_iter.items() if v} }, {syncs} host "
-          f"syncs; end vs plain chain {rel:.2e} of the largest value (limit "
-          f"{CHAIN_RTOL}); peak memory {peak / 1e9:.3f} GB{extra}")
+    print(f"path {name}: {' / '.join(f'{t:.5f}' for t in times)} "
+          f"ms/iteration ({' / '.join(f'{r:.2f}' for r in rates)} {unit}) "
+          f"over {iters} chained iterations, {runs} runs (host enqueue "
+          f"{' / '.join(f'{h:.5f}' for h in host)} ms/iteration); launches per "
+          f"iteration { {k: v for k, v in per_iter.items() if v} }, {syncs} "
+          f"host syncs; peak memory {peak / 1e9:.3f} GB{extra}")
     return out
 
 
@@ -851,21 +959,26 @@ def linalg_path_phase() -> dict:
         a = _cuda(rng.normal(size=(n, n)))
         b = _cuda(rng.normal(size=(n, n)) / np.sqrt(n))
         for prec in ("highest", "default"):
+            name = f"gemm n={n} {prec}"
             paths[f"gemm{n}_{prec}"] = chain_path(
-                f"gemm n={n} {prec}",
-                lambda c: gemm_ops.gemm(c, b, precision=prec),
-                lambda c: gemm_ops.gemm_torch(c, b), a, iters, n,
-                {"gemm": 1}, profile_iters=4 if prec == "highest" else 0)
+                name, lambda c: gemm_ops.gemm(c, b, precision=prec), a,
+                iters, {"gemm": 1}, rate=("TFLOP/s", 2 * n ** 3 / 1e12),
+                check_end=_plain_chain_check(
+                    name, a, lambda c: gemm_ops.gemm_torch(c, b), iters),
+                profile_iters=4 if prec == "highest" else 0)
         if n != 4096:
             continue
         b_planes = gemm_ops._split3(b)
         for passes in (6, 3):
+            name = f"gemm_split n={n} passes={passes} (split included)"
             paths[f"gemm_split{n}_{passes}"] = chain_path(
-                f"gemm_split n={n} passes={passes} (split included)",
-                lambda c: gemm_ops.gemm_split(c, b, n_passes=passes),
-                lambda c: gemm_ops._gemm_split_torch(
-                    gemm_ops._split3(c), b_planes, passes),
-                a, GEMM_SPLIT_ITERS, n, {"gemm_split": 1})
+                name, lambda c: gemm_ops.gemm_split(c, b, n_passes=passes),
+                a, GEMM_SPLIT_ITERS, {"gemm_split": 1},
+                rate=("TFLOP/s", 2 * n ** 3 / 1e12),
+                check_end=_plain_chain_check(
+                    name, a, lambda c: gemm_ops._gemm_split_torch(
+                        gemm_ops._split3(c), b_planes, passes),
+                    GEMM_SPLIT_ITERS))
 
     # composition graph: GEMM -> sqnorm -> normalize through the registry
     ns = {}
@@ -887,13 +1000,19 @@ def linalg_path_phase() -> dict:
         s = reduce_ops._reduce_torch(c.reshape(-1), "sqnorm")
         return c * torch.rsqrt(s + 1e-12)
 
-    g = paths["graph2048"] = chain_path(
-        "graph (gemm -> sqnorm -> normalize) n=2048", graph, graph_plain, a,
-        GRAPH_ITERS, n, {"gemm": 1, "reduce": 1}, profile_iters=8)
-    norm = float(reduce_ops._reduce_torch(g["end"].reshape(-1), "sqnorm"))
-    check(abs(norm - 1.0) <= 1e-4,
-          f"graph: the normalized end value has squared norm {norm}")
-    g["end_sqnorm"] = norm
+    name = "graph (gemm -> sqnorm -> normalize) n=2048"
+    vs_plain = _plain_chain_check(name, a, graph_plain, GRAPH_ITERS)
+
+    def graph_end(c) -> dict:
+        norm = float(reduce_ops._reduce_torch(c.reshape(-1), "sqnorm"))
+        check(abs(norm - 1.0) <= 1e-4,
+              f"graph: the normalized end value has squared norm {norm}")
+        return {"end_sqnorm": norm, **vs_plain(c)}
+
+    paths["graph2048"] = chain_path(
+        name, graph, a, GRAPH_ITERS, {"gemm": 1, "reduce": 1},
+        rate=("TFLOP/s", 2 * n ** 3 / 1e12), check_end=graph_end,
+        profile_iters=8)
 
     # entry points off those paths: op_assign_kernel, five variants and one
     # redirected function
@@ -918,9 +1037,297 @@ def linalg_path_phase() -> dict:
     print(f"path op_assign {OP_ASSIGN_SHAPE}: {counts['op_assign']} "
           f"launches (five variants and one redirect), worst tol-ratio "
           f"{worst:.3f} (rtol {OP_ASSIGN_RTOL})")
-    for m in paths.values():
-        m.pop("end", None)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# the bench's gemv, geometry and raycast sections: kernels B5 (gemv) and B6
+# (gemv_tr), and the plain tensor code of the quaternion / similarity SoA
+# paths and the ray casts
+# ---------------------------------------------------------------------------
+
+GEOM_N, ROT_ITERS, SIM_ITERS = 1_000_000, 128, 16
+# rotations keep norms, renormalized quaternions stay unit: both within
+# GEOM_UNIT_TOL after the chain. The first GEOM_CPU_ROWS rows after
+# GEOM_CPU_ITERS iterations equal the same code on the CPU within
+# ROT_CPU_TOL: every op of the rotate chain rounds once on both. The
+# similarity chain renormalizes with rsqrt, which the card computes within
+# 2 ulp and the CPU correctly rounded; a 2-ulp rsqrt put into the CPU run
+# moves its translations (up to 12 in size) by up to 4.4e-6 of
+# (1 + |t|) after 4 iterations, hence SIM_CPU_TOL
+GEOM_UNIT_TOL = 1e-4
+GEOM_CPU_ROWS, GEOM_CPU_ITERS = 65_536, 4
+ROT_CPU_TOL, SIM_CPU_TOL = 1e-6, 1e-5
+RAY_N, RAY_ITERS = 100_000, 32
+# the card's first cast against the JAX package's: the same hit mask, and
+# times within RAY_RTOL / RAY_ATOL where both hit. Where float32 cannot
+# settle a ray, the float64 time of the same cast decides: a ray that
+# grazes its shape (its hit mask or time moves when the shape grows or
+# shrinks by RAY_GRAZE of its size) may differ, its time within
+# RAY_F64_RTOL of the float64 time; two times that are both within the
+# tolerance of the float64 time may differ by up to twice it. The bench's
+# quaternions and directions are scaled by one matrix norm, not normalized
+# per row, so |d| goes down to 3e-7 and t up to 1e6. Such rays are counted.
+RAY_RTOL = RAY_ATOL = 1e-5
+RAY_GRAZE = 1e-5
+RAY_F64_RTOL = 1e-4
+
+
+def gemv_path_phase() -> dict:
+    """The bench's gemv section: K chained ``v <- gemv(A, v)`` at n = 4096
+    (B5), the same chain transposed (B6), and cuBLAS's gemv beside them."""
+    rng = np.random.default_rng(0)  # the bench's seed for this section
+    n = GEMV_N
+    a = _cuda(rng.normal(size=(n, n)) / 64.0)
+    x = _cuda(rng.normal(size=(n,)))
+    rate = ("GB/s", (n * n + 2 * n) * 4 / 1e9)
+    paths = {}
+    for tr, key in ((False, "gemv4096"), (True, "gemv_tr4096")):
+        name = f"gemv n={n}{' transposed' if tr else ''}"
+        paths[key] = chain_path(
+            name, lambda v: gemv_ops.gemv(a, v, transpose_a=tr), x,
+            GEMV_ITERS, {"gemv_tr" if tr else "gemv": 1}, rate=rate,
+            check_end=_plain_chain_check(
+                name, x, lambda v: gemv_ops.gemv_torch(a, v, transpose_a=tr),
+                GEMV_ITERS),
+            profile_iters=8)
+    for tr, key in ((False, "torch_mv4096"), (True, "torch_mv_tr4096")):
+        at = a.t() if tr else a
+        name = f"torch.mv n={n}{' transposed' if tr else ''} (yardstick)"
+        paths[key] = chain_path(
+            name, lambda v: torch.mv(at, v), x, GEMV_ITERS, {}, rate=rate,
+            check_end=_plain_chain_check(
+                name, x, lambda v: gemv_ops.gemv_torch(a, v, transpose_a=tr),
+                GEMV_ITERS))
+    return paths
+
+
+def _cpu_rows_check(name, card, cpu, tol) -> float:
+    """Largest |card - cpu| / (1 + |cpu|) over matching rows, checked
+    against ``tol``."""
+    worst = 0.0
+    for g, w in zip(card, cpu):
+        g = g.cpu()
+        worst = max(worst, float(((g - w).abs() / (1.0 + w.abs())).max()))
+    check(worst <= tol,
+          f"{name}: the first {GEOM_CPU_ROWS} rows after {GEOM_CPU_ITERS} "
+          f"iterations are off the CPU by {worst:.3e} (limit {tol})")
+    return worst
+
+
+def geometry_path_phase() -> dict:
+    """The bench's geometry section at n = 1,000,000: the SoA rotate chain
+    (``split_soa`` once, K x ``mul_vec_soa``) and the similarity chain
+    (``to_cm`` once, K x ``normalize_rotation(mul(s, inv(s0)))`` with the
+    scale clipped). Both are plain tensor code."""
+    rng = np.random.default_rng(1)  # the bench's seed for this section
+    n = GEOM_N
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    rows = slice(0, GEOM_CPU_ROWS)
+    rate = ("Gop/s", n / 1e9)
+    paths = {}
+
+    def rotate_chain(qt, vt, iters):
+        qs = quat.split_soa(qt)
+        out = quat.split_soa(vt)
+        for _ in range(iters):
+            out = quat.mul_vec_soa(qs, out)
+        return out
+
+    qs = quat.split_soa(_cuda(q))
+    v0 = _cuda(v)
+    norm0 = torch.linalg.norm(v0, dim=-1)
+
+    def rotate_end(c) -> dict:
+        end = quat.merge_soa(c)
+        drift = float(((torch.linalg.norm(end, dim=-1) - norm0).abs()
+                       / norm0).max())
+        check(bool(torch.isfinite(end).all()) and end.shape == v0.shape
+              and drift <= GEOM_UNIT_TOL,
+              f"rotate: norms drift by {drift:.3e} after {ROT_ITERS} "
+              f"rotations (limit {GEOM_UNIT_TOL})")
+        cpu = _cpu_rows_check(
+            "rotate",
+            [r[rows] for r in rotate_chain(_cuda(q), v0, GEOM_CPU_ITERS)],
+            rotate_chain(torch.from_numpy(q[rows]), torch.from_numpy(v[rows]),
+                         GEOM_CPU_ITERS), ROT_CPU_TOL)
+        print(f"path rotate: norm drift {drift:.3e} after {ROT_ITERS} "
+              f"(limit {GEOM_UNIT_TOL}); card vs CPU {cpu:.3e} (limit "
+              f"{ROT_CPU_TOL})")
+        return {"norm_drift": drift, "vs_cpu": cpu}
+
+    paths["quat_rotate_1m"] = chain_path(
+        f"quat rotate SoA n={n}", lambda c: quat.mul_vec_soa(qs, c),
+        quat.split_soa(v0), ROT_ITERS, {}, rate=rate, check_end=rotate_end,
+        profile_iters=4)
+
+    def sim_start(qt, vt):
+        return sim_ops.to_cm(Sim(qt, vt, torch.ones(qt.shape[0],
+                                                    device=qt.device)))
+
+    def sim_body(s0):
+        def body(s):
+            out = sim_ops.normalize_rotation(sim_ops.mul(s, sim_ops.inv(s0)))
+            return Sim(out.rotation, out.translation,
+                       torch.clamp(out.scale, 0.5, 2.0), cm=True)
+        return body
+
+    def sim_chain(qt, vt, iters):
+        s0 = sim_start(qt, vt)
+        s, body = s0, sim_body(s0)
+        for _ in range(iters):
+            s = body(s)
+        return s
+
+    s0 = sim_start(_cuda(q), v0)
+
+    def sim_end(c) -> dict:
+        x, y, z, w = c.rotation
+        unit = float((torch.sqrt(x * x + y * y + z * z + w * w) - 1.0)
+                     .abs().max())
+        finite = all(bool(torch.isfinite(r).all())
+                     for r in (*c.rotation, *c.translation, c.scale))
+        check(finite and unit <= GEOM_UNIT_TOL,
+              f"sim3: quaternions off unit by {unit:.3e} after {SIM_ITERS} "
+              f"compositions (limit {GEOM_UNIT_TOL})")
+        card = sim_chain(_cuda(q), v0, GEOM_CPU_ITERS)
+        cpu = sim_chain(torch.from_numpy(q[rows]), torch.from_numpy(v[rows]),
+                        GEOM_CPU_ITERS)
+        err = _cpu_rows_check(
+            "sim3", [r[rows] for r in (*card.rotation, *card.translation,
+                                       card.scale)],
+            (*cpu.rotation, *cpu.translation, cpu.scale), SIM_CPU_TOL)
+        print(f"path sim3: |q| off 1 by {unit:.3e} after {SIM_ITERS} "
+              f"(limit {GEOM_UNIT_TOL}); card vs CPU {err:.3e} (limit "
+              f"{SIM_CPU_TOL})")
+        return {"unit_drift": unit, "vs_cpu": err}
+
+    paths["sim3_compose_inv_1m"] = chain_path(
+        f"sim3 compose-inverse cm n={n}", sim_body(s0), s0, SIM_ITERS, {},
+        rate=rate, check_end=sim_end, profile_iters=4)
+    return paths
+
+
+def ray_bench_arrays(n: int = RAY_N, seed: int = 3) -> dict:
+    """The bench's raycast inputs (``bench.py`` ``bench_rays``), drawn by
+    the same numpy calls in the same order: tags, params, poses, origins
+    and unit directions as numpy arrays. ``scripts/export_rays_npz.py``
+    builds the JAX side from the same arrays."""
+    rng = np.random.default_rng(seed)
+    tags = rng.integers(0, 3, n)
+    radii = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    params = np.zeros((n, 8), np.float32)
+    params[:, 0] = radii
+    params[tags == 1, :3] = rng.uniform(0.2, 1.0,
+                                        (int((tags == 1).sum()), 3))
+    params[tags == 2, 1] = 0.3
+    tag = np.where(tags == 1, shp.CUBOID,
+                   np.where(tags == 2, shp.CAPSULE, shp.BALL))
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, -1, keepdims=True)
+    centers = rng.normal(size=(n, 3)).astype(np.float32) * 2
+    origins = centers + rng.normal(size=(n, 3)).astype(np.float32) * 5
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, -1, keepdims=True)
+    return {"tag": tag.astype(np.int32), "params": params, "rotation": q,
+            "translation": centers, "scale": np.ones((n,), np.float32),
+            "origins": origins, "dirs": dirs}
+
+
+def ray_scene(z: dict, device, dtype=torch.float32, params_scale=1.0):
+    """(shapes, poses, origins, dirs) of :func:`ray_bench_arrays` output as
+    the bench builds them: a ``ShapeSet`` with the default ``kinds``."""
+    def t(key):
+        return torch.from_numpy(np.asarray(z[key])).to(device, dtype)
+
+    shapes = shp.ShapeSet(
+        torch.from_numpy(z["tag"]).to(device, torch.int64),
+        t("params") * params_scale, torch.zeros((0, 3), device=device),
+        torch.zeros((0, 3), dtype=torch.int64, device=device))
+    poses = Sim(t("rotation"), t("translation"), t("scale"))
+    return shapes, poses, t("origins"), t("dirs")
+
+
+def _ray_conditioning(z: dict, idx: np.ndarray):
+    """For the rays ``idx``, in float64 on the CPU: their time of the same
+    cast, and whether they graze their shape."""
+    sub = {k: v[idx] for k, v in z.items()}
+    t64 = ray.cast(*ray_scene(sub, "cpu", torch.float64)).numpy()
+    t = [ray.cast(*ray_scene(sub, "cpu", torch.float64, 1.0 + s * RAY_GRAZE))
+         .numpy() for s in (-1.0, 1.0)]
+    hit = [np.isfinite(x) for x in t]
+    return t64, (hit[0] != hit[1]) | _times_off(t[0], t[1], hit[0] & hit[1])
+
+
+def _within(got, want, rtol, atol) -> np.ndarray:
+    ok = np.zeros(got.shape, bool)
+    fin = np.isfinite(got) & np.isfinite(want)
+    ok[fin] = np.abs(got[fin] - want[fin]) <= atol + rtol * np.abs(want[fin])
+    return ok
+
+
+def _times_off(got, want, both) -> np.ndarray:
+    """Rays hit on both sides whose times differ beyond RAY_RTOL /
+    RAY_ATOL."""
+    return both & ~_within(got, want, RAY_RTOL, RAY_ATOL)
+
+
+def ray_path_phase() -> dict:
+    """The bench's raycast section: 100,000 rays against the mixed
+    ball / cuboid / capsule set, K chained casts ``o <- o + d (t 1e-6)``.
+    The first cast is held against the JAX package's, stored in
+    ``artifacts/rays100k_jax.npz`` by ``scripts/export_rays_npz.py``."""
+    z = ray_bench_arrays()
+    ref = np.load(NPZ_RAYS)
+    check(int(ref["n"]) == RAY_N and int(ref["seed"]) == 3,
+          "raycast: the stored JAX times are for another input")
+    shapes, poses, origins, dirs = ray_scene(z, "cuda")
+    got = ray.cast(shapes, poses, origins, dirs).cpu().numpy()
+    want = ref["t"]
+    hit_g, hit_w = np.isfinite(got), np.isfinite(want)
+    both = hit_g & hit_w
+    check(bool(both.any()), "raycast: no ray hits its shape")
+    off = _times_off(got, want, both)
+    t_err = float(np.abs(got[both] - want[both]).max())
+    masks = np.flatnonzero(hit_g != hit_w)
+    times = np.flatnonzero(off)
+    idx = np.concatenate([masks, times])
+    t64, grazing = _ray_conditioning(z, idx)
+    in_mask = np.arange(idx.size) < masks.size
+    both_near = (_within(got[idx], t64, RAY_RTOL, RAY_ATOL)
+                 & _within(want[idx], t64, RAY_RTOL, RAY_ATOL))
+    graze_near = grazing & _within(got[idx], t64, RAY_F64_RTOL, 0.0)
+    excused = np.where(in_mask, grazing, both_near | graze_near)
+    print(f"raycast first cast vs JAX: {int(hit_g.sum())} hits (JAX "
+          f"{int(hit_w.sum())}, stored {int(ref['hits'])}); hit masks differ "
+          f"on {masks.size} rays ({int(grazing[in_mask].sum())} grazing); "
+          f"times off on {times.size} (rtol {RAY_RTOL}, atol {RAY_ATOL}): "
+          f"{int(both_near[~in_mask].sum())} with both within that of "
+          f"float64, {int(graze_near[~in_mask].sum())} grazing and within "
+          f"{RAY_F64_RTOL} of float64; max |dt| where both hit {t_err:.3e}")
+    check(bool(excused.all()),
+          f"raycast: rays {idx[~excused][:5].tolist()} off the JAX cast "
+          f"without a float32 reason")
+
+    def body(o):
+        t = ray.cast(shapes, poses, o, dirs)
+        t = torch.where(torch.isfinite(t), t, 0.0)
+        return o + dirs * (t[:, None] * 1e-6)  # the bench's chain
+
+    def ray_end(c) -> dict:
+        check(bool(torch.isfinite(c).all()) and c.shape == origins.shape,
+              "raycast: non-finite or misshapen origins after the chain")
+        return {"first_cast": {
+            "hits": int(hit_g.sum()), "hits_jax": int(hit_w.sum()),
+            "mask_differs": int(masks.size), "time_off": int(times.size),
+            "grazing": int(grazing.sum()),
+            "both_near_float64": int(both_near.sum()), "max_abs_dt": t_err}}
+
+    return {"raycast_100k": chain_path(
+        f"raycast n={RAY_N}", body, origins, RAY_ITERS, {},
+        rate=("Mrays/s", RAY_N / 1e6), check_end=ray_end, profile_iters=4)}
 
 
 def _envelopes(state) -> tuple[float, float]:
@@ -1189,6 +1596,11 @@ LINALG_KERNEL_TABLE = (
     ("op_assign", "triton", "wgmath_tpu_torch/ops/elementwise.py",
      "wgmath_tpu/ops/elementwise.py:54",
      "ops/elementwise.py:op_assign_pallas", "op_assign2048"),
+    ("gemv", "cuda", "wgmath_tpu_torch/csrc/gemv.cu",
+     "wgmath_tpu/ops/gemv.py:70", "ops/gemv.py:_gemv_pallas", "gemv4096"),
+    ("gemv_tr", "cuda", "wgmath_tpu_torch/csrc/gemv.cu",
+     "wgmath_tpu/ops/gemv.py:110", "ops/gemv.py:_gemv_tr_pallas",
+     "gemv_tr4096"),
 )
 CONFIGS = ("chained_ps", "ladder", "chained", "chained_rr")
 
@@ -1217,6 +1629,9 @@ def main() -> int:
         summaries = kernel_phase(ladders)
         summaries.update(linalg_kernel_phase())
         linalg_paths = linalg_path_phase()
+        linalg_paths.update(gemv_path_phase())
+        query_paths = geometry_path_phase()
+        query_paths.update(ray_path_phase())
         runs = path_phase()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -1236,7 +1651,7 @@ def main() -> int:
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
     print(json.dumps({"paths": paths, "linalg_paths": linalg_paths,
-                      "gates": runs["gates"]}))
+                      "query_paths": query_paths, "gates": runs["gates"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:

@@ -17,6 +17,8 @@ import torch
 
 from chip_smoke import (
     GEMM_TOL,
+    GEMV_SHAPES,
+    GEMV_TOL,
     NPZ,
     NPZ_LADDER,
     OP_ASSIGN_RTOL,
@@ -24,9 +26,12 @@ from chip_smoke import (
     redirect_op,
     elementwise_ops,
     gemm_ops,
+    gemv_ops,
     gs_block_inputs,
     gs_block_plain,
     gs_math_inputs,
+    ray_bench_arrays,
+    ray_scene,
     reduce_ops,
 )
 from wgmath_tpu_torch.core.module import compile_check
@@ -36,6 +41,7 @@ from wgmath_tpu_torch.dynamics.constraint import update_rhs_sorted
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked
+from wgmath_tpu_torch.queries import ray
 
 # the JAX package's tolerance for this math (tests/test_physics.py)
 RTOL, ATOL = 1e-4, 1e-5
@@ -303,16 +309,84 @@ def test_cuda_impl_raises_on_cpu_tensors():
         gemm_ops.gemm(a.cuda(), a.cuda(), precision="high", impl="cuda")
     with pytest.raises(ValueError):
         gemm_ops.gemm(a.cuda().double(), a.cuda().double(), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        gemv_ops.gemv(a, a[0], impl="cuda")
+    # on the card gemv launches its kernel or raises: no plain route
+    with pytest.raises(ValueError, match="float32"):
+        gemv_ops.gemv(a.cuda().double(), a[0].cuda().double())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mod", ["linalg.gemm", "linalg.reduce",
-                                 "linalg.op_assign"])
+                                 "linalg.op_assign", "linalg.gemv"])
 def test_compile_check_launches_the_kernels_on_card(mod):
     _need_card()
     counters = ((gemm_ops, "LAUNCHES_GEMM"), (reduce_ops, "LAUNCHES_REDUCE"),
-                (elementwise_ops, "LAUNCHES_OP_ASSIGN"))
+                (elementwise_ops, "LAUNCHES_OP_ASSIGN"),
+                (gemv_ops, "LAUNCHES_GEMV"), (gemv_ops, "LAUNCHES_GEMV_TR"))
     before = sum(getattr(m, a) for m, a in counters)
     checked = compile_check(mod)
     assert checked and sum(getattr(m, a) for m, a in counters) \
         == before + len(checked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("case", range(5))
+def test_gemv_kernel_matches_plain_and_repeats_bitwise_on_card(case,
+                                                               transpose_a):
+    """B5 / B6 at the kernel phase's shapes: within 1e-5 of the sum of the
+    terms' magnitudes of each output, the same bits from two launches, one
+    count per launch."""
+    _need_card()
+    label, a_shape, x_shape = GEMV_SHAPES[transpose_a][case]
+    a = _normal(case, *a_shape)
+    x = _normal(case + 10, *x_shape)
+    name = "LAUNCHES_GEMV_TR" if transpose_a else "LAUNCHES_GEMV"
+    before = getattr(gemv_ops, name)
+    got = gemv_ops.gemv(a, x, transpose_a=transpose_a)
+    again = gemv_ops.gemv(a, x, transpose_a=transpose_a, impl="cuda")
+    want = gemv_ops.gemv_torch(a, x, transpose_a=transpose_a)
+    scale = gemv_ops.gemv_torch(a.abs(), x.abs(), transpose_a=transpose_a)
+    torch.cuda.synchronize()
+    assert getattr(gemv_ops, name) == before + 2, label
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= GEMV_TOL * scale).all()), label
+    assert torch.equal(got, again), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_gemv_kernel_takes_strided_and_batched_operands_on_card(transpose_a):
+    """A row-strided A (a column slice), a batched x against a shared A, and
+    a batch over leading dimensions, against the plain version."""
+    _need_card()
+    wide = _normal(3, 96, 160)
+    a = wide[:, :128]  # rows 160 floats apart
+    x = _normal(4, 5, 96 if transpose_a else 128)
+    got = gemv_ops.gemv(a, x, transpose_a=transpose_a)
+    want = gemv_ops.gemv_torch(a, x, transpose_a=transpose_a)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    a4 = _normal(5, 2, 3, 40, 24)
+    x4 = _normal(6, 3, 40 if transpose_a else 24)
+    torch.testing.assert_close(
+        gemv_ops.gemv(a4, x4, transpose_a=transpose_a),
+        gemv_ops.gemv_torch(a4, x4, transpose_a=transpose_a),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cast_on_card_matches_the_cpu_port():
+    """The bench's mixed set on 8,192 rays, with unit directions so that
+    every time is well conditioned in f32: the card's cast against the
+    port's on the CPU."""
+    _need_card()
+    z = ray_bench_arrays(8192, 3)
+    z["dirs"] = z["dirs"] / np.linalg.norm(z["dirs"], axis=-1, keepdims=True)
+    z["origins"] = z["translation"] + (z["origins"] - z["translation"]) / 3
+    got = ray.cast(*ray_scene(z, "cuda")).cpu()
+    want = ray.cast(*ray_scene(z, "cpu"))
+    hit = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), hit)
+    assert int(hit.sum()) > 100
+    torch.testing.assert_close(got[hit], want[hit], rtol=1e-5, atol=1e-5)

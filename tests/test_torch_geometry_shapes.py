@@ -171,6 +171,7 @@ def test_entry_points_default_to_the_card():
     # goes to the card, and compile_check runs there unless told otherwise
     eye = np.eye(4, dtype=np.float32)
     for call in (lambda: ops.gemm(eye, eye),
+                 lambda: ops.gemv(eye, eye[0]),
                  lambda: ops.reduce(eye, "sum"),
                  lambda: ops.op_assign_kernel(eye, eye, "add"),
                  lambda: compile_check("linalg.gemm"),
@@ -194,8 +195,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "import chip_smoke\n"
         "chip_smoke.gs_math_inputs, chip_smoke.gs_math_work\n"
         "chip_smoke.linalg_kernel_phase, chip_smoke.linalg_path_phase\n"
+        "chip_smoke.gemv_path_phase, chip_smoke.geometry_path_phase\n"
+        "chip_smoke.ray_path_phase, chip_smoke.ray_bench_arrays(64)\n"
         "for m in ('core.module', 'core.tensor', 'core.testing',\n"
-        "          'ops.gemm', 'ops.reduce', 'ops.elementwise'):\n"
+        "          'ops.gemm', 'ops.reduce', 'ops.elementwise', 'ops.gemv',\n"
+        "          'geometry.rot2', 'queries.ray', 'queries.projection'):\n"
         "    assert 'wgmath_tpu_torch.' + m in sys.modules, m\n"
         "assert 'triton' not in sys.modules\n"
         "bad = sorted(k for k in sys.modules\n"

@@ -8,6 +8,12 @@ JAX package's alike. :func:`state_from_arrays` builds this package's
 state from such a dict. Keys outside the state are ignored, so one ``.npz``
 can carry a state beside other arrays.
 
+The queries take a shape set and the colliders' poses:
+:func:`shapes_to_arrays` / :func:`shapes_from_arrays` and
+:func:`sim_to_arrays` / :func:`sim_from_arrays` carry a ``ShapeSet`` and a
+``Sim`` (component-major storage included) across the same way, from
+either package.
+
 The linear-algebra layer (``ops/``, ``core/tensor.py``) has no parameters
 and no state besides its operands, so it needs nothing here: a ``View`` is
 built from an array by ``core.tensor.view_of`` and read back by its
@@ -62,6 +68,58 @@ def _np(x) -> np.ndarray:
     return a.astype(np.float32)
 
 
+def _tensor(a, dev) -> torch.Tensor:
+    """int64 for integers, bool for masks, float32 otherwise."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(a.copy()).to(dev)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.from_numpy(a.astype(np.int64)).to(dev)
+    return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+
+_SHAPE_FIELDS = ("tag", "params", "vertices", "indices", "cluster_min",
+                 "cluster_max")
+
+
+def shapes_to_arrays(shapes) -> dict[str, np.ndarray]:
+    """A shape set (this package's or the JAX package's) as named numpy
+    arrays: the six buffers and ``kinds`` as a sorted int32 vector."""
+    out = {f: _np(getattr(shapes, f)) for f in _SHAPE_FIELDS}
+    out["kinds"] = np.asarray(sorted(shapes.kinds), np.int32)
+    return out
+
+
+def shapes_from_arrays(arrays: dict, device=None) -> ShapeSet:
+    """This package's shape set from :func:`shapes_to_arrays` output.
+    ``device=None`` means the card."""
+    dev = resolve_device(device)
+    return ShapeSet(*(_tensor(arrays[f], dev) for f in _SHAPE_FIELDS),
+                    kinds=frozenset(int(k) for k in arrays["kinds"]))
+
+
+def sim_to_arrays(sim) -> dict[str, np.ndarray]:
+    """A ``Sim`` (either package's) as named numpy arrays. Component-major
+    storage keeps its rows stacked as ``[C, N]`` and sets ``cm``."""
+    def rows(x):
+        return np.stack([_np(r) for r in x]) if sim.cm else _np(x)
+
+    return {"rotation": rows(sim.rotation),
+            "translation": rows(sim.translation),
+            "scale": _np(sim.scale), "cm": np.asarray(bool(sim.cm))}
+
+
+def sim_from_arrays(arrays: dict, device=None) -> Sim:
+    """This package's ``Sim`` from :func:`sim_to_arrays` output.
+    ``device=None`` means the card."""
+    dev = resolve_device(device)
+    cm = bool(arrays.get("cm", False))
+    rot, tra = (_tensor(arrays[k], dev) for k in ("rotation", "translation"))
+    if cm:
+        rot, tra = tuple(rot), tuple(tra)
+    return Sim(rot, tra, _tensor(arrays["scale"], dev), cm=cm)
+
+
 def state_to_arrays(state) -> dict[str, np.ndarray]:
     """Named numpy arrays of a physics state (this package's or the JAX
     package's). Optional parts that are absent are left out; joints have
@@ -106,12 +164,7 @@ def state_from_arrays(arrays: dict, device=None) -> PhysicsState:
     dev = resolve_device(device)
 
     def t(key):
-        a = np.asarray(arrays[key])
-        if a.dtype == np.bool_:
-            return torch.from_numpy(a.copy()).to(dev)
-        if np.issubdtype(a.dtype, np.integer):
-            return torch.from_numpy(a.astype(np.int64)).to(dev)
-        return torch.from_numpy(a.astype(np.float32)).to(dev)
+        return _tensor(arrays[key], dev)
 
     g = {k: t(k) for k in _BODY_FIELDS}
     bodies = Bodies(
