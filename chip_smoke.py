@@ -26,15 +26,18 @@ Three phases; any failed check ends the run with a non-zero exit:
    against the JAX package's, stored in ``artifacts/rays100k_jax.npz``);
    then the settled 10k-body ball pit
    (``artifacts/ball_pit10k_settled.npz``) stepped with ``step_checked``
-   under four solver configurations of the bench: ``chained_ps`` and
-   ``ladder`` under their stored warmed configurations, frame by frame
-   against the JAX package's reference frames stored beside them;
-   ``chained`` and ``chained_rr`` warmed on the card. Each is warmed by six
-   frames and timed over further frames. Then the bench's own gates:
-   ``chained_ps`` against ``ladder`` over three steps from one warmed
-   state, ``chained`` / ``chained_rr`` against the ladder's end positions,
-   and the kinetic-energy / penetration envelopes of ``chained_ps``
-   against the ladder's.
+   under five solver configurations of the bench: ``chained_ps``,
+   ``ladder`` and ``fused`` (the fused solver, kernels B9-B12) under their
+   stored warmed configurations, frame by frame against the JAX package's
+   reference frames stored beside them (``ball_pit10k_ladder.npz``,
+   ``ball_pit10k_fused.npz``); ``chained`` and ``chained_rr`` warmed on the
+   card. Each is warmed by six frames and timed over further frames. Then
+   the bench's own gates: ``chained_ps`` and ``fused`` against ``ladder``
+   over three steps from one warmed state, ``chained`` / ``chained_rr``
+   against the ladder's end positions, the kinetic-energy / penetration
+   envelopes of ``chained_ps`` and ``fused`` against the ladder's, and
+   ``fused``'s distance to the ladder's end positions (recorded beside the
+   JAX package's own).
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -59,7 +62,9 @@ import torch
 
 from wgmath_tpu_torch.convert import state_from_arrays
 from wgmath_tpu_torch.core import cuda_build, dispatch
-from wgmath_tpu_torch.dynamics import gs_math
+from wgmath_tpu_torch.dynamics import body as body_ops
+from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math
+from wgmath_tpu_torch.dynamics.constraint import Contacts
 from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import quat
@@ -80,6 +85,7 @@ elementwise_ops = importlib.import_module("wgmath_tpu_torch.ops.elementwise")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
 NPZ_LADDER = os.path.join(ROOT, "artifacts", "ball_pit10k_ladder.npz")
+NPZ_FUSED = os.path.join(ROOT, "artifacts", "ball_pit10k_fused.npz")
 NPZ_RAYS = os.path.join(ROOT, "artifacts", "rays100k_jax.npz")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense f32 (non-tensor) rate, and
@@ -91,7 +97,7 @@ BF16_FLOP_PER_S = 989e12
 # the JAX package's own tolerance for this math (tests/test_physics.py)
 RTOL, ATOL = 1e-4, 1e-5
 KERNEL_SOURCES = ("gs_math", "gs_math_block", "gemm", "gemm_split",
-                  "reduce", "gemv")
+                  "reduce", "gemv", "build_fused", "gs_fused")
 # frame-by-frame limits against the JAX reference: GS sums reorder on the
 # card, and a pure reordering alone moves velocities by ~3e-5 after one
 # step at 10k and ~3e-4 after two
@@ -441,6 +447,344 @@ def kernel_phase(ladders: dict) -> dict:
         f"rows) x 2 sweeps, P=1")
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# the fused solver: kernels B9 (build_fused), B10 (fused_sweep), B11
+# (fused_substep1), B12 (fused_integrate)
+# ---------------------------------------------------------------------------
+
+# B9's fields against its plain version: the JAX package's own tolerance
+# for this constraint build (tests/test_gs_fused.py), 1e-5 + 2e-6
+# max|field| over each field's live columns. The rung padding's columns
+# (dist 1e9, never read) hold torques that cancel two ~5e8 terms: held to
+# that scale.
+B9_FIELD_ATOL, B9_FIELD_RTOL = 1e-5, 2e-6
+B9_PAD_RTOL, B9_PAD_ATOL = 1e-5, 5e2
+# B12 against its plain version: the card's sinf, cosf and rsqrtf are within
+# 2 ulp, and a translation of ~20 m is 1.9e-6 per ulp
+INTEGRATE_RTOL, INTEGRATE_ATOL = 2e-6, 1e-6
+# operations counted from the kernels' arithmetic: B9 per constraint and per
+# contact point; B11's warmstart per contact point of a row (both sides);
+# B12 per lane (sin, cos, sqrt and rsqrt one each)
+B9_FLOPS_ROW, B9_FLOPS_POINT = 60, 330
+WS_FLOPS_POINT = 90
+INTEGRATE_FLOPS = 110
+P4_BODIES, P4_WINDOWS = 2000, (256,) * 12  # the P = 4 case, smaller
+
+
+def fused_inputs(rng: np.random.Generator, n_bodies: int, windows: tuple,
+                 rung0: int, counts, p_max: int, device) -> dict:
+    """Seeded inputs of the four fused kernels laid out as the fused solve
+    lays them out: ``counts[k]`` live rows of colour k at the head of its
+    rung (colour 0 the residue), the rest padding as the compaction leaves
+    it (body 0, no points, dist 1e9). Each colour draws its bodies from a
+    permutation of the dynamic bodies, so no dynamic body is in a colour
+    twice (the colouring contract); one b-side in twenty is a static body
+    (bodies 0..4), which can repeat. The bodies sit in a 20 m pit, as the
+    rhs rebuild's drift sees them in the ball pit."""
+    windows = tuple(int(w) for w in windows)
+    rungs = (rung0,) + windows
+    ctot = sum(rungs)
+    ba = np.zeros(ctot, np.int64)
+    bb = np.zeros(ctot, np.int64)
+    valid = np.zeros(ctot, bool)
+    dyn_ids = np.arange(N_STATIC, n_bodies)
+    off = 0
+    for k, (rung, cnt) in enumerate(zip(rungs, counts)):
+        cnt = min(int(cnt), rung)
+        if k == 0:  # the residue: bodies may repeat
+            a = rng.choice(dyn_ids, cnt)
+            b = (a + 1 + rng.integers(0, 50, cnt) - N_STATIC) % (
+                n_bodies - N_STATIC) + N_STATIC
+        else:
+            perm = rng.permutation(dyn_ids)[:2 * cnt]
+            a, b = perm[:cnt], perm[cnt:].copy()
+            static = rng.random(cnt) < 0.05
+            b[static] = rng.integers(0, N_STATIC, int(static.sum()))
+        ba[off:off + cnt], bb[off:off + cnt] = a, b
+        valid[off:off + cnt] = True
+        off += rung
+    n = n_bodies
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    tr = np.stack([rng.uniform(-10, 10, n), rng.uniform(0, 20, n),
+                   rng.uniform(-10, 10, n)], -1)
+    dyn = np.ones(n, bool)
+    dyn[:N_STATIC] = False
+    normal = rng.normal(size=(ctot, 3))
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    dist = np.where(valid[:, None], rng.uniform(-0.05, 0.01, (ctot, p_max)),
+                    1e9)
+    nump = np.where(valid, rng.integers(1, p_max + 1, ctot), 0)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    poses = Sim(t(q), t(tr), torch.ones(n, device=device))
+    vels = body_ops.Velocity(t(rng.normal(scale=0.5, size=(n, 3))),
+                             t(rng.normal(scale=0.5, size=(n, 3))))
+    local = body_ops.ball_local_mprops(
+        t(rng.uniform(0.4, 0.6, n)), dynamic=t(dyn, torch.bool))
+    mprops = body_ops.update_mprops(poses, local)
+    contacts = Contacts(
+        t(ba, torch.int64), t(bb, torch.int64), t(normal),
+        t(rng.uniform(-0.5, 0.5, (ctot, p_max, 3))), t(dist),
+        t(nump, torch.int64), t(valid, torch.bool))
+    c_full = list(counts) + [0] * (len(windows) + 2 - len(counts))
+    return dict(poses=poses, vels=vels, mprops=mprops, contacts=contacts,
+                windows=windows, rung0=rung0, ctot=ctot, n=n, p_max=p_max,
+                counts=t(c_full, torch.int32),
+                com=t(rng.uniform(-0.05, 0.05, (n, 3))))
+
+
+def fused_operands(z: dict, big_t, rng: np.random.Generator) -> dict:
+    """Operands of B10, B11 and B12 from :func:`fused_inputs` and a bigT:
+    the tables, the component-major velocity / pose / COM tables, seeded
+    impulses and rhs, the window and source blocks and their maps, the
+    substep scalars of the pit's parameters."""
+    dev = big_t.device
+    n, p_max, ctot = z["n"], z["p_max"], z["ctot"]
+    windows, rung0 = z["windows"], z["rung0"]
+    meta_all, _ = build_fused.field_meta(p_max, 2)
+    w_g = gs_fused.gather_width(n, windows)
+    c = z["contacts"]
+    im_a = big_t[meta_all["im_a"][0]:meta_all["im_a"][0] + 3].T
+    im_b = big_t[meta_all["im_b"][0]:meta_all["im_b"][0] + 3].T
+    idx, inv = gs_fused.build_fused_tables(
+        c.body_a, c.body_b, (im_a != 0).any(-1), (im_b != 0).any(-1),
+        c.valid, windows=windows, rung0=rung0, w_g=w_g)
+
+    def table(rows, x):
+        out = torch.zeros((rows, w_g), device=dev)
+        out[:x.shape[1], :n] = x.T
+        return out
+
+    vels, poses = z["vels"], z["poses"]
+    relin = ("t_rhs_wo_bias", "local_pt_a", "local_pt_b", "info_dist",
+             "info_normal_vel")
+    src0 = min(meta_all[f][0] for f in relin)
+    k_pack = meta_all["cfm_factor"][0]
+    sub = SimParams().substep()
+
+    def u(lo, hi, *shape):
+        return torch.as_tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                               device=dev)
+
+    return dict(
+        vt=table(8, torch.cat([vels.linear, vels.angular], -1)),
+        pose=table(8, torch.cat([poses.rotation, poses.translation,
+                                 poses.scale[:, None]], -1)),
+        com=table(3, z["com"]),
+        n_imp=u(0.0, 0.1, p_max, ctot), t_imp=u(-0.02, 0.02, 2 * p_max, ctot),
+        n_rhs=u(-1.0, 1.0, p_max, ctot), t_rhs=u(-0.1, 0.1, 2 * p_max, ctot),
+        win=big_t[:k_pack], src=big_t[src0:],
+        active=c.valid.to(torch.float32)[None].contiguous(),
+        nump=c.num_points.to(torch.float32)[None].contiguous(),
+        idx=idx, inv=inv,
+        meta={f: meta_all[f] for f in gs_math.PACK_FIELDS},
+        src_meta={f: (meta_all[f][0] - src0, meta_all[f][1]) for f in relin},
+        scalars=(sub.warmstart_coefficient, sub.contact_cfm_factor,
+                 sub.inv_dt, sub.contact_erp_inv_dt, sub.allowed_linear_error,
+                 sub.max_corrective_velocity),
+        dt=sub.dt, w_g=w_g)
+
+
+def _fused_rows(z) -> int:
+    """Rows the sweeps run over: every rung of an occupied colour."""
+    counts = z["counts"].cpu().tolist()
+    return sum(w for k, w in enumerate(z["windows"], start=1)
+               if counts[k] > 0)
+
+
+def build_work(z) -> tuple[int, int]:
+    """(bytes, flops) of one B9 launch: the body table, the ids and the
+    contact rows read once, bigT written once."""
+    p, c, n = z["p_max"], z["ctot"], z["n"]
+    k_all = build_fused.field_meta(p, 2)[1]
+    nbytes = 4 * build_fused.W_SIDE * n + c * (16 + 4 * (3 + 4 * p)) \
+        + 4 * k_all * c
+    return nbytes, c * (B9_FLOPS_ROW + p * B9_FLOPS_POINT)
+
+
+def sweep_work(z, k_load: int, substep: bool) -> tuple[int, int]:
+    """(bytes, flops) of one B10 (or B11) launch: velocities in and out,
+    the impulses in and out, and for every swept row its fields, flags,
+    rhs (B11: rhs sources), both table lookups; B11 also the poses and the
+    rhs store. The work runs over the rungs of the occupied colours."""
+    p, ctot, w_g = z["p_max"], z["ctot"], z["w_g"]
+    rows = _fused_rows(z)
+    per_row = k_load + 2 + 4 + (10 * p if substep else 3 * p)
+    nbytes = 4 * (2 * 8 * w_g + 2 * 3 * p * ctot + rows * per_row)
+    flops = rows * (GS_FLOPS_ROW + p * GS_FLOPS_UPDATE)
+    if substep:
+        nbytes += 4 * (8 * w_g + p * ctot)
+        flops += rows * p * (GS_FLOPS_RHS + WS_FLOPS_POINT)
+    return nbytes, flops
+
+
+def _fused_check(name, label, got, want, rtol, atol) -> tuple[float, float]:
+    """(max abs err, worst |d| / (atol + rtol |plain|)) over the outputs;
+    fails the run above 1 or on a non-finite output."""
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ratio = max(_tol_ratio(g, w, rtol, atol) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    check(ratio <= 1.0 and finite,
+          f"{name} {label}: kernel disagrees with its plain version (max "
+          f"abs diff {err:.3e}, {ratio:.2f}x the tolerance)")
+    return err, ratio
+
+
+def _report(name, label, err, ratio, tol, k_ms, p_ms, work) -> dict:
+    nbytes, flops = work
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"{name} {label} max|d|={err:.3e} tol-ratio {ratio:.3f} ({tol}) "
+          f"kernel {k_ms * 1e3:9.2f} us plain {p_ms * 1e3:10.2f} us bound "
+          f"{b_ms * 1e3:7.2f} us by {b_by} "
+          f"({nbytes / max(k_ms, 1e-9) / 1e6:7.1f} GB/s)")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _b9_case(z, label, timed: bool):
+    """B9 on one input set. Returns (summary or None, the kernel's bigT)."""
+    p = z["p_max"]
+    meta, k_all = build_fused.field_meta(p, 2)
+    params = SimParams()
+    consts = (params.restitution, params.inv_dt, params.friction,
+              params.contact_cfm_factor)
+    packed = build_fused._packed_bodies(z["poses"], z["vels"], z["mprops"])
+    args = (packed, z["contacts"], consts, meta, k_all, p)
+    got = build_fused._launch(*args)
+    want = build_fused._build_torch(*args)
+    torch.cuda.synchronize()
+    live = z["contacts"].valid
+    err, ratio = 0.0, 0.0
+    for f, (at, tail) in meta.items():
+        rows = slice(at, at + (int(np.prod(tail)) if tail else 1))
+        g, w = got[rows][:, live], want[rows][:, live]
+        tol = B9_FIELD_ATOL + B9_FIELD_RTOL * float(w.abs().max())
+        d = float((g - w).abs().max())
+        err, ratio = max(err, d), max(ratio, d / tol)
+    pad_ratio = _tol_ratio(got[:, ~live], want[:, ~live], B9_PAD_RTOL,
+                           B9_PAD_ATOL)
+    check(ratio <= 1.0 and pad_ratio <= 1.0
+          and bool(torch.isfinite(got).all()),
+          f"build_fused {label}: kernel disagrees with its plain version "
+          f"(live {ratio:.2f}x, padding {pad_ratio:.2f}x the tolerance)")
+    if not timed:
+        print(f"build_fused {label} max|d|={err:.3e} tol-ratio {ratio:.3f} "
+              f"(padding {pad_ratio:.3f})")
+        return None, got
+    k_ms = _median_ms(lambda: build_fused._launch(*args))
+    p_ms = _median_ms(lambda: build_fused._build_torch(*args))
+    return _report("build_fused", label, err, ratio,
+                   f"field tol 1e-5 + 2e-6 max|f|; padding {pad_ratio:.3f}",
+                   k_ms, p_ms, build_work(z)), got
+
+
+def _b10_b11_case(z, op, label, timed: bool) -> tuple:
+    """B10 and B11 on one operand set: each against its plain version (the
+    plain versions read the counts from a host copy, so they make no host
+    sync), twice for the same bits, padding rows' impulses unchanged.
+    Returns the two summaries (None when not timed) and B11's outputs."""
+    kw = dict(windows=z["windows"], rung0=z["rung0"], p_max=z["p_max"],
+              s_len=2, meta=op["meta"])
+    counts, counts_h = z["counts"], z["counts"].cpu()
+    sweep_args = (op["vt"], op["n_imp"], op["t_imp"], op["win"],
+                  op["active"], op["nump"], 1.0, op["n_rhs"], op["t_rhs"],
+                  op["idx"], op["inv"])
+    sub_args = (op["vt"], op["n_imp"], op["t_imp"], op["win"], op["src"],
+                op["pose"], op["active"], op["nump"], op["idx"], op["inv"])
+    sub_kw = dict(kw, src_meta=op["src_meta"], scalars=op["scalars"])
+    out, results = {}, {}
+    for name, fn, plain, args, kwargs in (
+            ("fused_sweep", gs_fused._launch_sweep,
+             gs_fused._fused_sweep_torch, sweep_args, kw),
+            ("fused_substep1", gs_fused._launch_substep1,
+             gs_fused._substep1_torch, sub_args, sub_kw)):
+        got = fn(*args, counts, **kwargs)
+        again = fn(*args, counts, **kwargs)
+        want = plain(*args, counts_h, **kwargs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{name} {label}: two launches differ")
+        pad = op["active"][0] < 0.5
+        check(torch.equal(got[1][:, pad],
+                          (op["n_imp"] * (op["scalars"][0] if name ==
+                                          "fused_substep1" else 1.0))[:, pad]),
+              f"{name} {label}: padding rows' impulses changed")
+        err, ratio = _fused_check(name, label, got, want, RTOL, ATOL)
+        results[name] = got
+        if timed:
+            k_ms = _median_ms(lambda: fn(*args, counts, **kwargs))
+            p_ms = _median_ms(lambda: plain(*args, counts_h, **kwargs))
+            k_load = max(op["meta"][f][0] + gs_math._size(op["meta"][f][1])
+                         for f in gs_math.UPDATE_FIELDS)
+            out[name] = _report(
+                name, label, err, ratio,
+                f"rtol {RTOL}, atol {ATOL}; grid "
+                f"{gs_fused.LAST_GRID[name]} blocks; bitwise repeat",
+                k_ms, p_ms,
+                sweep_work(dict(z, w_g=op["w_g"]), k_load,
+                           name == "fused_substep1"))
+        else:
+            print(f"{name} {label} max|d|={err:.3e} tol-ratio {ratio:.3f}; "
+                  "bitwise repeat")
+    return out, results["fused_substep1"]
+
+
+def _b12_case(z, op, vt, label, timed: bool):
+    args = (op["pose"], vt, op["com"], op["dt"])
+    got = gs_fused._launch_integrate(*args)
+    want = gs_fused._cm_integrate(*args)
+    torch.cuda.synchronize()
+    err, ratio = _fused_check("fused_integrate", label, (got,), (want,),
+                              INTEGRATE_RTOL, INTEGRATE_ATOL)
+    if not timed:
+        print(f"fused_integrate {label} max|d|={err:.3e} tol-ratio "
+              f"{ratio:.3f}")
+        return None
+    k_ms = _median_ms(lambda: gs_fused._launch_integrate(*args))
+    p_ms = _median_ms(lambda: gs_fused._cm_integrate(*args))
+    w_g = op["w_g"]
+    return _report("fused_integrate", label, err, ratio,
+                   f"rtol {INTEGRATE_RTOL}, atol {INTEGRATE_ATOL}", k_ms,
+                   p_ms, (4 * w_g * (8 + 6 + 3 + 8), w_g * INTEGRATE_FLOPS))
+
+
+def fused_kernel_phase(cfg: dict, counts: list) -> dict:
+    """B9-B12 against their plain versions: at the fused path's own shapes
+    (the stored configuration's 24 windows and 256-row residue rung over
+    10,005 bodies, each colour as full as in the first reference frame;
+    P = 1), timed; then at P = 4 on a smaller layout with a non-empty
+    residue and empty colours."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20265)
+    windows = tuple(cfg["gs_windows"][:cfg["max_colors"]])
+    z = fused_inputs(rng, 10_005, windows, cfg["gs_rung0"], counts, 1, dev)
+    label = f"C={z['ctot']} P=1"
+    out = {}
+    out["build_fused"], big_t = _b9_case(z, label, True)
+    op = fused_operands(z, big_t, rng)
+    label += f" Wg={op['w_g']}"
+    summaries, sub_out = _b10_b11_case(z, op, label, True)
+    out.update(summaries)
+    out["fused_integrate"] = _b12_case(z, op, sub_out[0], label, True)
+    # P = 4: residue rows, empty colours
+    c4 = [64] + [int(x) for x in rng.integers(0, 257, len(P4_WINDOWS))]
+    c4[-2:] = [0, 0]
+    z4 = fused_inputs(rng, P4_BODIES, P4_WINDOWS, 256, c4, 4, dev)
+    label4 = f"C={z4['ctot']} P=4"
+    _, big4 = _b9_case(z4, label4, False)
+    op4 = fused_operands(z4, big4, rng)
+    _, sub4 = _b10_b11_case(z4, op4, label4, False)
+    _b12_case(z4, op4, sub4[0], label4, False)
+    for name, row in out.items():
+        row["work"] = (f"one launch on the fused path's shapes: {label}, "
+                       f"{len(windows)} windows, residue rung "
+                       f"{cfg['gs_rung0']}")
+    return out
 
 # ---------------------------------------------------------------------------
 # linear-algebra layer: kernels B3 (gemm), B4 (gemm_split), B7 (reduce),
@@ -1350,21 +1694,37 @@ def _finite(state) -> bool:
                 b.vels.angular))
 
 
+# the pit paths' kernel counters: name -> (module, counter)
+PIT_COUNTERS = {"gs_math_rhs": (gs_math, "LAUNCHES"),
+                "gs_math_block": (gs_math, "LAUNCHES_BLOCK"),
+                "build_fused": (build_fused, "LAUNCHES"),
+                "fused_sweep": (gs_fused, "LAUNCHES_SWEEP"),
+                "fused_substep1": (gs_fused, "LAUNCHES_SUBSTEP1"),
+                "fused_integrate": (gs_fused, "LAUNCHES_INTEGRATE")}
+FUSED_KERNELS = ("build_fused", "fused_sweep", "fused_substep1",
+                 "fused_integrate")
+
+
+def _pit_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in PIT_COUNTERS.items()}
+
+
 def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
              refs: dict | None, expect: tuple) -> dict:
     """One configuration from the settled state: ``WARM_FRAMES`` checked
     frames (the first ones held against the JAX reference frames in
     ``refs`` where there are any), then ``TIMED_FRAMES`` timed frames.
-    ``expect`` names the kernel counter this path must move. The counts
-    are set to 0 just before the path runs and read just after."""
+    ``expect`` names the kernel counters this path must move; every other
+    counter must stay at 0. The counts are set to 0 just before the path
+    runs and read just after."""
     state = state_from_arrays(arrays, device="cuda")
     n_ref = 0 if refs is None else sum(
         1 for k in refs if k.startswith("ref.")
         and k.endswith(".translation"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gs_math.LAUNCHES = 0
-    gs_math.LAUNCHES_BLOCK = 0
+    for mod, attr in PIT_COUNTERS.values():
+        setattr(mod, attr, 0)
     dispatch.HOST_SYNCS = 0
     trail = []  # translations after each warm frame
     for f in range(WARM_FRAMES):
@@ -1398,7 +1758,7 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     counts = []
     torch.cuda.synchronize()
-    warm_launches = (gs_math.LAUNCHES, gs_math.LAUNCHES_BLOCK)
+    warm_launches = _pit_counts()
     warm_syncs = dispatch.HOST_SYNCS
     t0 = time.perf_counter()
     start.record()
@@ -1408,8 +1768,7 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = {"gs_math_rhs": gs_math.LAUNCHES,
-                "gs_math_block": gs_math.LAUNCHES_BLOCK}
+    launches = _pit_counts()
     syncs = dispatch.HOST_SYNCS
     check(_finite(state), f"{name} timed frames: non-finite state")
     for kernel, n in launches.items():
@@ -1431,21 +1790,30 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
                         for i, nm in enumerate(("hit", "repair", "full"))},
         "host_syncs_per_step": (syncs - warm_syncs) / TIMED_FRAMES,
         "launches": launches,
-        "gs_math_rhs_launches_per_step":
-            (launches["gs_math_rhs"] - warm_launches[0]) / TIMED_FRAMES,
-        "gs_math_block_launches_per_step":
-            (launches["gs_math_block"] - warm_launches[1]) / TIMED_FRAMES,
+        **{f"{k}_launches_per_step": (n - warm_launches[k]) / TIMED_FRAMES
+           for k, n in launches.items()},
         "kinetic_energy": ke, "max_penetration": pen,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "ladder": [w for w in cfg.gs_windows if w],
     }
+    per_step = ", ".join(
+        f"{k} {metrics[k + '_launches_per_step']:.2f}" for k in launches
+        if launches[k])
     print(f"config {name}: {ms:.2f} ms/step ({1e3 / ms:.2f} steps/s) over "
-          f"{TIMED_FRAMES} frames by CUDA events; gs_math_rhs "
-          f"{metrics['gs_math_rhs_launches_per_step']:.1f} and "
-          f"gs_math_block "
-          f"{metrics['gs_math_block_launches_per_step']:.1f} launches/step; "
+          f"{TIMED_FRAMES} frames by CUDA events; launches/step: {per_step}; "
           f"{metrics['host_syncs_per_step']:.2f} host syncs/step; KE "
           f"{ke:.4f}, max penetration {pen:.5f}")
+    if "build_fused" in expect:
+        # one B9 launch and, per substep, one launch of each of the
+        # three solver kernels per step() call (a regrow re-runs the step)
+        timed = {k: launches[k] - warm_launches[k] for k in FUSED_KERNELS}
+        subs = params.num_solver_iterations
+        check(all(timed[k] == subs * timed["build_fused"]
+                  for k in FUSED_KERNELS[1:])
+              and timed["build_fused"] >= TIMED_FRAMES,
+              f"{name}: fused launches {timed} are not one build and "
+              f"{subs} of each solver kernel per step")
+        metrics["regrow_frames"] = timed["build_fused"] - TIMED_FRAMES
     return {"metrics": metrics, "warmed": warmed, "end": (state, cfg),
             "trail": trail}
 
@@ -1504,6 +1872,59 @@ def gates(runs: dict, params) -> dict:
     check(pen_c <= pen_l + ENVELOPE_PEN_SLACK
           and ke_c <= ENVELOPE_KE_FACTOR * ke_l + ENVELOPE_KE_SLACK,
           "chained_ps envelope exceeds the ladder's (drift)")
+    out.update(fused_gates(runs, params))
+    return out
+
+
+def fused_gates(runs: dict, params) -> dict:
+    """``fused`` against the ladder: the short gate and the envelope gate
+    (both checked), and the bench's K-gate distance to the ladder's end
+    positions, recorded beside the JAX package's own fused-vs-ladder
+    distance (its warmstart adds in another order than the ladder's, and
+    one ulp grows chaotically over 56 frames)."""
+    out = {}
+    lad, fus = runs["ladder"], runs["fused"]
+    st, cfg_f = fus["warmed"]
+    ends = []
+    for cfg in (cfg_f, lad["warmed"][1]):
+        s = st
+        for _ in range(SHORT_GATE_STEPS):
+            s = step(s, params, cfg)
+        ends.append(s.bodies.poses.translation)
+    err = _max_dp(*ends)
+    out["fused_vs_ladder_3_steps"] = err
+    print(f"gate fused vs ladder over {SHORT_GATE_STEPS} steps from one "
+          f"warmed state: max|dp| {err:.3e} (limit {SHORT_GATE_LIMIT})")
+    check(np.isfinite(err) and err <= SHORT_GATE_LIMIT,
+          f"fused diverges from the ladder by {err:.3e} m over "
+          f"{SHORT_GATE_STEPS} steps")
+    m_f, m_l = fus["metrics"], lad["metrics"]
+    ke_f, pen_f = m_f["kinetic_energy"], m_f["max_penetration"]
+    ke_l, pen_l = m_l["kinetic_energy"], m_l["max_penetration"]
+    out["envelopes_fused"] = {"fused": {"ke": ke_f, "pen": pen_f},
+                              "ladder": {"ke": ke_l, "pen": pen_l}}
+    print(f"gate fused envelopes after {WARM_FRAMES + TIMED_FRAMES} frames: "
+          f"KE {ke_f:.4f} vs ladder {ke_l:.4f}, max penetration "
+          f"{pen_f:.5f} vs {pen_l:.5f}")
+    check(pen_f <= pen_l + ENVELOPE_PEN_SLACK
+          and ke_f <= ENVELOPE_KE_FACTOR * ke_l + ENVELOPE_KE_SLACK,
+          "fused envelope exceeds the ladder's (drift)")
+    end = _max_dp(fus["end"][0].bodies.poses.translation,
+                  lad["end"][0].bodies.poses.translation)
+    first = _max_dp(fus["trail"][0], lad["trail"][0])
+    warm = _max_dp(fus["trail"][-1], lad["trail"][-1])
+    zf = np.load(NPZ_FUSED)
+    jax_dp = [float(zf[f"ladder_dp.{f}"]) for f in range(3)]
+    out["fused_vs_ladder"] = {
+        "after_1_frame": first, f"after_{WARM_FRAMES}_frames": warm,
+        f"after_{WARM_FRAMES + TIMED_FRAMES}_frames": end,
+        "jax_after_1_2_3_frames": jax_dp}
+    print(f"K-gate distance fused vs ladder (recorded, not checked): "
+          f"max|dp| {first:.3e} after 1 frame, {warm:.3e} after "
+          f"{WARM_FRAMES}, {end:.3e} after {WARM_FRAMES + TIMED_FRAMES} "
+          f"(the bench's limit {END_GATE_LIMIT}); the JAX package's own "
+          f"fused vs ladder after 1, 2, 3 frames: "
+          + ", ".join(f"{d:.3e}" for d in jax_dp))
     return out
 
 
@@ -1511,9 +1932,11 @@ def path_phase() -> dict:
     """The four configurations, then the gates. Returns name → run."""
     z = dict(np.load(NPZ))
     zl = dict(np.load(NPZ_LADDER))
+    zf = dict(np.load(NPZ_FUSED))
     params = SimParams()
     cfg_ps = PipelineConfig.from_dict(json.loads(str(z["config_json"])))
     cfg_lad = PipelineConfig.from_dict(json.loads(str(zl["config_json"])))
+    cfg_fused = PipelineConfig.from_dict(json.loads(str(zf["config_json"])))
     rep = dataclasses.replace
     plan = (
         ("chained_ps", cfg_ps, z, ("gs_math_rhs",)),
@@ -1522,6 +1945,7 @@ def path_phase() -> dict:
          ("gs_math_block",)),
         ("chained_rr", rep(cfg_lad, gs_chained=True, gs_rhs_in_rung=True),
          None, ("gs_math_rhs",)),
+        ("fused", cfg_fused, zf, FUSED_KERNELS),
     )
     runs = {name: run_path(name, z, cfg, params, refs, expect)
             for name, cfg, refs, expect in plan}
@@ -1580,6 +2004,18 @@ KERNEL_TABLE = (
     ("gs_math_block", "ladder", "wgmath_tpu_torch/csrc/gs_math_block.cu",
      "wgmath_tpu/dynamics/gs_pallas.py:246",
      "dynamics/gs_pallas.py:_gs_math_pallas_call"),
+    ("build_fused", "fused", "wgmath_tpu_torch/csrc/build_fused.cu",
+     "wgmath_tpu/dynamics/build_pallas.py:234",
+     "dynamics/build_pallas.py:_build_pallas_call"),
+    ("fused_sweep", "fused", "wgmath_tpu_torch/csrc/gs_fused.cu",
+     "wgmath_tpu/dynamics/gs_fused.py:320",
+     "dynamics/gs_fused.py:_fused_sweep_pallas"),
+    ("fused_substep1", "fused", "wgmath_tpu_torch/csrc/gs_fused.cu",
+     "wgmath_tpu/dynamics/gs_fused.py:448",
+     "dynamics/gs_fused.py:_substep1_pallas"),
+    ("fused_integrate", "fused", "wgmath_tpu_torch/csrc/gs_fused.cu",
+     "wgmath_tpu/dynamics/gs_fused.py:582",
+     "dynamics/gs_fused.py:fused_integrate"),
 )
 # name, route, source, file:line of the pallas_call, TPU function, and the
 # path whose launch count is the kernel's `launches`
@@ -1602,7 +2038,7 @@ LINALG_KERNEL_TABLE = (
      "wgmath_tpu/ops/gemv.py:110", "ops/gemv.py:_gemv_tr_pallas",
      "gemv_tr4096"),
 )
-CONFIGS = ("chained_ps", "ladder", "chained", "chained_rr")
+CONFIGS = ("chained_ps", "ladder", "chained", "chained_rr", "fused")
 
 
 def _pit_stepper(state, cfg, params):
@@ -1627,6 +2063,11 @@ def main() -> int:
             cfg0 = json.loads(str(np.load(path)["config_json"]))
             ladders[name] = tuple(cfg0["gs_windows"][:cfg0["max_colors"]])
         summaries = kernel_phase(ladders)
+        zf = np.load(NPZ_FUSED)
+        cfg_f = json.loads(str(zf["config_json"]))
+        summaries.update(fused_kernel_phase(cfg_f, [
+            int(x) for x in zf["ref.0.pair_count"][
+                8:8 + cfg_f["max_colors"] + 2]]))
         summaries.update(linalg_kernel_phase())
         linalg_paths = linalg_path_phase()
         linalg_paths.update(gemv_path_phase())

@@ -19,12 +19,17 @@ from chip_smoke import (
     GEMM_TOL,
     GEMV_SHAPES,
     GEMV_TOL,
+    INTEGRATE_ATOL,
+    INTEGRATE_RTOL,
     NPZ,
+    NPZ_FUSED,
     NPZ_LADDER,
     OP_ASSIGN_RTOL,
     REDUCE_TOL,
     redirect_op,
     elementwise_ops,
+    fused_inputs,
+    fused_operands,
     gemm_ops,
     gemv_ops,
     gs_block_inputs,
@@ -36,7 +41,7 @@ from chip_smoke import (
 )
 from wgmath_tpu_torch.core.module import compile_check
 from wgmath_tpu_torch.convert import state_from_arrays
-from wgmath_tpu_torch.dynamics import gs_math
+from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math
 from wgmath_tpu_torch.dynamics.constraint import update_rhs_sorted
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
@@ -126,14 +131,14 @@ def test_rhs_in_rung_equals_rhs_passed_in_bit_for_bit(p_max):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", [NPZ, NPZ_LADDER],
-                         ids=["chained_ps", "ladder"])
+@pytest.mark.parametrize("path", [NPZ, NPZ_LADDER, NPZ_FUSED],
+                         ids=["chained_ps", "ladder", "fused"])
 def test_pit10k_frames_on_card_match_cpu(path):
     """Two frames of the settled 10k pit (a full refresh with a Luby
     recolour, then a cache hit) on the card and on the CPU, under the
-    stored ``chained_ps`` and ``ladder`` configurations: sorts, scans,
-    scatter-mins and the colouring give the same integers; poses agree to
-    float32 reordering."""
+    stored ``chained_ps``, ``ladder`` and ``fused`` configurations: sorts,
+    scans, scatter-mins and the colouring give the same integers; poses
+    agree to float32 reordering."""
     _need_card()
     z = dict(np.load(NPZ))
     cfg0 = PipelineConfig.from_dict(
@@ -157,6 +162,122 @@ def test_pit10k_frames_on_card_match_cpu(path):
     np.testing.assert_allclose(
         sg.bodies.poses.translation.cpu().numpy(),
         sc.bodies.poses.translation.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# --- the fused solver: B9 - B12 ---------------------------------------------
+
+
+def _fused_case(p_max, seed=5):
+    """Inputs of the four fused kernels on the card (chip_smoke's layout: a
+    proper colouring, a residue, empty colours), B9's matrix from
+    its plain version."""
+    rng = np.random.default_rng(seed + p_max)
+    counts = [40] + [int(x) for x in rng.integers(0, 257, 12)]
+    counts[-2:] = [0, 0]
+    z = fused_inputs(rng, 2000, (256,) * 12, 64, counts, p_max, "cuda")
+    meta, k_all = build_fused.field_meta(p_max, 2)
+    params = SimParams()
+    consts = (params.restitution, params.inv_dt, params.friction,
+              params.contact_cfm_factor)
+    packed = build_fused._packed_bodies(z["poses"], z["vels"], z["mprops"])
+    b9 = (packed, z["contacts"], consts, meta, k_all, p_max)
+    big = build_fused._build_torch(*b9)
+    return z, b9, fused_operands(z, big, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_max", [1, 4])
+def test_build_fused_kernel_matches_plain_on_card(p_max):
+    _need_card()
+    z, b9, _ = _fused_case(p_max)
+    launches = build_fused.LAUNCHES
+    got = build_fused.build_constraints_fused(
+        z["poses"], z["vels"], z["mprops"], z["contacts"], SimParams())[1]
+    want = build_fused._build_torch(*b9)
+    torch.cuda.synchronize()
+    assert build_fused.LAUNCHES == launches + 1
+    live = z["contacts"].valid
+    for f, (at, tail) in b9[3].items():
+        rows = slice(at, at + (int(np.prod(tail)) if tail else 1))
+        w = want[rows][:, live]
+        tol = 1e-5 + 2e-6 * float(w.abs().max())
+        assert float((got[rows][:, live] - w).abs().max()) <= tol, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_max", [1, 4])
+@pytest.mark.parametrize("kernel", ["fused_sweep", "fused_substep1"])
+def test_fused_sweep_kernels_match_plain_and_repeat_bitwise_on_card(
+        kernel, p_max):
+    _need_card()
+    z, _, op = _fused_case(p_max)
+    kw = dict(windows=z["windows"], rung0=z["rung0"], p_max=p_max, s_len=2,
+              meta=op["meta"])
+    if kernel == "fused_sweep":
+        args = (op["vt"], op["n_imp"], op["t_imp"], op["win"], op["active"],
+                op["nump"], 1.0, op["n_rhs"], op["t_rhs"], op["idx"],
+                op["inv"])
+        fn, plain, counter = (gs_fused.fused_sweep,
+                              gs_fused._fused_sweep_torch, "LAUNCHES_SWEEP")
+    else:
+        args = (op["vt"], op["n_imp"], op["t_imp"], op["win"], op["src"],
+                op["pose"], op["active"], op["nump"], op["idx"], op["inv"])
+        kw.update(src_meta=op["src_meta"], scalars=op["scalars"])
+        fn, plain, counter = (gs_fused.fused_substep1,
+                              gs_fused._substep1_torch, "LAUNCHES_SUBSTEP1")
+    launches = getattr(gs_fused, counter)
+    got = fn(*args, z["counts"], **kw)
+    again = fn(*args, z["counts"], **kw)
+    want = plain(*args, z["counts"].cpu(), **kw)
+    torch.cuda.synchronize()
+    assert getattr(gs_fused, counter) == launches + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_fused_integrate_kernel_matches_plain_on_card():
+    _need_card()
+    _, _, op = _fused_case(1)
+    launches = gs_fused.LAUNCHES_INTEGRATE
+    got = gs_fused.fused_integrate(op["pose"], op["vt"], op["com"], op["dt"])
+    want = gs_fused._cm_integrate(op["pose"], op["vt"], op["com"], op["dt"])
+    torch.cuda.synchronize()
+    assert gs_fused.LAUNCHES_INTEGRATE == launches + 1
+    torch.testing.assert_close(got, want, rtol=INTEGRATE_RTOL,
+                               atol=INTEGRATE_ATOL)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_never_run_their_plain_versions_on_card(monkeypatch):
+    """On CUDA tensors the four wrappers launch their kernels: with every
+    plain version made to raise, they still return."""
+    _need_card()
+    z, _, op = _fused_case(1)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on the card")
+
+    for mod, name in ((build_fused, "_cm_build"),
+                      (build_fused, "_build_torch"),
+                      (gs_fused, "_fused_sweep_torch"),
+                      (gs_fused, "_substep1_torch"),
+                      (gs_fused, "_cm_integrate")):
+        monkeypatch.setattr(mod, name, refuse)
+    kw = dict(windows=z["windows"], rung0=z["rung0"], p_max=1, s_len=2,
+              meta=op["meta"])
+    build_fused.build_constraints_fused(z["poses"], z["vels"], z["mprops"],
+                                        z["contacts"], SimParams())
+    gs_fused.fused_sweep(op["vt"], op["n_imp"], op["t_imp"], op["win"],
+                         op["active"], op["nump"], 1.0, op["n_rhs"],
+                         op["t_rhs"], op["idx"], op["inv"], z["counts"], **kw)
+    vt = gs_fused.fused_substep1(
+        op["vt"], op["n_imp"], op["t_imp"], op["win"], op["src"], op["pose"],
+        op["active"], op["nump"], op["idx"], op["inv"], z["counts"],
+        src_meta=op["src_meta"], scalars=op["scalars"], **kw)[0]
+    gs_fused.fused_integrate(op["pose"], vt, op["com"], op["dt"])
+    torch.cuda.synchronize()
 
 
 # --- the linear-algebra kernels ---------------------------------------------

@@ -1,0 +1,359 @@
+"""The port's fused-solver modules against the JAX package on the same seeded
+inputs: the static rung-padded compaction (integers exact, rungs that fit
+and rungs that overflow), the field layout, the fused constraint build
+(B9's plain version), the per-colour gather / inverse tables (exact), and
+the plain versions of the fused sweep (B10), the substep opening (B11) and
+the pose update (B12). Where the JAX function reaches a Pallas kernel it
+runs both in interpret mode and through its XLA twin.
+
+On the CPU the port's wrappers run their plain versions; the CUDA kernels
+are held against those on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
+
+import dataclasses
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tests.test_torch_solver import _graph, _t
+from wgmath_tpu.dynamics import SimParams as JaxSimParams
+from wgmath_tpu.dynamics import body as jbody
+from wgmath_tpu.dynamics import build_pallas as jbuild
+from wgmath_tpu.dynamics import constraint as jcons
+from wgmath_tpu.dynamics import gs_fused as jfused
+from wgmath_tpu.dynamics import solver as jsolver
+from wgmath_tpu.geometry import sim as jsim
+from wgmath_tpu_torch.dynamics import body as tbody
+from wgmath_tpu_torch.dynamics import build_fused as tbuild
+from wgmath_tpu_torch.dynamics import constraint as tcons
+from wgmath_tpu_torch.dynamics import gs_fused as tfused
+from wgmath_tpu_torch.dynamics.sim_params import SimParams
+from wgmath_tpu_torch.geometry import sim as tsim
+
+# the JAX package's own tolerance for the fused sweep and the pose update
+# (tests/test_gs_fused.py)
+RTOL, ATOL = 1e-5, 1e-6
+# the sweep against XLA on the CPU: XLA contracts a*b+c into one rounding
+# where PyTorch rounds the product (ROADMAP C); measured 4.3e-6 on the
+# velocity table, up to 2.4x the limit above
+SWEEP_RTOL, SWEEP_ATOL = 1e-4, 1e-5
+# the substep opening rebuilds the rhs from two ~3 m world points whose
+# drift is multiplied by 1/dt = 240 (one ulp of a world point is 5.7e-5 of
+# rhs): a float64 run of the same inputs lies 1.5e-4 (rhs) and 6.3e-4
+# (velocities) from EITHER float32 run, and the two differ by up to 8.7e-4
+SUBSTEP_RTOL, SUBSTEP_ATOL = 1e-3, 2e-3
+S_LEN = 2
+N_BODIES = 64
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _jit(fn, **static):
+    """One jitted JAX call: the keyword arguments are closed over."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+def _compact_both(contact, colors, windows):
+    want = jcons.compact_contacts(
+        jcons.Contacts(**{k: jnp.asarray(v) for k, v in contact.items()}), 0,
+        extra=jnp.asarray(colors), sort_by_extra=True,
+        static_windows=windows)
+    got = tcons.compact_contacts(
+        tcons.Contacts(**{k: _t(v) for k, v in contact.items()}), 0,
+        extra=_t(colors), sort_by_extra=True, static_windows=windows)
+    return got, want
+
+
+def _raw_contacts(rng, ba, bb, p_max):
+    c = ba.shape[0]
+    normals = rng.normal(size=(c, 3))
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    return dict(
+        body_a=ba, body_b=bb, normal_a=normals.astype(np.float32),
+        points_a=rng.uniform(-0.3, 0.3, (c, p_max, 3)).astype(np.float32),
+        dist=rng.uniform(-0.05, 0.01, (c, p_max)).astype(np.float32),
+        num_points=rng.integers(1, p_max + 1, c).astype(np.int32),
+        valid=rng.random(c) < 0.9)
+
+
+def _setup(seed, p_max, rung0, n_pairs, max_colors):
+    """Random contacts on a properly coloured pair graph (a residue class
+    under the class cap), compacted to the static layout by both packages,
+    with both packages' bodies. Rungs: each colour's class rounded up to
+    16 (at least 16, so an empty colour keeps a rung)."""
+    n = N_BODIES
+    ba, bb, _, dyn = _graph(seed, n, n_pairs, p_valid=1.0)
+    rng = np.random.default_rng(seed)
+    contact = _raw_contacts(rng, ba, bb, p_max)
+    colors = np.asarray(jsolver.color_pairs(
+        jnp.asarray(ba), jnp.asarray(bb), jnp.asarray(contact["valid"]),
+        jnp.asarray(dyn[ba]), jnp.asarray(dyn[bb]), n,
+        max_colors=max_colors, claim_rounds=4, class_cap=14))
+    cc = np.bincount(np.where(contact["valid"], colors, 0),
+                     minlength=max_colors + 1)
+    windows = tuple(int(max(16, -(-k // 16) * 16))
+                    for k in cc[1:max_colors + 1])
+    got, want = _compact_both(contact, colors, (rung0,) + windows)
+    q = rng.normal(size=(n, 4))
+    q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+    tr = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    radii = rng.uniform(0.3, 0.7, n).astype(np.float32)
+    lin = (rng.normal(size=(n, 3)) * 0.5).astype(np.float32)
+    ang = (rng.normal(size=(n, 3)) * 0.5).astype(np.float32)
+    jposes = jsim.Sim(jnp.asarray(q), jnp.asarray(tr), jnp.ones(n))
+    jvels = jbody.Velocity(jnp.asarray(lin), jnp.asarray(ang))
+    jmp = jbody.update_mprops(jposes, jbody.ball_local_mprops(
+        jnp.asarray(radii), dynamic=jnp.asarray(dyn)))
+    tposes = tsim.Sim(_t(q), _t(tr), torch.ones(n))
+    tvels = tbody.Velocity(_t(lin), _t(ang))
+    tmp = tbody.update_mprops(tposes, tbody.ball_local_mprops(
+        _t(radii), dynamic=_t(dyn)))
+    return dict(n=n, windows=windows, rung0=rung0, p_max=p_max, got=got,
+                want=want, j=(jposes, jvels, jmp), t=(tposes, tvels, tmp),
+                q=q, tr=tr, cc=cc, rng=rng)
+
+
+@pytest.mark.parametrize("rung", [16, 4], ids=["fits", "overflows"])
+def test_compact_static_windows_matches_jax(rung):
+    """Every field of the rung-padded buffer, the slot colours, the live
+    count and the TRUE per-class counts, bit for bit; a rung smaller than
+    its class drops the class's last entries."""
+    rng = np.random.default_rng(11)
+    ba, bb, _, _ = _graph(11, 40, 120, p_valid=1.0)
+    contact = _raw_contacts(rng, ba, bb, 1)
+    colors = rng.integers(0, 9, 120).astype(np.int32)
+    windows = (rung,) * 9
+    got, want = _compact_both(contact, colors, windows)
+    assert len(got) == len(want) == 4
+    assert int(got[1]) == int(want[1]) == int(contact["valid"].sum())
+    for f in dataclasses.fields(tcons.Contacts):
+        np.testing.assert_array_equal(_np(getattr(got[0], f.name)),
+                                      _np(getattr(want[0], f.name)),
+                                      err_msg=f.name)
+    np.testing.assert_array_equal(_np(got[2]), _np(want[2]))
+    np.testing.assert_array_equal(_np(got[3]), _np(want[3]))
+    kept = int(got[0].valid.sum())
+    assert (kept < int(got[1])) == (rung == 4)
+    assert got[0].body_a.shape == (9 * rung,)
+
+
+@pytest.mark.parametrize("p_max", [1, 4])
+def test_field_meta_matches_jax(p_max):
+    want, k_want = jbuild.field_meta(p_max, S_LEN)
+    got, k_got = tbuild.field_meta(p_max, S_LEN)
+    assert k_got == k_want and (p_max > 1 or k_got == 71)
+    assert got == {k: (a, tuple(t)) for k, (a, t) in want.items()}
+    assert got["cfm_factor"][0] == (66 if p_max == 1 else 216)
+
+
+@pytest.fixture(scope="module",
+                params=[(1, 0, 260, 12), (1, 32, 260, 12), (4, 32, 120, 6)],
+                ids=["P1-rung0-0", "P1-rung0-32", "P4-rung0-32"])
+def setup(request):
+    """(P, rung0, pairs, colours): XLA's compile time grows with P times
+    the colour count, so the P = 4 case is a smaller graph."""
+    p_max, rung0, n_pairs, max_colors = request.param
+    return _setup(5 + p_max + rung0, p_max, rung0, n_pairs, max_colors)
+
+
+def _jax_routes(setup):
+    """The JAX routes a case is held against: always the XLA twin; the
+    Pallas kernel in interpret mode too in the P = 1, rung0 > 0 case (the
+    interpreter costs ~10 s a kernel at these sizes)."""
+    return (False, True) if (setup["p_max"], setup["rung0"]) == (1, 32) \
+        else (False,)
+
+
+def test_setup_compaction_matches_jax(setup):
+    got, want = setup["got"], setup["want"]
+    for f in dataclasses.fields(tcons.Contacts):
+        np.testing.assert_array_equal(_np(getattr(got[0], f.name)),
+                                      _np(getattr(want[0], f.name)),
+                                      err_msg=f.name)
+    np.testing.assert_array_equal(_np(got[3]), _np(want[3]))
+    cc = setup["cc"]
+    assert cc[0] > 0 and (cc[1:] == 0).any()  # residue and empty colours
+
+
+def test_build_constraints_fused_matches_jax(setup):
+    """B9's plain version against the JAX package's: every field of every
+    live column within the JAX test's tolerance (1e-5 + 2e-6 max|field|:
+    cancellation in the torque terms scales with the field's magnitude),
+    the integer fields exact. The rung padding's columns (dist 1e9, never
+    read: inactive) carry torques that cancel two ~5e8 terms, which the two
+    packages round differently, so they are held to that scale."""
+    jc, tc = setup["want"][0], setup["got"][0]
+    t_cons, t_big, t_meta = tbuild.build_constraints_fused(
+        *setup["t"], tc, SimParams())
+    assert t_big.shape[0] == tbuild.field_meta(setup["p_max"], S_LEN)[1]
+    live = _np(tc.valid)
+    assert live.any() and not live.all()
+    for use_pallas in _jax_routes(setup):
+        j_cons, j_big, j_meta = jbuild.build_constraints_fused(
+            *setup["j"], jc, JaxSimParams(), use_pallas=use_pallas)
+        assert t_meta == {k: (a, tuple(t)) for k, (a, t) in j_meta.items()}
+        jb = np.asarray(j_big)
+        for f, (at, tail) in t_meta.items():
+            k = int(np.prod(tail)) if tail else 1
+            want, got = jb[at:at + k], _np(t_big[at:at + k])
+            tol = 1e-5 + 2e-6 * float(np.abs(want[:, live]).max(initial=0))
+            d = np.abs(got - want)[:, live].max(initial=0.0)
+            assert d <= tol, (f, use_pallas, d, tol)
+            np.testing.assert_allclose(got[:, ~live], want[:, ~live],
+                                       rtol=1e-5, atol=1e-6 * 5e8)
+            np.testing.assert_array_equal(
+                _np(getattr(t_cons, f)),
+                _np(t_big[at:at + k]).T.reshape((-1,) + tuple(tail)))
+    for f in ("body_a", "body_b", "valid", "num_points"):
+        np.testing.assert_array_equal(_np(getattr(t_cons, f)),
+                                      _np(getattr(j_cons, f)))
+
+
+def _tables(setup):
+    """Both packages' idx / inv from the JAX package's fused constraints."""
+    jc = setup["want"][0]
+    j_cons, j_big, j_meta = jbuild.build_constraints_fused(
+        *setup["j"], jc, JaxSimParams(), use_pallas=False)
+    windows, rung0 = setup["windows"], setup["rung0"]
+    w_g = jfused.gather_width(setup["n"], windows)
+    assert w_g == tfused.gather_width(setup["n"], windows)
+    dyn_a = jnp.any(j_cons.im_a != 0.0, axis=-1)
+    dyn_b = jnp.any(j_cons.im_b != 0.0, axis=-1)
+    want = jfused.build_fused_tables(
+        j_cons.body_a, j_cons.body_b, dyn_a, dyn_b, j_cons.valid,
+        windows=windows, rung0=rung0, w_g=w_g)
+    got = tfused.build_fused_tables(
+        _t(j_cons.body_a), _t(j_cons.body_b), _t(dyn_a), _t(dyn_b),
+        _t(j_cons.valid), windows=windows, rung0=rung0, w_g=w_g)
+    return j_cons, np.asarray(j_big), j_meta, w_g, got, want
+
+
+def test_build_fused_tables_exact(setup):
+    _, _, _, w_g, got, want = _tables(setup)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(_np(g), _np(w))
+    inv = _np(got[1])
+    assert (inv == w_g - 1).any() and (inv < w_g - 1).any()
+    assert tfused.fused_layout(setup["windows"], setup["rung0"])[2] == \
+        setup["got"][0].body_a.shape[0]
+
+
+def _sweep_inputs(setup, seed):
+    """Operands of the sweep and substep kernels in both packages: the JAX
+    package's fused constraint matrix, seeded velocities, impulses and
+    rhs, the tables."""
+    j_cons, j_big, j_meta, w_g, (t_idx, t_inv), (j_idx, j_inv) = \
+        _tables(setup)
+    rng = np.random.default_rng(seed)
+    p_max, n = setup["p_max"], setup["n"]
+    windows, rung0 = setup["windows"], setup["rung0"]
+    ctot = j_big.shape[1]
+    k_pack = j_meta["cfm_factor"][0]
+    meta = {f: j_meta[f] for f in jsolver._PACK_FIELDS}
+    vt = np.zeros((8, w_g), np.float32)
+    vt[0:6, :n] = rng.normal(scale=0.5, size=(6, n))
+    n_imp = rng.uniform(0.0, 0.1, (p_max, ctot)).astype(np.float32)
+    t_imp = rng.uniform(-0.02, 0.02, (p_max * S_LEN, ctot)).astype(
+        np.float32)
+    n_rhs = rng.uniform(-1.0, 1.0, (p_max, ctot)).astype(np.float32)
+    t_rhs = rng.uniform(-0.1, 0.1, (p_max * S_LEN, ctot)).astype(np.float32)
+    counts = np.concatenate([setup["cc"], [0]]).astype(np.int32)
+    active = np.asarray(j_cons.valid, np.float32)[None]
+    nump = np.asarray(j_cons.num_points, np.float32)[None]
+    pose = np.zeros((8, w_g), np.float32)
+    pose[0:4, :n] = setup["q"].T
+    pose[4:7, :n] = setup["tr"].T
+    pose[7, :n] = 1.0
+    relin = ("t_rhs_wo_bias", "local_pt_a", "local_pt_b", "info_dist",
+             "info_normal_vel")
+    src0 = min(j_meta[f][0] for f in relin)
+    src_meta = {f: (j_meta[f][0] - src0, tuple(j_meta[f][1])) for f in relin}
+    arrays = dict(vt=vt, n_imp=n_imp, t_imp=t_imp, win=j_big[:k_pack],
+                  src=j_big[src0:], pose=pose, active=active, nump=nump,
+                  n_rhs=n_rhs, t_rhs=t_rhs, counts=counts)
+    kw = dict(windows=windows, rung0=rung0, p_max=p_max, s_len=S_LEN)
+    meta = {f: (a, tuple(t)) for f, (a, t) in meta.items()}
+    return arrays, (j_idx, j_inv), (t_idx, t_inv), kw, meta, src_meta
+
+
+def _close(got, want, what, rtol, atol):
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=rtol,
+                                   atol=atol, err_msg=f"{what} output {i}")
+
+
+def test_fused_sweep_plain_matches_jax(setup):
+    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, _ = _sweep_inputs(setup, 1)
+    t_args = (_t(a["vt"]), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),
+              _t(a["active"]), _t(a["nump"]), 0.93, _t(a["n_rhs"]),
+              _t(a["t_rhs"]), t_idx, t_inv,
+              torch.from_numpy(a["counts"]))
+    got = tfused.fused_sweep(*t_args, meta=meta, **kw)
+    j_args = [jnp.asarray(a[k]) for k in ("vt", "n_imp", "t_imp", "win",
+                                          "active", "nump")]
+    j_args += [0.93, jnp.asarray(a["n_rhs"]), jnp.asarray(a["t_rhs"]),
+               j_idx, j_inv, jnp.asarray(a["counts"])]
+    for use_pallas in _jax_routes(setup):
+        want = _jit(jfused.fused_sweep, meta=meta, use_pallas=use_pallas,
+                    **kw)(*j_args)
+        _close(got, want, f"fused_sweep (pallas={use_pallas})", SWEEP_RTOL,
+               SWEEP_ATOL)
+    # the sweep moved every live colour and left the padding untouched
+    assert not np.allclose(_np(got[1]), a["n_imp"])
+    live = _np(got[1])[:, _np(t_args[4])[0] > 0.5]
+    assert np.isfinite(live).all()
+
+
+def test_fused_substep1_plain_matches_jax(setup):
+    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, src_meta = \
+        _sweep_inputs(setup, 2)
+    scalars = (0.85, 0.93, 240.0, 175.3, 1e-3, 10.0)
+    got = tfused.fused_substep1(
+        _t(a["vt"]), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),
+        _t(a["src"]), _t(a["pose"]), _t(a["active"]), _t(a["nump"]), t_idx,
+        t_inv, torch.from_numpy(a["counts"]), meta=meta, src_meta=src_meta,
+        scalars=scalars, **kw)
+    j_args = [jnp.asarray(a[k]) for k in ("vt", "n_imp", "t_imp", "win",
+                                          "src", "pose", "active", "nump")]
+    j_args += [j_idx, j_inv, jnp.asarray(a["counts"])]
+    for use_pallas in _jax_routes(setup):
+        want = _jit(jfused.fused_substep1, meta=meta, src_meta=src_meta,
+                    scalars=scalars, use_pallas=use_pallas, **kw)(*j_args)
+        _close(got, want, f"fused_substep1 (pallas={use_pallas})",
+               SUBSTEP_RTOL, SUBSTEP_ATOL)
+    # the residue rows are scaled, not swept; rows past every class are 0
+    r0 = setup["rung0"]
+    np.testing.assert_array_equal(_np(got[1])[:, :r0],
+                                  (a["n_imp"] * np.float32(0.85))[:, :r0])
+
+
+def test_fused_integrate_plain_matches_jax():
+    rng = np.random.default_rng(9)
+    lanes = 384
+    q = rng.normal(size=(4, lanes))
+    q /= np.linalg.norm(q, axis=0, keepdims=True)
+    pose = np.concatenate([q, rng.uniform(-20, 20, (3, lanes)),
+                           rng.uniform(0.9, 1.1, (1, lanes))]).astype(
+        np.float32)
+    vt = np.zeros((8, lanes), np.float32)
+    vt[0:6] = rng.normal(scale=2.0, size=(6, lanes))
+    vt[3:6, :64] *= 1e-5  # angle below 1e-6: the small-angle branch
+    vt[3:6, 64:80] = 0.0
+    com = rng.uniform(-0.1, 0.1, (3, lanes)).astype(np.float32)
+    dt = 1.0 / 240.0
+    got = tfused.fused_integrate(_t(pose), _t(vt), _t(com), dt)
+    for use_pallas in (False, True):
+        want = _jit(jfused.fused_integrate, dt=dt, use_pallas=use_pallas)(
+            jnp.asarray(pose), jnp.asarray(vt), jnp.asarray(com))
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+    qn = np.linalg.norm(_np(got)[0:4], axis=0)
+    np.testing.assert_allclose(qn, 1.0, atol=1e-6)
+    np.testing.assert_array_equal(_np(got)[7], pose[7])

@@ -75,14 +75,6 @@ def test_compact_contacts_matches_jax(branch, capacity):
         assert (np.diff(live) >= 0).all()  # colour-major
 
 
-def test_compact_contacts_refuses_the_fused_layout():
-    contact, colors = _contacts(8)
-    with pytest.raises(NotImplementedError, match="static_windows"):
-        tcons.compact_contacts(
-            tcons.Contacts(**{k: _t(v) for k, v in contact.items()}), 0,
-            extra=_t(colors), sort_by_extra=True, static_windows=(32, 32))
-
-
 def _moved_poses(setup, seed=12):
     """The setup's poses after a small substep-sized motion."""
     rng = np.random.default_rng(seed)

@@ -131,8 +131,7 @@ def test_ten_frames_track_jax(warmed):
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_jacobi=True), dict(gs_fused=True), dict(gs_static_slots=True),
-    dict(gs_fused=True, gs_fused_pallas=True, gs_rung0=256),
+    dict(use_jacobi=True), dict(gs_static_slots=True),
     dict(gs_windows=()), dict(gs_windows=(), gs_tail_window=1536),
     dict(gs_cmax=0), dict(bp_slack=0.0),
     dict(bp_algo="lbvh"), dict(bp_min_color_sweeps=2)])

@@ -1,0 +1,173 @@
+"""The port's fused solver step (``gs_fused``) against the JAX package: a
+160-ball pit warmed by the JAX package under a scaled-down ``fused``
+configuration (grid broad phase with its slack cache, cached pair colours,
+the static rung-padded layout with a non-empty residue class), carried
+across with ``state_from_arrays``, then stepped once by both packages —
+integers exact, floats at the stated tolerances. Then, within the port:
+the fused step against the ladder step, the rung regrow of
+``step_checked`` (the same configuration sequence as the JAX package's),
+the precedence of ``gs_fused`` over the pair-slot layout, and
+``gs_fused_pallas``, which changes nothing."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from wgmath_tpu.dynamics import SimParams as JaxSimParams
+from wgmath_tpu.pipeline import PipelineConfig as JaxConfig
+from wgmath_tpu.pipeline import step as jax_step
+from wgmath_tpu.pipeline import step_checked as jax_step_checked
+from wgmath_tpu.scenes.builders import ball_pit as jax_ball_pit
+from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
+from wgmath_tpu_torch.dynamics.sim_params import SimParams
+from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
+
+WARM_FRAMES = 30
+MAX_COLORS = 12
+
+
+@pytest.fixture(scope="module")
+def warmed():
+    """(JAX state, JAX config) after the warmup under the fused
+    configuration: balls landed, contacts formed, BP cache, colours and the
+    8-part fused bundle populated. ``gs_cmax`` 48 caps the colour classes,
+    so a residue class (colour 0) is warmstarted outside the kernels."""
+    cfg = JaxConfig(pair_capacity=2048, contact_capacity=1024,
+                    max_colors=MAX_COLORS, gs_cmax=48, bp_slack=0.03,
+                    bp_algo="grid", manifold_points=1, gs_rung_quantum=32,
+                    gs_windows=(32,) * MAX_COLORS, gs_fused=True,
+                    gs_rung0=256)
+    state, params = jax_ball_pit(160), JaxSimParams()
+    for f in range(WARM_FRAMES):
+        state = jax_step(state, params, cfg, warmstart=f > 0)
+    counts = np.asarray(state.pair_count)
+    cc = counts[8:8 + MAX_COLORS + 2]
+    assert counts[1] > 100 and 0 < counts[0] <= 2048
+    assert 0 < cc[0] <= 256  # a residue class within its rung
+    assert cc[1:].max() <= 32  # every colour fits its rung
+    assert len(state.solve_cache) == 8
+    return state, cfg
+
+
+def _port(state, cfg):
+    return (state_from_arrays(state_to_arrays(state), device="cpu"),
+            PipelineConfig.from_dict(dataclasses.asdict(cfg)))
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.fixture(scope="module")
+def one_step(warmed):
+    """One step of each package from the warmed state."""
+    jstate, jcfg = warmed
+    tstate, tcfg = _port(jstate, jcfg)
+    return (jax_step(jstate, JaxSimParams(), jcfg),
+            step(tstate, SimParams(), tcfg))
+
+
+def test_one_fused_step_matches_jax(one_step):
+    js, ts = one_step
+    # integers exact: counts (the true class counts included), the cached
+    # pair list and colours, the 8-part bundle (static offsets, sides,
+    # idx / inv), the constraint slots of the rung-padded layout
+    np.testing.assert_array_equal(_np(ts.pair_count), _np(js.pair_count))
+    for f in ("body_a", "body_b", "valid", "count"):
+        np.testing.assert_array_equal(_np(getattr(ts.bp_pairs, f)),
+                                      _np(getattr(js.bp_pairs, f)), f)
+    np.testing.assert_array_equal(_np(ts.bp_colors[0]),
+                                  _np(js.bp_colors[0]))
+    np.testing.assert_array_equal(_np(ts.prev_colors), _np(js.prev_colors))
+    assert len(ts.solve_cache) == len(js.solve_cache) == 8
+    for i, (g, w) in enumerate(zip(ts.solve_cache, js.solve_cache)):
+        np.testing.assert_array_equal(_np(g), _np(w), f"solve_cache[{i}]")
+    for f in ("body_a", "body_b", "valid", "num_points"):
+        np.testing.assert_array_equal(_np(getattr(ts.prev_constraints, f)),
+                                      _np(getattr(js.prev_constraints, f)))
+    # floats: poses at 1e-6; velocities at atol 5e-5 for the reason the
+    # ladder tests state (XLA on the CPU contracts a*b+c into one rounding,
+    # and the rhs rebuild scales one ulp of a world point by 1/dt)
+    tb, jb = ts.bodies, js.bodies
+    for got, want in ((tb.poses.translation, jb.poses.translation),
+                      (tb.poses.rotation, jb.poses.rotation)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-6)
+    for got, want in ((tb.vels.linear, jb.vels.linear),
+                      (tb.vels.angular, jb.vels.angular)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4,
+                                   atol=5e-5)
+    for f in ("n_impulse", "t_impulse"):
+        np.testing.assert_allclose(_np(getattr(ts.prev_constraints, f)),
+                                   _np(getattr(js.prev_constraints, f)),
+                                   rtol=1e-3, atol=1e-4)
+
+
+def test_fused_step_matches_port_ladder(warmed, one_step):
+    """Within the port, from one warmed state: the fused solver advances
+    the pile as the ladder does (the JAX package's own wiring test)."""
+    tstate, tcfg = _port(*warmed)
+    lad = step(tstate, SimParams(), dataclasses.replace(tcfg,
+                                                        gs_fused=False))
+    fus = one_step[1]
+    np.testing.assert_array_equal(_np(fus.pair_count)[:2],
+                                  _np(lad.pair_count)[:2])
+    np.testing.assert_allclose(_np(fus.bodies.vels.linear),
+                               _np(lad.bodies.vels.linear), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(_np(fus.bodies.poses.translation),
+                               _np(lad.bodies.poses.translation), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_step_checked_regrows_rungs_as_jax(warmed):
+    """Undersized windows: the first fused frame drops each colour's
+    overflow, exports the TRUE class counts, and ``step_checked`` regrows
+    the rungs and re-runs the frame; the configuration sequence and the
+    counts equal the JAX package's."""
+    jstate, jcfg = warmed
+    small = dataclasses.replace(jcfg, gs_windows=(8,) * MAX_COLORS,
+                                gs_rung0=8)
+    tstate, tcfg = _port(jstate, small)
+    js, jc, ts, tc = jstate, small, tstate, tcfg
+    for _ in range(2):
+        js, jc = jax_step_checked(js, JaxSimParams(), jc)
+        ts, tc = step_checked(ts, SimParams(), tc)
+        assert dataclasses.asdict(tc) == dataclasses.asdict(
+            PipelineConfig.from_dict(dataclasses.asdict(jc)))
+        np.testing.assert_array_equal(_np(ts.pair_count), _np(js.pair_count))
+    assert tc.gs_windows != small.gs_windows and tc.gs_rung0 > 8
+    assert np.isfinite(_np(ts.bodies.poses.translation)).all()
+
+
+def test_fused_takes_precedence_over_pair_slots(warmed, one_step):
+    """``gs_fused`` with ``gs_pair_slots`` (and ``gs_chained``) runs the
+    fused solver, as in the JAX package: the same bits as ``gs_fused``
+    alone."""
+    tstate, tcfg = _port(*warmed)
+    both = step(tstate, SimParams(), dataclasses.replace(
+        tcfg, gs_pair_slots=True, gs_chained=True, gs_rhs_in_rung=True))
+    fus = one_step[1]
+    np.testing.assert_array_equal(_np(both.pair_count), _np(fus.pair_count))
+    assert len(both.solve_cache) == 8
+    for got, want in ((both.bodies.poses.translation,
+                       fus.bodies.poses.translation),
+                      (both.bodies.vels.linear, fus.bodies.vels.linear),
+                      (both.bodies.vels.angular, fus.bodies.vels.angular)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pallas", [True, False])
+def test_gs_fused_pallas_changes_nothing_on_the_cpu(warmed, one_step,
+                                                    pallas):
+    tstate, tcfg = _port(*warmed)
+    got = step(tstate, SimParams(),
+               dataclasses.replace(tcfg, gs_fused_pallas=pallas))
+    fus = one_step[1]
+    for a, b in ((got.bodies.poses.translation, fus.bodies.poses.translation),
+                 (got.bodies.vels.linear, fus.bodies.vels.linear),
+                 (got.prev_constraints.n_impulse,
+                  fus.prev_constraints.n_impulse)):
+        assert torch.equal(a, b)

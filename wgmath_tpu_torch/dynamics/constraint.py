@@ -9,7 +9,9 @@ trailing axis P, friction directions a trailing axis S = 2.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from wgmath_tpu_torch.dynamics.body import Velocity, WorldMassProperties
@@ -252,6 +254,16 @@ def remove_cfm_and_bias(cons: ContactConstraints) -> ContactConstraints:
         cfm_factor=torch.ones_like(cons.cfm_factor))
 
 
+@functools.lru_cache(maxsize=8)
+def _static_slots(windows: tuple, device: torch.device):
+    """(colour, rank) of every slot of the rung-padded layout: slot s of
+    colour k lies at ``sum(windows[:k]) + rank``."""
+    col = np.repeat(np.arange(len(windows)), windows)
+    rank = np.concatenate([np.arange(w) for w in windows] or [[]])
+    return (torch.as_tensor(col, dtype=torch.int64, device=device),
+            torch.as_tensor(rank, dtype=torch.int64, device=device))
+
+
 def compact_contacts(contacts: Contacts, capacity: int, extra=None,
                      sort_by_extra: bool = False, static_windows=None):
     """Compact valid manifolds into a ``capacity``-sized buffer; every
@@ -263,17 +275,18 @@ def compact_contacts(contacts: Contacts, capacity: int, extra=None,
     colours); returned third. ``sort_by_extra`` orders the buffer by
     ascending ``extra``, slot order within equal values: with colours the
     buffer comes out colour-major and the solver needs no sort of its own.
-    ``static_windows`` is the fused solver's rung-padded layout, which is
-    not ported."""
-    if static_windows is not None:
-        raise NotImplementedError(
-            "compact_contacts: static_windows (fused layout) is not ported")
+
+    ``static_windows`` (requires ``sort_by_extra``): the fused solver's
+    rung-padded layout. Colour k lands at the static offset
+    ``sum(static_windows[:k])``, padded to ``static_windows[k]`` rows;
+    ``capacity`` is ignored, entries past a colour's rung are dropped, and
+    the TRUE per-class counts come back as a fourth value (the host regrows
+    the rung from them)."""
     c = contacts.capacity
     dev = contacts.body_a.device
     flags = contacts.valid
     count = flags.sum()
-    valid_out = torch.arange(capacity, device=dev) < torch.clamp(
-        count, max=capacity)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
     if sort_by_extra:
         assert extra is not None and c < (1 << 24)
         # one sort compacts and orders: key = (colour << 24) | slot for
@@ -283,13 +296,29 @@ def compact_contacts(contacts: Contacts, capacity: int, extra=None,
         key = torch.where(flags, (torch.clamp(extra, 0, 127) << 24) | idx,
                           torch.full_like(idx, 0x7FFFFFFF))
         skey, take = torch.sort(key, stable=True)
-        skey, take = skey[:capacity], take[:capacity]
+        if static_windows is not None:
+            windows = tuple(int(w) for w in static_windows)
+            n_classes = len(windows)
+            capacity = sum(windows)
+            cls = torch.where(flags, torch.clamp(extra, 0, n_classes - 1),
+                              torch.full_like(extra, n_classes))
+            class_counts = torch.bincount(
+                cls, minlength=n_classes + 1)[:n_classes]
+            cum = torch.cat([zero[None], torch.cumsum(class_counts, 0)])
+            col_of_slot, j_of_slot = _static_slots(windows, dev)
+            # slot j of colour k takes sorted position cum[k] + j (clamped
+            # into the buffer as the JAX package clamps it)
+            valid_out = j_of_slot < (cum[col_of_slot + 1] - cum[col_of_slot])
+            take = take[torch.clamp(cum[col_of_slot] + j_of_slot, max=c - 1)]
+        else:
+            skey, take = skey[:capacity], take[:capacity]
+            valid_out = torch.arange(capacity, device=dev) < torch.clamp(
+                count, max=capacity)
         # one wide row gather for every float field
         p_shape = contacts.points_a.shape[1:]
         big = torch.cat([contacts.normal_a, contacts.points_a.reshape(c, -1),
                          contacts.dist], dim=1)[take]
         w0, w1 = 3, 3 + contacts.points_a[0].numel()
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
         out = Contacts(
             body_a=torch.where(valid_out, contacts.body_a[take], zero),
             body_b=torch.where(valid_out, contacts.body_b[take], zero),
@@ -300,9 +329,14 @@ def compact_contacts(contacts: Contacts, capacity: int, extra=None,
             num_points=torch.where(valid_out, contacts.num_points[take],
                                    zero),
             valid=valid_out)
+        if static_windows is not None:
+            colors_out = torch.where(valid_out, col_of_slot, zero)
+            return out, count, colors_out, class_counts
         colors_out = torch.where(valid_out, (skey >> 24) & 0x7F, zero)
         return out, count, colors_out
 
+    valid_out = torch.arange(capacity, device=dev) < torch.clamp(
+        count, max=capacity)
     pos = torch.cumsum(flags.to(torch.int64), 0) - 1
     slot = torch.where(flags & (pos < capacity), pos,
                        torch.full_like(pos, capacity))

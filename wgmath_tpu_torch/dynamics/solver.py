@@ -37,11 +37,23 @@ from wgmath_tpu_torch.dynamics.body import (
     WorldMassProperties,
     integrate_velocity,
 )
+from wgmath_tpu_torch.dynamics.build_fused import (
+    F32_SORT_FIELDS,
+    build_constraints_fused,
+)
 from wgmath_tpu_torch.dynamics.constraint import (
     ContactConstraints,
     Contacts,
     build_constraints,
     update_rhs_sorted,
+)
+from wgmath_tpu_torch.dynamics.gs_fused import (
+    build_fused_tables,
+    fused_integrate,
+    fused_layout,
+    fused_substep1,
+    fused_sweep,
+    gather_width,
 )
 from wgmath_tpu_torch.dynamics.gs_math import (
     PACK_FIELDS,
@@ -50,6 +62,7 @@ from wgmath_tpu_torch.dynamics.gs_math import (
     gs_math_block_rhs,
 )
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
+from wgmath_tpu_torch.geometry.sim import Sim
 
 _MASK32 = 0xFFFFFFFF
 _INF32 = 0xFFFFFFFF
@@ -317,9 +330,6 @@ def transfer_warmstart(cons: ContactConstraints, prev: ContactConstraints,
 # Colour-major layout
 # ---------------------------------------------------------------------------
 
-_F32_SORT_FIELDS = PACK_FIELDS + (
-    "cfm_factor", "n_rhs", "t_rhs", "n_rhs_wo_bias")
-
 
 def build_color_layout(colors, valid, *, max_colors: int, cmax: int):
     """Colour-major constraint ordering: ``order`` sorted by colour
@@ -360,7 +370,7 @@ def _field_matrix(cons: ContactConstraints):
     ``PACK_FIELDS`` first) and its layout map."""
     c = cons.body_a.shape[0]
     cols, meta, at = [], {}, 0
-    for f in _F32_SORT_FIELDS:
+    for f in F32_SORT_FIELDS:
         v = getattr(cons, f)
         tail = tuple(v.shape[1:])
         meta[f] = (at, tail)
@@ -702,7 +712,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           colors_in: torch.Tensor, gs_windows: tuple, layout_valid=None,
           stable_hint: bool | None = None, cache_in=None,
           presorted: bool = False, chained: bool = False,
-          rhs_in_rung: bool = False):
+          rhs_in_rung: bool = False, fused: bool = False,
+          fused_rung0: int = 0, fused_class_counts=None):
     """Complete constraint solve for one frame under the window ladder
     (``gs_windows``) with pre-coloured contacts (``colors_in``). Returns
     ``(poses, vels, constraints, max_class, colors, solve_cache)``.
@@ -717,13 +728,27 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     frame's pair keys with last frame's (one host sync). Stable slots reuse the cached
     bundle and warmstart slot by slot; otherwise the bundle is rebuilt and
     impulses transfer by key. ``chained`` selects the chained sweep,
-    ``rhs_in_rung`` (chained only) the in-kernel rhs rebuild."""
+    ``rhs_in_rung`` (chained only) the in-kernel rhs rebuild.
+
+    ``fused`` (with ``presorted`` contacts in the static rung-padded layout
+    of ``compact_contacts(static_windows=...)`` and their TRUE per-class
+    counts ``fused_class_counts``) selects the fused solver: the fused
+    constraint build (B9), then per substep the residue warmstart, one
+    :func:`~wgmath_tpu_torch.dynamics.gs_fused.fused_substep1`, one
+    ``fused_integrate`` and one unbiased ``fused_sweep``; ``fused_rung0``
+    is the residue class's rung. ``chained`` is then ignored."""
     sub = params.substep().with_dim(3)
     n = bodies.num_bodies
     dev = bodies.poses.translation.device
     assert n < (1 << 16), f"{n} bodies: 16-bit pair keys alias"
-    cons = build_constraints(bodies.poses, bodies.vels, mprops, contacts,
-                             params)
+    use_fused = (fused and bool(gs_windows) and presorted
+                 and colors_in is not None and fused_class_counts is not None)
+    if use_fused:
+        cons, big_t, big_meta = build_constraints_fused(
+            bodies.poses, bodies.vels, mprops, contacts, params)
+    else:
+        cons = build_constraints(bodies.poses, bodies.vels, mprops, contacts,
+                                 params)
     same = None
     if (warmstart_from is not None
             and warmstart_from.body_a.shape == cons.body_a.shape):
@@ -756,6 +781,12 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     windows = tuple(gs_windows[:max_colors])
     cmax = max(windows)
     c_cap = cons.body_a.shape[0]
+    if use_fused:
+        return _solve_fused(
+            bodies, cons, big_t, big_meta, vels, inc, sub, params,
+            windows=windows, rung0=fused_rung0,
+            class_counts=fused_class_counts, max_colors=max_colors,
+            same=same, cache_in=cache_in, colors=colors)
     use_rhs_rung = rhs_in_rung and chained
 
     if same and cache_in is not None and [tuple(x.shape) for x in
@@ -855,6 +886,145 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     # uncoloured residue (segment 0 is not swept): report it through the
     # head so the host regrows gs_cmax
     head = head + torch.where(class_counts[0] > 0, cmax + class_counts[0],
+                              torch.zeros_like(head))
+    max_class = torch.cat([torch.stack([head, torch.zeros_like(head)]),
+                           class_counts])
+    return poses, vels, cons, max_class, colors, bundle
+
+
+# ---------------------------------------------------------------------------
+# The fused solver (gs_fused.py): static rung-padded layout, one kernel per
+# sweep, velocities / poses / impulses component-major for the whole solve
+# ---------------------------------------------------------------------------
+
+# the relinearization rows the substep kernel reads from the field matrix
+_RELIN_FIELDS = ("t_rhs_wo_bias", "local_pt_a", "local_pt_b", "info_dist",
+                 "info_normal_vel")
+# the residue rows' fields the out-of-kernel warmstart reads
+_RESIDUE_FIELDS = ("dir_a", "tangent_a", "im_a", "im_b", "n_torque_a",
+                   "n_ii_torque_a", "n_torque_b", "n_ii_torque_b",
+                   "t_ii_torque_a", "t_ii_torque_b", "num_points")
+
+
+def _fused_bundle(cons, windows: tuple, rung0: int, class_counts,
+                  max_colors: int, n: int, w_g: int):
+    """The 8-part fused solve bundle: identity order, the static offsets and
+    the TRUE class counts (the rung-regrow signal), the warmstart sides,
+    and the per-colour ``idx`` / ``inv`` tables."""
+    dev = cons.body_a.device
+    c_cap = cons.body_a.shape[0]
+    _, offs, _ = fused_layout(windows, rung0)
+    counts = torch.cat([class_counts.to(torch.int64), torch.zeros(
+        max_colors + 2 - class_counts.shape[0], dtype=torch.int64,
+        device=dev)])
+    dyn_a, dyn_b = _dyn_sides(cons)
+    return ((torch.arange(c_cap, device=dev),
+             torch.as_tensor(offs, dtype=torch.int64, device=dev), counts)
+            + _build_sides(cons.body_a, cons.body_b, dyn_a, dyn_b,
+                           cons.valid, n)
+            + build_fused_tables(cons.body_a, cons.body_b, dyn_a, dyn_b,
+                                 cons.valid, windows=windows, rung0=rung0,
+                                 w_g=w_g))
+
+
+def _solve_fused(bodies: Bodies, cons, big_t, big_meta, vels: Velocity, inc,
+                 sub, params: SimParams, *, windows: tuple, rung0: int,
+                 class_counts, max_colors: int, same, cache_in, colors):
+    """The substep loop of the fused solver (the JAX package's
+    ``substep_fused``); returns as :func:`solve`."""
+    n = bodies.num_bodies
+    dev = big_t.device
+    c_cap = cons.body_a.shape[0]
+    _, _, ctot = fused_layout(windows, rung0)
+    assert c_cap == ctot, (c_cap, ctot)
+    w_g = gather_width(n, windows)
+    p_max = cons.n_impulse.shape[1]
+    s_len = cons.tangent_a.shape[-2]
+    shapes = [(c_cap,), (max_colors + 2,), (max_colors + 2,), (2 * c_cap,),
+              (n,), (n,), (len(windows), w_g), (len(windows), w_g)]
+    if same and cache_in is not None and [tuple(x.shape) for x in
+                                          cache_in] == shapes:
+        bundle = tuple(cache_in)
+    else:
+        bundle = _fused_bundle(cons, windows, rung0, class_counts,
+                               max_colors, n, w_g)
+    counts = bundle[2].to(torch.int32)
+    idx = bundle[6].to(torch.int32).contiguous()
+    inv = bundle[7].to(torch.int32).contiguous()
+
+    # substep-invariant operands, all rows of B9's field matrix
+    k_pack = big_meta["cfm_factor"][0]
+    win_t = big_t[:k_pack]
+    meta = {f: big_meta[f] for f in PACK_FIELDS}
+    src0 = min(big_meta[f][0] for f in _RELIN_FIELDS)
+    src_t = big_t[src0:]
+    src_meta = {f: (big_meta[f][0] - src0, big_meta[f][1])
+                for f in _RELIN_FIELDS}
+    t0 = big_meta["t_rhs_wo_bias"][0]
+    trwb_t = big_t[t0:t0 + p_max * s_len]
+    active_t = cons.valid.to(torch.float32)[None, :]
+    nump_t = cons.num_points.to(torch.float32)[None, :]
+    ws = float(sub.warmstart_coefficient)
+    scalars = (ws, float(sub.contact_cfm_factor), float(sub.inv_dt),
+               float(sub.contact_erp_inv_dt),
+               float(sub.allowed_linear_error),
+               float(sub.max_corrective_velocity))
+    kw = dict(windows=windows, rung0=rung0, p_max=p_max, s_len=s_len,
+              meta=meta)
+    inc_t = torch.zeros((8, w_g), device=dev)
+    inc_t[0:3, :n] = inc.T
+    com_t = torch.zeros((3, w_g), device=dev)
+    com_t[:, :n] = bodies.local_mprops.com.T
+    if rung0:
+        # the residue rows (colour 0) can share bodies, so no inverse
+        # permutation exists: their warmstart is added outside the kernel,
+        # static and invalid sides routed to the trash lane
+        res = SimpleNamespace(**{f: getattr(cons, f)[:rung0]
+                                 for f in _RESIDUE_FIELDS})
+        res_valid = cons.valid[:rung0]
+        dyn_a, dyn_b = _dyn_sides(res)
+        trash = torch.full_like(res.num_points, w_g - 1)
+        res_lanes = torch.cat([
+            torch.where(res_valid & dyn_a, cons.body_a[:rung0], trash),
+            torch.where(res_valid & dyn_b, cons.body_b[:rung0], trash)])
+        res_index = (torch.arange(6, device=dev)[:, None], res_lanes[None])
+
+    vt = torch.zeros((8, w_g), device=dev)
+    vt[0:3, :n] = vels.linear.T
+    vt[3:6, :n] = vels.angular.T
+    pose_p = torch.zeros((8, w_g), device=dev)
+    pose_p[:, :n] = torch.cat([bodies.poses.rotation,
+                               bodies.poses.translation,
+                               bodies.poses.scale[:, None]], dim=-1).T
+    n_t = cons.n_impulse.reshape(c_cap, p_max).T.contiguous()
+    t_t = cons.t_impulse.reshape(c_cap, p_max * s_len).T.contiguous()
+    for _ in range(params.num_solver_iterations):
+        vt = vt + inc_t
+        if rung0:
+            d = _ws_deltas(res, n_t[:, :rung0].T * ws,
+                           t_t[:, :rung0].T.reshape(rung0, p_max, s_len) * ws,
+                           res_valid, p_max)
+            # accumulate=True adds duplicates one after another in index
+            # order on both devices (a sort on the card, no atomics)
+            vt.index_put_(res_index, d.T, accumulate=True)
+            vt[:, w_g - 1] = 0.0
+        vt, n_t, t_t, n_wo = fused_substep1(
+            vt, n_t, t_t, win_t, src_t, pose_p, active_t, nump_t, idx, inv,
+            counts, src_meta=src_meta, scalars=scalars, **kw)
+        pose_p = fused_integrate(pose_p, vt, com_t, sub.dt)
+        vt, n_t, t_t = fused_sweep(vt, n_t, t_t, win_t, active_t, nump_t,
+                                   1.0, n_wo, trwb_t, idx, inv, counts, **kw)
+    vels = Velocity(vt[0:3, :n].T, vt[3:6, :n].T)
+    poses = Sim(pose_p[0:4, :n].T, pose_p[4:7, :n].T, pose_p[7, :n])
+    cons = dataclasses.replace(
+        cons, n_impulse=n_t.T.reshape(c_cap, p_max),
+        t_impulse=t_t.T.reshape(c_cap, p_max, s_len))
+    class_counts = bundle[2]
+    head = torch.amax(class_counts[1:max_colors + 1])
+    # residue past its own rung: report it through the head so the host
+    # regrows gs_cmax
+    head = head + torch.where(class_counts[0] > rung0,
+                              max(windows) + class_counts[0],
                               torch.zeros_like(head))
     max_class = torch.cat([torch.stack([head, torch.zeros_like(head)]),
                            class_counts])

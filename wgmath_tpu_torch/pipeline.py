@@ -18,7 +18,16 @@ configurations the bench calls
   last-writer chain;
 - ``chained_rr`` (+ ``gs_rhs_in_rung``): the rhs rebuilt in the kernel;
 - ``chained_ps`` (+ ``gs_pair_slots``): contacts stay at their cached
-  colour-major pair slots.
+  colour-major pair slots;
+- ``fused`` (``gs_fused``): contacts compacted to the static rung-padded
+  colour-major layout (``gs_rung0`` rows of residue, then one rung per
+  colour; ``contact_capacity`` is ignored), the fused constraint build,
+  and per substep one substep kernel, one integration kernel and one
+  sweep kernel (``dynamics/gs_fused.py``). It takes precedence over
+  ``gs_pair_slots`` and ``gs_chained``, as in the JAX package.
+  ``gs_fused_pallas`` chose between two TPU lowerings of the same
+  formulation; the port has one, so the flag is accepted and changes
+  nothing: on the card the kernels run, on the CPU their plain versions.
 
 Any other solver flag is refused with ``NotImplementedError``.
 
@@ -147,8 +156,6 @@ def _check_slice(state: PhysicsState, config: PipelineConfig,
         bad.append(f"shape kinds {sorted(state.shapes.kinds)}")
     if config.use_jacobi:
         bad.append("use_jacobi")
-    if config.gs_fused:
-        bad.append("gs_fused")
     if config.gs_static_slots:
         bad.append("gs_static_slots")
     if config.bp_min_color_sweeps:
@@ -191,8 +198,9 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     move_mask = bodies.is_moving()
     mc = config.max_colors
     # pair-slot layout: the cached pair list is kept colour-major and the
-    # contacts stay at their pair slots
-    use_pair_slots = config.gs_pair_slots and config.gs_chained
+    # contacts stay at their pair slots (not under the fused solver)
+    use_pair_slots = (config.gs_pair_slots and config.gs_chained
+                      and not config.gs_fused)
 
     # velocity-aware slack, quantized to three levels so consecutive
     # refreshes reuse bitwise-identical thresholds
@@ -363,10 +371,19 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         p_max=config.manifold_points or 4,
         bc_capacity=config.bc_pair_capacity)
     contact_colors = bp_colors[0]
+    fused_class_counts = None
     if use_pair_slots:
         # no compaction: the constraint buffer spans pair_capacity and
         # contact-invalid rows are masked in the solve
         contact_count = contacts.valid.sum()
+        presorted = True
+    elif config.gs_fused:
+        # the static rung-padded layout: colour k at a fixed offset, padded
+        # to its rung; the TRUE class counts are the rung-regrow signal
+        windows = (config.gs_rung0,) + tuple(config.gs_windows[:mc])
+        contacts, contact_count, contact_colors, fused_class_counts = \
+            compact_contacts(contacts, 0, extra=contact_colors,
+                             sort_by_extra=True, static_windows=windows)
         presorted = True
     elif config.contact_capacity:
         # colour-major compaction: the solve needs no sort of its own
@@ -388,7 +405,8 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         stable_hint=bp_path == 0 if use_pair_slots else None,
         cache_in=state.solve_cache if warmstart else None,
         presorted=presorted, chained=config.gs_chained,
-        rhs_in_rung=config.gs_rhs_in_rung)
+        rhs_in_rung=config.gs_rhs_in_rung, fused=config.gs_fused,
+        fused_rung0=config.gs_rung0, fused_class_counts=fused_class_counts)
     new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
     head = torch.stack([pairs.count.to(torch.int64), contact_count,
                         max_class[0],
@@ -439,9 +457,11 @@ def step_checked(state: PhysicsState, params: SimParams,
     bucket = fine_bucket if config.fine_capacities else capacity_bucket
     if counts[0] > config.pair_capacity:
         regrow["pair_capacity"] = bucket(counts[0])
-    if (config.contact_capacity and not config.gs_pair_slots
+    if (config.contact_capacity and not config.gs_fused
+            and not config.gs_pair_slots
             and counts[1] > config.contact_capacity):
-        # (the pair-slot layout spans pair_capacity and ignores this knob)
+        # (the fused layout sizes its buffer from the rungs, the pair-slot
+        # layout spans pair_capacity: neither uses this knob)
         regrow["contact_capacity"] = bucket(counts[1])
     if config.gs_cmax and counts[2] > config.gs_cmax:
         regrow["gs_cmax"] = capacity_bucket(counts[2], floor=256)
@@ -463,14 +483,22 @@ def step_checked(state: PhysicsState, params: SimParams,
             if occ > rungs[c]:
                 rungs[c] = max(q, -(-int(occ * hr) // q) * q)
                 changed = True
-        last = max((c for c in range(config.max_colors) if cc[c + 1] > 0),
-                   default=-1)
-        for c in range(last + 2, config.max_colors):
-            if rungs[c]:
-                rungs[c] = 0
-                changed = True
+        if not config.gs_fused:
+            # prune the rungs past the last occupied class but one (the
+            # fused layout keeps every rung)
+            last = max((c for c in range(config.max_colors)
+                        if cc[c + 1] > 0), default=-1)
+            for c in range(last + 2, config.max_colors):
+                if rungs[c]:
+                    rungs[c] = 0
+                    changed = True
         if changed:
             regrow["gs_windows"] = tuple(rungs)
+        # the fused layout's residue class has a static rung of its own:
+        # it grows the same way (an overflow drops contacts)
+        if config.gs_fused and cc[0] > config.gs_rung0:
+            regrow["gs_rung0"] = max(
+                256, -(-int(cc[0]) * 23 // 20 // 256) * 256)
     if regrow:
         config = dataclasses.replace(config, **regrow)
         if stats is not None:
