@@ -9,7 +9,8 @@ Three phases; any failed check ends the run with a non-zero exit:
 1. setup: the card's name and power limit, torch/CUDA versions, and the
    build of every hand-written kernel from ``wgmath_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together; the Triton kernel compiles at
-   its first launch);
+   its first launch), with the count of tensor-core (``HGMMA``)
+   instructions in the built GEMM libraries;
 2. kernel: each kernel's wrapper against its plain PyTorch version on the
    card, on seeded random inputs at the main paths' shapes (max abs error,
    tolerance, device time per launch, its bound, and the one PyTorch call
@@ -46,10 +47,12 @@ Without a CUDA device the script exits 1 before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -359,10 +362,31 @@ def setup_phase() -> dict:
     for name in KERNEL_SOURCES:
         print(f"built {name}.cu in {cuda_build.BUILD_SECONDS[name]:.2f} s")
         for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "wgmma")):
                 print(f"  ptxas: {line.strip()}")
     print(f"kernel build wall time {wall:.2f} s")
-    return {"nvidia_smi": smi, "build_s": wall}
+    counts = hgmma_counts()
+    for name, n in counts.items():
+        print(f"HGMMA instructions in the built {name}.cu: " + (
+            "cuobjdump absent, not read" if n is None else str(n)))
+    return {"nvidia_smi": smi, "build_s": wall, "hgmma": counts}
+
+
+def hgmma_counts() -> dict:
+    """Tensor-core (wgmma) instructions in the built B3 and B4 libraries,
+    from ``cuobjdump -sass`` where the toolkit has it (None where not)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    counts = {}
+    for name in ("gemm", "gemm_split"):
+        counts[name] = None
+        if os.path.exists(tool):
+            out = subprocess.run([tool, "-sass", cuda_build._target(name)[1]],
+                                 capture_output=True, text=True, timeout=300)
+            if out.returncode == 0:
+                counts[name] = out.stdout.count("HGMMA")
+    return counts
 
 
 def _compare(name: str, label: str, fn, plain, args, kw, work) -> tuple:
@@ -844,10 +868,15 @@ def gemm_work(nb, m, n, k, itemsize, passes=3, rate=TF32_FLOP_PER_S):
     return nbytes, flops, b_ms, b_by, bound_ms(nbytes, flops)[0]
 
 
+GEMM_FETCH = ("per element", "cp.async", "TMA")  # csrc/gemm.cu enum Fetch
+
+
 def _gemm_case(label, a, b, *, ta=False, tb=False, library=False) -> dict:
     """B3 on one shape: agreement with ``gemm_torch`` and device times."""
     kw = dict(transpose_a=ta, transpose_b=tb)
     got = gemm_ops.gemm(a, b, impl="cuda", **kw)
+    fetch = [GEMM_FETCH[f] for f in (ctypes.c_int * 2).in_dll(
+        cuda_build.load("gemm"), "gemm_last_fetch")]
     want = gemm_ops.gemm_torch(a, b, **kw)
     torch.cuda.synchronize()
     rtol, atol = GEMM_TOL[a.dtype]
@@ -864,7 +893,8 @@ def _gemm_case(label, a, b, *, ta=False, tb=False, library=False) -> dict:
     p_ms = _median_ms(lambda: gemm_ops.gemm_torch(a, b, **kw))
     row = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_f32_fma": fma_ms,
-           "tflops": flops / k_ms / 1e9, "library_ms": None}
+           "bound_share": b_ms / k_ms, "tflops": flops / k_ms / 1e9,
+           "library_ms": None, "fetch": fetch}
     lib = ""
     if library:
         # the one PyTorch call for the same function: matmul in full f32,
@@ -881,7 +911,9 @@ def _gemm_case(label, a, b, *, ta=False, tb=False, library=False) -> dict:
     print(f"gemm {label} max|d|={err:.3e} tol-ratio {ratio:.3f} (rtol "
           f"{rtol}, atol {atol}) kernel {k_ms:.4f} ms "
           f"({row['tflops']:.2f} TFLOP/s) plain {p_ms:.4f} ms bound "
-          f"{b_ms:.4f} ms by {b_by} (f32 pipes {fma_ms:.4f} ms){lib}")
+          f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / k_ms:.1f} % of it "
+          f"reached (f32 pipes {fma_ms:.4f} ms){lib}; A, B fetched by "
+          f"{fetch[0]}, {fetch[1]}")
     check(ratio <= 1.0 and bool(torch.isfinite(got.float()).all()),
           f"gemm {label}: kernel disagrees with its plain version (max abs "
           f"diff {err:.3e}, {ratio:.2f}x the tolerance)")
@@ -894,6 +926,17 @@ def gemm_kernel_phase(rng) -> dict:
         a = _cuda(rng.normal(size=(n, n)))
         b = _cuda(rng.normal(size=(n, n)) / np.sqrt(n))
         rows[n] = _gemm_case(f"n={n} f32", a, b, library=True)
+    # the tensor cores' f32 accumulation over K = 4096, against f64 on a
+    # 256^2 corner, beside torch.matmul in full f32 (printed, not gated:
+    # the limit is GEMM_TOL)
+    corner = a[:256].double() @ b[:, :256].double()
+    scale = float(corner.abs().mean())
+    for label, c in (("gemm", gemm_ops.gemm(a, b)),
+                     ("torch.matmul f32", torch.matmul(a, b))):
+        rows[4096][f"f64_rel_{label.split()[0]}"] = d = float(
+            (c[:256, :256].double() - corner).abs().max()) / scale
+        print(f"{label} n=4096 vs f64 on a 256^2 corner {d:.3e} of the "
+              "mean magnitude")
     # the four transpose variants: at a small batched shape, and at a size
     # where the arithmetic, not the launch, is the cost
     for ta in (False, True):
@@ -923,8 +966,8 @@ def gemm_kernel_phase(rng) -> dict:
                     "tensor-core passes, which meet the 1e-3 contract")
     head["by_shape"] = {str(k): {f: r[f] for f in
                                  ("ms", "plain_ms", "bound_ms",
-                                  "bound_ms_f32_fma", "tflops",
-                                  "library_ms", "max_abs_err")}
+                                  "bound_ms_f32_fma", "bound_share",
+                                  "tflops", "library_ms", "max_abs_err")}
                         for k, r in rows.items()}
     return head
 
@@ -961,16 +1004,18 @@ def gemm_split_kernel_phase(rng) -> dict:
               f"tol-ratio {ratio:.3f} (rtol 1e-5, atol 1e-5: f32 sums in "
               f"another order) vs f64 on a 256^2 corner {f64:.3e} of the "
               f"mean magnitude (limit {SPLIT_F64_LIMITS_K4096[passes]}; "
-              f"torch.matmul f32 reads {lib_f64:.3e}) kernel {k_ms:.3f} ms "
+              f"torch.matmul f32 reads {lib_f64:.3e}) kernel {k_ms:.4f} ms "
               f"({flops / k_ms / 1e9:.2f} TFLOP/s of plane products) plain "
-              f"{p_ms:.3f} ms bound {b_ms:.4f} ms by {b_by} matmul f32 "
+              f"{p_ms:.3f} ms bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / k_ms:.1f} % of it reached, matmul f32 "
               f"{lib_ms:.4f} ms")
         check(ratio <= 1.0 and f64 <= SPLIT_F64_LIMITS_K4096[passes],
               f"gemm_split passes={passes}: off its plain version by "
               f"{err:.3e} or off the f64 product by {f64:.3e}")
         out[passes] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": lib_ms, "f64_rel": f64}
+                       "bound_share": b_ms / k_ms, "library_ms": lib_ms,
+                       "f64_rel": f64}
     # the JAX package's own check, at its own size
     a2 = _cuda(rng.normal(size=(256, 256)))
     b2 = _cuda(rng.normal(size=(256, 256)) / 16)

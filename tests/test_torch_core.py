@@ -2,6 +2,8 @@
 strided views, mirroring ``tests/test_core.py`` and held against the JAX
 package's registry and ``View`` on the same modules and buffers."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,10 +67,25 @@ def _make_diamond():
              lambda device: (torch.zeros((8,), device=device),))
 
 
-def test_module_diamond_dedup_and_compose_match_jax():
+@pytest.fixture
+def jax_registry_restored():
+    """The JAX package's registry as it was before the test: the diamond's
+    names belong to ``tests/test_core.py`` there, which may run later on
+    the same worker."""
+    registry = dict(jax_module._REGISTRY)
+    defining = dict(jax_module._DEFINING_PYMODULE)
+    yield
+    jax_module._REGISTRY.clear()
+    jax_module._REGISTRY.update(registry)
+    jax_module._DEFINING_PYMODULE.clear()
+    jax_module._DEFINING_PYMODULE.update(defining)
+
+
+def test_module_diamond_dedup_and_compose_match_jax(jax_registry_restored):
     _make_diamond()
-    _diamond(jax_module.register_module, jax_module.KernelModule,
-             jax_module.EntryPoint,
+    _diamond(functools.partial(jax_module.register_module,
+                               allow_replace=True),
+             jax_module.KernelModule, jax_module.EntryPoint,
              lambda: (jnp.zeros((8,), jnp.float32),))
     order = dependency_order("t_top")
     assert order == jax_module.dependency_order("t_top")

@@ -341,8 +341,74 @@ def test_gemm_kernel_takes_strided_rows_without_a_copy():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (65, 1, 49), (65, 7, 49), (130, 9, 257), (33, 17, 100), (65, 4097, 49),
+    (100, 33, 130), (1, 50, 1), (257, 300, 129)])
+def test_gemm_kernel_edges_on_card(m, k, n, dtype):
+    """M, N, K off the tiles' multiples (64 / 128 rows, 8 / 16 deep k
+    steps, 32 / 64 deep k tiles): the ragged edge reads as 0."""
+    _need_card()
+    _gemm_agrees(_normal(20 + k, m, k, dtype=dtype),
+                 _normal(21 + k, k, n, scale=k ** -0.5, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ta", [False, True])
+@pytest.mark.parametrize("tb", [False, True])
+def test_gemm_kernel_transposes_2048_on_card(tb, ta, dtype):
+    _need_card()
+    _gemm_agrees(_normal(22, 2048, 2048, dtype=dtype),
+                 _normal(23, 2048, 2048, scale=2048 ** -0.5, dtype=dtype),
+                 transpose_a=ta, transpose_b=tb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_kernel_broadcast_and_strided_rows_transposed_on_card(dtype):
+    _need_card()
+    a = _normal(24, 3, 65, 100, dtype=dtype)
+    _gemm_agrees(a, _normal(25, 49, 100, scale=0.1, dtype=dtype),
+                 transpose_b=True)  # one b for the batch, stored [N, K]
+    wide = _normal(26, 300, 200, dtype=dtype)
+    # A stored [K, M] with row stride 200 (M = 70 of them read)
+    _gemm_agrees(wide[:, 10:80], _normal(27, 300, 50, scale=300 ** -0.5,
+                                         dtype=dtype), transpose_a=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_default_and_highest_are_the_same_bits_on_card(dtype):
+    _need_card()
+    a = _normal(28, 2, 300, 200, dtype=dtype)
+    b = _normal(29, 2, 200, 170, scale=200 ** -0.5, dtype=dtype)
+    got = gemm_ops.gemm(a, b, precision="default", impl="cuda")
+    assert torch.equal(got, gemm_ops.gemm(a, b, precision="highest",
+                                          impl="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 8, 128), (300, 256, 200),
+                                   (1024, 1024, 1024)])
+def test_gemm_kernel_matches_its_3xtf32_arithmetic_on_card(m, k, n):
+    """The kernel against ``_gemm_3xtf32_torch`` (the same split and the
+    same exact TF32 products, summed by torch.matmul in full f32): only
+    the f32 sums differ, within 1e-5 at K <= 1024 for results of size ~1
+    (the tensor cores' accumulation drifts further at K = 4096; that is
+    held by GEMM_TOL above)."""
+    _need_card()
+    a, b = _normal(30, m, k), _normal(31, k, n, scale=k ** -0.5)
+    got = gemm_ops.gemm(a, b, impl="cuda")
+    want = gemm_ops._gemm_3xtf32_torch(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_passes", [6, 3])
-@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (33, 70, 17)])
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (33, 70, 17),
+                                   (129, 65, 63), (1, 1, 1), (200, 300, 70)])
 def test_gemm_split_kernel_matches_plain_on_card(m, k, n, n_passes):
     """f32 sums of exact bf16 products in another order."""
     _need_card()

@@ -160,6 +160,80 @@ def test_gemm_rank_and_inner_dimension_errors(rng):
         gemm(a, a, transpose_a=True, transpose_b=True)
 
 
+# --- the gemm kernel's 3 x TF32 arithmetic, in plain PyTorch -----------------
+def _tf32_values():
+    """Seeded f32 values over many binades, with exact ties at the TF32
+    rounding bit, subnormals and both zeros."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=4096) * 2.0 ** rng.integers(-60, 60, size=4096))
+    bits = x.astype(np.float32).view(np.int32)
+    ties = (bits[:512] & ~0x1FFF) | 0x1000  # exactly half a TF32 ulp
+    sub = rng.integers(1, 1 << 23, size=256).astype(np.int32)  # subnormals
+    sub[::2] |= np.int32(-(1 << 31))
+    special = np.array([0.0, -0.0, 1e-30, -3e38], np.float32).view(np.int32)
+    return torch.from_numpy(np.concatenate([bits, ties, sub, special])
+                            .view(np.float32))
+
+
+def test_tf32_split_is_exact_and_keeps_22_bits():
+    x = _tf32_values()
+    big = gemm_mod._round_tf32(x)
+    rest = x - big
+    # the subtraction is exact: big + (x - big) gives x back bit for bit
+    # (-0.0 comes back as +0.0: -0.0 - -0.0 is +0.0)
+    back = (big + rest).view(torch.int32)
+    nz = x != 0
+    assert torch.equal(back[nz], x.view(torch.int32)[nz])
+    assert bool((back[~nz] == 0).all())
+    small = gemm_mod._round_tf32(rest)
+    for part in (big, small):  # at most 11 significant bits each
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    # small's own rounding drops at most 2^-11 of rest, itself at most
+    # 2^-11 of x; in the subnormal range the TF32 step is 2^-136
+    err = (x.double() - (big.double() + small.double())).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs() + 2.0 ** -137).all())
+
+
+def test_round_tf32_rounds_ties_away_from_zero():
+    """Hand-picked values with what ``cvt.rna.tf32.f32`` gives: to nearest,
+    a tie away from zero (where round-to-even would differ)."""
+    one_ulp, half_ulp = 2.0 ** -10, 2.0 ** -11
+    cases = [(1.0 + half_ulp, 1.0 + one_ulp),  # tie: even would give 1.0
+             (-(1.0 + half_ulp), -(1.0 + one_ulp)),
+             (1.0 + half_ulp - 2.0 ** -23, 1.0),  # just below the tie
+             (1.0 + 3 * half_ulp, 1.0 + 2 * one_ulp),
+             (2.0 - half_ulp, 2.0),  # the tie carries into the exponent
+             (0.0, 0.0), (-0.0, -0.0)]
+    x = torch.tensor([c[0] for c in cases], dtype=torch.float32)
+    want = torch.tensor([c[1] for c in cases], dtype=torch.float32)
+    got = gemm_mod._round_tf32(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # a subnormal tie: bit 12 set alone rounds up to bit 13
+    sub = torch.tensor([0x1000, 0x0FFF], dtype=torch.int32).view(
+        torch.float32)
+    assert gemm_mod._round_tf32(sub).view(torch.int32).tolist() == [0x2000,
+                                                                    0]
+
+
+def test_gemm_3xtf32_matches_jax_highest_and_f64_256(rng):
+    """The kernel's f32 arithmetic against the JAX package's full-precision
+    library route: f32 sums of 256 terms in another order (F32_SUMS). Against
+    f64 within 1e-5 of the mean magnitude: each product keeps 2^-21 of its
+    value, the sums are f32. One TF32 pass alone is ~100x further off."""
+    a = rng.normal(size=(256, 256)).astype(np.float32)
+    b = rng.normal(size=(256, 256)).astype(np.float32)
+    got = gemm_mod._gemm_3xtf32_torch(_t(a), _t(b))
+    want = jax_gemm(jnp.asarray(a), jnp.asarray(b), precision="highest",
+                    impl="xla")
+    assert got.dtype == torch.float32
+    assert_close(got, want, **F32_SUMS)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(ref).mean()
+    assert np.abs(got.double().numpy() - ref).max() / scale < 1e-5
+    one_pass = gemm_mod._round_tf32(_t(a)) @ gemm_mod._round_tf32(_t(b))
+    assert np.abs(one_pass.double().numpy() - ref).max() / scale > 1e-4
+
+
 # --- gemm_split --------------------------------------------------------------
 def test_split3_planes_bitwise_equal_to_jax_and_exact():
     rng = np.random.default_rng(7)

@@ -13,18 +13,21 @@
   the kernel's plain version: ``torch.matmul`` with f32 accumulation.
 - :func:`gemm_split` — f32 product from operands split once into three bf16
   planes (:func:`_split3`, by mantissa bitmask), 6 or 3 cross terms summed
-  low order first; on CUDA tensors the kernel ``csrc/gemm_split.cu``, which
-  replaces the TPU kernel of the JAX ``gemm_split``.
+  low order first; on CUDA tensors the kernel ``csrc/gemm_split.cu`` (bf16
+  tensor-core passes on the planes, zero-padded to its tile multiples),
+  which replaces the TPU kernel of the JAX ``gemm_split``.
 
 ``impl``: ``"auto"`` (the kernel on CUDA tensors, the plain version on CPU
 tensors), ``"cuda"`` (raises on a CPU tensor and on a type or precision the
 kernel does not take) and ``"torch"`` (the plain library route).
 
-Precision. For float32 inputs the kernel multiplies and adds in full
-float32, whatever ``precision`` says: ``"highest"`` and ``"default"`` give
-the same bits, both inside the reference's 1e-3 golden tolerance, and
-``"default"`` buys no speed. ``"high"`` goes to :func:`gemm_torch`, as the
-JAX package sends it to its library route outside any kernel.
+Precision. For float32 inputs the kernel runs 3 x TF32 on the tensor
+cores, whatever ``precision`` says: each operand split into a TF32 ``big``
+and ``small`` part, ``small·big + big·small`` then ``+ big·big`` summed in
+f32 (:func:`_gemm_3xtf32_torch` is the same arithmetic in plain PyTorch).
+``"highest"`` and ``"default"`` give the same bits, both inside the
+reference's 1e-3 golden tolerance. ``"high"`` goes to :func:`gemm_torch`,
+as the JAX package sends it to its library route outside any kernel.
 """
 
 from __future__ import annotations
@@ -148,6 +151,23 @@ def _gemm_cuda(a, b, ta, tb, m, n, k):
     return out.reshape(tuple(batch_shape) + (m, n))
 
 
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, by integer ops on the bits: what ``cvt.rna.tf32.f32`` gives, with
+    the low 13 bits 0."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _gemm_3xtf32_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of the gemm kernel on f32 operands: each split into
+    ``big = tf32(x)`` and ``small = tf32(x - big)``, then
+    ``(small_a·big_b + big_a·small_b) + big_a·big_b`` as f32 products of
+    TF32 values (exact products, f32 sums). Used by tests."""
+    big_a, big_b = _round_tf32(a), _round_tf32(b)
+    small_a, small_b = _round_tf32(a - big_a), _round_tf32(b - big_b)
+    return (small_a @ big_b + big_a @ small_b) + big_a @ big_b
+
+
 def _split3(x: torch.Tensor) -> torch.Tensor:
     """f32 -> three bf16 planes (hi, mid, lo) with x = hi + mid + lo.
 
@@ -175,6 +195,15 @@ def _gemm_split_torch(a_planes, b_planes, n_passes: int) -> torch.Tensor:
     return acc + ah @ bh
 
 
+# the kernel's output tile (M x N) and k tile; TMA reads the planes in
+# whole tiles, so they are zero-padded to these multiples (zeros add nothing)
+SPLIT_TILE_M, SPLIT_TILE_N, SPLIT_TILE_K = 128, 64, 64
+
+
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
 def _gemm_split_cuda(a_planes, b_planes, n_passes: int) -> torch.Tensor:
     global LAUNCHES_GEMM_SPLIT
     from wgmath_tpu_torch.core import cuda_build
@@ -184,18 +213,24 @@ def _gemm_split_cuda(a_planes, b_planes, n_passes: int) -> torch.Tensor:
     bp = b_planes[:n_split].contiguous()
     _, m, k = ap.shape
     n = bp.shape[2]
-    out = torch.empty((m, n), dtype=torch.float32, device=ap.device)
+    mp, np_, kp = (_round_up(m, SPLIT_TILE_M), _round_up(n, SPLIT_TILE_N),
+                   _round_up(k, SPLIT_TILE_K))
+    if (mp, kp) != (m, k):
+        ap = torch.nn.functional.pad(ap, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        bp = torch.nn.functional.pad(bp, (0, np_ - n, 0, kp - k))
+    out = torch.empty((mp, np_), dtype=torch.float32, device=ap.device)
     fn = cuda_build.load("gemm_split").gemm_split_launch
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     with torch.cuda.device(ap.device):
-        err = fn(n_split, m, n, k, ap.data_ptr(), bp.data_ptr(),
+        err = fn(n_split, mp, np_, kp, ap.data_ptr(), bp.data_ptr(),
                  out.data_ptr(),
                  torch.cuda.current_stream(ap.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemm_split kernel launch failed: error {err}")
     LAUNCHES_GEMM_SPLIT += 1
-    return out
+    return out if (mp, np_) == (m, n) else out[:m, :n].contiguous()
 
 
 def gemm_split(a, b, *, n_passes: int = 6) -> torch.Tensor:
