@@ -19,8 +19,8 @@ Three phases; any failed check ends the run with a non-zero exit:
    GEMM at n = 1024 and 4096 with ``gemm_split`` beside it, the GEMM ->
    sqnorm -> normalize graph at n = 2048 through the module registry, the
    op-assign entry point at 2048 x 2048, and the chained GEMV at n = 4096,
-   plain and transposed), each against the same chain through the plain
-   versions; the bench's geometry section (the SoA quaternion rotate chain
+   plain and transposed, each one device kernel an iteration), each
+   against the same chain through the plain versions; the bench's geometry section (the SoA quaternion rotate chain
    and the component-major similarity chain at 1,000,000, against their
    invariants and the same code on the CPU) and its raycast section
    (100,000 rays against balls, cuboids and capsules, the first cast
@@ -1143,19 +1143,52 @@ def op_assign_kernel_phase(rng) -> dict:
 # share of the sum of the terms' magnitudes of each output (as B7's sum)
 GEMV_TOL = 1e-5
 GEMV_N, GEMV_ITERS = 4096, 64
-# label, stored shape of A, shape of x: for A x, then for A^T x
+# label, stored shape of A, shape of x, and the columns of the stored A
+# that the case takes (None: all of it): for A x, then for A^T x. Beside
+# the main path's 4096^2, each entry is a shape that the kernels plan or
+# load differently: the ragged edge, a shared matrix over a batch, M = 1,
+# K = 1, a narrow M with a tall K (A^T x: one column tile, the K split at
+# its most), a column slice whose rows are 16-byte misaligned with M not a
+# multiple of 4 (the scalar loads), a K shorter than the K split allows,
+# a batch past the grid's y / z limit of 65,535, and 8192^2 (four times
+# 4096^2's bytes: the two give the stream rate and a launch's fixed cost)
 GEMV_SHAPES = {
-    False: (("4096^2", (4096, 4096), (4096,)),
-            ("1000x777 (ragged)", (1000, 777), (777,)),
-            ("5x64x96 (batched, one x for all)", (5, 64, 96), (96,)),
-            ("M=1", (1, 300), (300,)),
-            ("K=1", (300, 1), (1,))),
-    True: (("4096^2", (4096, 4096), (4096,)),
-           ("1000x777 (ragged)", (1000, 777), (1000,)),
-           ("5x64x96 (batched, one x for all)", (5, 64, 96), (64,)),
-           ("M=1", (300, 1), (300,)),
-           ("K=1", (1, 300), (1,))),
+    False: (("4096^2", (4096, 4096), (4096,), None),
+            ("1000x777 (ragged)", (1000, 777), (777,), None),
+            ("5x64x96 (batched, one x for all)", (5, 64, 96), (96,), None),
+            ("M=1", (1, 300), (300,), None),
+            ("K=1", (300, 1), (1,), None),
+            ("64x65536 (narrow M, tall K)", (64, 65536), (65536,), None),
+            ("1001x777 view at column 1 of 1001x780 (rows misaligned)",
+             (1001, 780), (777,), (1, 778)),
+            ("4096x5 (K=5)", (4096, 5), (5,), None),
+            ("70000x4x8 (batch past 65,535)", (70000, 4, 8), (70000, 8),
+             None),
+            ("8192^2", (8192, 8192), (8192,), None)),
+    True: (("4096^2", (4096, 4096), (4096,), None),
+           ("1000x777 (ragged)", (1000, 777), (1000,), None),
+           ("5x64x96 (batched, one x for all)", (5, 64, 96), (64,), None),
+           ("M=1", (300, 1), (300,), None),
+           ("K=1", (1, 300), (1,), None),
+           ("65536x64 (narrow M, tall K)", (65536, 64), (65536,), None),
+           ("777x1001 view at column 1 of 777x1004 (M % 4 = 1, rows "
+            "misaligned)", (777, 1004), (777,), (1, 1002)),
+           ("5x4096 (K=5, shorter than the K split)", (5, 4096), (5,),
+            None),
+           ("70000x8x4 (batch past 65,535)", (70000, 8, 4), (70000, 8),
+            None),
+           ("8192^2", (8192, 8192), (8192,), None)),
 }
+
+
+def gemv_case_operands(entry, normal) -> tuple:
+    """(A, x) of one ``GEMV_SHAPES`` entry; ``normal(shape)`` makes a CUDA
+    tensor of seeded normals."""
+    _, a_shape, x_shape, cols = entry
+    a = normal(a_shape)
+    if cols is not None:
+        a = a[..., cols[0]:cols[1]]
+    return a, normal(x_shape)
 
 
 def gemv_work(a_shape) -> tuple:
@@ -1186,8 +1219,12 @@ def _gemv_case(label, a, x, tr) -> dict:
         at = a.t() if tr else a
         l_ms = _median_ms(lambda: torch.mv(at, x))
     name = "gemv_tr" if tr else "gemv"
+    m, k = (a.shape[-1], a.shape[-2]) if tr else (a.shape[-2], a.shape[-1])
+    plan = gemv_ops.plan(m, k, int(np.prod(a.shape[:-2])) if a.ndim > 2
+                         else 1, transpose_a=tr)
     lib = "none" if l_ms is None else f"{l_ms * 1e3:.2f} us"
-    print(f"{name} {label} max|d|={err:.3e} tol-ratio {ratio:.3f} (1e-5 of "
+    print(f"{name} {label} plan {plan} max|d|={err:.3e} tol-ratio "
+          f"{ratio:.3f} (1e-5 of "
           f"sum |a x|) bitwise-repeatable {bool(torch.equal(got, again))} "
           f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us torch.mv "
           f"{lib} bound {b_ms * 1e3:.2f} us by {b_by} "
@@ -1199,16 +1236,29 @@ def _gemv_case(label, a, x, tr) -> dict:
     check(torch.equal(got, again),
           f"{name} {label}: two launches gave different bits")
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            "tol_ratio": ratio, "plan": plan}
 
 
 def gemv_kernel_phase(rng) -> dict:
-    out = {tr: {label: _gemv_case(label, _cuda(rng.normal(size=a_shape)),
-                                  _cuda(rng.normal(size=x_shape)), tr)
-                for label, a_shape, x_shape in cases}
+    def normal(shape):
+        return _cuda(rng.normal(size=shape))
+
+    out = {tr: {entry[0]: _gemv_case(entry[0],
+                                     *gemv_case_operands(entry, normal), tr)
+                for entry in cases}
            for tr, cases in GEMV_SHAPES.items()}
     heads = {}
     for tr, name in ((False, "gemv"), (True, "gemv_tr")):
+        # time = fixed cost + bytes / rate, from 4096^2 and 8192^2
+        small, large = out[tr]["4096^2"], out[tr]["8192^2"]
+        extra = gemv_work((8192, 8192))[0] - gemv_work((4096, 4096))[0]
+        for who, key in (("kernel", "ms"), ("torch.mv", "library_ms")):
+            rate = extra / (large[key] - small[key]) / 1e9  # TB/s
+            fixed = small[key] - gemv_work((4096, 4096))[0] / rate / 1e9
+            print(f"{name} {who}: streams A at {rate:.3f} TB/s, a "
+                  f"launch costs {fixed * 1e3:.2f} us beyond its bytes "
+                  f"(4096^2 against 8192^2)")
         head = dict(out[tr]["4096^2"])
         head["max_abs_err"] = max(r["max_abs_err"] for r in out[tr].values())
         head["work"] = (f"one {'transposed ' if tr else ''}product at "
@@ -1464,7 +1514,9 @@ RAY_F64_RTOL = 1e-4
 
 def gemv_path_phase() -> dict:
     """The bench's gemv section: K chained ``v <- gemv(A, v)`` at n = 4096
-    (B5), the same chain transposed (B6), and cuBLAS's gemv beside them."""
+    (B5), the same chain transposed (B6), and cuBLAS's gemv beside them.
+    Each kernel chain must run one device kernel, the port's, an
+    iteration."""
     rng = np.random.default_rng(0)  # the bench's seed for this section
     n = GEMV_N
     a = _cuda(rng.normal(size=(n, n)) / 64.0)
@@ -1480,6 +1532,17 @@ def gemv_path_phase() -> dict:
                 name, x, lambda v: gemv_ops.gemv_torch(a, v, transpose_a=tr),
                 GEMV_ITERS),
             profile_iters=8)
+        run = paths[key]
+        launches = sum(run["launches_per_iteration"].values())
+        host, ms = (" / ".join(f"{t:.5f}" for t in run[k]) for k in (
+            "host_enqueue_ms_per_iteration", "ms_per_iteration"))
+        print(f"path {name}: {run['kernels_per_iteration']:.2f} device "
+              f"kernels and {launches:.2f} port-kernel launches per "
+              f"iteration; host enqueue {host} ms against {ms} "
+              f"ms/iteration")
+        check(run["kernels_per_iteration"] == 1 and launches == 1,
+              f"{name}: {run['kernels_per_iteration']} device kernels and "
+              f"{launches} port-kernel launches per iteration (expected 1)")
     for tr, key in ((False, "torch_mv4096"), (True, "torch_mv_tr4096")):
         at = a.t() if tr else a
         name = f"torch.mv n={n}{' transposed' if tr else ''} (yardstick)"
@@ -2006,26 +2069,36 @@ def profile_window(run_once, frames: int = 3) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the profiler's one-cycle notice
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(frames):
-                run_once()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        averages = prof.key_averages()
-    rows, host = [], []
-    for e in averages:
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            # kernels only: an operator's row repeats its kernels' time
-            dev_us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            if dev_us:
-                rows.append((dev_us, e.count, e.key))
-        elif e.key.startswith("aten::"):
-            host.append((e.self_cpu_time_total, e.count, e.key))
+    # A window in which the profiler reports no device event at all is
+    # taken again, up to three times: on one H100 host it dropped every
+    # kernel of a window of a few short kernels (the kernels ran; their
+    # launches were counted and their result checked). 2 ms of host idle
+    # at each end keep the kernels off the window's edges.
+    for _ in range(3):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the profiler's one-cycle notice
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.002)
+                t0 = time.perf_counter()
+                for _ in range(frames):
+                    run_once()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+                time.sleep(0.002)
+            averages = prof.key_averages()
+        rows, host = [], []
+        for e in averages:
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                # kernels only: an operator's row repeats its kernels' time
+                dev_us = getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                if dev_us:
+                    rows.append((dev_us, e.count, e.key))
+            elif e.key.startswith("aten::"):
+                host.append((e.self_cpu_time_total, e.count, e.key))
+        if rows:
+            break
     rows.sort(reverse=True)
     host.sort(reverse=True)
     total = sum(r[0] for r in rows)

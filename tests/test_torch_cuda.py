@@ -9,6 +9,7 @@ so the machine with the card runs them without the repository's conftest::
 """
 
 import json
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -31,6 +32,7 @@ from chip_smoke import (
     fused_inputs,
     fused_operands,
     gemm_ops,
+    gemv_case_operands,
     gemv_ops,
     gs_block_inputs,
     gs_block_plain,
@@ -519,16 +521,18 @@ def test_compile_check_launches_the_kernels_on_card(mod):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("transpose_a", [False, True])
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(len(GEMV_SHAPES[False])))
 def test_gemv_kernel_matches_plain_and_repeats_bitwise_on_card(case,
                                                                transpose_a):
-    """B5 / B6 at the kernel phase's shapes: within 1e-5 of the sum of the
-    terms' magnitudes of each output, the same bits from two launches, one
-    count per launch."""
+    """B5 / B6 at every shape of the kernel phase: within 1e-5 of the sum
+    of the terms' magnitudes of each output, the same bits from two
+    launches, one count per launch."""
     _need_card()
-    label, a_shape, x_shape = GEMV_SHAPES[transpose_a][case]
-    a = _normal(case, *a_shape)
-    x = _normal(case + 10, *x_shape)
+    entry = GEMV_SHAPES[transpose_a][case]
+    seeds = iter((case, case + 10))  # A, then x
+    a, x = gemv_case_operands(entry, lambda shape: _normal(next(seeds),
+                                                           *shape))
+    label = entry[0]
     name = "LAUNCHES_GEMV_TR" if transpose_a else "LAUNCHES_GEMV"
     before = getattr(gemv_ops, name)
     got = gemv_ops.gemv(a, x, transpose_a=transpose_a)
@@ -545,8 +549,9 @@ def test_gemv_kernel_matches_plain_and_repeats_bitwise_on_card(case,
 @pytest.mark.cuda
 @pytest.mark.parametrize("transpose_a", [False, True])
 def test_gemv_kernel_takes_strided_and_batched_operands_on_card(transpose_a):
-    """A row-strided A (a column slice), a batched x against a shared A, and
-    a batch over leading dimensions, against the plain version."""
+    """A row-strided A (a column slice), a misaligned column slice with M
+    not a multiple of 4, a batched x against a shared A, and a batch over
+    leading dimensions, against the plain version."""
     _need_card()
     wide = _normal(3, 96, 160)
     a = wide[:, :128]  # rows 160 floats apart
@@ -554,12 +559,54 @@ def test_gemv_kernel_takes_strided_and_batched_operands_on_card(transpose_a):
     got = gemv_ops.gemv(a, x, transpose_a=transpose_a)
     want = gemv_ops.gemv_torch(a, x, transpose_a=transpose_a)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # rows 4 bytes past a 16-byte boundary, 95 columns and rows
+    odd = wide[1:, 3:98]
+    xo = _normal(7, 95)
+    torch.testing.assert_close(
+        gemv_ops.gemv(odd, xo, transpose_a=transpose_a),
+        gemv_ops.gemv_torch(odd, xo, transpose_a=transpose_a),
+        rtol=1e-5, atol=1e-5)
     a4 = _normal(5, 2, 3, 40, 24)
     x4 = _normal(6, 3, 40 if transpose_a else 24)
     torch.testing.assert_close(
         gemv_ops.gemv(a4, x4, transpose_a=transpose_a),
         gemv_ops.gemv_torch(a4, x4, transpose_a=transpose_a),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+@pytest.mark.parametrize("n", [4096, 1000])
+def test_gemv_is_one_launch_and_allocates_only_its_output_on_card(
+        transpose_a, n):
+    """A product, transposed or not, is one device kernel, and a repeated
+    call allocates nothing beyond its output (so a scratch cached at the
+    first call would pass; the kernels keep none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card()
+    a, x = _normal(8, n, n), _normal(9, n)
+    gemv_ops.gemv(a, x, transpose_a=transpose_a)
+    torch.cuda.synchronize()
+    # a window in which the profiler reports no device event at all is
+    # taken again, up to three times (as chip_smoke.profile_window does)
+    for _ in range(3):
+        base = torch.cuda.memory_allocated()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            y = gemv_ops.gemv(a, x, transpose_a=transpose_a)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        grown = torch.cuda.memory_allocated() - base
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+        del y
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert "gemv" in kernels[0].name
+    # the caching allocator rounds a block up to 512 bytes
+    assert 0 <= grown - y.untyped_storage().nbytes() < 512, grown
 
 
 @pytest.mark.cuda

@@ -181,7 +181,7 @@ def test_setup_compaction_matches_jax(setup):
     assert cc[0] > 0 and (cc[1:] == 0).any()  # residue and empty colours
 
 
-def test_build_constraints_fused_matches_jax(setup):
+def test_build_constraints_fused_matches_jax(setup, tables):
     """B9's plain version against the JAX package's: every field of every
     live column within the JAX test's tolerance (1e-5 + 2e-6 max|field|:
     cancellation in the torque terms scales with the field's magnitude),
@@ -195,8 +195,10 @@ def test_build_constraints_fused_matches_jax(setup):
     live = _np(tc.valid)
     assert live.any() and not live.all()
     for use_pallas in _jax_routes(setup):
+        # the XLA route's constraints are the tables' own
         j_cons, j_big, j_meta = jbuild.build_constraints_fused(
-            *setup["j"], jc, JaxSimParams(), use_pallas=use_pallas)
+            *setup["j"], jc, JaxSimParams(), use_pallas=True) \
+            if use_pallas else tables[:3]
         assert t_meta == {k: (a, tuple(t)) for k, (a, t) in j_meta.items()}
         jb = np.asarray(j_big)
         for f, (at, tail) in t_meta.items():
@@ -213,6 +215,13 @@ def test_build_constraints_fused_matches_jax(setup):
     for f in ("body_a", "body_b", "valid", "num_points"):
         np.testing.assert_array_equal(_np(getattr(t_cons, f)),
                                       _np(getattr(j_cons, f)))
+
+
+@pytest.fixture(scope="module")
+def tables(setup):
+    """:func:`_tables` of the case, computed once for the tests that read
+    it."""
+    return _tables(setup)
 
 
 def _tables(setup):
@@ -234,8 +243,8 @@ def _tables(setup):
     return j_cons, np.asarray(j_big), j_meta, w_g, got, want
 
 
-def test_build_fused_tables_exact(setup):
-    _, _, _, w_g, got, want = _tables(setup)
+def test_build_fused_tables_exact(setup, tables):
+    _, _, _, w_g, got, want = tables
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(_np(g), _np(w))
@@ -245,12 +254,11 @@ def test_build_fused_tables_exact(setup):
         setup["got"][0].body_a.shape[0]
 
 
-def _sweep_inputs(setup, seed):
+def _sweep_inputs(setup, tables, seed):
     """Operands of the sweep and substep kernels in both packages: the JAX
     package's fused constraint matrix, seeded velocities, impulses and
     rhs, the tables."""
-    j_cons, j_big, j_meta, w_g, (t_idx, t_inv), (j_idx, j_inv) = \
-        _tables(setup)
+    j_cons, j_big, j_meta, w_g, (t_idx, t_inv), (j_idx, j_inv) = tables
     rng = np.random.default_rng(seed)
     p_max, n = setup["p_max"], setup["n"]
     windows, rung0 = setup["windows"], setup["rung0"]
@@ -289,8 +297,9 @@ def _close(got, want, what, rtol, atol):
                                    atol=atol, err_msg=f"{what} output {i}")
 
 
-def test_fused_sweep_plain_matches_jax(setup):
-    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, _ = _sweep_inputs(setup, 1)
+def test_fused_sweep_plain_matches_jax(setup, tables):
+    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, _ = _sweep_inputs(
+        setup, tables, 1)
     t_args = (_t(a["vt"]), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),
               _t(a["active"]), _t(a["nump"]), 0.93, _t(a["n_rhs"]),
               _t(a["t_rhs"]), t_idx, t_inv,
@@ -311,9 +320,9 @@ def test_fused_sweep_plain_matches_jax(setup):
     assert np.isfinite(live).all()
 
 
-def test_fused_substep1_plain_matches_jax(setup):
+def test_fused_substep1_plain_matches_jax(setup, tables):
     a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, src_meta = \
-        _sweep_inputs(setup, 2)
+        _sweep_inputs(setup, tables, 2)
     scalars = (0.85, 0.93, 240.0, 175.3, 1e-3, 10.0)
     got = tfused.fused_substep1(
         _t(a["vt"]), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),

@@ -30,6 +30,8 @@ from wgmath_tpu_torch.convert import (
     sim_to_arrays,
 )
 from wgmath_tpu_torch.core.module import compile_check, compose, get_module
+from wgmath_tpu_torch.dynamics.body import Velocity
+from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import quat as tquat
 from wgmath_tpu_torch.geometry import rot2 as trot2
 from wgmath_tpu_torch.geometry import sim as tsim
@@ -98,7 +100,7 @@ def test_rot2_ops_match_jax():
     want = jax.jit(lambda *x: ops(jrot2, *x))(*map(jnp.asarray,
                                                    (ang, ang_b, v)))
     _close(ops(trot2, *map(_t, (ang, ang_b, v))), want)
-    _same(trot2.identity((3, 2)), jrot2.identity((3, 2)))
+    _same(trot2.identity((3, 2), device="cpu"), jrot2.identity((3, 2)))
 
 
 @pytest.mark.parametrize("n", [64, 32768])
@@ -119,7 +121,7 @@ def test_quat_ops_match_jax(n):
 
     want = jax.jit(lambda *x: ops(jquat, *x))(*map(jnp.asarray, (a, b, v)))
     _close(ops(tquat, *map(_t, (a, b, v))), want)
-    _same(tquat.identity((2,)), jquat.identity((2,)))
+    _same(tquat.identity((2,), device="cpu"), jquat.identity((2,)))
 
 
 @pytest.mark.parametrize("n", [64, 32768])
@@ -150,10 +152,10 @@ def test_sim_row_major_ops_match_jax(dim, n):
     p = _f32(rng, n, dim)
     assert ta.dim == dim and not ta.cm
 
-    def ops(m, a, b, p):
+    def ops(m, a, b, p, **on):
         twice = m.Sim(a.rotation * 2.0, a.translation, a.scale)
         sims = (m.mul(a, b), m.inv(a), m.inv_mul(a, b),
-                m.normalize_rotation(twice), m.identity((4,), dim),
+                m.normalize_rotation(twice), m.identity((4,), dim, **on),
                 m.from_parts(a.rotation, a.translation))
         return ([(s.rotation, s.translation, s.scale) for s in sims],
                 [getattr(m, name)(a, p) for name in (
@@ -162,7 +164,7 @@ def test_sim_row_major_ops_match_jax(dim, n):
 
     want = jax.jit(lambda a, b, p: ops(jsim, a, b, p))(ja, jb,
                                                       jnp.asarray(p))
-    got = ops(tsim, ta, tb, _t(p))
+    got = ops(tsim, ta, tb, _t(p), device="cpu")
     for g, w in zip(got[0], want[0], strict=True):
         _close(g, w)
     _close(got[1], want[1])
@@ -421,7 +423,7 @@ def test_ray_refusals_and_empty_meshes():
                                       dtype=torch.int64),
                           torch.zeros(64, 3), torch.zeros(64, 3))
     with pytest.raises(NotImplementedError, match="item 15"):
-        tray.cast(big, tsim.identity((8,)), _t(o), _t(d))
+        tray.cast(big, tsim.identity((8,), device="cpu"), _t(o), _t(d))
 
 
 # --- projections -------------------------------------------------------------
@@ -540,7 +542,28 @@ def test_project_refusals():
     for js, item in ((convex_polyhedron(corners), "item 14"),
                      (hf, "item 15")):
         with pytest.raises(NotImplementedError, match=item):
-            tproj.project(_port(js), tsim.identity((1,)), torch.zeros((1, 3)))
+            tproj.project(_port(js), tsim.identity((1,), device="cpu"),
+                          torch.zeros((1, 3)))
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: tquat.identity((2,), **kw),
+    lambda **kw: trot2.identity((2,), **kw),
+    lambda **kw: tsim.identity((2,), **kw).translation,
+    lambda **kw: Velocity.zero(2, **kw).linear,
+    lambda **kw: SimParams().gravity_array(3, **kw),
+], ids=["quat.identity", "rot2.identity", "sim.identity", "Velocity.zero",
+        "SimParams.gravity_array"])
+def test_constructors_default_to_the_card(make):
+    """With no device given a constructor builds on the card, as every
+    entry point of the port does; without CUDA it raises and names the
+    CPU way out."""
+    assert make(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            make()
 
 
 # --- registry ----------------------------------------------------------------

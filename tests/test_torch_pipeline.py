@@ -61,11 +61,19 @@ def test_state_round_trip(warmed):
         np.testing.assert_array_equal(back[k], arrays[k], err_msg=k)
 
 
-def test_one_step_matches_jax(warmed):
+@pytest.fixture(scope="module")
+def first_frame(warmed):
+    """One checked frame of each package from the warmed state: (JAX state,
+    JAX config, port state, port config). The one-step test checks it and
+    the ten-frame run starts from it."""
     jstate, jcfg = warmed
     tstate, tcfg = _port(jstate, jcfg)
-    js, jc = jax_step_checked(jstate, JaxSimParams(), jcfg)
-    ts, tc = step_checked(tstate, SimParams(), tcfg)
+    return (*jax_step_checked(jstate, JaxSimParams(), jcfg),
+            *step_checked(tstate, SimParams(), tcfg))
+
+
+def test_one_step_matches_jax(first_frame):
+    js, jc, ts, tc = first_frame
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     # integers exact: counts, cached pair list and colours, solve bundle,
     # constraint slots
@@ -100,20 +108,22 @@ def test_one_step_matches_jax(warmed):
                                    atol=5e-5)
 
 
-def test_ten_frames_track_jax(warmed):
+def test_ten_frames_track_jax(first_frame):
     """Caches, repairs, refreshes and regrows over ten frames; frame 3
     forces a full broad-phase refresh (slots permute: by-key warmstart and
-    a fresh bundle), frame 6 forces a repair."""
-    jstate, jcfg = warmed
-    tstate, tcfg = _port(jstate, jcfg)
+    a fresh bundle), frame 6 forces a repair. Frame 0 is the module's first
+    frame."""
     jp, tp = JaxSimParams(), SimParams()
     paths = []
     for f in range(10):
         force = {3: "miss", 6: "repair"}.get(f)
-        jstate, jcfg = jax_step_checked(
-            jstate, jp, dataclasses.replace(jcfg, bp_force=force))
-        tstate, tcfg = step_checked(
-            tstate, tp, dataclasses.replace(tcfg, bp_force=force))
+        if f == 0:
+            jstate, jcfg, tstate, tcfg = first_frame
+        else:
+            jstate, jcfg = jax_step_checked(
+                jstate, jp, dataclasses.replace(jcfg, bp_force=force))
+            tstate, tcfg = step_checked(
+                tstate, tp, dataclasses.replace(tcfg, bp_force=force))
         jcfg = dataclasses.replace(jcfg, bp_force=None)
         tcfg = dataclasses.replace(tcfg, bp_force=None)
         jpc, tpc = _np(jstate.pair_count), _np(tstate.pair_count)

@@ -62,10 +62,12 @@ def _np(x):
 
 @pytest.fixture(scope="module")
 def one_step(warmed):
-    """One step of each package from the warmed state."""
+    """One step of each package from the warmed state (``warmstart``
+    passed as the warmup passes it, so the JAX package reuses the warmup's
+    compiled step: an omitted default keys another jit cache entry)."""
     jstate, jcfg = warmed
     tstate, tcfg = _port(jstate, jcfg)
-    return (jax_step(jstate, JaxSimParams(), jcfg),
+    return (jax_step(jstate, JaxSimParams(), jcfg, warmstart=True),
             step(tstate, SimParams(), tcfg))
 
 

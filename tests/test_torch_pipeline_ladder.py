@@ -78,7 +78,9 @@ def test_one_step_matches_jax(warmed, name):
     jstate, jcfg = warmed
     jcfg = dataclasses.replace(jcfg, **CONFIGS[name])
     tstate, tcfg = _port(jstate, jcfg)
-    js = jax_step(jstate, JaxSimParams(), jcfg)
+    # warmstart passed as the warmup passes it: the ladder case reuses the
+    # warmup's compiled step (an omitted default keys another entry)
+    js = jax_step(jstate, JaxSimParams(), jcfg, warmstart=True)
     ts = step(tstate, SimParams(), tcfg)
     # integers exact: counts, cached pair list and colours, the contact
     # colours handed on, solve bundle, constraint slots

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from wgmath_tpu_torch.core.dispatch import resolve_device
 from wgmath_tpu_torch.geometry import quat
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.sim import Sim
@@ -27,6 +28,8 @@ class Velocity:
 
     @staticmethod
     def zero(n: int, *, device=None) -> "Velocity":
+        """Zero velocities; ``device`` None means the card."""
+        device = resolve_device(device)
         return Velocity(torch.zeros((n, 3), device=device),
                         torch.zeros((n, 3), device=device))
 

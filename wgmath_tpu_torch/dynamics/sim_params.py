@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from wgmath_tpu_torch.core.dispatch import resolve_device
+
 MAX_FLT = 3.4e38
 TWO_PI = 6.283185307179586
 
@@ -78,5 +80,7 @@ class SimParams:
         return self.normalized_prediction_distance * self.length_unit
 
     def gravity_array(self, dim: int, device=None) -> torch.Tensor:
+        """The gravity vector's first ``dim`` components; ``device`` None
+        means the card."""
         return torch.tensor(self.gravity[:dim], dtype=torch.float32,
-                            device=device)
+                            device=resolve_device(device))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from wgmath_tpu_torch.core.dispatch import resolve_device
 from wgmath_tpu_torch.core.module import (
     EntryPoint,
     KernelModule,
@@ -20,8 +21,9 @@ from wgmath_tpu_torch.core.module import (
 
 
 def identity(batch_shape=(), *, device=None) -> torch.Tensor:
+    """Unit quaternions; ``device`` None means the card."""
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=torch.float32,
-                    device=device)
+                    device=resolve_device(device))
     q[..., 3] = 1.0
     return q
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from wgmath_tpu_torch.core.dispatch import resolve_device
 from wgmath_tpu_torch.core.module import (
     EntryPoint,
     KernelModule,
@@ -13,8 +14,9 @@ from wgmath_tpu_torch.core.module import (
 
 
 def identity(batch_shape=(), *, device=None) -> torch.Tensor:
+    """Identity rotations; ``device`` None means the card."""
     r = torch.zeros(tuple(batch_shape) + (2,), dtype=torch.float32,
-                    device=device)
+                    device=resolve_device(device))
     r[..., 0] = 1.0
     return r
 

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from wgmath_tpu_torch.core.dispatch import resolve_device
 from wgmath_tpu_torch.core.module import (
     EntryPoint,
     KernelModule,
@@ -64,6 +65,8 @@ def from_cm(a: Sim) -> Sim:
 
 
 def identity(batch_shape=(), dim: int = 3, *, device=None) -> Sim:
+    """Identity similarities; ``device`` None means the card."""
+    device = resolve_device(device)
     rot = (quat.identity(batch_shape, device=device) if dim == 3
            else rot2.identity(batch_shape, device=device))
     shape = tuple(batch_shape)

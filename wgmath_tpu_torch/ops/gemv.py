@@ -3,11 +3,14 @@
 
 - :func:`gemv` — ``op(a) @ x`` for ``a: [..., M, K]`` (``[..., K, M]`` with
   ``transpose_a``) and ``x: [..., K]``, batch dimensions broadcast. On CUDA
-  tensors of float32 it launches the hand-written kernels of
+  tensors of float32 it makes one launch of a hand-written kernel of
   ``csrc/gemv.cu``: ``gemv_rows`` for ``A·x`` (replaces ``_gemv_pallas``)
-  and ``gemv_tr_cols`` for ``Aᵀ·x`` (replaces ``_gemv_tr_pallas``), for any
-  M, K >= 1 and any batch. The JAX package's alignment gate belongs to the
-  TPU's tiles and has no counterpart here.
+  and ``gemv_tr_cols`` for ``Aᵀ·x`` (replaces ``_gemv_tr_pallas``; its K
+  split is added inside the launch, across a thread-block cluster), for
+  any M, K >= 1 and any batch, allocating nothing but the output. The JAX
+  package's alignment gate belongs to the TPU's tiles and has no
+  counterpart here.
+- :func:`plan` — the launch shape the kernels take for given shapes.
 - :func:`gemv_torch` — the kernels' plain version: the elementwise product,
   then a sum over K, as the Pallas kernels' bodies compute it. It runs for
   CPU tensors.
@@ -44,6 +47,19 @@ LAUNCHES_GEMV_TR = 0
 def gemv(a, x, *, transpose_a: bool = False,
          impl: str = "auto") -> torch.Tensor:
     """``op(a) @ x`` for ``a: [..., M, K]``, ``x: [..., K]``: ``[..., M]``."""
+    # one float32 matrix and vector on the card (the chained path, where
+    # the host's time per call is the iteration's) in few host operations;
+    # every other case, and every refusal, takes the checks below. This
+    # path only narrows those checks: it never accepts what they refuse
+    if (impl == "auto" or impl == "cuda") and type(a) is torch.Tensor \
+            and type(x) is torch.Tensor and a.is_cuda \
+            and a.dtype is torch.float32 and x.dtype is torch.float32 \
+            and a.dim() == 2 and x.dim() == 1:
+        dev = a.get_device()
+        rows, cols = a.shape
+        k, m = (rows, cols) if transpose_a else (cols, rows)
+        if x.get_device() == dev and x.shape[0] == k and m and k:
+            return _gemv_2d(a, x, transpose_a, m, k, dev)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
     a = as_tensor(a)
@@ -82,7 +98,7 @@ def gemv_xla(a: torch.Tensor, x: torch.Tensor, *,
     return torch.einsum("...mk,...k->...m", a, x)
 
 
-# loaded library -> its entry points with their ctypes signatures set
+# loaded library -> (A x launch, A^T x launch, plan), ctypes types set
 _ENTRY_POINTS: dict = {}
 
 
@@ -90,31 +106,33 @@ def _entry_points():
     lib = cuda_build.load("gemv")
     fns = _ENTRY_POINTS.get(lib)
     if fns is None:
-        common = [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong,
-                                       ctypes.c_longlong, ctypes.c_void_p,
-                                       ctypes.c_longlong, ctypes.c_void_p]
-        lib.gemv_tr_splits.argtypes = [ctypes.c_int] * 3
-        lib.gemv_launch.argtypes = common + [ctypes.c_void_p]
-        lib.gemv_tr_launch.argtypes = common + [ctypes.c_void_p] * 2
-        for fn in (lib.gemv_tr_splits, lib.gemv_launch, lib.gemv_tr_launch):
+        for fn in (lib.gemv_launch, lib.gemv_tr_launch):
+            # every argument is a 64-bit word; ctypes converts an int to
+            # c_void_p faster than to c_int or c_longlong
+            fn.argtypes = [ctypes.c_void_p] * 10
             fn.restype = ctypes.c_int
-        fns = _ENTRY_POINTS[lib] = (lib.gemv_tr_splits, lib.gemv_launch,
-                                    lib.gemv_tr_launch)
+        lib.gemv_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gemv_plan.restype = None
+        fns = _ENTRY_POINTS[lib] = (lib.gemv_launch, lib.gemv_tr_launch,
+                                    lib.gemv_plan)
     return fns
+
+
+def plan(m: int, k: int, nb: int = 1, *, transpose_a: bool = False) -> dict:
+    """The launch shape the kernel takes for these shapes (a function of
+    the shapes alone, on any card): grid, cluster blocks (the K split of
+    ``Aᵀ·x``), rows of K per block and tile width. For reports; a launch
+    does not query it."""
+    out = (ctypes.c_int * 6)()
+    _entry_points()[2](int(transpose_a), nb, m, k, out)
+    return {"grid": tuple(out[:3]), "cluster": out[3], "chunk": out[4],
+            "tile": out[5]}
 
 
 def _operands(a, x, k):
     """(A as [nb_a, rows, cols] with a unit inner stride, its row stride,
     its batch stride, x as contiguous [nb_x, k], its batch stride, the
-    output's batch shape). The one-matrix, one-vector case is kept short:
-    it is the chained path's, where the host's time per call is the
-    iteration's."""
-    if a.ndim == 2 and x.ndim == 1:
-        rows, cols = a.shape
-        if a.stride(1) != 1 or (rows > 1 and a.stride(0) < cols):
-            a = a.contiguous()
-        return (a, a.stride(0) if rows > 1 else cols, 0, x.contiguous(), 0,
-                ())
+    output's batch shape)."""
     batch_shape = torch.broadcast_shapes(a.shape[:-2], x.shape[:-1])
     nb = batch_shape.numel()
     # an operand the whole batch shares keeps its batch stride of 0; one
@@ -128,42 +146,51 @@ def _operands(a, x, k):
     return a3, lda, batch_a, x2, k if x2.shape[0] > 1 else 0, batch_shape
 
 
-def _gemv_cuda(a, x, transpose_a, m, k):
+def _launch(dev, transpose_a, *args):
+    """One launch on the current stream of device ``dev``, counted;
+    ``args`` are the entry point's but the stream."""
     global LAUNCHES_GEMV, LAUNCHES_GEMV_TR
-    a3, lda, batch_a, x2, batch_x, batch_shape = _operands(a, x, k)
-    nb = math.prod(batch_shape)
-    out = torch.empty(tuple(batch_shape) + (m,), dtype=torch.float32,
-                      device=a.device)
-    if nb == 0:
-        return out
-    splits_of, launch, launch_tr = _entry_points()
-    splits = splits_of(m, k, nb) if transpose_a else 1
-    # the transposed kernel's partial sums, one row of M per K chunk
-    partial = (torch.empty(nb * splits * m, dtype=torch.float32,
-                           device=a.device) if splits > 1 else out)
-    args = (nb, m, k, a3.data_ptr(), lda, batch_a, x2.data_ptr(), batch_x,
-            out.data_ptr())
-
-    def run():
-        # the raw handle of the current stream: torch.cuda.current_stream()
-        # costs 7-10 us of host time a call on the card's host, this 0.2,
-        # and the chained GEMV is bound by its wrapper's host time
-        stream = torch._C._cuda_getCurrentRawStream(a.device.index)
-        if transpose_a:
-            return launch_tr(*args, partial.data_ptr(), stream)
-        return launch(*args, stream)
-
-    if a.device.index == torch.cuda.current_device():
-        err = run()
+    launch = _entry_points()[1 if transpose_a else 0]
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # costs 7-10 us of host time a call on the card's host, this 0.2, and
+    # the chained GEMV is bound by its wrapper's host time
+    if dev == torch._C._cuda_getDevice():
+        err = launch(*args, torch._C._cuda_getCurrentRawStream(dev))
     else:
-        with torch.cuda.device(a.device):
-            err = run()
+        with torch.cuda.device(dev):
+            err = launch(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"gemv kernel launch failed: error {err}")
     if transpose_a:
         LAUNCHES_GEMV_TR += 1
     else:
         LAUNCHES_GEMV += 1
+
+
+def _gemv_2d(a, x, transpose_a, m, k, dev):
+    """One matrix, one vector on device ``dev``: the chained path's case."""
+    rows, cols = a.shape
+    lda = a.stride(0) if rows > 1 else cols
+    if a.stride(1) != 1 or lda < cols:
+        a = a.contiguous()
+        lda = cols
+    if x.stride(0) != 1:
+        x = x.contiguous()
+    out = a.new_empty(m)
+    _launch(dev, transpose_a, 1, m, k, a.data_ptr(), lda, 0, x.data_ptr(),
+            0, out.data_ptr())
+    return out
+
+
+def _gemv_cuda(a, x, transpose_a, m, k):
+    a3, lda, batch_a, x2, batch_x, batch_shape = _operands(a, x, k)
+    nb = math.prod(batch_shape)
+    out = torch.empty(tuple(batch_shape) + (m,), dtype=torch.float32,
+                      device=a.device)
+    if nb == 0:
+        return out
+    _launch(a.get_device(), transpose_a, nb, m, k, a3.data_ptr(), lda,
+            batch_a, x2.data_ptr(), batch_x, out.data_ptr())
     return out
 
 
