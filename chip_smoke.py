@@ -14,7 +14,13 @@ Three phases; any failed check ends the run with a non-zero exit:
 2. kernel: each kernel's wrapper against its plain PyTorch version on the
    card, on seeded random inputs at the main paths' shapes (max abs error,
    tolerance, device time per launch, its bound, and the one PyTorch call
-   that computes the same function where there is one);
+   that computes the same function where there is one). B1 and B2 also
+   over whole sweeps: the two sweeps of the first substep of the settled
+   pit's first frame (``chained_ps`` for B1, the ladder for B2), recorded
+   from ``step_checked``, and synthetic P = 4 layouts; each sweep's one
+   launch against the same kernel launched rung by rung (bit for bit),
+   against its own repeats (bit for bit) and against the plain sweep
+   (``solver._sweep_torch``), with the device time of each;
 3. path: the linear-algebra paths of the bench at its own sizes (the chained
    GEMM at n = 1024 and 4096 with ``gemm_split`` beside it, the GEMM ->
    sqnorm -> normalize graph at n = 2048 through the module registry, the
@@ -47,6 +53,7 @@ Without a CUDA device the script exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import importlib
@@ -66,7 +73,7 @@ import torch
 from wgmath_tpu_torch.convert import state_from_arrays
 from wgmath_tpu_torch.core import cuda_build, dispatch
 from wgmath_tpu_torch.dynamics import body as body_ops
-from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math
+from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math, solver
 from wgmath_tpu_torch.dynamics.constraint import Contacts
 from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
@@ -240,14 +247,10 @@ def gs_math_inputs(rng: np.random.Generator, L: int, p_max: int, mode: str,
     pp[:, 10:13] = rng.uniform(-20.0, 20.0, (2 * L, 3))
     pp[:, 13] = 1.0
     # local anchors of one world point per contact point on both bodies
-    world = pp[:L, 10:13][:, None] + rng.uniform(-0.5, 0.5, (L, p_max, 3))
-    for side, name in ((0, "local_pt_a"), (1, "local_pt_b")):
-        rows = slice(side * L, (side + 1) * L)
-        qs, ts = q[rows][:, None], pp[rows, 10:13][:, None]
-        d = world + rng.normal(scale=1e-3, size=world.shape) - ts
-        u_, w_ = -qs[..., :3], qs[..., 3:]  # rotate by the conjugate
-        c = np.cross(u_, d)
-        put(name, d + 2.0 * (w_ * c + np.cross(u_, c)))
+    for name, loc in zip(("local_pt_a", "local_pt_b"),
+                         anchors(rng, q[:L], pp[:L, 10:13], q[L:],
+                                 pp[L:, 10:13], p_max)):
+        put(name, loc)
     imp = rng.uniform(0.0, 0.5, (L, p_max * 4)).astype(np.float32)
     num_points = rng.integers(0, p_max + 1, L)
     active = rng.random(L) > 0.2
@@ -268,6 +271,20 @@ def gs_math_inputs(rng: np.random.Generator, L: int, p_max: int, mode: str,
     else:
         kw.update(n_rhs_wo=imp_t[:, p_max + pt:])
     return args, kw
+
+
+def anchors(rng: np.random.Generator, q_a, t_a, q_b, t_b, p_max: int):
+    """Both bodies' local anchors of one world point per contact point
+    (within 0.5 of body a's centre), each off by about a millimetre, for
+    poses [L, 4] (xyzw) / [L, 3] of unit scale."""
+    world = t_a[:, None] + rng.uniform(-0.5, 0.5, (t_a.shape[0], p_max, 3))
+    out = []
+    for q, t in ((q_a, t_a), (q_b, t_b)):
+        d = world + rng.normal(scale=1e-3, size=world.shape) - t[:, None]
+        u_, w_ = -q[:, None, :3], q[:, None, 3:]  # rotate by the conjugate
+        c = np.cross(u_, d)
+        out.append(d + 2.0 * (w_ * c + np.cross(u_, c)))
+    return out
 
 
 def gs_math_work(L: int, p_max: int, mode: str) -> tuple[int, int]:
@@ -343,6 +360,213 @@ def bound_ms(nbytes: float, flops: float,
 
 
 # ---------------------------------------------------------------------------
+# whole sweeps of B1 and B2: recorded from a step, or on a synthetic layout
+# ---------------------------------------------------------------------------
+
+# repeats of each recorded sweep that must give the first launch's bits
+SWEEP_REPEATS = 5
+
+
+def record_sweeps(run, count: int) -> list:
+    """The first ``count`` sweeps that ``run()`` makes, each as the
+    operands of ``solver.run_sweep`` with the buffer and impulse matrix
+    cloned before the sweep changed them."""
+    calls = []
+    real = solver.run_sweep
+
+    def record(plan, cons, fields, buf, imp, **kw):
+        if len(calls) < count:
+            calls.append(SimpleNamespace(plan=plan, cons=cons, fields=fields,
+                                         buf=buf.clone(), imp=imp.clone(),
+                                         kw=kw))
+        real(plan, cons, fields, buf, imp, **kw)
+
+    solver.run_sweep = record
+    try:
+        run()
+    finally:
+        solver.run_sweep = real
+    return calls
+
+
+def pit_sweeps(path: str, device, count: int = 2) -> list:
+    """The first ``count`` sweeps of the first frame of the settled 10k pit
+    under the configuration stored in ``path`` (substep 1: biased, then
+    unbiased)."""
+    z = dict(np.load(NPZ))
+    cfg = PipelineConfig.from_dict(json.loads(str(np.load(path)[
+        "config_json"])))
+    return record_sweeps(lambda: step_checked(
+        state_from_arrays(z, device=device), SimParams(), cfg), count)
+
+
+def synthetic_pass(rng: np.random.Generator, p_max: int, *, chained: bool,
+                   rhs_mode: str | None, device, n_bodies: int = 2000,
+                   windows: tuple = (256,) * 12) -> tuple[tuple, dict]:
+    """Arguments of one ``solver.gs_color_major_pass`` on a seeded
+    coloured layout: every class body-disjoint
+    among its dynamic sides, a fifth of the b-sides on one of five static
+    bodies, a tenth of the class rows invalid (cached pairs with no
+    contact), one empty class, one class as wide as its window and the
+    others narrower (so windows run into the next classes), a residue
+    class and padding; the fields are ``gs_math_inputs``'s."""
+    n_static, s_len, w = 5, 2, max(windows)
+    mc = len(windows)
+    counts = [40] + [int(x) for x in rng.integers(w // 4, w, mc)] + [0]
+    counts[3], counts[5] = 0, w
+    offsets = [int(x) for x in np.concatenate([[0], np.cumsum(counts)[:-1]])]
+    c_rows = sum(counts)
+    total = c_rows + w
+    ba = np.zeros(total, np.int64)
+    bb = np.zeros(total, np.int64)
+    valid = np.zeros(total, bool)
+    for c in range(mc + 1):
+        rows = slice(offsets[c], offsets[c] + counts[c])
+        perm = rng.permutation(np.arange(n_static, n_bodies))
+        ba[rows] = perm[:counts[c]]
+        bb[rows] = np.where(rng.random(counts[c]) < 0.2,
+                            rng.integers(0, n_static, counts[c]),
+                            perm[counts[c]:2 * counts[c]])
+        valid[rows] = rng.random(counts[c]) > 0.1
+    q = rng.normal(size=(n_bodies, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    pose = np.concatenate([q, rng.uniform(-20.0, 20.0, (n_bodies, 3)),
+                           np.ones((n_bodies, 1))], -1)
+    (win, meta, num_points, *_), kw = gs_math_inputs(rng, total, p_max,
+                                                     "biased", device)
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(x)).to(device, dtype)
+
+    fields = gs_math._fields(win, meta)
+    for name, loc in zip(("local_pt_a", "local_pt_b"),
+                         anchors(rng, q[ba], pose[ba, 4:7], q[bb],
+                                 pose[bb, 4:7], p_max)):
+        fields[name].copy_(t(loc))
+    fields["im_b"][t(bb < n_static, torch.bool)] = 0.0
+
+    cons = SimpleNamespace(
+        body_a=t(ba, torch.int64), body_b=t(bb, torch.int64),
+        valid=t(valid, torch.bool), num_points=num_points,
+        cfm_factor=t(rng.uniform(0.9, 1.0, total)),
+        n_rhs=t(rng.uniform(-1.0, 1.0, (total, p_max))),
+        t_rhs=t(rng.uniform(-0.1, 0.1, (total, p_max, s_len))), **fields)
+    vels = body_ops.Velocity(t(rng.normal(size=(n_bodies, 3))),
+                             t(rng.normal(size=(n_bodies, 3))))
+    chain = None
+    if chained:
+        dyn_a, dyn_b = solver._dyn_sides(cons)
+        chain = solver.build_gs_chain(cons.body_a, cons.body_b, dyn_a,
+                                      dyn_b, offsets, counts, windows,
+                                      n_bodies)
+    extra = {}
+    if rhs_mode is not None:
+        extra = dict(rhs_mode=rhs_mode, rhs_consts=kw["consts"],
+                     rhs_store=t(rng.uniform(-1.0, 1.0, (total, p_max))),
+                     pose_tab=t(pose))
+    return ((cons, vels, t(rng.uniform(0.0, 0.5, (total, p_max))),
+             t(rng.normal(scale=0.1, size=(total, p_max, s_len))),
+             (offsets, counts), windows, chain),
+            dict(packed_fields=(win, meta), **extra))
+
+
+def synthetic_sweep(rng: np.random.Generator, p_max: int,
+                    **kw) -> SimpleNamespace:
+    """The sweep of :func:`synthetic_pass`, recorded as
+    :func:`record_sweeps` records."""
+    args, kwargs = synthetic_pass(rng, p_max, **kw)
+    (call,) = record_sweeps(
+        lambda: solver.gs_color_major_pass(*args, **kwargs), 1)
+    return call
+
+
+def run_recorded(call, how: str):
+    """(buf, imp) after one recorded sweep on fresh copies of its operands:
+    ``how`` "kernel" (one launch), "rungs" (the same kernel launched rung
+    by rung) or "plain" (``solver._sweep_torch``)."""
+    buf, imp = call.buf.clone(), call.imp.clone()
+    if how == "plain":
+        solver._sweep_torch(call.plan, call.cons, call.fields, buf, imp,
+                            **call.kw)
+    else:
+        solver.run_sweep(call.plan, call.cons, call.fields, buf, imp,
+                         rung_by_rung=how == "rungs", **call.kw)
+    return buf, imp
+
+
+# a traced build's timestamps (csrc/gs_sweep.cuh): per side, these marks
+TRACE_MARKS = ("chunk", "staged", "waited", "updated", "released")
+TRACE_SIDES = 1 << 18  # csrc/gs_sweep.cuh kTraceSides
+
+
+@contextlib.contextmanager
+def traced_sweep_kernels():
+    """Within the block B1 and B2 load from builds with
+    ``-DWG_SWEEP_TRACE=1``, each its own library (the flags are part of a
+    build's hash); after it, from the untraced builds again."""
+    base = list(cuda_build.NVCC_FLAGS)
+    cuda_build.NVCC_FLAGS[:] = base + ["-DWG_SWEEP_TRACE=1"]
+    cuda_build.drop_loaded()
+    try:
+        yield
+    finally:
+        cuda_build.NVCC_FLAGS[:] = base
+        cuda_build.drop_loaded()
+
+
+def sweep_trace(call) -> np.ndarray:
+    """[TRACE_SIDES, 5] global-timer marks (ns) that the last traced sweep
+    of ``call``'s kernel left for each a-side it ran (indexed by the side;
+    rows of other sides keep earlier launches' marks, or 0)."""
+    lib, fn = (("gs_math", "gs_math_rhs_sweep_trace")
+               if call.kw.get("rhs_mode") else
+               ("gs_math_block", "gs_math_block_sweep_trace"))
+    out = np.zeros((TRACE_SIDES, len(TRACE_MARKS)), np.uint64)
+    f = getattr(cuda_build.load(lib), fn)
+    f.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    f.restype = ctypes.c_int
+    err = f(out.ctypes.data, out.nbytes)
+    if err:
+        raise RuntimeError(f"{fn}: error {err}")
+    return out
+
+
+def gs_sweep_work(call) -> tuple[int, int]:
+    """(bytes, flops) of one recorded sweep with this run's layout: per
+    row of a class, the packed fields the kernel reads, the point count,
+    both side entries, the impulses (and rhs store) read and written, cfm
+    and both rhs (B2), both sides' velocity rows (and poses, biased) read;
+    per side that writes, its velocity row and flag. Each read once, each
+    write once."""
+    kw, plan = call.kw, call.plan
+    p_max, s_len = kw["p_max"], kw["s_len"]
+    meta = pack_meta(p_max, s_len)
+    names = {"biased": gs_math.PACK_FIELDS,
+             "unbiased": UPDATE_FIELDS + ("t_rhs_wo_bias",)}.get(
+                 kw.get("rhs_mode"), UPDATE_FIELDS)
+    cols = sum(int(np.prod(meta[f][1])) if meta[f][1] else 1 for f in names)
+    imp = p_max * (1 + s_len)
+    width = call.buf.shape[1]
+    row = 4 * cols + 8 + 2 * 16 + 2 * 4 * imp + 2 * 4 * width
+    if kw.get("rhs_mode") == "biased":
+        row += 2 * 4 * kw["pose"].shape[1]
+    if kw.get("rhs_mode"):
+        row += 4 * p_max  # rhs_wo written (biased) or read (unbiased)
+    else:
+        row += 4 * (1 + imp)  # cfm, n_rhs, t_rhs
+    sides = plan.sides.cpu().numpy()
+    rows = writes = 0
+    for r in plan.rungs:
+        rows += r.rows
+        for base in (2 * r.w_off, 2 * r.w_off + r.window):
+            writes += int((sides[base:base + r.rows, 1] >= 0).sum())
+    flops = GS_FLOPS_ROW + p_max * (
+        GS_FLOPS_UPDATE + (GS_FLOPS_RHS if kw.get("rhs_mode") == "biased"
+                           else 0))
+    return rows * row + writes * (4 * width + 4), rows * flops
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -415,62 +639,133 @@ def _compare(name: str, label: str, fn, plain, args, kw, work) -> tuple:
     return err, k_ms, p_ms, nbytes, flops
 
 
-def _substep_summary(rows: list, max_err: float, work: str) -> dict:
-    nbytes = sum(r[3] for r in rows)
-    flops = sum(r[4] for r in rows)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    return {"max_abs_err": max_err, "ms": sum(r[1] for r in rows),
-            "plain_ms": sum(r[2] for r in rows), "bound_ms": b_ms,
-            "bound_by": b_by, "work": work}
-
-
 def kernel_phase(ladders: dict) -> dict:
-    """Each kernel against its plain version at the listed shapes and at
-    every rung of its path's ladder. Returns each kernel's summary over one
-    substep of that ladder (every rung, biased and unbiased sweep)."""
+    """The one-rung entry points of B1 and B2 against their plain versions
+    at the listed shapes and at every rung width of their paths' ladders.
+    Returns each kernel's largest error."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(20260)
     out = {}
 
     # gs_math (rhs rebuilt in kernel), both modes
-    ladder = ladders["chained_ps"]
     shapes = [(128, 1), (1024, 1), (4096, 1), (1024, 4)]
-    shapes += [(w, 1) for w in sorted(set(ladder)) if w
+    shapes += [(w, 1) for w in sorted(set(ladders["chained_ps"])) if w
                and (w, 1) not in shapes]
-    rows, max_err = {}, 0.0
-    for L, p_max in shapes:
-        for mode in ("biased", "unbiased"):
-            args, kw = gs_math_inputs(rng, L, p_max, mode, dev)
-            rows[(L, p_max, mode)] = r = _compare(
-                "gs_math", f"L={L:5d} P={p_max} {mode:8s}",
-                gs_math.gs_math_block_rhs, gs_math._gs_math_rhs_torch, args,
-                kw, gs_math_work(L, p_max, mode))
-            max_err = max(max_err, r[0])
-    rungs = [w for w in ladder if w]
-    out["gs_math_rhs"] = _substep_summary(
-        [rows[(w, 1, m)] for w in rungs for m in ("biased", "unbiased")],
-        max_err, f"one substep of chained_ps: {len(rungs)} rungs "
-        f"({sum(rungs)} rows) x 2 modes, P=1")
+    out["gs_math_rhs"] = max(
+        _compare("gs_math", f"L={L:5d} P={p_max} {mode:8s}",
+                 gs_math.gs_math_block_rhs, gs_math._gs_math_rhs_torch,
+                 *gs_math_inputs(rng, L, p_max, mode, dev),
+                 gs_math_work(L, p_max, mode))[0]
+        for L, p_max in shapes for mode in ("biased", "unbiased"))
 
     # gs_math_block (rhs passed in): every rung of the ladder path at
     # P = 1, one size at P = 4
-    ladder = ladders["ladder"]
-    shapes = [(w, 1) for w in sorted(set(ladder), reverse=True) if w]
+    shapes = [(w, 1) for w in sorted(set(ladders["ladder"]), reverse=True)
+              if w]
     shapes.append((1024, 4))
-    rows, max_err = {}, 0.0
-    for L, p_max in shapes:
-        args, kw = gs_block_inputs(rng, L, p_max, dev)
-        rows[(L, p_max)] = r = _compare(
-            "gs_math_block", f"L={L:5d} P={p_max}", gs_math.gs_math_block,
-            gs_block_plain, args, kw, gs_block_work(L, p_max))
-        max_err = max(max_err, r[0])
-    rungs = [w for w in ladder if w]
-    out["gs_math_block"] = _substep_summary(
-        [rows[(w, 1)] for w in rungs for _ in range(2)], max_err,
-        f"one substep of the ladder: {len(rungs)} rungs ({sum(rungs)} "
-        f"rows) x 2 sweeps, P=1")
+    out["gs_math_block"] = max(
+        _compare("gs_math_block", f"L={L:5d} P={p_max}",
+                 gs_math.gs_math_block, gs_block_plain,
+                 *gs_block_inputs(rng, L, p_max, dev),
+                 gs_block_work(L, p_max))[0]
+        for L, p_max in shapes)
     return out
 
+
+def _sweep_case(name: str, label: str, call, timed: bool) -> dict:
+    """One recorded sweep on the card: the whole-sweep launch against the
+    same kernel launched rung by rung (bit for bit), against itself on
+    repeats (bit for bit), and against the plain sweep (``RTOL`` /
+    ``ATOL``, over the velocity buffer and the impulse matrix); with
+    ``timed``, the device time of each."""
+    got = run_recorded(call, "kernel")
+    rungs = run_recorded(call, "rungs")
+    want = run_recorded(call, "plain")
+    torch.cuda.synchronize()
+    for g, r in zip(got, rungs):
+        check(torch.equal(g, r), f"{name} {label}: the one-launch sweep and "
+              "the rung-by-rung launches of the same kernel differ")
+    for _ in range(SWEEP_REPEATS):
+        again = run_recorded(call, "kernel")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{name} {label}: two launches of the sweep differ")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ratio = max(float(((g - w).abs() / (ATOL + RTOL * w.abs())).max())
+                for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    check(ratio <= 1.0 and finite,
+          f"{name} {label}: sweep disagrees with the plain sweep (max abs "
+          f"diff {err:.3e}, {ratio:.2f}x the tolerance)")
+    plan = call.plan
+    n_rows = sum(r.rows for r in plan.rungs)
+    res = {"max_abs_err": err, "tol_ratio": ratio, "rows": n_rows,
+           "rungs": sum(1 for r in plan.rungs if r.rows),
+           "chunks": int(plan.chunks.shape[0])}
+    line = (f"{name} sweep {label}: {res['rungs']} rungs, {n_rows} rows, "
+            f"{res['chunks']} chunks; = rung-by-rung bit for bit, "
+            f"{SWEEP_REPEATS} repeats bit for bit; max|d| vs plain "
+            f"{err:.3e} (tol-ratio {ratio:.3f})")
+    if timed:
+        bufs = [t.clone() for t in (call.buf, call.imp)]
+        med = {}
+        for how in ("kernel", "rungs", "plain"):
+            if how == "plain":
+                fn = lambda: solver._sweep_torch(  # noqa: E731
+                    plan, call.cons, call.fields, *bufs, **call.kw)
+            else:
+                fn = lambda r=how == "rungs": solver.run_sweep(  # noqa: E731
+                    plan, call.cons, call.fields, *bufs, rung_by_rung=r,
+                    **call.kw)
+            med[how] = statistics.median(device_times_ms(fn))
+        nbytes, flops = gs_sweep_work(call)
+        b_ms, _ = bound_ms(nbytes, flops)
+        res.update(ms=med["kernel"], rungs_ms=med["rungs"],
+                   plain_ms=med["plain"], bytes=nbytes, flops=flops)
+        line += (f"; kernel {med['kernel'] * 1e3:.2f} us, rung by rung "
+                 f"{med['rungs'] * 1e3:.2f} us, plain "
+                 f"{med['plain'] * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us")
+    print(line)
+    return res
+
+
+def sweep_phase(rung_errs: dict) -> dict:
+    """B1 and B2 over whole sweeps: the first substep of the settled 10k
+    pit's first frame (``chained_ps`` for B1, biased and unbiased; the
+    ladder for B2, both sweeps) timed, and synthetic P = 4 layouts with
+    chains, invalid class rows, statics and windows wider than their
+    classes. Returns each kernel's summary over one substep (two
+    sweeps)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20268)
+    out = {}
+    for name, path, what in (("gs_math_rhs", NPZ, "chained_ps"),
+                             ("gs_math_block", NPZ_LADDER, "ladder")):
+        cases = [_sweep_case(name, f"{what} frame 1 sweep {k + 1}", call,
+                             True)
+                 for k, call in enumerate(pit_sweeps(path, dev))]
+        nbytes = sum(c["bytes"] for c in cases)
+        flops = sum(c["flops"] for c in cases)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        out[name] = {
+            "max_abs_err": max([c["max_abs_err"] for c in cases]
+                               + [rung_errs[name]]),
+            "ms": sum(c["ms"] for c in cases),
+            "rungs_ms": sum(c["rungs_ms"] for c in cases),
+            "plain_ms": sum(c["plain_ms"] for c in cases),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "work": f"one substep of {what} at frame 1: 2 sweeps, "
+                    f"{cases[0]['rungs']} rungs, {cases[0]['rows']} class "
+                    f"rows, P=1; one launch a sweep"}
+    for chained, mode in ((True, "biased"), (True, "unbiased"),
+                          (True, None), (False, None)):
+        name = "gs_math_rhs" if mode else "gs_math_block"
+        label = (f"synthetic P=4 {'chained' if chained else 'ladder'}"
+                 + (f" {mode}" if mode else ""))
+        r = _sweep_case(name, label, synthetic_sweep(
+            rng, 4, chained=chained, rhs_mode=mode, device=dev), False)
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       r["max_abs_err"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2180,7 +2475,7 @@ def main() -> int:
         for name, path in (("chained_ps", NPZ), ("ladder", NPZ_LADDER)):
             cfg0 = json.loads(str(np.load(path)["config_json"]))
             ladders[name] = tuple(cfg0["gs_windows"][:cfg0["max_colors"]])
-        summaries = kernel_phase(ladders)
+        summaries = sweep_phase(kernel_phase(ladders))
         zf = np.load(NPZ_FUSED)
         cfg_f = json.loads(str(zf["config_json"]))
         summaries.update(fused_kernel_phase(cfg_f, [
@@ -2227,6 +2522,8 @@ def main() -> int:
             "bound_ms": summary["bound_ms"],
             "bound_by": summary["bound_by"], "library_ms": None,
             "work": summary["work"],
+            **({"rungs_ms": summary["rungs_ms"]} if "rungs_ms" in summary
+               else {}),
         })
     for name, route, source, replaces, tpu_source, path in \
             LINALG_KERNEL_TABLE:

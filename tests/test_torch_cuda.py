@@ -37,9 +37,14 @@ from chip_smoke import (
     gs_block_inputs,
     gs_block_plain,
     gs_math_inputs,
+    pit_sweeps,
     ray_bench_arrays,
+    run_recorded,
+    synthetic_sweep,
     ray_scene,
     reduce_ops,
+    sweep_trace,
+    traced_sweep_kernels,
 )
 from wgmath_tpu_torch.core.module import compile_check
 from wgmath_tpu_torch.convert import state_from_arrays
@@ -48,6 +53,7 @@ from wgmath_tpu_torch.dynamics.constraint import update_rhs_sorted
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked
+from wgmath_tpu_torch.pipeline import step as solver_step
 from wgmath_tpu_torch.queries import ray
 
 # the JAX package's tolerance for this math (tests/test_physics.py)
@@ -130,6 +136,158 @@ def test_rhs_in_rung_equals_rhs_passed_in_bit_for_bit(p_max):
     assert torch.equal(n_rhs_wo, out_rr[4])
     for got, want in zip(out, out_rr[:4]):
         assert torch.equal(got, want)
+
+
+# --- B1 / B2 over whole sweeps: one launch, rungs ordered by readiness ---
+
+SWEEP_CASES = ("pit-chained_ps-biased", "pit-chained_ps-unbiased",
+               "pit-ladder-biased", "p4-chained-biased",
+               "p4-chained-unbiased", "p4-chained", "p4-ladder")
+_SWEEPS = {}
+
+
+@pytest.fixture
+def sweep(request):
+    """A recorded sweep on the card: the first substep of the settled 10k
+    pit's first frame (``chained_ps``: B1 biased and unbiased; the ladder:
+    B2), or ``chip_smoke.synthetic_sweep`` at P = 4."""
+    _need_card()
+    name = request.param
+    if name not in _SWEEPS:
+        if name.startswith("pit-"):
+            for path, tag in ((NPZ, "chained_ps"), (NPZ_LADDER, "ladder")):
+                calls = pit_sweeps(path, "cuda")
+                _SWEEPS[f"pit-{tag}-biased"] = calls[0]
+                _SWEEPS[f"pit-{tag}-unbiased"] = calls[1]
+        else:
+            chained = "chained" in name
+            mode = name.split("-")[2] if name.count("-") == 2 else None
+            _SWEEPS[name] = synthetic_sweep(
+                np.random.default_rng(len(name)), 4, chained=chained,
+                rhs_mode=mode, device="cuda")
+    return _SWEEPS[name]
+
+
+def _counter(call):
+    return "LAUNCHES" if call.kw.get("rhs_mode") else "LAUNCHES_BLOCK"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", SWEEP_CASES, indirect=True)
+def test_sweep_is_one_launch_and_equals_rung_by_rung_bit_for_bit(sweep):
+    """One launch for the whole sweep, ordered by the readiness flags,
+    gives the bits of the same kernel launched once per rung (ordered by
+    the launch boundaries)."""
+    counter = _counter(sweep)
+    n0 = getattr(gs_math, counter)
+    got = run_recorded(sweep, "kernel")
+    assert getattr(gs_math, counter) == n0 + 1
+    rungs = run_recorded(sweep, "rungs")
+    torch.cuda.synchronize()
+    assert getattr(gs_math, counter) == n0 + 1 + sum(
+        1 for r in sweep.plan.rungs if r.rows)
+    for g, r in zip(got, rungs):
+        assert torch.equal(g, r)
+    assert not torch.equal(got[1], sweep.imp)  # the impulses moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", SWEEP_CASES, indirect=True)
+def test_sweep_matches_the_plain_sweep_on_card(sweep):
+    got = run_recorded(sweep, "kernel")
+    want = run_recorded(sweep, "plain")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", SWEEP_CASES, indirect=True)
+def test_sweep_repeats_bitwise_on_card(sweep):
+    """The order in which blocks take their chunks and meet their flags
+    changes from launch to launch; the result does not."""
+    first = run_recorded(sweep, "kernel")
+    for _ in range(20):
+        again = run_recorded(sweep, "kernel")
+        assert all(torch.equal(f, a) for f, a in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", SWEEP_CASES, indirect=True)
+def test_sweep_writes_only_what_its_rungs_own(sweep):
+    """Rows no rung runs (window slots past their class, the residue,
+    padding) keep their impulses bit for bit; so do the rows a rung runs
+    but finds inactive, in their impulse columns; the buffer changes only
+    in the rows some side writes."""
+    buf, imp = run_recorded(sweep, "kernel")
+    torch.cuda.synchronize()
+    plan = sweep.plan
+    sides = plan.sides.cpu().numpy()
+    run = np.zeros(imp.shape[0], bool)
+    active = np.zeros(imp.shape[0], bool)
+    for r in plan.rungs:
+        rows = slice(r.start, r.start + r.rows)
+        run[rows] = True
+        active[rows] = sides[2 * r.w_off:2 * r.w_off + r.rows, 3] & 1
+    p_max = sweep.kw["p_max"]
+    cols = p_max * (1 + sweep.kw["s_len"])
+    rest = torch.from_numpy(~run).cuda()
+    idle = torch.from_numpy(run & ~active).cuda()
+    assert torch.equal(imp[rest], sweep.imp[rest])
+    assert torch.equal(imp[idle, :cols], sweep.imp[idle, :cols])
+    written = np.zeros(buf.shape[0], bool)
+    written[sides[:, 1][sides[:, 1] >= 0]] = True
+    keep = torch.from_numpy(~written).cuda()
+    assert torch.equal(buf[keep], sweep.buf[keep])
+
+
+@pytest.mark.cuda
+def test_traced_sweep_build_gives_the_untraced_bits_on_card():
+    """B1 and B2 built with ``-DWG_SWEEP_TRACE=1`` (what
+    ``scripts/exp_sweep_trace.py`` reads) compile, give the untraced
+    build's bits, and leave five ordered marks for every row a sweep
+    runs."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    calls = [synthetic_sweep(rng, 1, chained=True, rhs_mode="biased",
+                             device="cuda"),
+             synthetic_sweep(rng, 1, chained=False, rhs_mode=None,
+                             device="cuda")]
+    want = [run_recorded(c, "kernel") for c in calls]
+    with traced_sweep_kernels():
+        for call, w in zip(calls, want):
+            got = run_recorded(call, "kernel")
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, x) for g, x in zip(got, w))
+            marks = sweep_trace(call)
+            run = np.concatenate([2 * r.w_off + np.arange(r.rows)
+                                  for r in call.plan.rungs])
+            m = marks[run].astype(np.int64)
+            assert (m > 0).all() and (np.diff(m, axis=1) >= 0).all()
+    got = run_recorded(calls[0], "kernel")  # untraced again
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, want[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [NPZ, NPZ_LADDER], ids=["chained_ps",
+                                                         "ladder"])
+def test_pit_step_launches_one_kernel_per_sweep_on_card(path):
+    """A frame of the settled 10k pit makes two sweep launches a substep
+    (biased and unbiased) of B1 (``chained_ps``) or B2 (the ladder)."""
+    _need_card()
+    z = dict(np.load(NPZ))
+    cfg = PipelineConfig.from_dict(
+        json.loads(str(np.load(path)["config_json"])))
+    state = state_from_arrays(z, device="cuda")
+    counter = "LAUNCHES" if cfg.gs_rhs_in_rung else "LAUNCHES_BLOCK"
+    params = SimParams()
+    for _ in range(2):
+        n0 = getattr(gs_math, counter)
+        state = solver_step(state, params, cfg)
+        torch.cuda.synchronize()
+        assert getattr(gs_math, counter) - n0 == \
+            2 * params.num_solver_iterations
 
 
 @pytest.mark.cuda

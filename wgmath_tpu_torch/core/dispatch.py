@@ -91,3 +91,13 @@ def host_list(x) -> list:
     global HOST_SYNCS
     HOST_SYNCS += 1
     return [int(v) for v in x.tolist()]
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """Copy a host tensor to ``device`` without a host sync: through
+    pinned memory, queued on the current stream (a CPU device gets ``x``
+    itself)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return x
+    return x.pin_memory().to(device, non_blocking=True)

@@ -1,24 +1,33 @@
-"""Gauss-Seidel impulse math for one colour rung (counterpart of
-``wgmath_tpu/dynamics/gs_pallas.py``).
+"""Gauss-Seidel impulse math (counterpart of
+``wgmath_tpu/dynamics/gs_pallas.py``): one rung, or one whole sweep over
+the window ladder in one launch.
 
 - :func:`gs_math_block_rhs` rebuilds the substep rhs in kernel
-  (``_gs_math_rhs_pallas_call``): on a CUDA tensor it launches
+  (``_gs_math_rhs_pallas_call``): on a CUDA tensor it launches one rung of
   ``csrc/gs_math.cu``, on a CPU tensor it runs :func:`_gs_math_rhs_torch`,
   the plain PyTorch transcription of ``_cm_rhs`` + ``_cm_point_updates``.
 - :func:`gs_math_block` takes ``cfm_factor`` / ``n_rhs`` / ``t_rhs`` from
-  the caller (``_gs_math_pallas_call``): ``csrc/gs_math_block.cu`` on a
-  CUDA tensor, :func:`_gs_math_torch` on a CPU tensor.
+  the caller (``_gs_math_pallas_call``): one rung of
+  ``csrc/gs_math_block.cu`` on a CUDA tensor, :func:`_gs_math_torch` on a
+  CPU tensor.
+- :func:`gs_sweep_rhs` / :func:`gs_sweep_block` run the same kernels over
+  every rung of a :class:`SweepPlan` in one launch, in place on the
+  solver's velocity buffer and merged impulse matrix (CUDA tensors only;
+  the plain version is ``solver._sweep_torch``). Rungs are ordered by
+  per-side readiness flags, not by launch boundaries (``csrc/gs_sweep.cuh``).
 
 Both kernels run one thread per constraint row and share their point
 update (``csrc/gs_point_updates.cuh``), as the plain versions share
 :func:`_point_updates`. A CUDA tensor launches the kernel or raises; there
 is no other path. ``LAUNCHES`` / ``LAUNCHES_BLOCK`` count the launches of
-the two kernels.
+the two kernels, one-rung and sweep alike.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -214,9 +223,10 @@ def _rows(x: torch.Tensor, L: int, width: int, what: str):
 def _column_offsets(kernel: str, win2d, meta, names, p_max: int,
                     s_len: int):
     """The kernel's column table (one int per ``PACK_FIELDS`` entry, -1 for
-    a field it does not read) after checking that the instantiation exists
-    and that every field in ``names`` lies inside the window at its
-    shape."""
+    a field it does not read) and the number of leading columns it stages
+    (the end of the last field it reads), after checking that the
+    instantiation exists and that every field in ``names`` lies inside the
+    window at its shape."""
     if s_len != 2 or p_max not in (1, 4):
         raise ValueError(f"{kernel} kernel: (p_max={p_max}, s_len={s_len}) "
                          "not instantiated (p_max 1 or 4, s_len 2)")
@@ -230,8 +240,9 @@ def _column_offsets(kernel: str, win2d, meta, names, p_max: int,
         if not 0 <= int(meta[name][0]) <= K - _size(tail):
             raise ValueError(f"{kernel} kernel: field {name} lies outside "
                              f"the {K}-column window")
-    return (ctypes.c_int * len(PACK_FIELDS))(
+    offs = (ctypes.c_int * len(PACK_FIELDS))(
         *[int(meta[nm][0]) if nm in names else -1 for nm in PACK_FIELDS])
+    return offs, max(int(meta[nm][0]) + _size(want[nm][1]) for nm in names)
 
 
 def _check_row_inputs(kernel: str, L: int, dev, num_points, active,
@@ -249,13 +260,13 @@ def _check_row_inputs(kernel: str, L: int, dev, num_points, active,
 
 
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_void_p]
+                                   ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p]
              + [ctypes.c_void_p, ctypes.c_int] * 6
              + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 5
              + [ctypes.c_void_p])
 _ARGTYPES_BLOCK = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
-                                         ctypes.c_void_p]
+                                         ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_void_p, ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 2
                    + [ctypes.c_void_p, ctypes.c_int] * 4
@@ -270,7 +281,8 @@ def _launch(win2d, meta, num_points, active, p1, p2, prev_n, prev_t, *,
 
     L, K = win2d.shape
     dev = win2d.device
-    offs = _column_offsets("gs_math", win2d, meta, PACK_FIELDS, p_max, s_len)
+    offs, kstage = _column_offsets("gs_math", win2d, meta, PACK_FIELDS,
+                                   p_max, s_len)
     biased = mode == "biased"
     aux = (("pose1", pose1), ("pose2", pose2)) if biased else (
         ("n_rhs_wo", n_rhs_wo),)
@@ -299,7 +311,7 @@ def _launch(win2d, meta, num_points, active, p1, p2, prev_n, prev_t, *,
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(p_max, int(biased), L, win.data_ptr(), ld_win, offs,
+    err = fn(p_max, int(biased), L, win.data_ptr(), ld_win, kstage, offs,
              num_points.data_ptr(), active.data_ptr(),
              p1v.data_ptr(), ld_p1, p2v.data_ptr(), ld_p2,
              pnv.data_ptr(), ld_pn, ptv.data_ptr(), ld_pt,
@@ -347,8 +359,8 @@ def _launch_block(win2d, meta, cfm_factor, n_rhs, t_rhs, num_points, active,
 
     L, K = win2d.shape
     dev = win2d.device
-    offs = _column_offsets("gs_math_block", win2d, meta, UPDATE_FIELDS,
-                           p_max, s_len)
+    offs, kstage = _column_offsets("gs_math_block", win2d, meta,
+                                   UPDATE_FIELDS, p_max, s_len)
     win, ld_win = _rows(win2d, L, K, "win2d")
     _check_row_inputs("gs_math_block", L, dev, num_points, active,
                       (("cfm_factor", cfm_factor), ("n_rhs", n_rhs),
@@ -370,7 +382,7 @@ def _launch_block(win2d, meta, cfm_factor, n_rhs, t_rhs, num_points, active,
     fn.argtypes = _ARGTYPES_BLOCK
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(p_max, L, win.data_ptr(), ld_win, offs,
+    err = fn(p_max, L, win.data_ptr(), ld_win, kstage, offs,
              cfv.data_ptr(), ld_cf, nrv.data_ptr(), ld_nr,
              trv.data_ptr(), ld_tr, num_points.data_ptr(),
              active.data_ptr(), p1v.data_ptr(), ld_p1, p2v.data_ptr(), ld_p2,
@@ -401,3 +413,209 @@ def gs_math_block(win2d, meta, view, active, p1, p2, prev_n, prev_t, *,
     if win2d.device.type == "cpu":
         return _gs_math_torch(*args, p_max=p_max, s_len=s_len)
     raise ValueError(f"gs_math_block: unsupported device {win2d.device}")
+
+
+# ---------------------------------------------------------------------------
+# One launch per sweep
+# ---------------------------------------------------------------------------
+
+
+def rows_per_chunk(p_max: int) -> int:
+    """Rows of one sweep chunk (``csrc/gs_sweep.cuh`` ``rows_per_chunk``)."""
+    return 128 if p_max == 1 else 32
+
+
+class Rung(NamedTuple):
+    """One non-empty rung of a :class:`SweepPlan` (host ints)."""
+
+    colour: int  # its colour (1-based)
+    start: int  # first constraint row of its window
+    window: int  # window width w
+    w_off: int  # W_c, the windows before it: its sides sit at 2·W_c
+    rows: int  # class slots it runs, min(count, w)
+    chunk0: int  # its chunks: [chunk0, chunk1)
+    chunk1: int
+
+
+@dataclasses.dataclass
+class SweepPlan:
+    """One solve's sweep table, built once per solve by
+    ``solver.build_sweep_plan`` (substep-invariant).
+
+    ``chunks`` int32 [n, 4]: first constraint row, rows, first a-side,
+    first b-side of each chunk, in ladder order; a chunk never crosses a
+    rung and holds only the rung's class slots. ``sides`` int32
+    [2·sum(windows), 4], one entry per side of every window slot (rung c's
+    a-sides at ``2·W_c + slot``, its b-sides ``w`` further): the buffer row
+    it reads, the buffer row it writes (-1: none), the side whose write it
+    waits for (-1: none) and 2 x its body + the row's active flag.
+    ``rungs`` (host): a :class:`Rung` per non-empty rung. ``ready`` int32
+    [2·sum(windows) + 1]: each side's readiness flag, then the chunk
+    ticket; the kernels keep the ticket at 0 between launches and never
+    clear a flag, because each sweep waits for its own ``epoch``, which
+    the wrappers raise by one a sweep."""
+
+    chunks: torch.Tensor
+    sides: torch.Tensor
+    rungs: tuple[Rung, ...]
+    p_max: int
+    ready: torch.Tensor
+    epoch: int = 0
+
+
+def _next_epoch(plan: SweepPlan):
+    """(flags, ticket) pointers and the epoch of the plan's next sweep."""
+    plan.epoch += 1
+    n = plan.sides.shape[0]
+    return plan.ready.data_ptr(), plan.ready[n:].data_ptr(), plan.epoch
+
+
+def _check_sweep(kernel: str, plan: SweepPlan, win2d, num_points, buf, imp,
+                 width: int, imp_cols: int, p_max: int):
+    dev = win2d.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} sweep: CUDA tensors only (the plain "
+                         f"sweep is solver._sweep_torch), got {dev}")
+    if plan.p_max != p_max:
+        raise ValueError(f"{kernel} sweep: plan for p_max={plan.p_max}, "
+                         f"impulses for p_max={p_max}")
+    for nm, t, dt in (("plan.chunks", plan.chunks, torch.int32),
+                      ("plan.sides", plan.sides, torch.int32),
+                      ("plan.ready", plan.ready, torch.int32),
+                      ("num_points", num_points, torch.int64)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{kernel} sweep: {nm} must be a contiguous "
+                             f"{dt} tensor on {dev}")
+    total = win2d.shape[0]
+    if num_points.shape != (total,):
+        raise ValueError(f"{kernel} sweep: num_points must be [{total}]")
+    if plan.ready.shape != (plan.sides.shape[0] + 1,):
+        raise ValueError(f"{kernel} sweep: plan.ready must hold one flag "
+                         "a side and the ticket")
+    for nm, t, rows, cols in (("buf", buf, None, width),
+                              ("imp", imp, total, imp_cols)):
+        if t.device != dev or t.dtype != torch.float32 or t.dim() != 2 \
+                or t.shape[1] != cols or t.stride(1) != 1 \
+                or (rows is not None and t.shape[0] != rows):
+            raise ValueError(f"{kernel} sweep: {nm} must be a float32 "
+                             f"[{rows or 'rows'}, {cols}] matrix with "
+                             f"contiguous rows on {dev}")
+
+
+def _launch_ranges(plan: SweepPlan, rung_by_rung: bool):
+    """(first chunk, chunks) of each launch; none for a sweep with no class
+    row."""
+    if rung_by_rung:
+        return [(r.chunk0, r.chunk1 - r.chunk0) for r in plan.rungs
+                if r.chunk1 > r.chunk0]
+    return [(0, plan.chunks.shape[0])] if plan.chunks.shape[0] else []
+
+
+_SWEEP_HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_uint, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
+_ARGTYPES_SWEEP = ([ctypes.c_int] * 2 + _SWEEP_HEAD
+                   + [ctypes.c_void_p] + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+_ARGTYPES_SWEEP_BLOCK = ([ctypes.c_int] + _SWEEP_HEAD
+                         + [ctypes.c_void_p, ctypes.c_int] * 3
+                         + [ctypes.c_void_p]
+                         + [ctypes.c_void_p, ctypes.c_int] * 2
+                         + [ctypes.c_void_p])
+
+
+def gs_sweep_rhs(plan: SweepPlan, win2d, meta, num_points, buf, imp, *,
+                 mode: str, consts: tuple, p_max: int, s_len: int,
+                 pose=None, rung_by_rung: bool = False) -> None:
+    """One chained GS sweep with the rhs rebuilt in kernel: every rung of
+    ``plan`` in one launch of ``csrc/gs_math.cu`` (``rung_by_rung``: one
+    launch per rung, the same kernel, for checking the ordering).
+
+    In place: ``buf`` [n + 2·sum(w), 6] the velocity stream; ``imp``
+    [C, P·(1+S) + P] the merged impulse matrix whose last P columns are
+    the rhs_wo_bias store (written biased, read unbiased). ``pose`` [n, 8]
+    (rotation xyzw, translation, scale) the bodies' poses, which "biased"
+    reads. ``win2d`` [C, K] the packed fields of every row, ``num_points``
+    [C]. ``consts`` as for :func:`gs_math_block_rhs`."""
+    global LAUNCHES
+    from wgmath_tpu_torch.core import cuda_build
+
+    if mode not in ("biased", "unbiased"):
+        raise ValueError(f"gs_sweep_rhs: unknown mode {mode!r}")
+    biased = mode == "biased"
+    offs, kstage = _column_offsets("gs_math", win2d, meta, PACK_FIELDS,
+                                   p_max, s_len)
+    _check_sweep("gs_math", plan, win2d, num_points, buf, imp, 6,
+                 p_max * (2 + s_len), p_max)
+    if biased and (pose is None or pose.device != win2d.device
+                   or pose.dtype != torch.float32 or pose.dim() != 2
+                   or pose.shape[1] != 8 or not pose.is_contiguous()):
+        raise ValueError("gs_math sweep: biased needs pose, a contiguous "
+                         f"float32 [bodies, 8] matrix on {win2d.device}")
+    win, ld_win = _rows(win2d, win2d.shape[0], win2d.shape[1], "win2d")
+    ready, ticket, epoch = _next_epoch(plan)
+    lib = cuda_build.load("gs_math")
+    fn = lib.gs_math_rhs_sweep
+    fn.argtypes = _ARGTYPES_SWEEP
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(win2d.device).cuda_stream
+    for chunk0, nchunks in _launch_ranges(plan, rung_by_rung):
+        err = fn(p_max, int(biased), plan.chunks.data_ptr(),
+                 plan.sides.data_ptr(), ready, ticket, epoch, chunk0,
+                 nchunks, win.data_ptr(), ld_win, kstage, offs,
+                 num_points.data_ptr(), buf.data_ptr(), buf.stride(0),
+                 pose.data_ptr() if biased else None, imp.data_ptr(),
+                 imp.stride(0), *[float(c) for c in consts], stream)
+        if err != 0:
+            raise RuntimeError(f"gs_math sweep launch failed: error {err}")
+        LAUNCHES += 1
+
+
+def gs_sweep_block(plan: SweepPlan, win2d, meta, cfm_factor, n_rhs, t_rhs,
+                   num_points, buf, imp, *, p_max: int, s_len: int,
+                   rung_by_rung: bool = False) -> None:
+    """One GS sweep with the rhs passed in (the ladder, or the chained
+    stream, as ``plan`` says): every rung in one launch of
+    ``csrc/gs_math_block.cu`` (``rung_by_rung``: one launch per rung).
+
+    In place: ``buf`` [rows, 6] the velocity buffer (the ladder's body
+    table, or the chained stream), ``imp`` [C, P·(1+S)] the merged impulse
+    matrix. ``cfm_factor`` [C], ``n_rhs`` [C, P], ``t_rhs`` [C, P, S] this
+    substep's softness and right-hand sides."""
+    global LAUNCHES_BLOCK
+    from wgmath_tpu_torch.core import cuda_build
+
+    total = win2d.shape[0]
+    offs, kstage = _column_offsets("gs_math_block", win2d, meta,
+                                   UPDATE_FIELDS, p_max, s_len)
+    _check_sweep("gs_math_block", plan, win2d, num_points, buf, imp, 6,
+                 p_max * (1 + s_len), p_max)
+    for nm, t in (("cfm_factor", cfm_factor), ("n_rhs", n_rhs),
+                  ("t_rhs", t_rhs)):
+        if t.device != win2d.device:
+            raise ValueError(f"gs_math_block sweep: {nm} not on "
+                             f"{win2d.device}")
+    win, ld_win = _rows(win2d, total, win2d.shape[1], "win2d")
+    cfv, ld_cf = _rows(cfm_factor, total, 1, "cfm_factor")
+    nrv, ld_nr = _rows(n_rhs, total, p_max, "n_rhs")
+    trv, ld_tr = _rows(t_rhs, total, p_max * s_len, "t_rhs")
+    ready, ticket, epoch = _next_epoch(plan)
+    lib = cuda_build.load("gs_math_block")
+    fn = lib.gs_math_block_sweep
+    fn.argtypes = _ARGTYPES_SWEEP_BLOCK
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(win2d.device).cuda_stream
+    for chunk0, nchunks in _launch_ranges(plan, rung_by_rung):
+        err = fn(p_max, plan.chunks.data_ptr(), plan.sides.data_ptr(),
+                 ready, ticket, epoch, chunk0,
+                 nchunks, win.data_ptr(), ld_win, kstage, offs,
+                 cfv.data_ptr(), ld_cf, nrv.data_ptr(), ld_nr,
+                 trv.data_ptr(), ld_tr, num_points.data_ptr(),
+                 buf.data_ptr(), buf.stride(0), imp.data_ptr(),
+                 imp.stride(0), stream)
+        if err != 0:
+            raise RuntimeError(f"gs_math_block sweep launch failed: error "
+                               f"{err}")
+        LAUNCHES_BLOCK += 1

@@ -11,14 +11,22 @@ layout and chain, and the Gauss-Seidel sweeps under ``gs_windows``).
   colour-compacted contacts arrive in that order
   (``pad_solver_fields_packed``); otherwise one sort and one row gather put
   them there (``build_color_layout``, ``sort_solver_fields_packed``).
-- **Sweeps** (``gs_color_major_pass``), one impulse kernel launch per rung:
-  the *ladder* gathers both sides' velocities by body index and adds the
-  deltas back with one unique-index scatter-add; the *chained* sweep keeps
-  velocities in a stream (body table + one 2w-row segment per colour),
-  gathers through the cached last-writer chain and writes each rung's rows
-  to its own segment. The rhs comes from ``update_rhs_sorted`` once per
-  substep (``gs_math.gs_math_block``) or, with rhs-in-rung, is rebuilt in
-  the kernel from poses riding the stream (``gs_math.gs_math_block_rhs``).
+- **Sweeps** (``gs_color_major_pass``), one impulse kernel launch per
+  sweep on the card: the *ladder* reads both sides' velocities by body
+  index and adds each active dynamic side's delta back onto its body row;
+  the *chained* sweep keeps velocities in a stream (body table + one
+  2w-row segment per colour), reads through the cached last-writer chain
+  and writes each side where the chain advances to its own stream row.
+  ``build_sweep_plan`` turns the ladder into one table per solve: the
+  rungs cut into chunks of their class rows, and for every side the row
+  it reads, the row it writes and the earlier side whose write it waits
+  for (the chain's ``src``; for the ladder each body's previous writer).
+  The kernel orders the rungs by those per-side readiness flags, not by
+  launch boundaries (``csrc/gs_sweep.cuh``). The rhs comes from
+  ``update_rhs_sorted`` once per substep (``gs_math.gs_sweep_block``) or,
+  with rhs-in-rung, is rebuilt in the kernel from the bodies' poses
+  (``gs_math.gs_sweep_rhs``). On CPU tensors ``_sweep_torch`` runs the
+  same table rung by rung through the plain row math.
 
 Every ``lax.cond`` of the JAX solve is a Python branch on a host value.
 """
@@ -28,9 +36,10 @@ from __future__ import annotations
 import dataclasses
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
-from wgmath_tpu_torch.core.dispatch import host_int, host_list
+from wgmath_tpu_torch.core.dispatch import host_int, host_list, to_device
 from wgmath_tpu_torch.dynamics.body import (
     Bodies,
     Velocity,
@@ -57,9 +66,14 @@ from wgmath_tpu_torch.dynamics.gs_fused import (
 )
 from wgmath_tpu_torch.dynamics.gs_math import (
     PACK_FIELDS,
+    Rung,
+    SweepPlan,
+    _gs_math_rhs_torch,
+    _gs_math_torch,
     _size,
-    gs_math_block,
-    gs_math_block_rhs,
+    gs_sweep_block,
+    gs_sweep_rhs,
+    rows_per_chunk,
 )
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry.sim import Sim
@@ -471,97 +485,212 @@ def _rung_start(offsets, ci: int, w: int, total: int) -> int:
     return min(max(offsets[ci], 0), total - w)
 
 
-def rung_active_masks(valid_s, layout_host, windows: tuple) -> dict:
-    """colour → [w] bool: the slot lies inside the class (positional) and
-    its row holds a live contact. In pair-slot layouts a window row can be
-    a cached pair whose contact is inactive this frame; it passes
-    velocities through with its impulses kept."""
+def _prev_writer(body, writes):
+    """For each side in ladder order, the last earlier side that writes its
+    body (-1 where none): the ladder's dependency chain, from one sort by
+    (body, position) and a running max."""
+    n_sides = body.shape[0]
+    if n_sides == 0:
+        return body.clone()
+    pos = torch.arange(n_sides, device=body.device)
+    key = body * n_sides + pos
+    order = torch.argsort(key)
+    prev = torch.cummax(torch.where(writes, key, -1)[order], 0).values
+    prev = torch.cat([prev.new_full((1,), -1), prev[:-1]])
+    same = (prev >= 0) & (prev // n_sides == body[order])
+    dep = torch.where(same, prev % n_sides, -1)
+    return torch.empty_like(dep).scatter_(0, order, dep)
+
+
+def build_sweep_plan(sorted_cons, layout_host, windows: tuple,
+                     n_bodies: int, chain=None, *, p_max: int) -> SweepPlan:
+    """The sweep table of one solve (substep-invariant; see
+    :class:`~wgmath_tpu_torch.dynamics.gs_math.SweepPlan`).
+
+    A rung runs the slots of its class only (``slot < min(count, w)``);
+    the window's later slots belong to later rungs. A row is active where
+    its slot is in the class and its contact is live (in pair-slot layouts
+    a class row can be a cached pair with no contact this frame: it runs
+    masked, passing velocities through with its impulses kept). ``chain``
+    = (src, last_writer) of :func:`build_gs_chain` selects the chained
+    table: a side reads ``src``, waits for it where it is a stream row, and
+    writes its own stream row where a later side or ``last_writer`` reads
+    it (exactly where the chain advanced). Without a chain (the ladder) a
+    side reads and writes its body row, writes only where the row is
+    active and the side dynamic, and waits for the body's previous writer.
+
+    Everything on the host (rung starts, class sizes, chunks, each side's
+    constraint row) is known from ``layout_host``; it goes to the device in
+    one copy that does not sync."""
     offsets, counts = layout_host
-    total = valid_s.shape[0]
-    out = {}
-    for ci, w in enumerate(windows, start=1):
-        if w:
-            start = _rung_start(offsets, ci, w, total)
-            out[ci] = ((torch.arange(w, device=valid_s.device) < counts[ci])
-                       & valid_s[start:start + w])
-    return out
-
-
-def ladder_rung_index(sorted_cons, layout_host, windows: tuple,
-                      n_bodies: int, rung_active: dict) -> dict:
-    """colour → (gather rows [2w], scatter rows [2w]) of the ladder sweep's
-    velocity table ``[n_bodies + 2·max(windows), 6]``. The gather reads
-    ``[body_a; body_b]``. The scatter keeps a side's body row only where the
-    slot is active and the side dynamic; every other side goes to a scratch
-    row of its own (``n + slot`` for a-sides, ``n + w + slot`` for
-    b-sides). Same-colour constraints share no dynamic body, so the 2w
-    scatter rows are all distinct."""
-    offsets, _ = layout_host
     total = sorted_cons.body_a.shape[0]
-    dyn_a, dyn_b = _dyn_sides(sorted_cons)
-    out = {}
+    dev = sorted_cons.body_a.device
+    rows = rows_per_chunk(p_max)
+    rungs, chunks, side_row, side_in_class = [], [], [], []
+    w_off = 0
     for ci, w in enumerate(windows, start=1):
-        if not w:
+        if w == 0:
             continue
         start = _rung_start(offsets, ci, w, total)
-        rows = slice(start, start + w)
-        ba, bb = sorted_cons.body_a[rows], sorted_cons.body_b[rows]
-        trash = n_bodies + torch.arange(w, device=ba.device)
-        on = rung_active[ci]
-        out[ci] = (torch.cat([ba, bb]),
-                   torch.cat([torch.where(on & dyn_a[rows], ba, trash),
-                              torch.where(on & dyn_b[rows], bb, trash + w)]))
-    return out
+        m = min(max(counts[ci], 0), w)
+        c0 = len(chunks)
+        chunks += [(start + s0, min(rows, m - s0), 2 * w_off + s0,
+                    2 * w_off + w + s0) for s0 in range(0, m, rows)]
+        rungs.append(Rung(ci, start, w, w_off, m, c0, len(chunks)))
+        r = np.arange(start, start + w)
+        side_row.append(np.concatenate([r, r + total]))
+        in_class = np.arange(w) < m
+        side_in_class.append(np.concatenate([in_class, in_class]))
+        w_off += w
+    n_sides, n_chunks = 2 * w_off, len(chunks)
+    host = np.concatenate([np.asarray(chunks, np.int32).reshape(-1)]
+                          + side_row + side_in_class).astype(np.int32)
+    tab = to_device(torch.from_numpy(host), dev)
+    chunk_t = tab[:4 * n_chunks].view(n_chunks, 4)
+    side_t = tab[4 * n_chunks:4 * n_chunks + n_sides].long()
+    in_class = tab[4 * n_chunks + n_sides:].bool()
+    body = torch.cat([sorted_cons.body_a, sorted_cons.body_b])[side_t]
+    act = in_class & torch.cat([sorted_cons.valid,
+                                sorted_cons.valid])[side_t]
+    none = torch.full_like(body, -1)
+    if chain is not None:
+        src, last_writer = chain
+        read_later = torch.zeros(n_sides + 1, dtype=torch.bool, device=dev)
+        for ref in (src, last_writer):
+            read_later[torch.where(ref >= n_bodies, ref - n_bodies,
+                                   n_sides)] = True
+        pos = torch.arange(n_sides, device=dev)
+        read = src
+        write = torch.where(read_later[:n_sides], pos + n_bodies, none)
+        wait = torch.where(src >= n_bodies, src - n_bodies, none)
+    else:
+        dyn = torch.cat(_dyn_sides(sorted_cons))[side_t]
+        writes = act & dyn
+        read = body
+        write = torch.where(writes, body, none)
+        wait = _prev_writer(body, writes)
+    sides = torch.stack([read, write, wait, 2 * body + act.long()],
+                        1).to(torch.int32)
+    return SweepPlan(chunks=chunk_t, sides=sides, rungs=tuple(rungs),
+                     p_max=p_max,
+                     ready=torch.zeros(n_sides + 1, dtype=torch.int32,
+                                       device=dev))
+
+
+def _sweep_torch(plan: SweepPlan, sorted_cons, packed_fields, buf, imp, *,
+                 rhs_mode: str | None, rhs_consts: tuple | None, p_max: int,
+                 s_len: int, pose=None) -> None:
+    """Plain PyTorch version of one sweep kernel (``gs_math.gs_sweep_rhs``
+    / ``gs_sweep_block``), rung by rung in place on ``buf`` / ``imp``: the
+    same table and the same row math. A side that writes gets its row as
+    the row it read with ``v + (w - v)``; a side that does not writes back
+    the row it read (the same bits: nothing else in the rung writes it),
+    which keeps the scatter free of a mask."""
+    pf2d, pf_meta = packed_fields
+    sides = plan.sides.long()
+    pt = p_max * s_len
+    dev = buf.device
+    for r in plan.rungs:
+        m, w = r.rows, r.window
+        if m == 0:
+            continue
+        rows = slice(r.start, r.start + m)
+        slot = torch.arange(m, device=dev)
+        e = sides[torch.cat([2 * r.w_off + slot, 2 * r.w_off + w + slot])]
+        pp = buf[e[:, 0]]
+        p1, p2 = pp[:m], pp[m:]
+        active = (e[:m, 3] & 1) != 0
+        win_i = imp[rows]
+        prev_n = win_i[:, :p_max]
+        prev_t = win_i[:, p_max:p_max + pt].reshape(m, p_max, s_len)
+        num_pts = sorted_cons.num_points[rows]
+        if rhs_mode is not None:
+            kw = dict(mode=rhs_mode, consts=rhs_consts, p_max=p_max,
+                      s_len=s_len)
+            if rhs_mode == "biased":
+                body = e[:, 3] >> 1
+                new_n, new_t, d1, d2, rhs_wo = _gs_math_rhs_torch(
+                    pf2d[rows], pf_meta, num_pts, active, p1, p2, prev_n,
+                    prev_t, pose1=pose[body[:m]], pose2=pose[body[m:]],
+                    **kw)
+            else:
+                rhs_wo = win_i[:, p_max + pt:]
+                new_n, new_t, d1, d2 = _gs_math_rhs_torch(
+                    pf2d[rows], pf_meta, num_pts, active, p1, p2, prev_n,
+                    prev_t, n_rhs_wo=rhs_wo, **kw)
+            new_cols = [new_n, new_t.reshape(m, -1), rhs_wo]
+        else:
+            new_n, new_t, d1, d2 = _gs_math_torch(
+                pf2d[rows], pf_meta, sorted_cons.cfm_factor[rows],
+                sorted_cons.n_rhs[rows], sorted_cons.t_rhs[rows], num_pts,
+                active, p1, p2, prev_n, prev_t, p_max=p_max, s_len=s_len)
+            new_cols = [new_n, new_t.reshape(m, -1)]
+        writes = e[:, 1] >= 0
+        buf[torch.where(writes, e[:, 1], e[:, 0])] = torch.where(
+            writes[:, None], pp + torch.cat([d1, d2]), pp)
+        imp[rows] = torch.cat(new_cols, dim=1)
+
+
+def run_sweep(plan: SweepPlan, sorted_cons, packed_fields, buf, imp, *,
+              rhs_mode: str | None = None, rhs_consts: tuple | None = None,
+              pose=None, p_max: int, s_len: int,
+              rung_by_rung: bool = False) -> None:
+    """One sweep in place on the velocity buffer ``buf`` and the merged
+    impulse matrix ``imp`` (``pose``: the bodies' [n, 8] poses, for
+    ``rhs_mode`` "biased"): one kernel launch on CUDA tensors
+    (``gs_math.gs_sweep_rhs`` with ``rhs_mode``, else
+    ``gs_math.gs_sweep_block``; ``rung_by_rung`` launches the same kernel
+    once per rung), :func:`_sweep_torch` on CPU tensors."""
+    pf2d, pf_meta = packed_fields
+    if buf.device.type != "cuda":
+        _sweep_torch(plan, sorted_cons, packed_fields, buf, imp,
+                     rhs_mode=rhs_mode, rhs_consts=rhs_consts, p_max=p_max,
+                     s_len=s_len, pose=pose)
+    elif rhs_mode is not None:
+        gs_sweep_rhs(plan, pf2d, pf_meta, sorted_cons.num_points, buf, imp,
+                     mode=rhs_mode, consts=rhs_consts, p_max=p_max,
+                     s_len=s_len, pose=pose, rung_by_rung=rung_by_rung)
+    else:
+        gs_sweep_block(plan, pf2d, pf_meta, sorted_cons.cfm_factor,
+                       sorted_cons.n_rhs, sorted_cons.t_rhs,
+                       sorted_cons.num_points, buf, imp, p_max=p_max,
+                       s_len=s_len, rung_by_rung=rung_by_rung)
 
 
 def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
                         layout_host, windows: tuple, chain=None, *,
                         packed_fields, rhs_mode: str | None = None,
                         rhs_consts: tuple | None = None, rhs_store=None,
-                        pose_tab=None, rung_active=None, rung_index=None):
+                        pose_tab=None, sweep_plan: SweepPlan | None = None):
     """One PGS sweep over the colour-major constraints, colour by colour
-    along the window ladder.
+    along the window ladder (:func:`run_sweep`: one kernel launch on CUDA
+    tensors).
 
     ``layout_host`` = (offsets, counts) as host ints. ``chain`` =
     (src, last_writer) from :func:`build_gs_chain` selects the chained
-    sweep; ``None`` the ladder sweep (gather by body index, one
-    unique-index scatter-add per rung). ``rhs_mode`` (chained only):
-    "biased" rebuilds each rung's rhs in the kernel from the poses riding
-    the stream (``pose_tab``) and stores rhs_wo_bias; "unbiased" consumes
-    that store with cfm = 1; ``None`` takes ``cfm_factor`` / ``n_rhs`` /
-    ``t_rhs`` from ``sorted_cons``. ``rung_active`` / ``rung_index`` are
-    the per-solve tables of :func:`rung_active_masks` /
-    :func:`ladder_rung_index` (built here when absent). Impulses stay in
-    sorted space. Returns (vels, n_imp_s, t_imp_s[, rhs_store])."""
-    offsets, _ = layout_host
+    sweep; ``None`` the ladder sweep (read and write by body index).
+    ``rhs_mode`` (chained only): "biased" rebuilds each rung's rhs in the
+    kernel from the bodies' poses (``pose_tab`` [n, 8]) and stores
+    rhs_wo_bias; "unbiased" consumes that store with cfm = 1; ``None``
+    takes ``cfm_factor`` / ``n_rhs`` / ``t_rhs`` from ``sorted_cons``.
+    ``sweep_plan`` is the per-solve table of :func:`build_sweep_plan`
+    (built here when absent). Impulses stay in sorted space. Returns (vels,
+    n_imp_s, t_imp_s[, rhs_store])."""
     p_max = n_imp_s.shape[1]
     s_len = sorted_cons.tangent_a.shape[-2]
-    pf2d, pf_meta = packed_fields
     n_bodies = vels.linear.shape[0]
     dev = vels.linear.device
-    total = pf2d.shape[0]
-    if rung_active is None:
-        rung_active = rung_active_masks(sorted_cons.valid, layout_host,
-                                        windows)
-    packed0 = torch.cat([vels.linear, vels.angular], dim=-1)
+    if sweep_plan is None:
+        sweep_plan = build_sweep_plan(sorted_cons, layout_host, windows,
+                                      n_bodies, chain, p_max=p_max)
+    buf = torch.cat([vels.linear, vels.angular], dim=-1)
     if rhs_mode is not None:
         assert chain is not None and rhs_consts is not None \
             and rhs_store is not None
-        if rhs_mode == "biased":
-            packed0 = torch.cat([packed0, pose_tab], dim=-1)
+        assert rhs_mode != "biased" or pose_tab is not None
     if chain is not None:
-        # the buffer is the velocity stream: body table + one 2w-row
-        # segment per colour
-        src_all, last_writer = chain
-        pad_rows = 2 * sum(windows)
-    else:
-        # scratch rows take the writes of static and inactive sides, so
-        # every scatter-add below has distinct rows
-        pad_rows = 2 * max(windows)
-        if rung_index is None:
-            rung_index = ladder_rung_index(sorted_cons, layout_host, windows,
-                                           n_bodies, rung_active)
-    buf = torch.cat([packed0, torch.zeros((pad_rows, packed0.shape[-1]),
+        # the velocity stream: body table + one 2w-row segment per colour
+        buf = torch.cat([buf, torch.zeros((2 * sum(windows), 6),
                                           device=dev)])
     pt = p_max * s_len
     # the impulses travel as one merged [C, P·(1+S)] matrix (the
@@ -570,70 +699,11 @@ def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
     if rhs_mode is not None:
         imp_cols.append(rhs_store)
     imp = torch.cat(imp_cols, dim=1)
-    w_off = 0
-    for ci, w in enumerate(windows, start=1):
-        if w == 0:
-            # pruned rung (step_checked zeroes rungs past the last occupied
-            # class): a class that re-occupies it waits one frame for the
-            # rung to regrow
-            continue
-        # Every other rung runs, occupied or not. The JAX ladder skips an
-        # empty class under lax.cond, which here would be a host sync per
-        # colour; an empty class has no active slot, so the masked math
-        # rewrites its previous impulses and adds zero deltas to scratch
-        # rows (or writes stream rows nothing chains from).
-        start = _rung_start(offsets, ci, w, total)
-        rows = slice(start, start + w)
-        active = rung_active[ci]
-        win_i = imp[rows]
-        prev_n = win_i[:, :p_max]
-        prev_t = win_i[:, p_max:p_max + pt].reshape(w, p_max, s_len)
-        if chain is not None:
-            pp = buf[src_all[2 * w_off:2 * w_off + 2 * w]]
-        else:
-            gather_rows, scatter_rows = rung_index[ci]
-            pp = buf[gather_rows]
-        p1, p2 = pp[:w], pp[w:]
-        if rhs_mode is not None:
-            kw = dict(mode=rhs_mode, consts=rhs_consts, p_max=p_max,
-                      s_len=s_len)
-            num_pts = sorted_cons.num_points[rows]
-            if rhs_mode == "biased":
-                new_n, new_t, d1, d2, rhs_wo = gs_math_block_rhs(
-                    pf2d[rows], pf_meta, num_pts, active, p1[:, :6],
-                    p2[:, :6], prev_n, prev_t, pose1=p1[:, 6:],
-                    pose2=p2[:, 6:], **kw)
-            else:
-                rhs_wo = win_i[:, p_max + pt:]
-                new_n, new_t, d1, d2 = gs_math_block_rhs(
-                    pf2d[rows], pf_meta, num_pts, active, p1[:, :6],
-                    p2[:, :6], prev_n, prev_t, n_rhs_wo=rhs_wo, **kw)
-            new_cols = [new_n, new_t.reshape(w, -1), rhs_wo]
-        else:
-            view = SimpleNamespace(
-                cfm_factor=sorted_cons.cfm_factor[rows],
-                n_rhs=sorted_cons.n_rhs[rows], t_rhs=sorted_cons.t_rhs[rows],
-                num_points=sorted_cons.num_points[rows])
-            new_n, new_t, d1, d2 = gs_math_block(
-                pf2d[rows], pf_meta, view, active, p1, p2, prev_n, prev_t,
-                p_max=p_max, s_len=s_len)
-            new_cols = [new_n, new_t.reshape(w, -1)]
-        if chain is not None:
-            # both sides' updated rows go to this rung's own stream
-            # segment; pose columns ride through unchanged
-            seg0 = n_bodies + 2 * w_off
-            seg = buf[seg0:seg0 + 2 * w]
-            seg.copy_(pp)
-            seg[:w, :6] += d1
-            seg[w:, :6] += d2
-        else:
-            # the 2w rows are distinct by construction (ladder_rung_index),
-            # so the order of the adds cannot matter: the result is
-            # deterministic
-            buf.index_add_(0, scatter_rows, torch.cat([d1, d2]))
-        imp[rows] = torch.cat(new_cols, dim=1)
-        w_off += w
-    packed = buf[last_writer] if chain is not None else buf[:n_bodies]
+    run_sweep(sweep_plan, sorted_cons, packed_fields, buf, imp,
+              rhs_mode=rhs_mode, rhs_consts=rhs_consts,
+              pose=pose_tab if rhs_mode == "biased" else None, p_max=p_max,
+              s_len=s_len)
+    packed = buf[chain[1]] if chain is not None else buf
     out = (Velocity(packed[:, :3], packed[:, 3:6]), imp[:, :p_max],
            imp[:, p_max:p_max + pt].reshape(t_imp_s.shape))
     if rhs_mode is not None:
@@ -818,12 +888,10 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
         t_imp_s = cons.t_impulse[idx_s0]
     total = ss.body_a.shape[0]
     p_max = cons.n_impulse.shape[1]
-    # the per-rung masks and index tables are substep-invariant
-    rung_active = rung_active_masks(ss.valid, layout_host, windows)
-    sweep_kw = dict(packed_fields=packed_fields, rung_active=rung_active)
-    if chain is None:
-        sweep_kw["rung_index"] = ladder_rung_index(ss, layout_host, windows,
-                                                   n, rung_active)
+    # the sweep plan is substep-invariant
+    sweep_kw = dict(packed_fields=packed_fields,
+                    sweep_plan=build_sweep_plan(ss, layout_host, windows, n,
+                                                chain, p_max=p_max))
     poses = bodies.poses
     com = bodies.local_mprops.com
     if use_rhs_rung:
