@@ -20,7 +20,10 @@ Three phases; any failed check ends the run with a non-zero exit:
    from ``step_checked``, and synthetic P = 4 layouts; each sweep's one
    launch against the same kernel launched rung by rung (bit for bit),
    against its own repeats (bit for bit) and against the plain sweep
-   (``solver._sweep_torch``), with the device time of each;
+   (``solver._sweep_torch``), with the device time of each. B10 and B11
+   likewise: one launch against the same kernel launched colour by colour
+   and against its repeats (bit for bit) at the fused path's shapes, at
+   P = 4 and on the first substep of the fused pit's first frame;
 3. path: the linear-algebra paths of the bench at its own sizes (the chained
    GEMM at n = 1024 and 4096 with ``gemm_split`` beside it, the GEMM ->
    sqnorm -> normalize graph at n = 2048 through the module registry, the
@@ -59,6 +62,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -518,9 +522,18 @@ def sweep_trace(call) -> np.ndarray:
     """[TRACE_SIDES, 5] global-timer marks (ns) that the last traced sweep
     of ``call``'s kernel left for each a-side it ran (indexed by the side;
     rows of other sides keep earlier launches' marks, or 0)."""
-    lib, fn = (("gs_math", "gs_math_rhs_sweep_trace")
-               if call.kw.get("rhs_mode") else
-               ("gs_math_block", "gs_math_block_sweep_trace"))
+    return _read_trace(*(("gs_math", "gs_math_rhs_sweep_trace")
+                         if call.kw.get("rhs_mode") else
+                         ("gs_math_block", "gs_math_block_sweep_trace")))
+
+
+def fused_trace() -> np.ndarray:
+    """The marks of the last traced launch of B10 or B11, as
+    :func:`sweep_trace`, indexed by the row of the fused layout."""
+    return _read_trace("gs_fused", "fused_trace")
+
+
+def _read_trace(lib: str, fn: str) -> np.ndarray:
     out = np.zeros((TRACE_SIDES, len(TRACE_MARKS)), np.uint64)
     f = getattr(cuda_build.load(lib), fn)
     f.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
@@ -586,8 +599,13 @@ def setup_phase() -> dict:
     for name in KERNEL_SOURCES:
         print(f"built {name}.cu in {cuda_build.BUILD_SECONDS[name]:.2f} s")
         for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
-            if any(w in line for w in ("registers", "spill", "error",
-                                       "wgmma")):
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:  # the kernel the next lines are about
+                print("  ptxas: entry " + re.sub(
+                    r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                    entry.group(1)))
+            elif any(w in line for w in ("registers", "spill", "error",
+                                         "wgmma")):
                 print(f"  ptxas: {line.strip()}")
     print(f"kernel build wall time {wall:.2f} s")
     counts = hgmma_counts()
@@ -790,6 +808,79 @@ B9_FLOPS_ROW, B9_FLOPS_POINT = 60, 330
 WS_FLOPS_POINT = 90
 INTEGRATE_FLOPS = 110
 P4_BODIES, P4_WINDOWS = 2000, (256,) * 12  # the P = 4 case, smaller
+
+
+# repeats of a B10 / B11 launch that must give the first launch's bits
+FUSED_REPEATS = 5
+# each kernel's one-launch wrapper and plain version
+FUSED_FNS = {"fused_substep1": (gs_fused._launch_substep1,
+                                gs_fused._substep1_torch),
+             "fused_sweep": (gs_fused._launch_sweep,
+                             gs_fused._fused_sweep_torch)}
+
+
+def record_fused(run, count: int = 2) -> list:
+    """The first ``count`` B11 / B10 calls that ``run()`` makes through
+    ``solver.fused_substep1`` and ``solver.fused_sweep``, each with its
+    operands cloned (the counts last)."""
+    calls = []
+    real = {name: getattr(solver, name) for name in FUSED_FNS}
+
+    def recorder(name):
+        def record(*args, **kw):
+            if len(calls) < count:
+                calls.append(SimpleNamespace(name=name, args=tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args),
+                    kw=kw))
+            return real[name](*args, **kw)
+        return record
+
+    for name in real:
+        setattr(solver, name, recorder(name))
+    try:
+        run()
+    finally:
+        for name, fn in real.items():
+            setattr(solver, name, fn)
+    return calls
+
+
+def pit_fused_calls(device) -> list:
+    """The first substep's B11 and B10 calls of the settled 10k pit's
+    first frame under the stored ``fused`` configuration."""
+    z = dict(np.load(NPZ))
+    cfg = PipelineConfig.from_dict(json.loads(str(np.load(NPZ_FUSED)[
+        "config_json"])))
+    return record_fused(lambda: step_checked(
+        state_from_arrays(z, device=device), SimParams(), cfg))
+
+
+def run_fused(call, how: str):
+    """Outputs of a recorded call: ``how`` "kernel" (one launch),
+    "colours" (the same kernel launched once a colour and once for the
+    opening, in ticket order) or "plain" (its plain version, counts read
+    on the host)."""
+    launch, plain = FUSED_FNS[call.name]
+    if how == "plain":
+        return plain(*call.args[:-1], call.args[-1].cpu(), **call.kw)
+    return launch(*call.args, colour_by_colour=how == "colours", **call.kw)
+
+
+def fused_bits(call, label: str):
+    """One launch of a recorded call against the same kernel launched
+    colour by colour and against ``FUSED_REPEATS`` more launches, each bit
+    for bit. Returns the one launch's outputs."""
+    got = run_fused(call, "kernel")
+    colours = run_fused(call, "colours")
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, c) for g, c in zip(got, colours)),
+          f"{call.name} {label}: one launch and the colour-by-colour "
+          "launches of the same kernel differ")
+    for _ in range(FUSED_REPEATS):
+        again = run_fused(call, "kernel")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{call.name} {label}: two launches differ")
+    return got
 
 
 def fused_inputs(rng: np.random.Generator, n_bodies: int, windows: tuple,
@@ -1002,32 +1093,36 @@ def _b9_case(z, label, timed: bool):
                    k_ms, p_ms, build_work(z)), got
 
 
-def _b10_b11_case(z, op, label, timed: bool) -> tuple:
-    """B10 and B11 on one operand set: each against its plain version (the
-    plain versions read the counts from a host copy, so they make no host
-    sync), twice for the same bits, padding rows' impulses unchanged.
-    Returns the two summaries (None when not timed) and B11's outputs."""
+def fused_calls(z, op) -> list:
+    """B10 and B11 on one operand set of :func:`fused_operands`, as
+    :func:`record_fused` records calls."""
     kw = dict(windows=z["windows"], rung0=z["rung0"], p_max=z["p_max"],
               s_len=2, meta=op["meta"])
-    counts, counts_h = z["counts"], z["counts"].cpu()
-    sweep_args = (op["vt"], op["n_imp"], op["t_imp"], op["win"],
-                  op["active"], op["nump"], 1.0, op["n_rhs"], op["t_rhs"],
-                  op["idx"], op["inv"])
-    sub_args = (op["vt"], op["n_imp"], op["t_imp"], op["win"], op["src"],
-                op["pose"], op["active"], op["nump"], op["idx"], op["inv"])
-    sub_kw = dict(kw, src_meta=op["src_meta"], scalars=op["scalars"])
+    return [SimpleNamespace(name="fused_sweep", kw=kw, args=(
+                op["vt"], op["n_imp"], op["t_imp"], op["win"], op["active"],
+                op["nump"], 1.0, op["n_rhs"], op["t_rhs"], op["idx"],
+                op["inv"], z["counts"])),
+            SimpleNamespace(name="fused_substep1", kw=dict(
+                kw, src_meta=op["src_meta"], scalars=op["scalars"]), args=(
+                op["vt"], op["n_imp"], op["t_imp"], op["win"], op["src"],
+                op["pose"], op["active"], op["nump"], op["idx"], op["inv"],
+                z["counts"]))]
+
+
+def _b10_b11_case(z, op, label, timed: bool) -> tuple:
+    """B10 and B11 on one operand set: each one launch against the same
+    kernel launched colour by colour and against its repeats (bit for bit,
+    :func:`fused_bits`), against its plain version (which reads the counts
+    from a host copy, so it makes no host sync), padding rows' impulses
+    unchanged. Returns the two summaries (None when not timed) and B11's
+    outputs."""
     out, results = {}, {}
-    for name, fn, plain, args, kwargs in (
-            ("fused_sweep", gs_fused._launch_sweep,
-             gs_fused._fused_sweep_torch, sweep_args, kw),
-            ("fused_substep1", gs_fused._launch_substep1,
-             gs_fused._substep1_torch, sub_args, sub_kw)):
-        got = fn(*args, counts, **kwargs)
-        again = fn(*args, counts, **kwargs)
-        want = plain(*args, counts_h, **kwargs)
+    for call in fused_calls(z, op):
+        name = call.name
+        got = fused_bits(call, label)
+        grid = gs_fused.LAST_GRID[name]
+        want = run_fused(call, "plain")
         torch.cuda.synchronize()
-        check(all(torch.equal(g, a) for g, a in zip(got, again)),
-              f"{name} {label}: two launches differ")
         pad = op["active"][0] < 0.5
         check(torch.equal(got[1][:, pad],
                           (op["n_imp"] * (op["scalars"][0] if name ==
@@ -1035,21 +1130,24 @@ def _b10_b11_case(z, op, label, timed: bool) -> tuple:
               f"{name} {label}: padding rows' impulses changed")
         err, ratio = _fused_check(name, label, got, want, RTOL, ATOL)
         results[name] = got
+        bits = (f"grid {grid} blocks; = colour by colour bit for bit, "
+                f"{FUSED_REPEATS} repeats bit for bit")
         if timed:
-            k_ms = _median_ms(lambda: fn(*args, counts, **kwargs))
-            p_ms = _median_ms(lambda: plain(*args, counts_h, **kwargs))
+            k_ms = _median_ms(lambda: run_fused(call, "kernel"))
+            counts_h = call.args[-1].cpu()
+            p_ms = _median_ms(lambda: FUSED_FNS[name][1](
+                *call.args[:-1], counts_h, **call.kw))
             k_load = max(op["meta"][f][0] + gs_math._size(op["meta"][f][1])
                          for f in gs_math.UPDATE_FIELDS)
             out[name] = _report(
                 name, label, err, ratio,
-                f"rtol {RTOL}, atol {ATOL}; grid "
-                f"{gs_fused.LAST_GRID[name]} blocks; bitwise repeat",
-                k_ms, p_ms,
+                f"rtol {RTOL}, atol {ATOL}; {bits}", k_ms, p_ms,
                 sweep_work(dict(z, w_g=op["w_g"]), k_load,
                            name == "fused_substep1"))
+            out[name]["grid"] = grid
         else:
             print(f"{name} {label} max|d|={err:.3e} tol-ratio {ratio:.3f}; "
-                  "bitwise repeat")
+                  f"{bits}")
     return out, results["fused_substep1"]
 
 
@@ -1077,7 +1175,10 @@ def fused_kernel_phase(cfg: dict, counts: list) -> dict:
     (the stored configuration's 24 windows and 256-row residue rung over
     10,005 bodies, each colour as full as in the first reference frame;
     P = 1), timed; then at P = 4 on a smaller layout with a non-empty
-    residue and empty colours."""
+    residue and empty colours; then B11 and B10 on the first substep of
+    the fused pit's first frame, timed too. B10 and B11 each as one launch
+    against the same kernel launched colour by colour and against their
+    repeats, bit for bit."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(20265)
     windows = tuple(cfg["gs_windows"][:cfg["max_colors"]])
@@ -1099,6 +1200,18 @@ def fused_kernel_phase(cfg: dict, counts: list) -> dict:
     op4 = fused_operands(z4, big4, rng)
     _, sub4 = _b10_b11_case(z4, op4, label4, False)
     _b12_case(z4, op4, sub4[0], label4, False)
+    # the first substep of the fused pit's first frame: B11, then B10
+    for call in pit_fused_calls(dev):
+        got = fused_bits(call, "pit frame 1")
+        err, ratio = _fused_check(call.name, "pit frame 1", got,
+                                  run_fused(call, "plain"), RTOL, ATOL)
+        row = out[call.name]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["pit_frame1_ms"] = _median_ms(lambda: run_fused(call, "kernel"))
+        print(f"{call.name} pit frame 1 max|d|={err:.3e} tol-ratio "
+              f"{ratio:.3f}; grid {gs_fused.LAST_GRID[call.name]} blocks; "
+              f"= colour by colour bit for bit, {FUSED_REPEATS} repeats bit "
+              f"for bit; kernel {row['pit_frame1_ms'] * 1e3:.2f} us")
     for name, row in out.items():
         row["work"] = (f"one launch on the fused path's shapes: {label}, "
                        f"{len(windows)} windows, residue rung "
@@ -2522,8 +2635,8 @@ def main() -> int:
             "bound_ms": summary["bound_ms"],
             "bound_by": summary["bound_by"], "library_ms": None,
             "work": summary["work"],
-            **({"rungs_ms": summary["rungs_ms"]} if "rungs_ms" in summary
-               else {}),
+            **{k: summary[k] for k in ("rungs_ms", "grid", "pit_frame1_ms")
+               if k in summary},
         })
     for name, route, source, replaces, tpu_source, path in \
             LINALG_KERNEL_TABLE:

@@ -29,16 +29,20 @@ from chip_smoke import (
     REDUCE_TOL,
     redirect_op,
     elementwise_ops,
+    fused_calls,
     fused_inputs,
     fused_operands,
+    fused_trace,
     gemm_ops,
     gemv_case_operands,
     gemv_ops,
     gs_block_inputs,
     gs_block_plain,
     gs_math_inputs,
+    pit_fused_calls,
     pit_sweeps,
     ray_bench_arrays,
+    run_fused,
     run_recorded,
     synthetic_sweep,
     ray_scene,
@@ -438,6 +442,147 @@ def test_fused_wrappers_never_run_their_plain_versions_on_card(monkeypatch):
         src_meta=op["src_meta"], scalars=op["scalars"], **kw)[0]
     gs_fused.fused_integrate(op["pose"], vt, op["com"], op["dt"])
     torch.cuda.synchronize()
+
+
+# --- B10 / B11: one launch, colours ordered by readiness flags -------------
+
+FUSED_CASES = tuple(f"{layout}-{kernel}" for layout in ("p1", "p4", "pit")
+                    for kernel in ("fused_sweep", "fused_substep1"))
+_FUSED = {}
+
+
+@pytest.fixture
+def fused_call(request):
+    """A B10 or B11 call on the card: ``_fused_case``'s synthetic layouts
+    at P = 1 and 4 (a residue, empty colours), or the first substep of the
+    settled 10k pit's first frame under the stored ``fused``
+    configuration."""
+    _need_card()
+    name = request.param
+    if name not in _FUSED:
+        layout, kernel = name.split("-")
+        if layout == "pit":
+            for call in pit_fused_calls("cuda"):
+                _FUSED[f"pit-{call.name}"] = call
+        else:
+            z, _, op = _fused_case(int(layout[1:]))
+            for call in fused_calls(z, op):
+                _FUSED[f"{layout}-{call.name}"] = call
+    return _FUSED[name]
+
+
+def _fused_counter(call):
+    return {"fused_sweep": "LAUNCHES_SWEEP",
+            "fused_substep1": "LAUNCHES_SUBSTEP1"}[call.name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_call", FUSED_CASES, indirect=True)
+def test_fused_one_launch_equals_colour_by_colour_bit_for_bit(fused_call):
+    """One launch, its colours ordered by the readiness flags, gives the
+    bits of the same kernel launched for the opening and then once a
+    colour (ordered by the launch boundaries)."""
+    counter = _fused_counter(fused_call)
+    n0 = getattr(gs_fused, counter)
+    got = run_fused(fused_call, "kernel")
+    assert getattr(gs_fused, counter) == n0 + 1
+    colours = run_fused(fused_call, "colours")
+    torch.cuda.synchronize()
+    assert getattr(gs_fused, counter) == n0 + 2 + len(fused_call.kw[
+        "windows"])
+    for g, c in zip(got, colours):
+        assert torch.equal(g, c)
+    assert not torch.equal(got[0], fused_call.args[0])  # velocities moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_call", FUSED_CASES, indirect=True)
+def test_fused_kernel_matches_its_plain_version_on_card(fused_call):
+    got = run_fused(fused_call, "kernel")
+    want = run_fused(fused_call, "plain")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_call", FUSED_CASES, indirect=True)
+def test_fused_kernel_repeats_bitwise_on_card(fused_call):
+    """The order in which blocks take their chunks and meet their flags
+    changes from launch to launch; the result does not."""
+    first = run_fused(fused_call, "kernel")
+    for _ in range(20):
+        again = run_fused(fused_call, "kernel")
+        assert all(torch.equal(f, a) for f, a in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_call", FUSED_CASES, indirect=True)
+def test_fused_padding_rows_keep_their_impulses_on_card(fused_call):
+    """The rung padding (and any inactive row) returns its impulses as it
+    got them (B11: scaled by the warmstart coefficient), whatever it
+    read."""
+    got = run_fused(fused_call, "kernel")
+    torch.cuda.synchronize()
+    substep = fused_call.name == "fused_substep1"
+    active = fused_call.args[6 if substep else 4][0] > 0.5
+    scale = fused_call.kw["scalars"][0] if substep else 1.0
+    assert (~active).any()
+    for out, imp in ((got[1], fused_call.args[1]),
+                     (got[2], fused_call.args[2])):
+        assert torch.equal(out[:, ~active], (imp * scale)[:, ~active])
+
+
+@pytest.mark.cuda
+def test_traced_fused_build_gives_the_untraced_bits_on_card():
+    """B10 and B11 built with ``-DWG_SWEEP_TRACE=1`` (what
+    ``scripts/exp_sweep_trace.py`` reads) give the untraced build's bits
+    and leave five ordered marks for every active row of an occupied
+    colour."""
+    _need_card()
+    z, _, op = _fused_case(1)
+    calls = fused_calls(z, op)
+    want = [run_fused(c, "kernel") for c in calls]
+    with traced_sweep_kernels():
+        for call, w in zip(calls, want):
+            got = run_fused(call, "kernel")
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, x) for g, x in zip(got, w))
+            marks = fused_trace()
+            _, offsets, _ = gs_fused.fused_layout(z["windows"], z["rung0"])
+            counts = z["counts"].cpu()
+            act = op["active"][0].cpu().numpy() > 0.5
+            rows = np.concatenate([
+                offsets[c + 1] + np.arange(w)
+                for c, w in enumerate(z["windows"]) if counts[c + 1] > 0])
+            m = marks[rows[act[rows]]].astype(np.int64)
+            assert len(m) and (m > 0).all() and (np.diff(m, axis=1) >= 0).all()
+    got = run_fused(calls[0], "kernel")  # untraced again
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, x) for g, x in zip(got, want[0]))
+
+
+@pytest.mark.cuda
+def test_fused_pit_step_launches_each_kernel_once_a_substep_on_card():
+    """A frame of the settled 10k pit under ``fused`` makes a B9 launch
+    per solve (one, or two on a frame that regrows its rungs) and, every
+    substep of a solve, one B11, one B12 and one B10."""
+    _need_card()
+    z = dict(np.load(NPZ))
+    cfg = PipelineConfig.from_dict(
+        json.loads(str(np.load(NPZ_FUSED)["config_json"])))
+    state = state_from_arrays(z, device="cuda")
+    params = SimParams()
+    counters = ((build_fused, "LAUNCHES"), (gs_fused, "LAUNCHES_SUBSTEP1"),
+                (gs_fused, "LAUNCHES_INTEGRATE"), (gs_fused, "LAUNCHES_SWEEP"))
+    for _ in range(2):
+        n0 = [getattr(mod, name) for mod, name in counters]
+        state, cfg = step_checked(state, params, cfg)
+        torch.cuda.synchronize()
+        builds, *per_kernel = (getattr(mod, name) - n
+                               for (mod, name), n in zip(counters, n0))
+        assert builds >= 1
+        assert per_kernel == [builds * params.num_solver_iterations] * 3
 
 
 # --- the linear-algebra kernels ---------------------------------------------

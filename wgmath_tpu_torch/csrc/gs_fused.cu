@@ -18,68 +18,101 @@
 // the layout's colour c + 1) holds rows [off[c], off[c] + rung[c]); idx[c]
 // gathers its a-sides at lanes [0, rung) and b-sides at [rung, 2 rung);
 // inv[c][body] is the lane of the row that writes the body (a-side j,
-// b-side rung + j) or anything >= 2 rung.
+// b-side rung + j) or anything >= 2 rung. A colour is occupied when its
+// device count counts[c + 1] is positive; the others are not swept.
 //
 // Design. The TPU walks the colours in order inside one program with the
-// velocity table in VMEM. Here one cooperative launch (every block
-// resident, cudaLaunchCooperativeKernel sized by the occupancy query) walks
-// the colours in order: within a colour the rows are grid-strided, one
-// thread per row; between colours a grid-wide barrier. The velocity table
-// (~320 KB at 10k bodies) stays in global memory and the 50 MB L2; its
-// loads bypass L1 (ld.cg) because other blocks wrote it. The counts[c] > 0
-// skip is read by every thread from the same word, so the barrier inside
-// it is reached by every block or by none.
-// The scatter is the TPU's inverse permutation applied from the row side:
-// row j writes body b's lanes only where inv[c][b] == j (a-side) or
-// rung + j (b-side). That test encodes valid, dynamic and in-colour, and
-// picks one writer for a duplicate, so no two threads write one lane and no
-// atomics are needed: two launches give the same bits. The written value
-// is v + (w - v), the TPU's table add, not w.
-// B11's warmstart runs lane-parallel: lane b adds, in ascending colour
-// order, the delta of the row inv[c][b] names (the TPU's vt += _ws_color(k)
-// for k = 1..C), so no barrier is needed between colours there.
+// velocity table in VMEM. Here one launch orders them with the readiness
+// flags of gs_sweep.cuh, in place of a grid barrier. The work is cut into
+// chunks, one thread a row (gs_sweep.cuh rows_per_chunk: R = 128 at P = 1,
+// 32 at P = 4), which blocks take from an atomic ticket, one block a chunk
+// (FusedArgs.first / open0 / delta0: the static layout's ticket table). B11
+// takes its delta chunks, its opening, then each colour's chunks in colour
+// order; B10 its colours, then its opening, on which nothing waits.
+//   B11's delta chunks (DELTA_ROWS rows a thread): both warmstart deltas of
+//     every colour row (_ws_color's per-row arithmetic on the scaled
+//     impulses) from coalesced field reads into wsd, 32 bytes a side; each
+//     chunk then adds one to `done`. Gathered by a lane from the field
+//     matrix, a delta took ~26 scattered sectors.
+//   The opening, thread t of chunk i on lane b = i R + t and residue row
+//     i R + t: the residue rows' impulses copied (B11: scaled, rhs store
+//     0); B10 copies vin to vout at rows 6-7 of every lane and at rows 0-5
+//     of a lane no occupied colour writes; B11 waits until every delta
+//     chunk is done (the one wait on a count), adds the deltas of the rows
+//     inv[c][b] names in ascending colour order (the TPU's vt +=
+//     _ws_color(k), k = 1..C), stores the lane's eight rows and releases
+//     it at `base`.
+//   A colour whose count is 0: its chunks copy (B11: scale) its rows'
+//     impulses. An occupied colour: its chunk stages the rows' window
+//     block into shared memory by 16-byte cp.async (column-major, as the
+//     block lies; a row reads its fields R floats apart) and, with that
+//     copy in flight, loads all a row needs that no earlier colour writes:
+//     idx, the inverse-permutation tests, act, nump, the impulses, the rhs
+//     (B10) or the rhs sources and the pose gathers (B11), and the previous
+//     writer of each side's body. B11 then rebuilds the rhs and stores it
+//     without bias. (B11's colour chunks first pass the wait on the delta
+//     count, so that the deltas' reads, level 0 of the chain, do not share
+//     the memory with theirs.) Only then does a row wait; it loads both
+//     velocity rows past L1, updates, writes the lanes it owns as v + (w -
+//     v) (the TPU's table add), releases them, and stores its impulses.
+// Flags: one a body lane, ready[b]. The row that writes body b in colour c
+// stores base + c + 1 (B11's warmstart stores base), base = epoch (MAX_C +
+// 1) with the epoch raised by the wrapper every launch, so the flags are
+// never cleared; a poll is an acquire load. A side whose body an earlier
+// occupied colour c' writes (the latest: inv[c'][b] names a row) waits for
+// ready[b] in [base + c' + 1, base + MAX_C]; a body no earlier colour
+// writes is read from vin without a wait in B10, and after the lane's
+// warmstart (ready[b] in [base, base + MAX_C]) in B11. A flag a body rather
+// than a side: the wait is found from the body alone, through the inv
+// table the layout already has (loaded before the wait, no table of
+// sides), and the flags are Wg words. A chunk waits only on lower tickets,
+// so the lowest unfinished ticket always runs: no cooperative launch, no
+// assumption on residency. A row that is inactive and owns no lane (the
+// rung padding, on body 0) keeps its impulses whatever it reads (a
+// select), so it neither waits nor reads velocities. Every output element
+// is written by one row or lane, except the rows 0-5 of a lane some colour
+// writes, which each colour writing it (after B11's warmstart) rewrites in
+// order, each after acquiring the previous write. So two launches, and one
+// launch against the same kernel launched colour by colour (one epoch, a
+// ticket range a launch), give the same bits.
 //
 // Bound on this card. B10 at the 10k pit (Ctot ~30k rows, P = 1, 13
-// occupied colours): ~10 MB of field, impulse, index and velocity traffic,
-// ~3 us at 3.35 TB/s; what limits it is the latency of the 14 grid
-// barriers and of each colour's dependent gather -> update -> scatter
-// chain. B11 reads about twice that (rhs sources, poses, the warmstart's
-// field gathers). B12 moves 19 floats per lane (0.8 MB): its launch costs
-// more than its bytes.
+// occupied colours) moves ~9 MB of fields, impulses, indices and
+// velocities, ~2.6 us at 3.35 TB/s; B11 ~3.0 us (rhs sources, poses, the
+// warmstart's deltas). What bounds both is the chain of 13 dependent
+// colours (B11: 14 levels with the warmstart): a level is a poll that sees
+// the previous writer's release, two velocity loads from L2, the row's
+// update and the release, ~3.5-4 us at the pit (scripts/exp_sweep_trace.py
+// prints each level's marks). Everything else sits before the wait, so it
+// overlaps the levels before its own. B12 moves 25 floats per lane (1 MB):
+// its launch costs more than its bytes.
 //
 // No fast-math, built with --fmad=false (core/cuda_build.py): the rhs
 // rebuild takes a millimetre drift from two world points ~20 m from the
 // origin, and every sum is written in the plain version's order.
 
 #include "gs_point_updates.cuh"
+#include "gs_sweep.cuh"
 
 namespace {
 
 using namespace gs;
 
 constexpr int MAX_C = 64;
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // B12's block
 constexpr int ROWS = 8;
+constexpr int DELTA_ROWS = 4;  // rows a thread of B11's delta chunks
+constexpr int DELTA_LD = 8;    // floats a side's delta takes in wsd
 // source rows of the rhs rebuild (gs_fused.SRC_FIELDS)
 enum Src { S_LOCAL_PT_A = 0, S_LOCAL_PT_B, S_INFO_DIST, S_INFO_NORMAL_VEL,
            S_T_RHS_WO_BIAS, N_SRC };
 
-// rows of the point update's window block a thread keeps (the packed
-// matrix's width at P = 1 and 4)
-template <int P>
-struct KMax;
-template <>
-struct KMax<1> {
-  static constexpr int value = 66;
-};
-template <>
-struct KMax<4> {
-  static constexpr int value = 216;
-};
-
 struct FusedArgs {
   int n_colors, w_g, ctot, k_load;
   int off[MAX_C], rung[MAX_C];
+  int first[MAX_C + 1];  // colour c's chunks: tickets [first[c], first[c+1])
+  int open0, open1;      // the opening's: [open0, open1)
+  int delta0, delta1;    // B11's delta chunks: [delta0, delta1)
   Offsets cols;
   int src[N_SRC];
   const float* vin;
@@ -106,34 +139,32 @@ struct FusedArgs {
   const int* inv;
   const int* counts;
   float ws, cfm, inv_dt, erp_inv_dt, allowed, max_corr;
-  unsigned int* bar;
+  unsigned* ready;   // [Wg] flags
+  unsigned* ticket;  // 0 between launches
+  unsigned base;     // epoch (MAX_C + 1)
+  int chunk0, nchunks;  // this launch's tickets
+  float* wsd;              // B11: [Ctot][2][DELTA_LD] warmstart deltas
+  unsigned* done;          // B11: delta chunks done, never cleared
+  unsigned done_target;    // its value once this launch's are done
 };
 
-// Grid-wide barrier over co-resident blocks: bar[0] counts arrivals,
-// bar[1] is the generation. The last block to arrive resets the count and
-// advances the generation; the others wait for it to move. Every barrier
-// leaves bar[0] at 0, so the buffer serves the next launch as it is. A
-// wait of seconds (no real barrier takes a millisecond) traps: a fault
-// ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void grid_sync(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* vbar = bar;
-    const unsigned int gen = vbar[1];
-    __threadfence();
-    if (atomicAdd(&bar[0], 1u) == gridDim.x - 1) {
-      atomicExch(&bar[0], 0u);
-      __threadfence();
-      atomicAdd(&bar[1], 1u);
-    } else {
-      for (unsigned int spins = 0; vbar[1] == gen; ++spins) {
-        __nanosleep(64);
-        if (spins > (1u << 26)) __trap();
-      }
-    }
-    __threadfence();
+__device__ __forceinline__ bool occupied(unsigned long long occ, int c) {
+  return (occ >> c) & 1ull;
+}
+
+// The latest occupied colour before c whose inverse permutation names a
+// row for body b (c = n_colors: the last over all colours), or -1.
+__device__ __forceinline__ int prev_writer(const FusedArgs& a,
+                                           unsigned long long occ, int c,
+                                           int b) {
+  int pw = -1;
+#pragma unroll 4
+  for (int cc = 0; cc < c; ++cc) {
+    if (!occupied(occ, cc)) continue;
+    const int jj = __ldg(a.inv + (size_t)cc * a.w_g + b);
+    if (jj >= 0 && jj < 2 * a.rung[cc]) pw = cc;
   }
-  __syncthreads();
+  return pw;
 }
 
 // sim.mul_pt on a pose gathered from the [8, Wg] table at `lane`
@@ -152,120 +183,6 @@ __device__ __forceinline__ void mul_pt(const float* pose, int w_g, int lane,
   out[0] = s * (v[0] + 2.0f * (w * cx + dx)) + __ldg(pose + 4 * w_g + lane);
   out[1] = s * (v[1] + 2.0f * (w * cy + dy)) + __ldg(pose + 5 * w_g + lane);
   out[2] = s * (v[2] + 2.0f * (w * cz + dz)) + __ldg(pose + 6 * w_g + lane);
-}
-
-// One row of colour c: gather both sides, (B11: rebuild the rhs), the point
-// update, the impulses out, the owned lanes' v + (w - v).
-template <int P, bool SUBSTEP>
-__device__ void sweep_row(const FusedArgs& a, int c, int j) {
-  const int rung = a.rung[c];
-  const int col = a.off[c] + j;
-  const int* idx_row = a.idx + (size_t)c * a.w_g;
-  const int* inv_row = a.inv + (size_t)c * a.w_g;
-  const int ba = __ldg(idx_row + j);
-  const int bb = __ldg(idx_row + rung + j);
-  float v1l[3], v1a[3], v2l[3], v2a[3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    v1l[q] = __ldcg(a.vout + (size_t)q * a.w_g + ba);
-    v1a[q] = __ldcg(a.vout + (size_t)(3 + q) * a.w_g + ba);
-    v2l[q] = __ldcg(a.vout + (size_t)q * a.w_g + bb);
-    v2a[q] = __ldcg(a.vout + (size_t)(3 + q) * a.w_g + bb);
-  }
-  float fr[KMax<P>::value];
-  for (int e = 0; e < a.k_load; ++e)
-    fr[e] = __ldg(a.win + (size_t)e * a.ld_w + col);
-  RowFields r;
-  load_row_fields(fr, a.cols, r);
-  const bool act = __ldg(a.act + col) > 0.5f;
-  const float np_f = __ldg(a.nump + col);
-
-  float pn[P], pt[P * S], n_rhs[P], t_rhs[P][S];
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    pn[k] = __ldg(a.nin + (size_t)k * a.ld_n + col);
-    if (SUBSTEP) pn[k] = pn[k] * a.ws;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      pt[k * S + s] = __ldg(a.tin + (size_t)(k * S + s) * a.ld_t + col);
-      if (SUBSTEP) pt[k * S + s] = pt[k * S + s] * a.ws;
-    }
-  }
-  if (SUBSTEP) {
-    // the substep rhs relinearized from the poses (_rhs_color)
-    const float* src = a.srcm + col;
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      float lpa[3], lpb[3], p1[3], p2[3], drift[3];
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        lpa[e] = __ldg(src + (size_t)(a.src[S_LOCAL_PT_A] + 3 * k + e)
-                       * a.ld_s);
-        lpb[e] = __ldg(src + (size_t)(a.src[S_LOCAL_PT_B] + 3 * k + e)
-                       * a.ld_s);
-      }
-      mul_pt(a.pose, a.w_g, ba, lpa, p1);
-      mul_pt(a.pose, a.w_g, bb, lpb, p2);
-#pragma unroll
-      for (int e = 0; e < 3; ++e) drift[e] = p1[e] - p2[e];
-      const float dist =
-          __ldg(src + (size_t)(a.src[S_INFO_DIST] + k) * a.ld_s)
-          + dot3(drift, r.dir);
-      const float wo =
-          __ldg(src + (size_t)(a.src[S_INFO_NORMAL_VEL] + k) * a.ld_s)
-          + fmaxf(dist, 0.0f) * a.inv_dt;
-      const float bias = fminf(fmaxf((dist + a.allowed) * a.erp_inv_dt,
-                                     -a.max_corr), 0.0f);
-      n_rhs[k] = wo + bias;
-      a.nwo[(size_t)k * a.ctot + col] = wo;
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        t_rhs[k][s] =
-            __ldg(src + (size_t)(a.src[S_T_RHS_WO_BIAS] + S * k + s)
-                  * a.ld_s)
-            + dot3(drift, r.tang[s]) * a.inv_dt;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      n_rhs[k] = __ldg(a.nrhs + (size_t)k * a.ld_nr + col);
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        t_rhs[k][s] = __ldg(a.trhs + (size_t)(k * S + s) * a.ld_tr + col);
-    }
-  }
-
-  float w1l[3], w1a[3], w2l[3], w2a[3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    w1l[q] = v1l[q];
-    w1a[q] = v1a[q];
-    w2l[q] = v2l[q];
-    w2a[q] = v2a[q];
-  }
-  float on[P], ot[P * S];
-  gs_point_updates<P>(fr, a.cols, r, act, np_f, a.cfm, n_rhs, t_rhs, pn, pt,
-                      w1l, w1a, w2l, w2a, on, ot);
-#pragma unroll
-  for (int k = 0; k < P; ++k) a.nout[(size_t)k * a.ctot + col] = on[k];
-#pragma unroll
-  for (int k = 0; k < P * S; ++k) a.tout[(size_t)k * a.ctot + col] = ot[k];
-  if (__ldg(inv_row + ba) == j) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      __stcg(a.vout + (size_t)q * a.w_g + ba, v1l[q] + (w1l[q] - v1l[q]));
-      __stcg(a.vout + (size_t)(3 + q) * a.w_g + ba,
-             v1a[q] + (w1a[q] - v1a[q]));
-    }
-  }
-  if (__ldg(inv_row + bb) == rung + j) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      __stcg(a.vout + (size_t)q * a.w_g + bb, v2l[q] + (w2l[q] - v2l[q]));
-      __stcg(a.vout + (size_t)(3 + q) * a.w_g + bb,
-             v2a[q] + (w2a[q] - v2a[q]));
-    }
-  }
 }
 
 // B11's warmstart delta of one side of row `col` (_ws_color), from the
@@ -321,108 +238,387 @@ __device__ __forceinline__ void ws_delta(const FusedArgs& a, int col,
   }
 }
 
-template <int P, bool SUBSTEP>
-__global__ void __launch_bounds__(THREADS) fused_kernel(const FusedArgs a) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nth = gridDim.x * blockDim.x;
-  if (SUBSTEP) {
-    // impulses scaled, the rhs store cleared
-    for (int i = tid; i < a.ctot; i += nth) {
+// B11's delta chunk i: both sides' warmstart deltas of colour rows
+// [off[0] + i R DELTA_ROWS, ...) (every colour's rows, DELTA_ROWS a thread,
+// coalesced) into wsd; then the chunk counts itself done (each thread's
+// stores fenced, then one atomic).
+template <int P>
+__device__ __forceinline__ void delta_chunk(const FusedArgs& a, int i) {
+  constexpr int R = rows_per_chunk(P);
+  const int row0 = a.off[0] + i * R * DELTA_ROWS + threadIdx.x;
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        a.nout[(size_t)k * a.ctot + i] =
-            __ldg(a.nin + (size_t)k * a.ld_n + i) * a.ws;
-        a.nwo[(size_t)k * a.ctot + i] = 0.0f;
-      }
+  for (int k = 0; k < DELTA_ROWS; ++k) {
+    const int col = row0 + k * R;
+    if (col >= a.ctot) break;
 #pragma unroll
-      for (int k = 0; k < P * S; ++k)
-        a.tout[(size_t)k * a.ctot + i] =
-            __ldg(a.tin + (size_t)k * a.ld_t + i) * a.ws;
-    }
-    // the warmstart of every colour, lane by lane in colour order
-    for (int b = tid; b < a.w_g; b += nth) {
-      float v[ROWS];
-#pragma unroll
-      for (int q = 0; q < ROWS; ++q)
-        v[q] = __ldg(a.vin + (size_t)q * a.w_g + b);
-      for (int c = 0; c < a.n_colors; ++c) {
-        if (__ldg(a.counts + c + 1) <= 0) continue;
-        const int rung = a.rung[c];
-        const int jj = __ldg(a.inv + (size_t)c * a.w_g + b);
-        if (jj < 0 || jj >= 2 * rung) continue;  // a zero lane of the table
-        const bool b_side = jj >= rung;
-        float d[6];
-        ws_delta<P>(a, a.off[c] + (b_side ? jj - rung : jj), b_side, d);
-#pragma unroll
-        for (int q = 0; q < 6; ++q) v[q] = v[q] + d[q];
-      }
-#pragma unroll
-      for (int q = 0; q < ROWS; ++q) a.vout[(size_t)q * a.w_g + b] = v[q];
-    }
-  } else {
-    for (int i = tid; i < ROWS * a.w_g; i += nth) a.vout[i] = __ldg(a.vin + i);
-    for (int i = tid; i < a.ctot; i += nth) {
-#pragma unroll
-      for (int k = 0; k < P; ++k)
-        a.nout[(size_t)k * a.ctot + i] = __ldg(a.nin + (size_t)k * a.ld_n + i);
-#pragma unroll
-      for (int k = 0; k < P * S; ++k)
-        a.tout[(size_t)k * a.ctot + i] = __ldg(a.tin + (size_t)k * a.ld_t + i);
+    for (int side = 0; side < 2; ++side) {
+      float d[6];
+      ws_delta<P>(a, col, side == 1, d);
+      float4* dst = reinterpret_cast<float4*>(
+          a.wsd + ((size_t)col * 2 + side) * DELTA_LD);
+      dst[0] = make_float4(d[0], d[1], d[2], d[3]);
+      dst[1] = make_float4(d[4], d[5], 0.0f, 0.0f);
     }
   }
-  grid_sync(a.bar);
-  for (int c = 0; c < a.n_colors; ++c) {
-    // uniform: every thread reads the same count
-    if (__ldg(a.counts + c + 1) <= 0) continue;
-    for (int j = tid; j < a.rung[c]; j += nth) sweep_row<P, SUBSTEP>(a, c, j);
-    grid_sync(a.bar);
+  fence_gpu();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(a.done, 1u);
+}
+
+// Every thread of the block past the point where all of this launch's
+// delta chunks are done (thread 0 polls with acquire loads; a count never
+// reached traps, as a flag does).
+__device__ __forceinline__ void await_deltas(const FusedArgs& a) {
+  if (threadIdx.x == 0) {
+    unsigned ns = 32, spins = 0;
+    while (!flag_in<true>(a.done, a.done_target, 0x7fffffffu)) {
+      if (++spins == kMaxSpins) __trap();
+      __nanosleep(ns);
+      if (ns < kSpinNsMax) ns *= 2;
+    }
+  }
+  __syncthreads();
+  fence_gpu();
+}
+
+// A row no sweep runs: its impulses copied (B11: scaled by ws_coeff, the
+// rhs store cleared).
+template <int P, bool SUBSTEP>
+__device__ __forceinline__ void copy_row(const FusedArgs& a, int col) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float n = __ldg(a.nin + (size_t)k * a.ld_n + col);
+    a.nout[(size_t)k * a.ctot + col] = SUBSTEP ? n * a.ws : n;
+    if (SUBSTEP) a.nwo[(size_t)k * a.ctot + col] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < P * S; ++k) {
+    const float t = __ldg(a.tin + (size_t)k * a.ld_t + col);
+    a.tout[(size_t)k * a.ctot + col] = SUBSTEP ? t * a.ws : t;
   }
 }
 
+// The opening's lane b: B11 its warmstart, stored and released; B10 the
+// rows of vout no colour writes.
 template <int P, bool SUBSTEP>
-int launch_fused(const FusedArgs& a, int* grid_out, cudaStream_t stream) {
-  if (a.k_load > KMax<P>::value) return 1001;
+__device__ __forceinline__ void open_lane(const FusedArgs& a,
+                                          unsigned long long occ, int b) {
+  float v[ROWS];
+#pragma unroll
+  for (int q = 0; q < ROWS; ++q) v[q] = __ldg(a.vin + (size_t)q * a.w_g + b);
+  if (SUBSTEP) {
+    // the colours whose inverse permutation names a row for the lane (one
+    // independent load each), then their rows' deltas a batch at a time
+    // (the batch's loads in flight together), added in ascending colour
+    // order
+    unsigned long long named = 0;
+#pragma unroll 8
+    for (int c = 0; c < a.n_colors; ++c) {
+      if (!occupied(occ, c)) continue;
+      const int jj = __ldg(a.inv + (size_t)c * a.w_g + b);
+      if (jj >= 0 && jj < 2 * a.rung[c]) named |= 1ull << c;
+    }
+    constexpr int NB = 4;
+    while (named) {
+      int cs[NB];
+      bool has[NB];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        has[k] = named != 0;
+        cs[k] = has[k] ? __ffsll(static_cast<long long>(named)) - 1 : cs[0];
+        named &= named - 1;
+      }
+      float4 d[NB][2];
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        const int rung = a.rung[cs[k]];
+        const int jj = __ldg(a.inv + (size_t)cs[k] * a.w_g + b);
+        const bool b_side = jj >= rung;
+        const float4* src = reinterpret_cast<const float4*>(
+            a.wsd + ((size_t)(a.off[cs[k]] + (b_side ? jj - rung : jj)) * 2
+                     + b_side) * DELTA_LD);
+        d[k][0] = __ldcg(src);
+        d[k][1] = __ldcg(src + 1);
+      }
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        if (!has[k]) continue;
+        v[0] = v[0] + d[k][0].x;
+        v[1] = v[1] + d[k][0].y;
+        v[2] = v[2] + d[k][0].z;
+        v[3] = v[3] + d[k][0].w;
+        v[4] = v[4] + d[k][1].x;
+        v[5] = v[5] + d[k][1].y;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < ROWS; ++q) a.vout[(size_t)q * a.w_g + b] = v[q];
+    release_flags(a.ready + b, nullptr, a.base);
+  } else {
+    const bool written = prev_writer(a, occ, a.n_colors, b) >= 0;
+#pragma unroll
+    for (int q = 0; q < ROWS; ++q)
+      if (q >= 6 || !written) a.vout[(size_t)q * a.w_g + b] = v[q];
+  }
+}
+
+// One side's velocities: zeros where they do not matter (!need), past L1
+// from vout after the acquire (from_out), else from vin (B10, a body no
+// earlier colour wrote).
+__device__ __forceinline__ void read_side(const FusedArgs& a, int b,
+                                          bool need, bool from_out,
+                                          float (&l)[3], float (&an)[3]) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    if (!need) {
+      l[q] = an[q] = 0.0f;
+    } else if (from_out) {
+      l[q] = __ldcg(a.vout + (size_t)q * a.w_g + b);
+      an[q] = __ldcg(a.vout + (size_t)(3 + q) * a.w_g + b);
+    } else {
+      l[q] = __ldg(a.vin + (size_t)q * a.w_g + b);
+      an[q] = __ldg(a.vin + (size_t)(3 + q) * a.w_g + b);
+    }
+  }
+}
+
+// An owned lane's new velocity: v + (w - v), the plain version's table add.
+__device__ __forceinline__ void write_lane(const FusedArgs& a, int b,
+                                           const float (&wl)[3],
+                                           const float (&wa)[3],
+                                           const float (&vl)[3],
+                                           const float (&va)[3]) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    __stcg(a.vout + (size_t)q * a.w_g + b, vl[q] + (wl[q] - vl[q]));
+    __stcg(a.vout + (size_t)(3 + q) * a.w_g + b, va[q] + (wa[q] - va[q]));
+  }
+}
+
+// Rows [j0, j0 + len) of occupied colour c: everything that no earlier
+// colour writes before the wait, then per row the wait, the update, the
+// owned lanes and their release, the impulses.
+template <int P, bool SUBSTEP>
+__device__ __forceinline__ void sweep_chunk(const FusedArgs& a,
+                                            unsigned long long occ, int c,
+                                            int j0, int len, float* stage) {
+  constexpr int R = rows_per_chunk(P);
+  const int rung = a.rung[c];
+  const int col0 = a.off[c] + j0;
+  // B11: the delta chunks' reads first (the warmstart is level 0 of the
+  // chain); this chunk's own loads and staging can wait
+  if (SUBSTEP) await_deltas(a);
+  stage_issue_columns<R>(stage, a.win, a.ld_w, a.k_load, col0, len);
+  // a thread past the chunk's rows reads its first row's data and stops
+  // after the staging barrier
+  const bool live = threadIdx.x < len;
+  const int t = live ? threadIdx.x : 0;
+  const int j = j0 + t, col = col0 + t;
+  if (live) trace_mark<true>(col, 0);
+
+  const int* idx_row = a.idx + (size_t)c * a.w_g;
+  const int* inv_row = a.inv + (size_t)c * a.w_g;
+  const int ba = __ldg(idx_row + j);
+  const int bb = __ldg(idx_row + rung + j);
+  const bool own_a = __ldg(inv_row + ba) == j;
+  const bool own_b = __ldg(inv_row + bb) == rung + j;
+  const bool act = __ldg(a.act + col) > 0.5f;
+  const float np_f = __ldg(a.nump + col);
+  float pn[P], pt[P * S], n_rhs[P], t_rhs[P][S], p1[P][3], p2[P][3];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    pn[k] = __ldg(a.nin + (size_t)k * a.ld_n + col);
+    if (SUBSTEP) pn[k] = pn[k] * a.ws;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      pt[k * S + s] = __ldg(a.tin + (size_t)(k * S + s) * a.ld_t + col);
+      if (SUBSTEP) pt[k * S + s] = pt[k * S + s] * a.ws;
+    }
+  }
+  const float* src = a.srcm + col;
+  if (SUBSTEP) {
+    // both world anchors of every point from the poses
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      float lpa[3], lpb[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        lpa[e] = __ldg(src + (size_t)(a.src[S_LOCAL_PT_A] + 3 * k + e)
+                       * a.ld_s);
+        lpb[e] = __ldg(src + (size_t)(a.src[S_LOCAL_PT_B] + 3 * k + e)
+                       * a.ld_s);
+      }
+      mul_pt(a.pose, a.w_g, ba, lpa, p1[k]);
+      mul_pt(a.pose, a.w_g, bb, lpb, p2[k]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      n_rhs[k] = __ldg(a.nrhs + (size_t)k * a.ld_nr + col);
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        t_rhs[k][s] = __ldg(a.trhs + (size_t)(k * S + s) * a.ld_tr + col);
+    }
+  }
+  // the velocities matter to an active row and to a row that owns a lane
+  const bool need = act || own_a || own_b;
+  const int pa = need ? prev_writer(a, occ, c, ba) : -1;
+  const int pb = need ? prev_writer(a, occ, c, bb) : -1;
+  stage_wait();
+  const unsigned lanes = __ballot_sync(0xffffffffu, live);
+  if (!live) return;
+  trace_mark<true>(col, 1);
+  const StridedRow<R> f{stage + t};
+  RowFields r;
+  load_row_fields(f, a.cols, r);
+  if (SUBSTEP) {
+    // the substep rhs relinearized from the poses (_rhs_color)
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      float drift[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) drift[e] = p1[k][e] - p2[k][e];
+      const float dist =
+          __ldg(src + (size_t)(a.src[S_INFO_DIST] + k) * a.ld_s)
+          + dot3(drift, r.dir);
+      const float wo =
+          __ldg(src + (size_t)(a.src[S_INFO_NORMAL_VEL] + k) * a.ld_s)
+          + fmaxf(dist, 0.0f) * a.inv_dt;
+      const float bias = fminf(fmaxf((dist + a.allowed) * a.erp_inv_dt,
+                                     -a.max_corr), 0.0f);
+      n_rhs[k] = wo + bias;
+      a.nwo[(size_t)k * a.ctot + col] = wo;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        t_rhs[k][s] =
+            __ldg(src + (size_t)(a.src[S_T_RHS_WO_BIAS] + S * k + s)
+                  * a.ld_s)
+            + dot3(drift, r.tang[s]) * a.inv_dt;
+    }
+  }
+
+  // a side waits for its body's previous writer (B11: at least the lane's
+  // warmstart); B10 reads a body no earlier colour wrote from vin
+  const bool out_a = need && (pa >= 0 || SUBSTEP);
+  const bool out_b = need && (pb >= 0 || SUBSTEP);
+  const unsigned lo_a = static_cast<unsigned>(pa + 1);
+  const unsigned lo_b = static_cast<unsigned>(pb + 1);
+  auto ready = [&]() {
+    return (!out_a
+            || flag_in<true>(a.ready + ba, a.base + lo_a, MAX_C - lo_a))
+           && (!out_b
+               || flag_in<true>(a.ready + bb, a.base + lo_b, MAX_C - lo_b));
+  };
+  auto update = [&]() {
+    trace_mark<true>(col, 2);
+    float v1l[3], v1a[3], v2l[3], v2a[3];
+    read_side(a, ba, need, out_a, v1l, v1a);
+    read_side(a, bb, need, out_b, v2l, v2a);
+    float w1l[3], w1a[3], w2l[3], w2a[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      w1l[q] = v1l[q];
+      w1a[q] = v1a[q];
+      w2l[q] = v2l[q];
+      w2a[q] = v2a[q];
+    }
+    float on[P], ot[P * S];
+    gs_point_updates<P>(f, a.cols, r, act, np_f, a.cfm, n_rhs, t_rhs, pn,
+                        pt, w1l, w1a, w2l, w2a, on, ot);
+    trace_mark<true>(col, 3);
+    if (own_a) write_lane(a, ba, w1l, w1a, v1l, v1a);
+    if (own_b) write_lane(a, bb, w2l, w2a, v2l, v2a);
+    release_flags(own_a ? a.ready + ba : nullptr,
+                  own_b ? a.ready + bb : nullptr, a.base + c + 1);
+    trace_mark<true>(col, 4);
+    store_impulses<P>(on, ot, a.nout + col, a.tout + col, a.ctot);
+  };
+  run_when(lanes, ready, update);
+}
+
+template <int P, bool SUBSTEP>
+__global__ void __launch_bounds__(rows_per_chunk(P))
+    fused_kernel(const __grid_constant__ FusedArgs a) {
+  extern __shared__ float stage[];
+  __shared__ int s_chunk;
+  __shared__ unsigned long long s_occ;
+  if (threadIdx.x == 0)
+    s_chunk = a.chunk0 + draw_ticket(a.ticket, a.nchunks);
+  if (threadIdx.x < 32) {
+    // the occupied colours, from the device counts
+    const int l = threadIdx.x;
+    const unsigned lo = __ballot_sync(
+        0xffffffffu, l < a.n_colors && __ldg(a.counts + l + 1) > 0);
+    const unsigned hi = __ballot_sync(
+        0xffffffffu, l + 32 < a.n_colors && __ldg(a.counts + l + 33) > 0);
+    if (l == 0) s_occ = lo | (static_cast<unsigned long long>(hi) << 32);
+  }
+  __syncthreads();
+  constexpr int R = rows_per_chunk(P);
+  const int ch = s_chunk;
+  const unsigned long long occ = s_occ;
+  if (SUBSTEP && ch >= a.delta0 && ch < a.delta1) {
+    delta_chunk<P>(a, ch - a.delta0);
+    return;
+  }
+  if (ch >= a.open0 && ch < a.open1) {
+    const int i = (ch - a.open0) * R + threadIdx.x;
+    if (i < a.off[0]) copy_row<P, SUBSTEP>(a, i);
+    if (SUBSTEP) await_deltas(a);
+    if (i < a.w_g) {
+      trace_mark<true>(a.ctot + i, 0);
+      open_lane<P, SUBSTEP>(a, occ, i);
+      trace_mark<true>(a.ctot + i, 4);
+    }
+    return;
+  }
+  int c = 0;
+  while (ch >= a.first[c + 1]) ++c;
+  const int j0 = (ch - a.first[c]) * R;
+  const int len = min(R, a.rung[c] - j0);
+  if (occupied(occ, c))
+    sweep_chunk<P, SUBSTEP>(a, occ, c, j0, len, stage);
+  else if (threadIdx.x < len)
+    copy_row<P, SUBSTEP>(a, a.off[c] + j0 + threadIdx.x);
+}
+
+template <int P, bool SUBSTEP>
+int launch_fused(const FusedArgs& a, cudaStream_t stream) {
+  if (a.nchunks <= 0) return 0;
   auto kern = fused_kernel<P, SUBSTEP>;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        THREADS, 0);
+  const size_t smem = sizeof(float) * rows_per_chunk(P) * a.k_load;
+  const cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return 1002;
-  if (per_sm < 1) return 1003;
-  int max_rung = 1;
-  for (int c = 0; c < a.n_colors; ++c)
-    max_rung = a.rung[c] > max_rung ? a.rung[c] : max_rung;
-  const int work = max_rung > a.w_g ? max_rung : a.w_g;
-  int grid = (work + THREADS - 1) / THREADS;
-  if (grid > per_sm * sms) grid = per_sm * sms;
-  FusedArgs args = a;
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel((const void*)kern,
-                                    dim3(grid), dim3(THREADS), params, 0,
-                                    stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *grid_out = grid;
+  kern<<<a.nchunks, rows_per_chunk(P), smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int fill_layout(FusedArgs& a, int n_colors, const int* win_tab, int w_g,
-                int ctot, int k_load, const int* cols) {
+// The static layout (tab: the colours' first rows, their rungs, the
+// n_colors + 1 bounds of their tickets, then the opening's and B11's delta
+// chunks' first and end ticket), the flags and this launch's tickets.
+int fill_layout(FusedArgs& a, int n_colors, const int* tab, int w_g,
+                int ctot, int k_load, const int* cols, unsigned* ready,
+                unsigned* ticket, unsigned base, int chunk0, int nchunks) {
   if (n_colors <= 0 || n_colors > MAX_C) return 1000;
   a.n_colors = n_colors;
   a.w_g = w_g;
   a.ctot = ctot;
   a.k_load = k_load;
   for (int c = 0; c < n_colors; ++c) {
-    a.off[c] = win_tab[c];
-    a.rung[c] = win_tab[n_colors + c];
+    a.off[c] = tab[c];
+    a.rung[c] = tab[n_colors + c];
   }
+  for (int c = 0; c <= n_colors; ++c) a.first[c] = tab[2 * n_colors + c];
+  a.open0 = tab[3 * n_colors + 1];
+  a.open1 = tab[3 * n_colors + 2];
+  a.delta0 = tab[3 * n_colors + 3];
+  a.delta1 = tab[3 * n_colors + 4];
   for (int f = 0; f < N_FIELDS; ++f) a.cols.o[f] = cols[f];
+  a.ready = ready;
+  a.ticket = ticket;
+  a.base = base;
+  a.chunk0 = chunk0;
+  a.nchunks = nchunks;
   return 0;
 }
 
@@ -490,25 +686,27 @@ __global__ void __launch_bounds__(THREADS) integrate_kernel(
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). win_tab: the colours' first
-// rows, then their rungs; cols: the point update's field rows
-// (gs_point_updates.cuh Field order, -1 for an absent field); bar: the two
-// barrier counters (zero before the first launch on the device). Each
-// returns cudaGetLastError() after the launch, or 1000 for an unsupported
-// p_max / colour count, 1001 for a window block wider than the kernel
-// keeps, 1002 for a device without cooperative launch, 1003 for a kernel
-// that fits no block on an SM. grid_out receives the launch's block count.
+// Plain C entry points (bound with ctypes). tab: the colours' first rows,
+// their rungs, the n_colors + 1 bounds of their tickets, the opening's two
+// and the delta chunks' two (gs_fused.fused_chunks);
+// cols: the point update's field rows (gs_point_updates.cuh Field order,
+// -1 for an absent field); ready: the [Wg] flags; ticket: the chunk counter
+// (both zero before the first launch on the device); base: this launch's
+// epoch x (MAX_C + 1); [chunk0, chunk0 + nchunks): its tickets (the grid).
+// Each returns cudaGetLastError() after the launch, or 1000 for an
+// unsupported p_max / colour count.
 
 extern "C" int fused_sweep_launch(
-    int p_max, int n_colors, const int* win_tab, int w_g, int ctot,
-    int k_load, const int* cols, const float* vin, float* vout,
-    const float* nin, int ld_n, const float* tin, int ld_t, float* nout,
-    float* tout, const float* win, int ld_w, const float* act,
-    const float* nump, float cfm, const float* nrhs, int ld_nr,
-    const float* trhs, int ld_tr, const int* idx, const int* inv,
-    const int* counts, unsigned int* bar, int* grid_out, void* stream) {
+    int p_max, int n_colors, const int* tab, int w_g, int ctot, int k_load,
+    const int* cols, const float* vin, float* vout, const float* nin,
+    int ld_n, const float* tin, int ld_t, float* nout, float* tout,
+    const float* win, int ld_w, const float* act, const float* nump,
+    float cfm, const float* nrhs, int ld_nr, const float* trhs, int ld_tr,
+    const int* idx, const int* inv, const int* counts, unsigned* ready,
+    unsigned* ticket, unsigned base, int chunk0, int nchunks, void* stream) {
   FusedArgs a = {};
-  const int bad = fill_layout(a, n_colors, win_tab, w_g, ctot, k_load, cols);
+  const int bad = fill_layout(a, n_colors, tab, w_g, ctot, k_load, cols,
+                              ready, ticket, base, chunk0, nchunks);
   if (bad) return bad;
   a.vin = vin;
   a.vout = vout;
@@ -530,24 +728,25 @@ extern "C" int fused_sweep_launch(
   a.idx = idx;
   a.inv = inv;
   a.counts = counts;
-  a.bar = bar;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p_max == 1) return launch_fused<1, false>(a, grid_out, s);
-  if (p_max == 4) return launch_fused<4, false>(a, grid_out, s);
+  if (p_max == 1) return launch_fused<1, false>(a, s);
+  if (p_max == 4) return launch_fused<4, false>(a, s);
   return 1000;
 }
 
 extern "C" int fused_substep1_launch(
-    int p_max, int n_colors, const int* win_tab, int w_g, int ctot,
-    int k_load, const int* cols, const int* src_cols, const float* vin,
-    float* vout, const float* nin, int ld_n, const float* tin, int ld_t,
-    float* nout, float* tout, float* nwo, const float* win, int ld_w,
-    const float* srcm, int ld_s, const float* pose, const float* act,
-    const float* nump, const int* idx, const int* inv, const int* counts,
-    float ws, float cfm, float inv_dt, float erp_inv_dt, float allowed,
-    float max_corr, unsigned int* bar, int* grid_out, void* stream) {
+    int p_max, int n_colors, const int* tab, int w_g, int ctot, int k_load,
+    const int* cols, const int* src_cols, const float* vin, float* vout,
+    const float* nin, int ld_n, const float* tin, int ld_t, float* nout,
+    float* tout, float* nwo, const float* win, int ld_w, const float* srcm,
+    int ld_s, const float* pose, const float* act, const float* nump,
+    const int* idx, const int* inv, const int* counts, float ws, float cfm,
+    float inv_dt, float erp_inv_dt, float allowed, float max_corr,
+    float* wsd, unsigned* done, unsigned done_target, unsigned* ready,
+    unsigned* ticket, unsigned base, int chunk0, int nchunks, void* stream) {
   FusedArgs a = {};
-  const int bad = fill_layout(a, n_colors, win_tab, w_g, ctot, k_load, cols);
+  const int bad = fill_layout(a, n_colors, tab, w_g, ctot, k_load, cols,
+                              ready, ticket, base, chunk0, nchunks);
   if (bad) return bad;
   for (int f = 0; f < N_SRC; ++f) a.src[f] = src_cols[f];
   a.vin = vin;
@@ -575,11 +774,19 @@ extern "C" int fused_substep1_launch(
   a.erp_inv_dt = erp_inv_dt;
   a.allowed = allowed;
   a.max_corr = max_corr;
-  a.bar = bar;
+  a.wsd = wsd;
+  a.done = done;
+  a.done_target = done_target;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p_max == 1) return launch_fused<1, true>(a, grid_out, s);
-  if (p_max == 4) return launch_fused<4, true>(a, grid_out, s);
+  if (p_max == 1) return launch_fused<1, true>(a, s);
+  if (p_max == 4) return launch_fused<4, true>(a, s);
   return 1000;
+}
+
+// The timestamps of the last traced launch of B10 or B11 (gs_sweep.cuh;
+// 1001 in an untraced build).
+extern "C" int fused_trace(void* dst, size_t bytes) {
+  return copy_sweep_trace(dst, bytes);
 }
 
 extern "C" int fused_integrate_launch(int L, const float* pose,

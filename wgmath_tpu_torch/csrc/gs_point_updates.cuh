@@ -40,9 +40,24 @@ struct Offsets {
 
 constexpr int S = 2;
 
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
+template <typename A, typename B>
+__device__ __forceinline__ float dot3(const A& a, const B& b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
+
+// A row's fields STRIDE floats apart, indexed and offset like a pointer:
+// what the fused kernels read from their column-major stage (a plain
+// `const float*` is the packed row of the ladder kernels).
+template <int STRIDE>
+struct StridedRow {
+  const float* p;
+  __device__ __forceinline__ StridedRow operator+(int i) const {
+    return {p + i * STRIDE};
+  }
+  __device__ __forceinline__ float operator[](int i) const {
+    return p[i * STRIDE];
+  }
+};
 
 // Row-shared fields every point of the row uses.
 struct RowFields {
@@ -50,7 +65,8 @@ struct RowFields {
   float friction;
 };
 
-__device__ __forceinline__ void load_row_fields(const float* f,
+template <typename Row>
+__device__ __forceinline__ void load_row_fields(const Row& f,
                                                 const Offsets& off,
                                                 RowFields& r) {
 #pragma unroll
@@ -65,13 +81,13 @@ __device__ __forceinline__ void load_row_fields(const float* f,
   r.friction = f[off.o[F_LIMIT]];
 }
 
-// f: this row of the packed matrix. act/np_f: the row's active flag and
-// point count. cfm, n_rhs[P], t_rhs[P][S]: this substep's softness and
-// right-hand sides. pn[P], pt[P*S]: previous impulses. out_n[P],
-// out_t[P*S]: this row of the outputs.
-template <int P>
+// f: this row of the packed matrix (a pointer, or a StridedRow). act/np_f:
+// the row's active flag and point count. cfm, n_rhs[P], t_rhs[P][S]: this
+// substep's softness and right-hand sides. pn[P], pt[P*S]: previous
+// impulses. out_n[P], out_t[P*S]: this row of the outputs.
+template <int P, typename Row>
 __device__ __forceinline__ void gs_point_updates(
-    const float* f, const Offsets& off, const RowFields& r, bool act,
+    const Row& f, const Offsets& off, const RowFields& r, bool act,
     float np_f, float cfm, const float (&n_rhs)[P],
     const float (&t_rhs)[P][S], const float* pn, const float* pt,
     float (&w1l)[3], float (&w1a)[3], float (&w2l)[3], float (&w2a)[3],
@@ -80,10 +96,10 @@ __device__ __forceinline__ void gs_point_updates(
   for (int k = 0; k < P; ++k) {
     const bool pt_active = act && (np_f > (float)k);
     // normal part
-    const float* td_a = f + off.o[F_N_TORQUE_A] + 3 * k;
-    const float* td_b = f + off.o[F_N_TORQUE_B] + 3 * k;
-    const float* iitd_a = f + off.o[F_N_II_TORQUE_A] + 3 * k;
-    const float* iitd_b = f + off.o[F_N_II_TORQUE_B] + 3 * k;
+    const auto td_a = f + off.o[F_N_TORQUE_A] + 3 * k;
+    const auto td_b = f + off.o[F_N_TORQUE_B] + 3 * k;
+    const auto iitd_a = f + off.o[F_N_II_TORQUE_A] + 3 * k;
+    const auto iitd_b = f + off.o[F_N_II_TORQUE_B] + 3 * k;
     const float nr = f[off.o[F_N_R] + k];
     const float prev = pn[k];
     const float dvel = dot3(r.dir, w1l) + dot3(td_a, w1a) - dot3(r.dir, w2l)
@@ -102,15 +118,15 @@ __device__ __forceinline__ void gs_point_updates(
     out_n[k] = new_imp;
 
     // tangent (friction) part, S = 2, coupled 2x2 projection
-    const float* t_r = f + off.o[F_T_R] + 3 * k;
-    const float* ta0 = f + off.o[F_T_TORQUE_A] + (k * S + 0) * 3;
-    const float* ta1 = f + off.o[F_T_TORQUE_A] + (k * S + 1) * 3;
-    const float* tb0 = f + off.o[F_T_TORQUE_B] + (k * S + 0) * 3;
-    const float* tb1 = f + off.o[F_T_TORQUE_B] + (k * S + 1) * 3;
-    const float* ia0 = f + off.o[F_T_II_TORQUE_A] + (k * S + 0) * 3;
-    const float* ia1 = f + off.o[F_T_II_TORQUE_A] + (k * S + 1) * 3;
-    const float* ib0 = f + off.o[F_T_II_TORQUE_B] + (k * S + 0) * 3;
-    const float* ib1 = f + off.o[F_T_II_TORQUE_B] + (k * S + 1) * 3;
+    const auto t_r = f + off.o[F_T_R] + 3 * k;
+    const auto ta0 = f + off.o[F_T_TORQUE_A] + (k * S + 0) * 3;
+    const auto ta1 = f + off.o[F_T_TORQUE_A] + (k * S + 1) * 3;
+    const auto tb0 = f + off.o[F_T_TORQUE_B] + (k * S + 0) * 3;
+    const auto tb1 = f + off.o[F_T_TORQUE_B] + (k * S + 1) * 3;
+    const auto ia0 = f + off.o[F_T_II_TORQUE_A] + (k * S + 0) * 3;
+    const auto ia1 = f + off.o[F_T_II_TORQUE_A] + (k * S + 1) * 3;
+    const auto ib0 = f + off.o[F_T_II_TORQUE_B] + (k * S + 0) * 3;
+    const auto ib1 = f + off.o[F_T_II_TORQUE_B] + (k * S + 1) * 3;
     const float tp0 = pt[k * S + 0];
     const float tp1 = pt[k * S + 1];
     const float dd0 = dot3(r.tang[0], w1l) + dot3(ta0, w1a)

@@ -1,5 +1,9 @@
 // One Gauss-Seidel sweep over the whole window ladder in one launch: the
-// machinery gs_math.cu (B1) and gs_math_block.cu (B2) share. Each kernel
+// machinery gs_math.cu (B1) and gs_math_block.cu (B2) share; gs_fused.cu
+// (B10, B11) orders its colours with the same ticket, flag polls and
+// releases (draw_ticket, flag_in, run_when, release_flags) and stages its
+// column-major fields with stage_issue_columns, on its own layout and
+// flags. Each ladder kernel
 // instantiates its row math twice: once for a sweep (SWEEP = true: the
 // plan's chunks, the velocity buffer and the merged impulse matrix, in
 // place) and once for one rung with separate inputs and outputs (the
@@ -76,15 +80,20 @@ struct Sweep {
   int ld_buf;          // 6 floats
 };
 
+// The launch's next ticket in [0, n), for one thread: tickets go out in
+// the order blocks ask, and the block that draws the last one sets the
+// counter back to 0 for the next launch on the stream.
+__device__ __forceinline__ int draw_ticket(unsigned* ticket, int n) {
+  const unsigned t = atomicAdd(ticket, 1u);
+  if (t == static_cast<unsigned>(n) - 1u) atomicExch(ticket, 0u);
+  return static_cast<int>(t);
+}
+
 // The sweep's next chunk (every thread of the block gets it).
 __device__ __forceinline__ int4 take_chunk(const Sweep& sw) {
   __shared__ int4 ch;
-  if (threadIdx.x == 0) {
-    const unsigned t = atomicAdd(sw.ticket, 1u);
-    if (t == static_cast<unsigned>(sw.nchunks) - 1u)
-      atomicExch(sw.ticket, 0u);
-    ch = sw.chunks[sw.chunk0 + static_cast<int>(t)];
-  }
+  if (threadIdx.x == 0)
+    ch = sw.chunks[sw.chunk0 + draw_ticket(sw.ticket, sw.nchunks)];
   __syncthreads();
   return ch;
 }
@@ -124,6 +133,41 @@ __device__ __forceinline__ void stage_issue(float* stage, int pitch,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Start staging fields [0, k) of columns [col0, col0 + len) of a
+// field-major block (field e of column c at win[e * ld_win + c]: the fused
+// solver's window block) into stage[e * R + i], each field's columns
+// contiguous: 16-byte copies where the addresses allow (col0, ld_win and
+// the base 16-byte aligned), 4-byte ones for the rest. A thread reads its
+// column's fields R floats apart (StridedRow<R>, conflict-free).
+// stage_wait() as for stage_issue.
+template <int R>
+__device__ __forceinline__ void stage_issue_columns(float* stage,
+                                                    const float* win,
+                                                    int ld_win, int k,
+                                                    int col0, int len) {
+  const int n = blockDim.x;
+  const bool aligned = ((col0 | ld_win) & 3) == 0
+                       && (reinterpret_cast<size_t>(win) & 15) == 0;
+  const int quads = aligned ? len >> 2 : 0;
+  for (int i = threadIdx.x; i < k * quads; i += n) {
+    const int e = i / quads, q = 4 * (i - e * quads);
+    cp_async16(stage + e * R + q, win + (size_t)e * ld_win + col0 + q);
+  }
+  const int rest = len - 4 * quads;
+  for (int i = threadIdx.x; i < k * rest; i += n) {
+    const int e = i / rest, c = 4 * quads + i - e * rest;
+    cp_async4(stage + e * R + c, win + (size_t)e * ld_win + col0 + c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
@@ -143,34 +187,46 @@ __device__ __forceinline__ void fence_gpu() {
   asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
 }
 
-__device__ __forceinline__ bool side_ready(const Sweep& sw, int side) {
-  if (side < 0) return true;
+// Whether a flag holds a value in [lo, lo + span] (unsigned arithmetic,
+// so the window may wrap), by a relaxed load (the poll of the acquire
+// pattern, which a fence completes) or, ACQUIRE, by an acquire load (the
+// pattern in one load: no fence, which would also wait for the thread's
+// earlier stores).
+template <bool ACQUIRE = false>
+__device__ __forceinline__ bool flag_in(const unsigned* flag, unsigned lo,
+                                        unsigned span) {
   unsigned v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(sw.ready + side)
-               : "memory");
-  return v == sw.epoch;
+  if (ACQUIRE)
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(flag)
+                 : "memory");
+  else
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(flag)
+                 : "memory");
+  return v - lo <= span;
 }
 
-// Run `update` for this lane's row once both sides' writers (z of their
-// entries, -1: none) released this sweep's epoch: relaxed polls, then a
-// fence (the acquire pattern), so the rows `update` reads are the released
-// ones. The lanes of a warp (`lanes`: those with a row) poll together and
-// each runs its update as soon as its own sides are ready, while the
-// others go on polling: a warp does not wait for the latest of its 64
-// sides before any of its rows moves, and a row's release is not held up
-// behind the warp's slowest dependency.
-template <typename F>
-__device__ __forceinline__ void run_when_ready(const Sweep& sw,
-                                               unsigned lanes,
-                                               const int4& ea,
-                                               const int4& eb, F&& update) {
+__device__ __forceinline__ bool side_ready(const Sweep& sw, int side) {
+  return side < 0 || flag_in(sw.ready + side, sw.epoch, 0);
+}
+
+// Run `update` for this lane's row once `ready()` holds (ready() makes the
+// acquire: the rows `update` reads are the released ones). The lanes of a
+// warp (`lanes`: those with a row) poll together and each runs its update
+// as soon as its own flags are ready, while the others go on polling: a
+// warp does not wait for the latest of its 64 sides before any of its rows
+// moves, and a row's release is not held up behind the warp's slowest
+// dependency.
+template <typename R, typename F>
+__device__ __forceinline__ void run_when(unsigned lanes, R&& ready,
+                                         F&& update) {
   bool done = false;
   unsigned ns = 32, spins = 0;
   for (;;) {
-    if (!done && side_ready(sw, ea.z) && side_ready(sw, eb.z)) {
-      fence_gpu();
+    if (!done && ready()) {
       update();
       done = true;
     }
@@ -183,23 +239,45 @@ __device__ __forceinline__ void run_when_ready(const Sweep& sw,
   }
 }
 
-// Release the sides that wrote their rows (y >= 0): one fence for both,
-// then relaxed stores of the epoch (the release pattern).
+// The ladder's wait: both sides' writers (z of their entries, -1: none)
+// released this sweep's epoch (relaxed polls, then a fence).
+template <typename F>
+__device__ __forceinline__ void run_when_ready(const Sweep& sw,
+                                               unsigned lanes,
+                                               const int4& ea,
+                                               const int4& eb, F&& update) {
+  run_when(lanes,
+           [&]() {
+             if (!(side_ready(sw, ea.z) && side_ready(sw, eb.z)))
+               return false;
+             fence_gpu();
+             return true;
+           },
+           update);
+}
+
+// Release up to two flags (nullptr: none) with `value`: one fence for
+// both, then relaxed stores (the release pattern).
+__device__ __forceinline__ void release_flags(unsigned* fa, unsigned* fb,
+                                              unsigned value) {
+  if (fa == nullptr && fb == nullptr) return;
+  fence_gpu();
+  if (fa != nullptr)
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(fa),
+                 "r"(value)
+                 : "memory");
+  if (fb != nullptr)
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(fb),
+                 "r"(value)
+                 : "memory");
+}
+
+// Release the sides that wrote their rows (y >= 0) with the epoch.
 __device__ __forceinline__ void release_sides(const Sweep& sw,
                                               const int4& ea, int side_a,
                                               const int4& eb, int side_b) {
-  if (ea.y < 0 && eb.y < 0) return;
-  fence_gpu();
-  if (ea.y >= 0)
-    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(
-                     sw.ready + side_a),
-                 "r"(sw.epoch)
-                 : "memory");
-  if (eb.y >= 0)
-    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(
-                     sw.ready + side_b),
-                 "r"(sw.epoch)
-                 : "memory");
+  release_flags(ea.y >= 0 ? sw.ready + side_a : nullptr,
+                eb.y >= 0 ? sw.ready + side_b : nullptr, sw.epoch);
 }
 
 // A buffer row's velocity, past L1 (the row may have been written by
@@ -235,23 +313,26 @@ __device__ __forceinline__ bool side_active(const int4& e) {
   return (e.w & 1) != 0;
 }
 
-// Store one row's new impulses (after its sides are released: the
-// release would otherwise wait for these stores too).
+// Store one row's new impulses, `ld` floats apart (after its sides are
+// released: the release would otherwise wait for these stores too).
 template <int P>
 __device__ __forceinline__ void store_impulses(const float (&nn)[P],
                                                const float (&nt)[P * S],
-                                               float* out_n, float* out_t) {
+                                               float* out_n, float* out_t,
+                                               size_t ld = 1) {
 #pragma unroll
-  for (int k = 0; k < P; ++k) out_n[k] = nn[k];
+  for (int k = 0; k < P; ++k) out_n[k * ld] = nn[k];
 #pragma unroll
-  for (int k = 0; k < P * S; ++k) out_t[k] = nt[k];
+  for (int k = 0; k < P * S; ++k) out_t[k * ld] = nt[k];
 }
 
 // Timestamps of a sweep for scripts/exp_sweep_trace.py, which builds the
-// kernels with -DWG_SWEEP_TRACE=1: for every row a sweep runs (indexed by
-// its a-side), the global timer when its block has its chunk (0), after
-// the staging barrier (1), after its wait (2), after its update (3) and
-// after its release (4). Off by default: no array, no stores.
+// kernels with -DWG_SWEEP_TRACE=1: for every row a sweep runs, the global
+// timer when its block has its chunk (0), after the staging barrier (1),
+// after its wait (2), after its update (3) and after its release (4). The
+// ladder indexes a row by its a-side; gs_fused.cu by its row of the fused
+// layout, and lane b of its opening at Ctot + b (marks 0 and 4 only). Off
+// by default: no array, no stores.
 #ifndef WG_SWEEP_TRACE
 #define WG_SWEEP_TRACE 0
 #endif

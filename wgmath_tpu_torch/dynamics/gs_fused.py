@@ -17,7 +17,8 @@ lane): a same-colour scatter is a permutation.
 Three kernels (``csrc/gs_fused.cu``), each beside its plain PyTorch version:
 
 - :func:`fused_sweep` (B10, replaces ``_fused_sweep_pallas``): one whole
-  sweep over every colour window in one cooperative launch;
+  sweep over every colour window in one launch, the colours ordered by
+  per-body readiness flags;
 - :func:`fused_substep1` (B11, replaces ``_substep1_pallas``): impulses
   scaled by the warmstart coefficient, the warmstart of every colour, then
   per colour the rhs rebuilt from the poses and the biased sweep;
@@ -26,12 +27,16 @@ Three kernels (``csrc/gs_fused.cu``), each beside its plain PyTorch version:
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version. ``LAUNCHES_SWEEP``, ``LAUNCHES_SUBSTEP1`` and
-``LAUNCHES_INTEGRATE`` count the launches.
+``LAUNCHES_INTEGRATE`` count the launches. B10 and B11 cut their work into
+chunks taken from a ticket (:func:`fused_chunks`); a row waits for its
+bodies' previous writers (:func:`prev_writers` is the plain version of the
+kernels' lookup).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ from wgmath_tpu_torch.dynamics.gs_math import (
     _point_updates,
     _size,
     pack_meta,
+    rows_per_chunk,
 )
 
 LAUNCHES_SWEEP = 0
@@ -68,6 +74,56 @@ def gather_width(n_bodies: int, windows: tuple) -> int:
     sides of the largest window, and the trash lane, rounded up to 128."""
     need = max(n_bodies + 1, 2 * max(windows) + 1 if windows else 1)
     return -(-need // 128) * 128
+
+
+class FusedTickets(NamedTuple):
+    """Tickets of one B10 / B11 launch (``csrc/gs_fused.cu``), R =
+    ``rows_per_chunk(p_max)`` rows a chunk, thread t of chunk i on row or
+    lane ``i R + t``: colour c's chunks (0-based, the layout's colour
+    c + 1) are ``[first[c], first[c + 1])``; the opening's (every lane and
+    the residue rows) ``[opening[0], opening[1])``; B11's delta chunks
+    (``DELTA_ROWS`` colour rows a thread, from row ``rung0``)
+    ``[deltas[0], deltas[1])``. B11: deltas, opening, colours; B10:
+    colours, then the opening (nothing waits on it)."""
+
+    first: list
+    opening: tuple
+    deltas: tuple
+
+
+DELTA_ROWS = 4  # rows a thread of B11's delta chunks (csrc/gs_fused.cu)
+
+
+def fused_chunks(windows: tuple, rung0: int, w_g: int, p_max: int,
+                 substep: bool) -> FusedTickets:
+    """The tickets of a B11 (``substep``) or B10 launch."""
+    r = rows_per_chunk(p_max)
+    n_open = -(-max(w_g, rung0) // r)
+    n_delta = -(-sum(windows) // (r * DELTA_ROWS)) if substep else 0
+    first = [n_delta + n_open if substep else 0]
+    for w in windows:
+        first.append(first[-1] - (-int(w) // r))
+    opening = ((n_delta, n_delta + n_open) if substep
+               else (first[-1], first[-1] + n_open))
+    return FusedTickets(first, opening, (0, n_delta))
+
+
+def prev_writers(inv, counts, windows: tuple):
+    """Plain version of the lookup B10 and B11 make for every row before
+    it waits: [C + 1, Wg] int64, entry [c, b] the latest occupied colour
+    c' < c (0-based; occupied: ``counts[c' + 1] > 0``) whose inverse
+    permutation names a row for body b, or -1. A row of colour c waits for
+    that colour's write of its body; row C is the last writer over all
+    colours (-1: B10's opening copies the lane)."""
+    c, w_g = inv.shape
+    dev = inv.device
+    rung = torch.as_tensor(windows, dtype=torch.int64, device=dev)[:, None]
+    occ = (counts[1:c + 1].to(dev) > 0)[:, None]
+    jj = inv.to(torch.int64)
+    writes = occ & (jj >= 0) & (jj < 2 * rung)
+    colour = torch.arange(c, device=dev)[:, None].expand(c, w_g)
+    last = torch.where(writes, colour, -1).cummax(0).values
+    return torch.cat([torch.full((1, w_g), -1, device=dev), last])
 
 
 def _row_maps(windows: tuple, rung0: int, device):
@@ -382,9 +438,10 @@ def _f32_rows(x, rows: int, lanes: int, what: str):
 
 def _check_common(kernel, vt, n_imp, t_imp, winT, activeT, numpT, idx, inv,
                   counts, windows, rung0, p_max, s_len, meta):
-    """Shapes, types and devices shared by B10 and B11. Returns the window
-    table, the point update's column table and row count, Ctot, Wg and the
-    row strides of n_imp, t_imp and winT."""
+    """Shapes, types and devices shared by B10 and B11. Returns the layout
+    table (first rows, rungs, tickets), the tickets (:func:`fused_chunks`),
+    the point update's column table and row count, Ctot, Wg and the row
+    strides of n_imp, t_imp and winT."""
     dev = vt.device
     _, offsets, ctot = fused_layout(windows, rung0)
     c = len(windows)
@@ -432,52 +489,96 @@ def _check_common(kernel, vt, n_imp, t_imp, winT, activeT, numpT, idx, inv,
         *[int(meta[nm][0]) if nm in UPDATE_FIELDS else -1
           for nm in PACK_FIELDS])
     k_load = max(int(meta[nm][0]) + _size(want[nm]) for nm in UPDATE_FIELDS)
-    win_tab = (ctypes.c_int * (2 * c))(
-        *[int(offsets[k]) for k in range(1, c + 1)], *windows)
-    return win_tab, cols, k_load, ctot, w_g, lds
+    chunks = fused_chunks(windows, rung0, w_g, p_max,
+                          kernel == "fused_substep1")
+    tab = (ctypes.c_int * (3 * c + 5))(
+        *[int(offsets[k]) for k in range(1, c + 1)], *windows,
+        *chunks.first, *chunks.opening, *chunks.deltas)
+    return tab, chunks, cols, k_load, ctot, w_g, lds
 
 
 def _pack_tails(p_max, s_len):
     return {k: tuple(t) for k, (_, t) in pack_meta(p_max, s_len).items()}
 
 
-_BARRIERS: dict = {}
+class _Sync:
+    """B10 / B11's flags on one device (int32, zeros at first): ``ready``
+    a readiness flag per body lane, ``ticket`` the chunk counter (the
+    kernels keep it at 0 between launches), ``count`` B11's delta chunks
+    done; ``epoch`` the last launch's, ``done`` the count B11's last launch
+    reached. Nothing is cleared: each launch waits for values of its own
+    epoch, and for its own delta chunks on top of the count before it."""
+
+    def __init__(self, dev, lanes: int, epoch: int):
+        buf = torch.zeros(lanes + 2, dtype=torch.int32, device=dev)
+        self.ready, self.ticket, self.count = buf[:lanes], \
+            buf[lanes:lanes + 1], buf[lanes + 1:]
+        self.epoch = epoch
+        self.done = 0
+
+    def args(self):
+        """(flags, ticket, flag base ``epoch·(MAX_COLORS + 1)``) of the
+        current launch."""
+        return (self.ready.data_ptr(), self.ticket.data_ptr(),
+                self.epoch * (MAX_COLORS + 1) % 2 ** 32)
 
 
-def _barrier(dev) -> torch.Tensor:
-    """The grid barrier's two counters on ``dev`` (arrivals, generation).
-    Every barrier leaves the arrival count at 0, so one buffer serves every
-    launch on the device; launches on one stream run one after another."""
-    bar = _BARRIERS.get(dev)
-    if bar is None:
-        bar = _BARRIERS[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
-    return bar
+_SYNCS: dict = {}
 
 
-_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+def _sync(dev, w_g: int) -> _Sync:
+    """The flags of ``dev``, raised to the next launch's epoch. Launches
+    on one stream run one after another, so one set serves them all."""
+    sync = _SYNCS.get(dev)
+    if sync is None or sync.ready.shape[0] < w_g:
+        sync = _SYNCS[dev] = _Sync(dev, w_g, sync.epoch if sync else 0)
+    sync.epoch += 1
+    return sync
+
+
+def _launch_ranges(chunks: FusedTickets, colour_by_colour: bool):
+    """(first ticket, tickets) of each launch: one for every chunk, or one
+    for the opening (with B11's delta chunks) and one a colour, in ticket
+    order."""
+    first, (open0, open1), (delta0, delta1) = chunks
+    if not colour_by_colour:
+        return [(0, max(first[-1], open1))]
+    ranges = [(a, b - a) for a, b in zip(first, first[1:])]
+    start = delta0 if delta1 > delta0 else open0
+    opening = [(start, open1 - start)]
+    return opening + ranges if start == 0 else ranges + opening
+
+
+_I, _P, _F, _U = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_uint
 # the C entry points' parameters, in order (csrc/gs_fused.cu)
+# flags, ticket, flag base, first ticket, tickets, stream
+_SYNC_ARGTYPES = [_P, _P, _U, _I, _I, _P]
 _SWEEP_ARGTYPES = [_I, _I, _P, _I, _I, _I, _P,  # layout, column table
                    _P, _P, _P, _I, _P, _I, _P, _P,  # vt, impulses in / out
                    _P, _I, _P, _P, _F,  # winT, active, nump, cfm
                    _P, _I, _P, _I,  # n_rhsT, t_rhsT
-                   _P, _P, _P, _P, _P, _P]  # idx, inv, counts, barrier, ...
+                   _P, _P, _P] + _SYNC_ARGTYPES  # idx, inv, counts
 _SUBSTEP1_ARGTYPES = [_I, _I, _P, _I, _I, _I, _P, _P,
                       _P, _P, _P, _I, _P, _I, _P, _P, _P,
                       _P, _I, _P, _I, _P, _P, _P,  # winT, srcT, pose, ...
-                      _P, _P, _P] + [_F] * 6 + [_P, _P, _P]
+                      _P, _P, _P] + [_F] * 6 + [_P, _P, _U] + _SYNC_ARGTYPES
 _INTEGRATE_ARGTYPES = [_I, _P, _P, _P, _P, _F, _P]
 
-# grid size (blocks) of the last cooperative launch, for reports
+# blocks of the last launch of each (one a chunk: every ticket of the sweep
+# in one launch), for reports
 LAST_GRID = {"fused_sweep": 0, "fused_substep1": 0}
 
 
 def _launch_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT,
                   t_rhsT, idx, inv, counts, *, windows, rung0, p_max, s_len,
-                  meta):
+                  meta, colour_by_colour: bool = False):
+    """Kernel B10 (``colour_by_colour``: the same kernel launched once a
+    colour and once for the opening, in ticket order and under one epoch,
+    for checking the order)."""
     global LAUNCHES_SWEEP
     from wgmath_tpu_torch.core import cuda_build
 
-    win_tab, cols, k_load, ctot, w_g, (ld_n, ld_t, ld_w) = _check_common(
+    tab, chunks, cols, k_load, ctot, w_g, (ld_n, ld_t, ld_w) = _check_common(
         "fused_sweep", vt, n_imp, t_imp, winT, activeT, numpT, idx, inv,
         counts, windows, rung0, p_max, s_len, meta)
     dev = vt.device
@@ -489,23 +590,26 @@ def _launch_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT,
     v_out = torch.empty_like(vt)
     n_out = torch.empty((p_max, ctot), device=dev)
     t_out = torch.empty((p_max * s_len, ctot), device=dev)
-    grid = ctypes.c_int(0)
     lib = cuda_build.load("gs_fused")
     fn = lib.fused_sweep_launch
     fn.argtypes = _SWEEP_ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(p_max, len(windows), win_tab, w_g, ctot, k_load, cols,
-             vt.data_ptr(), v_out.data_ptr(), n_imp.data_ptr(), ld_n,
-             t_imp.data_ptr(), ld_t, n_out.data_ptr(), t_out.data_ptr(),
-             winT.data_ptr(), ld_w, activeT.data_ptr(), numpT.data_ptr(),
-             float(cfm), n_rhsT.data_ptr(), ld_nr, t_rhsT.data_ptr(), ld_tr,
-             idx.data_ptr(), inv.data_ptr(), counts.data_ptr(),
-             _barrier(dev).data_ptr(), ctypes.addressof(grid),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_sweep kernel launch failed: error {err}")
-    LAUNCHES_SWEEP += 1
-    LAST_GRID["fused_sweep"] = grid.value
+    ready, ticket, base = _sync(dev, w_g).args()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for chunk0, nchunks in _launch_ranges(chunks, colour_by_colour):
+        err = fn(p_max, len(windows), tab, w_g, ctot, k_load, cols,
+                 vt.data_ptr(), v_out.data_ptr(), n_imp.data_ptr(), ld_n,
+                 t_imp.data_ptr(), ld_t, n_out.data_ptr(), t_out.data_ptr(),
+                 winT.data_ptr(), ld_w, activeT.data_ptr(),
+                 numpT.data_ptr(), float(cfm), n_rhsT.data_ptr(), ld_nr,
+                 t_rhsT.data_ptr(), ld_tr, idx.data_ptr(), inv.data_ptr(),
+                 counts.data_ptr(), ready, ticket, base, chunk0, nchunks,
+                 stream)
+        if err != 0:
+            raise RuntimeError(f"fused_sweep kernel launch failed: error "
+                               f"{err}")
+        LAUNCHES_SWEEP += 1
+        LAST_GRID["fused_sweep"] = nchunks
     return v_out, n_out, t_out
 
 
@@ -534,11 +638,12 @@ def fused_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT, t_rhsT,
 
 def _launch_substep1(vt, n_imp, t_imp, winT, rhs_srcT, poseT, activeT, numpT,
                      idx, inv, counts, *, windows, rung0, p_max, s_len, meta,
-                     src_meta, scalars):
+                     src_meta, scalars, colour_by_colour: bool = False):
+    """Kernel B11 (``colour_by_colour`` as for :func:`_launch_sweep`)."""
     global LAUNCHES_SUBSTEP1
     from wgmath_tpu_torch.core import cuda_build
 
-    win_tab, cols, k_load, ctot, w_g, (ld_n, ld_t, ld_w) = _check_common(
+    tab, chunks, cols, k_load, ctot, w_g, (ld_n, ld_t, ld_w) = _check_common(
         "fused_substep1", vt, n_imp, t_imp, winT, activeT, numpT, idx, inv,
         counts, windows, rung0, p_max, s_len, meta)
     dev = vt.device
@@ -564,25 +669,33 @@ def _launch_substep1(vt, n_imp, t_imp, winT, rhs_srcT, poseT, activeT, numpT,
     n_out = torch.empty((p_max, ctot), device=dev)
     t_out = torch.empty((p_max * s_len, ctot), device=dev)
     nwo = torch.empty((p_max, ctot), device=dev)
-    grid = ctypes.c_int(0)
+    # each row's two warmstart deltas, 8 floats a side (DELTA_LD)
+    wsd = torch.empty((ctot, 2, 8), device=dev)
     lib = cuda_build.load("gs_fused")
     fn = lib.fused_substep1_launch
     fn.argtypes = _SUBSTEP1_ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(p_max, len(windows), win_tab, w_g, ctot, k_load, cols, src_cols,
-             vt.data_ptr(), v_out.data_ptr(), n_imp.data_ptr(), ld_n,
-             t_imp.data_ptr(), ld_t, n_out.data_ptr(), t_out.data_ptr(),
-             nwo.data_ptr(), winT.data_ptr(), ld_w, rhs_srcT.data_ptr(),
-             ld_s, poseT.data_ptr(), activeT.data_ptr(), numpT.data_ptr(),
-             idx.data_ptr(), inv.data_ptr(), counts.data_ptr(),
-             *[float(x) for x in scalars], _barrier(dev).data_ptr(),
-             ctypes.addressof(grid),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_substep1 kernel launch failed: error "
-                           f"{err}")
-    LAUNCHES_SUBSTEP1 += 1
-    LAST_GRID["fused_substep1"] = grid.value
+    sync = _sync(dev, w_g)
+    ready, ticket, base = sync.args()
+    done = (sync.done + chunks.deltas[1] - chunks.deltas[0]) % 2 ** 32
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for chunk0, nchunks in _launch_ranges(chunks, colour_by_colour):
+        err = fn(p_max, len(windows), tab, w_g, ctot, k_load, cols,
+                 src_cols, vt.data_ptr(), v_out.data_ptr(), n_imp.data_ptr(),
+                 ld_n, t_imp.data_ptr(), ld_t, n_out.data_ptr(),
+                 t_out.data_ptr(), nwo.data_ptr(), winT.data_ptr(), ld_w,
+                 rhs_srcT.data_ptr(), ld_s, poseT.data_ptr(),
+                 activeT.data_ptr(), numpT.data_ptr(), idx.data_ptr(),
+                 inv.data_ptr(), counts.data_ptr(),
+                 *[float(x) for x in scalars], wsd.data_ptr(),
+                 sync.count.data_ptr(), done, ready, ticket,
+                 base, chunk0, nchunks, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_substep1 kernel launch failed: "
+                               f"error {err}")
+        LAUNCHES_SUBSTEP1 += 1
+        LAST_GRID["fused_substep1"] = nchunks
+    sync.done = done
     return v_out, n_out, t_out, nwo
 
 
