@@ -608,6 +608,15 @@ def setup_phase() -> dict:
                                          "wgmma")):
                 print(f"  ptxas: {line.strip()}")
     print(f"kernel build wall time {wall:.2f} s")
+    # B9's block size, chosen at its first launch from the occupancy its
+    # register count allows, at the fused pit's rows and the P = 4 case's
+    cfg_f = json.loads(str(np.load(NPZ_FUSED)["config_json"]))
+    c_pit = sum(cfg_f["gs_windows"][:cfg_f["max_colors"]]) + cfg_f["gs_rung0"]
+    for p, c in ((1, c_pit), (4, 256 + sum(P4_WINDOWS))):
+        block, regs, warps = build_fused.plan(p, c)
+        print(f"build_fused launch plan at C={c} P={p}: blocks of {block} "
+              f"threads, {-(-c // block)} blocks, {regs} registers a "
+              f"thread, {warps} warps of such blocks an SM holds")
     counts = hgmma_counts()
     for name, n in counts.items():
         print(f"HGMMA instructions in the built {name}.cu: " + (
@@ -816,15 +825,16 @@ FUSED_REPEATS = 5
 FUSED_FNS = {"fused_substep1": (gs_fused._launch_substep1,
                                 gs_fused._substep1_torch),
              "fused_sweep": (gs_fused._launch_sweep,
-                             gs_fused._fused_sweep_torch)}
+                             gs_fused._fused_sweep_plain)}
 
 
-def record_fused(run, count: int = 2) -> list:
-    """The first ``count`` B11 / B10 calls that ``run()`` makes through
-    ``solver.fused_substep1`` and ``solver.fused_sweep``, each with its
-    operands cloned (the counts last)."""
+def record_fused(run, count: int = 2, names=tuple(FUSED_FNS)) -> list:
+    """The first ``count`` calls that ``run()`` makes through the solver's
+    ``names`` (B11 / B10: ``solver.fused_substep1`` and
+    ``solver.fused_sweep``), each with its tensor operands cloned (the
+    counts last)."""
     calls = []
-    real = {name: getattr(solver, name) for name in FUSED_FNS}
+    real = {name: getattr(solver, name) for name in names}
 
     def recorder(name):
         def record(*args, **kw):
@@ -853,6 +863,19 @@ def pit_fused_calls(device) -> list:
         "config_json"])))
     return record_fused(lambda: step_checked(
         state_from_arrays(z, device=device), SimParams(), cfg))
+
+
+def pit_build_call(device):
+    """The first B9 call (``solver.build_constraints_fused``: poses,
+    velocities, mass properties, the compacted contacts, parameters) of the
+    settled 10k pit's first frame under the stored ``fused``
+    configuration."""
+    z = dict(np.load(NPZ))
+    cfg = PipelineConfig.from_dict(json.loads(str(np.load(NPZ_FUSED)[
+        "config_json"])))
+    return record_fused(lambda: step_checked(
+        state_from_arrays(z, device=device), SimParams(), cfg), 1,
+        ("build_constraints_fused",))[0]
 
 
 def run_fused(call, how: str):
@@ -1008,11 +1031,12 @@ def _fused_rows(z) -> int:
 
 
 def build_work(z) -> tuple[int, int]:
-    """(bytes, flops) of one B9 launch: the body table, the ids and the
-    contact rows read once, bigT written once."""
+    """(bytes, flops) of one B9 launch: the body table's 29 fields (not
+    its padding), the ids and the contact rows read once, bigT written
+    once."""
     p, c, n = z["p_max"], z["ctot"], z["n"]
     k_all = build_fused.field_meta(p, 2)[1]
-    nbytes = 4 * build_fused.W_SIDE * n + c * (16 + 4 * (3 + 4 * p)) \
+    nbytes = 4 * build_fused.SIDE_OFFS[-1] * n + c * (16 + 4 * (3 + 4 * p)) \
         + 4 * k_all * c
     return nbytes, c * (B9_FLOPS_ROW + p * B9_FLOPS_POINT)
 
@@ -1056,15 +1080,21 @@ def _report(name, label, err, ratio, tol, k_ms, p_ms, work) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def _b9_case(z, label, timed: bool):
-    """B9 on one input set. Returns (summary or None, the kernel's bigT)."""
+def b9_args(z, params=None) -> tuple:
+    """The arguments of B9's kernel and plain version for one input set."""
     p = z["p_max"]
     meta, k_all = build_fused.field_meta(p, 2)
-    params = SimParams()
+    params = params or SimParams()
     consts = (params.restitution, params.inv_dt, params.friction,
               params.contact_cfm_factor)
     packed = build_fused._packed_bodies(z["poses"], z["vels"], z["mprops"])
-    args = (packed, z["contacts"], consts, meta, k_all, p)
+    return packed, z["contacts"], consts, meta, k_all, p
+
+
+def _b9_case(z, label, timed: bool, params=None):
+    """B9 on one input set. Returns (summary or None, the kernel's bigT)."""
+    args = b9_args(z, params)
+    meta = args[3]
     got = build_fused._launch(*args)
     want = build_fused._build_torch(*args)
     torch.cuda.synchronize()
@@ -1109,6 +1139,13 @@ def fused_calls(z, op) -> list:
                 z["counts"]))]
 
 
+def carrying_integrate(call, op):
+    """A B10 call of :func:`fused_calls` that also carries B12 on its input
+    velocities, as the fused step makes it."""
+    return SimpleNamespace(name=call.name, args=call.args, kw=dict(
+        call.kw, integrate=(op["pose"], op["com"], op["dt"])))
+
+
 def _b10_b11_case(z, op, label, timed: bool) -> tuple:
     """B10 and B11 on one operand set: each one launch against the same
     kernel launched colour by colour and against its repeats (bit for bit,
@@ -1151,6 +1188,88 @@ def _b10_b11_case(z, op, label, timed: bool) -> tuple:
     return out, results["fused_substep1"]
 
 
+def b9_from_copies(args) -> bool:
+    """Whether B9 on contiguous copies of the contact fields gives the bits
+    of B9 on the fields as they are (strided views, read in place)."""
+    c = args[1]
+    copies = dataclasses.replace(c, normal_a=c.normal_a.contiguous(),
+                                 points_a=c.points_a.contiguous(),
+                                 dist=c.dist.contiguous())
+    got = build_fused._launch(*args)
+    want = build_fused._launch(args[0], copies, *args[2:])
+    torch.cuda.synchronize()
+    return torch.equal(got, want)
+
+
+def _pit_b9_case(label: str) -> tuple:
+    """B9 on the pit's own first-frame inputs, its contact fields the
+    compaction's strided views: against its plain version, against itself
+    on contiguous copies (bit for bit), timed. Returns (summary, C)."""
+    call = pit_build_call("cuda")
+    poses, vels, mprops, contacts, params = call.args
+    check(not contacts.normal_a.is_contiguous()
+          and not contacts.points_a.is_contiguous(),
+          "build_fused pit: the compacted contact fields are not the "
+          "strided views the kernel should read in place")
+    z = dict(p_max=contacts.points_a.shape[1], poses=poses, vels=vels,
+             mprops=mprops, contacts=contacts, ctot=contacts.capacity,
+             n=poses.translation.shape[0])
+    check(b9_from_copies(b9_args(z, params)),
+          "build_fused pit: strided contact fields and contiguous copies "
+          "give different bits")
+    row, _ = _b9_case(z, f"{label} C={z['ctot']} (strided contacts)", True,
+                      params)
+    return row, z["ctot"]
+
+
+def paired_ms(fa, fb) -> tuple[float, float]:
+    """Median device times of two calls measured in turns a, b, b, a."""
+    ta, tb = device_times_ms(fa), device_times_ms(fb)
+    tb += device_times_ms(fb)
+    ta += device_times_ms(fa)
+    return statistics.median(ta), statistics.median(tb)
+
+
+def _carried_b12_case(z, op, vt, label, timed: bool) -> dict | None:
+    """B12 carried by B10 on ``vt`` (B11's output): B10 with the integrate
+    in one launch against colour by colour and its repeats (bit for bit);
+    its velocities and impulses B10's without the integrate, its poses the
+    standalone B12's, bit for bit; the poses against the plain version.
+    Timed: B10 with and without the integrate, in turns."""
+    sweep = fused_calls(z, dict(op, vt=vt))[0]
+    call = carrying_integrate(sweep, op)
+    n0 = gs_fused.INTEGRATES_IN_SWEEP
+    got = fused_bits(call, f"{label} carrying B12")
+    check(gs_fused.INTEGRATES_IN_SWEEP == n0 + 2 + FUSED_REPEATS,
+          "fused_sweep: a launch carrying B12 was not counted once")
+    alone = run_fused(sweep, "kernel")
+    standalone = gs_fused._launch_integrate(op["pose"], vt, op["com"],
+                                            op["dt"])
+    want = gs_fused._cm_integrate(op["pose"], vt, op["com"], op["dt"])
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, a) for g, a in zip(got[:3], alone)),
+          f"fused_sweep {label}: carrying B12 changed its velocities or "
+          "impulses")
+    check(torch.equal(got[3], standalone),
+          f"fused_integrate {label}: carried by B10 and standalone differ")
+    err, ratio = _fused_check("fused_integrate", f"{label} carried by B10",
+                              (got[3],), (want,), INTEGRATE_RTOL,
+                              INTEGRATE_ATOL)
+    msg = (f"fused_integrate {label} carried by B10 max|d|={err:.3e} "
+           f"tol-ratio {ratio:.3f}; = standalone B12 bit for bit, B10's "
+           "outputs = without it bit for bit, = colour by colour, "
+           f"{FUSED_REPEATS} repeats")
+    if not timed:
+        print(msg)
+        return None
+    with_ms, without_ms = paired_ms(lambda: run_fused(call, "kernel"),
+                                    lambda: run_fused(sweep, "kernel"))
+    print(f"{msg}; B10 carrying it {with_ms * 1e3:.2f} us, without "
+          f"{without_ms * 1e3:.2f} us (in turns)")
+    return {"max_abs_err": err, "sweep_with_ms": with_ms,
+            "sweep_without_ms": without_ms}
+
+
 def _b12_case(z, op, vt, label, timed: bool):
     args = (op["pose"], vt, op["com"], op["dt"])
     got = gs_fused._launch_integrate(*args)
@@ -1190,18 +1309,36 @@ def fused_kernel_phase(cfg: dict, counts: list) -> dict:
     label += f" Wg={op['w_g']}"
     summaries, sub_out = _b10_b11_case(z, op, label, True)
     out.update(summaries)
+    # B12 twice on B11's output: standalone, and carried by B10
     out["fused_integrate"] = _b12_case(z, op, sub_out[0], label, True)
+    carried = _carried_b12_case(z, op, sub_out[0], label, True)
+    out["fused_integrate"].update(
+        max_abs_err=max(out["fused_integrate"]["max_abs_err"],
+                        carried.pop("max_abs_err")), **carried)
     # P = 4: residue rows, empty colours
     c4 = [64] + [int(x) for x in rng.integers(0, 257, len(P4_WINDOWS))]
     c4[-2:] = [0, 0]
     z4 = fused_inputs(rng, P4_BODIES, P4_WINDOWS, 256, c4, 4, dev)
     label4 = f"C={z4['ctot']} P=4"
     _, big4 = _b9_case(z4, label4, False)
+    check(b9_from_copies(b9_args(z4)), "build_fused P=4: strided views")
     op4 = fused_operands(z4, big4, rng)
     _, sub4 = _b10_b11_case(z4, op4, label4, False)
     _b12_case(z4, op4, sub4[0], label4, False)
+    p4 = _carried_b12_case(z4, op4, sub4[0], label4, True)
+    out["fused_sweep"]["p4_with_integrate_ms"] = p4["sweep_with_ms"]
+    out["fused_sweep"]["p4_without_integrate_ms"] = p4["sweep_without_ms"]
+    # B9 on the pit's own first-frame inputs: strided contact fields
+    pit_b9, pit_c = _pit_b9_case("pit frame 1")
+    row = out["build_fused"]
+    row["max_abs_err"] = max(row["max_abs_err"], pit_b9["max_abs_err"])
+    row["pit_frame1_ms"] = pit_b9["ms"]
+    row["pit_frame1_C"] = pit_c
     # the first substep of the fused pit's first frame: B11, then B10
+    # carrying B12 (as the step makes it)
     for call in pit_fused_calls(dev):
+        check((call.name == "fused_sweep") == ("integrate" in call.kw),
+              f"{call.name} pit frame 1: the step's B10 does not carry B12")
         got = fused_bits(call, "pit frame 1")
         err, ratio = _fused_check(call.name, "pit frame 1", got,
                                   run_fused(call, "plain"), RTOL, ATOL)
@@ -2216,9 +2353,13 @@ PIT_COUNTERS = {"gs_math_rhs": (gs_math, "LAUNCHES"),
                 "build_fused": (build_fused, "LAUNCHES"),
                 "fused_sweep": (gs_fused, "LAUNCHES_SWEEP"),
                 "fused_substep1": (gs_fused, "LAUNCHES_SUBSTEP1"),
-                "fused_integrate": (gs_fused, "LAUNCHES_INTEGRATE")}
+                "fused_integrate": (gs_fused, "LAUNCHES_INTEGRATE"),
+                "fused_integrate_in_sweep": (gs_fused,
+                                             "INTEGRATES_IN_SWEEP")}
+# the fused path's counters: B9, B10, B11 and the B10 launches carrying
+# B12 (the standalone B12 is not on the path)
 FUSED_KERNELS = ("build_fused", "fused_sweep", "fused_substep1",
-                 "fused_integrate")
+                 "fused_integrate_in_sweep")
 
 
 def _pit_counts() -> dict:
@@ -2320,15 +2461,17 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
           f"{metrics['host_syncs_per_step']:.2f} host syncs/step; KE "
           f"{ke:.4f}, max penetration {pen:.5f}")
     if "build_fused" in expect:
-        # one B9 launch and, per substep, one launch of each of the
-        # three solver kernels per step() call (a regrow re-runs the step)
+        # one B9 launch and, per substep, one B11 and one B10 carrying B12
+        # per step() call (a regrow re-runs the step); no standalone B12
         timed = {k: launches[k] - warm_launches[k] for k in FUSED_KERNELS}
         subs = params.num_solver_iterations
         check(all(timed[k] == subs * timed["build_fused"]
                   for k in FUSED_KERNELS[1:])
-              and timed["build_fused"] >= TIMED_FRAMES,
+              and timed["build_fused"] >= TIMED_FRAMES
+              and launches["fused_integrate"] == 0,
               f"{name}: fused launches {timed} are not one build and "
-              f"{subs} of each solver kernel per step")
+              f"{subs} of B11, B10 and B10 carrying B12 per step, or a "
+              "standalone B12 was launched")
         metrics["regrow_frames"] = timed["build_fused"] - TIMED_FRAMES
     return {"metrics": metrics, "warmed": warmed, "end": (state, cfg),
             "trail": trail}
@@ -2543,6 +2686,9 @@ KERNEL_TABLE = (
      "wgmath_tpu/dynamics/gs_fused.py:582",
      "dynamics/gs_fused.py:fused_integrate"),
 )
+# a kernel whose main-path launches another counter counts: B12, carried
+# by B10's opening on the fused path
+PATH_COUNTER = {"fused_integrate": "fused_integrate_in_sweep"}
 # name, route, source, file:line of the pallas_call, TPU function, and the
 # path whose launch count is the kernel's `launches`
 LINALG_KERNEL_TABLE = (
@@ -2623,20 +2769,24 @@ def main() -> int:
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:
         m, summary = paths[path], summaries[name]
+        counter = PATH_COUNTER.get(name, name)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "tpu_source": tpu_source,
-            "launches": m["launches"][name],
-            "launches_per_step": m[f"{name}_launches_per_step"],
-            "launches_by_path": {c: paths[c]["launches"][name]
+            "launches": m["launches"][counter],
+            "launches_per_step": m[f"{counter}_launches_per_step"],
+            "launches_by_path": {c: paths[c]["launches"][counter]
                                  for c in CONFIGS},
+            **({"standalone_launches": m["launches"][name]}
+               if counter != name else {}),
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
             "plain_ms": summary["plain_ms"],
             "bound_ms": summary["bound_ms"],
             "bound_by": summary["bound_by"], "library_ms": None,
             "work": summary["work"],
-            **{k: summary[k] for k in ("rungs_ms", "grid", "pit_frame1_ms")
-               if k in summary},
+            **{k: v for k, v in summary.items() if k not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "work")},
         })
     for name, route, source, replaces, tpu_source, path in \
             LINALG_KERNEL_TABLE:

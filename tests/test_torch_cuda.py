@@ -8,6 +8,7 @@ so the machine with the card runs them without the repository's conftest::
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 import json
 import time
 from types import SimpleNamespace
@@ -17,6 +18,10 @@ import pytest
 import torch
 
 from chip_smoke import (
+    B9_FIELD_ATOL,
+    B9_FIELD_RTOL,
+    B9_PAD_ATOL,
+    B9_PAD_RTOL,
     GEMM_TOL,
     GEMV_SHAPES,
     GEMV_TOL,
@@ -27,6 +32,8 @@ from chip_smoke import (
     NPZ_LADDER,
     OP_ASSIGN_RTOL,
     REDUCE_TOL,
+    b9_args,
+    carrying_integrate,
     redirect_op,
     elementwise_ops,
     fused_calls,
@@ -39,6 +46,7 @@ from chip_smoke import (
     gs_block_inputs,
     gs_block_plain,
     gs_math_inputs,
+    pit_build_call,
     pit_fused_calls,
     pit_sweeps,
     ray_bench_arrays,
@@ -368,6 +376,111 @@ def test_build_fused_kernel_matches_plain_on_card(p_max):
         assert float((got[rows][:, live] - w).abs().max()) <= tol, f
 
 
+def _strided(contacts):
+    """``contacts`` with its float fields as the compaction leaves them:
+    column views of one matrix [C, 3 + 4P]."""
+    c = contacts.capacity
+    big = torch.cat([contacts.normal_a, contacts.points_a.reshape(c, -1),
+                     contacts.dist], dim=1)
+    p_max = contacts.points_a.shape[1]
+    return dataclasses.replace(
+        contacts, normal_a=big[:, :3],
+        points_a=big[:, 3:3 + 3 * p_max].reshape(c, p_max, 3),
+        dist=big[:, 3 + 3 * p_max:])
+
+
+def _b9_case_args(case):
+    if case == "pit":
+        call = pit_build_call("cuda")
+        poses, vels, mprops, contacts, params = call.args
+        return b9_args(dict(p_max=contacts.points_a.shape[1], poses=poses,
+                            vels=vels, mprops=mprops, contacts=contacts),
+                       params)
+    z, b9, _ = _fused_case(int(case[1:]))
+    return (b9[0], _strided(z["contacts"])) + b9[2:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["p1", "p4", "pit"])
+def test_build_fused_reads_strided_contact_fields_in_place_on_card(case):
+    """B9 on the contact fields as strided views of one matrix (the pit's:
+    as its compaction made them) reads them in place: the bits of B9 on
+    contiguous copies, its plain version within chip_smoke's B9
+    tolerances, live columns and rung padding alike."""
+    _need_card()
+    args = _b9_case_args(case)
+    c = args[1]
+    assert not c.normal_a.is_contiguous() and not c.points_a.is_contiguous()
+    copies = dataclasses.replace(c, normal_a=c.normal_a.contiguous(),
+                                 points_a=c.points_a.contiguous(),
+                                 dist=c.dist.contiguous())
+    assert args[0].shape[1] == build_fused.W_SIDE == 32
+    launches = build_fused.LAUNCHES
+    got = build_fused._launch(*args)
+    want = build_fused._launch(args[0], copies, *args[2:])
+    plain = build_fused._build_torch(*args)
+    torch.cuda.synchronize()
+    assert build_fused.LAUNCHES == launches + 2
+    assert torch.equal(got, want)
+    live = c.valid
+    assert (~live).any()
+    for f, (at, tail) in args[3].items():
+        rows = slice(at, at + (int(np.prod(tail)) if tail else 1))
+        w = plain[rows][:, live]
+        tol = B9_FIELD_ATOL + B9_FIELD_RTOL * float(w.abs().max())
+        assert float((got[rows][:, live] - w).abs().max()) <= tol, f
+    torch.testing.assert_close(got[:, ~live], plain[:, ~live],
+                               rtol=B9_PAD_RTOL, atol=B9_PAD_ATOL)
+
+
+@pytest.mark.cuda
+def test_build_fused_kernel_refuses_a_field_it_cannot_read_in_place():
+    """A contact field whose innermost stride is not 1 raises, and nothing
+    is launched: no silent copy."""
+    _need_card()
+    z, b9, _ = _fused_case(1)
+    c = z["contacts"]
+    wide = torch.zeros((c.capacity, 6), device="cuda")
+    wide[:, 0::2] = c.normal_a
+    bad = dataclasses.replace(c, normal_a=wide[:, 0::2])
+    launches = build_fused.LAUNCHES
+    with pytest.raises(ValueError, match="stride"):
+        build_fused._launch(b9[0], bad, *b9[2:])
+    assert build_fused.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["kernel", "colours"])
+@pytest.mark.parametrize("p_max", [1, 4])
+def test_fused_sweep_carrying_integrate_on_card(p_max, how):
+    """B10 carrying B12 (one launch, or the same kernel colour by colour):
+    its velocities and impulses B10's without it, bit for bit; its poses a
+    fresh tensor with the standalone B12's bits, and the plain version's
+    within chip_smoke's B12 tolerance; counted as one carried integrate,
+    no standalone B12."""
+    _need_card()
+    z, _, op = _fused_case(p_max)
+    sweep = fused_calls(z, op)[0]
+    call = carrying_integrate(sweep, op)
+    n0 = (gs_fused.INTEGRATES_IN_SWEEP, gs_fused.LAUNCHES_INTEGRATE)
+    got = run_fused(call, how)
+    assert (gs_fused.INTEGRATES_IN_SWEEP, gs_fused.LAUNCHES_INTEGRATE) == \
+        (n0[0] + 1, n0[1])
+    alone = run_fused(sweep, how)
+    standalone = gs_fused.fused_integrate(op["pose"], op["vt"], op["com"],
+                                          op["dt"])
+    want = gs_fused._cm_integrate(op["pose"], op["vt"], op["com"], op["dt"])
+    torch.cuda.synchronize()
+    assert len(got) == 4 and len(alone) == 3
+    assert all(torch.equal(g, a) for g, a in zip(got[:3], alone))
+    assert got[3].data_ptr() not in (op["pose"].data_ptr(),
+                                     op["vt"].data_ptr(),
+                                     got[0].data_ptr())
+    assert torch.equal(got[3], standalone)
+    torch.testing.assert_close(got[3], want, rtol=INTEGRATE_RTOL,
+                               atol=INTEGRATE_ATOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p_max", [1, 4])
 @pytest.mark.parametrize("kernel", ["fused_sweep", "fused_substep1"])
@@ -425,6 +538,7 @@ def test_fused_wrappers_never_run_their_plain_versions_on_card(monkeypatch):
 
     for mod, name in ((build_fused, "_cm_build"),
                       (build_fused, "_build_torch"),
+                      (gs_fused, "_fused_sweep_plain"),
                       (gs_fused, "_fused_sweep_torch"),
                       (gs_fused, "_substep1_torch"),
                       (gs_fused, "_cm_integrate")):
@@ -441,6 +555,10 @@ def test_fused_wrappers_never_run_their_plain_versions_on_card(monkeypatch):
         op["active"], op["nump"], op["idx"], op["inv"], z["counts"],
         src_meta=op["src_meta"], scalars=op["scalars"], **kw)[0]
     gs_fused.fused_integrate(op["pose"], vt, op["com"], op["dt"])
+    gs_fused.fused_sweep(vt, op["n_imp"], op["t_imp"], op["win"],
+                         op["active"], op["nump"], 1.0, op["n_rhs"],
+                         op["t_rhs"], op["idx"], op["inv"], z["counts"],
+                         integrate=(op["pose"], op["com"], op["dt"]), **kw)
     torch.cuda.synchronize()
 
 
@@ -566,7 +684,8 @@ def test_traced_fused_build_gives_the_untraced_bits_on_card():
 def test_fused_pit_step_launches_each_kernel_once_a_substep_on_card():
     """A frame of the settled 10k pit under ``fused`` makes a B9 launch
     per solve (one, or two on a frame that regrows its rungs) and, every
-    substep of a solve, one B11, one B12 and one B10."""
+    substep of a solve, one B11 and one B10 carrying B12's pose update;
+    no standalone B12."""
     _need_card()
     z = dict(np.load(NPZ))
     cfg = PipelineConfig.from_dict(
@@ -574,15 +693,18 @@ def test_fused_pit_step_launches_each_kernel_once_a_substep_on_card():
     state = state_from_arrays(z, device="cuda")
     params = SimParams()
     counters = ((build_fused, "LAUNCHES"), (gs_fused, "LAUNCHES_SUBSTEP1"),
-                (gs_fused, "LAUNCHES_INTEGRATE"), (gs_fused, "LAUNCHES_SWEEP"))
+                (gs_fused, "LAUNCHES_SWEEP"),
+                (gs_fused, "INTEGRATES_IN_SWEEP"),
+                (gs_fused, "LAUNCHES_INTEGRATE"))
     for _ in range(2):
         n0 = [getattr(mod, name) for mod, name in counters]
         state, cfg = step_checked(state, params, cfg)
         torch.cuda.synchronize()
-        builds, *per_kernel = (getattr(mod, name) - n
-                               for (mod, name), n in zip(counters, n0))
+        builds, *per_kernel, standalone = (
+            getattr(mod, name) - n for (mod, name), n in zip(counters, n0))
         assert builds >= 1
         assert per_kernel == [builds * params.num_solver_iterations] * 3
+        assert standalone == 0
 
 
 # --- the linear-algebra kernels ---------------------------------------------

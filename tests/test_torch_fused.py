@@ -3,8 +3,9 @@ inputs: the static rung-padded compaction (integers exact, rungs that fit
 and rungs that overflow), the field layout, the fused constraint build
 (B9's plain version), the per-colour gather / inverse tables (exact), and
 the plain versions of the fused sweep (B10), the substep opening (B11) and
-the pose update (B12). Where the JAX function reaches a Pallas kernel it
-runs both in interpret mode and through its XLA twin.
+the pose update (B12), alone and carried by the sweep. Where the JAX
+function reaches a Pallas kernel it runs both in interpret mode and through
+its XLA twin.
 
 On the CPU the port's wrappers run their plain versions; the CUDA kernels
 are held against those on the card (``tests/test_torch_cuda.py``,
@@ -217,6 +218,72 @@ def test_build_constraints_fused_matches_jax(setup, tables):
                                       _np(getattr(j_cons, f)))
 
 
+def test_build_fused_plain_reads_the_padded_table_and_strided_views(
+        setup, tables):
+    """B9's plain version on what the kernel reads: the 32-float body table
+    (the 29 fields, then zeros) and the compacted contacts' float fields as
+    they come, column views of one gathered matrix. Equal to its run on
+    contiguous copies, and to the JAX package's fused build within
+    :func:`test_build_constraints_fused_matches_jax`'s tolerances."""
+    p_max = setup["p_max"]
+    tc = setup["got"][0]
+    packed = tbuild._packed_bodies(*setup["t"])
+    assert packed.shape == (setup["n"], tbuild.W_SIDE) == (setup["n"], 32)
+    assert not packed[:, tbuild.SIDE_OFFS[-1]:].any()
+    width = 3 + 4 * p_max  # normal, points, dist side by side
+    assert tc.normal_a.stride() == (width, 1)
+    assert tc.points_a.stride() == (width, 3, 1)
+    assert not tc.normal_a.is_contiguous()
+    assert tc.normal_a.untyped_storage().data_ptr() == \
+        tc.points_a.untyped_storage().data_ptr()
+    meta, k_all = tbuild.field_meta(p_max, S_LEN)
+    p = SimParams()
+    consts = (p.restitution, p.inv_dt, p.friction, p.contact_cfm_factor)
+    got = tbuild._build_torch(packed, tc, consts, meta, k_all, p_max)
+    copies = dataclasses.replace(
+        tc, normal_a=tc.normal_a.contiguous(),
+        points_a=tc.points_a.contiguous(), dist=tc.dist.contiguous())
+    assert torch.equal(
+        got, tbuild._build_torch(packed[:, :29].contiguous(), copies, consts,
+                                 meta, k_all, p_max))
+    want = tables[1]  # the JAX package's bigT (XLA route)
+    live = _np(tc.valid)
+    g = _np(got)
+    for f, (at, tail) in meta.items():
+        k = int(np.prod(tail)) if tail else 1
+        w = want[at:at + k]
+        tol = 1e-5 + 2e-6 * float(np.abs(w[:, live]).max(initial=0))
+        assert np.abs(g[at:at + k] - w)[:, live].max(initial=0.0) <= tol, f
+        np.testing.assert_allclose(g[at:at + k][:, ~live], w[:, ~live],
+                                   rtol=1e-5, atol=1e-6 * 5e8)
+
+
+def test_build_fused_kernel_reads_contact_fields_in_place_or_raises():
+    """The row strides B9's wrapper passes for the compaction's views,
+    and its refusal of a view the kernel cannot read in place (no silent
+    copy)."""
+    big = torch.zeros((5, 3 + 4 * 4 + 3))  # one padding column
+    normal, points = big[:, :3], big[:, 3:15].reshape(5, 4, 3)
+    dist = big[:, 15:19]
+    assert tbuild._row_stride(normal, "normal_a", (3,)) == 22
+    assert tbuild._row_stride(points, "points_a", (4, 3)) == 22
+    assert tbuild._row_stride(dist, "dist", (4,)) == 22
+    assert tbuild._row_stride(big[:, 15:16], "dist", (1,)) == 22
+    with pytest.raises(ValueError, match="stride"):
+        tbuild._row_stride(big[:, 0:6:2], "normal_a", (3,))
+    with pytest.raises(ValueError, match="stride"):
+        tbuild._row_stride(big[:, 3:15].reshape(5, 3, 4).transpose(1, 2),
+                           "points_a", (4, 3))
+    with pytest.raises(ValueError, match="stride"):
+        tbuild._row_stride(big[:, 3:19].reshape(5, 4, 4)[:, :, :3],
+                           "points_a", (4, 3))
+    raw = bytearray(64)
+    unaligned = torch.frombuffer(raw, dtype=torch.float32, offset=1,
+                                 count=15).reshape(5, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        tbuild._row_stride(unaligned, "normal_a", (3,))
+
+
 @pytest.fixture(scope="module")
 def tables(setup):
     """:func:`_tables` of the case, computed once for the tests that read
@@ -341,6 +408,46 @@ def test_fused_substep1_plain_matches_jax(setup, tables):
     r0 = setup["rung0"]
     np.testing.assert_array_equal(_np(got[1])[:, :r0],
                                   (a["n_imp"] * np.float32(0.85))[:, :r0])
+
+
+def test_fused_sweep_carrying_integrate_matches_jax(setup, tables):
+    """``fused_sweep(..., integrate=...)`` (B10 carrying B12): the sweep's
+    outputs are JAX's ``fused_sweep``'s and the same as without the
+    integrate, bit for bit; the poses are JAX's ``fused_integrate`` of the
+    sweep's input velocities (small-angle lanes included) and
+    ``fused_integrate``'s, bit for bit."""
+    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, _ = _sweep_inputs(
+        setup, tables, 1)
+    vt = a["vt"].copy()
+    vt[3:6, :8] *= 1e-5  # angle below 1e-6: the small-angle branch
+    vt[3:6, 8:12] = 0.0
+    com = np.random.default_rng(4).uniform(
+        -0.1, 0.1, (3, vt.shape[1])).astype(np.float32)
+    dt = 1.0 / 240.0
+    t_args = (_t(vt), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),
+              _t(a["active"]), _t(a["nump"]), 0.93, _t(a["n_rhs"]),
+              _t(a["t_rhs"]), t_idx, t_inv, torch.from_numpy(a["counts"]))
+    got = tfused.fused_sweep(*t_args, meta=meta,
+                             integrate=(_t(a["pose"]), _t(com), dt), **kw)
+    assert len(got) == 4
+    alone = tfused.fused_sweep(*t_args, meta=meta, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got[:3], alone))
+    assert torch.equal(got[3], tfused.fused_integrate(
+        _t(a["pose"]), _t(vt), _t(com), dt))
+    j_args = [jnp.asarray(x) for x in (vt, a["n_imp"], a["t_imp"], a["win"],
+                                       a["active"], a["nump"])]
+    j_args += [0.93, jnp.asarray(a["n_rhs"]), jnp.asarray(a["t_rhs"]),
+               j_idx, j_inv, jnp.asarray(a["counts"])]
+    for use_pallas in _jax_routes(setup):
+        want = _jit(jfused.fused_sweep, meta=meta, use_pallas=use_pallas,
+                    **kw)(*j_args)
+        _close(got[:3], want, f"fused_sweep (pallas={use_pallas})",
+               SWEEP_RTOL, SWEEP_ATOL)
+    for use_pallas in (False, True):
+        want = _jit(jfused.fused_integrate, dt=dt, use_pallas=use_pallas)(
+            jnp.asarray(a["pose"]), jnp.asarray(vt), jnp.asarray(com))
+        _close(got[3:], [want], f"fused_integrate (pallas={use_pallas})",
+               RTOL, ATOL)
 
 
 def test_fused_integrate_plain_matches_jax():

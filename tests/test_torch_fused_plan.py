@@ -8,7 +8,10 @@ lookup each row makes) or, in B11, for its lanes' warmstart. Here the
 lookup is held against a walk of the colour loop, the tickets against the
 rows and lanes they must cover, and an emulation of the chunks' rows, run
 in random waves that respect only those waits, against the plain versions
-(``_fused_sweep_torch``, ``_substep1_torch``) bit for bit. The layouts are
+(``_fused_sweep_torch``, ``_substep1_torch``) bit for bit; B10's opening
+lanes, which also carry B12's pose update when the launch has integrate
+operands, run in those waves too, and the poses are ``_cm_integrate``'s
+bit for bit. The layouts are
 ``chip_smoke.fused_inputs``'s: a proper colouring with static bodies, a
 residue rung, two empty colours, and the same with one colour skipped
 for its count though its tables name rows. The kernels themselves run on
@@ -46,7 +49,10 @@ def _case(p_max):
             z["contacts"], (p.restitution, p.inv_dt, p.friction,
                             p.contact_cfm_factor), meta, k_all, p_max)
         op = chip_smoke.fused_operands(z, big, rng)
-        _CASES[p_max] = z, {c.name: c for c in chip_smoke.fused_calls(z, op)}
+        calls = {c.name: c for c in chip_smoke.fused_calls(z, op)}
+        calls["fused_sweep_integrate"] = chip_smoke.carrying_integrate(
+            calls["fused_sweep"], op)
+        _CASES[p_max] = z, calls
     return _CASES[p_max]
 
 
@@ -136,9 +142,12 @@ def _emulate(call, rng):
     chunk wrote, and checks that each impulse element is written once and
     that every wait points at a lower ticket. B11's delta chunks read
     inputs only and come first (every lane waits on their count), so
-    their deltas are taken as given: ``_ws_color``'s per lane."""
+    their deltas are taken as given: ``_ws_color``'s per lane. B10's
+    opening lanes have no wait; with integrate operands they return the
+    new poses too."""
     substep = call.name == "fused_substep1"
-    kw = call.kw
+    kw = dict(call.kw)
+    integrate = kw.pop("integrate", None)
     windows, rung0, p_max = kw["windows"], kw["rung0"], kw["p_max"]
     s_len, meta = kw["s_len"], kw["meta"]
     if substep:
@@ -193,11 +202,10 @@ def _emulate(call, rng):
                 s_len, w_g, inv_dt=inv_dt, erp_inv_dt=erp_inv_dt,
                 allowed_err=allowed, max_corr=max_corr)
     else:
-        # B10's opening: rows 6-7 of every lane, rows 0-5 of a lane no
-        # colour writes
-        vout[6:8] = vt[6:8]
-        free = torch.from_numpy(prev[-1] < 0)
-        vout[0:6, free] = vt[0:6, free]
+        # B10's opening lanes copy rows 6-7 and the rows 0-5 no colour
+        # writes, and integrate from the input velocities
+        free = prev[-1] < 0
+        pose_out = torch.full((8, w_g), float("nan"))
 
     def ticket(c, j):
         return tickets.first[c] + j // r
@@ -226,10 +234,9 @@ def _emulate(call, rng):
                     assert (tickets.opening[0] + b // r) < ticket(c, j)
             tasks.append(task)
             deps[("row", c, j)] = waits
-    if substep:
-        for b in range(w_g):
-            tasks.append(("lane", b))
-            deps[("lane", b)] = []
+    for b in range(w_g):
+        tasks.append(("lane", b))
+        deps[("lane", b)] = []
 
     def key(task):
         return task[:3] if task[0] == "row" else task
@@ -240,8 +247,12 @@ def _emulate(call, rng):
         # reads first
         if lanes:
             v = vt[:, lanes]
-            for table in ws_tables:
-                v = v + table[:, lanes]
+            if substep:
+                for table in ws_tables:
+                    v = v + table[:, lanes]
+            elif integrate is not None:
+                pose, com, dt = integrate
+                poses = gs_fused._cm_integrate(pose, vt, com, dt)[:, lanes]
         if rows:
             cols = [t[3] for t in rows]
             reads = []
@@ -276,8 +287,14 @@ def _emulate(call, rng):
                 n_in[:, cols].T, t_in[:, cols].T.reshape(m, p_max, s_len),
                 p_max)
         # then writes
-        if lanes:
+        if lanes and substep:
             vout[:, lanes] = v
+        elif lanes:
+            vout[6:8, lanes] = v[6:8]
+            mine = [b for b in lanes if free[b]]
+            vout[0:6, mine] = vt[0:6, mine]
+            if integrate is not None:
+                pose_out[:, lanes] = poses
         if rows:
             nout[:, cols] = new_n.T
             tout[:, cols] = new_t.reshape(m, p_max * s_len).T
@@ -301,20 +318,28 @@ def _emulate(call, rng):
         taken = {key(t) for t in wave}
         todo = [t for t in todo if key(t) not in taken]
     assert (written == 1).all()
-    return (vout, nout, tout) + ((nwo,) if substep else ())
+    if substep:
+        return vout, nout, tout, nwo
+    return (vout, nout, tout) + ((pose_out,) if integrate is not None else ())
 
 
 @pytest.mark.parametrize("seed,skip", [(0, False), (1, False), (2, True)])
 @pytest.mark.parametrize("p_max", [1, 4])
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", KERNELS + ("fused_sweep_integrate",))
 def test_chunks_in_any_order_the_waits_allow_give_the_plain_bits(
         kernel, p_max, seed, skip):
     _, calls = _case(p_max)
     call = _skipping(calls[kernel], 1) if skip else calls[kernel]
-    plain = {"fused_sweep": gs_fused._fused_sweep_torch,
-             "fused_substep1": gs_fused._substep1_torch}[kernel]
+    plain = {"fused_sweep": gs_fused._fused_sweep_plain,
+             "fused_substep1": gs_fused._substep1_torch}[call.name]
     want = plain(*call.args, **call.kw)
     got = _emulate(call, np.random.default_rng(seed))
+    assert len(got) == len(want) == (
+        3 if kernel == "fused_sweep" else 4)
+    if "integrate" in call.kw:
+        pose, com, dt = call.kw["integrate"]
+        assert torch.equal(got[3], gs_fused._cm_integrate(
+            pose, call.args[0], com, dt))
     for g, w in zip(got, want):
         assert not torch.isnan(g).any()
         assert torch.equal(g, w)

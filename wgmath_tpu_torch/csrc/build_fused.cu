@@ -10,18 +10,32 @@
 // without bias and both local anchors.
 //
 // Layout: one thread per constraint i. It gathers both bodies' rows of the
-// packed body table (packed[N, 29]: rotation 4, translation 3, scale 1,
-// linear 3, angular 3, inv_mass 3, inv_inertia 9, com 3) itself, which the
-// TPU version does outside the kernel as a [2C, 29] gather, and writes its
-// column of bigT[K, C]: row (rows[field] + e) holds component e of the
-// field. Neighbouring threads write neighbouring addresses of each row, so
-// every store is coalesced. No atomics, no shared memory.
+// packed body table (packed[N, 32]: rotation 4, translation 3, scale 1,
+// linear 3, angular 3, inv_mass 3, inv_inertia 9, com 3, then 3 zeros)
+// itself, which the TPU version does outside the kernel as a [2C, 29]
+// gather, and writes its column of bigT[K, C]: row (rows[field] + e) holds
+// component e of the field. Neighbouring threads write neighbouring
+// addresses of each row, so every store is coalesced. No atomics, no
+// shared memory.
 //
 // Bound on this card: memory. Per constraint it reads 2 x 29 body floats,
-// 2 ids and 4 + 4P contact floats, and writes K floats (71 at P = 1):
-// about 440 B, against about 400 flops at P = 1. The reads of the body rows
-// are gathers (each side's 116 B row spans two sectors); the writes, the
-// larger part, are coalesced.
+// 2 ids and 4P + 3 contact floats, and writes K floats (71 at P = 1):
+// about 440 B, against about 400 flops at P = 1. The writes, the larger
+// part, are coalesced. What the design does about the rest:
+// - a body row is 128 B at a 128-B boundary (the padding), read as 8
+//   16-byte loads from one line; a 29-float row at 4-byte alignment took
+//   29 scalar loads across two lines;
+// - both ids are loaded first, then the contact fields, which do not wait
+//   on them, and both rows' 16 loads together, before any arithmetic:
+//   the two gathers are one dependent step;
+// - the contact fields are read in place, by row stride: the compaction
+//   leaves normal and points as column views of one gathered matrix, and
+//   copying them made two more kernels a step;
+// - the block size is chosen at the first launch from the occupancy the
+//   kernel's register count allows: the largest of 256, 128 and 64 whose
+//   grid gives every SM a block and of which every SM holds at least 16
+//   warps (256 left 14 of 132 SMs idle at the pit's 30,080 rows).
+// The stores are plain: bigT is read by the solver's kernels next, from L2.
 //
 // No fast-math, built with --fmad=false (core/cuda_build.py): the
 // fallback-tangent test (|t| < 1e-4) and safe_inv's zero test must take
@@ -54,7 +68,9 @@ struct V3 {
   float x, y, z;
 };
 
-__device__ __forceinline__ V3 v3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ V3 v3(const float* p) {
+  return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
 __device__ __forceinline__ V3 add(V3 a, V3 b) {
   return {a.x + b.x, a.y + b.y, a.z + b.z};
 }
@@ -116,33 +132,69 @@ struct Writer {
   }
 };
 
+constexpr int W = 32;  // floats a body row (29 and 3 zeros)
+
+// One side's body, unpacked from its row's 8 float4 (SIDE_OFFS order).
+struct Body {
+  V3 u, tr, lin, ang, im, com;
+  float w, sc, ii[9];
+};
+
+__device__ __forceinline__ Body unpack(const float4 (&r)[W / 4]) {
+  Body b;
+  b.u = {r[0].x, r[0].y, r[0].z};
+  b.w = r[0].w;
+  b.tr = {r[1].x, r[1].y, r[1].z};
+  b.sc = r[1].w;
+  b.lin = {r[2].x, r[2].y, r[2].z};
+  b.ang = {r[2].w, r[3].x, r[3].y};
+  b.im = {r[3].z, r[3].w, r[4].x};
+  const float ii[9] = {r[4].y, r[4].z, r[4].w, r[5].x, r[5].y,
+                       r[5].z, r[5].w, r[6].x, r[6].y};
+#pragma unroll
+  for (int e = 0; e < 9; ++e) b.ii[e] = ii[e];
+  b.com = {r[6].z, r[6].w, r[7].x};
+  return b;
+}
+
 template <int P>
 __global__ void __launch_bounds__(256) build_fused_kernel(
-    int C, const float* __restrict__ packed,
+    int C, const float4* __restrict__ packed,
     const int64_t* __restrict__ body_a, const int64_t* __restrict__ body_b,
-    const float* __restrict__ normal, const float* __restrict__ points,
-    const float* __restrict__ dist_in, Consts k, Rows rows,
+    const float* __restrict__ normal, int ld_n,
+    const float* __restrict__ points, int ld_p,
+    const float* __restrict__ dist_in, int ld_d, Consts k, Rows rows,
     float* __restrict__ big) {
-  constexpr int S = 2, W = 29;
+  constexpr int S = 2;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= C) return;
-  const float* A = packed + (size_t)body_a[i] * W;
-  const float* B = packed + (size_t)body_b[i] * W;
-  const V3 u1 = v3(A), u2 = v3(B);
-  const float w1 = A[3], w2 = B[3];
-  const V3 tr1 = v3(A + 4), tr2 = v3(B + 4);
-  const float sc1 = A[7], sc2 = B[7];
-  const V3 lin1 = v3(A + 8), lin2 = v3(B + 8);
-  const V3 ang1 = v3(A + 11), ang2 = v3(B + 11);
-  const V3 im1 = v3(A + 14), im2 = v3(B + 14);
-  float ii1[9], ii2[9];
+  const int64_t ia = __ldg(body_a + i), ib = __ldg(body_b + i);
+  // the contact fields do not wait on the ids
+  const V3 n = v3(normal + (size_t)i * ld_n);
+  float dists[P];
+  V3 pts[P];
 #pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    ii1[e] = A[17 + e];
-    ii2[e] = B[17 + e];
+  for (int p = 0; p < P; ++p) {
+    dists[p] = __ldg(dist_in + (size_t)i * ld_d + p);
+    pts[p] = v3(points + (size_t)i * ld_p + 3 * p);
   }
-  const V3 com1 = v3(A + 26), com2 = v3(B + 26);
-  const V3 n = v3(normal + (size_t)i * 3);
+  float4 ra[W / 4], rb[W / 4];
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    ra[q] = __ldg(packed + ia * (W / 4) + q);
+    rb[q] = __ldg(packed + ib * (W / 4) + q);
+  }
+  const Body A = unpack(ra), B = unpack(rb);
+  const V3 u1 = A.u, u2 = B.u;
+  const float w1 = A.w, w2 = B.w;
+  const V3 tr1 = A.tr, tr2 = B.tr;
+  const float sc1 = A.sc, sc2 = B.sc;
+  const V3 lin1 = A.lin, lin2 = B.lin;
+  const V3 ang1 = A.ang, ang2 = B.ang;
+  const V3 im1 = A.im, im2 = B.im;
+  const float* ii1 = A.ii;
+  const float* ii2 = B.ii;
+  const V3 com1 = A.com, com2 = B.com;
   const Writer wr{big, C, i, rows};
 
   const V3 dir1 = neg(quat_rot(u1, w1, n));
@@ -171,8 +223,8 @@ __global__ void __launch_bounds__(256) build_fused_kernel(
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const float dist = dist_in[(size_t)i * P + p];
-    const V3 pt_k = v3(points + ((size_t)i * P + p) * 3);
+    const float dist = dists[p];
+    const V3 pt_k = pts[p];
     const float half_d = dist / 2.0f;
     const V3 pt_local = add(pt_k, V3{n.x * half_d, n.y * half_d,
                                      n.z * half_d});
@@ -226,32 +278,104 @@ __global__ void __launch_bounds__(256) build_fused_kernel(
   }
 }
 
+// The block size of kernel `kern` on the current device for C rows (see the
+// design note), and the register count and warps an SM holds behind it.
+struct Plan {
+  int block, regs, warps_per_sm;
+};
+
+constexpr int BLOCKS[3] = {256, 128, 64};
+
+// What the choice reads of a kernel on a device, asked once (ids past
+// MAX_DEV are asked every launch).
+struct Facts {
+  bool known;
+  int sms, regs, warps[3];  // warps an SM holds, a block of BLOCKS[b]
+};
+constexpr int MAX_DEV = 16;
+
+template <typename K>
+Plan plan_for(K kern, Facts (&cache)[MAX_DEV], int C) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  Facts local = {};
+  Facts& f = dev < MAX_DEV ? cache[dev] : local;
+  if (!f.known) {
+    cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncAttributes attr = {};
+    cudaFuncGetAttributes(&attr, kern);
+    f.regs = attr.numRegs;
+    for (int b = 0; b < 3; ++b) {
+      int per_sm = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, BLOCKS[b],
+                                                    0);
+      f.warps[b] = per_sm * BLOCKS[b] / 32;
+    }
+    f.known = true;
+  }
+  for (int b = 0; b < 3; ++b)
+    if ((C + BLOCKS[b] - 1) / BLOCKS[b] >= f.sms && f.warps[b] >= 16)
+      return {BLOCKS[b], f.regs, f.warps[b]};
+  return {BLOCKS[2], f.regs, f.warps[2]};
+}
+
+template <int P>
+Facts g_facts[MAX_DEV];
+
+template <int P>
+int launch(int C, const float* packed, const int64_t* body_a,
+           const int64_t* body_b, const float* normal, int ld_n,
+           const float* points, int ld_p, const float* dist, int ld_d,
+           const Consts& k, const Rows& r, float* big, cudaStream_t s) {
+  const Plan plan = plan_for(build_fused_kernel<P>, g_facts<P>, C);
+  const int blocks = (C + plan.block - 1) / plan.block;
+  build_fused_kernel<P><<<blocks, plan.block, 0, s>>>(
+      C, reinterpret_cast<const float4*>(packed), body_a, body_b, normal,
+      ld_n, points, ld_p, dist, ld_d, k, r, big);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). rows: the first row of each of
-// the 24 fields in bigT. Returns cudaGetLastError() after the launch; 1000
-// for an unsupported p_max.
+// Plain C entry points (bound with ctypes). packed: [N, 32] floats at a
+// 16-byte boundary; normal, points, dist: the contact fields in place,
+// each by its row stride in floats (ld_n, ld_p, ld_d; a point's three
+// floats and the P points of a row contiguous). rows: the first row of
+// each of the 24 fields in bigT. build_fused_launch returns
+// cudaGetLastError() after the launch, 1000 for an unsupported p_max.
 extern "C" int build_fused_launch(
-    int p_max, int C, int N, const float* packed, const int64_t* body_a,
-    const int64_t* body_b, const float* normal, const float* points,
-    const float* dist, float restitution, float inv_dt, float friction,
-    float cfm, const int* rows, float* big, void* stream) {
-  (void)N;
+    int p_max, int C, const float* packed, const int64_t* body_a,
+    const int64_t* body_b, const float* normal, int ld_n,
+    const float* points, int ld_p, const float* dist, int ld_d,
+    float restitution, float inv_dt, float friction, float cfm,
+    const int* rows, float* big, void* stream) {
   if (C <= 0) return 0;
   Rows r;
   for (int f = 0; f < N_OUT; ++f) r.r[f] = rows[f];
   const Consts k{restitution, inv_dt, friction, cfm};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int blocks = (C + threads - 1) / threads;
-  if (p_max == 1) {
-    build_fused_kernel<1><<<blocks, threads, 0, s>>>(
-        C, packed, body_a, body_b, normal, points, dist, k, r, big);
-  } else if (p_max == 4) {
-    build_fused_kernel<4><<<blocks, threads, 0, s>>>(
-        C, packed, body_a, body_b, normal, points, dist, k, r, big);
-  } else {
+  if (p_max == 1)
+    return launch<1>(C, packed, body_a, body_b, normal, ld_n, points, ld_p,
+                     dist, ld_d, k, r, big, s);
+  if (p_max == 4)
+    return launch<4>(C, packed, body_a, body_b, normal, ld_n, points, ld_p,
+                     dist, ld_d, k, r, big, s);
+  return 1000;
+}
+
+// The launch plan build_fused_launch takes for C rows at p_max on the
+// current device: out = {block size, registers a thread, warps an SM holds
+// of that block}. Returns 1000 for an unsupported p_max.
+extern "C" int build_fused_plan(int p_max, int C, int* out) {
+  Plan p;
+  if (p_max == 1)
+    p = plan_for(build_fused_kernel<1>, g_facts<1>, C);
+  else if (p_max == 4)
+    p = plan_for(build_fused_kernel<4>, g_facts<4>, C);
+  else
     return 1000;
-  }
+  out[0] = p.block;
+  out[1] = p.regs;
+  out[2] = p.warps_per_sm;
   return static_cast<int>(cudaGetLastError());
 }

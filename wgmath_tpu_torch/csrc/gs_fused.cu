@@ -6,7 +6,8 @@
 //   B11 _substep1_pallas:    impulses scaled by ws_coeff, the warmstart of
 //                            every colour, then per colour the rhs rebuilt
 //                            from the poses and the biased sweep;
-//   B12 fused_integrate:     the component-major pose update (_cm_integrate).
+//   B12 fused_integrate:     the component-major pose update (_cm_integrate),
+//                            carried by B10's opening on the step path.
 // Their plain PyTorch versions are wgmath_tpu_torch/dynamics/gs_fused.py
 // _fused_sweep_torch, _substep1_torch and _cm_integrate. The point update
 // is gs_point_updates.cuh, shared with the ladder kernels B1 and B2.
@@ -41,7 +42,11 @@
 //     chunk is done (the one wait on a count), adds the deltas of the rows
 //     inv[c][b] names in ascending colour order (the TPU's vt +=
 //     _ws_color(k), k = 1..C), stores the lane's eight rows and releases
-//     it at `base`.
+//     it at `base`. B10 launched with integrate operands (pose non-null)
+//     also integrates lane b (integrate_lane, B12's one copy of the
+//     arithmetic): the pose and COM rows loaded first, the velocities
+//     the ones it copies, the new pose stored to pose_out. Nothing waits
+//     on those stores, and no flag or ticket changes.
 //   A colour whose count is 0: its chunks copy (B11: scale) its rows'
 //     impulses. An occupied colour: its chunk stages the rows' window
 //     block into shared memory by 16-byte cp.async (column-major, as the
@@ -85,7 +90,15 @@
 // update and the release, ~3.5-4 us at the pit (scripts/exp_sweep_trace.py
 // prints each level's marks). Everything else sits before the wait, so it
 // overlaps the levels before its own. B12 moves 25 floats per lane (1 MB):
-// its launch costs more than its bytes.
+// its launch costs more than its bytes, so the step does not launch it: it
+// reads only B11's velocities, the poses and the COMs, and B10 reads no
+// pose, so B10's opening, which already holds every lane's B11 velocities
+// and runs beside the colour chain, does its work. fused_integrate_launch
+// keeps it as a kernel of its own for the public entry point. The precise
+// sinf / cosf bring their slow range reduction, a 32-byte stack frame in
+// B10, which costs it ~1.5 us inside the step whether or not a launch
+// carries (scripts/exp_fused_integrate_step.py); the intrinsics would drop
+// it but not keep the plain version's 2 ulp.
 //
 // No fast-math, built with --fmad=false (core/cuda_build.py): the rhs
 // rebuild takes a millimetre drift from two world points ~20 m from the
@@ -128,7 +141,10 @@ struct FusedArgs {
   int ld_w;
   const float* srcm;
   int ld_s;
-  const float* pose;
+  const float* pose;   // B11: the rhs poses; B10: integrate (or null)
+  const float* com;    // B10's integrate: [3, Wg] local COMs,
+  float* pose_out;     // the new poses [8, Wg]
+  float dt;
   const float* act;
   const float* nump;
   const float* nrhs;
@@ -281,6 +297,84 @@ __device__ __forceinline__ void await_deltas(const FusedArgs& a) {
   fence_gpu();
 }
 
+// B12's operands of lane l besides its velocities: pose rows (quat xyzw,
+// translation, scale) and local COM, from [8, L] and [3, L] tables.
+struct LanePose {
+  float q[4], t[3], s, c[3];
+};
+
+__device__ __forceinline__ LanePose load_lane_pose(const float* pose,
+                                                   const float* com, int L,
+                                                   int l) {
+  LanePose p;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) p.q[e] = __ldg(pose + (size_t)e * L + l);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    p.t[e] = __ldg(pose + (size_t)(4 + e) * L + l);
+    p.c[e] = __ldg(com + (size_t)e * L + l);
+  }
+  p.s = __ldg(pose + (size_t)7 * L + l);
+  return p;
+}
+
+// B12's lane: the semi-implicit Euler pose update (_cm_integrate) from the
+// lane's linear and angular velocity, stored as rows of out [8, L]. The
+// only copy of the arithmetic: the standalone kernel and B10's opening
+// both call it, so the two give the same bits.
+__device__ __forceinline__ void integrate_lane(const LanePose& p,
+                                               const float* lin,
+                                               const float* ang, float dt,
+                                               float* out, int L, int l) {
+  const float* q = p.q;
+  const float* t = p.t;
+  const float s = p.s;
+  // rot(q, v) = v + 2 (w (u x v) + u x (u x v))
+  auto rot = [](const float* u, float w, const float* v, float* o) {
+    const float cx = u[1] * v[2] - u[2] * v[1];
+    const float cy = u[2] * v[0] - u[0] * v[2];
+    const float cz = u[0] * v[1] - u[1] * v[0];
+    const float dx = u[1] * cz - u[2] * cy;
+    const float dy = u[2] * cx - u[0] * cz;
+    const float dz = u[0] * cy - u[1] * cx;
+    o[0] = v[0] + 2.0f * (w * cx + dx);
+    o[1] = v[1] + 2.0f * (w * cy + dy);
+    o[2] = v[2] + 2.0f * (w * cz + dz);
+  };
+  float rc[3], init_com[3], v[3];
+  rot(q, q[3], p.c, rc);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    init_com[e] = s * rc[e] + t[e];
+    v[e] = ang[e] * dt;
+  }
+  const float angle = sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
+  const float half = 0.5f * angle;
+  const float sinc_half = angle < 1e-6f
+                              ? 0.5f - angle * angle / 48.0f
+                              : sinf(half) / fmaxf(angle, 1e-30f);
+  const float dq[4] = {v[0] * sinc_half, v[1] * sinc_half, v[2] * sinc_half,
+                       cosf(half)};
+  float arm[3], rotated[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) arm[e] = t[e] - init_com[e];
+  rot(dq, dq[3], arm, rotated);
+  const float ax = dq[0], ay = dq[1], az = dq[2], aw = dq[3];
+  const float bx = q[0], by = q[1], bz = q[2], bw = q[3];
+  float nq[4] = {aw * bx + ax * bw + ay * bz - az * by,
+                 aw * by - ax * bz + ay * bw + az * bx,
+                 aw * bz + ax * by - ay * bx + az * bw,
+                 aw * bw - ax * bx - ay * by - az * bz};
+  const float inv_n = rsqrtf(nq[0] * nq[0] + nq[1] * nq[1] + nq[2] * nq[2]
+                             + nq[3] * nq[3] + 1e-30f);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[(size_t)e * L + l] = nq[e] * inv_n;
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+    out[(size_t)(4 + e) * L + l] = init_com[e] + rotated[e] * s + lin[e] * dt;
+  out[(size_t)7 * L + l] = s;
+}
+
 // A row no sweep runs: its impulses copied (B11: scaled by ws_coeff, the
 // rhs store cleared).
 template <int P, bool SUBSTEP>
@@ -299,10 +393,14 @@ __device__ __forceinline__ void copy_row(const FusedArgs& a, int col) {
 }
 
 // The opening's lane b: B11 its warmstart, stored and released; B10 the
-// rows of vout no colour writes.
+// rows of vout no colour writes and, with integrate operands, the lane's
+// new pose.
 template <int P, bool SUBSTEP>
 __device__ __forceinline__ void open_lane(const FusedArgs& a,
                                           unsigned long long occ, int b) {
+  const bool integrate = !SUBSTEP && a.pose != nullptr;
+  LanePose p;
+  if (integrate) p = load_lane_pose(a.pose, a.com, a.w_g, b);
   float v[ROWS];
 #pragma unroll
   for (int q = 0; q < ROWS; ++q) v[q] = __ldg(a.vin + (size_t)q * a.w_g + b);
@@ -359,6 +457,7 @@ __device__ __forceinline__ void open_lane(const FusedArgs& a,
 #pragma unroll
     for (int q = 0; q < ROWS; ++q)
       if (q >= 6 || !written) a.vout[(size_t)q * a.w_g + b] = v[q];
+    if (integrate) integrate_lane(p, v, v + 3, a.dt, a.pose_out, a.w_g, b);
   }
 }
 
@@ -627,66 +726,22 @@ __global__ void __launch_bounds__(THREADS) integrate_kernel(
     const float* __restrict__ com, float* __restrict__ out, float dt) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
-  float q[4], t[3], lin[3], ang[3], c[3];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) q[e] = pose[(size_t)e * L + l];
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    t[e] = pose[(size_t)(4 + e) * L + l];
-    lin[e] = vt[(size_t)e * L + l];
-    ang[e] = vt[(size_t)(3 + e) * L + l];
-    c[e] = com[(size_t)e * L + l];
-  }
-  const float s = pose[(size_t)7 * L + l];
-  // rot(q, v) = v + 2 (w (u x v) + u x (u x v))
-  auto rot = [](const float* u, float w, const float* v, float* o) {
-    const float cx = u[1] * v[2] - u[2] * v[1];
-    const float cy = u[2] * v[0] - u[0] * v[2];
-    const float cz = u[0] * v[1] - u[1] * v[0];
-    const float dx = u[1] * cz - u[2] * cy;
-    const float dy = u[2] * cx - u[0] * cz;
-    const float dz = u[0] * cy - u[1] * cx;
-    o[0] = v[0] + 2.0f * (w * cx + dx);
-    o[1] = v[1] + 2.0f * (w * cy + dy);
-    o[2] = v[2] + 2.0f * (w * cz + dz);
-  };
-  float rc[3], init_com[3], v[3];
-  rot(q, q[3], c, rc);
+  const LanePose p = load_lane_pose(pose, com, L, l);
+  float lin[3], ang[3];
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
-    init_com[e] = s * rc[e] + t[e];
-    v[e] = ang[e] * dt;
+    lin[e] = __ldg(vt + (size_t)e * L + l);
+    ang[e] = __ldg(vt + (size_t)(3 + e) * L + l);
   }
-  const float angle = sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
-  const float half = 0.5f * angle;
-  const float sinc_half = angle < 1e-6f
-                              ? 0.5f - angle * angle / 48.0f
-                              : sinf(half) / fmaxf(angle, 1e-30f);
-  const float dq[4] = {v[0] * sinc_half, v[1] * sinc_half, v[2] * sinc_half,
-                       cosf(half)};
-  float arm[3], rotated[3];
-#pragma unroll
-  for (int e = 0; e < 3; ++e) arm[e] = t[e] - init_com[e];
-  rot(dq, dq[3], arm, rotated);
-  const float ax = dq[0], ay = dq[1], az = dq[2], aw = dq[3];
-  const float bx = q[0], by = q[1], bz = q[2], bw = q[3];
-  float nq[4] = {aw * bx + ax * bw + ay * bz - az * by,
-                 aw * by - ax * bz + ay * bw + az * bx,
-                 aw * bz + ax * by - ay * bx + az * bw,
-                 aw * bw - ax * bx - ay * by - az * bz};
-  const float inv_n = rsqrtf(nq[0] * nq[0] + nq[1] * nq[1] + nq[2] * nq[2]
-                             + nq[3] * nq[3] + 1e-30f);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) out[(size_t)e * L + l] = nq[e] * inv_n;
-#pragma unroll
-  for (int e = 0; e < 3; ++e)
-    out[(size_t)(4 + e) * L + l] = init_com[e] + rotated[e] * s + lin[e] * dt;
-  out[(size_t)7 * L + l] = s;
+  integrate_lane(p, lin, ang, dt, out, L, l);
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). tab: the colours' first rows,
+// Plain C entry points (bound with ctypes). fused_sweep_launch's pose,
+// com, pose_out and dt: B12's operands ([8, Wg], [3, Wg], a fresh
+// [8, Wg], the step), carried by its opening; a null pose carries none.
+// tab: the colours' first rows,
 // their rungs, the n_colors + 1 bounds of their tickets, the opening's two
 // and the delta chunks' two (gs_fused.fused_chunks);
 // cols: the point update's field rows (gs_point_updates.cuh Field order,
@@ -702,6 +757,7 @@ extern "C" int fused_sweep_launch(
     int ld_n, const float* tin, int ld_t, float* nout, float* tout,
     const float* win, int ld_w, const float* act, const float* nump,
     float cfm, const float* nrhs, int ld_nr, const float* trhs, int ld_tr,
+    const float* pose, const float* com, float* pose_out, float dt,
     const int* idx, const int* inv, const int* counts, unsigned* ready,
     unsigned* ticket, unsigned base, int chunk0, int nchunks, void* stream) {
   FusedArgs a = {};
@@ -725,6 +781,10 @@ extern "C" int fused_sweep_launch(
   a.ld_nr = ld_nr;
   a.trhs = trhs;
   a.ld_tr = ld_tr;
+  a.pose = pose;
+  a.com = com;
+  a.pose_out = pose_out;
+  a.dt = dt;
   a.idx = idx;
   a.inv = inv;
   a.counts = counts;

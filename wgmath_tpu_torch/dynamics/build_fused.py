@@ -9,8 +9,9 @@ takes its window fields as a row slice with no repacking.
 
 - On a CUDA tensor it launches ``csrc/build_fused.cu`` (kernel B9, which
   replaces ``_build_pallas_call``): one thread per constraint, the gather
-  of both bodies' rows from the packed body table done in the kernel,
-  ``bigT`` written column by column. It launches or raises.
+  of both bodies' 128-byte rows from the packed body table done in the
+  kernel, the contact fields read in place by their row strides, ``bigT``
+  written column by column. It launches or raises.
 - On a CPU tensor it runs :func:`_cm_build`, the plain PyTorch
   transcription of the JAX package's ``_cm_build`` on component-major
   ``[rows, C]`` slabs.
@@ -35,7 +36,9 @@ F32_SORT_FIELDS = PACK_FIELDS + ("cfm_factor", "n_rhs", "t_rhs",
 # rows of one body in the packed body table: rotation 4, translation 3,
 # scale 1, linear 3, angular 3, inv_mass 3, inv_inertia 9, com 3
 SIDE_OFFS = (0, 4, 7, 8, 11, 14, 17, 26, 29)
-W_SIDE = 29
+# floats a row of the table: the 29 fields and 3 zeros, so that a row is
+# one aligned 128-byte line, which the kernel reads as 8 16-byte loads
+W_SIDE = 32
 
 
 def field_meta(p_max: int, s_len: int):
@@ -111,7 +114,8 @@ def _cm_build(aT, bT, nT, ptsT, distT, *, p_max: int, s_len: int,
               restitution: float, inv_dt: float, friction: float,
               cfm_factor: float, meta: dict, k_all: int):
     """Plain version of kernel B9 on component-major slabs: ``aT``/``bT``
-    [29, L] both sides' packed body rows (``SIDE_OFFS`` order), ``nT``
+    [29 or more, L] both sides' packed body rows (``SIDE_OFFS`` order; the
+    rows past them are not read), ``nT``
     [3, L], ``ptsT`` [3P, L], ``distT`` [P, L]. Returns bigT [k_all, L]."""
     assert s_len == 2
 
@@ -212,11 +216,13 @@ def _cm_build(aT, bT, nT, ptsT, distT, *, p_max: int, s_len: int,
 
 
 def _packed_bodies(poses, vels, mprops) -> torch.Tensor:
-    """[N, 29] body table in ``SIDE_OFFS`` order."""
+    """[N, 32] body table in ``SIDE_OFFS`` order, 3 zeros a row after the
+    29 fields."""
     n_b = poses.rotation.shape[0]
+    pad = mprops.com.new_zeros((1, 1)).expand(n_b, W_SIDE - SIDE_OFFS[-1])
     cols = [poses.rotation, poses.translation, poses.scale, vels.linear,
             vels.angular, mprops.inv_mass, mprops.inv_inertia.reshape(n_b, -1),
-            mprops.com]
+            mprops.com, pad]
     packed = torch.cat([x[:, None] if x.ndim == 1 else x for x in cols],
                        dim=1).to(torch.float32)
     assert packed.shape[1] == W_SIDE
@@ -236,8 +242,42 @@ def _build_torch(packed, contacts: Contacts, consts, meta, k_all: int,
         cfm_factor=consts[3], meta=meta, k_all=k_all)
 
 
-_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
-             + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3)
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+# csrc/build_fused.cu build_fused_launch: p_max, C, table, ids, the contact
+# fields with their row strides, the constants, field rows, bigT, stream
+_ARGTYPES = ([_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I] + [_F] * 4
+             + [_P, _P, _P])
+
+
+def _row_stride(t, name: str, inner: tuple) -> int:
+    """Row stride in floats of contact field ``t`` [C, *inner] read in
+    place: its innermost stride must be 1, a point's stride 3 (``inner`` =
+    (P, 3)), its pointer 4-byte aligned; raises otherwise (no copy)."""
+    want = (3, 1) if len(inner) == 2 else (1,)
+    for d, (size, stride) in enumerate(zip(inner, want), start=1):
+        if size > 1 and t.stride(d) != stride:
+            raise ValueError(f"build_fused kernel: {name} has stride "
+                             f"{t.stride(d)} on dim {d}; the kernel reads "
+                             f"it in place and needs {stride}")
+    if t.data_ptr() % 4:
+        raise ValueError(f"build_fused kernel: {name} is not 4-byte "
+                         "aligned")
+    return t.stride(0)
+
+
+def plan(p_max: int, c: int) -> tuple[int, int, int]:
+    """(block size, registers a thread, warps an SM holds of that block)
+    that kernel B9 takes for ``c`` constraints on the current device."""
+    from wgmath_tpu_torch.core import cuda_build
+
+    fn = cuda_build.load("build_fused").build_fused_plan
+    fn.argtypes = [_I, _I, _P]
+    fn.restype = _I
+    out = (ctypes.c_int * 3)()
+    err = fn(p_max, c, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"build_fused plan failed: error {err}")
+    return tuple(out)
 
 
 def _launch(packed, contacts: Contacts, consts, meta, k_all: int, p_max: int):
@@ -249,9 +289,11 @@ def _launch(packed, contacts: Contacts, consts, meta, k_all: int, p_max: int):
     if p_max not in (1, 4):
         raise ValueError(f"build_fused kernel: p_max={p_max} not "
                          "instantiated (1 or 4)")
-    # the kernel reads packed rows: the compacted contacts' float fields
-    # are column views of one gathered matrix, made contiguous here
-    ins = {}
+    if (packed.dtype != torch.float32 or packed.shape[1:] != (W_SIDE,)
+            or not packed.is_contiguous()
+            or packed.data_ptr() % 16):
+        raise ValueError(f"build_fused kernel: the body table must be a "
+                         f"contiguous 16-byte aligned f32 [N, {W_SIDE}]")
     for nm, t, dtype, shape in (
             ("body_a", contacts.body_a, torch.int64, (c,)),
             ("body_b", contacts.body_b, torch.int64, (c,)),
@@ -261,7 +303,13 @@ def _launch(packed, contacts: Contacts, consts, meta, k_all: int, p_max: int):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"build_fused kernel: {nm} must be a "
                              f"{dtype} {shape} tensor on {dev}")
-        ins[nm] = t.contiguous()
+        if dtype == torch.int64 and not t.is_contiguous():
+            raise ValueError(f"build_fused kernel: {nm} must be contiguous")
+    # the compacted contacts' float fields are column views of one
+    # gathered matrix: read in place, by row stride
+    ld_n = _row_stride(contacts.normal_a, "normal_a", (3,))
+    ld_p = _row_stride(contacts.points_a, "points_a", (p_max, 3))
+    ld_d = _row_stride(contacts.dist, "dist", (p_max,))
     rows = (ctypes.c_int * len(F32_SORT_FIELDS))(
         *[int(meta[f][0]) for f in F32_SORT_FIELDS])
     big_t = torch.empty((k_all, c), device=dev)
@@ -269,11 +317,11 @@ def _launch(packed, contacts: Contacts, consts, meta, k_all: int, p_max: int):
     fn = lib.build_fused_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(p_max, c, packed.shape[0], packed.data_ptr(),
-             ins["body_a"].data_ptr(), ins["body_b"].data_ptr(),
-             ins["normal_a"].data_ptr(), ins["points_a"].data_ptr(),
-             ins["dist"].data_ptr(), *[float(x) for x in consts], rows,
-             big_t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(p_max, c, packed.data_ptr(), contacts.body_a.data_ptr(),
+             contacts.body_b.data_ptr(), contacts.normal_a.data_ptr(), ld_n,
+             contacts.points_a.data_ptr(), ld_p, contacts.dist.data_ptr(),
+             ld_d, *[float(x) for x in consts], rows, big_t.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"build_fused kernel launch failed: error {err}")
     LAUNCHES += 1

@@ -23,11 +23,16 @@ Three kernels (``csrc/gs_fused.cu``), each beside its plain PyTorch version:
   scaled by the warmstart coefficient, the warmstart of every colour, then
   per colour the rhs rebuilt from the poses and the biased sweep;
 - :func:`fused_integrate` (B12, replaces the kernel of ``fused_integrate``):
-  the component-major pose update.
+  the component-major pose update. The step does not launch it: B12 reads
+  only B11's velocities, the poses and the COMs, so ``fused_sweep(...,
+  integrate=...)`` has B10's opening, which holds those velocities, do the
+  same lane arithmetic.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version. ``LAUNCHES_SWEEP``, ``LAUNCHES_SUBSTEP1`` and
-``LAUNCHES_INTEGRATE`` count the launches. B10 and B11 cut their work into
+``LAUNCHES_INTEGRATE`` count the launches (the last the standalone B12
+only); ``INTEGRATES_IN_SWEEP`` counts the B10 launches that carried an
+integrate. B10 and B11 cut their work into
 chunks taken from a ticket (:func:`fused_chunks`); a row waits for its
 bodies' previous writers (:func:`prev_writers` is the plain version of the
 kernels' lookup).
@@ -53,6 +58,7 @@ from wgmath_tpu_torch.dynamics.gs_math import (
 LAUNCHES_SWEEP = 0
 LAUNCHES_SUBSTEP1 = 0
 LAUNCHES_INTEGRATE = 0
+INTEGRATES_IN_SWEEP = 0
 
 ROWS = 8  # velocity / pose rows: 3 linear + 3 angular + 2 zero
 # the rows of the rhs-relinearization source block, in the kernel's order
@@ -557,6 +563,7 @@ _SWEEP_ARGTYPES = [_I, _I, _P, _I, _I, _I, _P,  # layout, column table
                    _P, _P, _P, _I, _P, _I, _P, _P,  # vt, impulses in / out
                    _P, _I, _P, _P, _F,  # winT, active, nump, cfm
                    _P, _I, _P, _I,  # n_rhsT, t_rhsT
+                   _P, _P, _P, _F,  # integrate: poses, COMs, new poses, dt
                    _P, _P, _P] + _SYNC_ARGTYPES  # idx, inv, counts
 _SUBSTEP1_ARGTYPES = [_I, _I, _P, _I, _I, _I, _P, _P,
                       _P, _P, _P, _I, _P, _I, _P, _P, _P,
@@ -569,13 +576,30 @@ _INTEGRATE_ARGTYPES = [_I, _P, _P, _P, _P, _F, _P]
 LAST_GRID = {"fused_sweep": 0, "fused_substep1": 0}
 
 
+def _integrate_operands(integrate, w_g: int, dev):
+    """(poses, COMs, new poses, dt) pointers and values of B10's carried
+    integrate: ``integrate`` = (poseP [8, Wg], comT [3, Wg], dt), or None
+    for null pointers."""
+    if integrate is None:
+        return None, (None, None, None, 0.0)
+    pose, com, dt = integrate
+    for nm, t, rows in (("poseP", pose, ROWS), ("comT", com, 3)):
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != (rows, w_g) or not t.is_contiguous()):
+            raise ValueError(f"fused_sweep kernel: integrate's {nm} must be "
+                             f"contiguous f32 [{rows}, {w_g}] on {dev}")
+    out = torch.empty_like(pose)
+    return out, (pose.data_ptr(), com.data_ptr(), out.data_ptr(), float(dt))
+
+
 def _launch_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT,
                   t_rhsT, idx, inv, counts, *, windows, rung0, p_max, s_len,
-                  meta, colour_by_colour: bool = False):
-    """Kernel B10 (``colour_by_colour``: the same kernel launched once a
-    colour and once for the opening, in ticket order and under one epoch,
-    for checking the order)."""
-    global LAUNCHES_SWEEP
+                  meta, integrate=None, colour_by_colour: bool = False):
+    """Kernel B10, carrying B12 in its opening when ``integrate`` is given
+    (``colour_by_colour``: the same kernel launched once a colour and once
+    for the opening, in ticket order and under one epoch, for checking the
+    order)."""
+    global LAUNCHES_SWEEP, INTEGRATES_IN_SWEEP
     from wgmath_tpu_torch.core import cuda_build
 
     tab, chunks, cols, k_load, ctot, w_g, (ld_n, ld_t, ld_w) = _check_common(
@@ -590,6 +614,7 @@ def _launch_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT,
     v_out = torch.empty_like(vt)
     n_out = torch.empty((p_max, ctot), device=dev)
     t_out = torch.empty((p_max * s_len, ctot), device=dev)
+    pose_out, integ = _integrate_operands(integrate, w_g, dev)
     lib = cuda_build.load("gs_fused")
     fn = lib.fused_sweep_launch
     fn.argtypes = _SWEEP_ARGTYPES
@@ -602,20 +627,38 @@ def _launch_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT,
                  t_imp.data_ptr(), ld_t, n_out.data_ptr(), t_out.data_ptr(),
                  winT.data_ptr(), ld_w, activeT.data_ptr(),
                  numpT.data_ptr(), float(cfm), n_rhsT.data_ptr(), ld_nr,
-                 t_rhsT.data_ptr(), ld_tr, idx.data_ptr(), inv.data_ptr(),
-                 counts.data_ptr(), ready, ticket, base, chunk0, nchunks,
-                 stream)
+                 t_rhsT.data_ptr(), ld_tr, *integ, idx.data_ptr(),
+                 inv.data_ptr(), counts.data_ptr(), ready, ticket, base,
+                 chunk0, nchunks, stream)
         if err != 0:
             raise RuntimeError(f"fused_sweep kernel launch failed: error "
                                f"{err}")
         LAUNCHES_SWEEP += 1
         LAST_GRID["fused_sweep"] = nchunks
-    return v_out, n_out, t_out
+        if pose_out is not None and \
+                chunk0 <= chunks.opening[0] < chunk0 + nchunks:
+            INTEGRATES_IN_SWEEP += 1
+    if pose_out is None:
+        return v_out, n_out, t_out
+    return v_out, n_out, t_out, pose_out
+
+
+def _fused_sweep_plain(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT,
+                       t_rhsT, idx, inv, counts, *, integrate=None, **kw):
+    """Plain version of B10 with its carried integrate:
+    :func:`_fused_sweep_torch`, then :func:`_cm_integrate` on the same
+    input velocities."""
+    out = _fused_sweep_torch(vt, n_imp, t_imp, winT, activeT, numpT, cfm,
+                             n_rhsT, t_rhsT, idx, inv, counts, **kw)
+    if integrate is None:
+        return out
+    pose, com, dt = integrate
+    return out + (_cm_integrate(pose, vt, com, float(dt)),)
 
 
 def fused_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT, t_rhsT,
                 idx, inv, counts, *, windows: tuple, rung0: int, p_max: int,
-                s_len: int, meta):
+                s_len: int, meta, integrate=None):
     """One full GS sweep over every colour window.
 
     ``vt`` [8, Wg] velocities; ``n_imp`` [P, Ctot] / ``t_imp`` [P*S, Ctot]
@@ -623,16 +666,21 @@ def fused_sweep(vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT, t_rhsT,
     row, trailing shape)); ``activeT`` / ``numpT`` [1, Ctot]; ``cfm`` a
     scalar; ``n_rhsT`` [P, Ctot] / ``t_rhsT`` [P*S, Ctot]; ``idx`` / ``inv``
     [C, Wg] int32; ``counts`` [C+2] class sizes (a colour with count 0 is
-    skipped). Returns the updated (vt, n_imp, t_imp). Kernel B10 on a CUDA
-    tensor, :func:`_fused_sweep_torch` on a CPU tensor."""
+    skipped). Returns the updated (vt, n_imp, t_imp).
+
+    ``integrate`` = (poseP [8, Wg], comT [3, Wg], dt): also the pose update
+    of :func:`fused_integrate` from the input ``vt``, appended to the
+    outputs as a new [8, Wg] tensor. Kernel B10, carrying B12's arithmetic
+    in its opening, on a CUDA tensor; :func:`_fused_sweep_torch` and
+    :func:`_cm_integrate` on a CPU tensor."""
     args = (vt, n_imp, t_imp, winT, activeT, numpT, cfm, n_rhsT, t_rhsT,
             idx, inv, counts)
     kw = dict(windows=tuple(windows), rung0=rung0, p_max=p_max, s_len=s_len,
-              meta=meta)
+              meta=meta, integrate=integrate)
     if vt.device.type == "cuda":
         return _launch_sweep(*args, **kw)
     if vt.device.type == "cpu":
-        return _fused_sweep_torch(*args, **kw)
+        return _fused_sweep_plain(*args, **kw)
     raise ValueError(f"fused_sweep: unsupported device {vt.device}")
 
 
@@ -756,7 +804,8 @@ def _launch_integrate(poseP, vt, comT, dt):
 def fused_integrate(poseP, vt, comT, dt):
     """Component-major pose update: ``poseP`` [8, L], ``vt`` [8, L],
     ``comT`` [3, L] → the new [8, L] poses. Kernel B12 on a CUDA tensor,
-    :func:`_cm_integrate` on a CPU tensor."""
+    :func:`_cm_integrate` on a CPU tensor. The fused step has
+    :func:`fused_sweep` carry it instead."""
     if poseP.device.type == "cuda":
         return _launch_integrate(poseP, vt, comT, dt)
     if poseP.device.type == "cpu":

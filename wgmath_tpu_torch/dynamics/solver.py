@@ -58,7 +58,6 @@ from wgmath_tpu_torch.dynamics.constraint import (
 )
 from wgmath_tpu_torch.dynamics.gs_fused import (
     build_fused_tables,
-    fused_integrate,
     fused_layout,
     fused_substep1,
     fused_sweep,
@@ -804,8 +803,9 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     of ``compact_contacts(static_windows=...)`` and their TRUE per-class
     counts ``fused_class_counts``) selects the fused solver: the fused
     constraint build (B9), then per substep the residue warmstart, one
-    :func:`~wgmath_tpu_torch.dynamics.gs_fused.fused_substep1`, one
-    ``fused_integrate`` and one unbiased ``fused_sweep``; ``fused_rung0``
+    :func:`~wgmath_tpu_torch.dynamics.gs_fused.fused_substep1` and one
+    unbiased ``fused_sweep`` carrying the pose update (``fused_integrate``'s
+    arithmetic, on the substep's velocities); ``fused_rung0``
     is the residue class's rung. ``chained`` is then ignored."""
     sub = params.substep().with_dim(3)
     n = bodies.num_bodies
@@ -1079,9 +1079,11 @@ def _solve_fused(bodies: Bodies, cons, big_t, big_meta, vels: Velocity, inc,
         vt, n_t, t_t, n_wo = fused_substep1(
             vt, n_t, t_t, win_t, src_t, pose_p, active_t, nump_t, idx, inv,
             counts, src_meta=src_meta, scalars=scalars, **kw)
-        pose_p = fused_integrate(pose_p, vt, com_t, sub.dt)
-        vt, n_t, t_t = fused_sweep(vt, n_t, t_t, win_t, active_t, nump_t,
-                                   1.0, n_wo, trwb_t, idx, inv, counts, **kw)
+        # the pose update reads the substep's velocities: B10's opening
+        # carries it
+        vt, n_t, t_t, pose_p = fused_sweep(
+            vt, n_t, t_t, win_t, active_t, nump_t, 1.0, n_wo, trwb_t, idx,
+            inv, counts, integrate=(pose_p, com_t, sub.dt), **kw)
     vels = Velocity(vt[0:3, :n].T, vt[3:6, :n].T)
     poses = Sim(pose_p[0:4, :n].T, pose_p[4:7, :n].T, pose_p[7, :n])
     cons = dataclasses.replace(
