@@ -148,12 +148,15 @@ def nvidia_smi_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def device_times_ms(fn, n: int = 25, warmup: int = 3) -> list[float]:
+def device_times_ms(fn, n: int = 25, warmup: int = 3,
+                    before=None) -> list[float]:
     """Device time of each of ``n`` calls of ``fn`` by CUDA events. Each
     call is queued behind a busy-wait kernel longer than the call's
     host-side enqueue, so host overhead between its launches does not
     count (one call at a time: a call of many small ops must not fill the
-    device's launch queue)."""
+    device's launch queue). ``before()``, where given, runs between the
+    busy-wait and the first event of each call, untimed (e.g. an L2
+    flush)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -165,6 +168,8 @@ def device_times_ms(fn, n: int = 25, warmup: int = 3) -> list[float]:
     for _ in range(n):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda._sleep(cycles)
+        if before is not None:
+            before()
         a.record()
         fn()
         b.record()
@@ -1383,6 +1388,9 @@ OP_ASSIGN_RTOL = 1e-6
 GEMM_PATH_SIZES = ((1024, 64), (4096, 8))  # n, chained iterations K
 GEMM_SPLIT_ITERS = 4
 GRAPH_N, GRAPH_ITERS = 2048, 16
+# device kernels an iteration of the graph path: B3, B7 (one launch), and
+# the add, rsqrt and multiply of the normalize
+GRAPH_KERNELS = 5
 REDUCE_N = GRAPH_N * GRAPH_N
 OP_ASSIGN_SHAPE = (2048, 2048)
 CHAIN_RTOL = 1e-3  # end of a chain against the plain chain, of max |value|
@@ -1584,12 +1592,37 @@ _LIBRARY_REDUCE = {"sum": torch.sum, "prod": torch.prod, "min": torch.amin,
                    "max": torch.amax, "sqnorm": lambda x: torch.dot(x, x)}
 
 
+# an L2 flush between launches: written by a library fill, well past the
+# card's 50 MB of L2
+L2_FLUSH_BYTES = 256 * 2 ** 20
+
+
 def reduce_kernel_phase(rng) -> dict:
+    """B7 against the plain version for each op at the graph path's length
+    and at 1,000,003: the result within REDUCE_TOL, two runs' bits, one
+    device kernel a call; device times with the input warm in L2 (as the
+    graph path reads it, just written by the product) and with L2 flushed
+    before each launch, beside the library call's and the one-launch floor
+    of the same harness (an empty kernel on the same grid)."""
     out = {}
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
     for n in (REDUCE_N, 1_000_003):
         # factors near 1 keep the product of n of them in range
         x = _cuda(rng.uniform(0.999, 1.001, size=n)
                   * rng.choice([-1.0, 1.0], size=n))
+        blocks = reduce_ops.grid(n, reduce_ops.max_blocks(x.get_device()))
+        floor_ms = _median_ms(lambda: reduce_ops.launch_empty(n))
+        # the first call on a stream makes its scratch (one more kernel)
+        reduce_ops.reduce(x, "sqnorm")
+        kernels = profile_window(lambda: reduce_ops.reduce(x, "sqnorm"), 4,
+                                 1)["kernels_per_step"]
+        print(f"reduce n={n}: grid {blocks} blocks of "
+              f"{reduce_ops.THREADS}; one-launch floor (empty kernel, same "
+              f"grid) {floor_ms * 1e3:.2f} us; {kernels:g} device kernels a "
+              "call")
+        check(kernels == 1, f"reduce n={n}: {kernels} device kernels a call "
+              "(expected 1)")
         for op in reduce_ops._OPS:
             got = reduce_ops.reduce(x, op, impl="cuda")
             again = reduce_ops.reduce(x, op, impl="cuda")
@@ -1601,14 +1634,20 @@ def reduce_kernel_phase(rng) -> dict:
                      else float(pre(x).abs().sum()))
             tol = REDUCE_TOL[op] * scale
             k_ms = _median_ms(lambda: reduce_ops.reduce(x, op))
+            cold_ms = statistics.median(device_times_ms(
+                lambda: reduce_ops.reduce(x, op), before=flush.zero_))
             p_ms = _median_ms(lambda: reduce_ops._reduce_torch(x, op))
             l_ms = _median_ms(lambda: _LIBRARY_REDUCE[op](x))
+            l_cold_ms = statistics.median(device_times_ms(
+                lambda: _LIBRARY_REDUCE[op](x), before=flush.zero_))
             b_ms, b_by = bound_ms(4 * n + 4, (2 if op == "sqnorm" else 1) * n)
             print(f"reduce n={n} {op:6s} kernel {float(got):.7g} plain "
                   f"{float(want):.7g} |d|={err:.3e} (limit {tol:.3e}) "
-                  f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us "
-                  f"library {l_ms * 1e3:.2f} us bound {b_ms * 1e3:.2f} us "
-                  f"by {b_by}")
+                  f"kernel {k_ms * 1e3:.2f} us (L2 flushed "
+                  f"{cold_ms * 1e3:.2f}) plain {p_ms * 1e3:.2f} us "
+                  f"library {l_ms * 1e3:.2f} us (L2 flushed "
+                  f"{l_cold_ms * 1e3:.2f}) bound {b_ms * 1e3:.2f} us by "
+                  f"{b_by}; floor {floor_ms * 1e3:.2f} us")
             check(np.isfinite(float(got)) and err <= tol,
                   f"reduce {op} n={n}: kernel {float(got)} vs plain "
                   f"{float(want)}")
@@ -1616,11 +1655,18 @@ def reduce_kernel_phase(rng) -> dict:
                   f"reduce {op} n={n}: two runs gave different bits")
             out[(n, op)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                             "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": l_ms}
+                            "library_ms": l_ms, "cold_ms": cold_ms,
+                            "library_cold_ms": l_cold_ms,
+                            "floor_ms": floor_ms, "grid": blocks,
+                            "kernels_per_call": kernels}
     head = dict(out[(REDUCE_N, "sqnorm")])
     head["work"] = (f"sqnorm of {REDUCE_N} f32 (path 2), input warm in L2 "
-                    "as after the product that wrote it")
-    head["by_op_us"] = {op: out[(REDUCE_N, op)]["ms"] * 1e3
+                    "as after the product that wrote it; cold_ms with L2 "
+                    "flushed before each launch")
+    # op -> {n: (us warm, us with L2 flushed)}
+    head["by_op_us"] = {op: {n: (out[(n, op)]["ms"] * 1e3,
+                                 out[(n, op)]["cold_ms"] * 1e3)
+                             for n in (REDUCE_N, 1_000_003)}
                         for op in reduce_ops._OPS}
     return head
 
@@ -1863,7 +1909,7 @@ def _plain_chain_check(name: str, start, plain_body, iters: int):
 
 def chain_path(name: str, body, start, iters: int, expect: dict, *,
                rate: tuple, check_end, profile_iters: int = 0,
-               runs: int = 2) -> dict:
+               runs: int = 2, kernels: int = 0) -> dict:
     """One bench path: ``iters`` chained iterations of ``body`` from
     ``start`` after a warm-up, ``runs`` times, each whole chain between two
     CUDA events. The counts are set to 0 just before the chains run and
@@ -1871,7 +1917,9 @@ def chain_path(name: str, body, start, iters: int, expect: dict, *,
     must show (a kernel not named there must show none), and no host sync
     is allowed. ``rate`` is (unit, work of one iteration in that unit per
     second); ``check_end`` holds the chain's end value and returns its
-    metrics."""
+    metrics. ``kernels``, where given, is the most device kernels an
+    iteration the profiled window may show (the profiler can lose a
+    kernel's record, never add one)."""
     c = start
     for _ in range(2):
         c = body(c)
@@ -1913,10 +1961,14 @@ def chain_path(name: str, body, start, iters: int, expect: dict, *,
         def one():
             box[0] = body(box[0])
 
-        prof = profile_window(one, profile_iters)
+        prof = profile_window(one, profile_iters,
+                              max(kernels, sum(expect.values())))
         # the profiler stretches the host side: the busy share of the
         # timed, unprofiled chain is kernel time over that chain's time
         busy = prof["device_ms_per_step"] / statistics.median(times)
+        check(not kernels or prof["kernels_per_step"] <= kernels,
+              f"{name}: {prof['kernels_per_step']} device kernels an "
+              f"iteration, expected {kernels}")
         out.update(device_busy_share=busy,
                    kernels_per_iteration=prof["kernels_per_step"],
                    device_ms_per_iteration=prof["device_ms_per_step"],
@@ -1996,7 +2048,10 @@ def linalg_path_phase() -> dict:
     paths["graph2048"] = chain_path(
         name, graph, a, GRAPH_ITERS, {"gemm": 1, "reduce": 1},
         rate=("TFLOP/s", 2 * n ** 3 / 1e12), check_end=graph_end,
-        profile_iters=8)
+        profile_iters=8, kernels=GRAPH_KERNELS)
+    print(f"path {name}: {paths['graph2048']['kernels_per_iteration']:g} "
+          "device kernels an iteration (B3, B7 and the normalize's three "
+          "elementwise ops)")
 
     # entry points off those paths: op_assign_kernel, five variants and one
     # redirected function
@@ -2612,34 +2667,52 @@ def path_phase() -> dict:
     return runs
 
 
-def profile_window(run_once, frames: int = 3) -> dict:
+# the spin kernels that bracket a profiled window: ~1 us each
+PROFILE_SENTINEL_CYCLES = 2000
+
+
+def profile_window(run_once, frames: int = 3,
+                   min_kernels: float = 0.0) -> dict:
     """Device time by kernel and host time by operator over a short
     steady window of ``frames`` calls of ``run_once`` (informational: the
-    checked numbers come from the phases above)."""
+    checked numbers come from the phases above). ``min_kernels``: the
+    device kernels a call launches at the least (the port's launches the
+    wrappers count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    # A window in which the profiler reports no device event at all is
-    # taken again, up to three times: on one H100 host it dropped every
-    # kernel of a window of a few short kernels (the kernels ran; their
-    # launches were counted and their result checked). 2 ms of host idle
-    # at each end keep the kernels off the window's edges.
+    # A window in which the profiler reports no device event at all, or
+    # fewer kernels a call than ``min_kernels``, is taken again, up to
+    # three times, and the take with the most kernels is kept: on H100
+    # hosts it dropped every kernel of a window of a few short kernels, and
+    # in some processes one kernel record in every take (7 of 8, 39 of 40;
+    # the kernels ran, their launches were counted and their result
+    # checked); it never adds one. So each take is also bracketed by two
+    # short spin kernels (``torch.cuda._sleep``), which are not counted,
+    # and 2 ms of host idle at each end keep the kernels off its edges.
+    best = None
     for _ in range(3):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the profiler's one-cycle notice
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 time.sleep(0.002)
+                torch.cuda._sleep(PROFILE_SENTINEL_CYCLES)
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for _ in range(frames):
                     run_once()
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0)
+                torch.cuda._sleep(PROFILE_SENTINEL_CYCLES)
+                torch.cuda.synchronize()
                 time.sleep(0.002)
             averages = prof.key_averages()
         rows, host = [], []
         for e in averages:
+            if "spin_kernel" in e.key:  # the brackets
+                continue
             if getattr(e, "device_type", None) == DeviceType.CUDA:
                 # kernels only: an operator's row repeats its kernels' time
                 dev_us = getattr(e, "self_device_time_total",
@@ -2648,8 +2721,12 @@ def profile_window(run_once, frames: int = 3) -> dict:
                     rows.append((dev_us, e.count, e.key))
             elif e.key.startswith("aten::"):
                 host.append((e.self_cpu_time_total, e.count, e.key))
-        if rows:
+        count = sum(r[1] for r in rows)
+        if best is None or count > best[0]:
+            best = count, rows, host, wall_ms
+        if rows and count >= min_kernels * frames:
             break
+    _, rows, host, wall_ms = best
     rows.sort(reverse=True)
     host.sort(reverse=True)
     total = sum(r[0] for r in rows)

@@ -849,10 +849,37 @@ def test_gemm_split_kernel_matches_plain_on_card(m, k, n, n_passes):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _device_kernels(fn) -> list[str]:
+    """Names of the device kernels of one call of ``fn``, by the profiler
+    with host and device activities, as chip_smoke.profile_window takes
+    them (windows of device activity alone came back empty on the card in
+    some processes). A window in which the profiler reports no device
+    event at all is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return kernels
+    return []
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4_194_304, 1_000_003, 1027, 1])
+@pytest.mark.parametrize("n", [4_194_304, 4_194_305, 1_000_003, 1027, 1])
 @pytest.mark.parametrize("op", ["sum", "prod", "min", "max", "sqnorm"])
 def test_reduce_kernel_matches_plain_and_repeats_bitwise_on_card(op, n):
+    """The plain version within REDUCE_TOL, the same bits every run and
+    the CPU emulation's bits (the kernel's order of folds,
+    ``reduce_plan``); a view that starts off the 16-byte grid takes scalar
+    loads and folds in the same order."""
     _need_card()
     rng = np.random.default_rng(n)
     x = torch.from_numpy((rng.uniform(0.999, 1.001, size=n)
@@ -870,10 +897,26 @@ def test_reduce_kernel_matches_plain_and_repeats_bitwise_on_card(op, n):
     scale = (abs(float(want)) if op in ("prod", "min", "max")
              else float(pre(x).abs().sum()))
     assert abs(float(got) - float(want)) <= REDUCE_TOL[op] * scale
+    blocks = reduce_ops.grid(n, reduce_ops.max_blocks(x.get_device()))
+    assert torch.equal(got.cpu(),
+                       reduce_ops._reduce_emulated(x.cpu(), op, blocks))
+    if n > 4:
+        view = x[1:]
+        assert view.data_ptr() % 16
+        got_view = reduce_ops.reduce(view, op, impl="cuda")
+        assert torch.equal(got_view, reduce_ops.reduce(view.clone(), op))
+        blocks = reduce_ops.grid(n - 1, reduce_ops.max_blocks(
+            x.get_device()))
+        assert torch.equal(got_view.cpu(), reduce_ops._reduce_emulated(
+            view.cpu(), op, blocks))
 
 
 @pytest.mark.cuda
 def test_reduce_kernel_nan_and_unaligned_views_on_card():
+    """NaN on both routes, unaligned views, 20 calls back to back that
+    alternate between one block and the ticket (the ticket is back at 0
+    after each), and a call that is one device kernel and allocates only
+    its output."""
     _need_card()
     x = _normal(9, 10_001)
     # a view that starts off the 16-byte grid takes the scalar loads
@@ -883,6 +926,47 @@ def test_reduce_kernel_nan_and_unaligned_views_on_card():
     x[77] = float("nan")
     assert torch.isnan(reduce_ops.reduce(x, "min", impl="cuda"))
     assert torch.isnan(reduce_ops.reduce(x, "max", impl="cuda"))
+    # NaN in the first block, the last block, the short last group and an
+    # unaligned view of the ticket route; and in a one-block call
+    dev = x.get_device()
+    for n, at in ((4_194_305, 5), (4_194_305, 4_000_000),
+                  (4_194_305, 4_194_304), (100_003, 99_999), (1027, 1026)):
+        y = _normal(at, n)
+        y[at] = float("nan")
+        assert (reduce_ops.grid(n, reduce_ops.max_blocks(dev)) > 1) == (
+            n > reduce_ops.MIN_SHARE)
+        for v in (y, y[1:]):
+            assert torch.isnan(reduce_ops.reduce(v, "min", impl="cuda"))
+            assert torch.isnan(reduce_ops.reduce(v, "max", impl="cuda"))
+    # back to back, no sync: one block (1,027) and the ticket (100,003 and
+    # 2^22 + 1), each op
+    xs = [_normal(20 + i, n) for i, n in enumerate((1027, 100_003,
+                                                    4_194_305))]
+    assert [reduce_ops.grid(v.numel(), reduce_ops.max_blocks(dev)) > 1
+            for v in xs] == [False, True, True]
+    for op in ("sum", "sqnorm", "max"):
+        first = [reduce_ops.reduce(v, op) for v in xs]
+        launches = reduce_ops.LAUNCHES_REDUCE
+        runs = [reduce_ops.reduce(xs[i % 2 + (i % 4 == 3)], op)
+                for i in range(20)]
+        torch.cuda.synchronize()
+        assert reduce_ops.LAUNCHES_REDUCE == launches + 20
+        for i, got in enumerate(runs):
+            assert torch.equal(got, first[i % 2 + (i % 4 == 3)]), (op, i)
+    # a repeated call allocates nothing beyond its output
+    for v in xs:
+        held = reduce_ops.reduce(v, "sum")  # its block is not reused below
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        out = reduce_ops.reduce(v, "sum")
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        # the caching allocator rounds a block up to 512 bytes
+        assert 0 <= grown - out.untyped_storage().nbytes() < 512, grown
+        assert torch.equal(out, held)
+        del held, out  # freed blocks would offset the next count
+        kernels = _device_kernels(lambda: reduce_ops.reduce(v, "sum"))
+        assert len(kernels) == 1 and "reduce" in kernels[0], kernels
 
 
 @pytest.mark.cuda
@@ -1014,10 +1098,13 @@ def test_gemv_is_one_launch_and_allocates_only_its_output_on_card(
     gemv_ops.gemv(a, x, transpose_a=transpose_a)
     torch.cuda.synchronize()
     # a window in which the profiler reports no device event at all is
-    # taken again, up to three times (as chip_smoke.profile_window does)
+    # taken again, up to three times, with host and device activities (as
+    # chip_smoke.profile_window does: windows of device activity alone came
+    # back empty in some processes)
     for _ in range(3):
         base = torch.cuda.memory_allocated()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             time.sleep(0.002)
             y = gemv_ops.gemv(a, x, transpose_a=transpose_a)
             torch.cuda.synchronize()
