@@ -74,7 +74,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from wgmath_tpu_torch.convert import state_from_arrays
+from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
 from wgmath_tpu_torch.core import cuda_build, dispatch
 from wgmath_tpu_torch.dynamics import body as body_ops
 from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math, solver
@@ -95,6 +95,7 @@ gemm_ops = importlib.import_module("wgmath_tpu_torch.ops.gemm")
 gemv_ops = importlib.import_module("wgmath_tpu_torch.ops.gemv")
 reduce_ops = importlib.import_module("wgmath_tpu_torch.ops.reduce")
 elementwise_ops = importlib.import_module("wgmath_tpu_torch.ops.elementwise")
+narrow_mod = importlib.import_module("wgmath_tpu_torch.queries.narrow_phase")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
@@ -2422,13 +2423,17 @@ def _pit_counts() -> dict:
 
 
 def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
-             refs: dict | None, expect: tuple) -> dict:
-    """One configuration from the settled state: ``WARM_FRAMES`` checked
-    frames (the first ones held against the JAX reference frames in
-    ``refs`` where there are any), then ``TIMED_FRAMES`` timed frames.
-    ``expect`` names the kernel counters this path must move; every other
-    counter must stay at 0. The counts are set to 0 just before the path
-    runs and read just after."""
+             refs: dict | None, expect: tuple, *, warm: int = WARM_FRAMES,
+             timed: int = TIMED_FRAMES, envelopes=None,
+             timed_trail: bool = False) -> dict:
+    """One configuration from a state: ``warm`` checked frames (the first
+    ones held against the JAX reference frames in ``refs`` where there are
+    any), then ``timed`` timed frames. ``expect`` names the kernel counters
+    this path must move; every other counter must stay at 0. The counts
+    are set to 0 just before the path runs and read just after.
+    ``envelopes(state)`` gives the end state's kinetic-energy proxy and
+    deepest penetration (default: the pit's). ``timed_trail`` also keeps
+    the translations after each timed frame (references only, no sync)."""
     state = state_from_arrays(arrays, device="cuda")
     n_ref = 0 if refs is None else sum(
         1 for k in refs if k.startswith("ref.")
@@ -2439,7 +2444,7 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
         setattr(mod, attr, 0)
     dispatch.HOST_SYNCS = 0
     trail = []  # translations after each warm frame
-    for f in range(WARM_FRAMES):
+    for f in range(warm):
         t0 = time.perf_counter()
         state, cfg = step_checked(state, params, cfg)
         torch.cuda.synchronize()
@@ -2474,9 +2479,11 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
     warm_syncs = dispatch.HOST_SYNCS
     t0 = time.perf_counter()
     start.record()
-    for _ in range(TIMED_FRAMES):
+    for _ in range(timed):
         state, cfg = step_checked(state, params, cfg)
         counts.append(state.pair_count)
+        if timed_trail:
+            trail.append(state.bodies.poses.translation)
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
@@ -2489,20 +2496,20 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
               f"(expected {'some' if kernel in expect else 'none'})")
     counts = [c.cpu().numpy() for c in counts]
     mc = cfg.max_colors
-    ke, pen = _envelopes(state)
-    ms = start.elapsed_time(end) / TIMED_FRAMES
+    ke, pen = (envelopes or _envelopes)(state)
+    ms = start.elapsed_time(end) / timed
     metrics = {
-        "frames_timed": TIMED_FRAMES, "ms_per_step": ms,
+        "frames_timed": timed, "ms_per_step": ms,
         "steps_per_s": 1e3 / ms,
-        "host_ms_per_step": 1e3 * host_s / TIMED_FRAMES,
+        "host_ms_per_step": 1e3 * host_s / timed,
         "pairs": int(counts[-1][0]), "contacts": int(counts[-1][1]),
         "colours_in_use": max(int(np.count_nonzero(c[9:9 + mc]))
                               for c in counts),
         "bp_path_mix": {nm: sum(int(c[3]) == i for c in counts)
                         for i, nm in enumerate(("hit", "repair", "full"))},
-        "host_syncs_per_step": (syncs - warm_syncs) / TIMED_FRAMES,
+        "host_syncs_per_step": (syncs - warm_syncs) / timed,
         "launches": launches,
-        **{f"{k}_launches_per_step": (n - warm_launches[k]) / TIMED_FRAMES
+        **{f"{k}_launches_per_step": (n - warm_launches[k]) / timed
            for k, n in launches.items()},
         "kinetic_energy": ke, "max_penetration": pen,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2512,22 +2519,22 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
         f"{k} {metrics[k + '_launches_per_step']:.2f}" for k in launches
         if launches[k])
     print(f"config {name}: {ms:.2f} ms/step ({1e3 / ms:.2f} steps/s) over "
-          f"{TIMED_FRAMES} frames by CUDA events; launches/step: {per_step}; "
+          f"{timed} frames by CUDA events; launches/step: {per_step}; "
           f"{metrics['host_syncs_per_step']:.2f} host syncs/step; KE "
           f"{ke:.4f}, max penetration {pen:.5f}")
     if "build_fused" in expect:
         # one B9 launch and, per substep, one B11 and one B10 carrying B12
         # per step() call (a regrow re-runs the step); no standalone B12
-        timed = {k: launches[k] - warm_launches[k] for k in FUSED_KERNELS}
+        timed_n = {k: launches[k] - warm_launches[k] for k in FUSED_KERNELS}
         subs = params.num_solver_iterations
-        check(all(timed[k] == subs * timed["build_fused"]
+        check(all(timed_n[k] == subs * timed_n["build_fused"]
                   for k in FUSED_KERNELS[1:])
-              and timed["build_fused"] >= TIMED_FRAMES
+              and timed_n["build_fused"] >= timed
               and launches["fused_integrate"] == 0,
-              f"{name}: fused launches {timed} are not one build and "
+              f"{name}: fused launches {timed_n} are not one build and "
               f"{subs} of B11, B10 and B10 carrying B12 per step, or a "
               "standalone B12 was launched")
-        metrics["regrow_frames"] = timed["build_fused"] - TIMED_FRAMES
+        metrics["regrow_frames"] = timed_n["build_fused"] - timed
     return {"metrics": metrics, "warmed": warmed, "end": (state, cfg),
             "trail": trail}
 
@@ -2665,6 +2672,346 @@ def path_phase() -> dict:
             for name, cfg, refs, expect in plan}
     runs["gates"] = gates(runs, params)
     return runs
+
+
+# ---------------------------------------------------------------------------
+# the box scenes: cuboid-cuboid SAT manifolds, 4-point constraints through
+# B2 (ladder) and B9-B11 (fused)
+# ---------------------------------------------------------------------------
+
+NPZ_BOXES = os.path.join(ROOT, "artifacts", "boxes_small.npz")
+NPZ_PYRAMID = os.path.join(ROOT, "artifacts", "pyramid20.npz")
+REF_SCENE = "pyramid20"  # the scene of NPZ_PYRAMID
+BOX_LEVELS = 50  # 42,925 cuboids and the ground
+# the pyramid the physical checks hold: 20 levels, the README's pyramid3
+CHECK_LEVELS = 20
+BOX_WARM_FRAMES = 15
+BOX_TIMED_FRAMES = 20
+# records of artifacts/pyramid43k.npz (the JAX package's 50-level run):
+# record r holds the positions after 1 + 10 (r - 1) steps
+NPZ_PYRAMID43K = os.path.join(ROOT, "artifacts", "pyramid43k.npz")
+RECORD_STEPS = (1, 11, 21, 31)
+# path -> the configuration of ``builders.box_configs`` and its kernels
+BOX_PATHS = {"box_ladder": ("ladder", ("gs_math_block",)),
+             "box_fused": ("fused", FUSED_KERNELS)}
+# the physical checks: level 0 rests on the ground (centres at y = 0.5),
+# no box rises; the fused pile's envelope within the ladder's
+LEVEL0_Y, LEVEL0_TOL, RISE_TOL = 0.5, 1e-2, 1e-2
+# pyramid(50) falls in on itself under this solver, in the port as in the
+# JAX package's own 50-level recording (ROADMAP C7): level 0 sinks ~0.02 m
+# and the upper levels pass 1 m into each other by frame 35, whatever
+# gs_cmax; so its level-0 and envelope figures are recorded, and the
+# physical checks are held on pyramid(CHECK_LEVELS), which recovers
+
+
+def box_arrays(path: str, prefix: str) -> dict:
+    """The entries of an exported box file under ``prefix``, the prefix
+    cut off."""
+    with np.load(path) as z:
+        return {k[len(prefix):]: z[k] for k in z.files
+                if k.startswith(prefix)}
+
+
+def box_state(scene: str, name: str, device):
+    """A scene of ``boxes_small.npz`` as the JAX package warmed it under
+    configuration ``name``: (state on ``device``, configuration)."""
+    z = box_arrays(NPZ_BOXES, f"{scene}.{name}.")
+    return (state_from_arrays(box_arrays(NPZ_BOXES, f"{scene}.{name}.state."),
+                              device=device),
+            PipelineConfig.from_dict(json.loads(str(z["config_json"]))))
+
+
+def box_sweeps(device, count: int = 2) -> list:
+    """The first ``count`` sweeps (B2, P = 4) of the first frame of the
+    warmed ``pyramid(6)`` under the ladder."""
+    state, cfg = box_state("pyramid6", "ladder", device)
+    return record_sweeps(lambda: step_checked(state, SimParams(), cfg),
+                         count)
+
+
+def box_fused_calls(device) -> list:
+    """The first substep's B11 and B10 calls (P = 4) of the first frame of
+    the warmed ``pyramid(6)`` under ``fused``."""
+    state, cfg = box_state("pyramid6", "fused", device)
+    return record_fused(lambda: step_checked(state, SimParams(), cfg))
+
+
+def box_build_call(device):
+    """The first B9 call (P = 4) of the first frame of the warmed
+    ``pyramid(6)`` under ``fused``."""
+    state, cfg = box_state("pyramid6", "fused", device)
+    return record_fused(lambda: step_checked(state, SimParams(), cfg), 1,
+                        ("build_constraints_fused",))[0]
+
+
+def box_envelopes(state) -> tuple[float, float]:
+    """Kinetic-energy proxy (sum |v|^2; the boxes share one mass) and the
+    deepest penetration of the end state's contact manifolds (the narrow
+    phase over the cached pair list)."""
+    vel = state.bodies.vels.linear
+    ke = float((vel * vel).sum())
+    c, _ = narrow_mod.narrow_phase(state.bodies.poses, state.shapes,
+                                   state.bp_pairs,
+                                   SimParams().prediction_distance, p_max=4)
+    slot = torch.arange(4, device=c.dist.device)
+    live = c.valid[:, None] & (slot[None, :] < c.num_points[:, None])
+    pen = float(torch.where(live, -c.dist, torch.zeros_like(c.dist)).max())
+    return ke, max(pen, 0.0)
+
+
+def box_reference_phase(params) -> dict:
+    """``pyramid(20)`` from the JAX package's warmed states, three frames
+    of each configuration against the JAX frames in ``pyramid20.npz``."""
+    out = {}
+    for name in ("ladder", "fused"):
+        refs = box_arrays(NPZ_PYRAMID, f"{REF_SCENE}.{name}.")
+        state = state_from_arrays(box_arrays(NPZ_PYRAMID,
+                                             f"{REF_SCENE}.{name}.state."),
+                                  device="cuda")
+        cfg = PipelineConfig.from_dict(json.loads(str(refs["config_json"])))
+        errs = []
+        for f in range(len(TRANSLATION_LIMITS)):
+            state, cfg = step_checked(state, params, cfg)
+            check(_finite(state), f"{REF_SCENE} {name} frame {f}: non-finite")
+            pc = state.pair_count.cpu().numpy()
+            ref_pc = refs[f"ref.{f}.pair_count"]
+            d_tr = float(np.abs(state.bodies.poses.translation.cpu().numpy()
+                                - refs[f"ref.{f}.translation"]).max())
+            d_v = float(np.abs(state.bodies.vels.linear.cpu().numpy()
+                               - refs[f"ref.{f}.linear"]).max())
+            rel = [abs(int(pc[i]) - int(ref_pc[i]))
+                   / max(abs(int(ref_pc[i])), 1) for i in (0, 1)]
+            print(f"{REF_SCENE} {name} reference frame {f}: pairs {pc[0]} (ref "
+                  f"{ref_pc[0]}) contacts {pc[1]} (ref {ref_pc[1]}) cuboid "
+                  f"pairs {pc[6]} (ref {ref_pc[6]}) max|dx| {d_tr:.3e} "
+                  f"(limit {TRANSLATION_LIMITS[f]:.0e}) max|dv| {d_v:.3e}")
+            check(max(rel) <= COUNT_REL_LIMIT,
+                  f"{REF_SCENE} {name} frame {f}: pair/contact counts off by "
+                  f"{max(rel):.2e} (limit {COUNT_REL_LIMIT})")
+            check(d_tr <= TRANSLATION_LIMITS[f],
+                  f"{REF_SCENE} {name} frame {f}: translations off by "
+                  f"{d_tr:.3e}")
+            errs.append({"max_dx": d_tr, "max_dv": d_v,
+                         "pairs": int(pc[0]), "contacts": int(pc[1])})
+        out[name] = errs
+    return out
+
+
+def box_kernel_checks(runs: dict, params, summaries: dict) -> None:
+    """B2, B9, B11 and B10 carrying B12 at P = 4 on the first frame after
+    the warm frames of ``pyramid(50)``, recorded from ``step_checked``:
+    B2's two sweeps of substep 1 and B11 / B10 one launch each against the
+    same kernel launched rung by rung or colour by colour and their
+    repeats (bit for bit) and against the plain versions; B9 against its
+    plain version and its contiguous copies. Adds each kernel's numbers
+    to its summary under ``pyramid50_*``."""
+    state, cfg = runs["box_ladder"]["warmed"]
+    calls = record_sweeps(lambda: step_checked(state, params, cfg), 2)
+    check(all(c.kw["p_max"] == 4 for c in calls),
+          "pyramid50 ladder: the sweeps are not 4 points wide")
+    cases = [_sweep_case("gs_math_block", f"pyramid50 ladder sweep {k + 1}",
+                         call, True) for k, call in enumerate(calls)]
+    row = summaries["gs_math_block"]
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [c["max_abs_err"] for c in cases])
+    row.update(pyramid50_ms=sum(c["ms"] for c in cases),
+               pyramid50_plain_ms=sum(c["plain_ms"] for c in cases),
+               pyramid50_rows=cases[0]["rows"],
+               pyramid50_rungs=cases[0]["rungs"])
+    state, cfg = runs["box_fused"]["warmed"]
+
+    def run():
+        step_checked(state, params, cfg)
+
+    build = record_fused(run, 1, ("build_constraints_fused",))[0]
+    poses, vels, mprops, contacts, bparams = build.args
+    z = dict(p_max=contacts.points_a.shape[1], poses=poses, vels=vels,
+             mprops=mprops, contacts=contacts, ctot=contacts.capacity,
+             n=poses.translation.shape[0])
+    check(z["p_max"] == 4, "pyramid50 fused: the build is not 4 points wide")
+    check(b9_from_copies(b9_args(z, bparams)),
+          "build_fused pyramid50: strided contact fields and contiguous "
+          "copies give different bits")
+    b9, _ = _b9_case(z, f"pyramid50 C={z['ctot']} P=4", True, bparams)
+    row = summaries["build_fused"]
+    row["max_abs_err"] = max(row["max_abs_err"], b9["max_abs_err"])
+    row.update(pyramid50_ms=b9["ms"], pyramid50_plain_ms=b9["plain_ms"],
+               pyramid50_C=z["ctot"])
+    for call in record_fused(run):
+        check((call.name == "fused_sweep") == ("integrate" in call.kw),
+              f"{call.name} pyramid50: the step's B10 does not carry B12")
+        check(call.kw["p_max"] == 4, f"{call.name} pyramid50: not P = 4")
+        got = fused_bits(call, "pyramid50")
+        err, ratio = _fused_check(call.name, "pyramid50", got,
+                                  run_fused(call, "plain"), RTOL, ATOL)
+        row = summaries[call.name]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["pyramid50_ms"] = _median_ms(lambda: run_fused(call, "kernel"))
+        print(f"{call.name} pyramid50 max|d|={err:.3e} tol-ratio "
+              f"{ratio:.3f}; grid {gs_fused.LAST_GRID[call.name]} blocks; "
+              f"= colour by colour bit for bit, {FUSED_REPEATS} repeats bit "
+              f"for bit; kernel {row['pyramid50_ms'] * 1e3:.2f} us")
+
+
+def _physics(tr, y0, levels: int) -> dict:
+    """Level 0's largest distance from y = 0.5, the highest rise over the
+    start, and the range of the drops."""
+    drop = y0[1:] - tr[1:, 1]
+    return {"level0_max_off": float((tr[1:1 + levels ** 2, 1]
+                                     - LEVEL0_Y).abs().max()),
+            "max_rise": float((tr[:, 1] - y0).max()),
+            "drop_min": float(drop.min()), "drop_max": float(drop.max()),
+            "drop_median": float(drop.median())}
+
+
+def _print_physics(label: str, m: dict) -> None:
+    print(f"{label}: level 0 within {m['level0_max_off']:.3e} m of y = "
+          f"{LEVEL0_Y} (limit {LEVEL0_TOL}); highest rise "
+          f"{m['max_rise']:.3e} m (limit {RISE_TOL}); boxes "
+          f"{m['drop_min']:.4f}..{m['drop_max']:.4f} m below their start, "
+          f"median {m['drop_median']:.4f}")
+
+
+def box_physics_phase(params) -> dict:
+    """``pyramid(CHECK_LEVELS)`` from its first state under ``ladder`` and
+    ``fused`` for as many frames as the 50-level paths run: level 0 stays
+    within ``LEVEL0_TOL`` of y = 0.5, no box rises more than ``RISE_TOL``,
+    the fused pile's deepest penetration within the ladder's plus 5e-3 and
+    its kinetic-energy proxy within twice the ladder's plus 0.1."""
+    from wgmath_tpu_torch.scenes.builders import box_configs, pyramid
+
+    out, env = {}, {}
+    for name in ("ladder", "fused"):
+        state = pyramid(CHECK_LEVELS, device="cuda")
+        y0 = state.bodies.poses.translation[:, 1].clone()
+        n = int(y0.shape[0])
+        cfg = PipelineConfig(**box_configs(n)[name])
+        for _ in range(BOX_WARM_FRAMES + BOX_TIMED_FRAMES):
+            state, cfg = step_checked(state, params, cfg)
+        check(_finite(state), f"pyramid{CHECK_LEVELS} {name}: non-finite")
+        m = _physics(state.bodies.poses.translation, y0, CHECK_LEVELS)
+        env[name] = box_envelopes(state)
+        m.update(kinetic_energy=env[name][0], max_penetration=env[name][1])
+        _print_physics(f"pyramid{CHECK_LEVELS} {name} after "
+                       f"{BOX_WARM_FRAMES + BOX_TIMED_FRAMES} frames", m)
+        check(m["level0_max_off"] <= LEVEL0_TOL,
+              f"pyramid{CHECK_LEVELS} {name}: level 0 left the ground")
+        check(m["max_rise"] <= RISE_TOL,
+              f"pyramid{CHECK_LEVELS} {name}: a box rose {m['max_rise']:.3e}")
+        out[name] = m
+    (ke_l, pen_l), (ke_f, pen_f) = env["ladder"], env["fused"]
+    print(f"gate pyramid{CHECK_LEVELS} fused envelopes: KE {ke_f:.4f} vs "
+          f"ladder {ke_l:.4f}, max penetration {pen_f:.5f} vs {pen_l:.5f}")
+    check(pen_f <= pen_l + ENVELOPE_PEN_SLACK
+          and ke_f <= ENVELOPE_KE_FACTOR * ke_l + ENVELOPE_KE_SLACK,
+          f"pyramid{CHECK_LEVELS} fused envelope exceeds the ladder's")
+    return out
+
+
+def record_drops(trail: list, y0) -> dict:
+    """The dynamic bodies' median and largest drop after each of
+    ``RECORD_STEPS`` steps of a run (``trail``: translations after each
+    frame), beside the JAX package's 50-level recording's."""
+    with np.load(NPZ_PYRAMID43K) as z:
+        pos, dyn = z["positions"], z["dynamic"].astype(bool)
+    out = {}
+    for r, steps in enumerate(RECORD_STEPS, start=1):
+        if steps > len(trail):
+            break
+        drop = (y0 - trail[steps - 1][:, 1])[torch.from_numpy(dyn).cuda()]
+        jax_drop = pos[0, dyn, 1] - pos[r, dyn, 1]
+        out[steps] = {"median": float(drop.median()),
+                      "max": float(drop.max()),
+                      "jax_median": float(np.median(jax_drop)),
+                      "jax_max": float(jax_drop.max())}
+    return out
+
+
+def box_phase(params) -> dict:
+    """The box scenes: ``pyramid(20)`` against the JAX frames, the physical
+    checks on ``pyramid(CHECK_LEVELS)``, then ``pyramid(50)`` from its
+    first state under ``ladder`` and ``fused`` (``BOX_WARM_FRAMES`` warm
+    frames, ``BOX_TIMED_FRAMES`` timed): finite, no box rising, its level
+    0 and envelopes recorded, and its drops beside the JAX package's
+    50-level recording (recorded). Returns path name -> run, plus
+    ``jax_frames`` and ``box_checks``."""
+    runs = {"jax_frames": box_reference_phase(params)}
+    checks = {f"pyramid{CHECK_LEVELS}": box_physics_phase(params)}
+    from wgmath_tpu_torch.scenes.builders import box_configs, pyramid
+
+    state0 = pyramid(BOX_LEVELS, device="cpu")
+    arrays = state_to_arrays(state0)
+    y0 = state0.bodies.poses.translation[:, 1].cuda()
+    n = int(state0.bodies.poses.translation.shape[0])
+    for path, (name, expect) in BOX_PATHS.items():
+        cfg = PipelineConfig(**box_configs(n)[name])
+        runs[path] = run_path(path, arrays, cfg, params, None, expect,
+                              warm=BOX_WARM_FRAMES, timed=BOX_TIMED_FRAMES,
+                              envelopes=box_envelopes, timed_trail=True)
+        m = _physics(runs[path]["end"][0].bodies.poses.translation, y0,
+                     BOX_LEVELS)
+        m["drops_beside_jax_43k"] = record_drops(runs[path]["trail"], y0)
+        _print_physics(f"{path} after {BOX_WARM_FRAMES + BOX_TIMED_FRAMES} "
+                       "frames (recorded)", m)
+        for steps, d in m["drops_beside_jax_43k"].items():
+            print(f"{path} after {steps} steps: drop median {d['median']:.6f}"
+                  f" max {d['max']:.6f} m; the JAX package's 50-level "
+                  f"recording: median {d['jax_median']:.6f} max "
+                  f"{d['jax_max']:.6f}")
+        check(m["max_rise"] <= RISE_TOL, f"{path}: a box rose "
+              f"{m['max_rise']:.3e} m")
+        checks[path] = m
+    m_l, m_f = runs["box_ladder"]["metrics"], runs["box_fused"]["metrics"]
+    checks["envelopes"] = {
+        "fused": {"ke": m_f["kinetic_energy"], "pen": m_f["max_penetration"]},
+        "ladder": {"ke": m_l["kinetic_energy"],
+                   "pen": m_l["max_penetration"]}}
+    print(f"box_fused envelopes (recorded): KE {m_f['kinetic_energy']:.4f} "
+          f"vs ladder {m_l['kinetic_energy']:.4f}, max penetration "
+          f"{m_f['max_penetration']:.5f} vs {m_l['max_penetration']:.5f}")
+    runs["box_checks"] = checks
+    return runs
+
+
+def sat_share(run_once, frames: int = 3) -> dict:
+    """The share of a frame's device time and host time spent inside
+    ``cuboid_cuboid_manifold``: a profiled window of ``frames`` calls of
+    ``run_once`` with the SAT call wrapped in a ``record_function`` range
+    (informational)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real = narrow_mod.cuboid_cuboid_manifold
+
+    def wrapped(*args, **kw):
+        with record_function("sat_manifold"):
+            return real(*args, **kw)
+
+    narrow_mod.cuboid_cuboid_manifold = wrapped
+    try:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(frames):
+                    run_once()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        narrow_mod.cuboid_cuboid_manifold = real
+    sat = [e for e in prof.events() if e.name == "sat_manifold"]
+    total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    sat_dev = sum(e.device_time_total for e in sat)
+    sat_host = sum(e.cpu_time_total for e in sat)
+    return {"calls_per_step": len(sat) / frames,
+            "device_ms_per_step": sat_dev / 1e3 / frames,
+            "device_share": sat_dev / total_us if total_us else None,
+            "host_ms_per_step": sat_host / 1e3 / frames,
+            "host_share_of_wall": sat_host / 1e3 / wall_ms}
 
 
 # the spin kernels that bracket a profiled window: ~1 us each
@@ -2822,26 +3169,38 @@ def main() -> int:
         linalg_paths.update(gemv_path_phase())
         query_paths = geometry_path_phase()
         query_paths.update(ray_path_phase())
+        params = SimParams()
         runs = path_phase()
+        runs.update(box_phase(params))
+        box_kernel_checks(runs, params, summaries)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    params = SimParams()
     paths = {}
-    for name in CONFIGS:
+    for name in CONFIGS + tuple(BOX_PATHS):
         paths[name] = runs[name]["metrics"]
+        stepper = _pit_stepper(*runs[name]["end"], params)
         try:
-            prof = profile_window(_pit_stepper(*runs[name]["end"], params))
+            prof = profile_window(stepper)
             paths[name]["profile"] = prof
             # the profiler stretches the step: the busy share of the
             # timed, unprofiled step is kernel time over that step
             paths[name]["device_busy_share"] = (
                 prof["device_ms_per_step"] / paths[name]["ms_per_step"])
+            if name in BOX_PATHS:
+                paths[name]["sat"] = sat_share(stepper)
+                print(f"{name}: {paths[name]['ms_per_step']:.2f} ms/step, "
+                      f"device {prof['device_ms_per_step']:.3f} ms/step, "
+                      f"{prof['kernels_per_step']:.1f} kernels/step, busy "
+                      f"{paths[name]['device_busy_share']:.3f}; SAT "
+                      f"{paths[name]['sat']}")
         except Exception as e:  # the profiler is untried on this machine
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
     print(json.dumps({"paths": paths, "linalg_paths": linalg_paths,
-                      "query_paths": query_paths, "gates": runs["gates"]}))
+                      "query_paths": query_paths, "gates": runs["gates"],
+                      "box_jax_frames": runs["jax_frames"],
+                      "box_checks": runs["box_checks"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:
@@ -2853,7 +3212,7 @@ def main() -> int:
             "launches": m["launches"][counter],
             "launches_per_step": m[f"{counter}_launches_per_step"],
             "launches_by_path": {c: paths[c]["launches"][counter]
-                                 for c in CONFIGS},
+                                 for c in CONFIGS + tuple(BOX_PATHS)},
             **({"standalone_launches": m["launches"][name]}
                if counter != name else {}),
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],

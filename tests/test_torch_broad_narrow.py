@@ -2,6 +2,8 @@
 the JAX package on the same seeded inputs. Pair lists, counts, validity and
 point counts must match exactly; contact geometry to float32 rounding."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,6 +18,7 @@ from wgmath_tpu_torch.broad_phase.brute_force import PairList, find_pairs
 from wgmath_tpu_torch.broad_phase.grid import find_pairs_grid
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.scenes.builders import ball_pit
+from wgmath_tpu_torch.shapes import shape as shp
 
 PRED = 0.002
 
@@ -159,9 +162,24 @@ def test_narrow_phase_matches_jax(bc_capacity):
 
 
 def test_narrow_phase_refuses_cuboid_manifolds():
+    """The narrow phase refuses the shape kinds whose kernels lie outside
+    the port (a capsule's: GJK / EPA). Cuboid-cuboid pairs at ``p_max`` 4
+    get SAT manifolds (``tests/test_torch_sat.py`` holds them against the
+    JAX package's) with their compaction demand, and the ball pairs keep
+    their one-point manifolds."""
     _, ts, _, tp = _scene(5, n=16)
-    with pytest.raises(NotImplementedError, match="SAT"):
-        narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=4)
+    capsules = dataclasses.replace(ts.shapes,
+                                   kinds=ts.shapes.kinds | {shp.CAPSULE})
+    with pytest.raises(NotImplementedError, match="outside ball/cuboid"):
+        narrow_phase(ts.bodies.poses, capsules, tp, PRED, p_max=4)
+    wide, need = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=4,
+                              sat_capacity=64)
+    one, _ = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=1)
+    tag = ts.shapes.tag
+    cc = (tag[tp.body_a] == shp.CUBOID) & (tag[tp.body_b] == shp.CUBOID)
+    assert int(need[1]) == int((cc & tp.valid).sum()) > 0
+    assert torch.equal(wide.dist[~cc, 0], one.dist[~cc, 0])
+    assert torch.equal(wide.num_points[~cc], one.num_points[~cc])
 
 
 def test_pair_list_dataclass_matches_jax_fields():

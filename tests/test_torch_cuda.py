@@ -33,6 +33,10 @@ from chip_smoke import (
     OP_ASSIGN_RTOL,
     REDUCE_TOL,
     b9_args,
+    box_build_call,
+    box_fused_calls,
+    box_state,
+    box_sweeps,
     carrying_integrate,
     redirect_op,
     elementwise_ops,
@@ -153,7 +157,8 @@ def test_rhs_in_rung_equals_rhs_passed_in_bit_for_bit(p_max):
 # --- B1 / B2 over whole sweeps: one launch, rungs ordered by readiness ---
 
 SWEEP_CASES = ("pit-chained_ps-biased", "pit-chained_ps-unbiased",
-               "pit-ladder-biased", "p4-chained-biased",
+               "pit-ladder-biased", "pyr6-ladder-biased",
+               "pyr6-ladder-unbiased", "p4-chained-biased",
                "p4-chained-unbiased", "p4-chained", "p4-ladder")
 _SWEEPS = {}
 
@@ -162,11 +167,16 @@ _SWEEPS = {}
 def sweep(request):
     """A recorded sweep on the card: the first substep of the settled 10k
     pit's first frame (``chained_ps``: B1 biased and unbiased; the ladder:
-    B2), or ``chip_smoke.synthetic_sweep`` at P = 4."""
+    B2), of the warmed ``pyramid(6)``'s first frame under the ladder (B2
+    at P = 4), or ``chip_smoke.synthetic_sweep`` at P = 4."""
     _need_card()
     name = request.param
     if name not in _SWEEPS:
-        if name.startswith("pit-"):
+        if name.startswith("pyr6-"):
+            calls = box_sweeps("cuda")
+            _SWEEPS["pyr6-ladder-biased"] = calls[0]
+            _SWEEPS["pyr6-ladder-unbiased"] = calls[1]
+        elif name.startswith("pit-"):
             for path, tag in ((NPZ, "chained_ps"), (NPZ_LADDER, "ladder")):
                 calls = pit_sweeps(path, "cuda")
                 _SWEEPS[f"pit-{tag}-biased"] = calls[0]
@@ -336,6 +346,64 @@ def test_pit10k_frames_on_card_match_cpu(path):
         sc.bodies.poses.translation.numpy(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ladder", "fused"])
+def test_box_frames_on_card_match_cpu(name):
+    """Two frames of the warmed ``pyramid(6)`` (4-point cuboid manifolds)
+    on the card and on the CPU: the same integers, poses to float32
+    reordering."""
+    _need_card()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, cfg = box_state("pyramid6", name, dev)
+        for _ in range(2):
+            state, cfg = step_checked(state, SimParams(), cfg)
+        out[dev] = (state, cfg)
+    (sc, cc), (sg, cg) = out["cpu"], out["cuda"]
+    assert cc == cg
+    np.testing.assert_array_equal(sg.pair_count.cpu().numpy(),
+                                  sc.pair_count.numpy())
+    for f in ("body_a", "body_b", "valid", "num_points"):
+        np.testing.assert_array_equal(
+            getattr(sg.prev_constraints, f).cpu().numpy(),
+            getattr(sc.prev_constraints, f).numpy())
+    assert sg.prev_constraints.n_impulse.shape[1] == 4
+    np.testing.assert_allclose(
+        sg.bodies.poses.translation.cpu().numpy(),
+        sc.bodies.poses.translation.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sat_capacity", [0, 1024, 64])
+def test_sat_narrow_phase_on_card_matches_cpu(sat_capacity):
+    """The narrow phase's cuboid-cuboid branch (plain tensor code) over the
+    warmed ``pyramid(6)``'s cached pairs, dense, compacted and past its
+    capacity, on the card and on the CPU: the same counts and manifold
+    widths; normals, points and depths to 1e-6 (the card's float32
+    arithmetic is IEEE, each op rounded as on the CPU)."""
+    _need_card()
+    from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, _ = box_state("pyramid6", "ladder", dev)
+        out[dev] = narrow_phase(state.bodies.poses, state.shapes,
+                                state.bp_pairs,
+                                SimParams().prediction_distance, p_max=4,
+                                sat_capacity=sat_capacity)
+    (cc, nc), (cg, ng) = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(ng.cpu().numpy(), nc.numpy())
+    if sat_capacity:
+        assert int(nc[1]) > 64
+    for f in ("valid", "num_points"):
+        np.testing.assert_array_equal(getattr(cg, f).cpu().numpy(),
+                                      getattr(cc, f).numpy())
+    assert int(cc.num_points.max()) == 4
+    for f in ("normal_a", "points_a", "dist"):
+        torch.testing.assert_close(getattr(cg, f).cpu(), getattr(cc, f),
+                                   rtol=1e-6, atol=1e-6)
+
+
 # --- the fused solver: B9 - B12 ---------------------------------------------
 
 
@@ -390,8 +458,8 @@ def _strided(contacts):
 
 
 def _b9_case_args(case):
-    if case == "pit":
-        call = pit_build_call("cuda")
+    if case in ("pit", "pyr6"):
+        call = (pit_build_call if case == "pit" else box_build_call)("cuda")
         poses, vels, mprops, contacts, params = call.args
         return b9_args(dict(p_max=contacts.points_a.shape[1], poses=poses,
                             vels=vels, mprops=mprops, contacts=contacts),
@@ -401,10 +469,11 @@ def _b9_case_args(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["p1", "p4", "pit"])
+@pytest.mark.parametrize("case", ["p1", "p4", "pit", "pyr6"])
 def test_build_fused_reads_strided_contact_fields_in_place_on_card(case):
-    """B9 on the contact fields as strided views of one matrix (the pit's:
-    as its compaction made them) reads them in place: the bits of B9 on
+    """B9 on the contact fields as strided views of one matrix (the pit's
+    and the warmed ``pyramid(6)``'s at P = 4: as their compaction made
+    them) reads them in place: the bits of B9 on
     contiguous copies, its plain version within chip_smoke's B9
     tolerances, live columns and rung padding alike."""
     _need_card()
@@ -564,7 +633,8 @@ def test_fused_wrappers_never_run_their_plain_versions_on_card(monkeypatch):
 
 # --- B10 / B11: one launch, colours ordered by readiness flags -------------
 
-FUSED_CASES = tuple(f"{layout}-{kernel}" for layout in ("p1", "p4", "pit")
+FUSED_CASES = tuple(f"{layout}-{kernel}"
+                    for layout in ("p1", "p4", "pit", "pyr6")
                     for kernel in ("fused_sweep", "fused_substep1"))
 _FUSED = {}
 
@@ -574,14 +644,16 @@ def fused_call(request):
     """A B10 or B11 call on the card: ``_fused_case``'s synthetic layouts
     at P = 1 and 4 (a residue, empty colours), or the first substep of the
     settled 10k pit's first frame under the stored ``fused``
-    configuration."""
+    configuration, or of the warmed ``pyramid(6)``'s first frame (P = 4)."""
     _need_card()
     name = request.param
     if name not in _FUSED:
         layout, kernel = name.split("-")
-        if layout == "pit":
-            for call in pit_fused_calls("cuda"):
-                _FUSED[f"pit-{call.name}"] = call
+        if layout in ("pit", "pyr6"):
+            calls = (pit_fused_calls if layout == "pit"
+                     else box_fused_calls)("cuda")
+            for call in calls:
+                _FUSED[f"{layout}-{call.name}"] = call
         else:
             z, _, op = _fused_case(int(layout[1:]))
             for call in fused_calls(z, op):

@@ -37,6 +37,7 @@ from wgmath_tpu_torch.geometry import rot2 as trot2
 from wgmath_tpu_torch.geometry import sim as tsim
 from wgmath_tpu_torch.queries import projection as tproj
 from wgmath_tpu_torch.queries import ray as tray
+from wgmath_tpu_torch.scenes import builders as tbuilders
 from wgmath_tpu_torch.shapes import shape as tshape
 
 RTOL = ATOL = 1e-5
@@ -552,8 +553,16 @@ def test_project_refusals():
     lambda **kw: tsim.identity((2,), **kw).translation,
     lambda **kw: Velocity.zero(2, **kw).linear,
     lambda **kw: SimParams().gravity_array(3, **kw),
+    lambda **kw: tbuilders.boxes(8, **kw).bodies.poses.translation,
+    lambda **kw: tbuilders.pyramid(2, **kw).bodies.poses.translation,
+    lambda **kw: tbuilders.keva_tower(2, 2, **kw).bodies.poses.rotation,
+    lambda **kw: tbuilders.many_pyramids(2, 2, **kw).shapes.params,
+    lambda **kw: tbuilders.boxes_and_balls(6, **kw).shapes.tag,
+    lambda **kw: tbuilders.SCENES["keva3"](**kw).bodies.vels.linear,
 ], ids=["quat.identity", "rot2.identity", "sim.identity", "Velocity.zero",
-        "SimParams.gravity_array"])
+        "SimParams.gravity_array", "builders.boxes", "builders.pyramid",
+        "builders.keva_tower", "builders.many_pyramids",
+        "builders.boxes_and_balls", "builders.SCENES"])
 def test_constructors_default_to_the_card(make):
     """With no device given a constructor builds on the card, as every
     entry point of the port does; without CUDA it raises and names the

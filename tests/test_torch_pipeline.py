@@ -3,50 +3,57 @@ the JAX package under a scaled-down ``chained_ps`` configuration (grid
 broad phase with its slack cache, pair slots, the window ladder, chained
 rhs-in-rung sweeps), carried across with ``state_from_arrays``, then
 stepped by both — one frame (integers exact) and ten more frames including
-a forced full refresh and a forced repair."""
+a forced full refresh and a forced repair. The JAX package's warmup and
+frames are stored by ``scripts/export_pit160_npz.py`` in
+``artifacts/pit160_jax.npz`` (group ``chained_ps``), so this file makes no
+JAX step of its own."""
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from wgmath_tpu.dynamics import SimParams as JaxSimParams
-from wgmath_tpu.pipeline import PipelineConfig as JaxConfig
-from wgmath_tpu.pipeline import step as jax_step
-from wgmath_tpu.pipeline import step_checked as jax_step_checked
-from wgmath_tpu.scenes.builders import ball_pit as jax_ball_pit
 from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 
-WARM_FRAMES = 30
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "pit160_jax.npz")
 
 
 @pytest.fixture(scope="module")
-def warmed():
-    """(JAX state, JAX config) after the warmup: balls landed, contacts
-    formed, BP cache, colours and solve bundle populated. The warmup steps
-    one fixed configuration whose budgets and rungs hold everything this
-    scene needs (so ``step_checked`` would change nothing but prune empty
-    rungs): two compiles instead of one per regrow."""
-    cfg = JaxConfig(pair_capacity=2048, contact_capacity=1024,
-                    max_colors=16, gs_cmax=512, bp_slack=0.03,
-                    bp_algo="grid", manifold_points=1,
-                    gs_windows=(256,) * 16, gs_chained=True,
-                    gs_rhs_in_rung=True, gs_pair_slots=True)
-    state, params = jax_ball_pit(160), JaxSimParams()
-    for f in range(WARM_FRAMES):
-        state = jax_step(state, params, cfg, warmstart=f > 0)
-    counts = np.asarray(state.pair_count)
+def z():
+    with np.load(NPZ) as f:
+        return {k[len("chained_ps."):]: v for k, v in f.items()
+                if k.startswith("chained_ps.")}
+
+
+def _sub(z, prefix):
+    return {k[len(prefix):]: v for k, v in z.items() if k.startswith(prefix)}
+
+
+def _config(blob):
+    return PipelineConfig.from_dict(json.loads(str(blob)))
+
+
+@pytest.fixture(scope="module")
+def warmed(z):
+    """(state arrays, configuration) after the JAX package's warmup: balls
+    landed, contacts formed, BP cache, colours and solve bundle populated.
+    The warmup stepped one fixed configuration whose budgets and rungs hold
+    everything this scene needs."""
+    arrays = _sub(z, "warmed.")
+    counts = arrays["pair_count"]
     assert counts[1] > 100 and counts[0] > 0
     assert counts[9:9 + 16].max() <= 256  # every class fits its rung
-    return state, cfg
+    return arrays, _config(z["config_json"])
 
 
-def _port(state, cfg):
-    return (state_from_arrays(state_to_arrays(state), device="cpu"),
-            PipelineConfig.from_dict(dataclasses.asdict(cfg)))
+def _port(arrays, cfg):
+    return state_from_arrays(arrays, device="cpu"), cfg
 
 
 def _np(x):
@@ -54,7 +61,7 @@ def _np(x):
 
 
 def test_state_round_trip(warmed):
-    arrays = state_to_arrays(warmed[0])
+    arrays = warmed[0]
     back = state_to_arrays(state_from_arrays(arrays, device="cpu"))
     assert back.keys() == arrays.keys()
     for k in arrays:
@@ -62,13 +69,13 @@ def test_state_round_trip(warmed):
 
 
 @pytest.fixture(scope="module")
-def first_frame(warmed):
+def first_frame(z, warmed):
     """One checked frame of each package from the warmed state: (JAX state,
-    JAX config, port state, port config). The one-step test checks it and
-    the ten-frame run starts from it."""
-    jstate, jcfg = warmed
-    tstate, tcfg = _port(jstate, jcfg)
-    return (*jax_step_checked(jstate, JaxSimParams(), jcfg),
+    JAX config, port state, port config), the JAX side as stored. The
+    one-step test checks it and the ten-frame run starts from it."""
+    tstate, tcfg = _port(*warmed)
+    return (state_from_arrays(_sub(z, "frame.0."), device="cpu"),
+            _config(z["frame.0.config_json"]),
             *step_checked(tstate, SimParams(), tcfg))
 
 
@@ -108,32 +115,29 @@ def test_one_step_matches_jax(first_frame):
                                    atol=5e-5)
 
 
-def test_ten_frames_track_jax(first_frame):
+def test_ten_frames_track_jax(z, first_frame):
     """Caches, repairs, refreshes and regrows over ten frames; frame 3
     forces a full broad-phase refresh (slots permute: by-key warmstart and
     a fresh bundle), frame 6 forces a repair. Frame 0 is the module's first
-    frame."""
-    jp, tp = JaxSimParams(), SimParams()
+    frame; the JAX package's frames are the stored ones."""
+    tp = SimParams()
     paths = []
     for f in range(10):
         force = {3: "miss", 6: "repair"}.get(f)
         if f == 0:
-            jstate, jcfg, tstate, tcfg = first_frame
+            tstate, tcfg = first_frame[2:]
         else:
-            jstate, jcfg = jax_step_checked(
-                jstate, jp, dataclasses.replace(jcfg, bp_force=force))
             tstate, tcfg = step_checked(
                 tstate, tp, dataclasses.replace(tcfg, bp_force=force))
-        jcfg = dataclasses.replace(jcfg, bp_force=None)
         tcfg = dataclasses.replace(tcfg, bp_force=None)
-        jpc, tpc = _np(jstate.pair_count), _np(tstate.pair_count)
+        jf = _sub(z, f"frame.{f}.")
+        jpc, tpc = jf["pair_count"], _np(tstate.pair_count)
         np.testing.assert_array_equal(tpc, jpc, f"frame {f}")
         paths.append(int(tpc[3]))
         for got, want in (
-                (tstate.bodies.poses.translation,
-                 jstate.bodies.poses.translation),
-                (tstate.bodies.vels.linear, jstate.bodies.vels.linear),
-                (tstate.bodies.vels.angular, jstate.bodies.vels.angular)):
+                (tstate.bodies.poses.translation, jf["translation"]),
+                (tstate.bodies.vels.linear, jf["linear"]),
+                (tstate.bodies.vels.angular, jf["angular"])):
             assert np.isfinite(_np(got)).all()
             np.testing.assert_allclose(_np(got), _np(want), rtol=1e-3,
                                        atol=1e-3, err_msg=f"frame {f}")

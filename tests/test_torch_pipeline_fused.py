@@ -7,53 +7,62 @@ integers exact, floats at the stated tolerances. Then, within the port:
 the fused step against the ladder step, the rung regrow of
 ``step_checked`` (the same configuration sequence as the JAX package's),
 the precedence of ``gs_fused`` over the pair-slot layout, and
-``gs_fused_pallas``, which changes nothing."""
+``gs_fused_pallas``, which changes nothing. The JAX package's warmup, step
+and regrow frames are stored by ``scripts/export_pit160_npz.py`` in
+``artifacts/pit160_jax.npz`` (group ``fused``), so this file makes no JAX
+step of its own."""
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from wgmath_tpu.dynamics import SimParams as JaxSimParams
-from wgmath_tpu.pipeline import PipelineConfig as JaxConfig
-from wgmath_tpu.pipeline import step as jax_step
-from wgmath_tpu.pipeline import step_checked as jax_step_checked
-from wgmath_tpu.scenes.builders import ball_pit as jax_ball_pit
-from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
+from wgmath_tpu_torch.convert import state_from_arrays
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 
-WARM_FRAMES = 30
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "pit160_jax.npz")
 MAX_COLORS = 12
 
 
 @pytest.fixture(scope="module")
-def warmed():
-    """(JAX state, JAX config) after the warmup under the fused
-    configuration: balls landed, contacts formed, BP cache, colours and the
-    8-part fused bundle populated. ``gs_cmax`` 48 caps the colour classes,
-    so a residue class (colour 0) is warmstarted outside the kernels."""
-    cfg = JaxConfig(pair_capacity=2048, contact_capacity=1024,
-                    max_colors=MAX_COLORS, gs_cmax=48, bp_slack=0.03,
-                    bp_algo="grid", manifold_points=1, gs_rung_quantum=32,
-                    gs_windows=(32,) * MAX_COLORS, gs_fused=True,
-                    gs_rung0=256)
-    state, params = jax_ball_pit(160), JaxSimParams()
-    for f in range(WARM_FRAMES):
-        state = jax_step(state, params, cfg, warmstart=f > 0)
-    counts = np.asarray(state.pair_count)
+def z():
+    with np.load(NPZ) as f:
+        return {k[len("fused."):]: v for k, v in f.items()
+                if k.startswith("fused.")}
+
+
+def _sub(z, prefix):
+    return {k[len(prefix):]: v for k, v in z.items() if k.startswith(prefix)}
+
+
+def _config(blob):
+    return PipelineConfig.from_dict(json.loads(str(blob)))
+
+
+@pytest.fixture(scope="module")
+def warmed(z):
+    """(state arrays, configuration) after the JAX package's warmup under
+    the fused configuration: balls landed, contacts formed, BP cache,
+    colours and the 8-part fused bundle populated. ``gs_cmax`` 48 caps the
+    colour classes, so a residue class (colour 0) is warmstarted outside
+    the kernels."""
+    arrays = _sub(z, "warmed.")
+    counts = arrays["pair_count"]
     cc = counts[8:8 + MAX_COLORS + 2]
     assert counts[1] > 100 and 0 < counts[0] <= 2048
     assert 0 < cc[0] <= 256  # a residue class within its rung
     assert cc[1:].max() <= 32  # every colour fits its rung
-    assert len(state.solve_cache) == 8
-    return state, cfg
+    assert sum(k.startswith("solve_cache.") for k in arrays) == 8
+    return arrays, _config(z["config_json"])
 
 
-def _port(state, cfg):
-    return (state_from_arrays(state_to_arrays(state), device="cpu"),
-            PipelineConfig.from_dict(dataclasses.asdict(cfg)))
+def _port(arrays, cfg):
+    return state_from_arrays(arrays, device="cpu"), cfg
 
 
 def _np(x):
@@ -61,13 +70,11 @@ def _np(x):
 
 
 @pytest.fixture(scope="module")
-def one_step(warmed):
-    """One step of each package from the warmed state (``warmstart``
-    passed as the warmup passes it, so the JAX package reuses the warmup's
-    compiled step: an omitted default keys another jit cache entry)."""
-    jstate, jcfg = warmed
-    tstate, tcfg = _port(jstate, jcfg)
-    return (jax_step(jstate, JaxSimParams(), jcfg, warmstart=True),
+def one_step(z, warmed):
+    """One step of each package from the warmed state (the JAX package's
+    as stored, with ``warmstart=True`` as the warmup's later frames)."""
+    tstate, tcfg = _port(*warmed)
+    return (state_from_arrays(_sub(z, "step."), device="cpu"),
             step(tstate, SimParams(), tcfg))
 
 
@@ -124,22 +131,22 @@ def test_fused_step_matches_port_ladder(warmed, one_step):
                                atol=1e-6)
 
 
-def test_step_checked_regrows_rungs_as_jax(warmed):
+def test_step_checked_regrows_rungs_as_jax(z, warmed):
     """Undersized windows: the first fused frame drops each colour's
     overflow, exports the TRUE class counts, and ``step_checked`` regrows
     the rungs and re-runs the frame; the configuration sequence and the
-    counts equal the JAX package's."""
-    jstate, jcfg = warmed
-    small = dataclasses.replace(jcfg, gs_windows=(8,) * MAX_COLORS,
+    counts equal the JAX package's (stored: two frames from the warmed
+    state with every rung cut to 8)."""
+    arrays, cfg = warmed
+    small = dataclasses.replace(cfg, gs_windows=(8,) * MAX_COLORS,
                                 gs_rung0=8)
-    tstate, tcfg = _port(jstate, small)
-    js, jc, ts, tc = jstate, small, tstate, tcfg
-    for _ in range(2):
-        js, jc = jax_step_checked(js, JaxSimParams(), jc)
+    ts, tc = _port(arrays, small)
+    for f in range(2):
         ts, tc = step_checked(ts, SimParams(), tc)
         assert dataclasses.asdict(tc) == dataclasses.asdict(
-            PipelineConfig.from_dict(dataclasses.asdict(jc)))
-        np.testing.assert_array_equal(_np(ts.pair_count), _np(js.pair_count))
+            _config(z[f"regrow.{f}.config_json"]))
+        np.testing.assert_array_equal(_np(ts.pair_count),
+                                      z[f"regrow.{f}.pair_count"])
     assert tc.gs_windows != small.gs_windows and tc.gs_rung0 > 8
     assert np.isfinite(_np(ts.bodies.poses.translation)).all()
 

@@ -3,24 +3,26 @@ a 160-ball pit warmed by the JAX package under a scaled-down ``ladder``
 configuration (grid broad phase with its slack cache, cached pair colours,
 colour-major contact compaction, the window ladder), carried across with
 ``state_from_arrays``, then stepped once by both packages under each
-configuration — integers exact, floats at the stated tolerances."""
+configuration — integers exact, floats at the stated tolerances. The JAX
+package's warmup and steps are stored by ``scripts/export_pit160_npz.py``
+in ``artifacts/pit160_jax.npz`` (group ``ladder``), so this file makes no
+JAX step of its own."""
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from wgmath_tpu.dynamics import SimParams as JaxSimParams
-from wgmath_tpu.pipeline import PipelineConfig as JaxConfig
-from wgmath_tpu.pipeline import step as jax_step
-from wgmath_tpu.scenes.builders import ball_pit as jax_ball_pit
 from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
 from wgmath_tpu_torch.core.dispatch import capacity_bucket
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 
-WARM_FRAMES = 30
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "pit160_jax.npz")
 # the bench's candidates on top of the ladder; the last is the ladder with
 # no contact compaction (the solve sorts the fields itself)
 CONFIGS = {
@@ -32,28 +34,33 @@ CONFIGS = {
 
 
 @pytest.fixture(scope="module")
-def warmed():
-    """(JAX state, JAX config) after the warmup under the ladder: balls
-    landed, contacts formed, BP cache, colours and the 6-part solve bundle
-    populated. One fixed configuration whose budgets and rungs hold
-    everything this scene needs: two compiles."""
-    cfg = JaxConfig(pair_capacity=2048, contact_capacity=1024,
-                    max_colors=16, gs_cmax=512, bp_slack=0.03,
-                    bp_algo="grid", manifold_points=1,
-                    gs_windows=(256,) * 16)
-    state, params = jax_ball_pit(160), JaxSimParams()
-    for f in range(WARM_FRAMES):
-        state = jax_step(state, params, cfg, warmstart=f > 0)
-    counts = np.asarray(state.pair_count)
+def z():
+    with np.load(NPZ) as f:
+        return {k[len("ladder."):]: v for k, v in f.items()
+                if k.startswith("ladder.")}
+
+
+def _sub(z, prefix):
+    return {k[len(prefix):]: v for k, v in z.items() if k.startswith(prefix)}
+
+
+@pytest.fixture(scope="module")
+def warmed(z):
+    """(state arrays, configuration) after the JAX package's warmup under
+    the ladder: balls landed, contacts formed, BP cache, colours and the
+    6-part solve bundle populated. One fixed configuration whose budgets
+    and rungs hold everything this scene needs."""
+    arrays = _sub(z, "warmed.")
+    counts = arrays["pair_count"]
     assert 100 < counts[1] <= 1024 and 0 < counts[0] <= 2048
     assert counts[9:9 + 16].max() <= 256  # every class fits its rung
-    assert len(state.solve_cache) == 6
-    return state, cfg
+    assert sum(k.startswith("solve_cache.") for k in arrays) == 6
+    return arrays, PipelineConfig.from_dict(json.loads(str(
+        z["config_json"])))
 
 
-def _port(state, cfg):
-    return (state_from_arrays(state_to_arrays(state), device="cpu"),
-            PipelineConfig.from_dict(dataclasses.asdict(cfg)))
+def _port(arrays, cfg):
+    return state_from_arrays(arrays, device="cpu"), cfg
 
 
 def _np(x):
@@ -63,7 +70,7 @@ def _np(x):
 def test_ladder_state_round_trip(warmed):
     """The 6-part bundle, the unsorted-slot colour tag and a
     ``prev_constraints`` of ``contact_capacity`` rows carry across."""
-    arrays = state_to_arrays(warmed[0])
+    arrays = warmed[0]
     assert arrays["prev_constraints.body_a"].shape == (1024,)
     assert int(arrays["bp_colors.slot_flag"]) == 0
     assert sum(k.startswith("solve_cache.") for k in arrays) == 6
@@ -74,13 +81,12 @@ def test_ladder_state_round_trip(warmed):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_one_step_matches_jax(warmed, name):
-    jstate, jcfg = warmed
-    jcfg = dataclasses.replace(jcfg, **CONFIGS[name])
-    tstate, tcfg = _port(jstate, jcfg)
-    # warmstart passed as the warmup passes it: the ladder case reuses the
-    # warmup's compiled step (an omitted default keys another entry)
-    js = jax_step(jstate, JaxSimParams(), jcfg, warmstart=True)
+def test_one_step_matches_jax(z, warmed, name):
+    arrays, cfg = warmed
+    tstate, tcfg = _port(arrays, dataclasses.replace(cfg, **CONFIGS[name]))
+    # the JAX package's step from the same state under the same
+    # configuration (warmstart=True, as the warmup's later frames)
+    js = state_from_arrays(_sub(z, f"step.{name}."), device="cpu")
     ts = step(tstate, SimParams(), tcfg)
     # integers exact: counts, cached pair list and colours, the contact
     # colours handed on, solve bundle, constraint slots

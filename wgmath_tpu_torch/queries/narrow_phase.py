@@ -1,11 +1,12 @@
-"""Narrow phase for ball/cuboid scenes: collision pairs → one-point contact
-manifolds (counterpart of ``wgmath_tpu/queries/narrow_phase.py``: the
-ball-ball and ball-cuboid kernels, gated on ``ShapeSet.kinds``).
+"""Narrow phase for ball/cuboid scenes: collision pairs → contact manifolds
+(counterpart of ``wgmath_tpu/queries/narrow_phase.py``: the ball-ball,
+ball-cuboid and cuboid-cuboid kernels, gated on ``ShapeSet.kinds``).
 
 Contacts reuse the pair slots 1:1. Each type-pair kernel is a masked
 vectorized pass over the pair list; ball-cuboid pairs are optionally
-compacted into a ``bc_capacity`` batch first (their unclamped count is
-returned so the host can regrow that capacity).
+compacted into a ``bc_capacity`` batch first, and cuboid-cuboid pairs
+into a ``sat_capacity`` batch (their unclamped counts are returned so the
+host can regrow those capacities).
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ from __future__ import annotations
 import torch
 
 from wgmath_tpu_torch.broad_phase.brute_force import PairList
+from wgmath_tpu_torch.broad_phase.grid import top_k_desc
 from wgmath_tpu_torch.dynamics.constraint import Contacts
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.quat import norm
 from wgmath_tpu_torch.geometry.sim import Sim
+from wgmath_tpu_torch.queries.sat import cuboid_cuboid_manifold
 from wgmath_tpu_torch.shapes import shape as shp
 
 
@@ -93,19 +96,31 @@ def _set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
     return out[:drop]
 
 
+def _sat(pose_a: Sim, pose_b: Sim, he_a, he_b, prediction: float,
+         p_max: int):
+    """``cuboid_cuboid_manifold`` cut to the ``p_max`` deepest points
+    (``lax.top_k`` of ``-dist``: equal depths keep the lower slot first)."""
+    n_l, pts, dist, num = cuboid_cuboid_manifold(pose_a, pose_b, he_a, he_b,
+                                                 prediction)
+    if p_max < dist.shape[1]:
+        neg_d, kidx = top_k_desc(-dist, p_max)
+        pts = torch.gather(pts, 1, kidx[..., None].expand(-1, -1, 3))
+        dist, num = -neg_d, torch.clamp(num, max=p_max)
+    return n_l, pts, dist, num
+
+
 def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
                  prediction_distance: float, *, p_max: int = 1,
-                 bc_capacity: int = 0):
+                 bc_capacity: int = 0, sat_capacity: int = 0):
     """One manifold per pair slot. Returns ``(contacts, np_needed)`` with
-    ``np_needed`` = [bc, sat, pfm] unclamped compaction demands (sat/pfm
-    are always 0 here: their kernels lie outside this slice)."""
+    ``np_needed`` = [bc, sat, pfm] unclamped compaction demands (pfm is
+    always 0 here: its kernels lie outside this slice). ``p_max == 1``
+    asserts that no cuboid-cuboid pair can act and skips the SAT kernel;
+    a narrower ``p_max`` than 4 keeps each manifold's deepest points."""
     kinds = shapes.kinds
     if not kinds <= shp.SUPPORTED_KINDS:
         raise NotImplementedError(
             f"narrow phase: shape kinds {sorted(kinds)} outside ball/cuboid")
-    if shp.CUBOID in kinds and p_max > 1:
-        raise NotImplementedError(
-            "narrow phase: cuboid-cuboid SAT manifolds (p_max > 1)")
     dev = poses.translation.device
     a, b = pairs.body_a, pairs.body_b
     pose_a, pose_b = poses.take(a), poses.take(b)
@@ -117,6 +132,7 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
     dist = torch.full((c, p_max), 1e9, device=dev)
     num_points = torch.zeros((c,), dtype=torch.int64, device=dev)
     bc_needed = torch.zeros((), dtype=torch.int64, device=dev)
+    sat_needed = torch.zeros((), dtype=torch.int64, device=dev)
     has_ball = shp.BALL in kinds
     has_cuboid = shp.CUBOID in kinds
 
@@ -179,7 +195,29 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
             dist[:, 0] = torch.where(m, d_bc, dist[:, 0])
             num_points = torch.where(m, 1, num_points)
 
+    if has_cuboid and p_max > 1:
+        cc = (tag_a == shp.CUBOID) & (tag_b == shp.CUBOID) & pairs.valid
+        if sat_capacity:
+            sel, act, sat_needed = _compact_mask(cc, sat_capacity)
+            n_l, pts_l, d_cc, np_cc = _sat(
+                poses.take(a[sel]), poses.take(b[sel]), par_a[sel, :3],
+                par_b[sel, :3], prediction_distance, p_max)
+            sel_drop = torch.where(act, sel, torch.full_like(sel, c))
+            normal_a = _set_rows(normal_a, sel_drop, n_l, c)
+            points_a = _set_rows(points_a, sel_drop, pts_l, c)
+            dist = _set_rows(dist, sel_drop, d_cc, c)
+            num_points = _set_rows(num_points, sel_drop, np_cc, c)
+        else:
+            n_l, pts_l, d_cc, np_cc = _sat(pose_a, pose_b, par_a[:, :3],
+                                           par_b[:, :3], prediction_distance,
+                                           p_max)
+            normal_a = torch.where(cc[:, None], n_l, normal_a)
+            points_a = torch.where(cc[:, None, None], pts_l, points_a)
+            dist = torch.where(cc[:, None], d_cc, dist)
+            num_points = torch.where(cc, np_cc, num_points)
+
     valid = pairs.valid & (num_points > 0) & (dist[:, 0] < prediction_distance)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     contacts = Contacts(a, b, normal_a, points_a, dist, num_points, valid)
-    return contacts, torch.stack([bc_needed.to(torch.int64), zero, zero])
+    return contacts, torch.stack([bc_needed.to(torch.int64),
+                                  sat_needed.to(torch.int64), zero])

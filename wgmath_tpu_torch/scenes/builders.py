@@ -1,13 +1,17 @@
 """Scene builders (counterpart of ``wgmath_tpu/scenes/builders.py``:
-``ball_pit``). Jitter comes from numpy ``default_rng(seed)``, as in the JAX
-package, so both build the same scene."""
+``ball_pit``, ``boxes``, ``pyramid``, ``pyramid_levels_for_bodies``,
+``keva_tower``, ``many_pyramids``, ``boxes_and_balls`` and the 3D entries
+of ``SCENES`` that these build). Positions are computed in numpy and
+jitter comes from numpy ``default_rng``, as in the JAX package, so both
+build the same scene. Every builder takes ``device``; ``None`` means the
+card. The port steps 3D scenes only, so a builder given ``dim=2`` raises."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from wgmath_tpu_torch.core.dispatch import resolve_device
+from wgmath_tpu_torch.core.dispatch import capacity_bucket, resolve_device
 from wgmath_tpu_torch.dynamics.body import (
     Bodies,
     LocalMassProperties,
@@ -19,6 +23,8 @@ from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.pipeline import PhysicsState, new_state
 from wgmath_tpu_torch.shapes.shape import ShapeSet
 
+_IDENTITY = (0.0, 0.0, 0.0, 1.0)
+
 
 def _merge_mprops(*mp: LocalMassProperties) -> LocalMassProperties:
     return LocalMassProperties(
@@ -29,7 +35,10 @@ def _merge_mprops(*mp: LocalMassProperties) -> LocalMassProperties:
 
 def _with_ground(shapes: ShapeSet, translations: torch.Tensor,
                  mprops: LocalMassProperties,
-                 ground_he=(100.0, 1.0, 100.0)) -> PhysicsState:
+                 ground_he=(100.0, 1.0, 100.0),
+                 rotations: torch.Tensor | None = None) -> PhysicsState:
+    """A static ground cuboid (top face at y = 0) as body 0, then the
+    bodies; ``rotations`` default to the identity."""
     dev = translations.device
     ground_he = torch.tensor([ground_he], dtype=torch.float32, device=dev)
     all_shapes = ShapeSet.concat(ShapeSet.cuboids(ground_he), shapes)
@@ -37,7 +46,9 @@ def _with_ground(shapes: ShapeSet, translations: torch.Tensor,
     g_trans[0, 1] = -float(ground_he[0, 1])
     trans = torch.cat([g_trans, translations])
     n = trans.shape[0]
-    rot = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).repeat(n, 1)
+    rot = torch.tensor(_IDENTITY, device=dev).repeat(n, 1)
+    if rotations is not None:
+        rot[1:] = rotations
     poses = Sim(rot, trans, torch.ones(n, device=dev))
     mp = _merge_mprops(
         cuboid_local_mprops(ground_he,
@@ -89,3 +100,174 @@ def ball_pit(n: int = 10_000, *, radius: float = 0.5, depth: int = 8,
         dev, torch.float32)
     return _with_ground(shapes, trans, mp,
                         ground_he=(half_w + 4.0, 1.0, half_w + 4.0))
+
+
+def _need_3d(dim: int) -> None:
+    if dim != 3:
+        raise NotImplementedError(
+            f"dim={dim}: the port steps 3D scenes only")
+
+
+def _boxes_state(pos: np.ndarray, half_extent: float, dev,
+                 ground_he=(100.0, 1.0, 100.0)) -> PhysicsState:
+    """Equal dynamic cubes at ``pos`` over the ground."""
+    he = torch.full((len(pos), 3), half_extent, dtype=torch.float32,
+                    device=dev)
+    return _with_ground(ShapeSet.cuboids(he),
+                        torch.from_numpy(pos).to(dev, torch.float32),
+                        cuboid_local_mprops(he), ground_he=ground_he)
+
+
+def _lattice(n: int, dim: int) -> np.ndarray:
+    """The first ``n`` points of the cubic lattice of side ceil(n^(1/dim))."""
+    side = int(np.ceil(n ** (1.0 / dim)))
+    return np.stack(np.meshgrid(*([np.arange(side)] * dim), indexing="ij"),
+                    -1).reshape(-1, dim)[:n]
+
+
+def boxes(n: int = 1000, *, half_extent: float = 0.5, dim: int = 3,
+          seed: int = 0, device=None) -> PhysicsState:
+    """Grid of falling cuboids with seeded jitter."""
+    _need_3d(dim)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    spacing = 2.0 * half_extent * 1.1
+    pos = _lattice(n, dim).astype(np.float32) * spacing
+    pos -= pos.mean(0, keepdims=True) * np.asarray([1.0, 0.0, 1.0])
+    pos[:, 1] += 2.0 * half_extent
+    pos += rng.uniform(-0.02, 0.02, pos.shape).astype(np.float32)
+    return _boxes_state(pos, half_extent, dev)
+
+
+def _pyramid_positions(levels: int, he: float, cx: float = 0.0,
+                       cz: float = 0.0) -> list:
+    """Centres of a square pyramid of cubes: level l is (levels - l)² cubes
+    on a 1.02 x cube-size grid, levels 1.01 x cube-size apart."""
+    spacing = 2.0 * he * 1.02
+    pos = []
+    for lvl in range(levels):
+        width = levels - lvl
+        for i in range(width):
+            for j in range(width):
+                pos.append([cx + (i - width / 2.0 + 0.5) * spacing,
+                            he + lvl * 2.0 * he * 1.01,
+                            cz + (j - width / 2.0 + 0.5) * spacing])
+    return pos
+
+
+def pyramid(levels: int = 20, *, half_extent: float = 0.5,
+            use_balls: bool = False, device=None) -> PhysicsState:
+    """Square pyramid of cuboids (``use_balls``: of balls); 50 levels are
+    42,925 bodies and the ground."""
+    dev = resolve_device(device)
+    he = half_extent
+    pos = np.asarray(_pyramid_positions(levels, he), np.float32)
+    if not use_balls:
+        return _boxes_state(pos, he, dev)
+    radii = torch.full((len(pos),), he, dtype=torch.float32, device=dev)
+    return _with_ground(ShapeSet.balls(radii),
+                        torch.from_numpy(pos).to(dev, torch.float32),
+                        ball_local_mprops(radii))
+
+
+def pyramid_levels_for_bodies(target: int) -> int:
+    """Smallest level count whose pyramid has >= target bodies."""
+    for lv in range(1, 80):
+        if sum((lv - k) ** 2 for k in range(lv)) >= target:
+            return lv
+    return 80
+
+
+def keva_tower(levels: int = 8, per_level: int = 4, *,
+               device=None) -> PhysicsState:
+    """Plank tower, each level turned 90° about y from the one below."""
+    dev = resolve_device(device)
+    plank = np.asarray([0.9, 0.1, 0.3], np.float32)  # half extents
+    q_id = np.asarray(_IDENTITY, np.float32)
+    q_90 = np.asarray([0.0, np.sin(np.pi / 4), 0, np.cos(np.pi / 4)],
+                      np.float32)
+    pos, rots = [], []
+    for lvl in range(levels):
+        rotated = lvl % 2 == 1
+        for i in range(per_level):
+            off = (i - (per_level - 1) / 2.0) * 0.7
+            y = plank[1] + lvl * 2.02 * plank[1]
+            pos.append([off, y, 0.0] if rotated else [0.0, y, off])
+            rots.append(q_90 if rotated else q_id)
+    he = torch.from_numpy(plank).to(dev).repeat(len(pos), 1)
+    return _with_ground(
+        ShapeSet.cuboids(he),
+        torch.from_numpy(np.asarray(pos, np.float32)).to(dev),
+        cuboid_local_mprops(he), ground_he=(20.0, 1.0, 20.0),
+        rotations=torch.from_numpy(np.stack(rots)).to(dev))
+
+
+def many_pyramids(count: int = 4, levels: int = 10, *,
+                  device=None) -> PhysicsState:
+    """``count`` pyramids of cubes on a square grid."""
+    dev = resolve_device(device)
+    he = 0.5
+    grid = int(np.ceil(np.sqrt(count)))
+    extent = levels * (2.0 * he * 1.02) * 1.5
+    pos, k = [], 0
+    for gx in range(grid):
+        for gz in range(grid):
+            if k >= count:
+                break
+            k += 1
+            pos += _pyramid_positions(levels, he,
+                                      (gx - (grid - 1) / 2.0) * extent,
+                                      (gz - (grid - 1) / 2.0) * extent)
+    return _boxes_state(np.asarray(pos, np.float32), he, dev,
+                        ground_he=(200.0, 1.0, 200.0))
+
+
+def boxes_and_balls(n: int = 400, *, dim: int = 3,
+                    device=None) -> PhysicsState:
+    """Balls then boxes on one jittered lattice over the ground."""
+    _need_3d(dim)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(3)
+    half = n // 2
+    r, he = 0.5, 0.5
+    radii = torch.full((half,), r, dtype=torch.float32, device=dev)
+    hes = torch.full((n - half, 3), he, dtype=torch.float32, device=dev)
+    shapes = ShapeSet.concat(ShapeSet.balls(radii), ShapeSet.cuboids(hes))
+    mp = _merge_mprops(ball_local_mprops(radii), cuboid_local_mprops(hes))
+    pos = _lattice(n, dim).astype(np.float32) * 1.15
+    pos -= pos.mean(0, keepdims=True) * np.asarray([1.0, 0.0, 1.0])
+    pos[:, 1] += 1.0
+    pos += rng.uniform(-0.03, 0.03, pos.shape).astype(np.float32)
+    return _with_ground(shapes, torch.from_numpy(pos).to(dev), mp)
+
+
+def box_configs(n_bodies: int) -> dict:
+    """The 4-point ``ladder`` and ``fused`` configurations the box scenes
+    are stepped under, as ``PipelineConfig`` field dicts: the JAX package's
+    own recipe (``tests/test_gs_fused.py::test_pipeline_gs_fused_boxes_p4``)
+    with the budgets of ``scripts/run_pyramid43k.py`` (grid budgets 216 /
+    16 / 32 / 128, ``gs_cmax`` 8192, 24 colours), the capacities seeded
+    from the body count: 6 pairs, 3 contacts and 6 cuboid pairs a body, as
+    that script's 262,144 / 131,072 / 131,072 are at 42,926 bodies."""
+    ladder = dict(
+        pair_capacity=capacity_bucket(6 * n_bodies),
+        contact_capacity=capacity_bucket(3 * n_bodies),
+        max_colors=24, gs_cmax=8192, bp_slack=0.03, bp_algo="grid",
+        sat_pair_capacity=capacity_bucket(6 * n_bodies, floor=256),
+        bc_pair_capacity=256, bp_cand_budget=216, bp_cell_cap=16,
+        bp_global_cap=32, broad_phase_max_per_row=128, manifold_points=4,
+        gs_windows=(256,) * 24)
+    return {"ladder": ladder,
+            "fused": dict(ladder, gs_fused=True, gs_rung0=256)}
+
+
+# the JAX package's 3D scenes that the port builds; each takes ``device``
+SCENES = {
+    "boxes3": lambda device=None: boxes(1000, device=device),
+    "pyramid3": lambda device=None: pyramid(20, device=device),
+    "ball_pyramid3": lambda device=None: pyramid(20, use_balls=True,
+                                                 device=device),
+    "ball_pit": lambda device=None: ball_pit(10_000, device=device),
+    "keva3": lambda device=None: keva_tower(device=device),
+    "many_pyramids3": lambda device=None: many_pyramids(device=device),
+}
