@@ -47,7 +47,14 @@ Three phases; any failed check ends the run with a non-zero exit:
    against the ladder's end positions, the kinetic-energy / penetration
    envelopes of ``chained_ps`` and ``fused`` against the ladder's, and
    ``fused``'s distance to the ladder's end positions (recorded beside the
-   JAX package's own).
+   JAX package's own). Then the box scenes (``pyramid(20)`` against the
+   JAX frames in ``artifacts/pyramid20.npz``, ``pyramid(50)`` timed) and
+   the primitive rain: ``primitives3(40)`` against the JAX frames in
+   ``artifacts/primitives3_small.npz`` and under the physical checks, and
+   ``primitives3(2000)`` (10,000 balls, cuboids, capsules, cylinders and
+   cones: GJK, EPA and the support-face clip) timed under the 4-point
+   ladder and fused configurations, with B2 / B9-B11 checked at P = 4 on
+   its frames and the support-mapped kernel's share of the step.
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -2425,7 +2432,7 @@ def _pit_counts() -> dict:
 def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
              refs: dict | None, expect: tuple, *, warm: int = WARM_FRAMES,
              timed: int = TIMED_FRAMES, envelopes=None,
-             timed_trail: bool = False) -> dict:
+             timed_trail: bool = False, record=None) -> dict:
     """One configuration from a state: ``warm`` checked frames (the first
     ones held against the JAX reference frames in ``refs`` where there are
     any), then ``timed`` timed frames. ``expect`` names the kernel counters
@@ -2433,7 +2440,9 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
     are set to 0 just before the path runs and read just after.
     ``envelopes(state)`` gives the end state's kinetic-energy proxy and
     deepest penetration (default: the pit's). ``timed_trail`` also keeps
-    the translations after each timed frame (references only, no sync)."""
+    the translations after each timed frame (references only, no sync);
+    ``record(state)`` is kept after each timed frame (device tensors, no
+    sync) as ``recorded``."""
     state = state_from_arrays(arrays, device="cuda")
     n_ref = 0 if refs is None else sum(
         1 for k in refs if k.startswith("ref.")
@@ -2479,11 +2488,14 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
     warm_syncs = dispatch.HOST_SYNCS
     t0 = time.perf_counter()
     start.record()
+    recorded = []
     for _ in range(timed):
         state, cfg = step_checked(state, params, cfg)
         counts.append(state.pair_count)
         if timed_trail:
             trail.append(state.bodies.poses.translation)
+        if record is not None:
+            recorded.append(record(state))
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
@@ -2536,7 +2548,7 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
               "standalone B12 was launched")
         metrics["regrow_frames"] = timed_n["build_fused"] - timed
     return {"metrics": metrics, "warmed": warmed, "end": (state, cfg),
-            "trail": trail}
+            "trail": trail, "counts": counts, "recorded": recorded}
 
 
 def _max_dp(a, b) -> float:
@@ -2746,17 +2758,23 @@ def box_build_call(device):
 
 def box_envelopes(state) -> tuple[float, float]:
     """Kinetic-energy proxy (sum |v|^2; the boxes share one mass) and the
-    deepest penetration of the end state's contact manifolds (the narrow
-    phase over the cached pair list)."""
+    deepest penetration of the end state's contact manifolds
+    (:func:`contact_depths`)."""
     vel = state.bodies.vels.linear
-    ke = float((vel * vel).sum())
+    depth = contact_depths(state)
+    return (float((vel * vel).sum()),
+            max(float(depth.max()) if depth.numel() else 0.0, 0.0))
+
+
+def contact_depths(state) -> torch.Tensor:
+    """The depths of the live points of the state's contact manifolds (the
+    narrow phase over the cached pair list, 4 points wide)."""
     c, _ = narrow_mod.narrow_phase(state.bodies.poses, state.shapes,
                                    state.bp_pairs,
                                    SimParams().prediction_distance, p_max=4)
     slot = torch.arange(4, device=c.dist.device)
     live = c.valid[:, None] & (slot[None, :] < c.num_points[:, None])
-    pen = float(torch.where(live, -c.dist, torch.zeros_like(c.dist)).max())
-    return ke, max(pen, 0.0)
+    return -c.dist[live]
 
 
 def box_reference_phase(params) -> dict:
@@ -2799,26 +2817,35 @@ def box_reference_phase(params) -> dict:
 
 def box_kernel_checks(runs: dict, params, summaries: dict) -> None:
     """B2, B9, B11 and B10 carrying B12 at P = 4 on the first frame after
-    the warm frames of ``pyramid(50)``, recorded from ``step_checked``:
-    B2's two sweeps of substep 1 and B11 / B10 one launch each against the
-    same kernel launched rung by rung or colour by colour and their
-    repeats (bit for bit) and against the plain versions; B9 against its
-    plain version and its contiguous copies. Adds each kernel's numbers
-    to its summary under ``pyramid50_*``."""
-    state, cfg = runs["box_ladder"]["warmed"]
+    the warm frames of ``pyramid(50)`` (:func:`p4_kernel_checks`); adds each
+    kernel's numbers to its summary under ``pyramid50_*``."""
+    p4_kernel_checks(runs, params, summaries, ("box_ladder", "box_fused"),
+                     "pyramid50")
+
+
+def p4_kernel_checks(runs: dict, params, summaries: dict, paths: tuple,
+                     label: str) -> None:
+    """B2, B9, B11 and B10 carrying B12 at P = 4 on the first frame after
+    the warm frames of the runs of ``paths`` (ladder, fused), recorded from
+    ``step_checked``: B2's two sweeps of substep 1 and B11 / B10 one launch
+    each against the same kernel launched rung by rung or colour by colour
+    and their repeats (bit for bit) and against the plain versions; B9
+    against its plain version and its contiguous copies. Adds each
+    kernel's numbers to its summary under ``<label>_*``."""
+    state, cfg = runs[paths[0]]["warmed"]
     calls = record_sweeps(lambda: step_checked(state, params, cfg), 2)
     check(all(c.kw["p_max"] == 4 for c in calls),
-          "pyramid50 ladder: the sweeps are not 4 points wide")
-    cases = [_sweep_case("gs_math_block", f"pyramid50 ladder sweep {k + 1}",
+          f"{label} ladder: the sweeps are not 4 points wide")
+    cases = [_sweep_case("gs_math_block", f"{label} ladder sweep {k + 1}",
                          call, True) for k, call in enumerate(calls)]
     row = summaries["gs_math_block"]
     row["max_abs_err"] = max([row["max_abs_err"]]
                              + [c["max_abs_err"] for c in cases])
-    row.update(pyramid50_ms=sum(c["ms"] for c in cases),
-               pyramid50_plain_ms=sum(c["plain_ms"] for c in cases),
-               pyramid50_rows=cases[0]["rows"],
-               pyramid50_rungs=cases[0]["rungs"])
-    state, cfg = runs["box_fused"]["warmed"]
+    row.update({f"{label}_ms": sum(c["ms"] for c in cases),
+                f"{label}_plain_ms": sum(c["plain_ms"] for c in cases),
+                f"{label}_rows": cases[0]["rows"],
+                f"{label}_rungs": cases[0]["rungs"]})
+    state, cfg = runs[paths[1]]["warmed"]
 
     def run():
         step_checked(state, params, cfg)
@@ -2828,29 +2855,29 @@ def box_kernel_checks(runs: dict, params, summaries: dict) -> None:
     z = dict(p_max=contacts.points_a.shape[1], poses=poses, vels=vels,
              mprops=mprops, contacts=contacts, ctot=contacts.capacity,
              n=poses.translation.shape[0])
-    check(z["p_max"] == 4, "pyramid50 fused: the build is not 4 points wide")
+    check(z["p_max"] == 4, f"{label} fused: the build is not 4 points wide")
     check(b9_from_copies(b9_args(z, bparams)),
-          "build_fused pyramid50: strided contact fields and contiguous "
+          f"build_fused {label}: strided contact fields and contiguous "
           "copies give different bits")
-    b9, _ = _b9_case(z, f"pyramid50 C={z['ctot']} P=4", True, bparams)
+    b9, _ = _b9_case(z, f"{label} C={z['ctot']} P=4", True, bparams)
     row = summaries["build_fused"]
     row["max_abs_err"] = max(row["max_abs_err"], b9["max_abs_err"])
-    row.update(pyramid50_ms=b9["ms"], pyramid50_plain_ms=b9["plain_ms"],
-               pyramid50_C=z["ctot"])
+    row.update({f"{label}_ms": b9["ms"], f"{label}_plain_ms": b9["plain_ms"],
+                f"{label}_C": z["ctot"]})
     for call in record_fused(run):
         check((call.name == "fused_sweep") == ("integrate" in call.kw),
-              f"{call.name} pyramid50: the step's B10 does not carry B12")
-        check(call.kw["p_max"] == 4, f"{call.name} pyramid50: not P = 4")
-        got = fused_bits(call, "pyramid50")
-        err, ratio = _fused_check(call.name, "pyramid50", got,
+              f"{call.name} {label}: the step's B10 does not carry B12")
+        check(call.kw["p_max"] == 4, f"{call.name} {label}: not P = 4")
+        got = fused_bits(call, label)
+        err, ratio = _fused_check(call.name, label, got,
                                   run_fused(call, "plain"), RTOL, ATOL)
         row = summaries[call.name]
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["pyramid50_ms"] = _median_ms(lambda: run_fused(call, "kernel"))
-        print(f"{call.name} pyramid50 max|d|={err:.3e} tol-ratio "
+        row[f"{label}_ms"] = _median_ms(lambda: run_fused(call, "kernel"))
+        print(f"{call.name} {label} max|d|={err:.3e} tol-ratio "
               f"{ratio:.3f}; grid {gs_fused.LAST_GRID[call.name]} blocks; "
               f"= colour by colour bit for bit, {FUSED_REPEATS} repeats bit "
-              f"for bit; kernel {row['pyramid50_ms'] * 1e3:.2f} us")
+              f"for bit; kernel {row[f'{label}_ms'] * 1e3:.2f} us")
 
 
 def _physics(tr, y0, levels: int) -> dict:
@@ -2973,21 +3000,270 @@ def box_phase(params) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the primitive rain: support-mapped contacts (GJK, EPA, PFM manifolds)
+# ---------------------------------------------------------------------------
+
+NPZ_PRIMITIVES = os.path.join(ROOT, "artifacts", "primitives3_small.npz")
+PRIM_SCENE = "primitives3"  # the scene of NPZ_PRIMITIVES: per_kind 40
+PRIM_PER_KIND = 2000  # 10,000 dynamic bodies and the ground
+# the lower layers land by ~90 frames (the top one starts ~29.5 m up)
+PRIM_WARM_FRAMES = 90
+PRIM_TIMED_FRAMES = 20
+PRIM_PATHS = {"prim_ladder": ("ladder", ("gs_math_block",)),
+              "prim_fused": ("fused", FUSED_KERNELS)}
+# the timed window must hold this many support-mapped pairs a frame
+PRIM_MIN_PFM_PAIRS = 2000
+# the JAX frames (each from JAX's state before it): every count exactly but
+# the contacts' and their classes', which may differ by one contact; at
+# least PRIM_NEAR_SHARE of the bodies within the pit's limit of the frame,
+# every body within PRIM_FAR_ATOL. GJK and EPA iterate in f32, and an ulp
+# sends a near-degenerate pair into another simplex
+# (tests/test_torch_gjk.py); such a pair's two bodies move apart from
+# JAX's by up to ~3e-2 m in a frame (tests/test_torch_pipeline_primitives.py)
+PRIM_NEAR_SHARE, PRIM_FAR_ATOL = 0.85, 5e-2
+# the physical checks, held on primitives3(40) over as many frames as the
+# 10k paths run: no dynamic centre below the ground's top, at most
+# PRIM_DEEP_SHARE of the live contact points deeper than PRIM_DEEPEST (the
+# deepest is recorded: an f32 GJK that finds a touching pair's cores
+# overlapping hands EPA a flat simplex, and the contact comes out up to
+# ~0.8 m deep; the JAX package's own narrow phase gives 0.40 m on its own
+# 62nd frame of this scene, ROADMAP C9). At 10,000 bodies the EPA batch
+# (the JAX package's epa_cap, 256) overflows and the pairs past it keep
+# GJK's answer, a zero depth: bodies sink through the ground there, so the
+# 10k figures are recorded (ROADMAP C8)
+PRIM_GROUND_Y, PRIM_DEEPEST, PRIM_DEEP_SHARE = 0.0, 0.1, 0.01
+
+
+def prim_counts_match(got, want) -> bool:
+    """Every count exactly but the contacts' and their classes', which may
+    differ by one contact."""
+    got, want = np.asarray(got), np.asarray(want)
+    d_contacts = abs(int(got[1]) - int(want[1]))
+    rest = np.r_[0, 2:8]
+    return (np.array_equal(got[rest], want[rest]) and d_contacts <= 1
+            and int(np.abs(got[8:] - want[8:]).sum()) <= 2 * d_contacts)
+
+
+def primitives_reference_phase(params) -> dict:
+    """``primitives3(40)`` against the JAX frames in
+    ``primitives3_small.npz``: under ``ladder`` and ``fused`` three frames,
+    each from JAX's state before it."""
+    out = {}
+    for name in ("ladder", "fused"):
+        errs = []
+        for f in range(len(TRANSLATION_LIMITS)):
+            start = (f"{PRIM_SCENE}.{name}." if f == 0
+                     else f"{PRIM_SCENE}.{name}.ref.{f - 1}.")
+            refs = box_arrays(NPZ_PRIMITIVES, f"{PRIM_SCENE}.{name}.ref.{f}.")
+            state = state_from_arrays(
+                box_arrays(NPZ_PRIMITIVES, start + "state."), device="cuda")
+            cfg = PipelineConfig.from_dict(json.loads(str(box_arrays(
+                NPZ_PRIMITIVES, start)["config_json"])))
+            state, cfg = step_checked(state, params, cfg)
+            check(_finite(state), f"{PRIM_SCENE} {name} frame {f}: "
+                  "non-finite")
+            pc = state.pair_count.cpu().numpy()
+            dx = np.abs(state.bodies.poses.translation.cpu().numpy()
+                        - refs["translation"]).max(-1)
+            d_v = float(np.abs(state.bodies.vels.linear.cpu().numpy()
+                               - refs["linear"]).max())
+            near = float((dx <= TRANSLATION_LIMITS[f]).mean())
+            print(f"{PRIM_SCENE} {name} reference frame {f}: pairs {pc[0]} "
+                  f"(ref {refs['pair_count'][0]}) contacts {pc[1]} (ref "
+                  f"{refs['pair_count'][1]}) support-mapped pairs {pc[7]} "
+                  f"(ref {refs['pair_count'][7]}); bodies within "
+                  f"{TRANSLATION_LIMITS[f]:.0e} m {near:.3f} (limit "
+                  f"{PRIM_NEAR_SHARE}), max|dx| {dx.max():.3e} (limit "
+                  f"{PRIM_FAR_ATOL:.0e}), max|dv| {d_v:.3e}")
+            check(prim_counts_match(pc, refs["pair_count"]),
+                  f"{PRIM_SCENE} {name} frame {f}: counts {pc[:8]} against "
+                  f"{refs['pair_count'][:8]}")
+            check(near >= PRIM_NEAR_SHARE and dx.max() <= PRIM_FAR_ATOL,
+                  f"{PRIM_SCENE} {name} frame {f}: translations off")
+            errs.append({"max_dx": float(dx.max()), "near_share": near,
+                         "max_dv": d_v, "pairs": int(pc[0]),
+                         "contacts": int(pc[1]), "pfm_pairs": int(pc[7])})
+        out[name] = errs
+    return out
+
+
+def _ground_figures(state) -> dict:
+    """The lowest dynamic centre, the bodies below the ground's top, and
+    the share of the live contact points deeper than ``PRIM_DEEPEST``."""
+    y = state.bodies.poses.translation[1:, 1]
+    depth = contact_depths(state)
+    return {"min_y": float(y.min()),
+            "below_ground": int((y < PRIM_GROUND_Y).sum()),
+            "deep_share": (float((depth > PRIM_DEEPEST).float().mean())
+                           if depth.numel() else 0.0),
+            "contact_points": int(depth.numel())}
+
+
+@contextlib.contextmanager
+def epa_demands():
+    """A list that gains the EPA demand (``pfm_contact``'s unclamped count
+    of core-overlapping pairs, a device scalar) of every support-mapped
+    batch the narrow phase runs inside the block, the last the frame's
+    kept run."""
+    real = narrow_mod._pfm_call
+    seen = []
+
+    def wrapped(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[-1])
+        return out
+
+    narrow_mod._pfm_call = wrapped
+    try:
+        yield seen
+    finally:
+        narrow_mod._pfm_call = real
+
+
+def primitives_physics_phase(params) -> dict:
+    """``primitives3(40)`` from its first state under ``ladder`` and
+    ``fused`` for as many frames as the 10k paths run: no dynamic centre
+    below the ground's top and the deepest contact within
+    ``PRIM_DEEPEST``, the fused envelope recorded beside the ladder's."""
+    from wgmath_tpu_torch.scenes.builders import (
+        primitive_configs,
+        primitives3,
+    )
+
+    out = {}
+    for name in ("ladder", "fused"):
+        state = primitives3(40, device="cuda")
+        cfg = PipelineConfig(**primitive_configs(
+            int(state.bodies.poses.translation.shape[0]))[name])
+        with epa_demands() as epa:
+            for _ in range(PRIM_WARM_FRAMES + PRIM_TIMED_FRAMES):
+                state, cfg = step_checked(state, params, cfg)
+        check(_finite(state), f"{PRIM_SCENE} {name}: non-finite")
+        ke, pen = box_envelopes(state)
+        m = dict(_ground_figures(state), kinetic_energy=ke,
+                 max_penetration=pen,
+                 epa_demand_max=int(torch.stack(epa).max()))
+        print(f"{PRIM_SCENE} {name} after "
+              f"{PRIM_WARM_FRAMES + PRIM_TIMED_FRAMES} frames: lowest centre "
+              f"y = {m['min_y']:.4f} (limit {PRIM_GROUND_Y}), contact points "
+              f"deeper than {PRIM_DEEPEST} m {m['deep_share']:.4f} of "
+              f"{m['contact_points']} (limit {PRIM_DEEP_SHARE}), deepest "
+              f"{pen:.5f} m (recorded), KE {ke:.4f}, EPA demand at most "
+              f"{m['epa_demand_max']} (cap 256)")
+        check(m["below_ground"] == 0, f"{PRIM_SCENE} {name}: a body's centre "
+              f"is below the ground (lowest y {m['min_y']:.4f})")
+        check(m["deep_share"] <= PRIM_DEEP_SHARE, f"{PRIM_SCENE} {name}: "
+              f"{m['deep_share']:.4f} of the contact points deeper than "
+              f"{PRIM_DEEPEST} m")
+        out[name] = m
+    print(f"{PRIM_SCENE} fused envelope (recorded): KE "
+          f"{out['fused']['kinetic_energy']:.4f} vs ladder "
+          f"{out['ladder']['kinetic_energy']:.4f}, deepest "
+          f"{out['fused']['max_penetration']:.5f} vs "
+          f"{out['ladder']['max_penetration']:.5f}")
+    return out
+
+
+def primitives_phase(params) -> dict:
+    """The primitive rain: ``primitives3(40)`` against the JAX frames and
+    under the physical checks, then ``primitives3(2000)`` (10,000 bodies
+    and the ground) from its first state under ``prim_ladder`` and
+    ``prim_fused`` (``PRIM_WARM_FRAMES`` warm, ``PRIM_TIMED_FRAMES``
+    timed): finite, at least ``PRIM_MIN_PFM_PAIRS`` support-mapped pairs
+    in every timed frame; the EPA demand a frame against its cap, the
+    lowest centre, the bodies below the ground and the envelopes recorded.
+    Returns path name -> run, plus ``prim_jax_frames`` and
+    ``prim_checks``."""
+    from wgmath_tpu_torch.scenes.builders import (
+        primitive_configs,
+        primitives3,
+    )
+
+    runs = {"prim_jax_frames": primitives_reference_phase(params)}
+    checks = {"primitives3_40": primitives_physics_phase(params)}
+    state0 = primitives3(PRIM_PER_KIND, device="cpu")
+    arrays = state_to_arrays(state0)
+    n = int(state0.bodies.poses.translation.shape[0])
+    for path, (name, expect) in PRIM_PATHS.items():
+        cfg = PipelineConfig(**primitive_configs(n)[name])
+        with epa_demands() as seen:
+            run = runs[path] = run_path(
+                path, arrays, cfg, params, None, expect,
+                warm=PRIM_WARM_FRAMES, timed=PRIM_TIMED_FRAMES,
+                envelopes=box_envelopes, record=lambda st: seen[-1])
+        pfm_pairs = [int(c[7]) for c in run["counts"]]
+        epa = [int(x) for x in run["recorded"]]
+        m = dict(_ground_figures(run["end"][0]),
+                 pfm_pairs_per_frame=(min(pfm_pairs), max(pfm_pairs)),
+                 epa_demand_per_frame=(min(epa), max(epa)), epa_cap=256,
+                 pfm_pair_capacity=run["end"][1].pfm_pair_capacity)
+        run["metrics"].update(m)
+        print(f"{path}: support-mapped pairs a timed frame {min(pfm_pairs)}"
+              f"..{max(pfm_pairs)} (at least {PRIM_MIN_PFM_PAIRS}); EPA "
+              f"demand {min(epa)}..{max(epa)} against its cap of 256; "
+              f"lowest centre y = {m['min_y']:.3f}, {m['below_ground']} "
+              f"bodies below the ground, contact points deeper than "
+              f"{PRIM_DEEPEST} m {m['deep_share']:.4f} of "
+              f"{m['contact_points']}, deepest "
+              f"{run['metrics']['max_penetration']:.4f} m (recorded)")
+        check(min(pfm_pairs) >= PRIM_MIN_PFM_PAIRS,
+              f"{path}: {min(pfm_pairs)} support-mapped pairs in a timed "
+              "frame")
+        checks[path] = m
+    runs["prim_checks"] = checks
+    return runs
+
+
+def primitives_kernel_checks(runs: dict, params, summaries: dict) -> None:
+    """B2, B9, B11 and B10 carrying B12 at P = 4 on the first frame after
+    the warm frames of ``primitives3(2000)`` (:func:`p4_kernel_checks`),
+    under ``primitives10k_*`` in each kernel's summary."""
+    p4_kernel_checks(runs, params, summaries, tuple(PRIM_PATHS),
+                     "primitives10k")
+
+
 def sat_share(run_once, frames: int = 3) -> dict:
     """The share of a frame's device time and host time spent inside
-    ``cuboid_cuboid_manifold``: a profiled window of ``frames`` calls of
-    ``run_once`` with the SAT call wrapped in a ``record_function`` range
-    (informational)."""
+    ``cuboid_cuboid_manifold`` (:func:`range_share`)."""
+    return range_share(run_once, narrow_mod, "cuboid_cuboid_manifold",
+                       "sat_manifold", frames)
+
+
+def pfm_share(run_once, frames: int = 3) -> dict:
+    """The share of a frame's device time and host time spent in the
+    support-mapped kernel (GJK, EPA and the clip; its CUDA graph's
+    replays, ``narrow_phase._pfm_call``), with the same range timed by
+    CUDA events (a graph's kernels may not be credited to the range)."""
+    return range_share(run_once, narrow_mod, "_pfm_call", "pfm_manifold",
+                       frames, events=True)
+
+
+def range_share(run_once, module, attr: str, label: str, frames: int = 3,
+                events: bool = False) -> dict:
+    """The share of a frame's device time and host time spent inside
+    ``module.attr``: a profiled window of ``frames`` calls of ``run_once``
+    with that call wrapped in a ``record_function`` range (informational).
+    ``events``: also the range's time by CUDA events a frame."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    real = narrow_mod.cuboid_cuboid_manifold
+    real = getattr(module, attr)
+    marks = []
 
     def wrapped(*args, **kw):
-        with record_function("sat_manifold"):
+        with record_function(label):
+            if events:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                out = real(*args, **kw)
+                end.record()
+                marks.append((start, end))
+                return out
             return real(*args, **kw)
 
-    narrow_mod.cuboid_cuboid_manifold = wrapped
+    setattr(module, attr, wrapped)
     try:
         torch.cuda.synchronize()
         with warnings.catch_warnings():
@@ -3000,18 +3276,26 @@ def sat_share(run_once, frames: int = 3) -> dict:
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        narrow_mod.cuboid_cuboid_manifold = real
-    sat = [e for e in prof.events() if e.name == "sat_manifold"]
+        setattr(module, attr, real)
+    spans = [e for e in prof.events() if e.name == label]
     total_us = sum(getattr(e, "self_device_time_total", 0.0)
                    for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
-    sat_dev = sum(e.device_time_total for e in sat)
-    sat_host = sum(e.cpu_time_total for e in sat)
-    return {"calls_per_step": len(sat) / frames,
-            "device_ms_per_step": sat_dev / 1e3 / frames,
-            "device_share": sat_dev / total_us if total_us else None,
-            "host_ms_per_step": sat_host / 1e3 / frames,
-            "host_share_of_wall": sat_host / 1e3 / wall_ms}
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.key != label)
+    dev = sum(e.device_time_total for e in spans)
+    host = sum(e.cpu_time_total for e in spans)
+    out = {"calls_per_step": len(spans) / frames,
+           "device_ms_per_step": dev / 1e3 / frames,
+           "device_share": dev / total_us if total_us else None,
+           "host_ms_per_step": host / 1e3 / frames,
+           "host_share_of_wall": host / 1e3 / wall_ms}
+    if events:
+        ev_ms = sum(a.elapsed_time(b) for a, b in marks) / frames
+        out.update(event_ms_per_step=ev_ms,
+                   event_share_of_device=(ev_ms / (total_us / 1e3 / frames)
+                                          if total_us else None),
+                   event_share_of_wall=ev_ms * frames / wall_ms)
+    return out
 
 
 # the spin kernels that bracket a profiled window: ~1 us each
@@ -3170,18 +3454,28 @@ def main() -> int:
         query_paths = geometry_path_phase()
         query_paths.update(ray_path_phase())
         params = SimParams()
+        t0 = time.perf_counter()
         runs = path_phase()
+        t1 = time.perf_counter()
         runs.update(box_phase(params))
         box_kernel_checks(runs, params, summaries)
+        t2 = time.perf_counter()
+        runs.update(primitives_phase(params))
+        primitives_kernel_checks(runs, params, summaries)
+        print(f"phase seconds: pit paths {t1 - t0:.1f}, box {t2 - t1:.1f}, "
+              f"primitives {time.perf_counter() - t2:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     paths = {}
-    for name in CONFIGS + tuple(BOX_PATHS):
+    step_paths = CONFIGS + tuple(BOX_PATHS) + tuple(PRIM_PATHS)
+    for name in step_paths:
         paths[name] = runs[name]["metrics"]
         stepper = _pit_stepper(*runs[name]["end"], params)
+        # a 10k primitives step is ~40,000 kernels: two frames a window
+        frames = 2 if name in PRIM_PATHS else 3
         try:
-            prof = profile_window(stepper)
+            prof = profile_window(stepper, frames)
             paths[name]["profile"] = prof
             # the profiler stretches the step: the busy share of the
             # timed, unprofiled step is kernel time over that step
@@ -3194,13 +3488,26 @@ def main() -> int:
                       f"{prof['kernels_per_step']:.1f} kernels/step, busy "
                       f"{paths[name]['device_busy_share']:.3f}; SAT "
                       f"{paths[name]['sat']}")
+            if name in PRIM_PATHS:
+                m = paths[name]
+                m["pfm"] = pfm_share(stepper, frames)
+                print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
+                      f"{prof['device_ms_per_step']:.3f} ms/step, "
+                      f"{prof['kernels_per_step']:.1f} kernels/step, "
+                      f"{m['host_syncs_per_step']:.2f} host syncs/step, busy "
+                      f"{m['device_busy_share']:.3f}, support-mapped pairs "
+                      f"{m['pfm_pairs_per_frame']}, EPA demand "
+                      f"{m['epa_demand_per_frame']} (cap 256), peak "
+                      f"{m['peak_mem_gb']:.3f} GB; PFM {m['pfm']}")
         except Exception as e:  # the profiler is untried on this machine
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
     print(json.dumps({"paths": paths, "linalg_paths": linalg_paths,
                       "query_paths": query_paths, "gates": runs["gates"],
                       "box_jax_frames": runs["jax_frames"],
-                      "box_checks": runs["box_checks"]}))
+                      "box_checks": runs["box_checks"],
+                      "prim_jax_frames": runs["prim_jax_frames"],
+                      "prim_checks": runs["prim_checks"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:
@@ -3212,7 +3519,7 @@ def main() -> int:
             "launches": m["launches"][counter],
             "launches_per_step": m[f"{counter}_launches_per_step"],
             "launches_by_path": {c: paths[c]["launches"][counter]
-                                 for c in CONFIGS + tuple(BOX_PATHS)},
+                                 for c in step_paths},
             **({"standalone_launches": m["launches"][name]}
                if counter != name else {}),
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],

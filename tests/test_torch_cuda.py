@@ -30,9 +30,13 @@ from chip_smoke import (
     NPZ,
     NPZ_FUSED,
     NPZ_LADDER,
+    NPZ_PRIMITIVES,
     OP_ASSIGN_RTOL,
+    PRIM_FAR_ATOL,
+    PRIM_NEAR_SHARE,
     REDUCE_TOL,
     b9_args,
+    box_arrays,
     box_build_call,
     box_fused_calls,
     box_state,
@@ -53,6 +57,7 @@ from chip_smoke import (
     pit_build_call,
     pit_fused_calls,
     pit_sweeps,
+    prim_counts_match,
     ray_bench_arrays,
     run_fused,
     run_recorded,
@@ -402,6 +407,107 @@ def test_sat_narrow_phase_on_card_matches_cpu(sat_capacity):
     for f in ("normal_a", "points_a", "dist"):
         torch.testing.assert_close(getattr(cg, f).cpu(), getattr(cc, f),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _prim_state(name, dev):
+    """``primitives3(40)`` as the JAX package warmed it under ``name``:
+    (state on ``dev``, configuration)."""
+    z = box_arrays(NPZ_PRIMITIVES, f"primitives3.{name}.")
+    return (state_from_arrays(box_arrays(
+        NPZ_PRIMITIVES, f"primitives3.{name}.state."), device=dev),
+        PipelineConfig.from_dict(json.loads(str(z["config_json"]))))
+
+
+PFM_VARIANTS = {"dense": (4, 0), "compacted": (4, 4096),
+                "past_capacity": (4, 64), "p_max1": (1, 4096)}
+
+
+def _pfm_narrow(dev, p_max, cap, state=None):
+    from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
+
+    state = state or _prim_state("ladder", dev)[0]
+    return narrow_phase(state.bodies.poses, state.shapes, state.bp_pairs,
+                        SimParams().prediction_distance, p_max=p_max,
+                        sat_capacity=1024, bc_capacity=256,
+                        pfm_capacity=cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(PFM_VARIANTS))
+def test_pfm_narrow_phase_on_card_matches_cpu(variant):
+    """The narrow phase's support-mapped branch (GJK, EPA and the clip,
+    plain tensor code, as a CUDA graph on the card) over the warmed
+    ``primitives3(40)``'s cached pairs, dense, compacted, past its capacity
+    and at ``p_max`` 1, on the card and on the CPU: the same demands,
+    counts and validity; normals, points and depths to 1e-6 (the card's
+    float32 arithmetic is IEEE and the port writes out every sum and the
+    square roots correctly rounded on both)."""
+    _need_card()
+    p_max, cap = PFM_VARIANTS[variant]
+    (cc, nc), (cg, ng) = (_pfm_narrow(dev, p_max, cap)
+                          for dev in ("cpu", "cuda"))
+    np.testing.assert_array_equal(ng.cpu().numpy(), nc.numpy())
+    if variant == "past_capacity":
+        assert int(nc[2]) > 64
+    for f in ("valid", "num_points"):
+        np.testing.assert_array_equal(getattr(cg, f).cpu().numpy(),
+                                      getattr(cc, f).numpy())
+    for f in ("normal_a", "points_a", "dist"):
+        torch.testing.assert_close(getattr(cg, f).cpu(), getattr(cc, f),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_pfm_graph_replays_give_the_eager_bits_on_card(monkeypatch):
+    """The support-mapped kernel's CUDA graph, captured on one state and
+    replayed on another, gives the bits of the eager run of each; a batch
+    of another shape replaces the graph of its (device, p_max,
+    prediction) and gives the eager bits too."""
+    _need_card()
+    from wgmath_tpu_torch.queries import narrow_phase as narrow_mod
+
+    first = _prim_state("ladder", "cuda")[0]
+    later = state_from_arrays(box_arrays(
+        NPZ_PRIMITIVES, "primitives3.ladder.ref.1.state."), device="cuda")
+    runs = ((first, 4096), (later, 4096), (first, 4096), (later, 2048))
+    with monkeypatch.context() as m:
+        m.setattr(narrow_mod, "_pfm_call", narrow_mod._pfm)
+        eager = [_pfm_narrow("cuda", 4, cap, st) for st, cap in runs]
+    narrow_mod._PFM_GRAPHS.clear()
+    graphed = [_pfm_narrow("cuda", 4, cap, st) for st, cap in runs]
+    for (e, ne), (g, ng) in zip(eager, graphed):
+        assert torch.equal(ne, ng)
+        for f in ("normal_a", "points_a", "dist", "num_points", "valid"):
+            assert torch.equal(getattr(e, f), getattr(g, f)), f
+    assert not torch.equal(eager[0][0].dist, eager[1][0].dist)
+    assert len(narrow_mod._PFM_GRAPHS) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ladder", "fused"])
+def test_primitive_frames_on_card_match_cpu(name):
+    """Two frames of the warmed ``primitives3(40)`` on the card and on the
+    CPU: the same configuration and counts, but a contact an unsettled
+    f32 GJK / EPA pair gains or loses (``chip_smoke.prim_counts_match``);
+    at least ``PRIM_NEAR_SHARE`` of the bodies within 1e-5 m and all within
+    ``PRIM_FAR_ATOL`` (the card's sweeps add in another order than the
+    plain sweep, and GJK / EPA carry an ulp into another simplex)."""
+    _need_card()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, cfg = _prim_state(name, dev)
+        for _ in range(2):
+            state, cfg = step_checked(state, SimParams(), cfg)
+        out[dev] = (state, cfg)
+    (sc, cc), (sg, cg) = out["cpu"], out["cuda"]
+    assert cc == cg
+    assert prim_counts_match(sg.pair_count.cpu().numpy(),
+                             sc.pair_count.numpy())
+    assert sg.prev_constraints.n_impulse.shape[1] == 4
+    dx = (sg.bodies.poses.translation.cpu()
+          - sc.bodies.poses.translation).abs().amax(-1)
+    assert float((dx <= 1e-5).float().mean()) >= PRIM_NEAR_SHARE
+    assert float(dx.max()) <= PRIM_FAR_ATOL
 
 
 # --- the fused solver: B9 - B12 ---------------------------------------------

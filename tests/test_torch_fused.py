@@ -9,29 +9,30 @@ its XLA twin.
 
 On the CPU the port's wrappers run their plain versions; the CUDA kernels
 are held against those on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``)."""
+``chip_smoke.py``).
+
+The JAX package's results on these inputs are read from
+``artifacts/torch_fused_jax.npz``, written by
+``scripts/export_port_tests_npz.py --only fused`` from the same input
+helpers as below (the JAX calls, three Pallas kernels in interpret mode
+among them, cost ~100 s on the CPU; no assertion or tolerance changed when
+they moved there)."""
 
 import dataclasses
-import functools
+import json
+import os
+from types import SimpleNamespace
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
 from tests.test_torch_solver import _graph, _t
-from wgmath_tpu.dynamics import SimParams as JaxSimParams
-from wgmath_tpu.dynamics import body as jbody
-from wgmath_tpu.dynamics import build_pallas as jbuild
-from wgmath_tpu.dynamics import constraint as jcons
-from wgmath_tpu.dynamics import gs_fused as jfused
-from wgmath_tpu.dynamics import solver as jsolver
-from wgmath_tpu.geometry import sim as jsim
 from wgmath_tpu_torch.dynamics import body as tbody
 from wgmath_tpu_torch.dynamics import build_fused as tbuild
 from wgmath_tpu_torch.dynamics import constraint as tcons
 from wgmath_tpu_torch.dynamics import gs_fused as tfused
+from wgmath_tpu_torch.dynamics.gs_math import PACK_FIELDS
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import sim as tsim
 
@@ -49,26 +50,38 @@ SWEEP_RTOL, SWEEP_ATOL = 1e-4, 1e-5
 SUBSTEP_RTOL, SUBSTEP_ATOL = 1e-3, 2e-3
 S_LEN = 2
 N_BODIES = 64
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "torch_fused_jax.npz")
+# the fused cases: id -> (P, rung0, pairs, colours). XLA's compile time
+# grows with P times the colour count, so the P = 4 case is a smaller graph
+CASES = {"P1-rung0-0": (1, 0, 260, 12), "P1-rung0-32": (1, 32, 260, 12),
+         "P4-rung0-32": (4, 32, 120, 6)}
+STATIC_RUNGS = (16, 4)
+_CONTACT_FIELDS = ("body_a", "body_b", "normal_a", "points_a", "dist",
+                   "num_points", "valid")
+
+
+@pytest.fixture(scope="module")
+def z():
+    with np.load(NPZ) as f:
+        return dict(f)
+
+
+def _stored_compaction(z, pre):
+    """JAX's ``compact_contacts`` result stored under ``pre``: (Contacts
+    fields as a namespace, live count, slot colours, class counts)."""
+    return (SimpleNamespace(**{f: z[f"{pre}.{f}"] for f in _CONTACT_FIELDS}),
+            z[f"{pre}.count"], z[f"{pre}.colors"], z[f"{pre}.class_counts"])
 
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _jit(fn, **static):
-    """One jitted JAX call: the keyword arguments are closed over."""
-    return jax.jit(functools.partial(fn, **static))
-
-
-def _compact_both(contact, colors, windows):
-    want = jcons.compact_contacts(
-        jcons.Contacts(**{k: jnp.asarray(v) for k, v in contact.items()}), 0,
-        extra=jnp.asarray(colors), sort_by_extra=True,
-        static_windows=windows)
-    got = tcons.compact_contacts(
+def compact_port(contact, colors, windows):
+    return tcons.compact_contacts(
         tcons.Contacts(**{k: _t(v) for k, v in contact.items()}), 0,
         extra=_t(colors), sort_by_extra=True, static_windows=windows)
-    return got, want
 
 
 def _raw_contacts(rng, ba, bb, p_max):
@@ -83,55 +96,70 @@ def _raw_contacts(rng, ba, bb, p_max):
         valid=rng.random(c) < 0.9)
 
 
-def _setup(seed, p_max, rung0, n_pairs, max_colors):
-    """Random contacts on a properly coloured pair graph (a residue class
-    under the class cap), compacted to the static layout by both packages,
-    with both packages' bodies. Rungs: each colour's class rounded up to
-    16 (at least 16, so an empty colour keeps a rung)."""
+def setup_inputs(seed, p_max, n_pairs):
+    """The numpy inputs of a fused case: a pair graph, its contacts and
+    the bodies (the colours are the JAX package's, ``setup.<id>.colors``)."""
     n = N_BODIES
     ba, bb, _, dyn = _graph(seed, n, n_pairs, p_valid=1.0)
     rng = np.random.default_rng(seed)
     contact = _raw_contacts(rng, ba, bb, p_max)
-    colors = np.asarray(jsolver.color_pairs(
-        jnp.asarray(ba), jnp.asarray(bb), jnp.asarray(contact["valid"]),
-        jnp.asarray(dyn[ba]), jnp.asarray(dyn[bb]), n,
-        max_colors=max_colors, claim_rounds=4, class_cap=14))
-    cc = np.bincount(np.where(contact["valid"], colors, 0),
-                     minlength=max_colors + 1)
-    windows = tuple(int(max(16, -(-k // 16) * 16))
-                    for k in cc[1:max_colors + 1])
-    got, want = _compact_both(contact, colors, (rung0,) + windows)
     q = rng.normal(size=(n, 4))
     q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
     tr = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
     radii = rng.uniform(0.3, 0.7, n).astype(np.float32)
     lin = (rng.normal(size=(n, 3)) * 0.5).astype(np.float32)
     ang = (rng.normal(size=(n, 3)) * 0.5).astype(np.float32)
-    jposes = jsim.Sim(jnp.asarray(q), jnp.asarray(tr), jnp.ones(n))
-    jvels = jbody.Velocity(jnp.asarray(lin), jnp.asarray(ang))
-    jmp = jbody.update_mprops(jposes, jbody.ball_local_mprops(
-        jnp.asarray(radii), dynamic=jnp.asarray(dyn)))
-    tposes = tsim.Sim(_t(q), _t(tr), torch.ones(n))
-    tvels = tbody.Velocity(_t(lin), _t(ang))
+    return dict(n=n, ba=ba, bb=bb, dyn=dyn, contact=contact, q=q, tr=tr,
+                radii=radii, lin=lin, ang=ang)
+
+
+def rungs(colors, valid, max_colors):
+    """The class counts, and each colour's rung rounded up to 16 (at least
+    16, so an empty colour keeps a rung)."""
+    cc = np.bincount(np.where(valid, colors, 0), minlength=max_colors + 1)
+    return cc, tuple(int(max(16, -(-k // 16) * 16))
+                     for k in cc[1:max_colors + 1])
+
+
+def _setup(z, case):
+    """Random contacts on a properly coloured pair graph (a residue class
+    under the class cap), compacted to the static layout by the port (the
+    JAX package's compaction read from the file), with the port's
+    bodies."""
+    p_max, rung0, n_pairs, max_colors = CASES[case]
+    x = setup_inputs(5 + p_max + rung0, p_max, n_pairs)
+    n = x["n"]
+    colors = z[f"setup.{case}.colors"]
+    cc, windows = rungs(colors, x["contact"]["valid"], max_colors)
+    got = compact_port(x["contact"], colors, (rung0,) + windows)
+    want = _stored_compaction(z, f"setup.{case}.compact")
+    tposes = tsim.Sim(_t(x["q"]), _t(x["tr"]), torch.ones(n))
+    tvels = tbody.Velocity(_t(x["lin"]), _t(x["ang"]))
     tmp = tbody.update_mprops(tposes, tbody.ball_local_mprops(
-        _t(radii), dynamic=_t(dyn)))
+        _t(x["radii"]), dynamic=_t(x["dyn"])))
     return dict(n=n, windows=windows, rung0=rung0, p_max=p_max, got=got,
-                want=want, j=(jposes, jvels, jmp), t=(tposes, tvels, tmp),
-                q=q, tr=tr, cc=cc, rng=rng)
+                want=want, t=(tposes, tvels, tmp), q=x["q"], tr=x["tr"],
+                cc=cc, case=case)
 
 
-@pytest.mark.parametrize("rung", [16, 4], ids=["fits", "overflows"])
-def test_compact_static_windows_matches_jax(rung):
-    """Every field of the rung-padded buffer, the slot colours, the live
-    count and the TRUE per-class counts, bit for bit; a rung smaller than
-    its class drops the class's last entries."""
+def static_inputs():
     rng = np.random.default_rng(11)
     ba, bb, _, _ = _graph(11, 40, 120, p_valid=1.0)
     contact = _raw_contacts(rng, ba, bb, 1)
     colors = rng.integers(0, 9, 120).astype(np.int32)
+    return contact, colors
+
+
+@pytest.mark.parametrize("rung", [16, 4], ids=["fits", "overflows"])
+def test_compact_static_windows_matches_jax(z, rung):
+    """Every field of the rung-padded buffer, the slot colours, the live
+    count and the TRUE per-class counts, bit for bit; a rung smaller than
+    its class drops the class's last entries."""
+    contact, colors = static_inputs()
     windows = (rung,) * 9
-    got, want = _compact_both(contact, colors, windows)
-    assert len(got) == len(want) == 4
+    got = compact_port(contact, colors, windows)
+    want = _stored_compaction(z, f"static.{rung}")
+    assert len(got) == int(z[f"static.{rung}.len"]) == 4
     assert int(got[1]) == int(want[1]) == int(contact["valid"].sum())
     for f in dataclasses.fields(tcons.Contacts):
         np.testing.assert_array_equal(_np(getattr(got[0], f.name)),
@@ -145,30 +173,32 @@ def test_compact_static_windows_matches_jax(rung):
 
 
 @pytest.mark.parametrize("p_max", [1, 4])
-def test_field_meta_matches_jax(p_max):
-    want, k_want = jbuild.field_meta(p_max, S_LEN)
+def test_field_meta_matches_jax(z, p_max):
+    want = {k: (a, tuple(t)) for k, (a, t) in json.loads(str(
+        z[f"meta.{p_max}.json"])).items()}
+    k_want = int(z[f"meta.{p_max}.k"])
     got, k_got = tbuild.field_meta(p_max, S_LEN)
     assert k_got == k_want and (p_max > 1 or k_got == 71)
-    assert got == {k: (a, tuple(t)) for k, (a, t) in want.items()}
+    assert got == want
     assert got["cfm_factor"][0] == (66 if p_max == 1 else 216)
 
 
-@pytest.fixture(scope="module",
-                params=[(1, 0, 260, 12), (1, 32, 260, 12), (4, 32, 120, 6)],
-                ids=["P1-rung0-0", "P1-rung0-32", "P4-rung0-32"])
-def setup(request):
+@pytest.fixture(scope="module", params=list(CASES))
+def setup(request, z):
     """(P, rung0, pairs, colours): XLA's compile time grows with P times
     the colour count, so the P = 4 case is a smaller graph."""
-    p_max, rung0, n_pairs, max_colors = request.param
-    return _setup(5 + p_max + rung0, p_max, rung0, n_pairs, max_colors)
+    return _setup(z, request.param)
 
 
-def _jax_routes(setup):
+def jax_routes(p_max, rung0):
     """The JAX routes a case is held against: always the XLA twin; the
     Pallas kernel in interpret mode too in the P = 1, rung0 > 0 case (the
     interpreter costs ~10 s a kernel at these sizes)."""
-    return (False, True) if (setup["p_max"], setup["rung0"]) == (1, 32) \
-        else (False,)
+    return (False, True) if (p_max, rung0) == (1, 32) else (False,)
+
+
+def _jax_routes(setup):
+    return jax_routes(setup["p_max"], setup["rung0"])
 
 
 def test_setup_compaction_matches_jax(setup):
@@ -182,14 +212,14 @@ def test_setup_compaction_matches_jax(setup):
     assert cc[0] > 0 and (cc[1:] == 0).any()  # residue and empty colours
 
 
-def test_build_constraints_fused_matches_jax(setup, tables):
+def test_build_constraints_fused_matches_jax(z, setup, tables):
     """B9's plain version against the JAX package's: every field of every
     live column within the JAX test's tolerance (1e-5 + 2e-6 max|field|:
     cancellation in the torque terms scales with the field's magnitude),
     the integer fields exact. The rung padding's columns (dist 1e9, never
     read: inactive) carry torques that cancel two ~5e8 terms, which the two
     packages round differently, so they are held to that scale."""
-    jc, tc = setup["want"][0], setup["got"][0]
+    tc = setup["got"][0]
     t_cons, t_big, t_meta = tbuild.build_constraints_fused(
         *setup["t"], tc, SimParams())
     assert t_big.shape[0] == tbuild.field_meta(setup["p_max"], S_LEN)[1]
@@ -197,10 +227,9 @@ def test_build_constraints_fused_matches_jax(setup, tables):
     assert live.any() and not live.all()
     for use_pallas in _jax_routes(setup):
         # the XLA route's constraints are the tables' own
-        j_cons, j_big, j_meta = jbuild.build_constraints_fused(
-            *setup["j"], jc, JaxSimParams(), use_pallas=True) \
+        j_cons, j_big, j_meta = _stored_build(z, setup["case"], "pallas") \
             if use_pallas else tables[:3]
-        assert t_meta == {k: (a, tuple(t)) for k, (a, t) in j_meta.items()}
+        assert t_meta == j_meta
         jb = np.asarray(j_big)
         for f, (at, tail) in t_meta.items():
             k = int(np.prod(tail)) if tail else 1
@@ -285,29 +314,40 @@ def test_build_fused_kernel_reads_contact_fields_in_place_or_raises():
 
 
 @pytest.fixture(scope="module")
-def tables(setup):
+def tables(setup, z):
     """:func:`_tables` of the case, computed once for the tests that read
     it."""
-    return _tables(setup)
+    return _tables(setup, z)
 
 
-def _tables(setup):
-    """Both packages' idx / inv from the JAX package's fused constraints."""
-    jc = setup["want"][0]
-    j_cons, j_big, j_meta = jbuild.build_constraints_fused(
-        *setup["j"], jc, JaxSimParams(), use_pallas=False)
+_BUILD_FIELDS = ("body_a", "body_b", "valid", "num_points", "im_a", "im_b")
+
+
+def _stored_build(z, case, route):
+    """JAX's ``build_constraints_fused`` of a case by ``route`` ("xla",
+    "pallas"): (constraint fields read here, bigT, field meta)."""
+    pre = f"setup.{case}.build.{route}"
+    cons = SimpleNamespace(**{f: z[f"{pre}.{f}"] for f in _BUILD_FIELDS})
+    meta = {k: (a, tuple(t)) for k, (a, t) in json.loads(str(
+        z[f"{pre}.meta_json"])).items()}
+    return cons, z[f"{pre}.big"], meta
+
+
+def _tables(setup, z):
+    """Both packages' idx / inv from the JAX package's fused constraints
+    (XLA route)."""
+    case = setup["case"]
+    j_cons, j_big, j_meta = _stored_build(z, case, "xla")
     windows, rung0 = setup["windows"], setup["rung0"]
-    w_g = jfused.gather_width(setup["n"], windows)
+    w_g = int(z[f"setup.{case}.w_g"])
     assert w_g == tfused.gather_width(setup["n"], windows)
-    dyn_a = jnp.any(j_cons.im_a != 0.0, axis=-1)
-    dyn_b = jnp.any(j_cons.im_b != 0.0, axis=-1)
-    want = jfused.build_fused_tables(
-        j_cons.body_a, j_cons.body_b, dyn_a, dyn_b, j_cons.valid,
-        windows=windows, rung0=rung0, w_g=w_g)
+    dyn_a = np.any(j_cons.im_a != 0.0, axis=-1)
+    dyn_b = np.any(j_cons.im_b != 0.0, axis=-1)
+    want = (z[f"setup.{case}.idx"], z[f"setup.{case}.inv"])
     got = tfused.build_fused_tables(
         _t(j_cons.body_a), _t(j_cons.body_b), _t(dyn_a), _t(dyn_b),
         _t(j_cons.valid), windows=windows, rung0=rung0, w_g=w_g)
-    return j_cons, np.asarray(j_big), j_meta, w_g, got, want
+    return j_cons, j_big, j_meta, w_g, got, want
 
 
 def test_build_fused_tables_exact(setup, tables):
@@ -321,17 +361,10 @@ def test_build_fused_tables_exact(setup, tables):
         setup["got"][0].body_a.shape[0]
 
 
-def _sweep_inputs(setup, tables, seed):
-    """Operands of the sweep and substep kernels in both packages: the JAX
-    package's fused constraint matrix, seeded velocities, impulses and
-    rhs, the tables."""
-    j_cons, j_big, j_meta, w_g, (t_idx, t_inv), (j_idx, j_inv) = tables
+def sweep_arrays(p_max, n, q, tr, ctot, w_g, seed):
+    """The seeded operands of the sweep and substep kernels (numpy):
+    velocities, impulses, rhs and poses."""
     rng = np.random.default_rng(seed)
-    p_max, n = setup["p_max"], setup["n"]
-    windows, rung0 = setup["windows"], setup["rung0"]
-    ctot = j_big.shape[1]
-    k_pack = j_meta["cfm_factor"][0]
-    meta = {f: j_meta[f] for f in jsolver._PACK_FIELDS}
     vt = np.zeros((8, w_g), np.float32)
     vt[0:6, :n] = rng.normal(scale=0.5, size=(6, n))
     n_imp = rng.uniform(0.0, 0.1, (p_max, ctot)).astype(np.float32)
@@ -339,23 +372,45 @@ def _sweep_inputs(setup, tables, seed):
         np.float32)
     n_rhs = rng.uniform(-1.0, 1.0, (p_max, ctot)).astype(np.float32)
     t_rhs = rng.uniform(-0.1, 0.1, (p_max * S_LEN, ctot)).astype(np.float32)
+    pose = np.zeros((8, w_g), np.float32)
+    pose[0:4, :n] = q.T
+    pose[4:7, :n] = tr.T
+    pose[7, :n] = 1.0
+    return dict(vt=vt, n_imp=n_imp, t_imp=t_imp, n_rhs=n_rhs, t_rhs=t_rhs,
+                pose=pose)
+
+
+RELIN = ("t_rhs_wo_bias", "local_pt_a", "local_pt_b", "info_dist",
+         "info_normal_vel")
+
+
+def sweep_layout(j_meta):
+    """The packed fields' meta (the JAX package's ``_PACK_FIELDS`` order,
+    the port's ``gs_math.PACK_FIELDS``), the window's row count and the
+    relinearization source's first row and meta."""
+    meta = {f: tuple(j_meta[f]) for f in PACK_FIELDS}
+    k_pack = j_meta["cfm_factor"][0]
+    src0 = min(j_meta[f][0] for f in RELIN)
+    src_meta = {f: (j_meta[f][0] - src0, tuple(j_meta[f][1])) for f in RELIN}
+    return meta, k_pack, src0, src_meta
+
+
+def _sweep_inputs(setup, tables, seed):
+    """Operands of the sweep and substep kernels: the JAX package's fused
+    constraint matrix, seeded velocities, impulses and rhs, the tables."""
+    j_cons, j_big, j_meta, w_g, (t_idx, t_inv), _ = tables
+    p_max, n = setup["p_max"], setup["n"]
+    windows, rung0 = setup["windows"], setup["rung0"]
+    ctot = j_big.shape[1]
+    meta, k_pack, src0, src_meta = sweep_layout(j_meta)
+    arrays = sweep_arrays(p_max, n, setup["q"], setup["tr"], ctot, w_g, seed)
     counts = np.concatenate([setup["cc"], [0]]).astype(np.int32)
     active = np.asarray(j_cons.valid, np.float32)[None]
     nump = np.asarray(j_cons.num_points, np.float32)[None]
-    pose = np.zeros((8, w_g), np.float32)
-    pose[0:4, :n] = setup["q"].T
-    pose[4:7, :n] = setup["tr"].T
-    pose[7, :n] = 1.0
-    relin = ("t_rhs_wo_bias", "local_pt_a", "local_pt_b", "info_dist",
-             "info_normal_vel")
-    src0 = min(j_meta[f][0] for f in relin)
-    src_meta = {f: (j_meta[f][0] - src0, tuple(j_meta[f][1])) for f in relin}
-    arrays = dict(vt=vt, n_imp=n_imp, t_imp=t_imp, win=j_big[:k_pack],
-                  src=j_big[src0:], pose=pose, active=active, nump=nump,
-                  n_rhs=n_rhs, t_rhs=t_rhs, counts=counts)
+    arrays.update(win=j_big[:k_pack], src=j_big[src0:], active=active,
+                  nump=nump, counts=counts)
     kw = dict(windows=windows, rung0=rung0, p_max=p_max, s_len=S_LEN)
-    meta = {f: (a, tuple(t)) for f, (a, t) in meta.items()}
-    return arrays, (j_idx, j_inv), (t_idx, t_inv), kw, meta, src_meta
+    return arrays, (t_idx, t_inv), kw, meta, src_meta
 
 
 def _close(got, want, what, rtol, atol):
@@ -364,21 +419,30 @@ def _close(got, want, what, rtol, atol):
                                    atol=atol, err_msg=f"{what} output {i}")
 
 
-def test_fused_sweep_plain_matches_jax(setup, tables):
-    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, _ = _sweep_inputs(
-        setup, tables, 1)
+def _stored(z, pre):
+    """The outputs stored under ``pre`` (``pre.0``, ``pre.1``, ...)."""
+    out, k = [], 0
+    while f"{pre}.{k}" in z:
+        out.append(z[f"{pre}.{k}"])
+        k += 1
+    return out
+
+
+def _route(use_pallas):
+    return "pallas" if use_pallas else "xla"
+
+
+def test_fused_sweep_plain_matches_jax(z, setup, tables):
+    a, (t_idx, t_inv), kw, meta, _ = _sweep_inputs(setup, tables, 1)
     t_args = (_t(a["vt"]), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),
               _t(a["active"]), _t(a["nump"]), 0.93, _t(a["n_rhs"]),
               _t(a["t_rhs"]), t_idx, t_inv,
               torch.from_numpy(a["counts"]))
     got = tfused.fused_sweep(*t_args, meta=meta, **kw)
-    j_args = [jnp.asarray(a[k]) for k in ("vt", "n_imp", "t_imp", "win",
-                                          "active", "nump")]
-    j_args += [0.93, jnp.asarray(a["n_rhs"]), jnp.asarray(a["t_rhs"]),
-               j_idx, j_inv, jnp.asarray(a["counts"])]
     for use_pallas in _jax_routes(setup):
-        want = _jit(jfused.fused_sweep, meta=meta, use_pallas=use_pallas,
-                    **kw)(*j_args)
+        want = _stored(z, f"setup.{setup['case']}.sweep."
+                          f"{_route(use_pallas)}")
+        assert len(want) == 3
         _close(got, want, f"fused_sweep (pallas={use_pallas})", SWEEP_RTOL,
                SWEEP_ATOL)
     # the sweep moved every live colour and left the padding untouched
@@ -387,21 +451,21 @@ def test_fused_sweep_plain_matches_jax(setup, tables):
     assert np.isfinite(live).all()
 
 
-def test_fused_substep1_plain_matches_jax(setup, tables):
-    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, src_meta = \
-        _sweep_inputs(setup, tables, 2)
-    scalars = (0.85, 0.93, 240.0, 175.3, 1e-3, 10.0)
+SUBSTEP_SCALARS = (0.85, 0.93, 240.0, 175.3, 1e-3, 10.0)
+
+
+def test_fused_substep1_plain_matches_jax(z, setup, tables):
+    a, (t_idx, t_inv), kw, meta, src_meta = _sweep_inputs(setup, tables, 2)
+    scalars = SUBSTEP_SCALARS
     got = tfused.fused_substep1(
         _t(a["vt"]), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),
         _t(a["src"]), _t(a["pose"]), _t(a["active"]), _t(a["nump"]), t_idx,
         t_inv, torch.from_numpy(a["counts"]), meta=meta, src_meta=src_meta,
         scalars=scalars, **kw)
-    j_args = [jnp.asarray(a[k]) for k in ("vt", "n_imp", "t_imp", "win",
-                                          "src", "pose", "active", "nump")]
-    j_args += [j_idx, j_inv, jnp.asarray(a["counts"])]
     for use_pallas in _jax_routes(setup):
-        want = _jit(jfused.fused_substep1, meta=meta, src_meta=src_meta,
-                    scalars=scalars, use_pallas=use_pallas, **kw)(*j_args)
+        want = _stored(z, f"setup.{setup['case']}.substep."
+                          f"{_route(use_pallas)}")
+        assert len(want) == len(got)
         _close(got, want, f"fused_substep1 (pallas={use_pallas})",
                SUBSTEP_RTOL, SUBSTEP_ATOL)
     # the residue rows are scaled, not swept; rows past every class are 0
@@ -410,20 +474,29 @@ def test_fused_substep1_plain_matches_jax(setup, tables):
                                   (a["n_imp"] * np.float32(0.85))[:, :r0])
 
 
-def test_fused_sweep_carrying_integrate_matches_jax(setup, tables):
+def carry_inputs(vt):
+    """B10 carrying B12's extra operands: the velocities with small-angle
+    and still lanes, and the centres of mass."""
+    vt = vt.copy()
+    vt[3:6, :8] *= 1e-5  # angle below 1e-6: the small-angle branch
+    vt[3:6, 8:12] = 0.0
+    com = np.random.default_rng(4).uniform(
+        -0.1, 0.1, (3, vt.shape[1])).astype(np.float32)
+    return vt, com
+
+
+INTEGRATE_DT = 1.0 / 240.0
+
+
+def test_fused_sweep_carrying_integrate_matches_jax(z, setup, tables):
     """``fused_sweep(..., integrate=...)`` (B10 carrying B12): the sweep's
     outputs are JAX's ``fused_sweep``'s and the same as without the
     integrate, bit for bit; the poses are JAX's ``fused_integrate`` of the
     sweep's input velocities (small-angle lanes included) and
     ``fused_integrate``'s, bit for bit."""
-    a, (j_idx, j_inv), (t_idx, t_inv), kw, meta, _ = _sweep_inputs(
-        setup, tables, 1)
-    vt = a["vt"].copy()
-    vt[3:6, :8] *= 1e-5  # angle below 1e-6: the small-angle branch
-    vt[3:6, 8:12] = 0.0
-    com = np.random.default_rng(4).uniform(
-        -0.1, 0.1, (3, vt.shape[1])).astype(np.float32)
-    dt = 1.0 / 240.0
+    a, (t_idx, t_inv), kw, meta, _ = _sweep_inputs(setup, tables, 1)
+    vt, com = carry_inputs(a["vt"])
+    dt = INTEGRATE_DT
     t_args = (_t(vt), _t(a["n_imp"]), _t(a["t_imp"]), _t(a["win"]),
               _t(a["active"]), _t(a["nump"]), 0.93, _t(a["n_rhs"]),
               _t(a["t_rhs"]), t_idx, t_inv, torch.from_numpy(a["counts"]))
@@ -434,23 +507,19 @@ def test_fused_sweep_carrying_integrate_matches_jax(setup, tables):
     assert all(torch.equal(g, w) for g, w in zip(got[:3], alone))
     assert torch.equal(got[3], tfused.fused_integrate(
         _t(a["pose"]), _t(vt), _t(com), dt))
-    j_args = [jnp.asarray(x) for x in (vt, a["n_imp"], a["t_imp"], a["win"],
-                                       a["active"], a["nump"])]
-    j_args += [0.93, jnp.asarray(a["n_rhs"]), jnp.asarray(a["t_rhs"]),
-               j_idx, j_inv, jnp.asarray(a["counts"])]
+    pre = f"setup.{setup['case']}.carry"
     for use_pallas in _jax_routes(setup):
-        want = _jit(jfused.fused_sweep, meta=meta, use_pallas=use_pallas,
-                    **kw)(*j_args)
+        want = _stored(z, f"{pre}.sweep.{_route(use_pallas)}")
+        assert len(want) == 3
         _close(got[:3], want, f"fused_sweep (pallas={use_pallas})",
                SWEEP_RTOL, SWEEP_ATOL)
     for use_pallas in (False, True):
-        want = _jit(jfused.fused_integrate, dt=dt, use_pallas=use_pallas)(
-            jnp.asarray(a["pose"]), jnp.asarray(vt), jnp.asarray(com))
+        want = z[f"{pre}.integrate.{_route(use_pallas)}"]
         _close(got[3:], [want], f"fused_integrate (pallas={use_pallas})",
                RTOL, ATOL)
 
 
-def test_fused_integrate_plain_matches_jax():
+def integrate_inputs():
     rng = np.random.default_rng(9)
     lanes = 384
     q = rng.normal(size=(4, lanes))
@@ -463,13 +532,16 @@ def test_fused_integrate_plain_matches_jax():
     vt[3:6, :64] *= 1e-5  # angle below 1e-6: the small-angle branch
     vt[3:6, 64:80] = 0.0
     com = rng.uniform(-0.1, 0.1, (3, lanes)).astype(np.float32)
-    dt = 1.0 / 240.0
+    return pose, vt, com
+
+
+def test_fused_integrate_plain_matches_jax(z):
+    pose, vt, com = integrate_inputs()
+    dt = INTEGRATE_DT
     got = tfused.fused_integrate(_t(pose), _t(vt), _t(com), dt)
     for use_pallas in (False, True):
-        want = _jit(jfused.fused_integrate, dt=dt, use_pallas=use_pallas)(
-            jnp.asarray(pose), jnp.asarray(vt), jnp.asarray(com))
-        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=RTOL,
-                                   atol=ATOL)
+        want = z[f"integrate.{_route(use_pallas)}"]
+        np.testing.assert_allclose(_np(got), want, rtol=RTOL, atol=ATOL)
     qn = np.linalg.norm(_np(got)[0:4], axis=0)
     np.testing.assert_allclose(qn, 1.0, atol=1e-6)
     np.testing.assert_array_equal(_np(got)[7], pose[7])

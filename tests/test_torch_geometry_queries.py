@@ -559,10 +559,12 @@ def test_project_refusals():
     lambda **kw: tbuilders.many_pyramids(2, 2, **kw).shapes.params,
     lambda **kw: tbuilders.boxes_and_balls(6, **kw).shapes.tag,
     lambda **kw: tbuilders.SCENES["keva3"](**kw).bodies.vels.linear,
+    lambda **kw: tbuilders.primitives3(2, **kw).bodies.poses.translation,
 ], ids=["quat.identity", "rot2.identity", "sim.identity", "Velocity.zero",
         "SimParams.gravity_array", "builders.boxes", "builders.pyramid",
         "builders.keva_tower", "builders.many_pyramids",
-        "builders.boxes_and_balls", "builders.SCENES"])
+        "builders.boxes_and_balls", "builders.SCENES",
+        "builders.primitives3"])
 def test_constructors_default_to_the_card(make):
     """With no device given a constructor builds on the card, as every
     entry point of the port does; without CUDA it raises and names the

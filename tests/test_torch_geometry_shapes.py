@@ -198,10 +198,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "chip_smoke.gemv_path_phase, chip_smoke.geometry_path_phase\n"
         "chip_smoke.ray_path_phase, chip_smoke.ray_bench_arrays(64)\n"
         "chip_smoke.box_phase, chip_smoke.box_kernel_checks\n"
+        "chip_smoke.primitives_phase, chip_smoke.primitives_kernel_checks\n"
         "for m in ('core.module', 'core.tensor', 'core.testing',\n"
         "          'ops.gemm', 'ops.reduce', 'ops.elementwise', 'ops.gemv',\n"
         "          'geometry.rot2', 'queries.ray', 'queries.projection',\n"
-        "          'queries.sat', 'scenes.builders'):\n"
+        "          'queries.sat', 'queries.gjk', 'queries.epa',\n"
+        "          'queries.pfm_manifold', 'scenes.builders'):\n"
         "    assert 'wgmath_tpu_torch.' + m in sys.modules, m\n"
         "assert 'triton' not in sys.modules\n"
         "bad = sorted(k for k in sys.modules\n"

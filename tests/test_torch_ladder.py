@@ -2,33 +2,58 @@
 inputs: contact compaction (both branches, integers exact, overflow
 count), the sorted-space rhs relinearization, the colour layout and the
 one-gather field sort (exact), the sorted-sides warmstart, and one ladder
-sweep and one plain chained sweep of ``gs_color_major_pass``."""
+sweep and one plain chained sweep of ``gs_color_major_pass``.
+
+The JAX package's results on these inputs, and its constraints of the
+seeded setups, are read from ``artifacts/torch_ladder_jax.npz``, written
+by ``scripts/export_port_tests_npz.py --only ladder`` from the same input
+helpers as below (the JAX calls cost ~40 s on the CPU; no assertion or
+tolerance changed when they moved there)."""
 
 import dataclasses
+import json
+import os
 from types import SimpleNamespace
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from tests.test_torch_solver import _solver_setup, _t
-from wgmath_tpu.dynamics import SimParams as JaxSimParams
-from wgmath_tpu.dynamics import constraint as jcons
-from wgmath_tpu.dynamics import solver as jsolver
-from wgmath_tpu.geometry import sim as jsim
+from tests.test_torch_solver import _port_bodies, _solver_inputs, _t
 from wgmath_tpu_torch.dynamics import constraint as tcons
 from wgmath_tpu_torch.dynamics import solver as tsolver
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import sim as tsim
 
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "torch_ladder_jax.npz")
 # the GS impulse math's tolerance (the JAX package's, for the same math)
 RTOL, ATOL = 1e-4, 1e-5
+SEEDS = (4, 0, 1)  # the module's setup, then the chained-vs-ladder cases
+COMPACT_CASES = [(b, c) for c in (256, 100)
+                 for b in ("cumsum", "cumsum_extra", "sorted")]
+_CONSTRAINT_FIELDS = [f.name for f in
+                      dataclasses.fields(tcons.ContactConstraints)]
 
 
 @pytest.fixture(scope="module")
-def setup():
-    return _solver_setup(seed=4)
+def z():
+    with np.load(NPZ) as f:
+        return dict(f)
+
+
+def _setup_from(z, seed):
+    """The port's half of ``_solver_setup(seed)``: the seeded inputs and
+    bodies, and the JAX package's constraints of them as ``tj``."""
+    x = _solver_inputs(seed=seed)
+    jc = {f: z[f"setup.{seed}.jc.{f}"] for f in _CONSTRAINT_FIELDS}
+    tj = tcons.ContactConstraints(**{f: _t(v) for f, v in jc.items()})
+    return dict(x, tb=_port_bodies(x), tj=tj, jc=jc)
+
+
+@pytest.fixture(scope="module")
+def setup(z):
+    return _setup_from(z, 4)
 
 
 def _contacts(seed, c=300, p_max=1):
@@ -43,215 +68,200 @@ def _contacts(seed, c=300, p_max=1):
         valid=rng.random(c) < 0.6), rng.integers(0, 13, c).astype(np.int32)
 
 
+def compact_kw(branch, colors):
+    return {"cumsum": {}, "cumsum_extra": dict(extra=colors),
+            "sorted": dict(extra=colors, sort_by_extra=True)}[branch]
+
+
 @pytest.mark.parametrize("capacity", [256, 100], ids=["fits", "overflows"])
 @pytest.mark.parametrize("branch", ["cumsum", "cumsum_extra", "sorted"])
-def test_compact_contacts_matches_jax(branch, capacity):
+def test_compact_contacts_matches_jax(z, branch, capacity):
     """Every field of the compacted buffer, the carried colours and the
     true count come out as in the JAX package — bit for bit, since
     compaction only moves rows. A count above the capacity is the overflow
     signal."""
     contact, colors = _contacts(7)
-    kw = {"cumsum": {}, "cumsum_extra": dict(extra=colors),
-          "sorted": dict(extra=colors, sort_by_extra=True)}[branch]
-    want = jcons.compact_contacts(
-        jcons.Contacts(**{k: jnp.asarray(v) for k, v in contact.items()}),
-        capacity, **{k: jnp.asarray(v) if k == "extra" else v
-                     for k, v in kw.items()})
+    kw = compact_kw(branch, colors)
+    pre = f"compact.{branch}.{capacity}"
     got = tcons.compact_contacts(
         tcons.Contacts(**{k: _t(v) for k, v in contact.items()}), capacity,
         **{k: _t(v) if k == "extra" else v for k, v in kw.items()})
-    assert len(got) == len(want) == (2 if branch == "cumsum" else 3)
+    n_want = 2 if branch == "cumsum" else 3
+    assert len(got) == n_want == int(z[f"{pre}.len"])
     n_valid = int(contact["valid"].sum())
-    assert int(got[1]) == int(want[1]) == n_valid
+    assert int(got[1]) == int(z[f"{pre}.count"]) == n_valid
     assert (n_valid > capacity) == (capacity == 100)
     for f in dataclasses.fields(tcons.Contacts):
         np.testing.assert_array_equal(getattr(got[0], f.name).numpy(),
-                                      np.asarray(getattr(want[0], f.name)),
-                                      err_msg=f.name)
+                                      z[f"{pre}.{f.name}"], err_msg=f.name)
     if branch != "cumsum":
-        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        np.testing.assert_array_equal(got[2].numpy(), z[f"{pre}.extra"])
     if branch == "sorted":
         live = got[2].numpy()[:min(n_valid, capacity)]
         assert (np.diff(live) >= 0).all()  # colour-major
 
 
-def _moved_poses(setup, seed=12):
-    """The setup's poses after a small substep-sized motion."""
+def moved_poses(q, tr, seed=12):
+    """The setup's poses after a small substep-sized motion (numpy)."""
     rng = np.random.default_rng(seed)
-    jb = setup["jb"]
-    n = setup["n"]
-    q = np.asarray(jb.poses.rotation) + rng.normal(scale=1e-3, size=(n, 4))
+    n = q.shape[0]
+    q = q + rng.normal(scale=1e-3, size=(n, 4))
     q = (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
-    tr = (np.asarray(jb.poses.translation)
-          + rng.normal(scale=2e-3, size=(n, 3))).astype(np.float32)
-    return (jsim.Sim(jnp.asarray(q), jnp.asarray(tr), jnp.ones(n)),
-            tsim.Sim(_t(q), _t(tr), torch.ones(n)))
+    tr = (tr + rng.normal(scale=2e-3, size=(n, 3))).astype(np.float32)
+    return q, tr
 
 
-def test_update_rhs_sorted_matches_jax(setup):
-    jposes, tposes = _moved_poses(setup)
-    jsub, tsub = JaxSimParams().substep(), SimParams().substep()
-    want = jcons.update_rhs_sorted(setup["jc"], jposes, jsub)
-    got = tcons.update_rhs_sorted(setup["tj"], tposes, tsub)
+def test_update_rhs_sorted_matches_jax(z, setup):
+    q, tr = moved_poses(setup["q"], setup["tr"])
+    tposes = tsim.Sim(_t(q), _t(tr), torch.ones(setup["n"]))
+    got = tcons.update_rhs_sorted(setup["tj"], tposes, SimParams().substep())
+    want = [z[f"update_rhs.{i}"] for i in range(int(z["update_rhs.len"]))]
+    assert len(got) == len(want)
     # the drift is the difference of two ~3 m world points (one ulp is
     # 2.4e-7) times inv_dt = 240, and XLA on the CPU fuses a*b+c into one
     # rounding where PyTorch rounds the product: atol 2e-4
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
-                                   atol=2e-4)
-    assert float(np.abs(np.asarray(want[0])
-                        - np.asarray(setup["jc"].n_rhs)).max()) > 1e-2
+        np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=2e-4)
+    assert float(np.abs(want[0] - setup["jc"]["n_rhs"]).max()) > 1e-2
 
 
-def test_remove_cfm_and_bias_matches_jax(setup):
-    want = jcons.remove_cfm_and_bias(setup["jc"])
+def test_remove_cfm_and_bias_matches_jax(z, setup):
     got = tcons.remove_cfm_and_bias(setup["tj"])
     for f in ("n_rhs", "t_rhs", "cfm_factor", "n_rhs_wo_bias"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
-                                      np.asarray(getattr(want, f)), f)
+                                      z[f"remove_cfm.{f}"], f)
     assert float(got.cfm_factor.min()) == 1.0
 
 
-def _shuffled(setup, seed=21):
-    """The setup's constraints out of colour order, with their colours."""
+def shuffle(x, seed=21):
+    """A permutation of the setup's constraints out of colour order, and
+    their colours."""
     rng = np.random.default_rng(seed)
-    c, mc = setup["c"], setup["max_colors"]
-    perm = rng.permutation(c)
-    colors = np.repeat(np.arange(mc + 2), setup["counts"])[perm].astype(
-        np.int32)
-    take = lambda cons, conv: dataclasses.replace(cons, **{
-        f.name: conv(np.asarray(getattr(cons, f.name))[perm])
-        for f in dataclasses.fields(cons)})
-    return take(setup["jc"], jnp.asarray), take(setup["tj"], _t), colors
+    perm = rng.permutation(x["c"])
+    colors = np.repeat(np.arange(x["max_colors"] + 2), x["counts"])[perm]
+    return perm, colors.astype(np.int32)
 
 
-def test_color_layout_and_field_sort_match_jax(setup):
+def _meta(z, key):
+    return {k: (a, tuple(t)) for k, (a, t) in json.loads(str(z[key])).items()}
+
+
+def test_color_layout_and_field_sort_match_jax(z, setup):
     """``build_color_layout`` (order, offsets, counts) and the one-gather
     sort of every solver field: integers and the gathered matrix exact."""
-    jc, tc, colors = _shuffled(setup)
+    perm, colors = shuffle(setup)
+    tc = dataclasses.replace(setup["tj"], **{
+        f: getattr(setup["tj"], f)[_t(perm)] for f in _CONSTRAINT_FIELDS})
     mc, cmax = setup["max_colors"], max(setup["windows"])
-    want = jsolver.build_color_layout(jnp.asarray(colors), jc.valid,
-                                      max_colors=mc, cmax=cmax)
     got = tsolver.build_color_layout(_t(colors), tc.valid, max_colors=mc,
                                      cmax=cmax)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    jss, (jpf, jmeta) = jsolver.sort_solver_fields_packed(jc, want[0])
+    for i, g in enumerate(got):
+        np.testing.assert_array_equal(g.numpy(), z[f"layout.{i}"])
     tss, (tpf, tmeta) = tsolver.sort_solver_fields_packed(tc, got[0])
-    assert {k: (a, tuple(t)) for k, (a, t) in jmeta.items()} == tmeta
-    np.testing.assert_array_equal(tpf.numpy(), np.asarray(jpf))
-    assert vars(tss).keys() == vars(jss).keys()
-    for f in vars(jss):
+    assert _meta(z, "sorted.meta_json") == tmeta
+    np.testing.assert_array_equal(tpf.numpy(), z["sorted.pf"])
+    fields = json.loads(str(z["sorted.fields_json"]))
+    assert set(vars(tss)) == set(fields)
+    for f in fields:
         np.testing.assert_array_equal(getattr(tss, f).numpy(),
-                                      np.asarray(getattr(jss, f)), f)
+                                      z[f"sorted.{f}"], f)
     assert not tss.valid[-cmax:].any() and not tss.num_points[-cmax:].any()
 
 
-def test_pack_sorted_fields_matches_jax(setup):
-    jpf, jmeta = jsolver.pack_sorted_fields(setup["jc"])
+def test_pack_sorted_fields_matches_jax(z, setup):
     tpf, tmeta = tsolver.pack_sorted_fields(setup["tj"])
-    assert {k: (a, tuple(t)) for k, (a, t) in jmeta.items()} == tmeta
-    np.testing.assert_array_equal(tpf.numpy(), np.asarray(jpf))
+    assert _meta(z, "pack.meta_json") == tmeta
+    np.testing.assert_array_equal(tpf.numpy(), z["pack.pf"])
 
 
-def test_sorted_sides_warmstart_matches_jax(setup):
-    rng = np.random.default_rng(31)
-    c, n = setup["c"], setup["n"]
+def warm_impulses(x, seed=31):
+    rng = np.random.default_rng(seed)
+    c = x["c"]
     imp_n = rng.uniform(0, 1, (c, 1)).astype(np.float32)
     imp_t = rng.normal(size=(c, 1, 2)).astype(np.float32)
-    jc = dataclasses.replace(setup["jc"], n_impulse=jnp.asarray(imp_n),
-                             t_impulse=jnp.asarray(imp_t))
+    return imp_n, imp_t
+
+
+def test_sorted_sides_warmstart_matches_jax(z, setup):
+    imp_n, imp_t = warm_impulses(setup)
     tc = dataclasses.replace(setup["tj"], n_impulse=_t(imp_n),
                              t_impulse=_t(imp_t))
-    jsides = jsolver.build_sorted_sides(jc, n)
-    tsides = tsolver.build_sorted_sides(tc, n)
-    for g, w in zip(tsides, jsides):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    want = jsolver.warmstart_apply_sorted(jc, setup["jb"].vels, jsides)
+    tsides = tsolver.build_sorted_sides(tc, setup["n"])
+    for i, g in enumerate(tsides):
+        np.testing.assert_array_equal(g.numpy(), z[f"sides.{i}"])
     got = tsolver.warmstart_apply_sorted(tc, setup["tb"].vels, tsides)
     # a segment sum is a difference of two running prefix sums
-    np.testing.assert_allclose(got.linear.numpy(), np.asarray(want.linear),
+    np.testing.assert_allclose(got.linear.numpy(), z["warm.linear"],
                                rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(got.angular.numpy(),
-                               np.asarray(want.angular), rtol=RTOL,
-                               atol=ATOL)
+    np.testing.assert_allclose(got.angular.numpy(), z["warm.angular"],
+                               rtol=RTOL, atol=ATOL)
 
 
-def _sweep_inputs(setup, seed=5):
-    """Sorted-space inputs of one sweep in both packages. One empty class
-    keeps a nonzero rung (the JAX ladder skips it under a cond, the port
-    runs it masked) and the rungs past it stay pruned (w = 0)."""
-    windows = list(setup["windows"])
+def sweep_arrays(x, seed=5):
+    """The numpy half of one sweep's inputs. One empty class keeps a
+    nonzero rung (the JAX ladder skips it under a cond, the port runs it
+    masked) and the rungs past it stay pruned (w = 0)."""
+    windows = list(x["windows"])
     empty = windows.index(0)
     windows[empty] = 32
     assert 0 in windows[empty + 1:]
     windows = tuple(windows)
     cmax = max(windows)
     rng = np.random.default_rng(seed)
-    c = setup["c"]
+    c = x["c"]
     t_rhs = rng.normal(scale=0.1, size=(c, 1, 2)).astype(np.float32)
     cfm = rng.uniform(0.8, 1.0, c).astype(np.float32)
-    jss, jpf = jsolver.pad_solver_fields_packed(dataclasses.replace(
-        setup["jc"], t_rhs=jnp.asarray(t_rhs), cfm_factor=jnp.asarray(cfm)),
-        cmax)
-    tss, tpf = tsolver.pad_solver_fields_packed(dataclasses.replace(
-        setup["tj"], t_rhs=_t(t_rhs), cfm_factor=_t(cfm)), cmax)
     total = c + cmax
     n_s = rng.uniform(0, 0.2, (total, 1)).astype(np.float32)
     t_s = rng.normal(scale=0.05, size=(total, 1, 2)).astype(np.float32)
-    off = [int(x) for x in setup["offsets"]]
-    cnt = [int(x) for x in setup["counts"]]
-    return SimpleNamespace(windows=windows, cmax=cmax, jss=jss, jpf=jpf,
-                           tss=tss, tpf=tpf, n_s=n_s, t_s=t_s, off=off,
-                           cnt=cnt, total=total)
+    return SimpleNamespace(
+        windows=windows, cmax=cmax, t_rhs=t_rhs, cfm=cfm, n_s=n_s, t_s=t_s,
+        off=[int(v) for v in x["offsets"]], cnt=[int(v) for v in x["counts"]],
+        total=total)
 
 
-def _chains(setup, x):
+def _sweep_inputs(setup, seed=5):
+    """The port's sorted-space inputs of one sweep."""
+    x = sweep_arrays(setup, seed)
+    x.tss, x.tpf = tsolver.pad_solver_fields_packed(dataclasses.replace(
+        setup["tj"], t_rhs=_t(x.t_rhs), cfm_factor=_t(x.cfm)), x.cmax)
+    return x
+
+
+def _chain(setup, x):
     dyn, n = setup["dyn"], setup["n"]
     ba, bb = x.tss.body_a.numpy(), x.tss.body_b.numpy()
-    jchain = jsolver.build_gs_chain(
-        jnp.asarray(ba), jnp.asarray(bb), jnp.asarray(dyn[ba]),
-        jnp.asarray(dyn[bb]), jnp.asarray(x.off, jnp.int32),
-        jnp.asarray(x.cnt, jnp.int32), x.windows, n)
-    tchain = tsolver.build_gs_chain(_t(ba), _t(bb), _t(dyn[ba]),
-                                    _t(dyn[bb]), x.off, x.cnt, x.windows, n)
-    return jchain, tchain
+    return tsolver.build_gs_chain(_t(ba), _t(bb), _t(dyn[ba]), _t(dyn[bb]),
+                                  x.off, x.cnt, x.windows, n)
 
 
 @pytest.mark.parametrize("mode", ["ladder", "chained"])
-def test_sweep_matches_jax(setup, mode):
+def test_sweep_matches_jax(z, setup, mode):
     """One sweep with the rhs taken from the constraints: the ladder
     (gather by body, unique-index scatter-add) and the chained stream."""
     x = _sweep_inputs(setup)
-    jchain, tchain = _chains(setup, x) if mode == "chained" else (None,
-                                                                  None)
-    layout = (jnp.zeros(x.total, jnp.int32), jnp.asarray(x.off, jnp.int32),
-              jnp.asarray(x.cnt, jnp.int32))
-    jv, jn, jt = jsolver.gs_color_major_pass(
-        x.jss, setup["jb"].vels, jnp.asarray(x.n_s), jnp.asarray(x.t_s),
-        layout, jnp.int32(len(x.windows)), cmax=x.cmax, dim=3,
-        packed_fields=x.jpf, windows=x.windows, chain=jchain)
+    tchain = _chain(setup, x) if mode == "chained" else None
     tv, tn, tt = tsolver.gs_color_major_pass(
         x.tss, setup["tb"].vels, _t(x.n_s), _t(x.t_s), (x.off, x.cnt),
         x.windows, tchain, packed_fields=x.tpf)
-    for got, want in ((tv.linear, jv.linear), (tv.angular, jv.angular),
-                      (tn, jn), (tt, jt)):
+    for got, key in ((tv.linear, "linear"), (tv.angular, "angular"),
+                     (tn, "n"), (tt, "t")):
+        want = z[f"sweep.{mode}.{key}"]
         assert tuple(got.shape) == want.shape
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
-                                   atol=ATOL)
-    assert float(np.abs(np.asarray(jn) - x.n_s).max()) > 1e-3  # it moved
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert float(np.abs(z[f"sweep.{mode}.n"] - x.n_s).max()) > 1e-3  # moved
     # rows outside every class keep their impulses bit for bit
     np.testing.assert_array_equal(tn.numpy()[-x.cmax:], x.n_s[-x.cmax:])
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_port_chained_sweep_matches_port_ladder(seed):
+def test_port_chained_sweep_matches_port_ladder(z, seed):
     """Within the port: the chained sweep equals the ladder pass up to one
     float re-association per update."""
-    setup = _solver_setup(seed=seed)
+    setup = _setup_from(z, seed)
     x = _sweep_inputs(setup, seed=seed + 7)
-    _, tchain = _chains(setup, x)
+    tchain = _chain(setup, x)
     args = (x.tss, setup["tb"].vels, _t(x.n_s), _t(x.t_s), (x.off, x.cnt),
             x.windows)
     ref = tsolver.gs_color_major_pass(*args, None, packed_fields=x.tpf)

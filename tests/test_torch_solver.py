@@ -103,13 +103,16 @@ def test_color_carry_over_and_greedy_assignment_match_jax():
     np.testing.assert_array_equal(got2.numpy(), np.asarray(want2))
 
 
-def _solver_setup(seed=3, n=64, c=180, max_colors=16):
-    """Random contacts in colour-major pair-slot order, their constraints
-    in both packages, the layout and the rung ladder."""
+def _solver_inputs(seed=3, n=64, c=180, max_colors=16):
+    """Random contacts in colour-major pair-slot order, bodies, the layout
+    and the rung ladder as numpy arrays (coloured by the port, whose
+    colours are the JAX package's, ``test_color_pairs_matches_jax_exactly``).
+    """
     ba, bb, pair_valid, dyn = _graph(seed, n, c, p_valid=1.0)
     rng = np.random.default_rng(seed)
-    cols, _ = _colors(ba, bb, pair_valid, dyn, n, max_colors=max_colors,
-                      claim_rounds=4, class_cap=0)
+    cols = tsolver.color_pairs(_t(ba), _t(bb), _t(pair_valid), _t(dyn[ba]),
+                               _t(dyn[bb]), n, max_colors=max_colors,
+                               claim_rounds=4, class_cap=0).numpy()
     perm = np.argsort(np.clip(cols, 0, max_colors), kind="stable")
     ba, bb, cols = ba[perm], bb[perm], cols[perm]
     counts = np.bincount(cols, minlength=max_colors + 2)
@@ -129,23 +132,36 @@ def _solver_setup(seed=3, n=64, c=180, max_colors=16):
     radii = rng.uniform(0.3, 0.7, n).astype(np.float32)
     lin = (rng.normal(size=(n, 3)) * 0.5).astype(np.float32)
     ang = (rng.normal(size=(n, 3)) * 0.5).astype(np.float32)
+    return dict(contact=contact, q=q, tr=tr, radii=radii, lin=lin, ang=ang,
+                dyn=dyn, counts=counts, offsets=offsets, windows=windows,
+                n=n, c=c, max_colors=max_colors, pair_valid=pair_valid)
 
-    jmp = jbody.ball_local_mprops(jnp.asarray(radii), dynamic=jnp.asarray(
-        dyn))
-    jposes = jsim.Sim(jnp.asarray(q), jnp.asarray(tr), jnp.ones(n))
-    jvels = jbody.Velocity(jnp.asarray(lin), jnp.asarray(ang))
+
+def _port_bodies(x):
+    """The port's bodies of :func:`_solver_inputs`."""
+    tmp = tbody.ball_local_mprops(_t(x["radii"]), dynamic=_t(x["dyn"]))
+    tposes = tsim.Sim(_t(x["q"]), _t(x["tr"]), torch.ones(x["n"]))
+    return tbody.Bodies(tposes, tbody.Velocity(_t(x["lin"]), _t(x["ang"])),
+                        tmp)
+
+
+def _solver_setup(seed=3, n=64, c=180, max_colors=16):
+    """:func:`_solver_inputs` with both packages' bodies and constraints."""
+    x = _solver_inputs(seed, n, c, max_colors)
+    contact = x["contact"]
+    jmp = jbody.ball_local_mprops(jnp.asarray(x["radii"]),
+                                  dynamic=jnp.asarray(x["dyn"]))
+    jposes = jsim.Sim(jnp.asarray(x["q"]), jnp.asarray(x["tr"]), jnp.ones(n))
+    jvels = jbody.Velocity(jnp.asarray(x["lin"]), jnp.asarray(x["ang"]))
     jb = jbody.Bodies(jposes, jvels, jmp)
     jc = jcons.build_constraints(
         jposes, jvels, jbody.update_mprops(jposes, jmp),
         jcons.Contacts(**{k: jnp.asarray(v) for k, v in contact.items()}),
         JaxSimParams())
 
-    tmp = tbody.ball_local_mprops(_t(radii), dynamic=_t(dyn))
-    tposes = tsim.Sim(_t(q), _t(tr), torch.ones(n))
-    tvels = tbody.Velocity(_t(lin), _t(ang))
-    tb = tbody.Bodies(tposes, tvels, tmp)
+    tb = _port_bodies(x)
     tc = tcons.build_constraints(
-        tposes, tvels, tbody.update_mprops(tposes, tmp),
+        tb.poses, tb.vels, tbody.update_mprops(tb.poses, tb.local_mprops),
         tcons.Contacts(**{k: _t(v) for k, v in contact.items()}),
         SimParams())
     # the layout/warmstart/sweep tests start from the JAX package's
@@ -153,9 +169,10 @@ def _solver_setup(seed=3, n=64, c=180, max_colors=16):
     tj = tcons.ContactConstraints(**{
         f.name: _t(getattr(jc, f.name))
         for f in dataclasses.fields(tcons.ContactConstraints)})
-    return dict(jb=jb, jc=jc, tb=tb, tc=tc, tj=tj, dyn=dyn, counts=counts,
-                offsets=offsets, windows=windows, n=n, c=c,
-                max_colors=max_colors, pair_valid=pair_valid)
+    return dict(jb=jb, jc=jc, tb=tb, tc=tc, tj=tj, dyn=x["dyn"],
+                counts=x["counts"], offsets=x["offsets"],
+                windows=x["windows"], n=n, c=c, max_colors=max_colors,
+                pair_valid=x["pair_valid"])
 
 
 @pytest.fixture(scope="module")

@@ -143,3 +143,66 @@ def cuboid_local_mprops(half_extents: torch.Tensor, density: float = 1.0,
     return LocalMassProperties(inv_m[:, None].repeat(1, 3),
                                torch.zeros((n, 3), device=dev),
                                quat.identity((n,), device=dev), inv_i)
+
+
+def _axial_mprops(mass, inertia, com, dynamic) -> LocalMassProperties:
+    """Mass properties of shapes symmetric about local Y from their masses
+    [N], principal moments [N, 3] and centres of mass [N, 3]."""
+    n, dev = inertia.shape[0], inertia.device
+    dyn = (torch.ones(n, dtype=torch.bool, device=dev) if dynamic is None
+           else torch.as_tensor(dynamic, device=dev))
+    inv_m = torch.where(dyn, 1.0 / mass, torch.zeros_like(mass))
+    inv_i = torch.where(dyn[:, None], 1.0 / inertia,
+                        torch.zeros_like(inertia))
+    return LocalMassProperties(inv_m[:, None].repeat(1, 3), com,
+                               quat.identity((n,), device=dev), inv_i)
+
+
+def capsule_local_mprops(half_heights: torch.Tensor, radii: torch.Tensor,
+                         density: float = 1.0, *,
+                         dynamic=None) -> LocalMassProperties:
+    """Solid 3D capsule along local Y: a cylinder and two hemispheres."""
+    hh = half_heights.to(torch.float32)
+    r = radii.to(torch.float32)
+    m_cyl = density * math.pi * r ** 2 * 2.0 * hh
+    m_hemi = density * (2.0 / 3.0) * math.pi * r ** 3
+    mass = m_cyl + 2.0 * m_hemi
+    iy = m_cyl * r ** 2 / 2.0 + 2.0 * m_hemi * (2.0 / 5.0) * r ** 2
+    c = 3.0 * r / 8.0  # a hemisphere's COM above its flat face
+    i_hemi_com = (83.0 / 320.0) * m_hemi * r ** 2
+    ix = (m_cyl * (3.0 * r ** 2 + 4.0 * hh ** 2) / 12.0
+          + 2.0 * (i_hemi_com + m_hemi * (hh + c) ** 2))
+    return _axial_mprops(mass, torch.stack([ix, iy, ix], dim=-1),
+                         torch.zeros((hh.shape[0], 3), device=hh.device),
+                         dynamic)
+
+
+def cylinder_local_mprops(half_heights: torch.Tensor, radii: torch.Tensor,
+                          density: float = 1.0, *,
+                          dynamic=None) -> LocalMassProperties:
+    """Solid 3D cylinder, axis +Y."""
+    hh = half_heights.to(torch.float32)
+    r = radii.to(torch.float32)
+    mass = density * math.pi * r ** 2 * 2.0 * hh
+    iy = mass * r ** 2 / 2.0
+    ix = mass * (3.0 * r ** 2 + 4.0 * hh ** 2) / 12.0
+    return _axial_mprops(mass, torch.stack([ix, iy, ix], dim=-1),
+                         torch.zeros((hh.shape[0], 3), device=hh.device),
+                         dynamic)
+
+
+def cone_local_mprops(half_heights: torch.Tensor, radii: torch.Tensor,
+                      density: float = 1.0, *,
+                      dynamic=None) -> LocalMassProperties:
+    """Solid 3D cone, apex at +half_height; its COM sits a quarter of the
+    height above the base."""
+    hh = half_heights.to(torch.float32)
+    r = radii.to(torch.float32)
+    big_h = 2.0 * hh
+    mass = density * math.pi * r ** 2 * big_h / 3.0
+    iy = 0.3 * mass * r ** 2
+    ix = mass * (3.0 * r ** 2 / 20.0 + 3.0 * big_h ** 2 / 80.0)
+    com = torch.zeros((hh.shape[0], 3), device=hh.device)
+    com[:, 1] = -hh / 2.0
+    return _axial_mprops(mass, torch.stack([ix, iy, ix], dim=-1), com,
+                         dynamic)

@@ -73,8 +73,9 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
-                            device=q.device)
+    """(-x, -y, -z, w): the same bits as a product with (-1, -1, -1, 1),
+    with no constant made on the host (a CUDA graph may capture it)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def inv(q: torch.Tensor) -> torch.Tensor:

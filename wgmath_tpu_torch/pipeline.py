@@ -68,7 +68,10 @@ from wgmath_tpu_torch.dynamics.solver import (
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.shapes.shape import (
     BALL,
+    CAPSULE,
+    CONE,
     CUBOID,
+    CYLINDER,
     SUPPORTED_KINDS,
     ShapeSet,
     ball_radii_or_nan,
@@ -176,24 +179,35 @@ def _check_slice(state: PhysicsState, config: PipelineConfig,
 def auto_manifold_points(shapes: ShapeSet, dim: int, dynamic=None) -> int:
     """Narrowest safe manifold width for this scene, read from the shape
     tags on the host: 4 where two cuboids can meet and one of them can
-    move (cuboid-cuboid SAT clipping emits up to 4 points), else 1 (every
-    other kernel of the port emits one point a pair, and every solver pass
-    costs in proportion to the width). ``dynamic``: an optional per-body
-    dynamic mask; with every cuboid static (ground and walls) the width
-    stays 1. Pass the result as ``PipelineConfig.manifold_points``. Raises
-    for 2D and for shape kinds the port's narrow phase does not take."""
+    move (cuboid-cuboid SAT clipping emits up to 4 points), or where a
+    capsule, cylinder or cone can move or a cuboid can (the support-face
+    clip of those pairs emits up to 4); else 1 (every other kernel emits
+    one point a pair, and every solver pass costs in proportion to the
+    width). ``dynamic``: an optional per-body dynamic mask; with every
+    shape that could need more static (ground and walls) the width stays
+    1. Pass the result as ``PipelineConfig.manifold_points``. Raises for 2D
+    and for shape kinds the port's narrow phase does not take."""
     if dim != 3 or not shapes.kinds <= SUPPORTED_KINDS:
         raise NotImplementedError(
             f"auto_manifold_points: dim {dim}, shape kinds "
-            f"{sorted(shapes.kinds)}; the port takes 3D balls and cuboids")
-    cuboid = (shapes.tag == CUBOID).cpu()
-    if dynamic is None:
-        any_dyn_cuboid = True
-    else:
+            f"{sorted(shapes.kinds)}; the port takes 3D balls, cuboids, "
+            "capsules, cones and cylinders")
+    tags = shapes.tag.cpu()
+    dyn = None
+    if dynamic is not None:
         dyn = (dynamic.cpu() if torch.is_tensor(dynamic)
                else torch.tensor(dynamic, dtype=torch.bool))
-        any_dyn_cuboid = bool(torch.any(cuboid & dyn))
-    return 4 if int(cuboid.sum()) >= 2 and any_dyn_cuboid else 1
+
+    def any_dyn(mask):
+        return bool(mask.any()) if dyn is None else bool((mask & dyn).any())
+
+    cuboid = tags == CUBOID
+    if int(cuboid.sum()) >= 2 and any_dyn(cuboid):
+        return 4
+    pfm = (tags == CAPSULE) | (tags == CONE) | (tags == CYLINDER)
+    if bool(pfm.any()) and (any_dyn(pfm) or any_dyn(cuboid)):
+        return 4
+    return 1
 
 
 def new_state(bodies: Bodies, shapes: ShapeSet) -> PhysicsState:
@@ -394,7 +408,8 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         bodies.poses, state.shapes, pairs, params.prediction_distance,
         p_max=config.manifold_points or 4,
         bc_capacity=config.bc_pair_capacity,
-        sat_capacity=config.sat_pair_capacity)
+        sat_capacity=config.sat_pair_capacity,
+        pfm_capacity=config.pfm_pair_capacity)
     contact_colors = bp_colors[0]
     fused_class_counts = None
     if use_pair_slots:

@@ -1,12 +1,13 @@
-"""Narrow phase for ball/cuboid scenes: collision pairs → contact manifolds
-(counterpart of ``wgmath_tpu/queries/narrow_phase.py``: the ball-ball,
-ball-cuboid and cuboid-cuboid kernels, gated on ``ShapeSet.kinds``).
+"""Narrow phase: collision pairs → contact manifolds (counterpart of
+``wgmath_tpu/queries/narrow_phase.py``, 3D: the ball-ball, ball-cuboid,
+cuboid-cuboid and support-mapped kernels, gated on ``ShapeSet.kinds``).
 
 Contacts reuse the pair slots 1:1. Each type-pair kernel is a masked
 vectorized pass over the pair list; ball-cuboid pairs are optionally
-compacted into a ``bc_capacity`` batch first, and cuboid-cuboid pairs
-into a ``sat_capacity`` batch (their unclamped counts are returned so the
-host can regrow those capacities).
+compacted into a ``bc_capacity`` batch first, cuboid-cuboid pairs into a
+``sat_capacity`` batch and the other support-mapped pairs (capsules,
+cylinders, cones against anything) into a ``pfm_capacity`` batch (their
+unclamped counts are returned so the host can regrow those capacities).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from wgmath_tpu_torch.dynamics.constraint import Contacts
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.quat import norm
 from wgmath_tpu_torch.geometry.sim import Sim
+from wgmath_tpu_torch.queries.gjk import _set_rows, pfm_contact
+from wgmath_tpu_torch.queries.pfm_manifold import pfm_manifold
 from wgmath_tpu_torch.queries.sat import cuboid_cuboid_manifold
 from wgmath_tpu_torch.shapes import shape as shp
 
@@ -54,7 +57,8 @@ def ball_cuboid(pose_ball: Sim, pose_box: Sim, radius, half_extents):
     outside = d_out > 1e-9
     gap = he - torch.abs(c_local)
     axis = torch.argmin(gap, dim=-1, keepdim=True)
-    sign = torch.where(torch.gather(c_local, -1, axis) >= 0, 1.0, -1.0)
+    sign = torch.where(torch.gather(c_local, -1, axis) >= 0, 1.0, -1.0).to(
+        c_local.dtype)
     n_in = torch.zeros_like(c_local).scatter(-1, axis, sign)
     depth_in = -torch.gather(gap, -1, axis)[..., 0]
     n_local_box = torch.where(
@@ -85,17 +89,6 @@ def _compact_mask(mask: torch.Tensor, capacity: int):
     return sel, active, total
 
 
-def _set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
-              drop: int) -> torch.Tensor:
-    """``dst.at[idx].set(src, mode="drop")`` with ``drop`` = out of range;
-    kept rows are unique."""
-    pad = torch.zeros((1,) + dst.shape[1:], dtype=dst.dtype,
-                      device=dst.device)
-    out = torch.cat([dst, pad])
-    out[idx] = src.to(dst.dtype)
-    return out[:drop]
-
-
 def _sat(pose_a: Sim, pose_b: Sim, he_a, he_b, prediction: float,
          p_max: int):
     """``cuboid_cuboid_manifold`` cut to the ``p_max`` deepest points
@@ -109,18 +102,110 @@ def _sat(pose_a: Sim, pose_b: Sim, he_a, he_b, prediction: float,
     return n_l, pts, dist, num
 
 
+def _pfm(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask,
+         prediction: float, p_max: int, vertices):
+    """The support-mapped kernel: ``pfm_contact``'s point, normal and
+    distance, then (``p_max > 1``) ``pfm_manifold``'s points cut to the
+    ``min(4, p_max)`` deepest. Returns ``(normal, points [N, k, 3], dist
+    [N, k], num_points, epa_demand)``, the last ``pfm_contact``'s unclamped
+    count of core-overlapping pairs."""
+    n_p, p_p, d_p, demand = pfm_contact(tag_a, par_a, pose_a, tag_b, par_b,
+                                        pose_b, mask=mask, vertices=vertices)
+    if p_max == 1:
+        return (n_p, p_p[:, None], d_p[:, None], torch.ones_like(tag_a),
+                demand)
+    pts, dist, num = pfm_manifold(tag_a, par_a, pose_a, tag_b, par_b, pose_b,
+                                  n_p, p_p, d_p, prediction,
+                                  vertices=vertices)
+    k = min(4, p_max)
+    if k < 4:  # the k deepest points (lax.top_k of -dist)
+        neg_d, kidx = top_k_desc(-dist, k)
+        pts = torch.gather(pts, 1, kidx[..., None].expand(-1, -1, 3))
+        dist = -neg_d
+    return n_p, pts[:, :k], dist[:, :k], torch.clamp(num, max=k), demand
+
+
+# On the card the support-mapped kernel runs as a CUDA graph: GJK's 32
+# iterations, EPA's 14 and the clip are thousands of small launches, which
+# the host would otherwise enqueue one by one. One graph is kept per
+# (device, p_max, prediction) and replayed while the batch's shapes and
+# dtypes stay; a batch of another shape (a regrown capacity) replaces it
+# and frees the old graph's memory pool. A replay runs the same kernels on
+# the same shapes, so it gives the eager run's bits (tests/test_torch_cuda.py).
+_PFM_GRAPHS: dict = {}
+
+
+class _PfmGraph:
+    """A captured :func:`_pfm` with its static inputs and outputs."""
+
+    def __init__(self, args, prediction: float, p_max: int, vertices):
+        self.inputs = [a.clone() for a in args]
+        self.shapes = _batch_shapes(args)
+        run = lambda: _pfm(*self._unpack(), prediction, p_max,  # noqa: E731
+                           vertices)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()  # the warm-up makes the cached constants and workspaces
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outputs = run()
+
+    def _unpack(self):
+        ra, ta, sa, rb, tb, sb, tag_a, par_a, tag_b, par_b, mask = \
+            self.inputs
+        return (Sim(ra, ta, sa), Sim(rb, tb, sb), tag_a, par_a, tag_b,
+                par_b, mask)
+
+    def __call__(self, args):
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        self.graph.replay()
+        return tuple(o.clone() for o in self.outputs)
+
+
+def _batch_shapes(args) -> tuple:
+    return tuple((a.shape, a.dtype) for a in args)
+
+
+def _pfm_call(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask,
+              prediction: float, p_max: int, vertices):
+    """:func:`_pfm`, on the card through its CUDA graph."""
+    dev = pose_a.translation.device
+    if dev.type != "cuda" or vertices.shape[0]:
+        return _pfm(pose_a, pose_b, tag_a, par_a, tag_b, par_b, mask,
+                    prediction, p_max, vertices)
+    args = (pose_a.rotation, pose_a.translation, pose_a.scale,
+            pose_b.rotation, pose_b.translation, pose_b.scale, tag_a, par_a,
+            tag_b, par_b, mask)
+    key = (dev, float(prediction), p_max)
+    graph = _PFM_GRAPHS.get(key)
+    if graph is None or graph.shapes != _batch_shapes(args):
+        if graph is not None:
+            graph.graph.reset()
+        graph = _PFM_GRAPHS[key] = _PfmGraph(args, prediction, p_max,
+                                             vertices)
+    return graph(args)
+
+
 def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
                  prediction_distance: float, *, p_max: int = 1,
-                 bc_capacity: int = 0, sat_capacity: int = 0):
+                 bc_capacity: int = 0, sat_capacity: int = 0,
+                 pfm_capacity: int = 0):
     """One manifold per pair slot. Returns ``(contacts, np_needed)`` with
-    ``np_needed`` = [bc, sat, pfm] unclamped compaction demands (pfm is
-    always 0 here: its kernels lie outside this slice). ``p_max == 1``
-    asserts that no cuboid-cuboid pair can act and skips the SAT kernel;
-    a narrower ``p_max`` than 4 keeps each manifold's deepest points."""
+    ``np_needed`` = [bc, sat, pfm] unclamped compaction demands (0 for a
+    kernel run dense). ``p_max == 1`` asserts that no cuboid-cuboid pair
+    can act and skips the SAT kernel, and gives the support-mapped pairs
+    their one GJK / EPA point; a narrower ``p_max`` than 4 keeps each
+    manifold's deepest points. A shape set holding another kind (the
+    mesh-backed ones, standalone segments, triangles and convex shapes)
+    is refused."""
     kinds = shapes.kinds
     if not kinds <= shp.SUPPORTED_KINDS:
         raise NotImplementedError(
-            f"narrow phase: shape kinds {sorted(kinds)} outside ball/cuboid")
+            f"narrow phase: shape kinds {sorted(kinds)} outside ball, "
+            "cuboid, capsule, cone and cylinder")
     dev = poses.translation.device
     a, b = pairs.body_a, pairs.body_b
     pose_a, pose_b = poses.take(a), poses.take(b)
@@ -133,6 +218,7 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
     num_points = torch.zeros((c,), dtype=torch.int64, device=dev)
     bc_needed = torch.zeros((), dtype=torch.int64, device=dev)
     sat_needed = torch.zeros((), dtype=torch.int64, device=dev)
+    pfm_needed = torch.zeros((), dtype=torch.int64, device=dev)
     has_ball = shp.BALL in kinds
     has_cuboid = shp.CUBOID in kinds
 
@@ -216,8 +302,40 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
             dist = torch.where(cc[:, None], d_cc, dist)
             num_points = torch.where(cc, np_cc, num_points)
 
+    # every pair no analytic kernel above takes, between support-mapped
+    # shapes: GJK / EPA and the support-face clip
+    if kinds - {shp.BALL, shp.CUBOID, shp.TRIMESH, shp.POLYLINE}:
+        handled = (((tag_a == shp.BALL) | (tag_a == shp.CUBOID))
+                   & ((tag_b == shp.BALL) | (tag_b == shp.CUBOID)))
+        supported = (((tag_a <= shp.TRIANGLE) | (tag_a == shp.CONVEX))
+                     & ((tag_b <= shp.TRIANGLE) | (tag_b == shp.CONVEX)))
+        pfm = ~handled & supported & pairs.valid
+        if pfm_capacity:
+            sel, act, pfm_needed = _compact_mask(pfm, pfm_capacity)
+            n_p, pts_m, d_m, np_m, _ = _pfm_call(
+                poses.take(a[sel]), poses.take(b[sel]), tag_a[sel],
+                par_a[sel], tag_b[sel], par_b[sel], act,
+                prediction_distance, p_max, shapes.vertices)
+            k = d_m.shape[1]
+            sel_drop = torch.where(act, sel, torch.full_like(sel, c))
+            normal_a = _set_rows(normal_a, sel_drop, n_p, c)
+            points_a[:, :k] = _set_rows(points_a[:, :k].clone(), sel_drop,
+                                        pts_m, c)
+            dist[:, :k] = _set_rows(dist[:, :k].clone(), sel_drop, d_m, c)
+            num_points = _set_rows(num_points, sel_drop, np_m, c)
+        else:
+            n_p, pts_m, d_m, np_m, _ = _pfm_call(
+                pose_a, pose_b, tag_a, par_a, tag_b, par_b, pfm,
+                prediction_distance, p_max, shapes.vertices)
+            k = d_m.shape[1]
+            normal_a = torch.where(pfm[:, None], n_p, normal_a)
+            points_a[:, :k] = torch.where(pfm[:, None, None], pts_m,
+                                          points_a[:, :k])
+            dist[:, :k] = torch.where(pfm[:, None], d_m, dist[:, :k])
+            num_points = torch.where(pfm, np_m, num_points)
+
     valid = pairs.valid & (num_points > 0) & (dist[:, 0] < prediction_distance)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
     contacts = Contacts(a, b, normal_a, points_a, dist, num_points, valid)
     return contacts, torch.stack([bc_needed.to(torch.int64),
-                                  sat_needed.to(torch.int64), zero])
+                                  sat_needed.to(torch.int64),
+                                  pfm_needed.to(torch.int64)])

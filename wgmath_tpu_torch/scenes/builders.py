@@ -1,7 +1,7 @@
 """Scene builders (counterpart of ``wgmath_tpu/scenes/builders.py``:
 ``ball_pit``, ``boxes``, ``pyramid``, ``pyramid_levels_for_bodies``,
-``keva_tower``, ``many_pyramids``, ``boxes_and_balls`` and the 3D entries
-of ``SCENES`` that these build). Positions are computed in numpy and
+``keva_tower``, ``many_pyramids``, ``boxes_and_balls``, ``primitives3``
+and the 3D entries of ``SCENES`` that these build). Positions are computed in numpy and
 jitter comes from numpy ``default_rng``, as in the JAX package, so both
 build the same scene. Every builder takes ``device``; ``None`` means the
 card. The port steps 3D scenes only, so a builder given ``dim=2`` raises."""
@@ -17,7 +17,10 @@ from wgmath_tpu_torch.dynamics.body import (
     LocalMassProperties,
     Velocity,
     ball_local_mprops,
+    capsule_local_mprops,
+    cone_local_mprops,
     cuboid_local_mprops,
+    cylinder_local_mprops,
 )
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.pipeline import PhysicsState, new_state
@@ -241,6 +244,37 @@ def boxes_and_balls(n: int = 400, *, dim: int = 3,
     return _with_ground(shapes, torch.from_numpy(pos).to(dev), mp)
 
 
+def primitives3(per_kind: int = 40, *, device=None) -> PhysicsState:
+    """A rain of primitives over the ground: ``per_kind`` balls, then as
+    many cuboids, capsules, cylinders and cones, on one jittered lattice
+    1.4 m apart whose lowest layer starts 1.5 m up (every support-mapped
+    pair of the narrow phase)."""
+    dev = resolve_device(device)
+    n = per_kind
+    r, hh, he = 0.4, 0.3, 0.4
+
+    def full(*shape, v):
+        return torch.full(shape, v, dtype=torch.float32, device=dev)
+
+    shapes = ShapeSet.concat(
+        ShapeSet.balls(full(n, v=r)), ShapeSet.cuboids(full(n, 3, v=he)),
+        ShapeSet.capsules(full(n, v=hh), full(n, v=r)),
+        ShapeSet.cylinders(full(n, v=hh), full(n, v=r)),
+        ShapeSet.cones(full(n, v=hh), full(n, v=r)))
+    mp = _merge_mprops(
+        ball_local_mprops(full(n, v=r)),
+        cuboid_local_mprops(full(n, 3, v=he)),
+        capsule_local_mprops(full(n, v=hh), full(n, v=r)),
+        cylinder_local_mprops(full(n, v=hh), full(n, v=r)),
+        cone_local_mprops(full(n, v=hh), full(n, v=r)))
+    rng = np.random.default_rng(7)
+    pos = _lattice(5 * n, 3).astype(np.float32) * 1.4
+    pos -= pos.mean(0, keepdims=True) * np.asarray([1.0, 0.0, 1.0])
+    pos[:, 1] += 1.5
+    pos += rng.uniform(-0.05, 0.05, pos.shape).astype(np.float32)
+    return _with_ground(shapes, torch.from_numpy(pos).to(dev), mp)
+
+
 def box_configs(n_bodies: int) -> dict:
     """The 4-point ``ladder`` and ``fused`` configurations the box scenes
     are stepped under, as ``PipelineConfig`` field dicts: the JAX package's
@@ -261,6 +295,15 @@ def box_configs(n_bodies: int) -> dict:
             "fused": dict(ladder, gs_fused=True, gs_rung0=256)}
 
 
+def primitive_configs(n_bodies: int) -> dict:
+    """:func:`box_configs` with the support-mapped pairs compacted into a
+    ``pfm_pair_capacity`` of 6 a body (at least 256): the configurations
+    ``primitives3`` is stepped under."""
+    pfm = capacity_bucket(6 * n_bodies, floor=256)
+    return {name: dict(cfg, pfm_pair_capacity=pfm)
+            for name, cfg in box_configs(n_bodies).items()}
+
+
 # the JAX package's 3D scenes that the port builds; each takes ``device``
 SCENES = {
     "boxes3": lambda device=None: boxes(1000, device=device),
@@ -270,4 +313,5 @@ SCENES = {
     "ball_pit": lambda device=None: ball_pit(10_000, device=device),
     "keva3": lambda device=None: keva_tower(device=device),
     "many_pyramids3": lambda device=None: many_pyramids(device=device),
+    "primitives3": lambda device=None: primitives3(device=device),
 }

@@ -37,8 +37,9 @@ CONVEX = 9
 
 NUM_PARAMS = 8
 ALL_KINDS = frozenset(range(10))
-# the tags the physics step takes (ball-ball and ball-cuboid contacts)
-SUPPORTED_KINDS = frozenset((BALL, CUBOID))
+# the tags the physics step takes: analytic ball and cuboid contacts, the
+# support-mapped (GJK / EPA / PFM) contacts of the other three
+SUPPORTED_KINDS = frozenset((BALL, CUBOID, CAPSULE, CONE, CYLINDER))
 
 
 @dataclasses.dataclass
