@@ -54,7 +54,17 @@ Three phases; any failed check ends the run with a non-zero exit:
    ``primitives3(2000)`` (10,000 balls, cuboids, capsules, cylinders and
    cones: GJK, EPA and the support-face clip) timed under the 4-point
    ladder and fused configurations, with B2 / B9-B11 checked at P = 4 on
-   its frames and the support-mapped kernel's share of the step.
+   its frames and the support-mapped kernel's share of the step. Last the
+   solve modes (colouring in the solve, uniform and split windows, the
+   Jacobi solver): the README's quick start (``SCENES["pyramid3"]``,
+   ``PipelineConfig(pair_capacity=16384)``, 300 ``step_checked`` frames)
+   and the testbed's ``--solver jacobi`` on the same scene (60 frames),
+   each against the JAX frames in ``artifacts/solve_modes_jax.npz`` and
+   under the physical checks; the settled pit under the bench's
+   ``steady_base`` (split windows over the cached colours) and the same
+   with uniform windows, gated against the ladder; the pit's settle from
+   its lattice (``bp_slack`` 0); and B2 on a uniform and a split plan
+   with a truncated tail rung from those paths' own frames.
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -492,6 +502,26 @@ def synthetic_sweep(rng: np.random.Generator, p_max: int,
     """The sweep of :func:`synthetic_pass`, recorded as
     :func:`record_sweeps` records."""
     args, kwargs = synthetic_pass(rng, p_max, **kw)
+    (call,) = record_sweeps(
+        lambda: solver.gs_color_major_pass(*args, **kwargs), 1)
+    return call
+
+
+def synthetic_windowless_sweep(rng: np.random.Generator, p_max: int, *,
+                               device, cmax: int = 256, tail_window: int = 0,
+                               split: int = 4) -> SimpleNamespace:
+    """The ladder sweep of :func:`synthetic_pass` without its ladder: each
+    colour's window is ``cmax`` rows (``tail_window`` past colour
+    ``split``: the split windows, whose larger tail classes it truncates),
+    the rows each class runs from ``solver.uniform_windows``; recorded as
+    :func:`record_sweeps` records."""
+    args, kwargs = synthetic_pass(rng, p_max, chained=False, rhs_mode=None,
+                                  device=device, windows=(cmax,) * 12)
+    counts = args[4][1]
+    windows = solver.uniform_windows(counts, max_colors=len(counts) - 2,
+                                     cmax=cmax, tail_window=tail_window,
+                                     split=split)
+    args = args[:5] + (windows,) + args[6:]
     (call,) = record_sweeps(
         lambda: solver.gs_color_major_pass(*args, **kwargs), 1)
     return call
@@ -2433,9 +2463,10 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
              refs: dict | None, expect: tuple, *, warm: int = WARM_FRAMES,
              timed: int = TIMED_FRAMES, envelopes=None,
              timed_trail: bool = False, record=None) -> dict:
-    """One configuration from a state: ``warm`` checked frames (the first
-    ones held against the JAX reference frames in ``refs`` where there are
-    any), then ``timed`` timed frames. ``expect`` names the kernel counters
+    """One configuration from a state (``arrays``: its
+    ``state_to_arrays`` dict, or the state on the card): ``warm`` checked
+    frames (the first ones held against the JAX reference frames in
+    ``refs`` where there are any), then ``timed`` timed frames. ``expect`` names the kernel counters
     this path must move; every other counter must stay at 0. The counts
     are set to 0 just before the path runs and read just after.
     ``envelopes(state)`` gives the end state's kinetic-energy proxy and
@@ -2443,7 +2474,8 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
     the translations after each timed frame (references only, no sync);
     ``record(state)`` is kept after each timed frame (device tensors, no
     sync) as ``recorded``."""
-    state = state_from_arrays(arrays, device="cuda")
+    state = (state_from_arrays(arrays, device="cuda")
+             if isinstance(arrays, dict) else arrays)
     n_ref = 0 if refs is None else sum(
         1 for k in refs if k.startswith("ref.")
         and k.endswith(".translation"))
@@ -2515,8 +2547,10 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
         "steps_per_s": 1e3 / ms,
         "host_ms_per_step": 1e3 * host_s / timed,
         "pairs": int(counts[-1][0]), "contacts": int(counts[-1][1]),
-        "colours_in_use": max(int(np.count_nonzero(c[9:9 + mc]))
-                              for c in counts),
+        # the class counts ride along under a window ladder only
+        "colours_in_use": (max(int(np.count_nonzero(c[9:9 + mc]))
+                               for c in counts)
+                           if len(counts[0]) > 8 else None),
         "bp_path_mix": {nm: sum(int(c[3]) == i for c in counts)
                         for i, nm in enumerate(("hit", "repair", "full"))},
         "host_syncs_per_step": (syncs - warm_syncs) / timed,
@@ -2768,7 +2802,16 @@ def box_envelopes(state) -> tuple[float, float]:
 
 def contact_depths(state) -> torch.Tensor:
     """The depths of the live points of the state's contact manifolds (the
-    narrow phase over the cached pair list, 4 points wide)."""
+    narrow phase over the cached pair list, 4 points wide; a state that
+    keeps no pair cache, ``bp_slack`` 0, gives its last frame's manifolds,
+    as its constraints hold them)."""
+    if state.bp_pairs is None:
+        cons = state.prev_constraints
+        slot = torch.arange(cons.info_dist.shape[1],
+                            device=cons.info_dist.device)
+        live = cons.valid[:, None] & (slot[None, :]
+                                      < cons.num_points[:, None])
+        return -cons.info_dist[live]
     c, _ = narrow_mod.narrow_phase(state.bodies.poses, state.shapes,
                                    state.bp_pairs,
                                    SimParams().prediction_distance, p_max=4)
@@ -3374,6 +3417,319 @@ def profile_window(run_once, frames: int = 3,
                          for us, c, k in host[:10]]}
 
 
+# ---------------------------------------------------------------------------
+# the solve modes: colouring in the solve, uniform and split windows, the
+# Jacobi solver (the README's quick start, the testbed's --solver jacobi,
+# the bench's split-window pit and its settle)
+# ---------------------------------------------------------------------------
+
+NPZ_SOLVE_MODES = os.path.join(ROOT, "artifacts", "solve_modes_jax.npz")
+QUICK_LEVELS = 20  # SCENES["pyramid3"]: 2,870 cuboids and the ground
+QUICK_FRAMES = 300  # the last QUICK_TIMED of them timed
+QUICK_TIMED = 50
+JACOBI_FRAMES = 60  # the last JACOBI_TIMED of them timed
+JACOBI_TIMED = 50
+SETTLE_FRAMES = 60  # the last SETTLE_TIMED of them timed
+SETTLE_TIMED = 50
+# the tail window of B2's split-plan check on the settled pit's first
+# frame: its tail classes (colour 9: 1,342 rows) fit the bench's 1,536, so
+# the check narrows the window to cut one
+CHECK_TAIL_WINDOW = 1024
+# path -> its kernel counters
+SOLVE_PATHS = {"quickstart": ("gs_math_block",), "quickstart_jacobi": (),
+               "pit_split": ("gs_math_block",),
+               "pit_uniform": ("gs_math_block",),
+               "pit_settle": ("gs_math_block",)}
+
+
+def solve_modes_arrays(prefix: str) -> dict:
+    """The entries of ``solve_modes_jax.npz`` under ``prefix``, the prefix
+    cut off."""
+    return box_arrays(NPZ_SOLVE_MODES, prefix)
+
+
+def quickstart_config(jacobi: bool = False) -> tuple:
+    """(params, config) of the README's quick start, or of the testbed's
+    ``--solver jacobi`` on the same scene."""
+    if jacobi:
+        return SimParams.jacobi(), PipelineConfig(pair_capacity=16384,
+                                                  use_jacobi=True)
+    return SimParams(), PipelineConfig(pair_capacity=16384)
+
+
+def solve_modes_reference_phase() -> dict:
+    """``pyramid(20)`` from the JAX package's warmed state under the quick
+    start and under Jacobi: three ``step_checked`` frames each, each from
+    JAX's state before it, against JAX's (counts within
+    ``COUNT_REL_LIMIT``, translations within ``TRANSLATION_LIMITS``)."""
+    out = {}
+    for mode in ("quick", "jacobi"):
+        params = quickstart_config(mode == "jacobi")[0]
+        errs = []
+        for f in range(len(TRANSLATION_LIMITS)):
+            if f == 0:
+                state = state_from_arrays(solve_modes_arrays(
+                    "card.warmed.state."), device="cuda")
+                cfg_key = f"card.{mode}.config_json"
+            else:
+                state = state_from_arrays(solve_modes_arrays(
+                    f"card.{mode}.ref.{f - 1}.state."), device="cuda")
+                cfg_key = f"card.{mode}.ref.{f - 1}.config_json"
+            with np.load(NPZ_SOLVE_MODES) as z:
+                cfg = PipelineConfig.from_dict(json.loads(str(z[cfg_key])))
+            refs = solve_modes_arrays(f"card.{mode}.ref.{f}.")
+            state, cfg = step_checked(state, params, cfg)
+            check(_finite(state), f"quickstart {mode} frame {f}: non-finite")
+            pc = state.pair_count.cpu().numpy()
+            ref_pc = refs["pair_count"]
+            d_tr = float(np.abs(state.bodies.poses.translation.cpu().numpy()
+                                - refs["translation"]).max())
+            d_v = float(np.abs(state.bodies.vels.linear.cpu().numpy()
+                               - refs["linear"]).max())
+            rel = [abs(int(pc[i]) - int(ref_pc[i]))
+                   / max(abs(int(ref_pc[i])), 1) for i in (0, 1)]
+            print(f"quickstart {mode} reference frame {f} (from JAX's state "
+                  f"before it): pairs {pc[0]} (ref {ref_pc[0]}) contacts "
+                  f"{pc[1]} (ref {ref_pc[1]}) head class {pc[2]} (ref "
+                  f"{ref_pc[2]}) max|dx| {d_tr:.3e} (limit "
+                  f"{TRANSLATION_LIMITS[f]:.0e}) max|dv| {d_v:.3e}")
+            check(max(rel) <= COUNT_REL_LIMIT,
+                  f"quickstart {mode} frame {f}: pair/contact counts off by "
+                  f"{max(rel):.2e} (limit {COUNT_REL_LIMIT})")
+            check(d_tr <= TRANSLATION_LIMITS[f],
+                  f"quickstart {mode} frame {f}: translations off by "
+                  f"{d_tr:.3e}")
+            errs.append({"max_dx": d_tr, "max_dv": d_v, "pairs": int(pc[0]),
+                         "contacts": int(pc[1])})
+        out[mode] = errs
+    return out
+
+
+def quickstart_path(params, config, name: str, frames: int, timed: int,
+                    expect: tuple) -> dict:
+    """The README's loop with the port's names, on the card: the
+    ``pyramid3`` scene stepped ``frames`` times by ``step_checked``
+    (through :func:`run_path`: the last ``timed`` frames timed); then the
+    physical checks: finite poses, no box rising more than ``RISE_TOL``
+    and, for the quick start, level 0 within ``LEVEL0_TOL`` of y = 0.5
+    (JAX's own 300 frames hold to it: ``card.physics.*``)."""
+    from wgmath_tpu_torch.scenes.builders import SCENES
+
+    state = SCENES["pyramid3"](device="cuda")
+    y0 = state.bodies.poses.translation[:, 1].clone()
+    run = run_path(name, state, config, params, None, expect,
+                   warm=frames - timed, timed=timed, envelopes=box_envelopes)
+    end, cfg = run["end"]
+    m = _physics(end.bodies.poses.translation, y0, QUICK_LEVELS)
+    run["metrics"].update(m, regrown_config={
+        k: v for k, v in dataclasses.asdict(cfg).items()
+        if v != getattr(config, k)})
+    _print_physics(f"{name} after {frames} frames", m)
+    print(f"{name}: regrown config {run['metrics']['regrown_config']}")
+    check(m["max_rise"] <= RISE_TOL, f"{name}: a box rose "
+          f"{m['max_rise']:.3e} m")
+    if not expect:
+        print(f"{name}: no port kernel launched on this path (the Jacobi "
+              "solver is plain PyTorch, as the JAX package runs it in XLA)")
+    run["params"] = params
+    return run
+
+
+def pit_mode_config(cfg_ladder: PipelineConfig, tail: bool):
+    """The bench's ``steady_base`` (``bench.py:455-460``) from the settled
+    checkpoint's configuration: no window ladder, no chain, no in-kernel
+    rhs, no pair slots: cached pair colours under ``gs_cmax``, split
+    windows (``gs_tail_window`` past ``gs_split``), or uniform ones
+    (``tail`` False: ``gs_tail_window`` 0)."""
+    cfg = dataclasses.replace(cfg_ladder, gs_windows=(), gs_chained=False,
+                              gs_rhs_in_rung=False, gs_pair_slots=False)
+    return cfg if tail else dataclasses.replace(cfg, gs_tail_window=0)
+
+
+@contextlib.contextmanager
+def window_records():
+    """A list that gains (class counts, windows) of every windowless plan
+    the solve builds inside the block (``solver.uniform_windows``)."""
+    real = solver.uniform_windows
+    seen = []
+
+    def wrapped(counts, **kw):
+        out = real(counts, **kw)
+        seen.append((list(counts), out))
+        return out
+
+    solver.uniform_windows = wrapped
+    try:
+        yield seen
+    finally:
+        solver.uniform_windows = real
+
+
+def pit_mode_gates(runs: dict, params) -> dict:
+    """``pit_split`` and ``pit_uniform`` against the ladder: the short gate
+    (three steps from the candidate's warmed state) and the envelopes."""
+    out = {}
+    lad = runs["ladder"]
+    for name in ("pit_split", "pit_uniform"):
+        st, cfg = runs[name]["warmed"]
+        ends = []
+        for c in (cfg, lad["warmed"][1]):
+            s = st
+            for _ in range(SHORT_GATE_STEPS):
+                s = step(s, params, c)
+            ends.append(s.bodies.poses.translation)
+        err = _max_dp(*ends)
+        m, m_l = runs[name]["metrics"], lad["metrics"]
+        ke, pen = m["kinetic_energy"], m["max_penetration"]
+        ke_l, pen_l = m_l["kinetic_energy"], m_l["max_penetration"]
+        out[name] = {"vs_ladder_3_steps": err, "ke": ke, "pen": pen,
+                     "ladder_ke": ke_l, "ladder_pen": pen_l}
+        print(f"gate {name} vs ladder over {SHORT_GATE_STEPS} steps from one "
+              f"warmed state: max|dp| {err:.3e} (limit {SHORT_GATE_LIMIT}); "
+              f"envelopes after {WARM_FRAMES + TIMED_FRAMES} frames: KE "
+              f"{ke:.4f} vs ladder {ke_l:.4f}, max penetration {pen:.5f} vs "
+              f"{pen_l:.5f}")
+        check(np.isfinite(err) and err <= SHORT_GATE_LIMIT,
+              f"{name} diverges from the ladder by {err:.3e} m over "
+              f"{SHORT_GATE_STEPS} steps")
+        check(pen <= pen_l + ENVELOPE_PEN_SLACK
+              and ke <= ENVELOPE_KE_FACTOR * ke_l + ENVELOPE_KE_SLACK,
+              f"{name} envelope exceeds the ladder's (drift)")
+    return out
+
+
+def pit_settle_path(params) -> dict:
+    """``ball_pit(10_000)`` from its lattice under the bench's settle
+    configuration (``bench.py:416-430``: ``bp_slack`` 0, so the solve
+    colours the contacts every frame, ``gs_cmax`` 4096, split windows past
+    ``gs_tail_window`` 1536): finite, and the last frame within every
+    capacity (each regrow converged)."""
+    from wgmath_tpu_torch.pipeline import auto_manifold_points
+    from wgmath_tpu_torch.scenes.builders import ball_pit
+
+    state = ball_pit(10_000, device="cpu")
+    cfg = PipelineConfig(
+        pair_capacity=49152, contact_capacity=32768, max_colors=24,
+        broad_phase_block=512, gs_cmax=4096, bp_slack=0.0,
+        bc_pair_capacity=4096, gs_tail_window=1536,
+        manifold_points=auto_manifold_points(
+            state.shapes, 3, dynamic=state.bodies.is_dynamic()))
+    run = run_path("pit_settle", state_to_arrays(state), cfg, params, None,
+                   SOLVE_PATHS["pit_settle"],
+                   warm=SETTLE_FRAMES - SETTLE_TIMED, timed=SETTLE_TIMED,
+                   envelopes=box_envelopes)
+    end, cfg = run["end"]
+    pc = [int(x) for x in end.pair_count.cpu()]
+    within = (0 <= pc[0] <= cfg.pair_capacity
+              and pc[1] <= cfg.contact_capacity and pc[2] <= cfg.gs_cmax
+              and pc[4] <= cfg.gs_tail_window)
+    run["metrics"]["last_counts"] = pc[:5]
+    print(f"pit_settle after {SETTLE_FRAMES} frames: counts {pc[:5]} under "
+          f"pair_capacity {cfg.pair_capacity}, contact_capacity "
+          f"{cfg.contact_capacity}, gs_cmax {cfg.gs_cmax}, gs_tail_window "
+          f"{cfg.gs_tail_window}")
+    check(within, f"pit_settle: the last frame overflowed {pc[:5]}")
+    return run
+
+
+def solve_modes_phase(params, runs: dict) -> dict:
+    """The solve modes: the quick start's JAX frames, ``quickstart`` (300
+    frames, the physical checks), ``quickstart_jacobi`` (60 frames),
+    ``pit_split`` and ``pit_uniform`` from the settled checkpoint (the
+    bench's warm and timed frames, the short gate and the envelopes against
+    ``runs["ladder"]``), and ``pit_settle``. Returns path name -> run, plus
+    ``solve_jax_frames`` and ``solve_checks``."""
+    out = {"solve_jax_frames": solve_modes_reference_phase()}
+    checks = {}
+    with np.load(NPZ_SOLVE_MODES) as z:
+        jax_phys = {k: float(z[f"card.physics.{k}"])
+                    for k in ("level0_max_off", "max_rise")}
+    out["quickstart"] = quickstart_path(
+        *quickstart_config(), "quickstart", QUICK_FRAMES, QUICK_TIMED,
+        SOLVE_PATHS["quickstart"])
+    m = out["quickstart"]["metrics"]
+    print(f"quickstart: JAX's own {QUICK_FRAMES} frames: level 0 within "
+          f"{jax_phys['level0_max_off']:.3e} m, highest rise "
+          f"{jax_phys['max_rise']:.3e} m")
+    check(m["level0_max_off"] <= LEVEL0_TOL,
+          f"quickstart: level 0 left the ground by {m['level0_max_off']:.3e}")
+    checks["quickstart"] = dict(
+        level0_max_off=m["level0_max_off"], max_rise=m["max_rise"],
+        jax=jax_phys)
+    out["quickstart_jacobi"] = quickstart_path(
+        *quickstart_config(True), "quickstart_jacobi", JACOBI_FRAMES,
+        JACOBI_TIMED, SOLVE_PATHS["quickstart_jacobi"])
+    m = out["quickstart_jacobi"]["metrics"]
+    checks["quickstart_jacobi"] = dict(level0_max_off=m["level0_max_off"],
+                                       max_rise=m["max_rise"])
+    z = dict(np.load(NPZ))
+    cfg_lad = PipelineConfig.from_dict(json.loads(str(np.load(NPZ_LADDER)[
+        "config_json"])))
+    for name, tail in (("pit_split", True), ("pit_uniform", False)):
+        out[name] = run_path(name, z, pit_mode_config(cfg_lad, tail), params,
+                             None, SOLVE_PATHS[name])
+    checks["pit_gates"] = pit_mode_gates({**runs, **out}, params)
+    out["pit_settle"] = pit_settle_path(params)
+    out["solve_checks"] = checks
+    return out
+
+
+def solve_modes_kernel_checks(runs: dict, params, summaries: dict) -> None:
+    """B2 on the windowless plans: the two sweeps of substep 1 of the
+    quick start's first frame after its warm frames (uniform windows, P =
+    4) and of the settled pit's first frame under the split windows with
+    the tail window at ``CHECK_TAIL_WINDOW`` (a tail class past it: a
+    truncated rung), each one launch
+    against the same kernel launched rung by rung and its repeats (bit for
+    bit) and against the plain sweep; under ``quickstart_*`` and
+    ``pit_split_*`` in B2's summary."""
+    state, cfg = runs["quickstart"]["warmed"]
+    cases = {}
+    with window_records() as seen:
+        calls = record_sweeps(lambda: step_checked(state, params, cfg), 2)
+    check(bool(seen) and all(c.kw["p_max"] == 4 for c in calls),
+          "quickstart: the recorded sweeps are not windowless 4-point ones")
+    cases["quickstart"] = calls
+    z = dict(np.load(NPZ))
+    cfg_lad = PipelineConfig.from_dict(json.loads(str(np.load(NPZ_LADDER)[
+        "config_json"])))
+    split_cfg = dataclasses.replace(pit_mode_config(cfg_lad, True),
+                                    gs_tail_window=CHECK_TAIL_WINDOW)
+    with window_records() as seen:
+        calls = record_sweeps(lambda: step_checked(
+            state_from_arrays(z, device="cuda"), params, split_cfg), 2)
+    counts, windows = seen[0]
+    cut = [c for c in range(1, len(windows) + 1)
+           if counts[c] > windows[c - 1] and c > split_cfg.gs_split]
+    print(f"pit_split first frame: class counts {counts[1:]}, rows swept "
+          f"{list(windows)}; truncated tail colours {cut}")
+    check(bool(cut), "pit_split: no tail class past gs_tail_window on the "
+          "checkpoint's first frame")
+    cases["pit_split"] = calls
+    row = summaries["gs_math_block"]
+    for label, calls in cases.items():
+        res = [_sweep_case("gs_math_block", f"{label} sweep {k + 1}", call,
+                           True) for k, call in enumerate(calls)]
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [r["max_abs_err"] for r in res])
+        nbytes = sum(r["bytes"] for r in res)
+        flops = sum(r["flops"] for r in res)
+        row.update({f"{label}_ms": sum(r["ms"] for r in res),
+                    f"{label}_rungs_ms": sum(r["rungs_ms"] for r in res),
+                    f"{label}_plain_ms": sum(r["plain_ms"] for r in res),
+                    f"{label}_bound_ms": bound_ms(nbytes, flops)[0],
+                    f"{label}_rows": res[0]["rows"],
+                    f"{label}_rungs": res[0]["rungs"]})
+
+
+def color_share(run_once, frames: int = 3) -> dict:
+    """The share of a frame's device and host time spent colouring the
+    contacts in the solve (``solver.color_constraints``,
+    :func:`range_share`), with the range's time by CUDA events."""
+    return range_share(run_once, solver, "color_constraints",
+                       "color_constraints", frames, events=True)
+
+
 KERNEL_TABLE = (
     ("gs_math_rhs", "chained_ps", "wgmath_tpu_torch/csrc/gs_math.cu",
      "wgmath_tpu/dynamics/gs_pallas.py:330",
@@ -3462,16 +3818,22 @@ def main() -> int:
         t2 = time.perf_counter()
         runs.update(primitives_phase(params))
         primitives_kernel_checks(runs, params, summaries)
+        t3 = time.perf_counter()
+        runs.update(solve_modes_phase(params, runs))
+        solve_modes_kernel_checks(runs, params, summaries)
         print(f"phase seconds: pit paths {t1 - t0:.1f}, box {t2 - t1:.1f}, "
-              f"primitives {time.perf_counter() - t2:.1f}")
+              f"primitives {t3 - t2:.1f}, solve modes "
+              f"{time.perf_counter() - t3:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     paths = {}
-    step_paths = CONFIGS + tuple(BOX_PATHS) + tuple(PRIM_PATHS)
+    step_paths = (CONFIGS + tuple(BOX_PATHS) + tuple(PRIM_PATHS)
+                  + tuple(SOLVE_PATHS))
     for name in step_paths:
         paths[name] = runs[name]["metrics"]
-        stepper = _pit_stepper(*runs[name]["end"], params)
+        stepper = _pit_stepper(*runs[name]["end"],
+                               runs[name].get("params", params))
         # a 10k primitives step is ~40,000 kernels: two frames a window
         frames = 2 if name in PRIM_PATHS else 3
         try:
@@ -3499,6 +3861,18 @@ def main() -> int:
                       f"{m['pfm_pairs_per_frame']}, EPA demand "
                       f"{m['epa_demand_per_frame']} (cap 256), peak "
                       f"{m['peak_mem_gb']:.3f} GB; PFM {m['pfm']}")
+            if name in SOLVE_PATHS:
+                m = paths[name]
+                if name != "quickstart_jacobi":
+                    m["coloring"] = color_share(stepper)
+                print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
+                      f"{prof['device_ms_per_step']:.3f} ms/step, "
+                      f"{prof['kernels_per_step']:.1f} kernels/step, "
+                      f"{m['host_syncs_per_step']:.2f} host syncs/step, B2 "
+                      f"{m['gs_math_block_launches_per_step']:.2f} "
+                      f"launches/step, busy {m['device_busy_share']:.3f}, "
+                      f"peak {m['peak_mem_gb']:.3f} GB; colouring "
+                      f"{m.get('coloring', 'none (no colours)')}")
         except Exception as e:  # the profiler is untried on this machine
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
@@ -3507,7 +3881,9 @@ def main() -> int:
                       "box_jax_frames": runs["jax_frames"],
                       "box_checks": runs["box_checks"],
                       "prim_jax_frames": runs["prim_jax_frames"],
-                      "prim_checks": runs["prim_checks"]}))
+                      "prim_checks": runs["prim_checks"],
+                      "solve_jax_frames": runs["solve_jax_frames"],
+                      "solve_checks": runs["solve_checks"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:

@@ -31,6 +31,7 @@ from chip_smoke import (
     NPZ_FUSED,
     NPZ_LADDER,
     NPZ_PRIMITIVES,
+    NPZ_SOLVE_MODES,
     OP_ASSIGN_RTOL,
     PRIM_FAR_ATOL,
     PRIM_NEAR_SHARE,
@@ -62,6 +63,7 @@ from chip_smoke import (
     run_fused,
     run_recorded,
     synthetic_sweep,
+    synthetic_windowless_sweep,
     ray_scene,
     reduce_ops,
     sweep_trace,
@@ -164,7 +166,11 @@ def test_rhs_in_rung_equals_rhs_passed_in_bit_for_bit(p_max):
 SWEEP_CASES = ("pit-chained_ps-biased", "pit-chained_ps-unbiased",
                "pit-ladder-biased", "pyr6-ladder-biased",
                "pyr6-ladder-unbiased", "p4-chained-biased",
-               "p4-chained-unbiased", "p4-chained", "p4-ladder")
+               "p4-chained-unbiased", "p4-chained", "p4-ladder",
+               "uniform-p1", "uniform-p4", "split-p1", "split-p4")
+# the split windows of the synthetic windowless sweeps: colours past
+# SPLIT_AT sweep TAIL_ROWS rows, fewer than their classes hold
+SPLIT_AT, TAIL_ROWS = 4, 96
 _SWEEPS = {}
 
 
@@ -173,7 +179,9 @@ def sweep(request):
     """A recorded sweep on the card: the first substep of the settled 10k
     pit's first frame (``chained_ps``: B1 biased and unbiased; the ladder:
     B2), of the warmed ``pyramid(6)``'s first frame under the ladder (B2
-    at P = 4), or ``chip_smoke.synthetic_sweep`` at P = 4."""
+    at P = 4), ``chip_smoke.synthetic_sweep`` at P = 4, or B2 on a
+    seeded windowless plan (``chip_smoke.synthetic_windowless_sweep``):
+    uniform windows, or split ones with truncated tail rungs."""
     _need_card()
     name = request.param
     if name not in _SWEEPS:
@@ -186,6 +194,12 @@ def sweep(request):
                 calls = pit_sweeps(path, "cuda")
                 _SWEEPS[f"pit-{tag}-biased"] = calls[0]
                 _SWEEPS[f"pit-{tag}-unbiased"] = calls[1]
+        elif name.startswith(("uniform-", "split-")):
+            split = name.startswith("split-")
+            _SWEEPS[name] = synthetic_windowless_sweep(
+                np.random.default_rng(len(name) + 3), int(name[-1]),
+                device="cuda", tail_window=TAIL_ROWS if split else 0,
+                split=SPLIT_AT)
         else:
             chained = "chained" in name
             mode = name.split("-")[2] if name.count("-") == 2 else None
@@ -294,6 +308,58 @@ def test_traced_sweep_build_gives_the_untraced_bits_on_card():
     got = run_recorded(calls[0], "kernel")  # untraced again
     torch.cuda.synchronize()
     assert all(torch.equal(g, x) for g, x in zip(got, want[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", ["uniform-p4", "split-p4"], indirect=True)
+def test_windowless_plan_is_one_rung_a_colour_on_card(sweep, request):
+    """A windowless plan holds one rung a colour, its sides sized by the
+    rows it runs; the split plan's tail rungs stop at the tail window,
+    short of their classes, where the uniform plan's run whole."""
+    split = request.node.callspec.params["sweep"].startswith("split-")
+    rungs = sweep.plan.rungs
+    assert all(r.window == r.rows > 0 for r in rungs)
+    colours = [r.colour for r in rungs]
+    assert colours == sorted(set(colours))
+    assert sweep.plan.sides.shape[0] == 2 * sum(r.rows for r in rungs)
+    tail = [r.rows for r in rungs if r.colour > SPLIT_AT]
+    if split:
+        assert max(tail) == TAIL_ROWS
+    else:
+        assert max(tail) > TAIL_ROWS
+
+
+@pytest.mark.cuda
+def test_quickstart_frames_on_card_match_cpu():
+    """Two checked frames of the README's quick start from the warmed
+    ``pyramid(6)`` (colouring in the solve, uniform windows, 4-point
+    manifolds) on the card and on the CPU: the same integers, poses to
+    float32 reordering; on the card two B2 launches a substep."""
+    _need_card()
+    with np.load(NPZ_SOLVE_MODES) as z:
+        arrays = {k[len("pyramid6.warmed."):]: z[k] for k in z.files
+                  if k.startswith("pyramid6.warmed.")}
+        cfg0 = PipelineConfig.from_dict(json.loads(str(
+            z["pyramid6.config_json"])))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, cfg = state_from_arrays(arrays, device=dev), cfg0
+        n0 = gs_math.LAUNCHES_BLOCK
+        for _ in range(2):
+            state, cfg = step_checked(state, SimParams(), cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert gs_math.LAUNCHES_BLOCK - n0 == 2 * 2 * 4
+        out[dev] = (state, cfg)
+    (sc, cc), (sg, cg) = out["cpu"], out["cuda"]
+    assert cc == cg
+    for a, b in ((sg.pair_count, sc.pair_count),
+                 (sg.prev_colors, sc.prev_colors),
+                 (sg.prev_constraints.body_a, sc.prev_constraints.body_a)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    np.testing.assert_allclose(
+        sg.bodies.poses.translation.cpu().numpy(),
+        sc.bodies.poses.translation.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -144,11 +144,14 @@ def test_ten_frames_track_jax(z, first_frame):
     assert paths[3] == 2 and paths[6] == 1, paths
 
 
+# what the port still refuses, alone and beside the solve modes it takes
+# (Jacobi, no ladder, no class cap, no slack, colour minimization)
 @pytest.mark.parametrize("change", [
-    dict(use_jacobi=True), dict(gs_static_slots=True),
-    dict(gs_windows=()), dict(gs_windows=(), gs_tail_window=1536),
-    dict(gs_cmax=0), dict(bp_slack=0.0),
-    dict(bp_algo="lbvh"), dict(bp_min_color_sweeps=2)])
+    dict(gs_static_slots=True), dict(gs_static_slots=True, use_jacobi=True),
+    dict(gs_static_slots=True, gs_windows=()),
+    dict(gs_static_slots=True, gs_windows=(), gs_tail_window=1536),
+    dict(bp_algo="lbvh", gs_cmax=0), dict(bp_algo="lbvh", bp_slack=0.0),
+    dict(bp_algo="lbvh"), dict(bp_algo="lbvh", bp_min_color_sweeps=2)])
 def test_step_refuses_flags_outside_the_slice(warmed, change):
     tstate, tcfg = _port(*warmed)
     with pytest.raises(NotImplementedError, match="refused"):

@@ -6,7 +6,8 @@ reference frames. The port starts from JAX's warmed state (cuboid-cuboid
 SAT manifolds, 4-wide constraints, the broad-phase cache, the colours and
 the solve bundle) and steps the same three frames with ``step_checked``.
 Also: the regrow of ``sat_pair_capacity``, ``convert``'s round trip at
-width 4, and the six box builders against the JAX package's (no step)."""
+width 4, and the six box builders and ``balls`` against the JAX
+package's (no step)."""
 
 import dataclasses
 import json
@@ -125,6 +126,7 @@ BUILDERS = {
     "keva_tower": dict(levels=3, per_level=2),
     "many_pyramids": dict(count=3, levels=2),
     "boxes_and_balls": dict(n=10),
+    "balls": dict(n=30),
 }
 
 

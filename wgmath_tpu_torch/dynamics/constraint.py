@@ -247,6 +247,23 @@ def update_rhs_sorted(ss, poses: Sim, params: SimParams):
     return rhs_wo_bias + rhs_bias, rhs_wo_bias, ss.t_rhs_wo_bias + t_bias
 
 
+def update_constraints(cons: ContactConstraints, poses: Sim,
+                       params: SimParams) -> ContactConstraints:
+    """Substep relinearization of the unsorted constraints (the Jacobi
+    solve): the rhs of :func:`update_rhs_sorted`, the impulses scaled by
+    the warmstart coefficient, the substep's cfm."""
+    n_rhs, n_rhs_wo_bias, t_rhs = update_rhs_sorted(cons, poses, params)
+    ws = params.warmstart_coefficient
+    return dataclasses.replace(
+        cons, n_rhs=n_rhs, n_rhs_wo_bias=n_rhs_wo_bias, t_rhs=t_rhs,
+        n_impulse=cons.n_impulse * ws,
+        n_impulse_jacobi=cons.n_impulse_jacobi * ws,
+        t_impulse=cons.t_impulse * ws,
+        t_impulse_jacobi=cons.t_impulse_jacobi * ws,
+        cfm_factor=torch.full_like(cons.cfm_factor,
+                                   params.contact_cfm_factor))
+
+
 def remove_cfm_and_bias(cons: ContactConstraints) -> ContactConstraints:
     """The constraints of the unbiased sweep: rhs without bias, cfm 1."""
     return dataclasses.replace(

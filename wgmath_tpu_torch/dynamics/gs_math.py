@@ -136,10 +136,11 @@ def _gs_math_rhs_torch(win2d, meta, num_points, active, p1, p2, prev_n,
 
 
 def _point_updates(f, cfm, n_rhs, t_rhs, num_points, active, p1, p2, prev_n,
-                   prev_t, p_max):
+                   prev_t, p_max, deltas: bool = True):
     """``_cm_point_updates`` row-major: ``f`` the field views, ``cfm`` a
     float or [L], ``n_rhs`` [L, P], ``t_rhs`` [L, P, 2]. Returns (new_n,
-    new_t, d1, d2)."""
+    new_t, d1, d2), or the updated velocities in place of the deltas
+    (``deltas=False``)."""
     dir_a, tang = f["dir_a"], f["tangent_a"]
     v1l, v1a = p1[:, :3], p1[:, 3:6]
     v2l, v2a = p2[:, :3], p2[:, 3:6]
@@ -189,8 +190,11 @@ def _point_updates(f, cfm, n_rhs, t_rhs, num_points, active, p1, p2, prev_n,
         w2l = w2l - lin_dir * im_b
         w2a = w2a + ib[:, 0] * dl[:, 0:1] + ib[:, 1] * dl[:, 1:2]
         new_t.append(t_new)
-    return (torch.stack(new_n, dim=1), torch.stack(new_t, dim=1),
-            torch.cat([w1l - v1l, w1a - v1a], dim=-1),
+    new_n, new_t = torch.stack(new_n, dim=1), torch.stack(new_t, dim=1)
+    if not deltas:
+        return (new_n, new_t, torch.cat([w1l, w1a], dim=-1),
+                torch.cat([w2l, w2a], dim=-1))
+    return (new_n, new_t, torch.cat([w1l - v1l, w1a - v1a], dim=-1),
             torch.cat([w2l - v2l, w2a - v2a], dim=-1))
 
 

@@ -31,6 +31,17 @@ class SimParams:
     friction: float = 0.5
     restitution: float = 0.0
 
+    @staticmethod
+    def tgs_soft(**kw) -> "SimParams":
+        """The soft TGS solver's parameters (the defaults)."""
+        return SimParams(**kw)
+
+    @staticmethod
+    def jacobi(**kw) -> "SimParams":
+        """The Jacobi solver's parameters: no warmstart by default."""
+        kw.setdefault("warmstart_coefficient", 0.0)
+        return SimParams(**kw)
+
     def substep(self) -> "SimParams":
         return dataclasses.replace(self,
                                    dt=self.dt / self.num_solver_iterations)

@@ -1,11 +1,14 @@
-"""Contact solver for the window-ladder configurations (counterpart of
-``wgmath_tpu/dynamics/solver.py``: colouring, warmstart, the colour-major
-layout and chain, and the Gauss-Seidel sweeps under ``gs_windows``).
+"""Contact solver (counterpart of ``wgmath_tpu/dynamics/solver.py``:
+colouring, warmstart, the colour-major layout and chain, the Gauss-Seidel
+sweeps under the ``gs_windows`` ladder or uniform / split windows, and the
+pseudo-Jacobi solver).
 
-- **Colouring** (``color_pairs``): per colour, a few Luby claim rounds;
-  each candidate edge scatter-mins a hashed priority into its dynamic
-  bodies and wins when it owns both. The hash is the JAX package's uint32
-  arithmetic, emulated in int64 with a 32-bit mask after every step.
+- **Colouring** (``color_pairs`` on the broad phase's pairs,
+  ``color_constraints`` in the solve): per colour, a few Luby claim
+  rounds; each candidate edge scatter-mins a hashed priority into its
+  dynamic bodies and wins when it owns both. The hash is the JAX
+  package's uint32 arithmetic, emulated in int64 with a 32-bit mask after
+  every step. ``minimize_colors`` then drains high classes into low ones.
 - **Layout**: constraints in colour-major order; colour c's class is the
   window ``[offsets[c], offsets[c] + windows[c-1])``. Pair-slot and
   colour-compacted contacts arrive in that order
@@ -26,7 +29,13 @@ layout and chain, and the Gauss-Seidel sweeps under ``gs_windows``).
   ``update_rhs_sorted`` once per substep (``gs_math.gs_sweep_block``) or,
   with rhs-in-rung, is rebuilt in the kernel from the bodies' poses
   (``gs_math.gs_sweep_rhs``). On CPU tensors ``_sweep_torch`` runs the
-  same table rung by rung through the plain row math.
+  same table rung by rung through the plain row math. Without a ladder
+  every colour sweeps a uniform window (the split windows: a narrower one
+  past ``gs_split``); ``uniform_windows`` turns that into a ladder of the
+  rows each class really runs, so it is the same one launch a sweep.
+- **Jacobi** (``jacobi_pass``): each body walks its constraint sides
+  (``build_body_constraint_csr``) against a snapshot of the others, in
+  plain PyTorch, as the JAX package runs it in XLA.
 
 Every ``lax.cond`` of the JAX solve is a Python branch on a host value.
 """
@@ -54,6 +63,8 @@ from wgmath_tpu_torch.dynamics.constraint import (
     ContactConstraints,
     Contacts,
     build_constraints,
+    remove_cfm_and_bias,
+    update_constraints,
     update_rhs_sorted,
 )
 from wgmath_tpu_torch.dynamics.gs_fused import (
@@ -65,10 +76,12 @@ from wgmath_tpu_torch.dynamics.gs_fused import (
 )
 from wgmath_tpu_torch.dynamics.gs_math import (
     PACK_FIELDS,
+    UPDATE_FIELDS,
     Rung,
     SweepPlan,
     _gs_math_rhs_torch,
     _gs_math_torch,
+    _point_updates,
     _size,
     gs_sweep_block,
     gs_sweep_rhs,
@@ -92,6 +105,16 @@ def color_pairs(body_a, body_b, valid, dyn_a, dyn_b, num_bodies: int, *,
     """Edge-colour a body-pair graph (colours 1..max_colors-1; residue 0
     under ``class_cap``, else the last colour)."""
     cons = SimpleNamespace(body_a=body_a, body_b=body_b, valid=valid)
+    return _color_edges(cons, dyn_a, dyn_b, num_bodies,
+                        max_colors=max_colors, claim_rounds=claim_rounds,
+                        class_cap=class_cap)
+
+
+def color_constraints(cons, num_bodies: int, *, max_colors: int = 32,
+                      claim_rounds: int = 4, class_cap: int = 0):
+    """Edge-colour the constraint graph in the solve (the dynamic flags
+    from the inverse masses); as :func:`color_pairs`."""
+    dyn_a, dyn_b = _dyn_sides(cons)
     return _color_edges(cons, dyn_a, dyn_b, num_bodies,
                         max_colors=max_colors, claim_rounds=claim_rounds,
                         class_cap=class_cap)
@@ -180,12 +203,8 @@ def assign_new_pair_colors(ba, bb, valid, colors, dyn_a, dyn_b,
     c = ba.shape[0]
     dev = ba.device
     mc = max_colors + 1
-    nb = torch.full_like(ba, num_bodies)
-    rows2 = torch.cat([torch.where(valid & dyn_a & (colors > 0), ba, nb),
-                       torch.where(valid & dyn_b & (colors > 0), bb, nb)])
-    cols2 = torch.clamp(torch.cat([colors, colors]), 0, max_colors)
-    used = torch.zeros((num_bodies + 1, mc), dtype=torch.bool, device=dev)
-    used[rows2, cols2] = True
+    used = _used_colors(ba, bb, valid, colors, dyn_a, dyn_b, num_bodies,
+                        max_colors)
     used[num_bodies] = False
     counts = torch.zeros(mc, dtype=torch.int64, device=dev).index_add_(
         0, torch.clamp(colors, 0, max_colors),
@@ -210,6 +229,60 @@ def assign_new_pair_colors(ba, bb, valid, colors, dyn_a, dyn_b,
         used[torch.where(hit & dyn_b[s], b, num_bodies), color] = True
         used[num_bodies] = False
         counts = counts + (hit & (col_ids == color)).to(torch.int64)
+    return colors
+
+
+def _used_colors(ba, bb, valid, colors, dyn_a, dyn_b, num_bodies: int,
+                 max_colors: int):
+    """[num_bodies + 1, max_colors + 1] flags: colour k is taken at a body
+    by one of its dynamic sides (row ``num_bodies`` collects the rest)."""
+    nb = torch.full_like(ba, num_bodies)
+    rows2 = torch.cat([torch.where(valid & dyn_a & (colors > 0), ba, nb),
+                       torch.where(valid & dyn_b & (colors > 0), bb, nb)])
+    used = torch.zeros((num_bodies + 1, max_colors + 1), dtype=torch.bool,
+                       device=ba.device)
+    used[rows2, torch.clamp(torch.cat([colors, colors]), 0, max_colors)] = True
+    return used
+
+
+def minimize_colors(ba, bb, valid, colors, dyn_a, dyn_b, num_bodies: int, *,
+                    max_colors: int, sweeps: int = 2, class_cap: int = 0):
+    """Drain the high colour classes into low ones: per sweep, each source
+    class from ``max_colors`` down to 2 moves every edge to its lowest
+    colour free at both dynamic ends (a class is an independent set, so its
+    moves commute); ``class_cap`` ranks the arrivals per destination and
+    keeps the late ones at their source."""
+    mc = max_colors + 1
+    col_ids = torch.arange(mc, device=ba.device)
+    ba_s = torch.clamp(ba, max=num_bodies - 1)
+    bb_s = torch.clamp(bb, max=num_bodies - 1)
+    nb = torch.full_like(ba, num_bodies)
+    rows = torch.arange(ba.shape[0], device=ba.device)
+    for _ in range(sweeps):
+        used = _used_colors(ba, bb, valid, colors, dyn_a, dyn_b, num_bodies,
+                            max_colors)
+        counts = torch.zeros(mc, dtype=torch.int64, device=ba.device)
+        counts.index_add_(0, torch.clamp(colors, 0, max_colors),
+                          (valid & (colors > 0)).to(torch.int64))
+        for src in range(max_colors, 1, -1):
+            movers = valid & (colors == src)
+            free = (~(used[ba_s] & dyn_a[:, None])
+                    & ~(used[bb_s] & dyn_b[:, None])
+                    & (col_ids[None, :] < src) & (col_ids[None, :] > 0))
+            tgt = torch.argmax(free.to(torch.int32), dim=1)  # lowest free
+            can = movers & free[rows, tgt]
+            if class_cap:
+                onehot = (can[:, None] & (col_ids[None, :] == tgt[:, None]))
+                rank = torch.cumsum(onehot.to(torch.int64), 0)
+                can &= (rank + counts[None, :])[rows, tgt] <= class_cap
+            colors = torch.where(can, tgt, colors)
+            used[torch.cat([torch.where(can & dyn_a, ba, nb),
+                            torch.where(can & dyn_b, bb, nb)]),
+                 torch.cat([tgt, tgt])] = True
+            moved = torch.zeros(mc, dtype=torch.int64, device=ba.device)
+            moved.index_add_(0, torch.where(can, tgt, 0), can.to(torch.int64))
+            moved[0] = 0
+            counts = counts + moved - moved.sum() * (col_ids == src)
     return colors
 
 
@@ -710,6 +783,117 @@ def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
     return out
 
 
+def uniform_windows(counts, *, max_colors: int, cmax: int,
+                    tail_window: int = 0, split: int = 0) -> tuple:
+    """The rows each colour 1..``max_colors`` sweeps without a ladder
+    (host ints; ``counts`` the layout's class counts on the host): colour
+    c's window is ``cmax`` rows from its offset, and with ``tail_window``
+    the colours past ``split`` take that narrower window. Rows past the
+    class run masked there, so only ``min(count, window)`` rows do work: a
+    plan built from these windows has one rung per occupied colour, its
+    sides sized by the counts, and a class larger than its window keeps
+    its later rows unswept for the frame. Colour 0 (the residue) is not
+    swept."""
+    return tuple(min(max(counts[c], 0),
+                     tail_window if tail_window and c > split else cmax)
+                 for c in range(1, max_colors + 1))
+
+
+# ---------------------------------------------------------------------------
+# The Jacobi solver: each body solves its own constraints in turn against a
+# snapshot of the others (plain PyTorch, as the JAX package runs it in XLA)
+# ---------------------------------------------------------------------------
+
+
+def build_body_constraint_csr(cons, num_bodies: int):
+    """(entries, offsets, counts): ``entries[offsets[b] + k]`` is
+    ``2·cid + side`` of the k-th constraint side at dynamic body ``b``, in
+    constraint order, a-sides before b-sides (one stable sort)."""
+    c = cons.body_a.shape[0]
+    dyn_a, dyn_b = _dyn_sides(cons)
+    nb = torch.full_like(cons.body_a, num_bodies)
+    keys = torch.cat([torch.where(dyn_a & cons.valid, cons.body_a, nb),
+                      torch.where(dyn_b & cons.valid, cons.body_b, nb)])
+    idx = torch.arange(c, device=keys.device)
+    sk, order = torch.sort(keys, stable=True)
+    entries = torch.cat([idx * 2, idx * 2 + 1])[order]
+    counts = torch.bincount(sk, minlength=num_bodies + 1)[:num_bodies]
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    return entries, offsets, counts
+
+
+def jacobi_pass(cons: ContactConstraints, vels: Velocity, csr, *,
+                max_per_body: int = 32):
+    """One pseudo-Jacobi pass: every body walks its first ``max_per_body``
+    constraint sides in turn, updating its own velocity against the other
+    bodies' velocities from before the pass, and stores each impulse on its
+    own side (a-sides in ``n_impulse`` / ``t_impulse``, b-sides in the
+    ``*_jacobi`` copies). Returns ``(vels, cons)``."""
+    entries, offsets, counts = csr
+    p_max = cons.n_impulse.shape[1]
+    c = cons.body_a.shape[0]
+    snap = torch.cat([vels.linear, vels.angular], dim=-1)
+    own = snap
+    imps = [torch.cat([x, torch.zeros_like(x[:1])]) for x in (
+        cons.n_impulse, cons.n_impulse_jacobi, cons.t_impulse,
+        cons.t_impulse_jacobi)]
+    last = entries.shape[0] - 1
+    for k in range(max_per_body):
+        active = k < counts
+        v = entries[torch.clamp(offsets + k, 0, last)]
+        cid = torch.where(active, v >> 1, 0)
+        is_a = (v & 1) == 0
+        other = snap[torch.where(is_a, cons.body_b[cid], cons.body_a[cid])]
+        p1 = torch.where(is_a[:, None], own, other)
+        p2 = torch.where(is_a[:, None], other, own)
+        n_imp, n_imp_j, t_imp, t_imp_j = imps
+        prev_n = torch.where(is_a[:, None], n_imp[cid], n_imp_j[cid])
+        prev_t = torch.where(is_a[:, None, None], t_imp[cid], t_imp_j[cid])
+        f = {name: getattr(cons, name)[cid] for name in UPDATE_FIELDS}
+        new_n, new_t, w1, w2 = _point_updates(
+            f, cons.cfm_factor[cid], cons.n_rhs[cid], cons.t_rhs[cid],
+            cons.num_points[cid], active, p1, p2, prev_n, prev_t, p_max,
+            deltas=False)
+        # each (constraint, side) belongs to one body: unique rows; the
+        # inactive ones land on the extra row past the buffer
+        cid_a = torch.where(active & is_a, cid, c)
+        cid_b = torch.where(active & ~is_a, cid, c)
+        n_imp[cid_a] = new_n
+        n_imp_j[cid_b] = new_n
+        t_imp[cid_a] = new_t
+        t_imp_j[cid_b] = new_t
+        own = torch.where(active[:, None],
+                          torch.where(is_a[:, None], w1, w2), own)
+    n_imp, n_imp_j, t_imp, t_imp_j = (x[:c] for x in imps)
+    return (Velocity(own[:, :3], own[:, 3:6]),
+            dataclasses.replace(cons, n_impulse=n_imp,
+                                n_impulse_jacobi=n_imp_j, t_impulse=t_imp,
+                                t_impulse_jacobi=t_imp_j))
+
+
+def _solve_jacobi(bodies: Bodies, cons, vels: Velocity, inc, sub,
+                  params: SimParams, max_per_body: int):
+    """The Jacobi substep loop (the JAX package's ``substep_jacobi``):
+    relinearize, a biased pass, integrate, an unbiased pass. Returns as
+    :func:`solve`: no colours, no class sizes, no solve bundle."""
+    n = bodies.num_bodies
+    csr = build_body_constraint_csr(cons, n)
+    # bodies with fewer sides than the loop sit out its later rounds, so
+    # the loop stops at the busiest body (one read) with the same result
+    rounds = min(max_per_body, host_int(csr[2].max()))
+    poses = bodies.poses
+    com = bodies.local_mprops.com
+    for _ in range(params.num_solver_iterations):
+        vels = Velocity(vels.linear + inc, vels.angular)
+        cons = update_constraints(cons, poses, sub)
+        vels, cons = jacobi_pass(cons, vels, csr, max_per_body=rounds)
+        poses = integrate_velocity(poses, vels, com, sub.dt)
+        cons = remove_cfm_and_bias(cons)
+        vels, cons = jacobi_pass(cons, vels, csr, max_per_body=rounds)
+    zeros = torch.zeros(2, dtype=torch.int64, device=inc.device)
+    return (poses, vels, cons, zeros, torch.zeros_like(cons.body_a), None)
+
+
 # ---------------------------------------------------------------------------
 # Full TGS-soft solve under the window ladder
 # ---------------------------------------------------------------------------
@@ -778,14 +962,26 @@ def _bundle_shapes(c_cap, cmax, max_colors, n, windows, chained: bool):
 def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           params: SimParams, *, max_colors: int,
           warmstart_from: ContactConstraints | None, gs_cmax: int,
-          colors_in: torch.Tensor, gs_windows: tuple, layout_valid=None,
-          stable_hint: bool | None = None, cache_in=None,
-          presorted: bool = False, chained: bool = False,
+          colors_in: torch.Tensor | None = None, gs_windows: tuple = (),
+          prev_colors=None, use_jacobi: bool = False,
+          max_per_body: int = 32, gs_tail_window: int = 0, gs_split: int = 8,
+          layout_valid=None, stable_hint: bool | None = None,
+          cache_in=None, presorted: bool = False, chained: bool = False,
           rhs_in_rung: bool = False, fused: bool = False,
           fused_rung0: int = 0, fused_class_counts=None):
-    """Complete constraint solve for one frame under the window ladder
-    (``gs_windows``) with pre-coloured contacts (``colors_in``). Returns
-    ``(poses, vels, constraints, max_class, colors, solve_cache)``.
+    """Complete constraint solve for one frame. Returns ``(poses, vels,
+    constraints, max_class, colors, solve_cache)``.
+
+    Colours: ``colors_in`` (the broad phase's cached pair colours), else
+    last frame's ``prev_colors`` where this frame's pair keys equal last
+    frame's (and the shapes agree), else :func:`color_constraints` under
+    ``gs_cmax`` as the class cap. Windows: the ``gs_windows`` ladder, else
+    a uniform window of ``cmax`` = min(C, n + 64, gs_cmax) rows a colour,
+    with ``gs_tail_window`` the colours past ``gs_split`` narrower (the
+    split windows); either way one sweep is one plan
+    (:func:`build_sweep_plan`, :func:`uniform_windows`). ``use_jacobi``
+    runs the pseudo-Jacobi solver instead (:func:`jacobi_pass`,
+    ``max_per_body`` sides a body), with no colours and no solve bundle.
 
     ``presorted``: the contacts (hence the constraints and ``colors_in``)
     are colour-major already (pair slots, or
@@ -794,10 +990,12 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     pair slots) is the pair validity, and ``stable_hint`` (the host's
     "broad-phase cache hit") then says the slots are bitwise stable.
     Without pair slots that predicate is the bitwise equality of this
-    frame's pair keys with last frame's (one host sync). Stable slots reuse the cached
-    bundle and warmstart slot by slot; otherwise the bundle is rebuilt and
-    impulses transfer by key. ``chained`` selects the chained sweep,
-    ``rhs_in_rung`` (chained only) the in-kernel rhs rebuild.
+    frame's pair keys with last frame's (one host sync). Stable slots reuse
+    the cached bundle (and ``prev_colors``) and warmstart slot by slot;
+    otherwise the bundle is rebuilt and impulses transfer by key.
+    ``chained`` selects the chained sweep, ``rhs_in_rung`` (chained only)
+    the in-kernel rhs rebuild; both need the ladder, and without it the
+    sweep is the unchained one, as in the JAX package.
 
     ``fused`` (with ``presorted`` contacts in the static rung-padded layout
     of ``compact_contacts(static_windows=...)`` and their TRUE per-class
@@ -812,7 +1010,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     dev = bodies.poses.translation.device
     assert n < (1 << 16), f"{n} bodies: 16-bit pair keys alias"
     use_fused = (fused and bool(gs_windows) and presorted
-                 and colors_in is not None and fused_class_counts is not None)
+                 and colors_in is not None and fused_class_counts is not None
+                 and not use_jacobi)
     if use_fused:
         cons, big_t, big_meta = build_constraints_fused(
             bodies.poses, bodies.vels, mprops, contacts, params)
@@ -845,19 +1044,38 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
                     torch.where(keep_v, bodies.vels.angular, zero))
     g = sub.gravity_array(3, device=dev)
     inc = torch.where(dynamic[:, None], g[None, :] * sub.dt, zero)
+    if use_jacobi:
+        return _solve_jacobi(bodies, cons, vels, inc, sub, params,
+                             max_per_body)
 
-    colors = colors_in
-    assert len(gs_windows) >= max_colors
-    windows = tuple(gs_windows[:max_colors])
-    cmax = max(windows)
     c_cap = cons.body_a.shape[0]
+    if colors_in is not None:
+        colors = colors_in
+    elif (same and prev_colors is not None
+          and prev_colors.shape == cons.body_a.shape):
+        # the pair graph is last frame's: its colours still hold
+        colors = prev_colors
+    else:
+        colors = color_constraints(cons, n, max_colors=max_colors,
+                                   class_cap=gs_cmax)
+    windows = tuple(gs_windows[:max_colors])
+    if windows:
+        assert len(gs_windows) >= max_colors
+        cmax = max(windows)
+    else:
+        # a class holds at most one constraint a dynamic body
+        cmax = min(c_cap, n + 64)
+        if gs_cmax:
+            cmax = min(cmax, gs_cmax)
     if use_fused:
         return _solve_fused(
             bodies, cons, big_t, big_meta, vels, inc, sub, params,
             windows=windows, rung0=fused_rung0,
             class_counts=fused_class_counts, max_colors=max_colors,
             same=same, cache_in=cache_in, colors=colors)
+    chained = chained and bool(windows)
     use_rhs_rung = rhs_in_rung and chained
+    use_tail = bool(gs_tail_window and gs_tail_window < cmax and not windows)
 
     if same and cache_in is not None and [tuple(x.shape) for x in
                                           cache_in] == _bundle_shapes(
@@ -873,6 +1091,10 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     ws_sides = bundle[3:6]
     chain = bundle[6:8] if chained else None
     layout_host = (off_h[:max_colors + 2], off_h[max_colors + 2:])
+    if not windows:
+        windows = uniform_windows(
+            layout_host[1], max_colors=max_colors, cmax=cmax,
+            tail_window=gs_tail_window if use_tail else 0, split=gs_split)
 
     # everything below lives in colour-sorted space for the whole solve
     if presorted:
@@ -955,8 +1177,13 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     # head so the host regrows gs_cmax
     head = head + torch.where(class_counts[0] > 0, cmax + class_counts[0],
                               torch.zeros_like(head))
-    max_class = torch.cat([torch.stack([head, torch.zeros_like(head)]),
-                           class_counts])
+    # the split windows' overflow signal: the largest class past gs_split
+    tail = (torch.amax(class_counts[gs_split + 1:max_colors + 1])
+            if use_tail and gs_split < max_colors else torch.zeros_like(head))
+    max_class = torch.stack([head, tail])
+    if gs_windows:
+        # the class counts ride along for the host's rung regrow
+        max_class = torch.cat([max_class, class_counts])
     return poses, vels, cons, max_class, colors, bundle
 
 

@@ -7,9 +7,15 @@ window ladder → integration (counterpart of ``wgmath_tpu/pipeline.py``:
 The JAX step is one jitted program whose branches are ``lax.cond`` /
 ``lax.switch``; here each branch is a Python branch on a host value (one
 counted host sync each, ``core.dispatch.host_int``). ``step`` runs the
-grid (or brute) broad phase with its ``bp_slack`` cache and cached pair
-colours under the ``gs_windows`` ladder, in the four solver
-configurations the bench calls
+grid (or brute) broad phase, with its cache when ``bp_slack`` > 0; the
+pair colours ride that cache when ``gs_cmax`` > 0 too, else the solve
+colours the contacts itself (reusing last frame's colours while the pair
+keys hold). Without ``gs_windows`` every colour sweeps a uniform window
+(``gs_tail_window``: narrower past ``gs_split``, the split windows), and
+``use_jacobi`` selects the pseudo-Jacobi solver (the README's quick start,
+``PipelineConfig(pair_capacity=16384)``, is the uniform windows with
+colouring in the solve). Under the ``gs_windows`` ladder it runs the
+solver configurations the bench calls
 
 - ``ladder``: contacts compacted colour-major (``contact_capacity``), or
   sorted in the solve when ``contact_capacity == 0``; gather and
@@ -29,7 +35,11 @@ configurations the bench calls
   formulation; the port has one, so the flag is accepted and changes
   nothing: on the card the kernels run, on the CPU their plain versions.
 
-Any other solver flag is refused with ``NotImplementedError``.
+``gs_fused``, ``gs_chained`` and ``gs_pair_slots`` need the ladder (and
+the fused layout and the pair slots the cached colours); without them the
+unfused, unchained form runs, as in the JAX package. Sharding, 2D,
+``gs_static_slots`` and other broad phases are refused with
+``NotImplementedError``.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -62,6 +72,7 @@ from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.dynamics.solver import (
     assign_new_pair_colors,
     color_pairs,
+    minimize_colors,
     solve,
     transfer_pair_colors,
 )
@@ -81,9 +92,11 @@ from wgmath_tpu_torch.shapes.shape import (
 
 @dataclasses.dataclass
 class PhysicsState:
-    """World state. ``bp_colors`` = (pair colours, gs_cmax, max_colors,
-    slot flag) with the knobs as host ints; ``solve_cache`` is the solve
-    bundle reused on broad-phase cache hits."""
+    """World state. ``bp_pairs`` / ``bp_ref`` are the broad-phase cache
+    (``bp_slack`` > 0 only); ``bp_colors`` = (pair colours, gs_cmax,
+    max_colors, slot flag) with the knobs as host ints, or None without
+    cached colours; ``prev_colors`` last frame's contact colours;
+    ``solve_cache`` the solve bundle reused while the contact set holds."""
 
     bodies: Bodies
     shapes: ShapeSet
@@ -150,7 +163,9 @@ class PipelineConfig:
 
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
-    """Refuse every flag outside the window-ladder configurations."""
+    """Refuse what the port does not take: sharding, 2D, shape kinds
+    outside ``SUPPORTED_KINDS``, ``gs_static_slots`` and the broad phases
+    other than the grid and the brute force."""
     bad = []
     if shard is not None:
         bad.append("shard")
@@ -158,22 +173,14 @@ def _check_slice(state: PhysicsState, config: PipelineConfig,
         bad.append("2D")
     if not state.shapes.kinds <= SUPPORTED_KINDS:
         bad.append(f"shape kinds {sorted(state.shapes.kinds)}")
-    if config.use_jacobi:
-        bad.append("use_jacobi")
     if config.gs_static_slots:
         bad.append("gs_static_slots")
-    if config.bp_min_color_sweeps:
-        bad.append("bp_min_color_sweeps")
     if config.bp_algo not in ("auto", "grid", "brute"):
         bad.append(f"bp_algo={config.bp_algo}")
-    if not config.gs_windows:
-        bad.append("no gs_windows ladder (uniform or split windows)")
-    if not (config.bp_slack > 0 and config.gs_cmax > 0):
-        bad.append("bp_slack <= 0 or gs_cmax == 0 (no cached pair colours)")
     if bad:
         raise NotImplementedError(
-            "wgmath_tpu_torch.pipeline.step covers the gs_windows ladder "
-            "with cached pair colours only; refused: " + ", ".join(bad))
+            "wgmath_tpu_torch.pipeline.step does not take these; refused: "
+            + ", ".join(bad))
 
 
 def auto_manifold_points(shapes: ShapeSet, dim: int, dynamic=None) -> int:
@@ -235,21 +242,32 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     dyn_mask = bodies.is_dynamic()
     move_mask = bodies.is_moving()
     mc = config.max_colors
+    # the pair colours ride the broad-phase cache only under a class cap
+    # (which parks colouring residue in an unswept class and signals it);
+    # otherwise, and for Jacobi, the solve colours (or needs no colours)
+    color_with_bp = (slack > 0 and not config.use_jacobi
+                     and config.gs_cmax > 0)
     # pair-slot layout: the cached pair list is kept colour-major and the
     # contacts stay at their pair slots (not under the fused solver)
-    use_pair_slots = (config.gs_pair_slots and config.gs_chained
+    use_pair_slots = (config.gs_pair_slots and color_with_bp
+                      and config.gs_chained and bool(config.gs_windows)
                       and not config.gs_fused)
 
-    # velocity-aware slack, quantized to three levels so consecutive
-    # refreshes reuse bitwise-identical thresholds
-    speed = torch.sqrt(torch.sum(bodies.vels.linear ** 2, dim=-1,
-                                 keepdim=True))
-    cap_v = config.bp_vel_slack_cap
-    t1 = 0.25 * cap_v / config.bp_vel_slack
-    t2 = 0.75 * cap_v / config.bp_vel_slack
-    infl = slack + 0.5 * cap_v * ((speed > t1).to(torch.float32)
-                                  + (speed > t2).to(torch.float32))
-    radii_bp = radii + dim_sqrt * infl[:, 0] if radii is not None else None
+    if slack > 0:
+        # velocity-aware slack, quantized to three levels so consecutive
+        # refreshes reuse bitwise-identical thresholds; the sphere
+        # prefilter admits the same drift
+        speed = torch.sqrt(torch.sum(bodies.vels.linear ** 2, dim=-1,
+                                     keepdim=True))
+        cap_v = config.bp_vel_slack_cap
+        t1 = 0.25 * cap_v / config.bp_vel_slack
+        t2 = 0.75 * cap_v / config.bp_vel_slack
+        infl = slack + 0.5 * cap_v * ((speed > t1).to(torch.float32)
+                                      + (speed > t2).to(torch.float32))
+        radii_bp = (radii + dim_sqrt * infl[:, 0] if radii is not None
+                    else None)
+    else:
+        infl, radii_bp = None, radii
     sphere_margin = params.prediction_distance
 
     def run_bp(mn, mx):
@@ -267,15 +285,22 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
                           ball_radius=radii_bp, margin=sphere_margin,
                           dynamic=dyn_mask)
 
-    def recolor(p):
-        return color_pairs(p.body_a, p.body_b, p.valid, dyn_mask[p.body_a],
+    def recolor(p, minimize: bool):
+        cols = color_pairs(p.body_a, p.body_b, p.valid, dyn_mask[p.body_a],
                            dyn_mask[p.body_b], n_bodies, max_colors=mc,
                            claim_rounds=config.bp_claim_rounds,
                            class_cap=config.gs_cmax)
+        if minimize and config.bp_min_color_sweeps:
+            cols = minimize_colors(
+                p.body_a, p.body_b, p.valid, cols, dyn_mask[p.body_a],
+                dyn_mask[p.body_b], n_bodies, max_colors=mc,
+                sweeps=config.bp_min_color_sweeps, class_cap=config.gs_cmax)
+        return cols
 
-    def carry_colors(p, prev_p, prev_cols, knobs_ok: bool):
+    def carry_colors(p, prev_p, prev_cols, knobs_ok: bool, minimize: bool):
         """Surviving pairs keep their colour; up to bp_recolor_cap new
-        pairs are coloured greedily; more churn recolours in full."""
+        pairs are coloured greedily; more churn recolours in full (with
+        ``minimize``, then minimizes the colours)."""
         mapped = transfer_pair_colors(p.body_a, p.body_b, p.valid,
                                       prev_p.body_a, prev_p.body_b,
                                       prev_p.valid, prev_cols)
@@ -288,7 +313,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
                 dyn_mask[p.body_b], n_bodies, max_colors=mc,
                 class_cap=config.gs_cmax, new_cap=config.bp_recolor_cap,
                 n_new=n_new)
-        return recolor(p)
+        return recolor(p, minimize)
 
     def sort_pairs_cm(p, cols):
         """Colour-major pair order: valid pairs by colour (residue 0
@@ -302,13 +327,15 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
 
     def colored_bp(mn, mx, reuse=None):
         p = run_bp(mn, mx)
+        if not color_with_bp:
+            return p, (mn, mx), None
         if reuse is None:
-            cols = recolor(p)
+            cols = recolor(p, True)
         else:
             prev_p, prev_tag = reuse
             knobs_ok = (prev_tag[1] == config.gs_cmax
                         and prev_tag[2] == mc)
-            cols = carry_colors(p, prev_p, prev_tag[0], knobs_ok)
+            cols = carry_colors(p, prev_p, prev_tag[0], knobs_ok, True)
         return finish_bp(p, cols, (mn, mx))
 
     def finish_bp(p, cols, ref):
@@ -367,21 +394,32 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         count = torch.where(row_overflow, -torch.clamp(total, min=1), total)
         valid = torch.arange(cap, device=dev) < torch.clamp(total, max=cap)
         p = PairList(out_a, out_b, valid, count)
-        cols_out = carry_colors(p, op, state.bp_colors[0], True)
+        if not color_with_bp:
+            return p, (r0, r1), None
+        cols_out = carry_colors(p, op, state.bp_colors[0], True, False)
         return finish_bp(p, cols_out, (r0, r1))
 
-    cache_ok = (state.bp_pairs is not None and state.bp_ref is not None
+    cache_ok = (slack > 0 and state.bp_pairs is not None
+                and state.bp_ref is not None
                 and state.bp_pairs.body_a.shape[0] == config.pair_capacity
-                and state.bp_colors is not None)
-    if cache_ok:
+                and (not color_with_bp or state.bp_colors is not None))
+    if slack <= 0:
+        bp_path = 2
+        pairs, _, bp_colors = colored_bp(mins, maxs)
+        bp_ref = None
+    elif cache_ok:
         n_esc = host_int(torch.any((mins < state.bp_ref[0])
                                    | (maxs > state.bp_ref[1]), dim=1).sum())
-        tag = state.bp_colors
-        knobs_ok = tag[1] == config.gs_cmax and tag[2] == mc
-        if use_pair_slots:
-            # the pair-slot layout needs a cached list sorted colour-major
-            # (flag 1); a cache written by another configuration refreshes
-            knobs_ok = knobs_ok and len(tag) > 3 and tag[3] == 1
+        knobs_ok = True
+        if color_with_bp:
+            # cached colours are stale once the colouring knobs changed
+            tag = state.bp_colors
+            knobs_ok = tag[1] == config.gs_cmax and tag[2] == mc
+            if use_pair_slots:
+                # the pair-slot layout needs a cached list sorted
+                # colour-major (flag 1); a cache written by another
+                # configuration refreshes
+                knobs_ok = knobs_ok and len(tag) > 3 and tag[3] == 1
         if knobs_ok and n_esc == 0:
             bp_path = 0
         elif (knobs_ok and config.bp_repair_cap > 0
@@ -399,7 +437,8 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         else:
             pairs, bp_ref, bp_colors = colored_bp(
                 mins - infl, maxs + infl,
-                reuse=(state.bp_pairs, state.bp_colors))
+                reuse=((state.bp_pairs, state.bp_colors) if color_with_bp
+                       else None))
     else:
         bp_path = 2
         pairs, bp_ref, bp_colors = colored_bp(mins - infl, maxs + infl)
@@ -410,14 +449,18 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         bc_capacity=config.bc_pair_capacity,
         sat_capacity=config.sat_pair_capacity,
         pfm_capacity=config.pfm_pair_capacity)
-    contact_colors = bp_colors[0]
+    contact_colors = bp_colors[0] if color_with_bp else None
+    # the fused layout needs the cached colours; without them the ladder
+    # (or the uniform windows) runs unfused, as in the JAX package
+    use_fused = (config.gs_fused and bool(config.gs_windows)
+                 and contact_colors is not None)
     fused_class_counts = None
     if use_pair_slots:
         # no compaction: the constraint buffer spans pair_capacity and
         # contact-invalid rows are masked in the solve
         contact_count = contacts.valid.sum()
         presorted = True
-    elif config.gs_fused:
+    elif use_fused:
         # the static rung-padded layout: colour k at a fixed offset, padded
         # to its rung; the TRUE class counts are the rung-regrow signal
         windows = (config.gs_rung0,) + tuple(config.gs_windows[:mc])
@@ -425,12 +468,16 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
             compact_contacts(contacts, 0, extra=contact_colors,
                              sort_by_extra=True, static_windows=windows)
         presorted = True
-    elif config.contact_capacity:
+    elif config.contact_capacity and contact_colors is not None:
         # colour-major compaction: the solve needs no sort of its own
         contacts, contact_count, contact_colors = compact_contacts(
             contacts, config.contact_capacity, extra=contact_colors,
             sort_by_extra=True)
         presorted = True
+    elif config.contact_capacity:
+        contacts, contact_count = compact_contacts(contacts,
+                                                   config.contact_capacity)
+        presorted = False
     else:
         contact_count = contacts.valid.sum()
         presorted = False
@@ -441,11 +488,14 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         bodies, mprops, contacts, params, max_colors=mc,
         warmstart_from=prev, gs_cmax=config.gs_cmax,
         colors_in=contact_colors, gs_windows=config.gs_windows,
+        prev_colors=state.prev_colors if warmstart else None,
+        use_jacobi=config.use_jacobi, max_per_body=config.max_per_body,
+        gs_tail_window=config.gs_tail_window, gs_split=config.gs_split,
         layout_valid=pairs.valid if use_pair_slots else None,
         stable_hint=bp_path == 0 if use_pair_slots else None,
         cache_in=state.solve_cache if warmstart else None,
         presorted=presorted, chained=config.gs_chained,
-        rhs_in_rung=config.gs_rhs_in_rung, fused=config.gs_fused,
+        rhs_in_rung=config.gs_rhs_in_rung, fused=use_fused,
         fused_rung0=config.gs_rung0, fused_class_counts=fused_class_counts)
     new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
     head = torch.stack([pairs.count.to(torch.int64), contact_count,
@@ -453,8 +503,10 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
                         torch.tensor(bp_path, dtype=torch.int64, device=dev),
                         max_class[1]])
     counts = torch.cat([head, np_needed, max_class[2:]])
+    # the broad-phase cache is kept only under a slack
     return PhysicsState(new_bodies, state.shapes, cons, counts, colors,
-                        pairs, bp_ref, bp_colors, solve_cache)
+                        pairs if slack > 0 else None, bp_ref, bp_colors,
+                        solve_cache)
 
 
 def fine_bucket(n: int, *, floor: int = 2048, quantum: int = 1024,
@@ -505,6 +557,8 @@ def step_checked(state: PhysicsState, params: SimParams,
         regrow["contact_capacity"] = bucket(counts[1])
     if config.gs_cmax and counts[2] > config.gs_cmax:
         regrow["gs_cmax"] = capacity_bucket(counts[2], floor=256)
+    if config.gs_tail_window and counts[4] > config.gs_tail_window:
+        regrow["gs_tail_window"] = capacity_bucket(counts[4], floor=256)
     for i, knob in ((5, "bc_pair_capacity"), (6, "sat_pair_capacity"),
                     (7, "pfm_pair_capacity")):
         cap = getattr(config, knob)

@@ -1,7 +1,8 @@
 """Scene builders (counterpart of ``wgmath_tpu/scenes/builders.py``:
-``ball_pit``, ``boxes``, ``pyramid``, ``pyramid_levels_for_bodies``,
-``keva_tower``, ``many_pyramids``, ``boxes_and_balls``, ``primitives3``
-and the 3D entries of ``SCENES`` that these build). Positions are computed in numpy and
+``balls``, ``ball_pit``, ``boxes``, ``pyramid``,
+``pyramid_levels_for_bodies``, ``keva_tower``, ``many_pyramids``,
+``boxes_and_balls``, ``primitives3`` and the 3D entries of ``SCENES`` that
+these build). Positions are computed in numpy and
 jitter comes from numpy ``default_rng``, as in the JAX package, so both
 build the same scene. Every builder takes ``device``; ``None`` means the
 card. The port steps 3D scenes only, so a builder given ``dim=2`` raises."""
@@ -59,6 +60,24 @@ def _with_ground(shapes: ShapeSet, translations: torch.Tensor,
         mprops)
     return new_state(Bodies(poses, Velocity.zero(n, device=dev), mp),
                      all_shapes)
+
+
+def balls(n: int = 1000, *, radius: float = 0.5, dim: int = 3,
+          seed: int = 0, device=None) -> PhysicsState:
+    """Falling balls on a loose cubic lattice with seeded jitter, over the
+    ground. ``device=None`` means the card."""
+    _need_3d(dim)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    spacing = 2.0 * radius * 1.05
+    pos = _lattice(n, dim).astype(np.float32) * spacing
+    pos -= pos.mean(0, keepdims=True) * np.asarray([1.0, 0.0, 1.0])
+    pos[:, 1] += 2.0 * radius
+    pos += rng.uniform(-0.05, 0.05, pos.shape).astype(np.float32) * radius
+    radii = torch.full((n,), radius, dtype=torch.float32, device=dev)
+    return _with_ground(ShapeSet.balls(radii),
+                        torch.from_numpy(pos).to(dev, torch.float32),
+                        ball_local_mprops(radii))
 
 
 def ball_pit(n: int = 10_000, *, radius: float = 0.5, depth: int = 8,
@@ -306,10 +325,12 @@ def primitive_configs(n_bodies: int) -> dict:
 
 # the JAX package's 3D scenes that the port builds; each takes ``device``
 SCENES = {
+    "balls3": lambda device=None: balls(1000, device=device),
     "boxes3": lambda device=None: boxes(1000, device=device),
     "pyramid3": lambda device=None: pyramid(20, device=device),
     "ball_pyramid3": lambda device=None: pyramid(20, use_balls=True,
                                                  device=device),
+    "balls10k": lambda device=None: balls(10_000, device=device),
     "ball_pit": lambda device=None: ball_pit(10_000, device=device),
     "keva3": lambda device=None: keva_tower(device=device),
     "many_pyramids3": lambda device=None: many_pyramids(device=device),
