@@ -64,7 +64,18 @@ Three phases; any failed check ends the run with a non-zero exit:
    ``steady_base`` (split windows over the cached colours) and the same
    with uniform windows, gated against the ladder; the pit's settle from
    its lattice (``bp_slack`` 0); and B2 on a uniform and a split plan
-   with a truncated tail rung from those paths' own frames.
+   with a truncated tail rung from those paths' own frames. Last the
+   impulse joints: every case of ``artifacts/joints_jax.npz`` (the four
+   chains, the drape scene under ``ladder`` / ``chained_rr`` /
+   ``chained_ps``, ``ball_net3(16, 16)``) three frames each from JAX's
+   state before it (the 10k net one frame, below); ``tests/test_joints.py``'s physical checks on the card;
+   the 10,000-ball net (19,800 spherical joints) from JAX's drape state
+   one frame against JAX's and timed under ``ladder`` and ``chained_ps``
+   (finite, no centre below the ground, the largest joint stretch within
+   twice JAX's plus 1 mm and within 1 mm of JAX's) and
+   run under ``chained``, ``chained_rr``, the windowless default and the
+   Jacobi solver; B1 / B2 on the net's own plans; the joints' share of
+   the step.
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -92,7 +103,7 @@ import numpy as np
 import torch
 
 from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
-from wgmath_tpu_torch.core import cuda_build, dispatch
+from wgmath_tpu_torch.core import cuda_build, dispatch, native_build
 from wgmath_tpu_torch.dynamics import body as body_ops
 from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math, solver
 from wgmath_tpu_torch.dynamics.constraint import Contacts
@@ -651,6 +662,11 @@ def setup_phase() -> dict:
                                          "wgmma")):
                 print(f"  ptxas: {line.strip()}")
     print(f"kernel build wall time {wall:.2f} s")
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    print(f"built native/wgnative.cpp ({os.path.basename(lib)}, g++) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    colouring = colouring_times()
     # B9's block size, chosen at its first launch from the occupancy its
     # register count allows, at the fused pit's rows and the P = 4 case's
     cfg_f = json.loads(str(np.load(NPZ_FUSED)["config_json"]))
@@ -664,7 +680,45 @@ def setup_phase() -> dict:
     for name, n in counts.items():
         print(f"HGMMA instructions in the built {name}.cu: " + (
             "cuobjdump absent, not read" if n is None else str(n)))
-    return {"nvidia_smi": smi, "build_s": wall, "hgmma": counts}
+    return {"nvidia_smi": smi, "build_s": wall, "hgmma": counts,
+            "colouring": colouring}
+
+
+def colouring_times(reps: int = 5) -> dict:
+    """The joint colouring of ``ball_net3(100, 100)`` (19,800 joints) on
+    this machine's host, by the native library and by its plain Python
+    twin (the same colours), beside the whole scene build on the card;
+    median wall ms of ``reps`` calls each."""
+    from wgmath_tpu_torch.native import greedy_color, greedy_color_plain
+    from wgmath_tpu_torch.scenes.builders import ball_net3
+
+    net = ball_net3(100, 100, device="cpu")
+    args = (net.joints.body_a.numpy(), net.joints.body_b.numpy(),
+            net.bodies.is_dynamic().numpy())
+
+    def med(fn):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    native, plain = greedy_color(*args), greedy_color_plain(*args)
+    check(np.array_equal(native, plain), "native colouring of the net "
+          "differs from its plain twin")
+    out = {"native_ms": med(lambda: greedy_color(*args)),
+           "plain_ms": med(lambda: greedy_color_plain(*args)),
+           "scene_build_ms": med(lambda: ball_net3(100, 100,
+                                                   device="cuda")),
+           "colors": int(native.max())}
+    print(f"colouring ball_net3(100, 100)'s 19,800 joints on the host: "
+          f"native {out['native_ms']:.3f} ms, plain twin "
+          f"{out['plain_ms']:.3f} ms (median of {reps}; "
+          f"{out['colors']} colours); the whole scene build onto the card "
+          f"{out['scene_build_ms']:.3f} ms")
+    return out
 
 
 def hgmma_counts() -> dict:
@@ -3730,6 +3784,418 @@ def color_share(run_once, frames: int = 3) -> dict:
                        "color_constraints", frames, events=True)
 
 
+# ---------------------------------------------------------------------------
+# impulse joints (3D) in every contact solve: the JAX frames, the physical
+# checks of tests/test_joints.py, and the 10,000-ball jointed net
+# ---------------------------------------------------------------------------
+
+NPZ_JOINTS = os.path.join(ROOT, "artifacts", "joints_jax.npz")
+# the small cases of joints_jax.npz: the four chains, the drape scene of
+# tests/test_joints.py under three configurations, ball_net3(16, 16)
+JOINT_SMALL_CASES = ("joint_ball3", "joint_revolute3", "joint_fixed3",
+                     "joint_prismatic3", "drape_ladder", "drape_chained_rr",
+                     "drape_chained_ps", "net16")
+# the 10k net: JAX's state after the drape (case "net100") and one frame
+# from it under each steady configuration
+JOINT_NET_CASES = ("net100_ladder", "net100_chained_ps")
+# each frame from JAX's state before it: counts exactly, translations
+# within 1e-5 m on the small scenes and 1.02e-4 m on the 10k net (a pure
+# reordering of the GS sums moves the 10k pit's by ~1e-4 after a frame:
+# TRANSLATION_LIMITS)
+JOINT_SMALL_TR_LIMIT = 1e-5
+JOINT_NET_TR_LIMIT = 1.02e-4
+# the 10k net from JAX's drape state: warm and timed frames (together the
+# export's NET_RUN, whose joint stretch after each frame is stored)
+NET_WARM_FRAMES = 5
+NET_TIMED_FRAMES = 15
+# the other solve modes on the net: frames run from JAX's drape state, to
+# finite poses above the ground
+NET_MODE_FRAMES = 6
+NET_BALL_RADIUS = 0.25
+# the largest joint stretch at most twice JAX's at the same frame plus 1 mm,
+# and within 1 mm of JAX's
+STRETCH_FACTOR, STRETCH_SLACK = 2.0, 1e-3
+STRETCH_AGREE = 1e-3
+# path -> (case of joints_jax.npz whose configuration it runs from the
+# drape state, the kernel counters it moves)
+JOINT_PATHS = {"net_ladder": ("net100_ladder", ("gs_math_block",)),
+               "net_chained_ps": ("net100_chained_ps", ("gs_math_rhs",))}
+NET_MODE_PATHS = {"net_chained": ("gs_math_block",),
+                  "net_chained_rr": ("gs_math_rhs",),
+                  "net_jacobi": (), "net_default": ("gs_math_block",)}
+# tests/test_joints.py's configuration for its two-ball worlds and chains
+JOINT_TEST_CFG = dict(pair_capacity=64, max_colors=8, broad_phase_block=64)
+
+
+def joints_case_state(case: str, prefix: str, device="cuda"):
+    """The state ``<case>.<prefix>.*`` of ``joints_jax.npz`` with the
+    case's joints."""
+    with np.load(NPZ_JOINTS) as z:
+        d = {k[len(case) + 1:]: z[k] for k in z.files
+             if k.startswith(f"{case}.joints.")}
+        p = f"{case}.{prefix}."
+        d.update({k[len(p):]: z[k] for k in z.files if k.startswith(p)})
+    return state_from_arrays(d, device=device)
+
+
+def joints_case_value(key: str):
+    with np.load(NPZ_JOINTS) as z:
+        return z[key]
+
+
+def joints_case_config(key: str) -> PipelineConfig:
+    return PipelineConfig.from_dict(json.loads(str(joints_case_value(key))))
+
+
+def joints_case_params(case: str) -> SimParams:
+    kw = json.loads(str(joints_case_value(f"{case}.params_json")))
+    kw["gravity"] = tuple(kw["gravity"])
+    return SimParams(**kw)
+
+
+def joint_stretch(state) -> float:
+    """The largest distance between a joint's two world anchors."""
+    j, p = state.joints, state.bodies.poses
+    a = sim_ops.mul_pt(p.take(j.body_a), j.local_frame_a.translation)
+    b = sim_ops.mul_pt(p.take(j.body_b), j.local_frame_b.translation)
+    return float(torch.linalg.norm(a - b, dim=-1).max())
+
+
+def net_envelopes(state) -> tuple[float, float]:
+    """Kinetic-energy proxy (sum |v|^2; the net's balls share one mass)
+    and the deepest ball centre below a ball's radius over the ground."""
+    vel = state.bodies.vels.linear
+    low = float(state.bodies.poses.translation[2:, 1].min())
+    return float((vel * vel).sum()), max(NET_BALL_RADIUS - low, 0.0)
+
+
+def joints_reference_phase() -> dict:
+    """Every case of ``joints_jax.npz`` on the card against JAX's frames:
+    the small ones three ``step_checked`` frames, each from JAX's state
+    before it (translations within ``JOINT_SMALL_TR_LIMIT``), the 10k
+    net one frame from JAX's drape state under each steady configuration
+    (within ``JOINT_NET_TR_LIMIT``); counts exactly."""
+    out = {}
+    for case in JOINT_SMALL_CASES + JOINT_NET_CASES:
+        net = case in JOINT_NET_CASES
+        params = joints_case_params("net100" if net else case)
+        limit = JOINT_NET_TR_LIMIT if net else JOINT_SMALL_TR_LIMIT
+        errs = []
+        for f in range(1 if net else 3):
+            prefix, cfg_key = (("warmed", f"{case}.config_json") if f == 0
+                               else (f"ref.{f - 1}.state",
+                                     f"{case}.ref.{f - 1}.config_json"))
+            state = (joints_case_state("net100", "drape") if net
+                     else joints_case_state(case, prefix))
+            state, _ = step_checked(state, params,
+                                    joints_case_config(cfg_key))
+            check(_finite(state), f"joints {case} frame {f}: non-finite")
+            ref = f"{case}.ref.{f}."
+            pc = state.pair_count.cpu().numpy()
+            ref_pc = joints_case_value(ref + "pair_count")
+            d_tr = float(np.abs(state.bodies.poses.translation.cpu().numpy()
+                                - joints_case_value(ref + "translation"))
+                         .max())
+            # the 10k net's reference keeps translations only (size)
+            d_v = (None if net else float(np.abs(
+                state.bodies.vels.linear.cpu().numpy()
+                - joints_case_value(ref + "linear")).max()))
+            print(f"joints {case} frame {f} (from JAX's state before it): "
+                  f"pair_count {pc[:5].tolist()} (ref {ref_pc[:5].tolist()}"
+                  f") max|dx| {d_tr:.3e} (limit {limit:.2e}) max|dv| "
+                  f"{'not stored' if net else f'{d_v:.3e}'}")
+            check(np.array_equal(pc, ref_pc), f"joints {case} frame {f}: "
+                  f"counts {pc.tolist()} against JAX's {ref_pc.tolist()}")
+            check(d_tr <= limit, f"joints {case} frame {f}: translations "
+                  f"off by {d_tr:.3e}")
+            errs.append({"max_dx": d_tr, "max_dv": d_v,
+                         "contacts": int(pc[1])})
+        out[case] = errs
+    return out
+
+
+def two_ball_world(pos_b, joints_fn, *args, **kw):
+    """tests/test_joints.py's world: a static ball at the origin and a
+    dynamic one at ``pos_b`` (radius 0.2), joined by ``joints_fn``."""
+    from wgmath_tpu_torch.pipeline import new_state
+
+    dev = torch.device("cuda")
+    r = torch.tensor([0.2, 0.2], device=dev)
+    trans = torch.tensor([[0.0, 0.0, 0.0], list(pos_b)], device=dev)
+    dyn = np.asarray([False, True])
+    bodies = body_ops.Bodies(
+        Sim(quat.identity((2,), device=dev), trans,
+            torch.ones(2, device=dev)),
+        body_ops.Velocity.zero(2, device=dev),
+        body_ops.ball_local_mprops(r, dynamic=torch.from_numpy(dyn).to(dev)))
+    joints = joints_fn([0], [1], *args, dynamic_mask=dyn, device=dev, **kw)
+    return new_state(bodies, shp.ShapeSet.balls(r), joints)
+
+
+def _frames(state, params, n: int, each=None):
+    cfg = PipelineConfig(**JOINT_TEST_CFG)
+    for _ in range(n):
+        state, cfg = step_checked(state, params, cfg)
+        if each is not None:
+            each(state)
+    return state
+
+
+def joints_physics_phase() -> dict:
+    """``tests/test_joints.py``'s behaviour checks on the card, with its
+    frame counts and limits: the spherical pendulum keeps its anchor and
+    swings, the fixed joint holds its pose, the revolute joint stays in
+    its plane at its pivot distance, its motor reaches its speed, the
+    swing cone holds, and the drape's chained configurations stay with
+    the ladder."""
+    from wgmath_tpu_torch.dynamics import joint as joint_ops
+
+    params = SimParams()
+    out = {}
+    st = _frames(two_ball_world([1.0, 0.0, 0.0], joint_ops.spherical_joints,
+                                [[0.0, 0.0, 0.0]], [[-1.0, 0.0, 0.0]]),
+                 params, 90)
+    p = st.bodies.poses
+    err = float(torch.linalg.norm(sim_ops.mul_pt(
+        p.take(slice(1, 2)), torch.tensor([[-1.0, 0.0, 0.0]],
+                                          device="cuda"))))
+    bob_y = float(p.translation[1, 1])
+    out["spherical"] = {"anchor_err": err, "bob_y": bob_y}
+    check(err < 0.02 and bob_y < -0.3, f"spherical pendulum: anchor error "
+          f"{err:.3e} (limit 0.02), bob at y {bob_y:.3f} (limit -0.3)")
+
+    st = _frames(two_ball_world([0.7, 0.0, 0.0], joint_ops.fixed_joints,
+                                [[0.7, 0.0, 0.0]], [[0.0, 0.0, 0.0]]),
+                 params, 90)
+    off = float((st.bodies.poses.translation[1].cpu()
+                 - torch.tensor([0.7, 0.0, 0.0])).abs().max())
+    w_off = abs(abs(float(st.bodies.poses.rotation[1, 3])) - 1.0)
+    out["fixed"] = {"pos_off": off, "rot_w_off": w_off}
+    check(off <= 0.02 and w_off < 1e-2, f"fixed joint: moved {off:.3e} "
+          f"(limit 0.02), |w| off 1 by {w_off:.3e} (limit 1e-2)")
+
+    low = [0.0]
+    st = _frames(two_ball_world([1.0, 0.0, 0.0], joint_ops.revolute_joints,
+                                [[0.0, 0.0, 0.0]], [[-1.0, 0.0, 0.0]],
+                                axes=[[0.0, 0.0, 1.0]]), params, 60,
+                 lambda s: low.__setitem__(0, min(
+                     low[0], float(s.bodies.poses.translation[1, 1]))))
+    t = st.bodies.poses.translation[1].cpu().numpy()
+    out["revolute"] = {"z": float(t[2]), "pivot_off": float(abs(
+        np.linalg.norm(t) - 1.0)), "min_y": low[0]}
+    check(abs(t[2]) < 0.01 and out["revolute"]["pivot_off"] < 0.02
+          and low[0] < -0.7, f"revolute joint: {out['revolute']} (limits: "
+          "|z| 0.01, pivot 0.02, lowest y below -0.7)")
+
+    still = SimParams(gravity=(0.0, 0.0, 0.0))
+    st = _frames(two_ball_world([1.0, 0.0, 0.0], joint_ops.revolute_joints,
+                                [[0.0, 0.0, 0.0]], [[-1.0, 0.0, 0.0]],
+                                axes=[[0.0, 0.0, 1.0]], motor_vel=2.0,
+                                motor_damping=300.0), still, 90)
+    w = st.bodies.vels.angular[1].cpu().numpy()
+    out["motor"] = {"w": w.tolist()}
+    check(abs(w[2] - 2.0) < 0.2 and abs(w[0]) < 0.05 and abs(w[1]) < 0.05,
+          f"revolute motor: angular velocity {w} (target 2 rad/s about z, "
+          "within 0.2; off-axis within 0.05)")
+
+    half = float(np.deg2rad(35.0))
+    swing = [0.0]
+
+    def track(s):
+        q = s.bodies.poses.translation[1].cpu().numpy()
+        d = q / max(np.linalg.norm(q), 1e-9)
+        swing[0] = max(swing[0], float(np.arccos(np.clip(d[0], -1, 1))))
+
+    _frames(two_ball_world([1.0, 0.0, 0.0], joint_ops.spherical_joints,
+                           [[0.0, 0.0, 0.0]], [[-1.0, 0.0, 0.0]],
+                           swing_limit=half), params, 120, track)
+    out["swing_cone_deg"] = float(np.rad2deg(swing[0]))
+    check(np.deg2rad(25.0) < swing[0] < half + np.deg2rad(8.0),
+          f"swing cone: largest swing {np.rad2deg(swing[0]):.2f} degrees "
+          "(limits: above 25, below 35 + 8)")
+
+    out["drape"] = drape_against_ladder(params)
+    print(f"joint physical checks on the card: {out}")
+    return out
+
+
+def drape_scene():
+    """``tests/test_joints.py``'s drape scene on the card: a ground slab,
+    then a five-ball chain whose first ball is static 1.2 m up, linked by
+    spherical joints."""
+    from wgmath_tpu_torch.dynamics.joint import spherical_joints
+    from wgmath_tpu_torch.pipeline import new_state
+    from wgmath_tpu_torch.scenes.builders import _merge_mprops
+
+    dev = torch.device("cuda")
+    n_links, r = 4, 0.2
+    n = n_links + 2
+    slab = torch.tensor([[10.0, 0.5, 10.0]], device=dev)
+    radii = torch.full((n_links + 1,), r, device=dev)
+    trans = torch.zeros((n, 3), device=dev)
+    trans[0, 1], trans[1, 1] = -0.5, 1.2
+    for i in range(n_links):
+        trans[2 + i, 0], trans[2 + i, 1] = (i + 1) * 0.5, 1.2
+    dynamic = np.ones(n, bool)
+    dynamic[:2] = False
+    mp = _merge_mprops(
+        body_ops.cuboid_local_mprops(slab, dynamic=torch.zeros(
+            1, dtype=torch.bool, device=dev)),
+        body_ops.ball_local_mprops(radii, dynamic=torch.from_numpy(
+            dynamic[1:]).to(dev)))
+    bodies = body_ops.Bodies(
+        Sim(quat.identity((n,), device=dev), trans, torch.ones(n, device=dev)),
+        body_ops.Velocity.zero(n, device=dev), mp)
+    joints = spherical_joints(
+        list(range(1, n_links + 1)), list(range(2, n_links + 2)),
+        [[0.25, 0.0, 0.0]] * n_links, [[-0.25, 0.0, 0.0]] * n_links,
+        dynamic_mask=dynamic, device=dev)
+    shapes = shp.ShapeSet.concat(shp.ShapeSet.cuboids(slab),
+                                 shp.ShapeSet.balls(radii))
+    return new_state(bodies, shapes, joints)
+
+
+def drape_against_ladder(params) -> dict:
+    """The drape scene from its first state under the three drape
+    configurations of ``joints_jax.npz`` (``ladder``, ``chained_rr``,
+    ``chained_ps``) for 40 frames (``step``, no warmstart on the first):
+    the chained ones within 1e-4 m of the ladder, the free end resting on
+    the ground (y between 0.1 and 0.9)."""
+    ends = {}
+    for mode in ("ladder", "chained_rr", "chained_ps"):
+        st = drape_scene()
+        cfg = joints_case_config(f"drape_{mode}.config_json")
+        for f in range(40):
+            st = step(st, params, cfg, warmstart=f > 0)
+        ends[mode] = st.bodies.poses.translation
+        check(_finite(st), f"drape {mode}: non-finite")
+    tip = float(ends["ladder"][-1, 1])
+    errs = {m: float((ends[m] - ends["ladder"]).abs().max())
+            for m in ("chained_rr", "chained_ps")}
+    check(0.1 < tip < 0.9, f"drape: the free end at y {tip:.3f} did not "
+          "come to rest on the ground (0.1..0.9)")
+    check(max(errs.values()) < 1e-4, f"drape: the chained configurations "
+          f"left the ladder by {errs} (limit 1e-4)")
+    return {"tip_y": tip, "vs_ladder": errs}
+
+
+def _net_gates(name: str, run: dict, jax_stretch) -> dict:
+    """The 10k net's gates on a run from JAX's drape state: finite poses
+    (``run_path``), no ball centre below the ground, and (with
+    ``jax_stretch``, JAX's largest stretch after each frame from the same
+    state) the largest joint stretch at most ``STRETCH_FACTOR`` times
+    JAX's at the same frame plus ``STRETCH_SLACK``, and within
+    ``STRETCH_AGREE`` of JAX's."""
+    end = run["end"][0]
+    frames = len(run["trail"]) + run["metrics"]["frames_timed"]
+    low = float(end.bodies.poses.translation[2:, 1].min())
+    stretch = joint_stretch(end)
+    m = {"frames": frames, "lowest_centre_y": low, "stretch": stretch}
+    line = (f"{name} after {frames} frames from JAX's drape state: lowest "
+            f"centre y {low:.4f}, largest joint stretch {stretch:.3e} m")
+    check(low >= 0.0, f"{name}: a ball centre sank below the ground "
+          f"(y {low:.4f})")
+    if jax_stretch is not None:
+        ref = float(jax_stretch[frames - 1])
+        limit = STRETCH_FACTOR * ref + STRETCH_SLACK
+        m.update(jax_stretch=ref, stretch_limit=limit)
+        line += f" (JAX's {ref:.3e}, limit {limit:.3e})"
+        check(stretch <= limit, f"{name}: joint stretch {stretch:.3e} m "
+              f"past {limit:.3e}")
+        check(abs(stretch - ref) <= STRETCH_AGREE, f"{name}: joint stretch "
+              f"{stretch:.3e} m more than {STRETCH_AGREE:.0e} m from JAX's "
+              f"{ref:.3e}")
+    print(line)
+    run["metrics"]["net"] = m
+    return m
+
+
+def net_mode_configs() -> dict:
+    """The solve modes run on the 10k net besides the timed two: the
+    ladder's steady configuration chained and chained with the rhs in the
+    rung, and ``scripts/run_jointed10k.py``'s drape configuration (the
+    windowless default: colouring in the solve, uniform windows) as it is
+    and under the Jacobi solver. Name -> (config, params)."""
+    lad = joints_case_config("net100_ladder.config_json")
+    drape = joints_case_config("net100.drape_config_json")
+    return {"net_chained": (dataclasses.replace(lad, gs_chained=True),
+                            SimParams()),
+            "net_chained_rr": (dataclasses.replace(
+                lad, gs_chained=True, gs_rhs_in_rung=True), SimParams()),
+            "net_jacobi": (dataclasses.replace(drape, use_jacobi=True),
+                           SimParams.jacobi()),
+            "net_default": (drape, SimParams())}
+
+
+def joints_phase() -> dict:
+    """The joints: every JAX case of ``joints_jax.npz`` frame by frame,
+    the physical checks, then ``ball_net3(100, 100)`` from JAX's drape
+    state: ``net_ladder`` and ``net_chained_ps`` (``NET_WARM_FRAMES``
+    warm, ``NET_TIMED_FRAMES`` timed, the stretch gate against JAX's),
+    and ``NET_MODE_FRAMES`` frames of each of ``net_mode_configs``.
+    Returns path name -> run, plus ``joint_jax_frames`` and
+    ``joint_checks``."""
+    out = {"joint_jax_frames": joints_reference_phase()}
+    checks = {"physics": joints_physics_phase()}
+    for path, (case, expect) in JOINT_PATHS.items():
+        run = run_path(path, joints_case_state("net100", "drape"),
+                       joints_case_config(f"{case}.config_json"),
+                       joints_case_params("net100"), None, expect,
+                       warm=NET_WARM_FRAMES, timed=NET_TIMED_FRAMES,
+                       envelopes=net_envelopes)
+        checks[path] = _net_gates(path, run,
+                                  joints_case_value(f"{case}.stretch"))
+        out[path] = run
+    for path, (cfg, params) in net_mode_configs().items():
+        run = run_path(path, joints_case_state("net100", "drape"),
+                       cfg, params, None, NET_MODE_PATHS[path],
+                       warm=NET_MODE_FRAMES // 2,
+                       timed=NET_MODE_FRAMES - NET_MODE_FRAMES // 2,
+                       envelopes=net_envelopes)
+        run["params"] = params
+        checks[path] = _net_gates(path, run, None)
+        out[path] = run
+    out["joint_checks"] = checks
+    return out
+
+
+def joints_kernel_checks(runs: dict, params, summaries: dict) -> None:
+    """B1 and B2 on the 10k net's own plans: the two sweeps of substep 1
+    of the first frame after the warm frames of ``net_chained_ps`` (B1)
+    and ``net_ladder`` (B2), each one launch against the same kernel
+    launched rung by rung and its repeats (bit for bit) and against the
+    plain sweep; under ``net10k_*`` in each kernel's summary."""
+    for path, kernel in (("net_chained_ps", "gs_math_rhs"),
+                         ("net_ladder", "gs_math_block")):
+        state, cfg = runs[path]["warmed"]
+        calls = record_sweeps(lambda: step_checked(state, params, cfg), 2)
+        check(len(calls) == 2, f"{path}: fewer than two sweeps recorded")
+        res = [_sweep_case(kernel, f"net10k sweep {k + 1}", call, True)
+               for k, call in enumerate(calls)]
+        row = summaries[kernel]
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [r["max_abs_err"] for r in res])
+        nbytes = sum(r["bytes"] for r in res)
+        flops = sum(r["flops"] for r in res)
+        row.update({"net10k_ms": sum(r["ms"] for r in res),
+                    "net10k_rungs_ms": sum(r["rungs_ms"] for r in res),
+                    "net10k_plain_ms": sum(r["plain_ms"] for r in res),
+                    "net10k_bound_ms": bound_ms(nbytes, flops)[0],
+                    "net10k_rows": res[0]["rows"],
+                    "net10k_rungs": res[0]["rungs"]})
+
+
+def joint_share(run_once, frames: int = 3) -> dict:
+    """The share of a frame's device and host time spent in the joints'
+    constraint build (``solver.JointSolve.build``) and in their passes
+    (``JointSolve.run``), each range also timed by CUDA events
+    (:func:`range_share`)."""
+    return {part: range_share(run_once, solver.JointSolve, attr, label,
+                              frames, events=True)
+            for part, attr, label in (("build", "build", "joint_build"),
+                                      ("passes", "run", "joint_pass"))}
+
+
 KERNEL_TABLE = (
     ("gs_math_rhs", "chained_ps", "wgmath_tpu_torch/csrc/gs_math.cu",
      "wgmath_tpu/dynamics/gs_pallas.py:330",
@@ -3821,21 +4287,28 @@ def main() -> int:
         t3 = time.perf_counter()
         runs.update(solve_modes_phase(params, runs))
         solve_modes_kernel_checks(runs, params, summaries)
+        t4 = time.perf_counter()
+        runs.update(joints_phase())
+        joints_kernel_checks(runs, params, summaries)
         print(f"phase seconds: pit paths {t1 - t0:.1f}, box {t2 - t1:.1f}, "
-              f"primitives {t3 - t2:.1f}, solve modes "
-              f"{time.perf_counter() - t3:.1f}")
+              f"primitives {t3 - t2:.1f}, solve modes {t4 - t3:.1f}, "
+              f"joints {time.perf_counter() - t4:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     paths = {}
     step_paths = (CONFIGS + tuple(BOX_PATHS) + tuple(PRIM_PATHS)
-                  + tuple(SOLVE_PATHS))
+                  + tuple(SOLVE_PATHS) + tuple(JOINT_PATHS)
+                  + tuple(NET_MODE_PATHS))
     for name in step_paths:
         paths[name] = runs[name]["metrics"]
         stepper = _pit_stepper(*runs[name]["end"],
                                runs[name].get("params", params))
-        # a 10k primitives step is ~40,000 kernels: two frames a window
-        frames = 2 if name in PRIM_PATHS else 3
+        # a 10k primitives step is ~40,000 kernels, a 10k net step ~10,000
+        # and ~7 s under the profiler: two frames a window, one for the
+        # net's untimed modes
+        frames = (1 if name in NET_MODE_PATHS else
+                  2 if name in PRIM_PATHS or name in JOINT_PATHS else 3)
         try:
             prof = profile_window(stepper, frames)
             paths[name]["profile"] = prof
@@ -3873,6 +4346,18 @@ def main() -> int:
                       f"launches/step, busy {m['device_busy_share']:.3f}, "
                       f"peak {m['peak_mem_gb']:.3f} GB; colouring "
                       f"{m.get('coloring', 'none (no colours)')}")
+            if name in JOINT_PATHS:
+                m = paths[name]
+                m["joints"] = joint_share(stepper, frames)
+                kernel = JOINT_PATHS[name][1][0]
+                print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
+                      f"{prof['device_ms_per_step']:.3f} ms/step, "
+                      f"{prof['kernels_per_step']:.1f} kernels/step, "
+                      f"{m['host_syncs_per_step']:.2f} host syncs/step, "
+                      f"{kernel} {m[kernel + '_launches_per_step']:.2f} "
+                      f"launches/step, busy {m['device_busy_share']:.3f}, "
+                      f"peak {m['peak_mem_gb']:.3f} GB; joints "
+                      f"{m['joints']}")
         except Exception as e:  # the profiler is untried on this machine
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
@@ -3883,7 +4368,9 @@ def main() -> int:
                       "prim_jax_frames": runs["prim_jax_frames"],
                       "prim_checks": runs["prim_checks"],
                       "solve_jax_frames": runs["solve_jax_frames"],
-                      "solve_checks": runs["solve_checks"]}))
+                      "solve_checks": runs["solve_checks"],
+                      "joint_jax_frames": runs["joint_jax_frames"],
+                      "joint_checks": runs["joint_checks"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:

@@ -51,7 +51,10 @@ Five groups:
   frames from the first state, level 0's largest offset from y = 0.5 and
   the largest rise of any box. In the card states the fields of
   ``prev_constraints`` that a step does not read are zeros
-  (``export_box_npz.slim``).
+  (``export_box_npz.slim``), and so are the impulses whose carry-over the
+  step multiplies by a warmstart coefficient of 0 or that its solver
+  never reads (``slim_card``): the Jacobi states' four (under
+  ``SimParams.jacobi()``), the quick states' Jacobi pair (zeros anyway).
 
 Reals are float32, integers int32. Runs on the CPU, the groups in four
 processes at once (5.5 min on an 8-core CPU, most of it the card's 300
@@ -345,7 +348,24 @@ def card_group() -> dict:
             print(f"card {mode} frame {f}: pair_count "
                   f"{np.asarray(st.pair_count).tolist()} "
                   f"({time.time() - t0:.0f} s)", flush=True)
-    return slim(arrays)
+    return slim_card(slim(arrays))
+
+
+def slim_card(arrays: dict) -> dict:
+    """The card states with the impulses a step cannot use zeroed: under
+    ``SimParams.jacobi()`` the carry-over is scaled by a warmstart
+    coefficient of 0, and the Gauss-Seidel quick start never reads the
+    Jacobi pair."""
+    jac = ("n_impulse_jacobi", "t_impulse_jacobi")
+    out = {}
+    for k, v in arrays.items():
+        field = k.rsplit(".", 1)[-1]
+        if k.startswith("card.") and ".prev_constraints." in k and (
+                field in jac or (k.startswith("card.jacobi.")
+                                 and field in ("n_impulse", "t_impulse"))):
+            v = np.zeros_like(v)
+        out[k] = v
+    return out
 
 
 def physics_group() -> dict:

@@ -55,6 +55,9 @@ from chip_smoke import (
     gs_block_inputs,
     gs_block_plain,
     gs_math_inputs,
+    joints_case_config,
+    joints_case_params,
+    joints_case_state,
     pit_build_call,
     pit_fused_calls,
     pit_sweeps,
@@ -1380,3 +1383,80 @@ def test_cast_on_card_matches_the_cpu_port():
     assert torch.equal(torch.isfinite(got), hit)
     assert int(hit.sum()) > 100
     torch.testing.assert_close(got[hit], want[hit], rtol=1e-5, atol=1e-5)
+
+
+# the card-against-CPU velocity limit of each jointed case, m/s (see the
+# test's docstring)
+JOINT_DV_LIMITS = {"drape_ladder": 1e-5, "drape_chained_ps": 1e-5,
+                   "net16": 6e-5, "joint_revolute3": 4e-6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,counter", [
+    ("drape_ladder", "LAUNCHES_BLOCK"), ("drape_chained_ps", "LAUNCHES"),
+    ("net16", "LAUNCHES_BLOCK"), ("joint_revolute3", None)])
+def test_jointed_frames_on_card_match_cpu(case, counter):
+    """Two frames (``step``: no regrow re-runs) of a jointed case of
+    ``joints_jax.npz`` from its warmed state on the card and on the CPU:
+    the same integers; translations within 1e-5 m, as the quick start's
+    frames; velocities within ``JOINT_DV_LIMITS``, the card's and the CPU's
+    float32 sweeps and transcendentals rounding apart (the joint passes
+    add at most one non-zero delta a body in a colour, so their
+    scatter-adds are exact in any order); on the card two sweep launches
+    a substep (none without contacts).
+
+    ``scripts/exp_joint_card_gap.py`` (H100 80GB HBM3, 700 W; two runs,
+    the same readings) put the card's largest |dv| from the CPU's at
+    3.99e-6 (drape_ladder), 4.87e-6 (drape_chained_ps), 3.00e-5 (net16)
+    and 1.91e-6 m/s (joint_revolute3), |dx| at most 4.8e-7 m; each limit
+    is twice its case's reading, rounded up. The same script
+    breaks the CPU's joint pass one slot or one colour at a time: every
+    colour skipped, and every slot that carries load in its scene,
+    moves these frames by 0.33 m/s or more (drape 0.336, net16 2.85,
+    joint_revolute3 0.335). A slot that carries none here moves them by
+    at most 6.3e-7 m/s (the drape's z lock, slot 11: 0; the revolute
+    chain's out-of-plane locks, slots 7-9: 3.0e-7 to 6.3e-7), below what
+    any card-against-CPU limit can see; ``tests/test_torch_joint.py``
+    holds every slot against the JAX package's on the CPU."""
+    _need_card()
+    params = joints_case_params(case)
+    cfg = joints_case_config(f"{case}.config_json")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = joints_case_state(case, "warmed", device=dev)
+        n0 = getattr(gs_math, counter) if counter else 0
+        for _ in range(2):
+            state = solver_step(state, params, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            if counter:
+                assert getattr(gs_math, counter) - n0 == 2 * 2 * 4
+        out[dev] = state
+    sc, sg = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(sg.pair_count.cpu().numpy(),
+                                  sc.pair_count.numpy())
+    np.testing.assert_allclose(sg.bodies.poses.translation.cpu().numpy(),
+                               sc.bodies.poses.translation.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(sg.bodies.vels.linear.cpu().numpy(),
+                               sc.bodies.vels.linear.numpy(), rtol=0,
+                               atol=JOINT_DV_LIMITS[case])
+
+
+@pytest.mark.cuda
+def test_native_colouring_builds_and_matches_its_twin_on_card_machine():
+    """The port's C++ joint colouring builds with the card machine's g++
+    and agrees with its plain twin, past 64 colours too."""
+    _need_card()
+    from wgmath_tpu_torch.native import greedy_color, greedy_color_plain
+
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 500, 3000)
+    b = (a + 1 + rng.integers(0, 499, 3000)) % 500
+    dyn = np.arange(500) >= 4
+    valid = rng.random(3000) > 0.05
+    np.testing.assert_array_equal(greedy_color(a, b, dyn, valid),
+                                  greedy_color_plain(a, b, dyn, valid))
+    star = greedy_color(np.zeros(70, np.int32), np.arange(1, 71),
+                        np.ones(71, bool))
+    np.testing.assert_array_equal(star, np.arange(1, 71))

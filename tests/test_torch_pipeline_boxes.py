@@ -127,12 +127,21 @@ BUILDERS = {
     "many_pyramids": dict(count=3, levels=2),
     "boxes_and_balls": dict(n=10),
     "balls": dict(n=30),
+    "pendulum_chain": dict(links=3),
+    "pendulum_chain_revolute": dict(links=3, joint="revolute"),
+    "joint_chain": dict(links=3),
+    "joint_chain_prismatic": dict(links=3, joint="prismatic"),
+    "ball_net3": dict(nk=4, ni=3),
 }
+# cases that call another builder than their name
+BUILDER_FN = {"pyramid_balls": "pyramid",
+              "pendulum_chain_revolute": "pendulum_chain",
+              "joint_chain_prismatic": "joint_chain"}
 
 
 @pytest.mark.parametrize("name", list(BUILDERS))
 def test_builders_match_jax(name):
-    fn = "pyramid" if name == "pyramid_balls" else name
+    fn = BUILDER_FN.get(name, name)
     want = state_to_arrays(getattr(jax_builders, fn)(**BUILDERS[name]))
     got = state_to_arrays(getattr(builders, fn)(**BUILDERS[name],
                                                 device="cpu"))

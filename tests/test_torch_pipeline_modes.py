@@ -207,9 +207,11 @@ def test_flags_that_need_a_ladder_fall_back(z):
     assert len(got.solve_cache) == 6  # the ladder's bundle, not fused's
 
 
-def _fake_state(dim=3, kinds=(BALL,)):
+def _fake_state(dim=3, kinds=(BALL,), joints_dim=None):
     return SimpleNamespace(bodies=SimpleNamespace(dim=dim),
-                           shapes=SimpleNamespace(kinds=frozenset(kinds)))
+                           shapes=SimpleNamespace(kinds=frozenset(kinds)),
+                           joints=None if joints_dim is None
+                           else SimpleNamespace(dim=joints_dim))
 
 
 @pytest.mark.parametrize("change", [
@@ -227,6 +229,9 @@ def test_check_slice_accepts_the_solve_modes(change):
     (_fake_state(kinds=(BALL, TRIMESH)), {}, None, "shape kinds"),
     (_fake_state(), dict(gs_static_slots=True), None, "gs_static_slots"),
     (_fake_state(), dict(bp_algo="lbvh"), None, "bp_algo=lbvh"),
+    (_fake_state(joints_dim=3), dict(gs_fused=True), None,
+     "gs_fused with joints"),
+    (_fake_state(joints_dim=2), {}, None, "2D joints"),
 ])
 def test_check_slice_still_refuses(state, change, shard, what):
     with pytest.raises(NotImplementedError, match=what):

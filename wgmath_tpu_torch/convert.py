@@ -35,6 +35,7 @@ from wgmath_tpu_torch.dynamics.body import (
     Velocity,
 )
 from wgmath_tpu_torch.dynamics.constraint import ContactConstraints
+from wgmath_tpu_torch.dynamics.joint import JOINT_FIELDS, JointSet
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.pipeline import PhysicsState
 from wgmath_tpu_torch.shapes.shape import ShapeSet
@@ -120,12 +121,39 @@ def sim_from_arrays(arrays: dict, device=None) -> Sim:
     return Sim(rot, tra, _tensor(arrays["scale"], dev), cm=cm)
 
 
+def joints_to_arrays(joints) -> dict[str, np.ndarray]:
+    """A joint set (this package's or the JAX package's) as named numpy
+    arrays: each field, the local frames as ``local_frame_a.rotation``
+    and so on."""
+    out = {}
+    for f in JOINT_FIELDS:
+        v = getattr(joints, f)
+        if f.startswith("local_frame"):
+            for part in ("rotation", "translation", "scale"):
+                out[f"{f}.{part}"] = _np(getattr(v, part))
+        else:
+            out[f] = _np(v)
+    return out
+
+
+def joints_from_arrays(arrays: dict, device=None) -> JointSet:
+    """This package's joint set from :func:`joints_to_arrays` output (its
+    host values are computed as it is made). ``device=None`` means the
+    card."""
+    dev = resolve_device(device)
+    vals = {}
+    for f in JOINT_FIELDS:
+        if f.startswith("local_frame"):
+            vals[f] = Sim(*(_tensor(arrays[f"{f}.{part}"], dev) for part in
+                            ("rotation", "translation", "scale")))
+        else:
+            vals[f] = _tensor(arrays[f], dev)
+    return JointSet(**vals)
+
+
 def state_to_arrays(state) -> dict[str, np.ndarray]:
     """Named numpy arrays of a physics state (this package's or the JAX
-    package's). Optional parts that are absent are left out; joints have
-    no counterpart in this package yet and are refused."""
-    if getattr(state, "joints", None) is not None:
-        raise NotImplementedError("state_to_arrays: joints are not ported")
+    package's). Optional parts that are absent are left out."""
     out = {}
     b = state.bodies
     for key, (grp, field) in _BODY_FIELDS.items():
@@ -155,6 +183,9 @@ def state_to_arrays(state) -> dict[str, np.ndarray]:
     if state.solve_cache is not None:
         for i, v in enumerate(state.solve_cache):
             out[f"solve_cache.{i}"] = _np(v)
+    if state.joints is not None:
+        for k, v in joints_to_arrays(state.joints).items():
+            out[f"joints.{k}"] = v
     return out
 
 
@@ -202,7 +233,12 @@ def state_from_arrays(arrays: dict, device=None) -> PhysicsState:
     if "solve_cache.0" in arrays:
         n_cache = sum(1 for k in arrays if k.startswith("solve_cache."))
         solve_cache = tuple(t(f"solve_cache.{i}") for i in range(n_cache))
+    joints = None
+    if "joints.body_a" in arrays:
+        joints = joints_from_arrays(
+            {k[len("joints."):]: v for k, v in arrays.items()
+             if k.startswith("joints.")}, dev)
     return PhysicsState(
         bodies, shapes, prev, t("pair_count"),
         t("prev_colors") if "prev_colors" in arrays else None,
-        bp_pairs, bp_ref, bp_colors, solve_cache)
+        bp_pairs, bp_ref, bp_colors, solve_cache, joints)

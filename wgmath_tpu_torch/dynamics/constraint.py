@@ -214,9 +214,10 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Dot product over a last axis of 3, summed left to right. A
     ``torch.sum`` reduction may add in another order on the card; this one
     is the order of the impulse kernels' ``dot3``, so the rhs built here
-    and the rhs rebuilt in kernel agree bit for bit."""
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
-            + a[..., 2] * b[..., 2])
+    and the rhs rebuilt in kernel agree bit for bit. The products are one
+    operation, then two adds: three kernels."""
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
 
 
 def update_rhs_sorted(ss, poses: Sim, params: SimParams):

@@ -66,6 +66,25 @@ class SimParams:
         return self.dt * self.contact_erp_inv_dt
 
     @property
+    def joint_erp_inv_dt(self) -> float:
+        w = self.joint_natural_frequency * TWO_PI
+        return w / (self.dt * w + 2.0 * self.joint_damping_ratio)
+
+    @property
+    def joint_erp(self) -> float:
+        return self.dt * self.joint_erp_inv_dt
+
+    @property
+    def joint_cfm_coeff(self) -> float:
+        erp = self.joint_erp
+        if erp == 0.0:
+            return 0.0
+        inv_erp_m1 = 1.0 / erp - 1.0
+        return inv_erp_m1 * inv_erp_m1 / (
+            (1.0 + inv_erp_m1) * 4.0
+            * self.joint_damping_ratio * self.joint_damping_ratio)
+
+    @property
     def contact_cfm_factor(self) -> float:
         erp = self.contact_erp
         if erp == 0.0:

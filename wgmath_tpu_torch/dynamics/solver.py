@@ -36,6 +36,9 @@ pseudo-Jacobi solver).
 - **Jacobi** (``jacobi_pass``): each body walks its constraint sides
   (``build_body_constraint_csr``) against a snapshot of the others, in
   plain PyTorch, as the JAX package runs it in XLA.
+- **Joints** (``JointSolve``, ``dynamics/joint.py``): per substep a joint
+  build and pass before the biased contact sweep, another pass after
+  integrating, in the joints' own colours.
 
 Every ``lax.cond`` of the JAX solve is a Python branch on a host value.
 """
@@ -86,6 +89,11 @@ from wgmath_tpu_torch.dynamics.gs_math import (
     gs_sweep_block,
     gs_sweep_rhs,
     rows_per_chunk,
+)
+from wgmath_tpu_torch.dynamics.joint import (
+    build_joint_constraints,
+    joint_gs_pass,
+    remove_joint_bias,
 )
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry.sim import Sim
@@ -872,10 +880,12 @@ def jacobi_pass(cons: ContactConstraints, vels: Velocity, csr, *,
 
 
 def _solve_jacobi(bodies: Bodies, cons, vels: Velocity, inc, sub,
-                  params: SimParams, max_per_body: int):
+                  params: SimParams, max_per_body: int, joint_solve=None):
     """The Jacobi substep loop (the JAX package's ``substep_jacobi``):
-    relinearize, a biased pass, integrate, an unbiased pass. Returns as
-    :func:`solve`: no colours, no class sizes, no solve bundle."""
+    relinearize, a biased pass, integrate, an unbiased pass; with
+    ``joint_solve`` (:class:`JointSolve`) a joint build and pass before
+    the biased pass and an unbiased joint pass after integrating. Returns
+    as :func:`solve`: no colours, no class sizes, no solve bundle."""
     n = bodies.num_bodies
     csr = build_body_constraint_csr(cons, n)
     # bodies with fewer sides than the loop sit out its later rounds, so
@@ -886,8 +896,12 @@ def _solve_jacobi(bodies: Bodies, cons, vels: Velocity, inc, sub,
     for _ in range(params.num_solver_iterations):
         vels = Velocity(vels.linear + inc, vels.angular)
         cons = update_constraints(cons, poses, sub)
+        if joint_solve is not None:
+            vels = joint_solve.biased(poses, vels)
         vels, cons = jacobi_pass(cons, vels, csr, max_per_body=rounds)
         poses = integrate_velocity(poses, vels, com, sub.dt)
+        if joint_solve is not None:
+            vels = joint_solve.unbiased(vels)
         cons = remove_cfm_and_bias(cons)
         vels, cons = jacobi_pass(cons, vels, csr, max_per_body=rounds)
     zeros = torch.zeros(2, dtype=torch.int64, device=inc.device)
@@ -897,6 +911,38 @@ def _solve_jacobi(bodies: Bodies, cons, vels: Velocity, inc, sub,
 # ---------------------------------------------------------------------------
 # Full TGS-soft solve under the window ladder
 # ---------------------------------------------------------------------------
+
+
+class JointSolve:
+    """The joint passes of one solve, around its contact sweeps (the JAX
+    package's per-substep joint build and passes): :meth:`biased` builds
+    the joints' constraints from the substep's ``poses`` and the frame's
+    mass properties and runs one pass; :meth:`unbiased` drops the bias and
+    runs another. Joint impulses start at zero every substep: joints have
+    no warmstart."""
+
+    def __init__(self, joints, mprops: WorldMassProperties, sub: SimParams,
+                 max_colors: int):
+        self.joints, self.mprops, self.sub = joints, mprops, sub
+        self.max_colors = max_colors
+        self.cons = None
+
+    def build(self, poses: Sim) -> None:
+        self.cons = build_joint_constraints(self.joints, poses, self.mprops,
+                                            self.sub)
+
+    def run(self, vels: Velocity) -> Velocity:
+        vels, self.cons = joint_gs_pass(self.cons, vels, self.joints.colors,
+                                        max_colors=self.max_colors)
+        return vels
+
+    def biased(self, poses: Sim, vels: Velocity) -> Velocity:
+        self.build(poses)
+        return self.run(vels)
+
+    def unbiased(self, vels: Velocity) -> Velocity:
+        self.cons = remove_joint_bias(self.cons)
+        return self.run(vels)
 
 
 def _layout_sides(cons, colors, bodies: Bodies, *, max_colors: int,
@@ -959,6 +1005,14 @@ def _bundle_shapes(c_cap, cmax, max_colors, n, windows, chained: bool):
     return shapes
 
 
+def fused_with_joints(fused: bool, joints) -> str | None:
+    """What is refused where the fused solver would meet joints (not
+    ported, ROADMAP queue A item 3b), or None."""
+    if fused and joints is not None:
+        return "gs_fused with joints (ROADMAP queue A item 3b)"
+    return None
+
+
 def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           params: SimParams, *, max_colors: int,
           warmstart_from: ContactConstraints | None, gs_cmax: int,
@@ -968,9 +1022,15 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           layout_valid=None, stable_hint: bool | None = None,
           cache_in=None, presorted: bool = False, chained: bool = False,
           rhs_in_rung: bool = False, fused: bool = False,
-          fused_rung0: int = 0, fused_class_counts=None):
+          fused_rung0: int = 0, fused_class_counts=None, joints=None):
     """Complete constraint solve for one frame. Returns ``(poses, vels,
     constraints, max_class, colors, solve_cache)``.
+
+    ``joints`` (a 3D ``JointSet``): every substep builds the joints'
+    constraints from its poses once its warmstart is applied, runs one
+    joint pass before the biased contact sweep (or Jacobi pass) and one
+    unbiased joint pass after integrating (:class:`JointSolve`), as the
+    JAX package does. The fused solver does not take joints.
 
     Colours: ``colors_in`` (the broad phase's cached pair colours), else
     last frame's ``prev_colors`` where this frame's pair keys equal last
@@ -1012,6 +1072,9 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     use_fused = (fused and bool(gs_windows) and presorted
                  and colors_in is not None and fused_class_counts is not None
                  and not use_jacobi)
+    refused = fused_with_joints(use_fused, joints)
+    if refused:
+        raise NotImplementedError(f"solve does not take {refused}")
     if use_fused:
         cons, big_t, big_meta = build_constraints_fused(
             bodies.poses, bodies.vels, mprops, contacts, params)
@@ -1044,9 +1107,11 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
                     torch.where(keep_v, bodies.vels.angular, zero))
     g = sub.gravity_array(3, device=dev)
     inc = torch.where(dynamic[:, None], g[None, :] * sub.dt, zero)
+    joint_solve = (None if joints is None
+                   else JointSolve(joints, mprops, sub, max_colors))
     if use_jacobi:
         return _solve_jacobi(bodies, cons, vels, inc, sub, params,
-                             max_per_body)
+                             max_per_body, joint_solve)
 
     c_cap = cons.body_a.shape[0]
     if colors_in is not None:
@@ -1134,6 +1199,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
         t_imp_s = t_imp_s * sub.warmstart_coefficient
         deltas = _ws_deltas(ss, n_imp_s, t_imp_s, ss.valid, p_max)
         vels = _ws_apply(vels, deltas, ws_sides)
+        if joint_solve is not None:
+            vels = joint_solve.biased(poses, vels)
         if use_rhs_rung:
             pose_tab = torch.cat([poses.rotation, poses.translation,
                                   poses.scale[:, None]], dim=-1)
@@ -1143,6 +1210,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
                 rhs_store=torch.zeros((total, p_max), device=dev),
                 **sweep_kw)
             poses = integrate_velocity(poses, vels, com, sub.dt)
+            if joint_solve is not None:
+                vels = joint_solve.unbiased(vels)
             vels, n_imp_s, t_imp_s, _ = gs_color_major_pass(
                 ss, vels, n_imp_s, t_imp_s, layout_host, windows, chain,
                 rhs_mode="unbiased", rhs_store=rhs_store, **sweep_kw)
@@ -1154,6 +1223,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
                 biased, vels, n_imp_s, t_imp_s, layout_host, windows, chain,
                 **sweep_kw)
             poses = integrate_velocity(poses, vels, com, sub.dt)
+            if joint_solve is not None:
+                vels = joint_solve.unbiased(vels)
             unbiased = SimpleNamespace(**vars(ss))
             unbiased.n_rhs, unbiased.t_rhs = n_rhs_wo_bias, ss.t_rhs_wo_bias
             unbiased.cfm_factor = cfm_one

@@ -37,9 +37,11 @@ solver configurations the bench calls
 
 ``gs_fused``, ``gs_chained`` and ``gs_pair_slots`` need the ladder (and
 the fused layout and the pair slots the cached colours); without them the
-unfused, unchained form runs, as in the JAX package. Sharding, 2D,
-``gs_static_slots`` and other broad phases are refused with
-``NotImplementedError``.
+unfused, unchained form runs, as in the JAX package. Impulse joints
+(``state.joints``) solve in every configuration but ``fused``: per
+substep one joint pass before the biased contact sweep and one after
+integrating. Sharding, 2D, ``gs_static_slots``, other broad phases and the
+fused solver with joints are refused with ``NotImplementedError``.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -68,10 +70,12 @@ from wgmath_tpu_torch.dynamics.constraint import (
     ContactConstraints,
     compact_contacts,
 )
+from wgmath_tpu_torch.dynamics.joint import JointSet
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.dynamics.solver import (
     assign_new_pair_colors,
     color_pairs,
+    fused_with_joints,
     minimize_colors,
     solve,
     transfer_pair_colors,
@@ -96,7 +100,10 @@ class PhysicsState:
     (``bp_slack`` > 0 only); ``bp_colors`` = (pair colours, gs_cmax,
     max_colors, slot flag) with the knobs as host ints, or None without
     cached colours; ``prev_colors`` last frame's contact colours;
-    ``solve_cache`` the solve bundle reused while the contact set holds."""
+    ``solve_cache`` the solve bundle reused while the contact set holds;
+    ``joints`` the impulse joints (``dynamics.joint.JointSet``), carried
+    from frame to frame unchanged (the JAX package's field, placed last
+    here so that positional constructions without it keep working)."""
 
     bodies: Bodies
     shapes: ShapeSet
@@ -107,6 +114,7 @@ class PhysicsState:
     bp_ref: tuple | None = None  # (mins, maxs) reference boxes
     bp_colors: tuple | None = None
     solve_cache: tuple | None = None
+    joints: JointSet | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,8 +172,9 @@ class PipelineConfig:
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
     """Refuse what the port does not take: sharding, 2D, shape kinds
-    outside ``SUPPORTED_KINDS``, ``gs_static_slots`` and the broad phases
-    other than the grid and the brute force."""
+    outside ``SUPPORTED_KINDS``, ``gs_static_slots``, the broad phases
+    other than the grid and the brute force, 2D joints, and the fused
+    solver with joints."""
     bad = []
     if shard is not None:
         bad.append("shard")
@@ -177,6 +186,11 @@ def _check_slice(state: PhysicsState, config: PipelineConfig,
         bad.append("gs_static_slots")
     if config.bp_algo not in ("auto", "grid", "brute"):
         bad.append(f"bp_algo={config.bp_algo}")
+    if state.joints is not None and state.joints.dim != 3:
+        bad.append("2D joints")
+    refused = fused_with_joints(config.gs_fused, state.joints)
+    if refused:
+        bad.append(refused)
     if bad:
         raise NotImplementedError(
             "wgmath_tpu_torch.pipeline.step does not take these; refused: "
@@ -217,10 +231,12 @@ def auto_manifold_points(shapes: ShapeSet, dim: int, dynamic=None) -> int:
     return 1
 
 
-def new_state(bodies: Bodies, shapes: ShapeSet) -> PhysicsState:
+def new_state(bodies: Bodies, shapes: ShapeSet,
+              joints: JointSet | None = None) -> PhysicsState:
     return PhysicsState(bodies, shapes, None,
                         torch.zeros(8, dtype=torch.int64,
-                                    device=bodies.poses.translation.device))
+                                    device=bodies.poses.translation.device),
+                        joints=joints)
 
 
 def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
@@ -496,7 +512,8 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         cache_in=state.solve_cache if warmstart else None,
         presorted=presorted, chained=config.gs_chained,
         rhs_in_rung=config.gs_rhs_in_rung, fused=use_fused,
-        fused_rung0=config.gs_rung0, fused_class_counts=fused_class_counts)
+        fused_rung0=config.gs_rung0, fused_class_counts=fused_class_counts,
+        joints=state.joints)
     new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
     head = torch.stack([pairs.count.to(torch.int64), contact_count,
                         max_class[0],
@@ -506,7 +523,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     # the broad-phase cache is kept only under a slack
     return PhysicsState(new_bodies, state.shapes, cons, counts, colors,
                         pairs if slack > 0 else None, bp_ref, bp_colors,
-                        solve_cache)
+                        solve_cache, state.joints)
 
 
 def fine_bucket(n: int, *, floor: int = 2048, quantum: int = 1024,

@@ -1,7 +1,8 @@
 """Scene builders (counterpart of ``wgmath_tpu/scenes/builders.py``:
 ``balls``, ``ball_pit``, ``boxes``, ``pyramid``,
 ``pyramid_levels_for_bodies``, ``keva_tower``, ``many_pyramids``,
-``boxes_and_balls``, ``primitives3`` and the 3D entries of ``SCENES`` that
+``boxes_and_balls``, ``primitives3``, the jointed ``pendulum_chain``,
+``joint_chain`` and ``ball_net3``, and the 3D entries of ``SCENES`` that
 these build). Positions are computed in numpy and
 jitter comes from numpy ``default_rng``, as in the JAX package, so both
 build the same scene. Every builder takes ``device``; ``None`` means the
@@ -22,6 +23,12 @@ from wgmath_tpu_torch.dynamics.body import (
     cone_local_mprops,
     cuboid_local_mprops,
     cylinder_local_mprops,
+)
+from wgmath_tpu_torch.dynamics.joint import (
+    fixed_joints,
+    prismatic_joints,
+    revolute_joints,
+    spherical_joints,
 )
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.pipeline import PhysicsState, new_state
@@ -294,6 +301,105 @@ def primitives3(per_kind: int = 40, *, device=None) -> PhysicsState:
     return _with_ground(shapes, torch.from_numpy(pos).to(dev), mp)
 
 
+def _ball_chain(links: int, dev):
+    """``links`` + 1 balls of radius 0.2, 1 m apart along +x, the first
+    one static: (bodies, shapes, dynamic mask, body_a, body_b, anchors_a,
+    anchors_b) of a chain whose joints sit at the midpoints."""
+    n = links + 1
+    r = torch.full((n,), 0.2, device=dev)
+    trans = torch.zeros((n, 3), device=dev)
+    trans[:, 0] = torch.arange(n, device=dev, dtype=torch.float32)
+    dynamic = np.ones(n, bool)
+    dynamic[0] = False
+    mp = ball_local_mprops(r, dynamic=torch.from_numpy(dynamic).to(dev))
+    rot = torch.tensor(_IDENTITY, device=dev).repeat(n, 1)
+    bodies = Bodies(Sim(rot, trans, torch.ones(n, device=dev)),
+                    Velocity.zero(n, device=dev), mp)
+    return (bodies, ShapeSet.balls(r), dynamic, list(range(links)),
+            list(range(1, n)), [[0.5, 0.0, 0.0]] * links,
+            [[-0.5, 0.0, 0.0]] * links)
+
+
+def pendulum_chain(links: int = 8, *, joint: str = "spherical",
+                   device=None) -> PhysicsState:
+    """A chain of balls hanging from a static anchor, linked by spherical
+    or revolute (about z) joints."""
+    dev = resolve_device(device)
+    bodies, shapes, dynamic, ba, bb, aa, ab = _ball_chain(links, dev)
+    if joint == "revolute":
+        joints = revolute_joints(ba, bb, aa, ab,
+                                 axes=[[0.0, 0.0, 1.0]] * links,
+                                 dynamic_mask=dynamic, device=dev)
+    else:
+        joints = spherical_joints(ba, bb, aa, ab, dynamic_mask=dynamic,
+                                  device=dev)
+    return new_state(bodies, shapes, joints)
+
+
+def joint_chain(links: int = 8, *, joint: str = "fixed",
+                device=None) -> PhysicsState:
+    """A chain of balls under fixed joints, or prismatic ones sliding
+    along y within (-0.5, 0.5)."""
+    dev = resolve_device(device)
+    bodies, shapes, dynamic, ba, bb, aa, ab = _ball_chain(links, dev)
+    if joint == "prismatic":
+        joints = prismatic_joints(ba, bb, aa, ab,
+                                  axes=[[0.0, 1.0, 0.0]] * links,
+                                  limits=(-0.5, 0.5), dynamic_mask=dynamic,
+                                  device=dev)
+    else:
+        joints = fixed_joints(ba, bb, aa, ab, dynamic_mask=dynamic,
+                              device=dev)
+    return new_state(bodies, shapes, joints)
+
+
+def ball_net3(nk: int = 100, ni: int = 100, *, radius: float = 0.25,
+              spacing: float = 0.6, height: float = 8.0,
+              device=None) -> PhysicsState:
+    """An ``nk`` x ``ni`` net of balls ``height`` m up, each joined to its
+    four neighbours by spherical joints at the midpoints, draping over a
+    static dome (a ball of radius 5 centred 1 m up) onto the ground. The
+    ground and the dome come first; 100 x 100 is 10,002 bodies and 19,800
+    joints."""
+    dev = resolve_device(device)
+    n = nk * ni
+    ks, is_ = np.meshgrid(np.arange(nk), np.arange(ni), indexing="ij")
+    pos = np.zeros((n, 3), np.float32)
+    pos[:, 0] = (ks.reshape(-1) - (nk - 1) / 2.0) * spacing
+    pos[:, 2] = (is_.reshape(-1) - (ni - 1) / 2.0) * spacing
+    pos[:, 1] = height
+    h = spacing / 2.0
+    body_a, body_b, anch_a, anch_b = [], [], [], []
+    for k in range(nk):
+        for i in range(ni):
+            if k > 0:  # along x
+                body_a.append((k - 1) * ni + i)
+                body_b.append(k * ni + i)
+                anch_a.append([h, 0.0, 0.0])
+                anch_b.append([-h, 0.0, 0.0])
+            if i > 0:  # along z
+                body_a.append(k * ni + i - 1)
+                body_b.append(k * ni + i)
+                anch_a.append([0.0, 0.0, h])
+                anch_b.append([0.0, 0.0, -h])
+    dome = torch.tensor([5.0], device=dev)
+    radii = torch.full((n,), radius, device=dev)
+    shapes = ShapeSet.concat(ShapeSet.balls(dome), ShapeSet.balls(radii))
+    mp = _merge_mprops(
+        ball_local_mprops(dome, dynamic=torch.zeros(1, dtype=torch.bool,
+                                                    device=dev)),
+        ball_local_mprops(radii))
+    trans = torch.from_numpy(np.concatenate(
+        [np.asarray([[0.0, 1.0, 0.0]], np.float32), pos])).to(dev)
+    base = _with_ground(shapes, trans, mp)
+    n_static = 2  # the ground and the dome lead the body table
+    dynamic = np.concatenate([np.zeros(n_static, bool), np.ones(n, bool)])
+    joints = spherical_joints([b + n_static for b in body_a],
+                              [b + n_static for b in body_b], anch_a,
+                              anch_b, dynamic_mask=dynamic, device=dev)
+    return new_state(base.bodies, base.shapes, joints)
+
+
 def box_configs(n_bodies: int) -> dict:
     """The 4-point ``ladder`` and ``fused`` configurations the box scenes
     are stepped under, as ``PipelineConfig`` field dicts: the JAX package's
@@ -335,4 +441,13 @@ SCENES = {
     "keva3": lambda device=None: keva_tower(device=device),
     "many_pyramids3": lambda device=None: many_pyramids(device=device),
     "primitives3": lambda device=None: primitives3(device=device),
+    "joint_ball3": lambda device=None: pendulum_chain(
+        8, joint="spherical", device=device),
+    "joint_revolute3": lambda device=None: pendulum_chain(
+        8, joint="revolute", device=device),
+    "joint_fixed3": lambda device=None: joint_chain(8, joint="fixed",
+                                                    device=device),
+    "joint_prismatic3": lambda device=None: joint_chain(
+        6, joint="prismatic", device=device),
+    "ball_net3": lambda device=None: ball_net3(16, 16, device=device),
 }
