@@ -75,7 +75,19 @@ Three phases; any failed check ends the run with a non-zero exit:
    twice JAX's plus 1 mm and within 1 mm of JAX's) and
    run under ``chained``, ``chained_rr``, the windowless default and the
    Jacobi solver; B1 / B2 on the net's own plans; the joints' share of
-   the step.
+   the step. The fused solver with joints: the drape scene and a chain
+   under ``gs_fused`` three frames each from JAX's state before it
+   (``artifacts/lbvh_fused_joints_jax.npz.xz``), and the 10k net under
+   ``net_ladder``'s configuration with ``gs_fused`` (``net_fused``: B9
+   and B10 launched alone twice a substep, no B11), timed, held to the
+   net's gates (its stretch within 1 mm of JAX's after the warm frames),
+   to ``net_ladder`` over three steps and to its envelopes; B10 on its
+   own plan, one launch against the plain version bit for bit. Last the
+   LBVH broad phase (``bp_algo="lbvh"``): the settled pit's first frame
+   with a full refresh against the grid's pairs and contacts (the JAX
+   package's per-leaf window of 64 pairs drops the ground's past it,
+   ROADMAP C11), three frames, ``pit_lbvh`` timed, and one LBVH call at
+   the pit and at ``pyramid(50)``'s 42,926 boxes, timed.
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -87,6 +99,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -102,7 +115,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
+from wgmath_tpu_torch.broad_phase.grid import find_pairs_grid
+from wgmath_tpu_torch.broad_phase import lbvh as lbvh_mod
+from wgmath_tpu_torch.broad_phase.lbvh import find_pairs_lbvh
+from wgmath_tpu_torch.convert import (
+    load_arrays,
+    state_from_arrays,
+    state_to_arrays,
+)
 from wgmath_tpu_torch.core import cuda_build, dispatch, native_build
 from wgmath_tpu_torch.dynamics import body as body_ops
 from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math, solver
@@ -124,6 +144,7 @@ gemv_ops = importlib.import_module("wgmath_tpu_torch.ops.gemv")
 reduce_ops = importlib.import_module("wgmath_tpu_torch.ops.reduce")
 elementwise_ops = importlib.import_module("wgmath_tpu_torch.ops.elementwise")
 narrow_mod = importlib.import_module("wgmath_tpu_torch.queries.narrow_phase")
+pipeline_mod = importlib.import_module("wgmath_tpu_torch.pipeline")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
@@ -2624,17 +2645,23 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
           f"{ke:.4f}, max penetration {pen:.5f}")
     if "build_fused" in expect:
         # one B9 launch and, per substep, one B11 and one B10 carrying B12
-        # per step() call (a regrow re-runs the step); no standalone B12
+        # per step() call (a regrow re-runs the step); no standalone B12.
+        # With joints, per substep two B10 launched alone and no B11
         timed_n = {k: launches[k] - warm_launches[k] for k in FUSED_KERNELS}
         subs = params.num_solver_iterations
-        check(all(timed_n[k] == subs * timed_n["build_fused"]
-                  for k in FUSED_KERNELS[1:])
-              and timed_n["build_fused"] >= timed
-              and launches["fused_integrate"] == 0,
+        builds = timed_n["build_fused"]
+        if state.joints is None:
+            ok = all(timed_n[k] == subs * builds for k in FUSED_KERNELS[1:])
+            what = f"{subs} of B11, B10 and B10 carrying B12"
+        else:
+            ok = (timed_n["fused_sweep"] == 2 * subs * builds
+                  and launches["fused_substep1"] == 0
+                  and launches["fused_integrate_in_sweep"] == 0)
+            what = f"{2 * subs} of B10 alone and no B11"
+        check(ok and builds >= timed and launches["fused_integrate"] == 0,
               f"{name}: fused launches {timed_n} are not one build and "
-              f"{subs} of B11, B10 and B10 carrying B12 per step, or a "
-              "standalone B12 was launched")
-        metrics["regrow_frames"] = timed_n["build_fused"] - timed
+              f"{what} per step, or a standalone B12 was launched")
+        metrics["regrow_frames"] = builds - timed
     return {"metrics": metrics, "warmed": warmed, "end": (state, cfg),
             "trail": trail, "counts": counts, "recorded": recorded}
 
@@ -3342,25 +3369,37 @@ def range_share(run_once, module, attr: str, label: str, frames: int = 3,
     ``module.attr``: a profiled window of ``frames`` calls of ``run_once``
     with that call wrapped in a ``record_function`` range (informational).
     ``events``: also the range's time by CUDA events a frame."""
+    return range_shares(run_once, module, {label: attr}, frames,
+                        events)[label]
+
+
+def range_shares(run_once, module, ranges: dict, frames: int = 3,
+                 events: bool = False) -> dict:
+    """:func:`range_share` for several calls in one profiled window:
+    ``ranges`` maps each range's label to the attribute of ``module`` it
+    wraps. Returns label -> figures."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    real = getattr(module, attr)
-    marks = []
+    real = {attr: getattr(module, attr) for attr in ranges.values()}
+    marks = {label: [] for label in ranges}
 
-    def wrapped(*args, **kw):
-        with record_function(label):
-            if events:
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                start.record()
-                out = real(*args, **kw)
-                end.record()
-                marks.append((start, end))
-                return out
-            return real(*args, **kw)
+    def wrapper(label, fn):
+        def wrapped(*args, **kw):
+            with record_function(label):
+                if events:
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    out = fn(*args, **kw)
+                    end.record()
+                    marks[label].append((start, end))
+                    return out
+                return fn(*args, **kw)
+        return wrapped
 
-    setattr(module, attr, wrapped)
+    for label, attr in ranges.items():
+        setattr(module, attr, wrapper(label, real[attr]))
     try:
         torch.cuda.synchronize()
         with warnings.catch_warnings():
@@ -3373,25 +3412,30 @@ def range_share(run_once, module, attr: str, label: str, frames: int = 3,
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        setattr(module, attr, real)
-    spans = [e for e in prof.events() if e.name == label]
+        for attr, fn in real.items():
+            setattr(module, attr, fn)
     total_us = sum(getattr(e, "self_device_time_total", 0.0)
                    for e in prof.key_averages()
                    if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.key != label)
-    dev = sum(e.device_time_total for e in spans)
-    host = sum(e.cpu_time_total for e in spans)
-    out = {"calls_per_step": len(spans) / frames,
-           "device_ms_per_step": dev / 1e3 / frames,
-           "device_share": dev / total_us if total_us else None,
-           "host_ms_per_step": host / 1e3 / frames,
-           "host_share_of_wall": host / 1e3 / wall_ms}
-    if events:
-        ev_ms = sum(a.elapsed_time(b) for a, b in marks) / frames
-        out.update(event_ms_per_step=ev_ms,
-                   event_share_of_device=(ev_ms / (total_us / 1e3 / frames)
-                                          if total_us else None),
-                   event_share_of_wall=ev_ms * frames / wall_ms)
+                   and e.key not in ranges)
+    events_all = prof.events()
+    out = {}
+    for label in ranges:
+        spans = [e for e in events_all if e.name == label]
+        dev = sum(e.device_time_total for e in spans)
+        host = sum(e.cpu_time_total for e in spans)
+        out[label] = {"calls_per_step": len(spans) / frames,
+                      "device_ms_per_step": dev / 1e3 / frames,
+                      "device_share": dev / total_us if total_us else None,
+                      "host_ms_per_step": host / 1e3 / frames,
+                      "host_share_of_wall": host / 1e3 / wall_ms}
+        if events:
+            ev_ms = sum(a.elapsed_time(b) for a, b in marks[label]) / frames
+            out[label].update(
+                event_ms_per_step=ev_ms,
+                event_share_of_device=(ev_ms / (total_us / 1e3 / frames)
+                                       if total_us else None),
+                event_share_of_wall=ev_ms * frames / wall_ms)
     return out
 
 
@@ -3810,7 +3854,7 @@ NET_WARM_FRAMES = 5
 NET_TIMED_FRAMES = 15
 # the other solve modes on the net: frames run from JAX's drape state, to
 # finite poses above the ground
-NET_MODE_FRAMES = 6
+NET_MODE_FRAMES = 4
 NET_BALL_RADIUS = 0.25
 # the largest joint stretch at most twice JAX's at the same frame plus 1 mm,
 # and within 1 mm of JAX's
@@ -3818,8 +3862,15 @@ STRETCH_FACTOR, STRETCH_SLACK = 2.0, 1e-3
 STRETCH_AGREE = 1e-3
 # path -> (case of joints_jax.npz whose configuration it runs from the
 # drape state, the kernel counters it moves)
+# (net_fused: the ladder's configuration under the fused solver, B9 and
+# B10 launched alone; the stretch gate against JAX's ladder run)
+FUSED_JOINT_KERNELS = ("build_fused", "fused_sweep")
 JOINT_PATHS = {"net_ladder": ("net100_ladder", ("gs_math_block",)),
-               "net_chained_ps": ("net100_chained_ps", ("gs_math_rhs",))}
+               "net_chained_ps": ("net100_chained_ps", ("gs_math_rhs",)),
+               "net_fused": ("net100_ladder", FUSED_JOINT_KERNELS)}
+# net_fused's residue rung, as the pit's fused configuration follows from
+# its ladder (bench.py:540-541)
+NET_FUSED_RUNG0 = 256
 NET_MODE_PATHS = {"net_chained": ("gs_math_block",),
                   "net_chained_rr": ("gs_math_rhs",),
                   "net_jacobi": (), "net_default": ("gs_math_block",)}
@@ -3827,28 +3878,35 @@ NET_MODE_PATHS = {"net_chained": ("gs_math_block",),
 JOINT_TEST_CFG = dict(pair_capacity=64, max_colors=8, broad_phase_block=64)
 
 
-def joints_case_state(case: str, prefix: str, device="cuda"):
-    """The state ``<case>.<prefix>.*`` of ``joints_jax.npz`` with the
-    case's joints."""
-    with np.load(NPZ_JOINTS) as z:
-        d = {k[len(case) + 1:]: z[k] for k in z.files
-             if k.startswith(f"{case}.joints.")}
-        p = f"{case}.{prefix}."
-        d.update({k[len(p):]: z[k] for k in z.files if k.startswith(p)})
+@functools.lru_cache(maxsize=None)
+def _stored(npz: str) -> dict:
+    """Every array of a stored-frames file, read once (read only)."""
+    return load_arrays(npz)
+
+
+def joints_case_state(case: str, prefix: str, device="cuda",
+                      npz: str = NPZ_JOINTS):
+    """The state ``<case>.<prefix>.*`` of ``joints_jax.npz`` (or ``npz``)
+    with the case's joints."""
+    z = _stored(npz)
+    d = {k[len(case) + 1:]: v for k, v in z.items()
+         if k.startswith(f"{case}.joints.")}
+    p = f"{case}.{prefix}."
+    d.update({k[len(p):]: v for k, v in z.items() if k.startswith(p)})
     return state_from_arrays(d, device=device)
 
 
-def joints_case_value(key: str):
-    with np.load(NPZ_JOINTS) as z:
-        return z[key]
+def joints_case_value(key: str, npz: str = NPZ_JOINTS):
+    return _stored(npz)[key]
 
 
-def joints_case_config(key: str) -> PipelineConfig:
-    return PipelineConfig.from_dict(json.loads(str(joints_case_value(key))))
+def joints_case_config(key: str, npz: str = NPZ_JOINTS) -> PipelineConfig:
+    return PipelineConfig.from_dict(json.loads(str(joints_case_value(
+        key, npz))))
 
 
-def joints_case_params(case: str) -> SimParams:
-    kw = json.loads(str(joints_case_value(f"{case}.params_json")))
+def joints_case_params(case: str, npz: str = NPZ_JOINTS) -> SimParams:
+    kw = json.loads(str(joints_case_value(f"{case}.params_json", npz)))
     kw["gravity"] = tuple(kw["gravity"])
     return SimParams(**kw)
 
@@ -3869,16 +3927,18 @@ def net_envelopes(state) -> tuple[float, float]:
     return float((vel * vel).sum()), max(NET_BALL_RADIUS - low, 0.0)
 
 
-def joints_reference_phase() -> dict:
-    """Every case of ``joints_jax.npz`` on the card against JAX's frames:
-    the small ones three ``step_checked`` frames, each from JAX's state
-    before it (translations within ``JOINT_SMALL_TR_LIMIT``), the 10k
-    net one frame from JAX's drape state under each steady configuration
-    (within ``JOINT_NET_TR_LIMIT``); counts exactly."""
+def joints_reference_phase(cases=JOINT_SMALL_CASES + JOINT_NET_CASES,
+                           npz: str = NPZ_JOINTS) -> dict:
+    """Every case of ``joints_jax.npz`` (or ``cases`` of ``npz``) on the
+    card against JAX's frames: the small ones three ``step_checked``
+    frames, each from JAX's state before it (translations within
+    ``JOINT_SMALL_TR_LIMIT``), the 10k net one frame from JAX's drape
+    state under each steady configuration (within ``JOINT_NET_TR_LIMIT``);
+    counts exactly."""
     out = {}
-    for case in JOINT_SMALL_CASES + JOINT_NET_CASES:
+    for case in cases:
         net = case in JOINT_NET_CASES
-        params = joints_case_params("net100" if net else case)
+        params = joints_case_params("net100" if net else case, npz)
         limit = JOINT_NET_TR_LIMIT if net else JOINT_SMALL_TR_LIMIT
         errs = []
         for f in range(1 if net else 3):
@@ -3886,20 +3946,20 @@ def joints_reference_phase() -> dict:
                                else (f"ref.{f - 1}.state",
                                      f"{case}.ref.{f - 1}.config_json"))
             state = (joints_case_state("net100", "drape") if net
-                     else joints_case_state(case, prefix))
+                     else joints_case_state(case, prefix, npz=npz))
             state, _ = step_checked(state, params,
-                                    joints_case_config(cfg_key))
+                                    joints_case_config(cfg_key, npz))
             check(_finite(state), f"joints {case} frame {f}: non-finite")
             ref = f"{case}.ref.{f}."
             pc = state.pair_count.cpu().numpy()
-            ref_pc = joints_case_value(ref + "pair_count")
+            ref_pc = joints_case_value(ref + "pair_count", npz)
             d_tr = float(np.abs(state.bodies.poses.translation.cpu().numpy()
-                                - joints_case_value(ref + "translation"))
+                                - joints_case_value(ref + "translation", npz))
                          .max())
             # the 10k net's reference keeps translations only (size)
             d_v = (None if net else float(np.abs(
                 state.bodies.vels.linear.cpu().numpy()
-                - joints_case_value(ref + "linear")).max()))
+                - joints_case_value(ref + "linear", npz)).max()))
             print(f"joints {case} frame {f} (from JAX's state before it): "
                   f"pair_count {pc[:5].tolist()} (ref {ref_pc[:5].tolist()}"
                   f") max|dx| {d_tr:.3e} (limit {limit:.2e}) max|dv| "
@@ -4079,15 +4139,20 @@ def drape_against_ladder(params) -> dict:
     return {"tip_y": tip, "vs_ladder": errs}
 
 
-def _net_gates(name: str, run: dict, jax_stretch) -> dict:
+def _net_gates(name: str, run: dict, jax_stretch,
+               agree_at_warm: bool = False) -> dict:
     """The 10k net's gates on a run from JAX's drape state: finite poses
     (``run_path``), no ball centre below the ground, and (with
     ``jax_stretch``, JAX's largest stretch after each frame from the same
     state) the largest joint stretch at most ``STRETCH_FACTOR`` times
     JAX's at the same frame plus ``STRETCH_SLACK``, and within
-    ``STRETCH_AGREE`` of JAX's."""
+    ``STRETCH_AGREE`` of JAX's. ``agree_at_warm``: the agreement is held
+    after the warm frames instead (another solver than JAX's run, whose
+    landing parts from it chaotically later), the stretch at the end
+    recorded beside JAX's."""
     end = run["end"][0]
-    frames = len(run["trail"]) + run["metrics"]["frames_timed"]
+    warm = len(run["trail"])
+    frames = warm + run["metrics"]["frames_timed"]
     low = float(end.bodies.poses.translation[2:, 1].min())
     stretch = joint_stretch(end)
     m = {"frames": frames, "lowest_centre_y": low, "stretch": stretch}
@@ -4102,9 +4167,16 @@ def _net_gates(name: str, run: dict, jax_stretch) -> dict:
         line += f" (JAX's {ref:.3e}, limit {limit:.3e})"
         check(stretch <= limit, f"{name}: joint stretch {stretch:.3e} m "
               f"past {limit:.3e}")
-        check(abs(stretch - ref) <= STRETCH_AGREE, f"{name}: joint stretch "
-              f"{stretch:.3e} m more than {STRETCH_AGREE:.0e} m from JAX's "
-              f"{ref:.3e}")
+        at, s_at, r_at = frames, stretch, ref
+        if agree_at_warm:
+            at, s_at = warm, joint_stretch(run["warmed"][0])
+            r_at = float(jax_stretch[warm - 1])
+            m.update(warm_stretch=s_at, warm_jax_stretch=r_at)
+            line += (f"; after {warm} frames {s_at:.3e} m (JAX's "
+                     f"{r_at:.3e})")
+        check(abs(s_at - r_at) <= STRETCH_AGREE, f"{name}: joint stretch "
+              f"{s_at:.3e} m after {at} frames more than "
+              f"{STRETCH_AGREE:.0e} m from JAX's {r_at:.3e}")
     print(line)
     run["metrics"]["net"] = m
     return m
@@ -4128,24 +4200,35 @@ def net_mode_configs() -> dict:
 
 
 def joints_phase() -> dict:
-    """The joints: every JAX case of ``joints_jax.npz`` frame by frame,
-    the physical checks, then ``ball_net3(100, 100)`` from JAX's drape
-    state: ``net_ladder`` and ``net_chained_ps`` (``NET_WARM_FRAMES``
-    warm, ``NET_TIMED_FRAMES`` timed, the stretch gate against JAX's),
-    and ``NET_MODE_FRAMES`` frames of each of ``net_mode_configs``.
-    Returns path name -> run, plus ``joint_jax_frames`` and
-    ``joint_checks``."""
-    out = {"joint_jax_frames": joints_reference_phase()}
+    """The joints: every JAX case of ``joints_jax.npz`` frame by frame and
+    the small jointed cases under the fused solver of
+    ``lbvh_fused_joints_jax.npz`` likewise, the physical checks, then
+    ``ball_net3(100, 100)`` from JAX's drape state: ``net_ladder``,
+    ``net_chained_ps`` and ``net_fused`` (``NET_WARM_FRAMES`` warm,
+    ``NET_TIMED_FRAMES`` timed, the stretch gate against JAX's;
+    ``net_fused`` also against the ladder, :func:`net_fused_gates`), and
+    ``NET_MODE_FRAMES`` frames of each of ``net_mode_configs``. Returns
+    path name -> run, plus ``joint_jax_frames``,
+    ``fused_joint_jax_frames`` and ``joint_checks``."""
+    out = {"joint_jax_frames": joints_reference_phase(),
+           "fused_joint_jax_frames": joints_reference_phase(
+               FUSED_JOINT_CASES, NPZ_LBVH_FUSED)}
     checks = {"physics": joints_physics_phase()}
     for path, (case, expect) in JOINT_PATHS.items():
-        run = run_path(path, joints_case_state("net100", "drape"),
-                       joints_case_config(f"{case}.config_json"),
+        cfg = joints_case_config(f"{case}.config_json")
+        if path == "net_fused":
+            cfg = dataclasses.replace(cfg, gs_fused=True,
+                                      gs_rung0=NET_FUSED_RUNG0)
+        run = run_path(path, joints_case_state("net100", "drape"), cfg,
                        joints_case_params("net100"), None, expect,
                        warm=NET_WARM_FRAMES, timed=NET_TIMED_FRAMES,
                        envelopes=net_envelopes)
         checks[path] = _net_gates(path, run,
-                                  joints_case_value(f"{case}.stretch"))
+                                  joints_case_value(f"{case}.stretch"),
+                                  agree_at_warm=path == "net_fused")
         out[path] = run
+    checks["net_fused_vs_ladder"] = net_fused_gates(
+        out, joints_case_params("net100"))
     for path, (cfg, params) in net_mode_configs().items():
         run = run_path(path, joints_case_state("net100", "drape"),
                        cfg, params, None, NET_MODE_PATHS[path],
@@ -4164,7 +4247,8 @@ def joints_kernel_checks(runs: dict, params, summaries: dict) -> None:
     of the first frame after the warm frames of ``net_chained_ps`` (B1)
     and ``net_ladder`` (B2), each one launch against the same kernel
     launched rung by rung and its repeats (bit for bit) and against the
-    plain sweep; under ``net10k_*`` in each kernel's summary."""
+    plain sweep; under ``net10k_*`` in each kernel's summary. Then B10 on
+    ``net_fused``'s plan (:func:`net_fused_kernel_checks`)."""
     for path, kernel in (("net_chained_ps", "gs_math_rhs"),
                          ("net_ladder", "gs_math_block")):
         state, cfg = runs[path]["warmed"]
@@ -4183,17 +4267,324 @@ def joints_kernel_checks(runs: dict, params, summaries: dict) -> None:
                     "net10k_bound_ms": bound_ms(nbytes, flops)[0],
                     "net10k_rows": res[0]["rows"],
                     "net10k_rungs": res[0]["rungs"]})
+    net_fused_kernel_checks(runs, summaries)
 
 
 def joint_share(run_once, frames: int = 3) -> dict:
     """The share of a frame's device and host time spent in the joints'
     constraint build (``solver.JointSolve.build``) and in their passes
-    (``JointSolve.run``), each range also timed by CUDA events
-    (:func:`range_share`)."""
-    return {part: range_share(run_once, solver.JointSolve, attr, label,
-                              frames, events=True)
-            for part, attr, label in (("build", "build", "joint_build"),
-                                      ("passes", "run", "joint_pass"))}
+    (``JointSolve.run``), each range also timed by CUDA events, both in
+    one profiled window (:func:`range_shares`)."""
+    shares = range_shares(run_once, solver.JointSolve,
+                          {"joint_build": "build", "joint_pass": "run"},
+                          frames, events=True)
+    return {"build": shares["joint_build"], "passes": shares["joint_pass"]}
+
+
+# ---------------------------------------------------------------------------
+# the fused solver with joints on the 10k net, and the LBVH broad phase on
+# the 10k pit and the 43k pyramid
+# ---------------------------------------------------------------------------
+
+NPZ_LBVH_FUSED = os.path.join(ROOT, "artifacts",
+                              "lbvh_fused_joints_jax.npz.xz")
+# its cases run three frames each from JAX's state before it: the drape
+# and a chain under gs_fused with joints
+FUSED_JOINT_CASES = ("drape_fused", "chain_fused")
+# pit_lbvh: chained_ps with the LBVH broad phase, warm and timed frames
+# (each frame regrows the pair capacity, ROADMAP C11)
+LBVH_WARM_FRAMES, LBVH_TIMED_FRAMES = 2, 20
+# repeats of one LBVH refresh timed by CUDA events
+LBVH_REPEATS = 5
+
+
+def jointed_fused_calls(device) -> list:
+    """The first substep's two B10 calls (biased, then unbiased, each
+    launched alone) of ``ball_net3(16, 16)`` under the fused solver with
+    joints (``net16_fused`` of ``lbvh_fused_joints_jax.npz.xz``): its first
+    frame from JAX's warmed state under the configuration JAX's third frame
+    ran (every rung regrown)."""
+    case = "net16_fused"
+    state = joints_case_state(case, "warmed", device, NPZ_LBVH_FUSED)
+    cfg = joints_case_config(f"{case}.ref.2.config_json", NPZ_LBVH_FUSED)
+    params = joints_case_params(case, NPZ_LBVH_FUSED)
+    return record_fused(lambda: step_checked(state, params, cfg), 2,
+                        ("fused_sweep",))
+
+
+def net_fused_gates(runs: dict, params) -> dict:
+    """``net_fused`` against ``net_ladder``: three plain steps each from
+    ``net_fused``'s warmed state under both configurations (max |dp| within
+    ``SHORT_GATE_LIMIT``), and the end states' envelopes (deepest centre
+    below a ball's radius within the ladder's plus
+    ``ENVELOPE_PEN_SLACK``, KE within ``ENVELOPE_KE_FACTOR`` x the
+    ladder's plus ``ENVELOPE_KE_SLACK``)."""
+    lad, fus = runs["net_ladder"], runs["net_fused"]
+    st, cfg_f = fus["warmed"]
+    ends = []
+    for cfg in (cfg_f, lad["warmed"][1]):
+        s = st
+        for _ in range(SHORT_GATE_STEPS):
+            s = step(s, params, cfg)
+        check(_finite(s), "net_fused gate: non-finite state")
+        ends.append(s.bodies.poses.translation)
+    err = _max_dp(*ends)
+    m_f, m_l = fus["metrics"], lad["metrics"]
+    ke_f, pen_f = m_f["kinetic_energy"], m_f["max_penetration"]
+    ke_l, pen_l = m_l["kinetic_energy"], m_l["max_penetration"]
+    print(f"gate net_fused vs net_ladder over {SHORT_GATE_STEPS} steps from "
+          f"one warmed state: max|dp| {err:.3e} (limit {SHORT_GATE_LIMIT}); "
+          f"envelopes after {NET_WARM_FRAMES + NET_TIMED_FRAMES} frames: KE "
+          f"{ke_f:.4f} vs ladder {ke_l:.4f}, depth below a radius "
+          f"{pen_f:.5f} vs {pen_l:.5f}")
+    check(np.isfinite(err) and err <= SHORT_GATE_LIMIT,
+          f"net_fused diverges from net_ladder by {err:.3e} m over "
+          f"{SHORT_GATE_STEPS} steps")
+    check(pen_f <= pen_l + ENVELOPE_PEN_SLACK
+          and ke_f <= ENVELOPE_KE_FACTOR * ke_l + ENVELOPE_KE_SLACK,
+          "net_fused envelope exceeds net_ladder's")
+    # recorded: how far the two runs from the drape state part, frame by
+    # frame through the warm frames, and at the end
+    parted = {f + 1: _max_dp(a, b) for f, (a, b) in
+              enumerate(zip(fus["trail"], lad["trail"]))}
+    parted[NET_WARM_FRAMES + NET_TIMED_FRAMES] = _max_dp(
+        fus["end"][0].bodies.poses.translation,
+        lad["end"][0].bodies.poses.translation)
+    print("net_fused against net_ladder from the drape state, max|dp| "
+          "after each frame (recorded): " + ", ".join(
+              f"{f}: {d:.3e}" for f, d in parted.items()))
+    return {f"vs_ladder_{SHORT_GATE_STEPS}_steps": err,
+            "vs_ladder_from_drape": parted,
+            "envelopes": {"net_fused": {"ke": ke_f, "pen": pen_f},
+                          "net_ladder": {"ke": ke_l, "pen": pen_l}}}
+
+
+def net_fused_kernel_checks(runs: dict, summaries: dict) -> None:
+    """B10 launched alone on the 10k net's own plan: the biased and the
+    unbiased sweep of substep 1 of the first frame after ``net_fused``'s
+    warm frames, recorded from ``step_checked``, each one launch against
+    the same kernel launched colour by colour and its repeats (bit for
+    bit) and against its plain version (bit for bit), timed with the
+    plain version; under ``net10k_*`` in B10's summary."""
+    state, cfg = runs["net_fused"]["warmed"]
+    params = joints_case_params("net100")
+    calls = record_fused(lambda: step_checked(state, params, cfg), 2,
+                         ("fused_sweep",))
+    sub = params.substep()
+    check(len(calls) == 2 and all(c.kw.get("integrate") is None
+                                  for c in calls),
+          "net_fused: the first two sweeps are not B10 launched alone")
+    row = summaries["fused_sweep"]
+    res = []
+    for label, call, cfm in (("biased", calls[0], sub.contact_cfm_factor),
+                             ("unbiased", calls[1], 1.0)):
+        check(float(call.args[6]) == float(cfm), f"fused_sweep net10k "
+              f"{label}: cfm {call.args[6]} where {cfm} was expected")
+        got = fused_bits(call, f"net10k {label}")
+        want = run_fused(call, "plain")
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"fused_sweep net10k {label}: one launch differs from the "
+              f"plain version (max abs diff {err:.3e})")
+        k_ms = _median_ms(lambda: run_fused(call, "kernel"))
+        counts_h = call.args[-1].cpu()
+        p_ms = _median_ms(lambda: FUSED_FNS["fused_sweep"][1](
+            *call.args[:-1], counts_h, **call.kw))
+        meta = call.kw["meta"]
+        k_load = max(meta[f][0] + gs_math._size(meta[f][1])
+                     for f in gs_math.UPDATE_FIELDS)
+        z = dict(p_max=call.kw["p_max"], windows=call.kw["windows"],
+                 counts=call.args[-1], ctot=call.args[1].shape[1],
+                 w_g=call.args[0].shape[1])
+        res.append(_report("fused_sweep", f"net10k {label} (C={z['ctot']}, "
+                           f"Wg={z['w_g']}, {_fused_rows(z)} swept rows)",
+                           err, 0.0, "bit for bit against the plain version, "
+                           f"= colour by colour, {FUSED_REPEATS} repeats",
+                           k_ms, p_ms, sweep_work(z, k_load, False)))
+        res[-1]["grid"] = gs_fused.LAST_GRID["fused_sweep"]
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [r["max_abs_err"] for r in res])
+    row.update({"net10k_ms": [r["ms"] for r in res],
+                "net10k_plain_ms": [r["plain_ms"] for r in res],
+                "net10k_bound_ms": [r["bound_ms"] for r in res],
+                "net10k_grid": [r["grid"] for r in res]})
+
+
+def _pair_set(p) -> set:
+    v = p.valid
+    return set(zip(p.body_a[v].tolist(), p.body_b[v].tolist()))
+
+
+def _contact_set(state) -> set:
+    c = state.prev_constraints
+    return set(zip(c.body_a[c.valid].tolist(), c.body_b[c.valid].tolist()))
+
+
+def lbvh_window_bodies(mins, maxs) -> set:
+    """The bodies whose LBVH leaf overlaps more later-ranked leaves than
+    its window holds (``lbvh._PER_LEAF_CAP``, 64): ``find_pairs_lbvh``
+    keeps the first 64 of their pairs, as the JAX package's does, and
+    reports the overflow through ``count`` (ROADMAP C11)."""
+    n = mins.shape[0]
+    tree = lbvh_mod.build(mins, maxs)
+    counts, _ = lbvh_mod._traverse(tree, tree.node_min[n - 1:],
+                                   tree.node_max[n - 1:])
+    return set(tree.order[counts > lbvh_mod._PER_LEAF_CAP].tolist())
+
+
+def lbvh_against_grid(label: str, lbvh_set: set, grid_set: set,
+                      window: set, count: int, capacity: int) -> dict:
+    """The LBVH's pairs (or contacts) against the grid's on the same
+    boxes, under the JAX package's semantics (ROADMAP C11): none the grid
+    lacks; every one it misses has a body whose leaf overflowed its
+    window, and then ``count`` reports it (past ``capacity``). Without an
+    overflowing leaf the two sets are equal."""
+    missed = grid_set - lbvh_set
+    extra = lbvh_set - grid_set
+    bad = [pr for pr in missed if not (set(pr) & window)]
+    out = {"lbvh": len(lbvh_set), "grid": len(grid_set),
+           "missed": len(missed), "window_bodies": sorted(window)[:16],
+           "count": count, "capacity": capacity}
+    print(f"lbvh {label}: {len(lbvh_set)} (grid {len(grid_set)}); "
+          f"{len(missed)} missed, each with a body past the 64-pair window "
+          f"(bodies {sorted(window)[:8]}{' ...' if len(window) > 8 else ''}"
+          f"), count {count} against capacity {capacity}")
+    check(not extra, f"lbvh {label}: {len(extra)} the grid does not have")
+    check(not bad, f"lbvh {label}: {len(bad)} missed without a body past "
+          f"the window, e.g. {bad[:4]}")
+    check(count > capacity if window else missed == set(),
+          f"lbvh {label}: the window's overflow is not reported "
+          f"(count {count}, capacity {capacity}, {len(window)} bodies)")
+    return out
+
+
+def lbvh_refresh_figures(mins, maxs, capacity: int, label: str) -> dict:
+    """One ``find_pairs_lbvh`` call on the card: its time by CUDA events
+    (median of ``LBVH_REPEATS``, host reads included, as the step sees
+    it), host wall time, host reads (``core.dispatch.HOST_SYNCS``), device
+    kernels and device kernel time (one profiled call)."""
+    fn = lambda: find_pairs_lbvh(mins, maxs, capacity=capacity)  # noqa
+    fn()
+    torch.cuda.synchronize()
+    ev, wall = [], []
+    for _ in range(LBVH_REPEATS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s0 = dispatch.HOST_SYNCS
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        ev.append(a.elapsed_time(b))
+        reads = dispatch.HOST_SYNCS - s0
+    prof = profile_window(fn, 1)
+    out = {"boxes": int(mins.shape[0]), "event_ms": statistics.median(ev),
+           "host_wall_ms": statistics.median(wall), "host_reads": reads,
+           "kernels": prof["kernels_per_step"],
+           "device_kernel_ms": prof["device_ms_per_step"]}
+    print(f"lbvh refresh {label}: {out['boxes']} boxes, "
+          f"{out['event_ms']:.3f} ms by CUDA events (median of "
+          f"{LBVH_REPEATS}), host wall {out['host_wall_ms']:.3f} ms, "
+          f"{reads} host reads, {out['kernels']:.0f} device kernels, "
+          f"kernel time {out['device_kernel_ms']:.3f} ms")
+    return out
+
+
+def pyramid_lbvh_check(params) -> dict:
+    """``find_pairs_lbvh`` on ``pyramid(BOX_LEVELS)``'s boxes (42,925
+    cuboids and the ground, first state, the prediction margin) against
+    the grid's pairs (budgets wide enough not to overflow) under
+    :func:`lbvh_against_grid`, and one call's figures. No step is
+    taken."""
+    from wgmath_tpu_torch.scenes.builders import pyramid
+
+    st = pyramid(BOX_LEVELS, device="cuda")
+    mn, mx = shp.world_aabbs(st.shapes, st.bodies.poses,
+                             margin=params.prediction_distance)
+    cap = 1 << 20
+    grid = find_pairs_grid(mn, mx, capacity=cap, max_per_body=64,
+                           cell_cap=32, global_cap=64, cand_budget=432)
+    g_set = _pair_set(grid)
+    check(int(grid.count) == len(g_set) > 0, f"lbvh pyramid: the grid "
+          f"overflowed or dropped pairs (count {int(grid.count)})")
+    lb = find_pairs_lbvh(mn, mx, capacity=cap)
+    out = lbvh_against_grid(f"pyramid({BOX_LEVELS}) pairs", _pair_set(lb),
+                            g_set, lbvh_window_bodies(mn, mx),
+                            int(lb.count), cap)
+    out["refresh"] = lbvh_refresh_figures(mn, mx, cap,
+                                          f"pyramid({BOX_LEVELS})")
+    return out
+
+
+def lbvh_phase(params) -> dict:
+    """The LBVH broad phase on the card. The settled 10k pit under
+    ``chained_ps`` with ``bp_algo="lbvh"`` (``pit_lbvh``): from the stored
+    state, one checked frame with a full broad-phase refresh under the LBVH
+    and under the grid; the pairs after the post-filters and the contacts
+    against the grid's (:func:`lbvh_against_grid`: the pit's ground and
+    walls overlap more than the 64-pair window of later leaves, and the
+    LBVH keeps the first 64 as the JAX package's does, ROADMAP C11); two
+    more checked frames each (finite; their distance to the grid's run
+    recorded); then ``LBVH_WARM_FRAMES`` warm and ``LBVH_TIMED_FRAMES``
+    timed frames from the LBVH's first frame (each regrows the pair
+    capacity, C11). One LBVH refresh at the pit's step inputs (recorded
+    from that frame) and ``pyramid(BOX_LEVELS)``'s boxes
+    (:func:`pyramid_lbvh_check`), timed. Returns ``pit_lbvh`` (a run) and
+    ``lbvh_checks``."""
+    z = dict(np.load(NPZ))
+    cfg_ps = PipelineConfig.from_dict(json.loads(str(z["config_json"])))
+    cfgs = {"grid": cfg_ps, "lbvh": dataclasses.replace(cfg_ps,
+                                                         bp_algo="lbvh")}
+    seen = []
+    real = pipeline_mod.find_pairs_lbvh
+
+    def recording(mn, mx, *, capacity):
+        out = real(mn, mx, capacity=capacity)
+        seen.append((mn.clone(), mx.clone(), capacity, int(out.count)))
+        return out
+
+    first, ends = {}, {}
+    pipeline_mod.find_pairs_lbvh = recording
+    try:
+        for algo, cfg in cfgs.items():
+            s, c = step_checked(state_from_arrays(z, device="cuda"), params,
+                                dataclasses.replace(cfg, bp_force="miss"))
+            check(_finite(s), f"pit_lbvh {algo} first frame: non-finite")
+            first[algo] = (s, dataclasses.replace(c, bp_force=None))
+    finally:
+        pipeline_mod.find_pairs_lbvh = real
+    check(len(seen) >= 1, "pit_lbvh: the LBVH was not called")
+    mn, mx, cap, count = seen[-1]
+    window = lbvh_window_bodies(mn, mx)
+    (s_g, _), (s_l, _) = first["grid"], first["lbvh"]
+    out = {"pairs": lbvh_against_grid(
+               "pit pairs after the post-filters", _pair_set(s_l.bp_pairs),
+               _pair_set(s_g.bp_pairs), window, count, cap),
+           "contacts": lbvh_against_grid(
+               "pit contacts", _contact_set(s_l), _contact_set(s_g), window,
+               count, cap),
+           "first_frame_calls": len(seen)}
+    for algo, (s, c) in first.items():
+        for _ in range(SHORT_GATE_STEPS - 1):
+            s, c = step_checked(s, params, c)
+        check(_finite(s), f"pit_lbvh {algo}: non-finite after "
+              f"{SHORT_GATE_STEPS} frames")
+        ends[algo] = s.bodies.poses.translation
+    err = _max_dp(ends["lbvh"], ends["grid"])
+    out[f"vs_grid_{SHORT_GATE_STEPS}_frames"] = err
+    print(f"pit_lbvh vs chained_ps (grid) after {SHORT_GATE_STEPS} frames "
+          f"from one state: max|dp| {err:.3e} (recorded: the LBVH misses "
+          f"{out['contacts']['missed']} of the ground's and walls' "
+          "contacts, C11)")
+    out["refresh_pit"] = lbvh_refresh_figures(mn, mx, cap, "pit")
+    out["pyramid"] = pyramid_lbvh_check(params)
+    s, c = first["lbvh"]
+    run = run_path("pit_lbvh", s, c, params, None, ("gs_math_rhs",),
+                   warm=LBVH_WARM_FRAMES, timed=LBVH_TIMED_FRAMES)
+    run["metrics"]["pair_capacity"] = run["end"][1].pair_capacity
+    return {"pit_lbvh": run, "lbvh_checks": out}
 
 
 KERNEL_TABLE = (
@@ -4258,8 +4649,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test runs on a "
               "GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     try:
         setup = setup_phase()
+        t_setup = time.perf_counter()
         ladders = {}
         for name, path in (("chained_ps", NPZ), ("ladder", NPZ_LADDER)):
             cfg0 = json.loads(str(np.load(path)["config_json"]))
@@ -4271,6 +4664,7 @@ def main() -> int:
             int(x) for x in zf["ref.0.pair_count"][
                 8:8 + cfg_f["max_colors"] + 2]]))
         summaries.update(linalg_kernel_phase())
+        t_kernels = time.perf_counter()
         linalg_paths = linalg_path_phase()
         linalg_paths.update(gemv_path_phase())
         query_paths = geometry_path_phase()
@@ -4290,25 +4684,37 @@ def main() -> int:
         t4 = time.perf_counter()
         runs.update(joints_phase())
         joints_kernel_checks(runs, params, summaries)
-        print(f"phase seconds: pit paths {t1 - t0:.1f}, box {t2 - t1:.1f}, "
-              f"primitives {t3 - t2:.1f}, solve modes {t4 - t3:.1f}, "
-              f"joints {time.perf_counter() - t4:.1f}")
+        t5 = time.perf_counter()
+        runs.update(lbvh_phase(params))
+        print(f"phase seconds: setup {t_setup - t_start:.1f}, kernels "
+              f"{t_kernels - t_setup:.1f}, linalg and query paths "
+              f"{t0 - t_kernels:.1f}, pit paths {t1 - t0:.1f}, box "
+              f"{t2 - t1:.1f}, primitives {t3 - t2:.1f}, solve modes "
+              f"{t4 - t3:.1f}, joints {t5 - t4:.1f}, lbvh "
+              f"{time.perf_counter() - t5:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     paths = {}
     step_paths = (CONFIGS + tuple(BOX_PATHS) + tuple(PRIM_PATHS)
                   + tuple(SOLVE_PATHS) + tuple(JOINT_PATHS)
-                  + tuple(NET_MODE_PATHS))
+                  + tuple(NET_MODE_PATHS) + ("pit_lbvh",))
+    profile_s = {}
     for name in step_paths:
+        t_prof = time.perf_counter()
         paths[name] = runs[name]["metrics"]
         stepper = _pit_stepper(*runs[name]["end"],
                                runs[name].get("params", params))
-        # a 10k primitives step is ~40,000 kernels, a 10k net step ~10,000
-        # and ~7 s under the profiler: two frames a window, one for the
-        # net's untimed modes
-        frames = (1 if name in NET_MODE_PATHS else
-                  2 if name in PRIM_PATHS or name in JOINT_PATHS else 3)
+        if name in NET_MODE_PATHS:
+            # the net's untimed modes: ms/step and launches only
+            paths[name]["profile"] = "not profiled (an untimed mode)"
+            continue
+        # a 10k primitives step is ~40,000 kernels, a Jacobi step ~33,000,
+        # a 10k net step ~10,000 (~7 s under the profiler), a pit_lbvh
+        # step ~13,000: one frame a window for those; each share (a range
+        # in a profiled window of its own) one frame
+        frames = (1 if name in PRIM_PATHS or name in JOINT_PATHS
+                  or name in ("quickstart_jacobi", "pit_lbvh") else 3)
         try:
             prof = profile_window(stepper, frames)
             paths[name]["profile"] = prof
@@ -4317,7 +4723,7 @@ def main() -> int:
             paths[name]["device_busy_share"] = (
                 prof["device_ms_per_step"] / paths[name]["ms_per_step"])
             if name in BOX_PATHS:
-                paths[name]["sat"] = sat_share(stepper)
+                paths[name]["sat"] = sat_share(stepper, 1)
                 print(f"{name}: {paths[name]['ms_per_step']:.2f} ms/step, "
                       f"device {prof['device_ms_per_step']:.3f} ms/step, "
                       f"{prof['kernels_per_step']:.1f} kernels/step, busy "
@@ -4325,7 +4731,7 @@ def main() -> int:
                       f"{paths[name]['sat']}")
             if name in PRIM_PATHS:
                 m = paths[name]
-                m["pfm"] = pfm_share(stepper, frames)
+                m["pfm"] = pfm_share(stepper, 1)
                 print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
                       f"{prof['device_ms_per_step']:.3f} ms/step, "
                       f"{prof['kernels_per_step']:.1f} kernels/step, "
@@ -4337,7 +4743,7 @@ def main() -> int:
             if name in SOLVE_PATHS:
                 m = paths[name]
                 if name != "quickstart_jacobi":
-                    m["coloring"] = color_share(stepper)
+                    m["coloring"] = color_share(stepper, 1)
                 print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
                       f"{prof['device_ms_per_step']:.3f} ms/step, "
                       f"{prof['kernels_per_step']:.1f} kernels/step, "
@@ -4346,21 +4752,30 @@ def main() -> int:
                       f"launches/step, busy {m['device_busy_share']:.3f}, "
                       f"peak {m['peak_mem_gb']:.3f} GB; colouring "
                       f"{m.get('coloring', 'none (no colours)')}")
-            if name in JOINT_PATHS:
+            if name in JOINT_PATHS or name == "pit_lbvh":
                 m = paths[name]
-                m["joints"] = joint_share(stepper, frames)
-                kernel = JOINT_PATHS[name][1][0]
+                if name in JOINT_PATHS:
+                    m["joints"] = joint_share(stepper, 1)
+                    expect = JOINT_PATHS[name][1]
+                else:
+                    expect = ("gs_math_rhs",)
+                per_kernel = ", ".join(
+                    f"{k} {m[k + '_launches_per_step']:.2f}" for k in expect)
                 print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
                       f"{prof['device_ms_per_step']:.3f} ms/step, "
                       f"{prof['kernels_per_step']:.1f} kernels/step, "
                       f"{m['host_syncs_per_step']:.2f} host syncs/step, "
-                      f"{kernel} {m[kernel + '_launches_per_step']:.2f} "
-                      f"launches/step, busy {m['device_busy_share']:.3f}, "
-                      f"peak {m['peak_mem_gb']:.3f} GB; joints "
-                      f"{m['joints']}")
+                      f"launches/step: {per_kernel}, busy "
+                      f"{m['device_busy_share']:.3f}, peak "
+                      f"{m['peak_mem_gb']:.3f} GB, bp_path mix "
+                      f"{m['bp_path_mix']}; joints "
+                      f"{m.get('joints', 'none')}")
         except Exception as e:  # the profiler is untried on this machine
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
+        profile_s[name] = round(time.perf_counter() - t_prof, 1)
+    print(f"profile seconds: {profile_s}; chip_smoke so far "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": paths, "linalg_paths": linalg_paths,
                       "query_paths": query_paths, "gates": runs["gates"],
                       "box_jax_frames": runs["jax_frames"],
@@ -4370,7 +4785,10 @@ def main() -> int:
                       "solve_jax_frames": runs["solve_jax_frames"],
                       "solve_checks": runs["solve_checks"],
                       "joint_jax_frames": runs["joint_jax_frames"],
-                      "joint_checks": runs["joint_checks"]}))
+                      "fused_joint_jax_frames":
+                          runs["fused_joint_jax_frames"],
+                      "joint_checks": runs["joint_checks"],
+                      "lbvh_checks": runs["lbvh_checks"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:

@@ -80,7 +80,7 @@ jax.config.update("jax_compilation_cache_dir",
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from export_box_npz import slim  # noqa: E402
+from export_box_npz import savez_lzma, slim  # noqa: E402
 from wgmath_tpu.dynamics import SimParams  # noqa: E402
 from wgmath_tpu.pipeline import (  # noqa: E402
     PipelineConfig,
@@ -145,8 +145,10 @@ def joint_stretch(state) -> float:
 
 
 def export_case(name: str, state, params, cfg, arrays: dict,
-                t0: float) -> None:
-    """The warmed ``state`` under ``cfg`` and the next frames."""
+                t0: float, keep_states: bool = True,
+                frames: int = REF_FRAMES) -> None:
+    """The warmed ``state`` under ``cfg`` and the next ``frames`` frames
+    (without ``keep_states``, not the whole states after them)."""
     arrays[f"{name}.config_json"] = _json(cfg)
     arrays[f"{name}.params_json"] = _json(params)
     for k, v in state_to_arrays(state).items():
@@ -154,10 +156,10 @@ def export_case(name: str, state, params, cfg, arrays: dict,
             arrays[f"{name}.{k}"] = v
     _put_state(arrays, f"{name}.warmed", state)
     st, c = state, cfg
-    for f in range(REF_FRAMES):
+    for f in range(frames):
         st, c = step_checked(st, params, c)
         p = f"{name}.ref.{f}"
-        if f < REF_FRAMES - 1:
+        if keep_states and f < frames - 1:
             _put_state(arrays, f"{p}.state", st)
         b = st.bodies
         arrays[f"{p}.translation"] = np.asarray(b.poses.translation)
@@ -165,9 +167,10 @@ def export_case(name: str, state, params, cfg, arrays: dict,
         arrays[f"{p}.angular"] = np.asarray(b.vels.angular)
         arrays[f"{p}.pair_count"] = np.asarray(st.pair_count, np.int32)
         arrays[f"{p}.config_json"] = _json(c)
+    stretch = (f" stretch {joint_stretch(st):.3e}" if st.joints is not None
+               else "")
     print(f"{name}: ref pair_count {np.asarray(st.pair_count)[:5].tolist()}"
-          f" stretch {joint_stretch(st):.3e} ({time.time() - t0:.0f} s)",
-          flush=True)
+          f"{stretch} ({time.time() - t0:.0f} s)", flush=True)
 
 
 def drape_scene():
@@ -387,7 +390,7 @@ def main():
                 for fn, args in JOBS[g]]
         for job in jobs:
             arrays.update(job.get())
-    np.savez_compressed(OUT, **arrays)
+    savez_lzma(OUT, arrays)
     print(f"wrote {OUT} ({os.path.getsize(OUT) / 1e6:.2f} MB, "
           f"{time.time() - t0:.0f} s)", flush=True)
 

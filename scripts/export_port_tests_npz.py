@@ -1,4 +1,4 @@
-"""Export the JAX package's half of two of the port's CPU test files as
+"""Export the JAX package's half of four of the port's CPU test files as
 JAX-free ``.npz`` files, so those tests run only the port:
 
 - ``artifacts/torch_ladder_jax.npz`` for ``tests/test_torch_ladder.py``:
@@ -11,14 +11,20 @@ JAX-free ``.npz`` files, so those tests run only the port:
   build (the XLA route and, in one case, the Pallas kernel in interpret
   mode), per-colour tables, and the fused sweep, substep opening and pose
   update, each on its XLA twin and, where the test holds it, the Pallas
-  kernel in interpret mode.
+  kernel in interpret mode;
+- ``artifacts/torch_kernels_jax.npz.xz`` for ``tests/test_torch_kernels.py``:
+  JAX's ``gs_math_block_rhs`` and ``gs_math_block`` on the test's inputs,
+  the XLA twin and the Pallas kernel in interpret mode;
+- ``artifacts/torch_sat_jax.npz.xz`` for ``tests/test_torch_sat.py``: JAX's
+  cuboid-cuboid SAT manifolds, its narrow phase on the test's scene and
+  its ``auto_manifold_points``.
 
 The inputs come from the test modules' own helpers (numpy ``default_rng``
 draws, no JAX), so the stored results are of the inputs the tests build.
 Every JAX call is the one the test made before it read this file. Runs on
 the CPU (~2 min with a cold JAX cache)::
 
-    JAX_PLATFORMS=cpu python scripts/export_port_tests_npz.py [--only ladder|fused]
+    JAX_PLATFORMS=cpu python scripts/export_port_tests_npz.py [--only NAME]
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
@@ -44,16 +52,21 @@ jax.config.update("jax_compilation_cache_dir",
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from export_box_npz import savez_xz  # noqa: E402
 from wgmath_tpu.dynamics import SimParams as JaxSimParams  # noqa: E402
 from wgmath_tpu.dynamics import body as jbody  # noqa: E402
 from wgmath_tpu.dynamics import build_pallas as jbuild  # noqa: E402
 from wgmath_tpu.dynamics import constraint as jcons  # noqa: E402
 from wgmath_tpu.dynamics import gs_fused as jfused  # noqa: E402
+from wgmath_tpu.dynamics import gs_pallas as jgs  # noqa: E402
 from wgmath_tpu.dynamics import solver as jsolver  # noqa: E402
 from wgmath_tpu.geometry import sim as jsim  # noqa: E402
 
 OUT = {"ladder": os.path.join(ROOT, "artifacts", "torch_ladder_jax.npz"),
-       "fused": os.path.join(ROOT, "artifacts", "torch_fused_jax.npz")}
+       "fused": os.path.join(ROOT, "artifacts", "torch_fused_jax.npz"),
+       "kernels": os.path.join(ROOT, "artifacts",
+                               "torch_kernels_jax.npz.xz"),
+       "sat": os.path.join(ROOT, "artifacts", "torch_sat_jax.npz.xz")}
 
 
 def _np(x):
@@ -305,16 +318,102 @@ def fused() -> dict:
     return out
 
 
+def kernels() -> dict:
+    """``tests/test_torch_kernels.py``: ``gs_math_block_rhs`` and
+    ``gs_math_block`` on the test's inputs, the XLA twin and the Pallas
+    kernel in interpret mode (the file's xz stores an output equal to
+    another in a few bytes), the new impulses XOR the previous ones
+    (``xor_impulses``)."""
+    from tests import test_torch_kernels as t
+
+    out = {}
+    for mode, p_max, L in t.RHS_CASES:
+        x = t._inputs(11 * p_max + L, L, p_max)
+        pre = f"rhs.{mode}.{p_max}.{L}"
+        for r in ("xla", "pallas"):
+            got = [_np(w) for w in t._call(jgs.gs_math_block_rhs,
+                                           jnp.asarray, x, mode, p_max,
+                                           use_pallas=r == "pallas")]
+            for i, w in enumerate(t.xor_impulses(got, x, np.uint32)):
+                out[f"{pre}.{r}.{i}"] = w
+    for layout, p_max, L in t.BLOCK_CASES:
+        x = t._block_inputs(13 * p_max + L, L, p_max, layout)
+        pre = f"block.{layout}.{p_max}.{L}"
+        for r in ("xla", "pallas"):
+            got = [_np(w) for w in t._call_block(jgs.gs_math_block,
+                                                 jnp.asarray, x, p_max,
+                                                 use_pallas=r == "pallas")]
+            for i, w in enumerate(t.xor_impulses(got, x, np.uint32)):
+                out[f"{pre}.{r}.{i}"] = w
+    return out
+
+
+def sat() -> dict:
+    """``tests/test_torch_sat.py``: the SAT manifolds of every case as one
+    batch, the narrow phase's variants on the seeded scene (with the
+    scene's JAX lattice and shapes, the test's inputs), and
+    ``auto_manifold_points`` on the test's shape sets and masks."""
+    from tests import test_torch_sat as t
+
+    from wgmath_tpu.broad_phase.brute_force import PairList as JaxPairList
+    from wgmath_tpu.pipeline import auto_manifold_points
+    from wgmath_tpu.queries.narrow_phase import narrow_phase
+    from wgmath_tpu.queries.sat import cuboid_cuboid_manifold
+    from wgmath_tpu.scenes import builders
+    from wgmath_tpu.shapes.shape import ShapeSet
+    from wgmath_tpu_torch.convert import shapes_to_arrays
+
+    out = {}
+    cat = [np.concatenate(cols) for cols in zip(*t._cases().values())]
+    fn = jax.jit(lambda qa, ta, sa, qb, tb, sb, ha, hb: cuboid_cuboid_manifold(
+        jsim.Sim(qa, ta, sa), jsim.Sim(qb, tb, sb), ha, hb, t.PRED))
+    for i, w in enumerate(fn(*cat)):
+        out[f"cc.{i}"] = _np(w)
+
+    jstate = builders.boxes_and_balls(40)
+    out["scene.translation"] = _np(jstate.bodies.poses.translation)
+    for k, v in shapes_to_arrays(jstate.shapes).items():
+        out[f"scene.shapes.{k}"] = v
+    q, tr, scale, (a, b, valid, k) = t.scene_arrays(
+        out["scene.translation"], 5)
+    pose = jsim.Sim(jnp.asarray(q), jnp.asarray(tr), jnp.asarray(scale))
+    pairs = JaxPairList(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid),
+                        jnp.int32(k))
+
+    @jax.jit
+    def run(pose, pairs):
+        return {name: narrow_phase(pose, jstate.shapes, pairs, t.PRED,
+                                   p_max=p, sat_capacity=cap, bc_capacity=64,
+                                   with_overflow=True)
+                for name, (p, cap) in t.NP_VARIANTS.items()}
+
+    for name, (contacts, need) in run(pose, pairs).items():
+        out[f"narrow.{name}.need"] = _np(need)
+        for f in t.NARROW_FIELDS:
+            out[f"narrow.{name}.{f}"] = _np(getattr(contacts, f))
+
+    sets = t.auto_points_sets(ShapeSet, jnp)
+    for name, js in sets.items():
+        masks = t.auto_points_masks(js.tag.shape[0])
+        out[f"auto.{name}"] = np.asarray(
+            [auto_manifold_points(js, 3, m) for m in masks], np.int32)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=sorted(OUT), default=None)
     only = ap.parse_args().only
-    for name, fn in (("ladder", ladder), ("fused", fused)):
+    for name, fn in (("ladder", ladder), ("fused", fused),
+                     ("kernels", kernels), ("sat", sat)):
         if only not in (None, name):
             continue
         t0 = time.time()
         arrays = fn()
-        np.savez_compressed(OUT[name], **arrays)
+        if name in ("kernels", "sat"):
+            savez_xz(OUT[name], arrays)
+        else:
+            np.savez_compressed(OUT[name], **arrays)
         print(f"wrote {OUT[name]} ({os.path.getsize(OUT[name]) / 1e6:.2f} "
               f"MB, {time.time() - t0:.0f} s)", flush=True)
 

@@ -91,7 +91,7 @@ jax.config.update("jax_compilation_cache_dir",
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from export_box_npz import slim  # noqa: E402
+from export_box_npz import savez_lzma, slim  # noqa: E402
 from wgmath_tpu.dynamics import SimParams  # noqa: E402
 from wgmath_tpu.dynamics import solver as jsolver  # noqa: E402
 from wgmath_tpu.dynamics.constraint import update_constraints  # noqa: E402
@@ -418,7 +418,7 @@ def main():
         jobs = [pool.apply_async(fn) for g in groups for fn in JOBS[g]]
         for job in jobs:
             arrays.update(job.get())
-    np.savez_compressed(OUT, **arrays)
+    savez_lzma(OUT, arrays)
     print(f"wrote {OUT} ({os.path.getsize(OUT) / 1e6:.2f} MB, "
           f"{time.time() - t0:.0f} s)", flush=True)
 

@@ -30,6 +30,7 @@ from chip_smoke import (
     NPZ,
     NPZ_FUSED,
     NPZ_LADDER,
+    NPZ_LBVH_FUSED,
     NPZ_PRIMITIVES,
     NPZ_SOLVE_MODES,
     OP_ASSIGN_RTOL,
@@ -58,6 +59,7 @@ from chip_smoke import (
     joints_case_config,
     joints_case_params,
     joints_case_state,
+    jointed_fused_calls,
     pit_build_call,
     pit_fused_calls,
     pit_sweeps,
@@ -810,7 +812,8 @@ def test_fused_wrappers_never_run_their_plain_versions_on_card(monkeypatch):
 
 FUSED_CASES = tuple(f"{layout}-{kernel}"
                     for layout in ("p1", "p4", "pit", "pyr6")
-                    for kernel in ("fused_sweep", "fused_substep1"))
+                    for kernel in ("fused_sweep", "fused_substep1")) + (
+    "net16j-fused_sweep", "net16j-fused_sweep_unbiased")
 _FUSED = {}
 
 
@@ -819,12 +822,19 @@ def fused_call(request):
     """A B10 or B11 call on the card: ``_fused_case``'s synthetic layouts
     at P = 1 and 4 (a residue, empty colours), or the first substep of the
     settled 10k pit's first frame under the stored ``fused``
-    configuration, or of the warmed ``pyramid(6)``'s first frame (P = 4)."""
+    configuration, or of the warmed ``pyramid(6)``'s first frame (P = 4);
+    or B10 launched alone on a jointed plan, the biased and the unbiased
+    sweep of ``ball_net3(16, 16)``'s first substep under the fused solver
+    (``net16j``, :func:`chip_smoke.jointed_fused_calls`)."""
     _need_card()
     name = request.param
     if name not in _FUSED:
         layout, kernel = name.split("-")
-        if layout in ("pit", "pyr6"):
+        if layout == "net16j":
+            biased, unbiased = jointed_fused_calls("cuda")
+            _FUSED["net16j-fused_sweep"] = biased
+            _FUSED["net16j-fused_sweep_unbiased"] = unbiased
+        elif layout in ("pit", "pyr6"):
             calls = (pit_fused_calls if layout == "pit"
                      else box_fused_calls)("cuda")
             for call in calls:
@@ -952,6 +962,33 @@ def test_fused_pit_step_launches_each_kernel_once_a_substep_on_card():
         assert builds >= 1
         assert per_kernel == [builds * params.num_solver_iterations] * 3
         assert standalone == 0
+
+
+@pytest.mark.cuda
+def test_fused_jointed_step_launches_b10_alone_twice_a_substep_on_card():
+    """A frame of ``ball_net3(16, 16)`` under the fused solver with
+    joints makes a B9 launch per solve and, every substep of a solve, two
+    B10 launches alone (the biased sweep, then the unbiased one after the
+    joint passes); no B11, no B12 carried or standalone."""
+    _need_card()
+    case, npz = "net16_fused", NPZ_LBVH_FUSED
+    state = joints_case_state(case, "warmed", "cuda", npz)
+    cfg = joints_case_config(f"{case}.ref.2.config_json", npz)
+    params = joints_case_params(case, npz)
+    counters = ((build_fused, "LAUNCHES"), (gs_fused, "LAUNCHES_SWEEP"),
+                (gs_fused, "LAUNCHES_SUBSTEP1"),
+                (gs_fused, "INTEGRATES_IN_SWEEP"),
+                (gs_fused, "LAUNCHES_INTEGRATE"))
+    for _ in range(2):
+        n0 = [getattr(mod, name) for mod, name in counters]
+        state, cfg = step_checked(state, params, cfg)
+        torch.cuda.synchronize()
+        builds, sweeps, *others = (
+            getattr(mod, name) - n for (mod, name), n in zip(counters, n0))
+        assert builds >= 1
+        assert sweeps == 2 * builds * params.num_solver_iterations
+        assert others == [0, 0, 0]
+    assert int(state.pair_count[1]) > 0
 
 
 # --- the linear-algebra kernels ---------------------------------------------

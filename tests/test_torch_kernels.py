@@ -1,22 +1,24 @@
 """The port's GS impulse math (``wgmath_tpu_torch.dynamics.gs_math``) against
 the JAX package's ``gs_math_block_rhs`` and ``gs_math_block``: each Pallas
 kernel run in interpret mode and its plain XLA twin, on the same seeded
-inputs.
+inputs. The JAX package's outputs are read from
+``artifacts/torch_kernels_jax.npz.xz`` (``JAX_PLATFORMS=cpu python
+scripts/export_port_tests_npz.py --only kernels`` rewrites it from this
+file's input helpers), so this file imports no JAX.
 
 On the CPU the port's wrapper runs its plain PyTorch version; the CUDA
 kernel itself is held against that version on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from wgmath_tpu.dynamics.gs_pallas import gs_math_block as jax_block
-from wgmath_tpu.dynamics.gs_pallas import gs_math_block_rhs as jax_rhs
+from wgmath_tpu_torch.convert import load_arrays
 from wgmath_tpu_torch.dynamics import gs_math
 from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 
@@ -24,6 +26,38 @@ from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 RTOL, ATOL = 1e-4, 1e-5
 S_LEN = 2
 CONSTS = (240.0, 175.3, 1e-3, 10.0, 0.93)
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "torch_kernels_jax.npz.xz")
+RHS_CASES = [(mode, p_max, L) for mode in ("biased", "unbiased")
+             for p_max in (1, 4) for L in (256, 200)]
+BLOCK_CASES = [(layout, p_max, L) for layout in ("full", "update_only")
+               for p_max in (1, 4) for L in (256, 200)]
+
+
+@pytest.fixture(scope="module")
+def z():
+    return load_arrays(NPZ)
+
+
+def xor_impulses(outs, x, dtype) -> list:
+    """``outs`` with outputs 0 and 1 (the new impulses) XOR the previous
+    impulses ``x["prev_n"]`` / ``x["prev_t"]`` bit for bit, viewed as
+    ``dtype``: JAX's outputs as the file stores them (uint32; most rows
+    keep their impulses, so their words are 0) and back (float32)."""
+    out = list(outs)
+    for i, prev in ((0, x["prev_n"]), (1, x["prev_t"])):
+        out[i] = (out[i].view(np.uint32) ^ prev.view(np.uint32)).view(dtype)
+    return out
+
+
+def _stored(z, pre: str, use_pallas: bool, x) -> list:
+    """JAX's outputs of case ``pre`` (inputs ``x``) on one route."""
+    route = "pallas" if use_pallas else "xla"
+    out, i = [], 0
+    while f"{pre}.{route}.{i}" in z:
+        out.append(z[f"{pre}.{route}.{i}"])
+        i += 1
+    return xor_impulses(out, x, np.float32)
 
 
 def _inputs(seed, L, p_max):
@@ -93,10 +127,9 @@ def _torch(a):
 @pytest.mark.parametrize("L", [256, 200])
 @pytest.mark.parametrize("p_max", [1, 4])
 @pytest.mark.parametrize("mode", ["biased", "unbiased"])
-def test_gs_math_plain_matches_jax(mode, p_max, L, use_pallas):
+def test_gs_math_plain_matches_jax(z, mode, p_max, L, use_pallas):
     x = _inputs(11 * p_max + L, L, p_max)
-    want = _call(jax_rhs, jnp.asarray, x, mode, p_max,
-                 use_pallas=use_pallas)
+    want = _stored(z, f"rhs.{mode}.{p_max}.{L}", use_pallas, x)
     launches = gs_math.LAUNCHES
     got = _call(gs_math.gs_math_block_rhs, _torch, x, mode, p_max)
     assert gs_math.LAUNCHES == launches, "CPU tensors never launch"
@@ -169,10 +202,9 @@ def _call_block(fn, conv, x, p_max, **extra):
 @pytest.mark.parametrize("layout", ["full", "update_only"])
 @pytest.mark.parametrize("L", [256, 200])
 @pytest.mark.parametrize("p_max", [1, 4])
-def test_gs_math_block_plain_matches_jax(p_max, L, layout, use_pallas):
+def test_gs_math_block_plain_matches_jax(z, p_max, L, layout, use_pallas):
     x = _block_inputs(13 * p_max + L, L, p_max, layout)
-    want = _call_block(jax_block, jnp.asarray, x, p_max,
-                       use_pallas=use_pallas)
+    want = _stored(z, f"block.{layout}.{p_max}.{L}", use_pallas, x)
     launches = gs_math.LAUNCHES_BLOCK
     got = _call_block(gs_math.gs_math_block, _torch, x, p_max)
     assert gs_math.LAUNCHES_BLOCK == launches, "CPU tensors never launch"

@@ -144,8 +144,15 @@ def test_ten_frames_track_jax(z, first_frame):
     assert paths[3] == 2 and paths[6] == 1, paths
 
 
-# what the port still refuses, alone and beside the solve modes it takes
-# (Jacobi, no ladder, no class cap, no slack, colour minimization)
+def _contact_set(state):
+    c = state.prev_constraints
+    return set(zip(c.body_a[c.valid].tolist(), c.body_b[c.valid].tolist()))
+
+
+# gs_static_slots is still refused, alone and beside the solve modes the
+# port takes (Jacobi, no ladder, no class cap, no slack, colour
+# minimization); bp_algo="lbvh" is taken beside them, and one checked frame
+# with a full broad-phase refresh has the grid's contact set
 @pytest.mark.parametrize("change", [
     dict(gs_static_slots=True), dict(gs_static_slots=True, use_jacobi=True),
     dict(gs_static_slots=True, gs_windows=()),
@@ -154,8 +161,19 @@ def test_ten_frames_track_jax(z, first_frame):
     dict(bp_algo="lbvh"), dict(bp_algo="lbvh", bp_min_color_sweeps=2)])
 def test_step_refuses_flags_outside_the_slice(warmed, change):
     tstate, tcfg = _port(*warmed)
-    with pytest.raises(NotImplementedError, match="refused"):
-        step(tstate, SimParams(), dataclasses.replace(tcfg, **change))
+    cfg = dataclasses.replace(tcfg, **change)
+    if cfg.bp_algo != "lbvh":
+        with pytest.raises(NotImplementedError, match="refused"):
+            step(tstate, SimParams(), cfg)
+        return
+    cfg = dataclasses.replace(cfg, bp_force="miss")
+    got, got_cfg = step_checked(tstate, SimParams(), cfg)
+    want, _ = step_checked(tstate, SimParams(),
+                           dataclasses.replace(cfg, bp_algo="grid"))
+    assert got_cfg.bp_algo == "lbvh" and int(got.pair_count[3]) == 2
+    assert _contact_set(got) == _contact_set(want)
+    assert len(_contact_set(got)) > 100
+    assert torch.isfinite(got.bodies.poses.translation).all()
 
 
 def test_step_refuses_sharding(warmed):

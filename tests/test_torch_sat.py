@@ -1,6 +1,10 @@
 """The port's cuboid-cuboid SAT manifolds, the narrow phase's cuboid branch
 and ``auto_manifold_points`` against the JAX package on the same seeded
-inputs. Each JAX side is one jitted call per batch shape.
+inputs. The JAX package's results (one jitted call per batch shape) are
+read from ``artifacts/torch_sat_jax.npz.xz``, with the JAX scene builder's
+lattice and shapes (``JAX_PLATFORMS=cpu python
+scripts/export_port_tests_npz.py --only sat`` rewrites it from this
+file's input helpers), so this file imports no JAX.
 
 Tolerances: point counts, chosen axes (through the normals' signs and the
 counts) and every integer exactly. Reals within atol 2e-5, rtol 1e-5: XLA
@@ -10,28 +14,36 @@ by an ulp; on 2,000 seeded pairs the largest gap was 4.3e-6 m. On
 axis-aligned poses of unit scale every product is exact, so the aligned
 lattice, where separations tie, is held bit for bit."""
 
-import jax
-import jax.numpy as jnp
+import os
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from wgmath_tpu.broad_phase.brute_force import PairList as JaxPairList
-from wgmath_tpu.geometry.sim import Sim as JaxSim
-from wgmath_tpu.pipeline import auto_manifold_points as jax_auto_points
-from wgmath_tpu.queries.narrow_phase import narrow_phase as jax_narrow
-from wgmath_tpu.queries.sat import cuboid_cuboid_manifold as jax_cc
-from wgmath_tpu.scenes import builders as jax_builders
-from wgmath_tpu.shapes.shape import ShapeSet as JaxShapeSet
 from wgmath_tpu_torch.broad_phase.brute_force import PairList
-from wgmath_tpu_torch.convert import shapes_from_arrays, shapes_to_arrays
+from wgmath_tpu_torch.convert import (
+    load_arrays,
+    shapes_from_arrays,
+    shapes_to_arrays,
+)
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.pipeline import auto_manifold_points
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.queries.sat import cuboid_cuboid_manifold
+from wgmath_tpu_torch.shapes.shape import ShapeSet
 
 PRED = 0.002
 RTOL, ATOL = 1e-5, 2e-5
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "artifacts", "torch_sat_jax.npz.xz")
+NARROW_FIELDS = ("body_a", "body_b", "valid", "num_points", "normal_a",
+                 "points_a", "dist")
+
+
+@pytest.fixture(scope="module")
+def z():
+    return load_arrays(NPZ)
 
 
 def _quats(rng, n, angle):
@@ -108,13 +120,11 @@ def _cases():
 
 
 @pytest.fixture(scope="module")
-def sat_results():
+def sat_results(z):
     """Every case through both packages as one batch (one JAX compile)."""
     cases = _cases()
     cat = [np.concatenate(cols) for cols in zip(*cases.values())]
-    jax_fn = jax.jit(lambda qa, ta, sa, qb, tb, sb, ha, hb: jax_cc(
-        JaxSim(qa, ta, sa), JaxSim(qb, tb, sb), ha, hb, PRED))
-    want = [np.asarray(x) for x in jax_fn(*cat)]
+    want = [z[f"cc.{i}"] for i in range(4)]
     t = [torch.from_numpy(x) for x in cat]
     got = [x.numpy() for x in cuboid_cuboid_manifold(
         Sim(*t[0:3]), Sim(*t[3:6]), t[6], t[7], PRED)]
@@ -155,14 +165,14 @@ def test_cuboid_cuboid_manifold_matches_jax(sat_results, case):
         assert (num > 0).all() and dist[live].min() < -0.3
 
 
-def _scene(seed):
-    """Balls and cuboids in a tight jittered lattice over the ground,
-    turned a little, with every pair whose centres lie within 1.6 m (and
-    the ground's pairs): JAX and port inputs."""
-    jstate = jax_builders.boxes_and_balls(40)
+def scene_arrays(translation, seed):
+    """Balls and cuboids of ``boxes_and_balls(40)``'s lattice (its
+    ``translation``) pulled tight over the ground and turned a little, with
+    every pair whose centres lie within 1.6 m (and the ground's pairs):
+    (rotations, translations, scales, (body_a, body_b, valid, count))."""
     rng = np.random.default_rng(seed)
     n = 41
-    tr = np.asarray(jstate.bodies.poses.translation).copy()
+    tr = np.asarray(translation).copy()
     tr[1:] *= np.float32([0.85, 0.9, 0.85])
     tr[1:, 1] -= 0.3
     q = _identity(n)
@@ -177,17 +187,7 @@ def _scene(seed):
     valid = np.zeros(cap, bool)
     k = int(keep.sum())
     a[:k], b[:k], valid[:k] = ia[keep], ib[keep], True
-    scale = np.ones(n, np.float32)
-    jpose = JaxSim(jnp.asarray(q), jnp.asarray(tr), jnp.asarray(scale))
-    jpairs = JaxPairList(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid),
-                         jnp.int32(k))
-    tpose = Sim(torch.from_numpy(q), torch.from_numpy(tr),
-                torch.from_numpy(scale))
-    tpairs = PairList(torch.from_numpy(a).long(), torch.from_numpy(b).long(),
-                      torch.from_numpy(valid), torch.tensor(k))
-    tshapes = shapes_from_arrays(shapes_to_arrays(jstate.shapes),
-                                 device="cpu")
-    return (jpose, jstate.shapes, jpairs), (tpose, tshapes, tpairs), k
+    return q, tr, np.ones(n, np.float32), (a, b, valid, k)
 
 
 # narrow-phase variants: (p_max, sat_capacity)
@@ -196,17 +196,18 @@ NP_VARIANTS = {"dense": (4, 0), "compacted": (4, 512), "truncated": (4, 32),
 
 
 @pytest.fixture(scope="module")
-def narrow_results():
-    (jpose, jshapes, jpairs), (tpose, tshapes, tpairs), k = _scene(5)
-
-    @jax.jit
-    def run_jax(pose, pairs):
-        return {name: jax_narrow(pose, jshapes, pairs, PRED, p_max=p,
-                                 sat_capacity=cap, bc_capacity=64,
-                                 with_overflow=True)
-                for name, (p, cap) in NP_VARIANTS.items()}
-
-    want = run_jax(jpose, jpairs)
+def narrow_results(z):
+    q, tr, scale, (a, b, valid, k) = scene_arrays(z["scene.translation"], 5)
+    tpose = Sim(torch.from_numpy(q), torch.from_numpy(tr),
+                torch.from_numpy(scale))
+    tpairs = PairList(torch.from_numpy(a).long(), torch.from_numpy(b).long(),
+                      torch.from_numpy(valid), torch.tensor(k))
+    tshapes = shapes_from_arrays(
+        {k[len("scene.shapes."):]: v for k, v in z.items()
+         if k.startswith("scene.shapes.")}, device="cpu")
+    want = {name: (SimpleNamespace(**{f: z[f"narrow.{name}.{f}"]
+                                      for f in NARROW_FIELDS}),
+                   z[f"narrow.{name}.need"]) for name in NP_VARIANTS}
     got = {name: narrow_phase(tpose, tshapes, tpairs, PRED, p_max=p,
                               sat_capacity=cap, bc_capacity=64)
            for name, (p, cap) in NP_VARIANTS.items()}
@@ -259,26 +260,37 @@ def test_narrow_phase_keeps_the_deepest_points(narrow_results):
     assert bool((idx[ties, :2] == torch.tensor([0, 1])).all())
 
 
-def test_auto_manifold_points_matches_jax():
+def auto_points_sets(shape_set, xp) -> dict:
+    """The shape sets of the ``auto_manifold_points`` test, built with
+    ``shape_set`` (either package's ``ShapeSet``) on arrays of ``xp``."""
+    he = xp.full((3, 3), 0.5)
+    r = xp.full((4,), 0.5)
+    return {"cuboids": shape_set.cuboids(he),
+            "balls_on_ground": shape_set.concat(shape_set.cuboids(he[:1]),
+                                                shape_set.balls(r)),
+            "mixed": shape_set.concat(shape_set.cuboids(he),
+                                      shape_set.balls(r)),
+            "one_cuboid": shape_set.cuboids(he[:1])}
+
+
+def auto_points_masks(n: int) -> list:
+    """No mask, the first body static, all static."""
+    first_static = np.arange(n) > 0
+    return [None, first_static, np.zeros(n, bool)]
+
+
+def test_auto_manifold_points_matches_jax(z):
     """Cuboid stacks, balls over static cuboids, mixed scenes, each with no
-    mask, its own dynamic mask and an all-static one."""
-    he = jnp.full((3, 3), 0.5)
-    r = jnp.full((4,), 0.5)
-    sets = {"cuboids": JaxShapeSet.cuboids(he),
-            "balls_on_ground": JaxShapeSet.concat(
-                JaxShapeSet.cuboids(he[:1]), JaxShapeSet.balls(r)),
-            "mixed": JaxShapeSet.concat(JaxShapeSet.cuboids(he),
-                                        JaxShapeSet.balls(r)),
-            "one_cuboid": JaxShapeSet.cuboids(he[:1])}
-    for name, js in sets.items():
-        n = js.tag.shape[0]
-        shapes = shapes_from_arrays(shapes_to_arrays(js), device="cpu")
-        first_static = np.arange(n) > 0
-        for mask in (None, first_static, np.zeros(n, bool),
-                     torch.from_numpy(first_static)):
-            want = jax_auto_points(js, 3, None if mask is None
-                                   else np.asarray(mask))
-            assert auto_manifold_points(shapes, 3, mask) == want, name
+    mask, its own dynamic mask (as numpy and as a tensor) and an all-static
+    one."""
+    sets = auto_points_sets(ShapeSet, torch)
+    for name, ts in sets.items():
+        shapes = shapes_from_arrays(shapes_to_arrays(ts), device="cpu")
+        masks = auto_points_masks(ts.tag.shape[0])
+        want = z[f"auto.{name}"]
+        for mask, w in zip(masks + [torch.from_numpy(masks[1])],
+                           list(want) + [want[1]]):
+            assert auto_manifold_points(shapes, 3, mask) == w, name
     assert auto_manifold_points(shapes_from_arrays(shapes_to_arrays(
         sets["mixed"]), device="cpu"), 3) == 4
     with pytest.raises(NotImplementedError, match="dim 2"):

@@ -1,5 +1,6 @@
 """Brute-force broad phase (counterpart of
-``wgmath_tpu/broad_phase/brute_force.py``: ``PairList`` and ``find_pairs``).
+``wgmath_tpu/broad_phase/brute_force.py``: ``PairList``, ``find_pairs``
+and its row-block form ``find_pairs_partial``).
 
 Row-blocked pairwise overlap tests with a cumsum + scatter compaction into
 a fixed-capacity pair buffer. Each unordered pair is emitted by its higher
@@ -52,33 +53,62 @@ def find_pairs(mins: torch.Tensor, maxs: torch.Tensor, *, capacity: int,
     """All overlapping AABB pairs (i < j) compacted into ``capacity`` slots.
     ``ball_radius`` (NaN for non-balls) switches ball-ball candidates to the
     exact sphere test; ``dynamic`` drops static-static pairs."""
+    return find_pairs_partial(mins, maxs, 0, mins, maxs, capacity=capacity,
+                              row_active=active, col_active=active,
+                              block=block, max_per_row=max_per_row,
+                              ball_radius=ball_radius, margin=margin,
+                              dynamic=dynamic)
+
+
+def find_pairs_partial(row_mins: torch.Tensor, row_maxs: torch.Tensor,
+                       row_offset, mins: torch.Tensor, maxs: torch.Tensor, *,
+                       capacity: int, row_active=None, col_active=None,
+                       block: int = 256, max_per_row: int = 32,
+                       ball_radius=None, row_ball_radius=None,
+                       margin: float = 0.0, dynamic=None,
+                       row_dynamic=None) -> PairList:
+    """Pairs (i, j) with i in the row block [row_offset, row_offset + R),
+    j any body and i > j (each pair from its higher index), normalized to
+    a < b: the unit of a sharded broad phase, where disjoint row blocks
+    partition :func:`find_pairs`' pair set. ``row_offset`` is an int or a
+    device scalar. As in the JAX package, the rows' radius and dynamic
+    flag are ``row_ball_radius`` / ``row_dynamic`` where given, else the
+    first R entries of ``ball_radius`` / ``dynamic``."""
+    r = row_mins.shape[0]
     n = mins.shape[0]
     dev = mins.device
-    if active is None:
-        active = torch.ones(n, dtype=torch.bool, device=dev)
+    if row_active is None:
+        row_active = torch.ones(r, dtype=torch.bool, device=dev)
+    if col_active is None:
+        col_active = torch.ones(n, dtype=torch.bool, device=dev)
     cols = torch.arange(n, device=dev)
     kk = min(max_per_row, n)
     if ball_radius is not None:
         centers = 0.5 * (mins + maxs)
+        row_rad = ball_radius if row_ball_radius is None else row_ball_radius
+    if dynamic is not None:
+        row_dyn = dynamic if row_dynamic is None else row_dynamic
     out_a = torch.zeros(capacity, dtype=torch.int64, device=dev)
     out_b = torch.zeros(capacity, dtype=torch.int64, device=dev)
     emit = torch.zeros((), dtype=torch.int64, device=dev)
     true_count = torch.zeros((), dtype=torch.int64, device=dev)
     row_overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for r0 in range(0, n, block):
-        rows = torch.arange(r0, min(r0 + block, n), device=dev)
-        overlap = torch.all((mins[rows][:, None, :] <= maxs[None])
-                            & (mins[None] <= maxs[rows][:, None, :]), dim=-1)
+    for r0 in range(0, r, block):
+        local = torch.arange(r0, min(r0 + block, r), device=dev)
+        rows = row_offset + local
+        rmin, rmax = row_mins[local], row_maxs[local]
+        overlap = torch.all((rmin[:, None, :] <= maxs[None])
+                            & (mins[None] <= rmax[:, None, :]), dim=-1)
         if ball_radius is not None:
-            d2 = torch.sum((centers[rows][:, None, :] - centers[None]) ** 2,
-                           dim=-1)
-            lim = ball_radius[rows][:, None] + ball_radius[None] + margin
+            d2 = torch.sum((0.5 * (rmin + rmax)[:, None, :] - centers[None])
+                           ** 2, dim=-1)
+            lim = row_rad[local][:, None] + ball_radius[None] + margin
             overlap = torch.where(torch.isfinite(lim),
                                   overlap & (d2 <= lim * lim), overlap)
         m = overlap & (rows[:, None] > cols[None, :])
-        m &= active[rows][:, None] & active[None, :]
+        m &= row_active[local][:, None] & col_active[None, :]
         if dynamic is not None:
-            m &= dynamic[rows][:, None] | dynamic[None, :]
+            m &= row_dyn[local][:, None] | dynamic[None, :]
         row_counts = m.sum(-1)
         row_overflow |= torch.any(row_counts > kk)
         # the first kk hits of each row, in ascending column order

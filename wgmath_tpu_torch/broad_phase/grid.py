@@ -42,19 +42,32 @@ def top_k_desc(x: torch.Tensor, k: int):
 def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
                     capacity: int, max_per_body: int = 16, cell_cap: int = 8,
                     global_cap: int = 64, cand_budget: int = 48,
-                    ball_radius=None, margin: float = 0.0,
-                    dynamic=None) -> PairList:
-    """All overlapping AABB pairs (i < j) via the sorted uniform grid."""
+                    active=None, ball_radius=None, margin: float = 0.0,
+                    dynamic=None, row_offset=None,
+                    row_count: int | None = None) -> PairList:
+    """All overlapping AABB pairs (i < j) via the sorted uniform grid.
+
+    ``active``: an optional [N] bool mask; inactive bodies enter neither
+    the grid nor the global list. The median extent is then, as in the JAX
+    package, entry ``N // 2`` of the extents sorted with the inactive ones
+    as +inf (not the median of the active bodies).
+
+    ``row_offset`` / ``row_count``: an optional row block; only rows in
+    [offset, offset + count) emit pairs (each pair from its higher index,
+    so disjoint blocks partition the pair set). The cell table stays
+    global; rows past N are inactive, so any block partition is exact.
+    ``row_offset`` is an int or a device scalar."""
     n = mins.shape[0]
     dev = mins.device
     n_off = 27
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
     ext_max = torch.amax(maxs - mins, dim=-1)
-    ext_sorted = torch.sort(ext_max).values
-    med = ext_sorted[n // 2]
-    glob_thr = torch.where(torch.isfinite(med), 3.0 * med,
-                           torch.full_like(med, float("inf")))
-    is_global = ext_max > glob_thr
-    cell = (torch.amax(torch.where(~is_global, ext_max,
+    inf = torch.full_like(ext_max, float("inf"))
+    med = torch.sort(torch.where(active, ext_max, inf)).values[n // 2]
+    glob_thr = torch.where(torch.isfinite(med), 3.0 * med, inf[0])
+    is_global = active & (ext_max > glob_thr)
+    cell = (torch.amax(torch.where(active & ~is_global, ext_max,
                                    torch.zeros_like(ext_max)))
             * 1.0001 + 1e-6)
     center = 0.5 * (mins + maxs)
@@ -67,18 +80,33 @@ def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
     g_valid = gtop > 0
 
     cells = torch.floor(center / cell).to(torch.int64)
-    key = torch.where(~is_global, _pack_key(cells),
+    key = torch.where(active & ~is_global, _pack_key(cells),
                       torch.full_like(ids, 0x7FFFFFFF))
     skey, sid = torch.sort(key, stable=True)
 
-    nkeys = _pack_key(cells[:, None, :]
-                      + _neighbor_offsets(dev)[None, :, :])  # [N, 27]
+    if row_count is None:
+        nr, r_ids = n, ids
+        r_active = active
+
+        def rsl(x):
+            return x
+    else:
+        nr = row_count
+        r_ids = row_offset + torch.arange(nr, device=dev)
+        r_clamp = torch.clamp(r_ids, max=n - 1)
+        r_active = active[r_clamp] & (r_ids < n)
+
+        def rsl(x):
+            return x[r_clamp]
+    r_mins, r_maxs, r_center = rsl(mins), rsl(maxs), rsl(center)
+    nkeys = _pack_key(rsl(cells)[:, None, :]
+                      + _neighbor_offsets(dev)[None, :, :])  # [NR, 27]
     dup = nkeys[:, :, None] == nkeys[:, None, :]
     earlier = torch.tril(torch.ones((n_off, n_off), dtype=torch.bool,
                                     device=dev), diagonal=-1)
     fresh = ~torch.any(dup & earlier[None], dim=-1)
 
-    lo = torch.searchsorted(skey, nkeys.reshape(-1)).reshape(n, n_off)
+    lo = torch.searchsorted(skey, nkeys.reshape(-1)).reshape(nr, n_off)
     spos = torch.arange(n, device=dev)
     is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                           skey[1:] != skey[:-1]])
@@ -102,41 +130,42 @@ def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
     # the first cand_budget occupied slots, in slot order
     wide = n_off * cell_cap
     c_budget = min(cand_budget, wide)
-    in_cell = in_cell.reshape(n, wide)
+    in_cell = in_cell.reshape(nr, wide)
     slot_ids = torch.arange(wide, device=dev)
     occ_score = torch.where(in_cell, wide - slot_ids,
                             torch.zeros_like(slot_ids))
     otop, osel = top_k_desc(occ_score, c_budget)
     cand_valid = otop > 0
     cand_overflow = torch.any(in_cell.sum(-1) > c_budget)
-    pos_sel = torch.gather(pos.reshape(n, wide), 1, osel)
+    pos_sel = torch.gather(pos.reshape(nr, wide), 1, osel)
     cand_sel = sid[pos_sel]
 
-    cand_f = torch.cat([cand_sel, g_ids[None, :].expand(n, gcap)], dim=1)
-    mask_f = torch.cat([cand_valid, g_valid[None, :].expand(n, gcap)], dim=1)
+    cand_f = torch.cat([cand_sel, g_ids[None, :].expand(nr, gcap)], dim=1)
+    mask_f = torch.cat([cand_valid, g_valid[None, :].expand(nr, gcap)],
+                       dim=1)
     w = cand_f.shape[1]
-    rows = ids[:, None]
-    is_glob_row = is_global[:, None]
+    rows = r_ids[:, None]
+    is_glob_row = rsl(is_global)[:, None]
     grid_cols = torch.arange(w, device=dev) < c_budget
     is_glob_col = ~grid_cols[None, :]
     # grid-grid pairs from the higher index; grid-global from the grid side
     order_ok = torch.where(is_glob_col & ~is_glob_row, True, rows > cand_f)
-    mask_f = mask_f & order_ok & (cand_f != rows)
+    mask_f = mask_f & order_ok & (cand_f != rows) & r_active[:, None]
     mask_f = mask_f & ~(is_glob_row & grid_cols[None, :])
     if dynamic is not None:
-        mask_f = mask_f & (dynamic[:, None] | dynamic[cand_f])
+        mask_f = mask_f & (rsl(dynamic)[:, None] | dynamic[cand_f])
     c_mins, c_maxs = mins[cand_f], maxs[cand_f]
     overlap = torch.ones_like(mask_f)
     for a in range(3):
-        overlap &= ((mins[:, a:a + 1] <= c_maxs[..., a])
-                    & (c_mins[..., a] <= maxs[:, a:a + 1]))
+        overlap &= ((r_mins[:, a:a + 1] <= c_maxs[..., a])
+                    & (c_mins[..., a] <= r_maxs[:, a:a + 1]))
     if ball_radius is not None:
         c_center = center[cand_f]
         d2 = torch.zeros_like(c_center[..., 0])
         for a in range(3):
-            da = center[:, a:a + 1] - c_center[..., a]
+            da = r_center[:, a:a + 1] - c_center[..., a]
             d2 = d2 + da * da
-        lim = ball_radius[:, None] + ball_radius[cand_f] + margin
+        lim = rsl(ball_radius)[:, None] + ball_radius[cand_f] + margin
         overlap = torch.where(torch.isfinite(lim), overlap & (d2 <= lim * lim),
                               overlap)
     mask_f = mask_f & overlap
@@ -151,7 +180,7 @@ def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
         top = top_k_desc(torch.where(mask_f, n - cand_f,
                                      torch.zeros_like(cand_f)), kk)[0]
         hit, b_ids = top > 0, n - top
-    a_ids = rows.expand(n, kk)
+    a_ids = rows.expand(nr, kk)
     out_a, out_b, emit = compact_hits(hit, a_ids, b_ids, capacity)
     true_count = row_counts.sum()
     overflow = row_overflow | cell_overflow | glob_overflow

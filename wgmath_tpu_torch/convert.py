@@ -6,7 +6,8 @@ package's layouts and types (int32 integers, float32 reals). It reads the
 fields by name only, so it accepts this package's ``PhysicsState`` and the
 JAX package's alike. :func:`state_from_arrays` builds this package's
 state from such a dict. Keys outside the state are ignored, so one ``.npz``
-can carry a state beside other arrays.
+can carry a state beside other arrays; :func:`load_arrays` reads such a
+file (``.npz``, or an ``.npz`` compressed whole with xz, ``.npz.xz``).
 
 The queries take a shape set and the colliders' poses:
 :func:`shapes_to_arrays` / :func:`shapes_from_arrays` and
@@ -23,6 +24,8 @@ built from an array by ``core.tensor.view_of`` and read back by its
 from __future__ import annotations
 
 import dataclasses
+import io
+import lzma
 
 import numpy as np
 import torch
@@ -187,6 +190,16 @@ def state_to_arrays(state) -> dict[str, np.ndarray]:
         for k, v in joints_to_arrays(state.joints).items():
             out[f"joints.{k}"] = v
     return out
+
+
+def load_arrays(path: str) -> dict:
+    """Every array of an ``.npz`` file by name, or of an ``.npz.xz`` file
+    (an uncompressed ``.npz`` compressed whole with xz)."""
+    if path.endswith(".xz"):
+        with lzma.open(path) as f:
+            path = io.BytesIO(f.read())
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 def state_from_arrays(arrays: dict, device=None) -> PhysicsState:

@@ -1005,14 +1005,6 @@ def _bundle_shapes(c_cap, cmax, max_colors, n, windows, chained: bool):
     return shapes
 
 
-def fused_with_joints(fused: bool, joints) -> str | None:
-    """What is refused where the fused solver would meet joints (not
-    ported, ROADMAP queue A item 3b), or None."""
-    if fused and joints is not None:
-        return "gs_fused with joints (ROADMAP queue A item 3b)"
-    return None
-
-
 def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           params: SimParams, *, max_colors: int,
           warmstart_from: ContactConstraints | None, gs_cmax: int,
@@ -1030,7 +1022,7 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     constraints from its poses once its warmstart is applied, runs one
     joint pass before the biased contact sweep (or Jacobi pass) and one
     unbiased joint pass after integrating (:class:`JointSolve`), as the
-    JAX package does. The fused solver does not take joints.
+    JAX package does; under the fused solver see below.
 
     Colours: ``colors_in`` (the broad phase's cached pair colours), else
     last frame's ``prev_colors`` where this frame's pair keys equal last
@@ -1064,7 +1056,13 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     :func:`~wgmath_tpu_torch.dynamics.gs_fused.fused_substep1` and one
     unbiased ``fused_sweep`` carrying the pose update (``fused_integrate``'s
     arithmetic, on the substep's velocities); ``fused_rung0``
-    is the residue class's rung. ``chained`` is then ignored."""
+    is the residue class's rung. ``chained`` is then ignored. With joints
+    the substep is the JAX package's ``substep_gs`` with the fused sweep
+    instead: the rhs from ``update_rhs_sorted``, the warmstart of every
+    row through the body-sorted sides, the biased joint pass, one
+    standalone ``fused_sweep`` (B10) on the biased rhs, the integration,
+    the unbiased joint pass and B10 again on the unbiased rhs (no B11,
+    nothing carried)."""
     sub = params.substep().with_dim(3)
     n = bodies.num_bodies
     dev = bodies.poses.translation.device
@@ -1072,9 +1070,6 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     use_fused = (fused and bool(gs_windows) and presorted
                  and colors_in is not None and fused_class_counts is not None
                  and not use_jacobi)
-    refused = fused_with_joints(use_fused, joints)
-    if refused:
-        raise NotImplementedError(f"solve does not take {refused}")
     if use_fused:
         cons, big_t, big_meta = build_constraints_fused(
             bodies.poses, bodies.vels, mprops, contacts, params)
@@ -1137,7 +1132,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
             bodies, cons, big_t, big_meta, vels, inc, sub, params,
             windows=windows, rung0=fused_rung0,
             class_counts=fused_class_counts, max_colors=max_colors,
-            same=same, cache_in=cache_in, colors=colors)
+            same=same, cache_in=cache_in, colors=colors,
+            joint_solve=joint_solve)
     chained = chained and bool(windows)
     use_rhs_rung = rhs_in_rung and chained
     use_tail = bool(gs_tail_window and gs_tail_window < cmax and not windows)
@@ -1295,9 +1291,12 @@ def _fused_bundle(cons, windows: tuple, rung0: int, class_counts,
 
 def _solve_fused(bodies: Bodies, cons, big_t, big_meta, vels: Velocity, inc,
                  sub, params: SimParams, *, windows: tuple, rung0: int,
-                 class_counts, max_colors: int, same, cache_in, colors):
+                 class_counts, max_colors: int, same, cache_in, colors,
+                 joint_solve=None):
     """The substep loop of the fused solver (the JAX package's
-    ``substep_fused``); returns as :func:`solve`."""
+    ``substep_fused``, or with ``joint_solve`` its ``substep_gs`` with the
+    fused sweep: :func:`_fused_joint_substeps`); returns as
+    :func:`solve`."""
     n = bodies.num_bodies
     dev = big_t.device
     c_cap = cons.body_a.shape[0]
@@ -1355,6 +1354,14 @@ def _solve_fused(bodies: Bodies, cons, big_t, big_meta, vels: Velocity, inc,
             torch.where(res_valid & dyn_b, cons.body_b[:rung0], trash)])
         res_index = (torch.arange(6, device=dev)[:, None], res_lanes[None])
 
+    n_t = cons.n_impulse.reshape(c_cap, p_max).T.contiguous()
+    t_t = cons.t_impulse.reshape(c_cap, p_max * s_len).T.contiguous()
+    if joint_solve is not None:
+        return _fused_joint_substeps(
+            bodies, cons, vels, inc, sub, params, bundle, n_t, t_t,
+            (win_t, active_t, nump_t), (idx, inv, counts), kw, w_g,
+            joint_solve, max_colors=max_colors, rung0=rung0,
+            windows=windows, colors=colors)
     vt = torch.zeros((8, w_g), device=dev)
     vt[0:3, :n] = vels.linear.T
     vt[3:6, :n] = vels.angular.T
@@ -1362,8 +1369,6 @@ def _solve_fused(bodies: Bodies, cons, big_t, big_meta, vels: Velocity, inc,
     pose_p[:, :n] = torch.cat([bodies.poses.rotation,
                                bodies.poses.translation,
                                bodies.poses.scale[:, None]], dim=-1).T
-    n_t = cons.n_impulse.reshape(c_cap, p_max).T.contiguous()
-    t_t = cons.t_impulse.reshape(c_cap, p_max * s_len).T.contiguous()
     for _ in range(params.num_solver_iterations):
         vt = vt + inc_t
         if rung0:
@@ -1384,6 +1389,63 @@ def _solve_fused(bodies: Bodies, cons, big_t, big_meta, vels: Velocity, inc,
             inv, counts, integrate=(pose_p, com_t, sub.dt), **kw)
     vels = Velocity(vt[0:3, :n].T, vt[3:6, :n].T)
     poses = Sim(pose_p[0:4, :n].T, pose_p[4:7, :n].T, pose_p[7, :n])
+    return _fused_result(poses, vels, cons, n_t, t_t, bundle,
+                         max_colors=max_colors, rung0=rung0, windows=windows,
+                         colors=colors)
+
+
+def _fused_joint_substeps(bodies: Bodies, cons, vels: Velocity, inc, sub,
+                          params: SimParams, bundle, n_t, t_t, fields,
+                          tables, kw, w_g: int, joint_solve: JointSolve, *,
+                          max_colors: int, rung0: int, windows: tuple,
+                          colors):
+    """The fused solver's substeps with joints (the JAX package's
+    ``substep_gs`` with ``run_sweep``'s fused branch): velocities, poses
+    and the rhs row-major, the impulses component-major as B10 takes them,
+    each sweep one standalone B10 launch on velocities packed afresh."""
+    n = bodies.num_bodies
+    dev = n_t.device
+    c_cap = cons.body_a.shape[0]
+    p_max, s_len = kw["p_max"], kw["s_len"]
+    ws = float(sub.warmstart_coefficient)
+    cfm_biased = float(sub.contact_cfm_factor)
+    poses, com = bodies.poses, bodies.local_mprops.com
+
+    def sweep(vels, n_t, t_t, cfm, n_rhs, t_rhs):
+        vt = torch.zeros((8, w_g), device=dev)
+        vt[0:3, :n] = vels.linear.T
+        vt[3:6, :n] = vels.angular.T
+        vt, n_t, t_t = fused_sweep(
+            vt, n_t, t_t, *fields, cfm,
+            n_rhs.reshape(c_cap, p_max).T.contiguous(),
+            t_rhs.reshape(c_cap, p_max * s_len).T.contiguous(), *tables,
+            **kw)
+        return Velocity(vt[0:3, :n].T, vt[3:6, :n].T), n_t, t_t
+
+    for _ in range(params.num_solver_iterations):
+        vels = Velocity(vels.linear + inc, vels.angular)
+        n_rhs, n_rhs_wo_bias, t_rhs = update_rhs_sorted(cons, poses, sub)
+        n_t, t_t = n_t * ws, t_t * ws
+        deltas = _ws_deltas(cons, n_t.T, t_t.T.reshape(c_cap, p_max, s_len),
+                            cons.valid, p_max)
+        vels = _ws_apply(vels, deltas, bundle[3:6])
+        vels = joint_solve.biased(poses, vels)
+        vels, n_t, t_t = sweep(vels, n_t, t_t, cfm_biased, n_rhs, t_rhs)
+        poses = integrate_velocity(poses, vels, com, sub.dt)
+        vels = joint_solve.unbiased(vels)
+        vels, n_t, t_t = sweep(vels, n_t, t_t, 1.0, n_rhs_wo_bias,
+                               cons.t_rhs_wo_bias)
+    return _fused_result(poses, vels, cons, n_t, t_t, bundle,
+                         max_colors=max_colors, rung0=rung0, windows=windows,
+                         colors=colors)
+
+
+def _fused_result(poses, vels, cons, n_t, t_t, bundle, *, max_colors: int,
+                  rung0: int, windows: tuple, colors):
+    """The fused solve's return: the impulses row-major again and the
+    class counts with the residue's overflow signal."""
+    c_cap = cons.body_a.shape[0]
+    p_max, s_len = cons.n_impulse.shape[1], cons.tangent_a.shape[-2]
     cons = dataclasses.replace(
         cons, n_impulse=n_t.T.reshape(c_cap, p_max),
         t_impulse=t_t.T.reshape(c_cap, p_max, s_len))

@@ -7,7 +7,9 @@ window ladder → integration (counterpart of ``wgmath_tpu/pipeline.py``:
 The JAX step is one jitted program whose branches are ``lax.cond`` /
 ``lax.switch``; here each branch is a Python branch on a host value (one
 counted host sync each, ``core.dispatch.host_int``). ``step`` runs the
-grid (or brute) broad phase, with its cache when ``bp_slack`` > 0; the
+grid, brute-force or LBVH broad phase (``bp_algo``; the LBVH's pairs then
+pass the grid's sphere prefilter and static-static drop), with its cache
+when ``bp_slack`` > 0; the
 pair colours ride that cache when ``gs_cmax`` > 0 too, else the solve
 colours the contacts itself (reusing last frame's colours while the pair
 keys hold). Without ``gs_windows`` every colour sweeps a uniform window
@@ -38,10 +40,11 @@ solver configurations the bench calls
 ``gs_fused``, ``gs_chained`` and ``gs_pair_slots`` need the ladder (and
 the fused layout and the pair slots the cached colours); without them the
 unfused, unchained form runs, as in the JAX package. Impulse joints
-(``state.joints``) solve in every configuration but ``fused``: per
-substep one joint pass before the biased contact sweep and one after
-integrating. Sharding, 2D, ``gs_static_slots``, other broad phases and the
-fused solver with joints are refused with ``NotImplementedError``.
+(``state.joints``) solve in every configuration: per substep one joint
+pass before the biased contact sweep and one after integrating (under
+``fused`` the sweeps are then two standalone sweep kernels a substep, as
+in the JAX package). Sharding, 2D, ``gs_static_slots`` and other broad
+phases are refused with ``NotImplementedError``.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -60,6 +63,7 @@ from wgmath_tpu_torch.broad_phase.brute_force import (
     find_pairs,
 )
 from wgmath_tpu_torch.broad_phase.grid import find_pairs_grid, top_k_desc
+from wgmath_tpu_torch.broad_phase.lbvh import find_pairs_lbvh
 from wgmath_tpu_torch.core.dispatch import (
     capacity_bucket,
     host_int,
@@ -75,11 +79,11 @@ from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.dynamics.solver import (
     assign_new_pair_colors,
     color_pairs,
-    fused_with_joints,
     minimize_colors,
     solve,
     transfer_pair_colors,
 )
+from wgmath_tpu_torch.queries.gjk import _norm3
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.shapes.shape import (
     BALL,
@@ -172,9 +176,8 @@ class PipelineConfig:
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
     """Refuse what the port does not take: sharding, 2D, shape kinds
-    outside ``SUPPORTED_KINDS``, ``gs_static_slots``, the broad phases
-    other than the grid and the brute force, 2D joints, and the fused
-    solver with joints."""
+    outside ``SUPPORTED_KINDS``, ``gs_static_slots``, broad phases other
+    than the grid, the brute force and the LBVH, and 2D joints."""
     bad = []
     if shard is not None:
         bad.append("shard")
@@ -184,13 +187,10 @@ def _check_slice(state: PhysicsState, config: PipelineConfig,
         bad.append(f"shape kinds {sorted(state.shapes.kinds)}")
     if config.gs_static_slots:
         bad.append("gs_static_slots")
-    if config.bp_algo not in ("auto", "grid", "brute"):
+    if config.bp_algo not in ("auto", "grid", "brute", "lbvh"):
         bad.append(f"bp_algo={config.bp_algo}")
     if state.joints is not None and state.joints.dim != 3:
         bad.append("2D joints")
-    refused = fused_with_joints(config.gs_fused, state.joints)
-    if refused:
-        bad.append(refused)
     if bad:
         raise NotImplementedError(
             "wgmath_tpu_torch.pipeline.step does not take these; refused: "
@@ -287,6 +287,22 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     sphere_margin = params.prediction_distance
 
     def run_bp(mn, mx):
+        if config.bp_algo == "lbvh":
+            # the tree knows no balls and no statics: the grid's sphere
+            # prefilter and static-static drop run on its pairs instead,
+            # zeroing the dropped rows in place (the grid's pair set while
+            # no leaf overflows its 64-pair window, ROADMAP C11)
+            p = find_pairs_lbvh(mn, mx, capacity=config.pair_capacity)
+            keep = p.valid & (dyn_mask[p.body_a] | dyn_mask[p.body_b])
+            if radii_bp is not None:
+                centers = (mn + mx) * 0.5
+                d = _norm3(centers[p.body_a] - centers[p.body_b])
+                lim = (radii_bp[p.body_a] + radii_bp[p.body_b]
+                       + sphere_margin)
+                keep = keep & ~(d > lim)  # a NaN limit keeps the pair
+            zero = torch.zeros_like(p.body_a)
+            return PairList(torch.where(keep, p.body_a, zero),
+                            torch.where(keep, p.body_b, zero), keep, p.count)
         if use_grid:
             return find_pairs_grid(
                 mn, mx, capacity=config.pair_capacity,
