@@ -58,7 +58,7 @@ Three phases; any failed check ends the run with a non-zero exit:
    solve modes (colouring in the solve, uniform and split windows, the
    Jacobi solver): the README's quick start (``SCENES["pyramid3"]``,
    ``PipelineConfig(pair_capacity=16384)``, 300 ``step_checked`` frames)
-   and the testbed's ``--solver jacobi`` on the same scene (60 frames),
+   and the testbed's ``--solver jacobi`` on the same scene (30 frames),
    each against the JAX frames in ``artifacts/solve_modes_jax.npz`` and
    under the physical checks; the settled pit under the bench's
    ``steady_base`` (split windows over the cached colours) and the same
@@ -87,7 +87,19 @@ Three phases; any failed check ends the run with a non-zero exit:
    with a full refresh against the grid's pairs and contacts (the JAX
    package's per-leaf window of 64 pairs drops the ground's past it,
    ROADMAP C11), three frames, ``pit_lbvh`` timed, and one LBVH call at
-   the pit and at ``pyramid(50)``'s 42,926 boxes, timed.
+   the pit and at ``pyramid(50)``'s 42,926 boxes, timed. Last the meshes:
+   ``trimesh3`` (100 balls on a 450-triangle field) three frames each
+   from JAX's state before it (``artifacts/mesh_jax.npz.xz``), then timed;
+   the CPU tests' small mesh, convex and triangle-GJK cases and the
+   standalone segment / triangle / convex scenes against JAX's results;
+   ``mesh10k`` (5,000 balls and 5,000 cuboids on the 100,352-triangle
+   field, the clustered route) three frames from its built state against
+   JAX's (the balls within 1e-4 m; the cuboids' triangle rows row by row,
+   where JAX's float32 GJK leaves the true distance on ~5.6 % of them the
+   port held to a float64 referee, ROADMAP C13), timed, with its physical
+   checks (no centre below the field, the deepest contact, the mesh-pair
+   demand within the batches), B2 on its own plan and the mesh contacts'
+   share of the step.
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -3414,14 +3426,26 @@ def range_shares(run_once, module, ranges: dict, frames: int = 3,
     finally:
         for attr, fn in real.items():
             setattr(module, attr, fn)
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and e.key not in ranges]
     total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.key not in ranges)
+                   for e in kernels)
     events_all = prof.events()
-    out = {}
+    # the whole window's figures, as profile_window gives them
+    out = {"window": {
+        "device_ms_per_step": total_us / 1e3 / frames,
+        "profiled_wall_ms_per_step": wall_ms / frames,
+        "device_busy_share": total_us / 1e3 / wall_ms,
+        "kernels_per_step": sum(e.count for e in kernels
+                                if getattr(e, "self_device_time_total",
+                                           0.0)) / frames}}
     for label in ranges:
-        spans = [e for e in events_all if e.name == label]
+        # the host-side ranges only: the profiler also lays each range on
+        # the device's timeline under the same name, a span whose time
+        # includes the device's idle gaps
+        spans = [e for e in events_all if e.name == label
+                 and getattr(e, "device_type", None) == DeviceType.CPU]
         dev = sum(e.device_time_total for e in spans)
         host = sum(e.cpu_time_total for e in spans)
         out[label] = {"calls_per_step": len(spans) / frames,
@@ -3525,8 +3549,8 @@ NPZ_SOLVE_MODES = os.path.join(ROOT, "artifacts", "solve_modes_jax.npz")
 QUICK_LEVELS = 20  # SCENES["pyramid3"]: 2,870 cuboids and the ground
 QUICK_FRAMES = 300  # the last QUICK_TIMED of them timed
 QUICK_TIMED = 50
-JACOBI_FRAMES = 60  # the last JACOBI_TIMED of them timed
-JACOBI_TIMED = 50
+JACOBI_FRAMES = 30  # the last JACOBI_TIMED of them timed (60 / 50 until
+JACOBI_TIMED = 20  # the meshes came: the run's time limit)
 SETTLE_FRAMES = 60  # the last SETTLE_TIMED of them timed
 SETTLE_TIMED = 50
 # the tail window of B2's split-plan check on the settled pit's first
@@ -3732,7 +3756,7 @@ def pit_settle_path(params) -> dict:
 
 def solve_modes_phase(params, runs: dict) -> dict:
     """The solve modes: the quick start's JAX frames, ``quickstart`` (300
-    frames, the physical checks), ``quickstart_jacobi`` (60 frames),
+    frames, the physical checks), ``quickstart_jacobi`` (30 frames),
     ``pit_split`` and ``pit_uniform`` from the settled checkpoint (the
     bench's warm and timed frames, the short gate and the envelopes against
     ``runs["ladder"]``), and ``pit_settle``. Returns path name -> run, plus
@@ -4587,6 +4611,638 @@ def lbvh_phase(params) -> dict:
     return {"pit_lbvh": run, "lbvh_checks": out}
 
 
+# ---------------------------------------------------------------------------
+# the meshes: trimesh3, the small mesh / convex / standalone cases, and
+# mesh10k (10,000 bodies on the 100k-triangle field)
+# ---------------------------------------------------------------------------
+
+NPZ_MESH = os.path.join(ROOT, "artifacts", "mesh_jax.npz.xz")
+# trimesh3 after JAX's state, mesh10k after its three reference frames:
+# warm and timed frames
+MESH_WARM_FRAMES, MESH_TIMED_FRAMES = 3, 10
+MESH10K_REF_FRAMES = 3
+MESH_DEPTH_LIMIT = 0.05  # the deepest contact after the timed frames, m
+STANDALONE_FRAMES = 40  # each scene rests from frame 16 on (80 in JAX's)
+STANDALONE_END_LIMIT = 1e-3  # the end against JAX's, m
+MESH_PATHS = {"trimesh3": ("gs_math_block",), "mesh10k": ("gs_math_block",)}
+# mesh10k's convex rows against JAX's (tests/test_torch_gjk.py's GJK_ATOL),
+# and the share of them JAX's float32 GJK may misjudge (C13: 1,128 of
+# 20,000 on the first frame, scripts/check_mesh_gjk.py)
+GJK_ROW_ATOL = 1e-4
+C13_ROW_SHARE = 0.08
+# mesh10k against JAX's translations, the cuboids at limits set from the
+# card's readings (H100 80GB HBM3, 700 W; the same in four runs): frame 1,
+# the cuboids no misjudged row touches (their rows' normals may still part
+# in float32 on world-scale triangles; 3.17e-4 m read, 2.3e-4 on the CPU)
+# and the cuboids a misjudged row touches (3.19e-3 m read: JAX pushes them
+# off false overlaps); frame 3, every cuboid (7.98e-3 m read, 2,253 past
+# 1 mm: each frame JAX misjudges ~1,100 other rows)
+CUBOID_FRAME1_LIMIT = 5e-4
+CUBOID_TOUCHED_LIMIT = 4e-3
+CUBOID_FRAME3_LIMIT, CUBOID_FRAME3_PAST_1MM = 1e-2, 2500
+
+
+def mesh10k_scene(device="cuda"):
+    """10,000 bodies on the 225 x 225 field at 0.2 m (100,352 triangles,
+    the static body 0) from the port's public constructors: the 5,000 balls
+    and 5,000 cuboids of ``tests/mesh_inputs.mesh10k_layout``.
+    ``scripts/export_mesh_npz.py``'s ``mesh10k_scene`` builds the JAX
+    package's; ``tests/test_torch_pipeline_mesh.py`` holds the two equal
+    array for array."""
+    from tests.mesh_inputs import (
+        MESH10K_BALL_R,
+        MESH10K_BOX_HE,
+        MESH10K_SPACING,
+        mesh10k_layout,
+    )
+    from wgmath_tpu_torch.pipeline import new_state
+    from wgmath_tpu_torch.scenes.builders import _merge_mprops
+    from wgmath_tpu_torch.shapes.mesh import heightfield
+
+    dev = torch.device(device)
+    h, balls, boxes = mesh10k_layout()
+    r = torch.full((len(balls),), MESH10K_BALL_R, device=dev)
+    he = torch.full((len(boxes), 3), MESH10K_BOX_HE, device=dev)
+    shapes = shp.ShapeSet.concat(
+        heightfield(h, MESH10K_SPACING, MESH10K_SPACING, device=dev),
+        shp.ShapeSet.balls(r), shp.ShapeSet.cuboids(he))
+    trans = torch.from_numpy(np.concatenate(
+        [np.zeros((1, 3), np.float32), balls, boxes])).to(dev)
+    n = trans.shape[0]
+    rot = torch.zeros((n, 4), device=dev)
+    rot[:, 3] = 1.0
+    mp = _merge_mprops(
+        body_ops.cuboid_local_mprops(
+            torch.tensor([[25.0, 1.0, 25.0]], device=dev),
+            dynamic=torch.tensor([False], device=dev)),
+        body_ops.ball_local_mprops(r), body_ops.cuboid_local_mprops(he))
+    return new_state(body_ops.Bodies(Sim(rot, trans, torch.ones(n,
+                                                                 device=dev)),
+                                     body_ops.Velocity.zero(n, device=dev),
+                                     mp), shapes)
+
+
+def mesh10k_pipeline_config(shapes) -> PipelineConfig:
+    """The testbed runner's configuration (``PipelineConfig(pair_capacity=
+    16384)`` with ``auto_manifold_points``) with
+    ``tests/mesh_inputs.mesh10k_config``'s mesh batch of 16,384 pairs."""
+    from tests.mesh_inputs import mesh10k_config
+    from wgmath_tpu_torch.pipeline import auto_manifold_points
+
+    cfg = dataclasses.replace(
+        PipelineConfig(pair_capacity=16384,
+                       manifold_points=auto_manifold_points(shapes, 3)),
+        **mesh10k_config())
+    check(cfg.manifold_points == 4, "mesh10k: not a 4-point scene")
+    return cfg
+
+
+def standalone_scene(name: str, device="cuda"):
+    """``scripts/export_mesh_npz.py``'s standalone cases from the port's
+    constructors: a ball of radius 0.4 over a bare triangle (0.55 m up)
+    and over a wire (0.5 m; ``tests/test_standalone_shapes.py``'s), and a
+    convex polyhedron (a 0.3-cube's corners) 0.45 m over a slab whose top
+    is at 0.1 m. Returns the state and its configuration."""
+    from tests.mesh_inputs import cube_corners
+    from wgmath_tpu_torch.pipeline import new_state
+    from wgmath_tpu_torch.scenes.builders import _merge_mprops
+    from wgmath_tpu_torch.shapes.mesh import convex_polyhedron
+
+    dev = torch.device(device)
+    ball = shp.ShapeSet.balls(torch.tensor([0.4], device=dev))
+    if name == "triangle":
+        base = shp.ShapeSet.triangles(torch.tensor(
+            [[[-2.0, 0.0, -2.0], [2.0, 0.0, -2.0], [0.0, 0.0, 2.0]]],
+            device=dev))
+        body, y0 = ball, 0.55
+    elif name == "segment":
+        base = shp.ShapeSet.segments(torch.tensor([[-2.0, 0.0, 0.0]],
+                                                  device=dev),
+                                     torch.tensor([[2.0, 0.0, 0.0]],
+                                                  device=dev))
+        body, y0 = ball, 0.5
+    else:
+        base = shp.ShapeSet.cuboids(torch.tensor([[3.0, 0.1, 3.0]],
+                                                 device=dev))
+        body, y0 = convex_polyhedron(cube_corners(0.3), device=dev), 0.45
+    shapes = shp.ShapeSet.concat(base, body)
+    trans = torch.tensor([[0.0, 0.0, 0.0], [0.0, y0, 0.0]], device=dev)
+    rot = torch.zeros((2, 4), device=dev)
+    rot[:, 3] = 1.0
+    mp_body = (body_ops.ball_local_mprops(body.params[:, 0])
+               if name != "convex" else body_ops.cuboid_local_mprops(
+                   torch.tensor([[0.3, 0.3, 0.3]], device=dev)))
+    mp = _merge_mprops(body_ops.cuboid_local_mprops(
+        torch.tensor([[1.0, 1.0, 1.0]], device=dev),
+        dynamic=torch.tensor([False], device=dev)), mp_body)
+    state = new_state(body_ops.Bodies(Sim(rot, trans, torch.ones(
+        2, device=dev)), body_ops.Velocity.zero(2, device=dev), mp), shapes)
+    cfg = PipelineConfig(pair_capacity=64, max_colors=4,
+                         manifold_points=4 if name == "convex" else 1)
+    return state, cfg
+
+
+def field_surface(h: np.ndarray, spacing: float, xz: np.ndarray):
+    """The height of ``heightfield(h, spacing, spacing)`` under each
+    (x, z) (its two triangles a cell: [a, b, c] and [b, d, c])."""
+    c = (h.shape[0] - 1) / 2.0
+    g = xz / spacing + c
+    i = np.clip(np.floor(g[:, 0]).astype(int), 0, h.shape[0] - 2)
+    j = np.clip(np.floor(g[:, 1]).astype(int), 0, h.shape[1] - 2)
+    u, w = g[:, 0] - i, g[:, 1] - j
+    ha, hb, hc, hd = h[i, j], h[i, j + 1], h[i + 1, j], h[i + 1, j + 1]
+    return np.where(u + w <= 1.0, ha + (hc - ha) * u + (hb - ha) * w,
+                    hd + (hb - hd) * (1.0 - u) + (hc - hd) * (1.0 - w))
+
+
+@contextlib.contextmanager
+def cluster_rounds():
+    """The cluster rounds of every ``point_topk_prims`` call the mesh
+    contacts make inside the block (a list, one entry a call)."""
+    from wgmath_tpu_torch.queries import mesh_contact
+
+    rounds, real = [], mesh_contact.point_topk_prims
+
+    def counted(*args, **kw):
+        kw["rounds"] = rounds
+        return real(*args, **kw)
+
+    mesh_contact.point_topk_prims = counted
+    try:
+        yield rounds
+    finally:
+        mesh_contact.point_topk_prims = real
+
+
+def mesh_rows(state, cfg) -> list:
+    """Valid rows of the ball and of the convex mesh batches in the
+    uncompacted constraint buffer after a step."""
+    valid = state.prev_constraints.valid
+    lo = cfg.pair_capacity
+    mid = lo + cfg.mesh_pair_capacity * cfg.mesh_k_best
+    return [int(valid[lo:mid].sum()), int(valid[mid:].sum())]
+
+
+def grid_pairs(state, cfg, params):
+    """The pairs the step's grid broad phase finds for ``state`` (no
+    slack: the mesh scenes refresh every frame), read outside the step."""
+    poses = state.bodies.poses
+    mn, mx = shp.world_aabbs(state.shapes, poses,
+                             margin=params.prediction_distance)
+    return find_pairs_grid(
+        mn, mx, capacity=cfg.pair_capacity,
+        max_per_body=cfg.broad_phase_max_per_row, cell_cap=cfg.bp_cell_cap,
+        global_cap=cfg.bp_global_cap, cand_budget=cfg.bp_cand_budget,
+        ball_radius=shp.ball_radii_or_nan(state.shapes, poses),
+        margin=params.prediction_distance,
+        dynamic=state.bodies.is_dynamic())
+
+
+def mesh_demand(state, cfg, params) -> list:
+    """The trimesh-ball and trimesh-convex pairs of the state's broad phase,
+    read outside the step: the demand on the mesh batches, which the step
+    neither counts nor regrows (C12)."""
+    from wgmath_tpu_torch.queries.mesh_contact import mesh_pair_demand
+
+    return mesh_pair_demand(state.shapes,
+                            grid_pairs(state, cfg, params)).tolist()
+
+
+def convex_row_referee(state, cfg, params, rows: torch.Tensor):
+    """The triangle-to-convex core distances of the given rows of the
+    step's convex mesh batch from ``state`` (the rows
+    ``mesh_convex_contacts`` lays out: its pair compaction and its exact
+    top-k triangles), by the port's GJK in float64, less the triangle
+    margin: the referee of a row where the port and the JAX package part.
+    Returns (distances [R], the rows' convex bodies [R])."""
+    from wgmath_tpu_torch.queries import gjk
+    from wgmath_tpu_torch.queries import mesh_contact as mc
+    from wgmath_tpu_torch.shapes.mesh import TRI_MARGIN
+
+    shapes, poses = state.shapes, state.bodies.poses
+    pairs = grid_pairs(state, cfg, params)
+    _, flags = mc._mesh_flags(shapes, pairs)
+    k = cfg.mesh_k_best
+    sel, active, _ = narrow_mod._compact_mask(flags,
+                                              cfg.mesh_pair_capacity // 2)
+    pa, pb = pairs.body_a[sel], pairs.body_b[sel]
+    mesh_is_a = shapes.tag[pa] == shp.TRIMESH
+    mesh_body = torch.where(mesh_is_a, pa, pb)
+    cvx_body = torch.where(mesh_is_a, pb, pa)
+    mesh_pose, cvx_pose = poses.take(mesh_body), poses.take(cvx_body)
+    c_local = sim_ops.inv_mul_pt(mesh_pose, cvx_pose.translation)
+    he = shp.local_aabb_half_extents(shapes, 3)[cvx_body]
+    reach = (gjk.norm_fma(he) * cvx_pose.scale + TRI_MARGIN
+             + params.prediction_distance) / mesh_pose.scale
+    best, _ = mc._topk_by_score(
+        shapes, shapes.params[mesh_body, 2].long(),
+        shapes.params[mesh_body, 3].long(), c_local, active, k,
+        mc._tri_dist, 0.0, reach)
+    pair, slot = rows // k, rows % k
+    tri = shapes.vertices[shapes.indices[best[pair, slot]]].double()
+    mp, cp = mesh_pose.take(pair), cvx_pose.take(pair)
+
+    def f64(p):
+        return Sim(p.rotation.double(), p.translation.double(),
+                   p.scale.double())
+
+    body = cvx_body[pair]
+    res = gjk.gjk_distance(
+        torch.full_like(body, shp.TRIANGLE),
+        torch.zeros((len(rows), shp.NUM_PARAMS), dtype=torch.float64,
+                    device=body.device), f64(mp), shapes.tag[body],
+        shapes.params[body].double(), f64(cp), tri_verts_a=tri, window=0)
+    return res.distance - TRI_MARGIN, body
+
+
+def mesh10k_frame1(state0, state1, cfg, params, z) -> dict:
+    """``mesh10k``'s first frame against the JAX package's. Pairs and the
+    ball rows exactly. The convex batch row by row: a row whose distance is
+    within ``GJK_ROW_ATOL`` of JAX's (and alike valid) agrees; every other
+    row must be one where JAX's float32 GJK on the triangle left the true
+    distance (C13): the port within ``GJK_ROW_ATOL`` of the float64
+    referee (:func:`convex_row_referee`) and valid as the referee's
+    distance makes it, and at most ``C13_ROW_SHARE`` of the rows. So the
+    convex rows and the contacts count exactly JAX's, each such row
+    counted by the referee. The balls within ``TRANSLATION_LIMITS[0]`` of
+    JAX's translations; the cuboids no such row touches within
+    ``CUBOID_FRAME1_LIMIT`` (rows alike in distance may part in normal),
+    the others within ``CUBOID_TOUCHED_LIMIT``."""
+    from wgmath_tpu_torch.shapes.mesh import TRI_MARGIN
+
+    ref = "mesh10k.ref.0."
+    pc = state1.pair_count.cpu().numpy()
+    rows = mesh_rows(state1, cfg)
+    want_rows = z[ref + "mesh_rows"].tolist()
+    check(pc[0] == z[ref + "pair_count"][0] and rows[0] == want_rows[0],
+          f"mesh10k frame 0: pairs {pc[0]} / ball rows {rows[0]} against "
+          f"JAX's {z[ref + 'pair_count'][0]} / {want_rows[0]}")
+    cons = state1.prev_constraints
+    mid = cfg.pair_capacity + cfg.mesh_pair_capacity * cfg.mesh_k_best
+    d_port = cons.info_dist[mid:mid + 20_000, 0]
+    v_port = cons.valid[mid:mid + 20_000].cpu().numpy()
+    d_jax = z[ref + "convex_dist"]
+    off = (np.abs(d_port.cpu().numpy() - d_jax) > GJK_ROW_ATOL) | (
+        v_port != z[ref + "convex_valid"])
+    idx = torch.from_numpy(np.nonzero(off)[0]).to(d_port.device)
+    d64, bodies = convex_row_referee(state0, cfg, params, idx)
+    d64 = d64.cpu().numpy()
+    port_ok = np.abs(d_port[idx].double().cpu().numpy() - d64) <= GJK_ROW_ATOL
+    jax_off = np.abs(d_jax[off] - d64) > 1e-3
+    jax_overlaps = int((d_jax[off] == -0.02).sum())
+    # the referee's validity (mesh_convex_contacts' rule on its distance);
+    # a row within GJK_ROW_ATOL of the threshold counts as the port has it
+    thr = params.prediction_distance + TRI_MARGIN * 0.5
+    ambiguous = np.abs(d64 - thr) <= GJK_ROW_ATOL
+    ref_valid = np.where(ambiguous, v_port[off], d64 < thr)
+    want_convex = int(z[ref + "convex_valid"][~off].sum() + ref_valid.sum())
+    want_contacts = int(z[ref + "pair_count"][1]) - want_rows[1] + want_convex
+    out = {"convex_rows_off_jax": int(off.sum()),
+           "of_which_jax_overlaps": jax_overlaps,
+           "port_within_referee": int(port_ok.sum()),
+           "jax_off_referee": int(jax_off.sum()),
+           "referee_ambiguous_rows": int(ambiguous.sum()),
+           "convex_valid_rows": [int(v_port.sum()), want_rows[1],
+                                 want_convex],
+           "contacts": [int(pc[1]), int(z[ref + "pair_count"][1]),
+                        want_contacts]}
+    print(f"mesh10k frame 0 convex rows (port, JAX, JAX with the referee's "
+          f"rows): {out}")
+    check(int(z[ref + "convex_valid"].sum()) == want_rows[1]
+          and rows[1] == int(v_port.sum()),
+          f"mesh10k frame 0: the convex rows past the first 20,000: {out}")
+    check(bool(np.all(port_ok)) and off.sum() <= C13_ROW_SHARE * len(off),
+          f"mesh10k frame 0: convex rows off JAX's not all JAX's misjudged "
+          f"GJK rows: {out}")
+    check(rows[1] == want_convex and int(pc[1]) == want_contacts
+          and bool(np.all(v_port[off] == ref_valid)),
+          f"mesh10k frame 0: convex rows or contacts off the count of JAX's "
+          f"rows with the referee's: {out}")
+    ball = (state0.shapes.tag == shp.BALL).cpu().numpy()
+    touched = np.zeros_like(ball)
+    touched[bodies.cpu().numpy()] = True
+    d = np.abs((state1.bodies.poses.translation
+                - state0.bodies.poses.translation).cpu().numpy()
+               - z[ref + "offset"]).max(-1)
+    cub = ~ball & ~touched
+    cub[0] = False  # the field
+    out.update(max_dx_balls=float(d[ball].max()),
+               max_dx_cuboids_untouched=float(d[cub].max()),
+               cuboids_touched=int(touched.sum()),
+               max_dx_touched=float(d[touched].max()))
+    check(out["max_dx_balls"] <= TRANSLATION_LIMITS[0]
+          and out["max_dx_cuboids_untouched"] <= CUBOID_FRAME1_LIMIT
+          and out["max_dx_touched"] <= CUBOID_TOUCHED_LIMIT,
+          f"mesh10k frame 0: translations off JAX's: {out}")
+    return out
+
+
+def mesh_small_cases() -> dict:
+    """The CPU tests' small cases on the card (``tests/test_torch_mesh.py``
+    holds them on the CPU): ``_topk_by_score``'s ids on the dense and the
+    clustered field exactly against JAX's, the ball and convex contacts
+    on both (ids and validity exactly, the rest as that file's rule), and
+    the clustered field's ray cast."""
+    from tests.mesh_inputs import (
+        LARGE_FIELD,
+        SMALL_FIELD,
+        contact_scene,
+        field_heights,
+        field_rays,
+        random_hull,
+        topk_points,
+    )
+    from wgmath_tpu_torch.broad_phase.brute_force import PairList
+    from wgmath_tpu_torch.queries import mesh_contact
+    from wgmath_tpu_torch.shapes.mesh import convex_polyhedron, heightfield
+
+    z = _stored(NPZ_MESH)
+    out = {}
+    for route, spec in (("dense", SMALL_FIELD), ("clustered", LARGE_FIELD)):
+        h = field_heights(spec["n"], seed=spec["seed"])
+        field = heightfield(h, spec["spacing"], spec["spacing"],
+                            device="cuda")
+        pts = _cuda(topk_points(h, spec["spacing"]))
+        n_q = pts.shape[0]
+        radius = _cuda(np.random.default_rng(12).uniform(0.05, 0.3, n_q))
+        num = torch.full((n_q,), int(field.params[0, 3]), device="cuda")
+        active = torch.from_numpy(np.arange(n_q) % 7 != 3).cuda()
+
+        def score_fn(pt, va, vb, vc):
+            return mesh_contact._tri_dist(pt, va, vb, vc) - radius[:, None]
+
+        for cut, max_score in (("far", 1e8), ("near", 0.05)):
+            ids, s = mesh_contact._topk_by_score(
+                field, torch.zeros_like(num), num, pts, active, 4, score_fn,
+                radius, max_score)
+            key = f"topk.{route}.{cut}"
+            check(np.array_equal(ids.cpu().numpy(), z[f"{key}.ids"]),
+                  f"mesh {key}: triangle ids differ from JAX's")
+            err = float(np.abs(s.cpu().numpy() - z[f"{key}.scores"]).max())
+            check(err <= 1e-6, f"mesh {key}: scores off by {err:.3e}")
+            out[f"topk_{route}_{cut}_score_err"] = err
+        trans, q, r, he, hh, cr = contact_scene(h, spec["spacing"])
+        shapes = shp.ShapeSet.concat(
+            field, shp.ShapeSet.balls(torch.full((4,), r, device="cuda")),
+            shp.ShapeSet.cuboids(torch.full((4, 3), he, device="cuda")),
+            shp.ShapeSet.capsules(torch.full((4,), hh, device="cuda"),
+                                  torch.full((4,), cr, device="cuda")),
+            *(convex_polyhedron(random_hull(5 + i), device="cuda")
+              for i in range(4)))
+        poses = Sim(_cuda(q), _cuda(trans), torch.ones(17, device="cuda"))
+        pairs = PairList(
+            torch.zeros(20, dtype=torch.int64, device="cuda"),
+            torch.from_numpy(np.r_[np.arange(1, 17), 0, 0, 0, 0]).cuda(),
+            torch.arange(20, device="cuda") < 16,
+            torch.tensor(16, device="cuda"))
+        for kind, fn, cap, tol, n_tol, off_rows in (
+                ("ball", mesh_contact.mesh_ball_contacts, 8, 1e-5, 1e-5, 0),
+                ("convex", mesh_contact.mesh_convex_contacts, 16, 1e-4, 2e-3,
+                 1)):
+            c = fn(poses, shapes, pairs, 0.05, pair_cap=cap, k_best=4)
+            key = f"contacts.{route}.{kind}"
+            for f in ("body_a", "body_b", "valid"):
+                check(np.array_equal(getattr(c, f).cpu().numpy(),
+                                     z[f"{key}.{f}"]),
+                      f"mesh {key}: {f} differs from JAX's")
+            v = c.valid.cpu().numpy()
+            n_j = z[f"{key}.normal_a"][v]
+            d_d = np.abs(c.dist[:, 0].cpu().numpy()[v] - z[f"{key}.dist"][v])
+            d_n = np.abs(c.normal_a.cpu().numpy()[v] - n_j).max(-1)
+            d_p = np.abs(np.sum((c.points_a[:, 0].cpu().numpy()[v]
+                                 - z[f"{key}.point"][v]) * n_j, -1))
+            off = int(((d_d > tol) | (d_n > n_tol) | (d_p > tol)).sum())
+            print(f"mesh {key}: {int(v.sum())} rows, ids and validity as "
+                  f"JAX's, {off} off JAX's numbers (allowed {off_rows}); "
+                  f"max |dd| {d_d.max():.3e}")
+            check(off <= off_rows, f"mesh {key}: {off} rows off JAX's")
+            out[f"{key}_off_rows"] = off
+        o, d = field_rays(h, spec["spacing"])
+        n = len(o)
+        tiled = shp.ShapeSet(field.tag.repeat(n), field.params.repeat(n, 1),
+                             field.vertices, field.indices,
+                             field.cluster_min, field.cluster_max,
+                             kinds=field.kinds)
+        rot = torch.zeros((n, 4), device="cuda")
+        rot[:, 3] = 1.0
+        t = ray.cast(tiled, Sim(rot, torch.zeros((n, 3), device="cuda"),
+                                torch.ones(n, device="cuda")),
+                     _cuda(o), _cuda(d)).cpu().numpy()
+        want = z[f"ray.{route}"]
+        both = np.isfinite(t) & np.isfinite(want)
+        ok = (np.array_equal(np.isfinite(t), np.isfinite(want))
+              and bool(np.all(np.abs(t[both] - want[both])
+                              <= 1e-6 + 1e-5 * np.abs(want[both]))))
+        check(ok, f"mesh ray.{route}: the field cast differs from JAX's")
+    print(f"mesh small cases on the card: {out}")
+    return out
+
+
+def standalone_checks(params) -> dict:
+    """The standalone segment / triangle / convex scenes
+    ``STANDALONE_FRAMES`` frames on the card against JAX's trails (the end
+    within ``STANDALONE_END_LIMIT``) and ``tests/test_standalone_shapes.py``'s
+    rest checks."""
+    z = _stored(NPZ_MESH)
+    out = {}
+    for name, y_tol in (("triangle", 5e-3), ("segment", 2e-2),
+                        ("convex", 5e-3)):
+        state, cfg = standalone_scene(name)
+        for f in range(STANDALONE_FRAMES):
+            state = step(state, params, cfg, warmstart=f > 0)
+        tr = state.bodies.poses.translation[1].cpu().numpy()
+        v = float(torch.linalg.norm(state.bodies.vels.linear[1]))
+        want = z[f"standalone.{name}.trail"][STANDALONE_FRAMES - 1]
+        err = float(np.abs(tr - want).max())
+        out[name] = {"end": tr.tolist(), "vs_jax": err, "speed": v}
+        print(f"standalone {name}: end {tr.tolist()} (JAX "
+              f"{want.tolist()}, max|d| {err:.3e}), speed {v:.3e}")
+        check(_finite(state) and err <= STANDALONE_END_LIMIT
+              and abs(tr[1] - 0.4) < y_tol and v < 0.05,
+              f"standalone {name}: not at rest on its collider as JAX's")
+    return out
+
+
+def mesh_phase(params) -> dict:
+    """trimesh3 from JAX's states and timed; the small cases and the
+    standalone scenes; mesh10k's three frames from its built state against
+    JAX's, then timed, with its physical checks."""
+    from tests.mesh_inputs import MESH10K_SPACING, mesh10k_layout
+
+    z = _stored(NPZ_MESH)
+    checks = {"trimesh3": joints_reference_phase(("trimesh3",),
+                                                 NPZ_MESH)["trimesh3"],
+              "small": mesh_small_cases(), "standalone":
+              standalone_checks(params)}
+    refs = {k[len("trimesh3."):]: v for k, v in z.items()
+            if k.startswith("trimesh3.ref.")}
+    runs = {"trimesh3": run_path(
+        "trimesh3", joints_case_state("trimesh3", "warmed", npz=NPZ_MESH),
+        joints_case_config("trimesh3.config_json", NPZ_MESH), params, refs,
+        MESH_PATHS["trimesh3"], warm=MESH_WARM_FRAMES,
+        timed=MESH_TIMED_FRAMES, envelopes=box_envelopes)}
+
+    state = mesh10k_scene()
+    cfg = mesh10k_pipeline_config(state.shapes)
+    want_cfg = json.loads(str(z["mesh10k.config_json"]))
+    want_cfg["gs_windows"] = tuple(want_cfg["gs_windows"])
+    check(dataclasses.asdict(cfg) == want_cfg,
+          "mesh10k: the configuration differs from the JAX run's")
+    state0 = state
+    tr0 = state.bodies.poses.translation.clone()
+    balls = state.shapes.tag == shp.BALL
+    frames = []
+    with cluster_rounds() as rounds:
+        for f in range(MESH10K_REF_FRAMES):
+            n_calls, syncs = len(rounds), dispatch.HOST_SYNCS
+            t0 = time.perf_counter()
+            state, cfg = step_checked(state, params, cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ref = f"mesh10k.ref.{f}."
+            pc = state.pair_count.cpu().numpy()
+            rec = {"pair_count": pc.tolist(),
+                   "mesh_rows": mesh_rows(state, cfg),
+                   "jax_pair_count": z[ref + "pair_count"].tolist(),
+                   "jax_mesh_rows": z[ref + "mesh_rows"].tolist(),
+                   "rounds": rounds[n_calls:],
+                   "host_syncs": dispatch.HOST_SYNCS - syncs,
+                   "host_ms": 1e3 * dt}
+            if f == 0:
+                rec.update(mesh10k_frame1(state0, state, cfg, params, z))
+            elif ref + "offset" in z:
+                # chained: the balls (their rows are JAX's bit for bit)
+                # within the chained limit; the cuboids within the limits
+                # read on the card (JAX misjudges rows every frame, C13)
+                d = np.abs((state.bodies.poses.translation - tr0).cpu()
+                           .numpy() - z[ref + "offset"]).max(-1)
+                b = balls.cpu().numpy()
+                rec.update(max_dx_balls=float(d[b].max()),
+                           max_dx_cuboids=float(d[~b].max()),
+                           cuboids_past_1mm=int((d[~b] > 1e-3).sum()))
+                check(rec["max_dx_balls"] <= TRANSLATION_LIMITS[2]
+                      and rec["max_dx_cuboids"] <= CUBOID_FRAME3_LIMIT
+                      and rec["cuboids_past_1mm"] <= CUBOID_FRAME3_PAST_1MM,
+                      f"mesh10k frame {f}: translations off JAX's: {rec}")
+            print(f"mesh10k frame {f} from the built state: {rec}")
+            frames.append(rec)
+    checks["mesh10k_frames"] = frames
+    with cluster_rounds() as rounds:
+        run = run_path("mesh10k", state, cfg, params, None,
+                       MESH_PATHS["mesh10k"], warm=MESH_WARM_FRAMES,
+                       timed=MESH_TIMED_FRAMES, envelopes=box_envelopes)
+    end, end_cfg = run["end"]
+    m = run["metrics"]
+    m["cluster_rounds_per_frame"] = (
+        sum(rounds) / (MESH_WARM_FRAMES + MESH_TIMED_FRAMES))
+    m["rounds_per_call"] = sorted(set(rounds))
+    h, _, _ = mesh10k_layout()
+    tr = end.bodies.poses.translation.cpu().numpy()[1:]
+    surface = field_surface(h, MESH10K_SPACING, tr[:, [0, 2]])
+    below = int((tr[:, 1] < surface).sum())
+    demand = mesh_demand(end, end_cfg, params)
+    cap = end_cfg.mesh_pair_capacity
+    phys = {"below_surface": below,
+            "min_clearance": float((tr[:, 1] - surface).min()),
+            "deepest_contact": m["max_penetration"],
+            "mesh_pair_demand": demand, "mesh_pair_capacity": [cap,
+                                                                cap // 2]}
+    print(f"mesh10k physical checks: {phys}")
+    check(below == 0, f"mesh10k: {below} centres below the field")
+    check(m["max_penetration"] <= MESH_DEPTH_LIMIT,
+          f"mesh10k: a contact {m['max_penetration']:.3f} m deep")
+    check(demand[0] <= cap and demand[1] <= cap // 2,
+          f"mesh10k: mesh pairs {demand} past the batches {cap}, "
+          f"{cap // 2} would be dropped silently (C12)")
+    checks["mesh10k_physics"] = phys
+    runs["mesh10k"] = run
+    runs["mesh_checks"] = checks
+    return runs
+
+
+def mesh_kernel_checks(runs: dict, params, summaries: dict) -> None:
+    """B2 on mesh10k's own plan: the two sweeps of substep 1 of the first
+    frame after the warm frames, each one launch against the same kernel
+    launched rung by rung and its repeats (bit for bit) and against the
+    plain sweep; under ``mesh10k_*`` in B2's summary."""
+    state, cfg = runs["mesh10k"]["warmed"]
+    calls = record_sweeps(lambda: step_checked(state, params, cfg), 2)
+    check(len(calls) == 2 and all(c.kw["p_max"] == 4 for c in calls),
+          "mesh10k: the recorded sweeps are not two 4-point ones")
+    res = [_sweep_case("gs_math_block", f"mesh10k sweep {k + 1}", call, True)
+           for k, call in enumerate(calls)]
+    row = summaries["gs_math_block"]
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [r["max_abs_err"] for r in res])
+    nbytes = sum(r["bytes"] for r in res)
+    flops = sum(r["flops"] for r in res)
+    row.update({"mesh10k_ms": sum(r["ms"] for r in res),
+                "mesh10k_rungs_ms": sum(r["rungs_ms"] for r in res),
+                "mesh10k_plain_ms": sum(r["plain_ms"] for r in res),
+                "mesh10k_bound_ms": bound_ms(nbytes, flops)[0],
+                "mesh10k_rows": res[0]["rows"],
+                "mesh10k_rungs": res[0]["rungs"]})
+
+
+def mesh_event_share(run_once, frames: int = 3) -> dict:
+    """The mesh contacts' time by CUDA events over ``frames`` unprofiled
+    calls of ``run_once`` against their wall (the profiler stretches a
+    step of ~37,000 kernels several times over), after one untimed call:
+    the first frame after another path captures the mesh GJK's CUDA graph
+    again (one graph is kept, ``narrow_phase.graph_call``)."""
+    from wgmath_tpu_torch.queries import mesh_contact
+
+    real, marks = mesh_contact.append_mesh_contacts, []
+
+    def timed(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    run_once()
+    mesh_contact.append_mesh_contacts = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            run_once()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        mesh_contact.append_mesh_contacts = real
+    ev_ms = sum(a.elapsed_time(b) for a, b in marks)
+    return {"calls_per_step": len(marks) / frames,
+            "event_ms_per_step": ev_ms / frames,
+            "event_share_of_wall": ev_ms / wall_ms}
+
+
+def mesh_share(run_once, calls_per_step: float, frames: int = 1) -> dict:
+    """The share of a frame's device and host time spent appending the
+    mesh contacts (``mesh_contact.append_mesh_contacts``, a
+    ``record_function`` range), with the range timed by CUDA events, and
+    the profiled window's own figures under ``window``. The range's
+    figures stand only where the profiled window counts ``calls_per_step``
+    ranges a step (the count of the unprofiled frames,
+    :func:`mesh_event_share`) and its device time is within the window's;
+    else they read "not measured" with the reason."""
+    from wgmath_tpu_torch.queries import mesh_contact
+
+    shares = range_shares(run_once, mesh_contact,
+                          {"mesh_contacts": "append_mesh_contacts"}, frames,
+                          events=True)
+    out = shares["mesh_contacts"]
+    if not (out["calls_per_step"] == calls_per_step
+            and out["device_share"] is not None
+            and out["device_share"] <= 1.0):
+        out = {"range": f"not measured (inconsistent: {out} against "
+                        f"{calls_per_step} calls a step unprofiled)"}
+    return dict(out, window=shares["window"])
+
+
 KERNEL_TABLE = (
     ("gs_math_rhs", "chained_ps", "wgmath_tpu_torch/csrc/gs_math.cu",
      "wgmath_tpu/dynamics/gs_pallas.py:330",
@@ -4686,19 +5342,23 @@ def main() -> int:
         joints_kernel_checks(runs, params, summaries)
         t5 = time.perf_counter()
         runs.update(lbvh_phase(params))
+        t6 = time.perf_counter()
+        runs.update(mesh_phase(params))
+        mesh_kernel_checks(runs, params, summaries)
         print(f"phase seconds: setup {t_setup - t_start:.1f}, kernels "
               f"{t_kernels - t_setup:.1f}, linalg and query paths "
               f"{t0 - t_kernels:.1f}, pit paths {t1 - t0:.1f}, box "
               f"{t2 - t1:.1f}, primitives {t3 - t2:.1f}, solve modes "
-              f"{t4 - t3:.1f}, joints {t5 - t4:.1f}, lbvh "
-              f"{time.perf_counter() - t5:.1f}")
+              f"{t4 - t3:.1f}, joints {t5 - t4:.1f}, lbvh {t6 - t5:.1f}, "
+              f"meshes {time.perf_counter() - t6:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     paths = {}
     step_paths = (CONFIGS + tuple(BOX_PATHS) + tuple(PRIM_PATHS)
                   + tuple(SOLVE_PATHS) + tuple(JOINT_PATHS)
-                  + tuple(NET_MODE_PATHS) + ("pit_lbvh",))
+                  + tuple(NET_MODE_PATHS) + ("pit_lbvh",)
+                  + tuple(MESH_PATHS))
     profile_s = {}
     for name in step_paths:
         t_prof = time.perf_counter()
@@ -4709,14 +5369,27 @@ def main() -> int:
             # the net's untimed modes: ms/step and launches only
             paths[name]["profile"] = "not profiled (an untimed mode)"
             continue
-        # a 10k primitives step is ~40,000 kernels, a Jacobi step ~33,000,
-        # a 10k net step ~10,000 (~7 s under the profiler), a pit_lbvh
-        # step ~13,000: one frame a window for those; each share (a range
-        # in a profiled window of its own) one frame
-        frames = (1 if name in PRIM_PATHS or name in JOINT_PATHS
-                  or name in ("quickstart_jacobi", "pit_lbvh") else 3)
+        if name == "quickstart_jacobi":
+            # ~33,000 eager ops a step take ~40 s under the profiler:
+            # the earlier profile in PERF.md stands, ms/step is timed above
+            paths[name]["profile"] = "not profiled (the run's time limit)"
+            continue
+        # a 10k primitives step is ~40,000 kernels, a mesh step ~37,000, a
+        # 10k net step ~10,000 (~7 s under the profiler): one frame a
+        # window but for the pit's five configurations; each share (a
+        # range in a profiled window of its own) one frame
+        frames = 3 if name in CONFIGS else 1
         try:
-            prof = profile_window(stepper, frames)
+            if name in MESH_PATHS:
+                # one profiled frame gives the step's figures and the
+                # mesh contacts' range (~40,000 kernels a step)
+                unprof = mesh_event_share(stepper)
+                paths[name]["mesh_unprofiled"] = unprof
+                paths[name]["mesh"] = mesh_share(
+                    stepper, unprof["calls_per_step"], 1)
+                prof = paths[name]["mesh"].pop("window")
+            else:
+                prof = profile_window(stepper, frames)
             paths[name]["profile"] = prof
             # the profiler stretches the step: the busy share of the
             # timed, unprofiled step is kernel time over that step
@@ -4770,6 +5443,18 @@ def main() -> int:
                       f"{m['peak_mem_gb']:.3f} GB, bp_path mix "
                       f"{m['bp_path_mix']}; joints "
                       f"{m.get('joints', 'none')}")
+            if name in MESH_PATHS:
+                m = paths[name]
+                print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
+                      f"{prof['device_ms_per_step']:.3f} ms/step, "
+                      f"{prof['kernels_per_step']:.1f} kernels/step, "
+                      f"{m['host_syncs_per_step']:.2f} host syncs/step, B2 "
+                      f"{m['gs_math_block_launches_per_step']:.2f} "
+                      f"launches/step, busy {m['device_busy_share']:.3f}, "
+                      f"peak {m['peak_mem_gb']:.3f} GB, cluster rounds a "
+                      f"frame {m.get('cluster_rounds_per_frame')}; mesh "
+                      f"contacts {m['mesh_unprofiled']} (unprofiled), "
+                      f"{m['mesh']} (profiled)")
         except Exception as e:  # the profiler is untried on this machine
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
@@ -4788,7 +5473,8 @@ def main() -> int:
                       "fused_joint_jax_frames":
                           runs["fused_joint_jax_frames"],
                       "joint_checks": runs["joint_checks"],
-                      "lbvh_checks": runs["lbvh_checks"]}))
+                      "lbvh_checks": runs["lbvh_checks"],
+                      "mesh_checks": runs["mesh_checks"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:

@@ -163,18 +163,18 @@ def test_narrow_phase_matches_jax(bc_capacity):
 
 def test_narrow_phase_refuses_cuboid_manifolds():
     """The narrow phase refuses the shape kinds whose kernels lie outside
-    the port (a standalone segment's: its ShapeSet constructor and the
-    mesh narrow phase wait for ROADMAP items 6 and 9; capsules, cylinders
-    and cones take the support-mapped branch,
-    ``tests/test_torch_pfm_manifold.py``). Cuboid-cuboid pairs at ``p_max`` 4
+    the port (a polyline's: its contacts are 2D, ROADMAP item 4; the
+    standalone segments, triangles and convex shapes take the
+    support-mapped branch, ``tests/test_torch_mesh.py``, and trimeshes the
+    mesh contacts the step appends). Cuboid-cuboid pairs at ``p_max`` 4
     get SAT manifolds (``tests/test_torch_sat.py`` holds them against the
     JAX package's) with their compaction demand, and the ball pairs keep
     their one-point manifolds."""
     _, ts, _, tp = _scene(5, n=16)
-    segments = dataclasses.replace(ts.shapes,
-                                   kinds=ts.shapes.kinds | {shp.SEGMENT})
-    with pytest.raises(NotImplementedError, match="outside ball, cuboid"):
-        narrow_phase(ts.bodies.poses, segments, tp, PRED, p_max=4)
+    polylines = dataclasses.replace(ts.shapes,
+                                    kinds=ts.shapes.kinds | {shp.POLYLINE})
+    with pytest.raises(NotImplementedError, match="outside the 3D kinds"):
+        narrow_phase(ts.bodies.poses, polylines, tp, PRED, p_max=4)
     wide, need = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=4,
                               sat_capacity=64)
     one, _ = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=1)

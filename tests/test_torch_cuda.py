@@ -31,6 +31,7 @@ from chip_smoke import (
     NPZ_FUSED,
     NPZ_LADDER,
     NPZ_LBVH_FUSED,
+    NPZ_MESH,
     NPZ_PRIMITIVES,
     NPZ_SOLVE_MODES,
     OP_ASSIGN_RTOL,
@@ -60,6 +61,10 @@ from chip_smoke import (
     joints_case_params,
     joints_case_state,
     jointed_fused_calls,
+    mesh10k_pipeline_config,
+    mesh10k_scene,
+    mesh_small_cases,
+    standalone_checks,
     pit_build_call,
     pit_fused_calls,
     pit_sweeps,
@@ -529,6 +534,40 @@ def test_pfm_narrow_phase_on_card_matches_cpu(variant):
 
 
 @pytest.mark.cuda
+def test_gjk_fixed_loop_gives_the_same_bits_at_32_and_64_on_card():
+    """GJK's sync-free form on the card (a fixed loop, no host read) on
+    ``tests/test_torch_gjk.py``'s pairs of every band and on
+    ``tests/test_torch_mesh.py``'s triangle pairs: 32 and 64 iterations
+    give the same bits, so a lane retired within 32 is frozen as JAX's
+    early exit leaves it; the overlap flags are the CPU's."""
+    _need_card()
+    from tests.test_torch_gjk import NPZ as NPZ_GJK, _pair_args
+    from tests.test_torch_mesh import _tri_args
+    from wgmath_tpu_torch.queries import gjk
+
+    def card(x):
+        if isinstance(x, Sim):
+            return Sim(*(y.cuda() for y in (x.rotation, x.translation,
+                                            x.scale)))
+        return x.cuda()
+
+    with np.load(NPZ_GJK) as f:
+        pairs = _pair_args(dict(f))
+    tri_args, tri, hull = _tri_args()
+    cases = ((pairs, {}), (tri_args, {"vertices": hull.vertices,
+                                      "tri_verts_a": tri}))
+    for args, kw in cases:
+        on_card = [card(a) for a in args]
+        kw_card = {k: v.cuda() for k, v in kw.items()}
+        a, b = (gjk.gjk_distance(*on_card, max_iters=n, **kw_card)
+                for n in (32, 64))
+        for k in vars(a):
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+        cpu = gjk.gjk_distance(*args, **kw)
+        assert torch.equal(a.intersecting.cpu(), cpu.intersecting)
+
+
+@pytest.mark.cuda
 def test_pfm_graph_replays_give_the_eager_bits_on_card(monkeypatch):
     """The support-mapped kernel's CUDA graph, captured on one state and
     replayed on another, gives the bits of the eager run of each; a batch
@@ -544,14 +583,14 @@ def test_pfm_graph_replays_give_the_eager_bits_on_card(monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(narrow_mod, "_pfm_call", narrow_mod._pfm)
         eager = [_pfm_narrow("cuda", 4, cap, st) for st, cap in runs]
-    narrow_mod._PFM_GRAPHS.clear()
+    narrow_mod._GRAPHS.clear()
     graphed = [_pfm_narrow("cuda", 4, cap, st) for st, cap in runs]
     for (e, ne), (g, ng) in zip(eager, graphed):
         assert torch.equal(ne, ng)
         for f in ("normal_a", "points_a", "dist", "num_points", "valid"):
             assert torch.equal(getattr(e, f), getattr(g, f)), f
     assert not torch.equal(eager[0][0].dist, eager[1][0].dist)
-    assert len(narrow_mod._PFM_GRAPHS) == 1
+    assert len(narrow_mod._GRAPHS) == 1
 
 
 @pytest.mark.cuda
@@ -1497,3 +1536,117 @@ def test_native_colouring_builds_and_matches_its_twin_on_card_machine():
     star = greedy_color(np.zeros(70, np.int32), np.arange(1, 71),
                         np.ones(71, bool))
     np.testing.assert_array_equal(star, np.arange(1, 71))
+
+
+@pytest.mark.cuda
+def test_mesh_small_cases_on_card():
+    """``tests/test_torch_mesh.py``'s cases on the card against the JAX
+    package's stored results (``chip_smoke.mesh_small_cases``): the
+    triangle ids on the dense and the clustered field exactly, the ball
+    and convex contacts' ids and validity exactly, the field's ray cast."""
+    _need_card()
+    mesh_small_cases()
+
+
+@pytest.mark.cuda
+def test_standalone_scenes_rest_on_card():
+    """The standalone triangle, segment and convex scenes 40 frames on the
+    card: at rest on their colliders, within 1e-3 m of JAX's trail."""
+    _need_card()
+    standalone_checks(SimParams())
+
+
+@pytest.mark.cuda
+def test_trimesh3_frames_on_card_match_cpu():
+    """Two frames (``step``) of ``trimesh3`` from JAX's landed state on the
+    card and on the CPU: the same integers, translations within 1e-5 m;
+    on the card two B2 launches a substep (the uniform windows' plan)."""
+    _need_card()
+    params = joints_case_params("trimesh3", NPZ_MESH)
+    cfg = joints_case_config("trimesh3.config_json", NPZ_MESH)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = joints_case_state("trimesh3", "warmed", device=dev,
+                                  npz=NPZ_MESH)
+        n0 = gs_math.LAUNCHES_BLOCK
+        for _ in range(2):
+            state = solver_step(state, params, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert gs_math.LAUNCHES_BLOCK - n0 == 2 * 2 * 4
+        out[dev] = state
+    sc, sg = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(sg.pair_count.cpu().numpy(),
+                                  sc.pair_count.numpy())
+    np.testing.assert_allclose(sg.bodies.poses.translation.cpu().numpy(),
+                               sc.bodies.poses.translation.numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mesh10k_first_frame_counts_on_card():
+    """``mesh10k``'s first frame from its built state on the card against
+    the JAX package's (``chip_smoke.mesh10k_frame1``): pairs and ball rows
+    exactly, the convex rows row by row but where JAX's float32 GJK left
+    the true distance (the port then within 1e-4 m of the float64
+    referee and valid as its distance makes it, ROADMAP C13), so the
+    convex rows and the contacts count JAX's with the referee's rows;
+    the balls within 1e-4 m, the cuboids within the limits read on the
+    card."""
+    _need_card()
+    from chip_smoke import _stored, mesh10k_frame1
+
+    state = mesh10k_scene()
+    cfg = mesh10k_pipeline_config(state.shapes)
+    params = SimParams()
+    after, cfg = step_checked(state, params, cfg)
+    out = mesh10k_frame1(state, after, cfg, params, _stored(NPZ_MESH))
+    assert out["max_dx_balls"] <= 1e-4
+
+
+@pytest.mark.cuda
+def test_mesh_gjk_graph_replays_give_the_eager_bits_on_card(monkeypatch):
+    """The mesh contacts' per-triangle GJK as a CUDA graph, captured on one
+    state and replayed on another, gives the eager run's bits."""
+    _need_card()
+    from wgmath_tpu_torch.queries import mesh_contact
+    from wgmath_tpu_torch.queries import narrow_phase as narrow_mod
+
+    from chip_smoke import grid_pairs
+
+    state = mesh10k_scene()
+    cfg = mesh10k_pipeline_config(state.shapes)
+    p0 = state.bodies.poses
+    moved = Sim(p0.rotation, p0.translation + torch.tensor(
+        [0.0, -0.01, 0.0], device="cuda"), p0.scale)
+    pairs = grid_pairs(state, cfg, SimParams())
+
+    def contacts(poses):
+        return mesh_contact.mesh_convex_contacts(
+            poses, state.shapes, pairs, 0.002, pair_cap=8192, k_best=4)
+
+    with monkeypatch.context() as m:
+        m.setattr(mesh_contact, "graph_call",
+                  lambda key, fn, args: fn(*args))
+        eager = [contacts(p) for p in (state.bodies.poses, moved)]
+    narrow_mod._GRAPHS.clear()
+    graphed = [contacts(p) for p in (state.bodies.poses, moved)]
+    for e, g in zip(eager, graphed):
+        for f in ("normal_a", "points_a", "dist", "num_points", "valid"):
+            assert torch.equal(getattr(e, f), getattr(g, f)), f
+    assert not torch.equal(eager[0].dist, eager[1].dist)
+    assert len(narrow_mod._GRAPHS) == 1
+
+
+@pytest.mark.cuda
+def test_native_bvh_builds_and_matches_its_twin_on_card_machine():
+    """The port's C++ BVH build on the card machine's g++ against its
+    plain twin."""
+    _need_card()
+    from wgmath_tpu_torch.native import build_bvh, build_bvh_plain
+
+    c = np.random.default_rng(11).uniform(-5, 5, (300, 3)).astype(
+        np.float32)
+    for a, b in zip(build_bvh(c - 0.1, c + 0.2),
+                    build_bvh_plain(c - 0.1, c + 0.2)):
+        np.testing.assert_array_equal(a, b)

@@ -417,14 +417,15 @@ def test_ray_refusals_and_empty_meshes():
     t = tray.ray_trimesh(_t(o), _t(d), ts, torch.zeros(8, dtype=torch.long),
                          torch.zeros(8, dtype=torch.long))
     assert bool(torch.isinf(t).all())
-    # a mesh that would take the clustered route
+    # a mesh that takes the clustered route (once refused): its triangles
+    # are all degenerate, so every ray misses
     big = tshape.ShapeSet(torch.full((8,), tshape.TRIMESH), torch.zeros(8, 8),
                           torch.zeros(3, 3),
                           torch.zeros((tray.ACCEL_MIN_PRIMS, 3),
                                       dtype=torch.int64),
                           torch.zeros(64, 3), torch.zeros(64, 3))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tray.cast(big, tsim.identity((8,), device="cpu"), _t(o), _t(d))
+    t = tray.cast(big, tsim.identity((8,), device="cpu"), _t(o), _t(d))
+    assert bool(torch.isinf(t).all())
 
 
 # --- projections -------------------------------------------------------------
@@ -540,11 +541,16 @@ def test_project_refusals():
     corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
                         for z in (-1, 1)], np.float32)
     hf = heightfield(np.zeros((3, 3), np.float32), 1.0, 1.0)
-    for js, item in ((convex_polyhedron(corners), "item 14"),
-                     (hf, "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            tproj.project(_port(js), tsim.identity((1,), device="cpu"),
-                          torch.zeros((1, 3)))
+    # once refused, now projected: a convex polyhedron (GJK outside) and a
+    # heightfield (its nearest triangle; tests/test_torch_mesh.py holds
+    # both against the JAX package)
+    for js, pt, want in ((convex_polyhedron(corners), [0.0, 3.0, 0.0],
+                          [0.0, 1.0, 0.0]),
+                         (hf, [0.2, 0.5, -0.3], [0.2, 0.0, -0.3])):
+        got = tproj.project(_port(js), tsim.identity((1,), device="cpu"),
+                            torch.tensor([pt]))
+        np.testing.assert_allclose(got.point.numpy(), [want], atol=1e-4)
+        assert not bool(got.is_inside.any())
 
 
 @pytest.mark.parametrize("make", [

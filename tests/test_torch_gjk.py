@@ -30,6 +30,7 @@ import torch
 
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.queries import epa, gjk
+from wgmath_tpu_torch.shapes import shape as shp
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "gjk_pfm_jax.npz")
@@ -231,27 +232,62 @@ def test_pfm_contact_masked_past_its_epa_cap(z, pfm_runs):
 
 
 def test_fixed_loop_equals_an_early_exit(z):
-    """The fixed 32-iteration loop gives the bits of the JAX package's
-    ``while any(active)`` exit: a retired pair is frozen. The separated
-    band's pairs all retire within 32 iterations, and 64 iterations give
-    the same bits."""
+    """The card's sync-free form (``sync_free=True``: a fixed loop of
+    ``max_iters``, no host read) gives the bits of the JAX package's
+    ``while any(active)`` exit, which the port takes on the CPU: a retired
+    pair is frozen. The separated band's pairs all retire within 32
+    iterations; the fixed loops of 32 and 64 iterations and the early exit
+    give the same bits."""
     args = _pair_args(z, rows=z["pairs.band"] == 0)
-    a = gjk.gjk_distance(*args, max_iters=32)
-    b = gjk.gjk_distance(*args, max_iters=64)
+    a = gjk.gjk_distance(*args, max_iters=32, sync_free=True)
+    b = gjk.gjk_distance(*args, max_iters=64, sync_free=True)
+    c = gjk.gjk_distance(*args)
     for k in vars(a):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
+        assert torch.equal(getattr(a, k), getattr(c, k)), k
+
+
+def test_sync_free_form_gives_the_cpu_bits(z, gjk_runs, pfm_runs):
+    """Every pair of every band through the card's sync-free form on the
+    CPU: GJK's fixed loop, and EPA's full batch of ``epa_cap`` slots (the
+    CPU cuts it to the demand), give the bits of the CPU's form, which the
+    tests above hold against the JAX package; so do the masked run past
+    its cap and the no-EPA push."""
+    args = _pair_args(z)
+    res = gjk.gjk_distance(*args, sync_free=True)
+    for k in vars(res):
+        assert torch.equal(getattr(res, k), getattr(gjk_runs[0], k)), k
+    full = gjk.pfm_contact(*args, epa_cap=320, sync_free=True)
+    for a, b in zip(full, pfm_runs[0]):
+        assert torch.equal(a, b)
+    mask = _t(z["pairs.mask"])
+    for kw in ({"mask": mask, "epa_cap": 16}, {"use_epa": False}):
+        cpu = gjk.pfm_contact(*args, **kw)
+        card = gjk.pfm_contact(*args, sync_free=True, **kw)
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b), kw
 
 
 def test_mesh_and_2d_options_raise():
+    """The 2D EPA raises (ROADMAP item 4); the mesh narrow phase's options,
+    once refused, run (``tests/test_torch_mesh.py`` holds them against the
+    JAX package): a ball over a triangle dilated by its margin."""
     one = torch.zeros(1, dtype=torch.int64)
     par = torch.zeros((1, 8))
     pose = Sim(torch.tensor([[0.0, 0, 0, 1]]), torch.zeros((1, 3)),
                torch.ones(1))
     args = (one, par, pose, one, par, pose)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gjk.gjk_distance(*args, tri_verts_a=torch.zeros((1, 3, 3)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gjk.pfm_contact(*args, tri_margin=0.01)
-    for use_epa in ("2d", False):
-        with pytest.raises(NotImplementedError, match="item"):
-            gjk.pfm_contact(*args, use_epa=use_epa)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        gjk.pfm_contact(*args, use_epa="2d")
+    tri = torch.tensor([[[-1.0, 0, -1], [1.0, 0, -1], [0.0, 0, 1]]])
+    up = Sim(pose.rotation, torch.tensor([[0.0, 0.5, 0.0]]), torch.ones(1))
+    ball = par.clone()
+    ball[0, 0] = 0.25
+    res = gjk.gjk_distance(one + shp.TRIANGLE, par, pose, one, ball, up,
+                           tri_verts_a=tri)
+    assert abs(float(res.distance[0]) - 0.5) < 1e-5
+    n, _, d, pushes = gjk.pfm_contact(one + shp.TRIANGLE, par, pose, one,
+                                      ball, up, tri_verts_a=tri,
+                                      tri_margin=0.02, use_epa=False)
+    assert abs(float(d[0]) - 0.23) < 1e-5 and int(pushes) == 0
+    assert torch.allclose(n, torch.tensor([[0.0, 1.0, 0.0]]), atol=1e-6)

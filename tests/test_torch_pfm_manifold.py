@@ -269,12 +269,23 @@ def test_narrow_phase_keeps_the_deepest_pfm_points(narrow_runs):
 
 
 def test_narrow_phase_refuses_other_kinds(z):
+    """A polyline is refused (its contacts are 2D, ROADMAP item 4); the
+    standalone segment, triangle and convex kinds and the trimesh, once
+    refused, are taken, and declaring one that no row holds changes no
+    contact."""
     pose, shapes, pairs = _scene(z)
-    for kind in (shp.SEGMENT, shp.TRIANGLE, shp.CONVEX, shp.TRIMESH):
+    want, _ = narrow_phase(pose, shapes, pairs, PRED, p_max=4)
+    for kind in (shp.SEGMENT, shp.TRIANGLE, shp.CONVEX, shp.TRIMESH,
+                 shp.POLYLINE):
         odd = shp.ShapeSet(shapes.tag, shapes.params, shapes.vertices,
                            shapes.indices, kinds=shapes.kinds | {kind})
-        with pytest.raises(NotImplementedError, match="outside"):
-            narrow_phase(pose, odd, pairs, PRED, p_max=4)
+        if kind == shp.POLYLINE:
+            with pytest.raises(NotImplementedError, match="outside"):
+                narrow_phase(pose, odd, pairs, PRED, p_max=4)
+            continue
+        got, _ = narrow_phase(pose, odd, pairs, PRED, p_max=4)
+        for f in ("normal_a", "points_a", "dist", "num_points", "valid"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (kind, f)
 
 
 def test_auto_manifold_points_matches_jax():

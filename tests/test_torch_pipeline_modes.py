@@ -34,7 +34,7 @@ from wgmath_tpu_torch.pipeline import (
     step_checked,
 )
 from wgmath_tpu_torch.scenes.builders import pyramid
-from wgmath_tpu_torch.shapes.shape import BALL, CUBOID, TRIMESH
+from wgmath_tpu_torch.shapes.shape import BALL, CUBOID, POLYLINE, TRIMESH
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "solve_modes_jax.npz")
@@ -223,9 +223,9 @@ def test_check_slice_accepts_the_solve_modes(change):
                  dataclasses.replace(PipelineConfig(), **change), None)
 
 
-# once refused, now taken: the LBVH broad phase and the fused solver with
-# joints
-NOW_TAKEN = ("bp_algo=lbvh", "gs_fused with joints")
+# once refused, now taken: the LBVH broad phase, the fused solver with
+# joints and the 3D mesh kinds (a ball on a trimesh)
+NOW_TAKEN = ("bp_algo=lbvh", "gs_fused with joints", "shape kinds")
 
 
 @pytest.mark.parametrize("state, change, shard, what", [
@@ -237,6 +237,7 @@ NOW_TAKEN = ("bp_algo=lbvh", "gs_fused with joints")
     (_fake_state(joints_dim=3), dict(gs_fused=True), None,
      "gs_fused with joints"),
     (_fake_state(joints_dim=2), {}, None, "2D joints"),
+    (_fake_state(kinds=(BALL, POLYLINE)), {}, None, "polylines wait for 2D"),
 ])
 def test_check_slice_still_refuses(state, change, shard, what):
     cfg = dataclasses.replace(PipelineConfig(), **change)

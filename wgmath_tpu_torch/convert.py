@@ -4,8 +4,9 @@
 ..., "shapes.kind": ..., "bp_colors.gs_cmax": ..., ...}`` with the JAX
 package's layouts and types (int32 integers, float32 reals). It reads the
 fields by name only, so it accepts this package's ``PhysicsState`` and the
-JAX package's alike. :func:`state_from_arrays` builds this package's
-state from such a dict. Keys outside the state are ignored, so one ``.npz``
+JAX package's alike; a mesh-backed shape set carries its vertex and
+index buffers and its cluster boxes whole. :func:`state_from_arrays`
+builds this package's state from such a dict. Keys outside the state are ignored, so one ``.npz``
 can carry a state beside other arrays; :func:`load_arrays` reads such a
 file (``.npz``, or an ``.npz`` compressed whole with xz, ``.npz.xz``).
 
@@ -167,6 +168,10 @@ def state_to_arrays(state) -> dict[str, np.ndarray]:
     out["shapes.tag"] = _np(s.tag)
     out["shapes.params"] = _np(s.params)
     out["shapes.kind"] = np.asarray(sorted(s.kinds), np.int32)
+    if s.vertices.shape[0] or s.cluster_min.shape[0]:
+        # a mesh-backed set: its shared buffers and cluster boxes whole
+        for f in _SHAPE_FIELDS[2:]:
+            out[f"shapes.{f}"] = _np(getattr(s, f))
     out["pair_count"] = _np(state.pair_count)
     if state.prev_constraints is not None:
         for f in _CONSTRAINT_FIELDS:
@@ -221,10 +226,13 @@ def state_from_arrays(arrays: dict, device=None) -> PhysicsState:
             g["bodies.local_mprops.inv_principal_inertia"]),
         t("bodies.kinematic").to(torch.bool)
         if "bodies.kinematic" in arrays else None)
+    buffers = ((t("shapes.vertices"), t("shapes.indices"),
+                t("shapes.cluster_min"), t("shapes.cluster_max"))
+               if "shapes.vertices" in arrays else
+               (torch.zeros((0, 3), device=dev),
+                torch.zeros((0, 3), dtype=torch.int64, device=dev)))
     shapes = ShapeSet(
-        t("shapes.tag"), t("shapes.params"),
-        torch.zeros((0, 3), device=dev),
-        torch.zeros((0, 3), dtype=torch.int64, device=dev),
+        t("shapes.tag"), t("shapes.params"), *buffers,
         kinds=frozenset(int(k) for k in np.asarray(arrays["shapes.kind"])))
     prev = None
     if "prev_constraints.body_a" in arrays:

@@ -1,6 +1,7 @@
 """Build the host-side C++ library ``native/wgnative.cpp`` at first use and
 load it with ctypes (the counterpart of ``core/cuda_build.py`` for code
-that runs on the CPU: the scene-build kernel that colours the joints).
+that runs on the CPU: the scene-build kernels that colour the joints and
+build a median-split BVH).
 
 ``g++ -O3 -shared -fPIC`` compiles it into
 ``wgmath_tpu_torch/_build/wgnative-<source hash>.so`` (a directory git
@@ -55,13 +56,17 @@ def build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded library with ``wg_greedy_color`` bound, built on first
-    use."""
+    """The loaded library with ``wg_greedy_color`` and ``wg_build_bvh``
+    bound, built on first use."""
     if not _LIB:
         lib = ctypes.CDLL(build())
         fn = lib.wg_greedy_color
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int32] * 2 + [
             ctypes.c_void_p]
+        fn = lib.wg_build_bvh
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int32] * 2 + [
+            ctypes.c_void_p] * 5
         _LIB.append(lib)
     return _LIB[0]

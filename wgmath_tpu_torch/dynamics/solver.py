@@ -1014,7 +1014,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           layout_valid=None, stable_hint: bool | None = None,
           cache_in=None, presorted: bool = False, chained: bool = False,
           rhs_in_rung: bool = False, fused: bool = False,
-          fused_rung0: int = 0, fused_class_counts=None, joints=None):
+          fused_rung0: int = 0, fused_class_counts=None, joints=None,
+          stable_slots: bool = True):
     """Complete constraint solve for one frame. Returns ``(poses, vels,
     constraints, max_class, colors, solve_cache)``.
 
@@ -1045,6 +1046,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     frame's pair keys with last frame's (one host sync). Stable slots reuse
     the cached bundle (and ``prev_colors``) and warmstart slot by slot;
     otherwise the bundle is rebuilt and impulses transfer by key.
+    ``stable_slots`` False (a scene with a mesh, whose rows re-pick their
+    triangles in the same slots) transfers by key even then.
     ``chained`` selects the chained sweep, ``rhs_in_rung`` (chained only)
     the in-kernel rhs rebuild; both need the ladder, and without it the
     sweep is the unchained one, as in the JAX package.
@@ -1089,8 +1092,9 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
                 == pair_key(prev.body_a, prev.body_b, prev.valid))))
     if warmstart_from is not None:
         # slot i holds last frame's manifold exactly when the keys are
-        # stable (no mesh shapes here, whose manifolds re-pick triangles)
-        if same:
+        # stable, unless mesh manifolds re-pick their triangles in the
+        # same slots (``stable_slots`` False): then always by key
+        if same and stable_slots:
             cons = slotwise_warmstart(cons, warmstart_from, params)
         else:
             cons = transfer_warmstart(cons, warmstart_from, params)

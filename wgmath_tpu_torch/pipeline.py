@@ -43,8 +43,13 @@ unfused, unchained form runs, as in the JAX package. Impulse joints
 (``state.joints``) solve in every configuration: per substep one joint
 pass before the biased contact sweep and one after integrating (under
 ``fused`` the sweeps are then two standalone sweep kernels a substep, as
-in the JAX package). Sharding, 2D, ``gs_static_slots`` and other broad
-phases are refused with ``NotImplementedError``.
+in the JAX package). A scene with a triangle mesh appends the mesh
+contacts after the narrow phase's (``queries/mesh_contact.py``: the
+trimesh-ball pairs at ``mesh_pair_capacity``, the trimesh-convex pairs at
+half of it, ``mesh_k_best`` rows a pair), colours in the solve and
+transfers warmstart impulses by key: the rows of one pair re-pick their
+triangles each frame. Sharding, 2D, polylines, ``gs_static_slots`` and
+other broad phases are refused with ``NotImplementedError``.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -83,15 +88,21 @@ from wgmath_tpu_torch.dynamics.solver import (
     solve,
     transfer_pair_colors,
 )
+from wgmath_tpu_torch.queries import mesh_contact
 from wgmath_tpu_torch.queries.gjk import _norm3
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.shapes.shape import (
     BALL,
     CAPSULE,
     CONE,
+    CONVEX,
     CUBOID,
     CYLINDER,
+    POLYLINE,
+    SEGMENT,
     SUPPORTED_KINDS,
+    TRIANGLE,
+    TRIMESH,
     ShapeSet,
     ball_radii_or_nan,
     world_aabbs,
@@ -176,15 +187,17 @@ class PipelineConfig:
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
     """Refuse what the port does not take: sharding, 2D, shape kinds
-    outside ``SUPPORTED_KINDS``, ``gs_static_slots``, broad phases other
-    than the grid, the brute force and the LBVH, and 2D joints."""
+    outside ``SUPPORTED_KINDS`` (a polyline's contacts are 2D),
+    ``gs_static_slots``, broad phases other than the grid, the brute force
+    and the LBVH, and 2D joints."""
     bad = []
     if shard is not None:
         bad.append("shard")
     if state.bodies.dim != 3:
-        bad.append("2D")
+        bad.append("2D (ROADMAP item 4)")
     if not state.shapes.kinds <= SUPPORTED_KINDS:
-        bad.append(f"shape kinds {sorted(state.shapes.kinds)}")
+        bad.append(f"shape kinds {sorted(state.shapes.kinds)} (polylines "
+                   "wait for 2D, ROADMAP item 4)")
     if config.gs_static_slots:
         bad.append("gs_static_slots")
     if config.bp_algo not in ("auto", "grid", "brute", "lbvh"):
@@ -204,15 +217,17 @@ def auto_manifold_points(shapes: ShapeSet, dim: int, dynamic=None) -> int:
     capsule, cylinder or cone can move or a cuboid can (the support-face
     clip of those pairs emits up to 4); else 1 (every other kernel emits
     one point a pair, and every solver pass costs in proportion to the
-    width). ``dynamic``: an optional per-body dynamic mask; with every
-    shape that could need more static (ground and walls) the width stays
-    1. Pass the result as ``PipelineConfig.manifold_points``. Raises for 2D
-    and for shape kinds the port's narrow phase does not take."""
+    width). The support-mapped kinds are the capsule, cone, cylinder,
+    convex polyhedron, segment and triangle. ``dynamic``: an optional
+    per-body dynamic mask; with every shape that could need more static
+    (ground and walls) the width stays 1. Pass the result as
+    ``PipelineConfig.manifold_points``. Raises for 2D and for shape kinds
+    the port's narrow phase does not take (ROADMAP item 4)."""
     if dim != 3 or not shapes.kinds <= SUPPORTED_KINDS:
         raise NotImplementedError(
             f"auto_manifold_points: dim {dim}, shape kinds "
-            f"{sorted(shapes.kinds)}; the port takes 3D balls, cuboids, "
-            "capsules, cones and cylinders")
+            f"{sorted(shapes.kinds)}; 2D and polylines wait for ROADMAP "
+            "item 4")
     tags = shapes.tag.cpu()
     dyn = None
     if dynamic is not None:
@@ -225,7 +240,8 @@ def auto_manifold_points(shapes: ShapeSet, dim: int, dynamic=None) -> int:
     cuboid = tags == CUBOID
     if int(cuboid.sum()) >= 2 and any_dyn(cuboid):
         return 4
-    pfm = (tags == CAPSULE) | (tags == CONE) | (tags == CYLINDER)
+    pfm = ((tags == CAPSULE) | (tags == CONE) | (tags == CYLINDER)
+           | (tags == CONVEX) | (tags == SEGMENT) | (tags == TRIANGLE))
     if bool(pfm.any()) and (any_dyn(pfm) or any_dyn(cuboid)):
         return 4
     return 1
@@ -260,9 +276,12 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     mc = config.max_colors
     # the pair colours ride the broad-phase cache only under a class cap
     # (which parks colouring residue in an unswept class and signals it);
-    # otherwise, and for Jacobi, the solve colours (or needs no colours)
+    # otherwise, for Jacobi, and with a mesh (the k rows of one pair share
+    # its dynamic body, so pair colours would break a colour's
+    # disjointness), the solve colours (or needs no colours)
+    has_mesh = bool(state.shapes.kinds & {TRIMESH, POLYLINE})
     color_with_bp = (slack > 0 and not config.use_jacobi
-                     and config.gs_cmax > 0)
+                     and config.gs_cmax > 0 and not has_mesh)
     # pair-slot layout: the cached pair list is kept colour-major and the
     # contacts stay at their pair slots (not under the fused solver)
     use_pair_slots = (config.gs_pair_slots and color_with_bp
@@ -481,6 +500,12 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         bc_capacity=config.bc_pair_capacity,
         sat_capacity=config.sat_pair_capacity,
         pfm_capacity=config.pfm_pair_capacity)
+    if has_mesh:
+        contacts = mesh_contact.append_mesh_contacts(
+            contacts, bodies.poses, state.shapes, pairs,
+            params.prediction_distance,
+            pair_capacity=config.mesh_pair_capacity,
+            k_best=config.mesh_k_best, p_max=config.manifold_points or 4)
     contact_colors = bp_colors[0] if color_with_bp else None
     # the fused layout needs the cached colours; without them the ladder
     # (or the uniform windows) runs unfused, as in the JAX package
@@ -529,7 +554,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         presorted=presorted, chained=config.gs_chained,
         rhs_in_rung=config.gs_rhs_in_rung, fused=use_fused,
         fused_rung0=config.gs_rung0, fused_class_counts=fused_class_counts,
-        joints=state.joints)
+        joints=state.joints, stable_slots=not has_mesh)
     new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
     head = torch.stack([pairs.count.to(torch.int64), contact_count,
                         max_class[0],

@@ -15,11 +15,13 @@ takes the first index, as ``jnp``'s do, and every ``>=`` of the JAX code
 stays ``>=``: the cone's and cylinder's supports tie at d = 0 on aligned
 poses.
 
-Not ported here: the per-pair triangle of the mesh narrow phase
-(``tri_verts_a``, ``tri_margin``; ROADMAP item 6), the 2D EPA
-(``use_epa="2d"``; item 4) and the deep-core fallback without EPA
-(``use_epa=False``; items 6 and 9): each raises ``NotImplementedError``.
-``support_core`` itself takes every tag.
+The mesh narrow phase passes a triangle per pair (``tri_verts_a``,
+dilated by ``tri_margin``) and takes the deep-core fallback without EPA
+(``use_epa=False``: a push along the centre axis). Not ported here: the 2D
+EPA (``use_epa="2d"``; ROADMAP item 4), which raises
+``NotImplementedError``. ``support_core`` itself takes every tag; its
+``window`` gathers each row's vertex range instead of dotting the
+direction with the whole shared vertex buffer (the same arg-max).
 """
 
 from __future__ import annotations
@@ -70,6 +72,28 @@ def _norm3(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return n[..., None] if keepdim else n
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c in one rounding (through float64: the product is exact
+    there), as the JAX package's CPU code computes a product feeding a sum
+    in one fused kernel (XLA lets LLVM contract them, ROADMAP C4)."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def dot_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a · b over the last axis as XLA's CPU reduction computes it: the
+    first product, then each next one contracted into the sum."""
+    acc = a[..., 0] * b[..., 0]
+    for i in range(1, a.shape[-1]):
+        acc = fma(a[..., i], b[..., i], acc)
+    return acc
+
+
+def norm_fma(v: torch.Tensor) -> torch.Tensor:
+    """|v| over the last axis: :func:`dot_fma`'s square and a correctly
+    rounded root, the bits of ``jnp.linalg.norm`` on the CPU."""
+    return _sqrt(dot_fma(v, v))
+
+
 def _unit(axis: int, like: torch.Tensor) -> torch.Tensor:
     """The unit vector e_axis, broadcast to ``like``'s shape."""
     e = torch.zeros_like(like)
@@ -83,7 +107,7 @@ def _with_y(v: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def support_core(tag, params, d, vertices=None, tri_verts=None,
-                 tri_margin=0.0):
+                 tri_margin=0.0, window: int | None = None):
     """The farthest point of each shape's core along d [N, 3] (local frame)
     and the dilation radius: core ⊕ ball(radius) is the shape.
 
@@ -91,7 +115,10 @@ def support_core(tag, params, d, vertices=None, tri_verts=None,
     [first_vtx, num_vtx, ...], a masked arg-max over the range) and for
     standalone TRIANGLE colliders when no ``tri_verts`` are given.
     ``tri_verts`` [N, 3, 3]: an explicit vertex triple per row for
-    TRIANGLE, with radius ``tri_margin``."""
+    TRIANGLE, with radius ``tri_margin``. ``window`` (the shape set's
+    ``shape.vertex_window``): the arg-max runs over that many vertices
+    from each row's first one, the same first largest dot as over the
+    whole buffer; 0 skips it (no vertex-range shape in the set)."""
     p = params
     zero = torch.zeros_like(d[:, 0])
     sup = torch.zeros_like(d)
@@ -131,7 +158,7 @@ def support_core(tag, params, d, vertices=None, tri_verts=None,
 
     # triangle: arg-max over an explicit vertex triple per row
     if tri_verts is not None:
-        best = torch.argmax(_dot3(d[:, None, :], tri_verts), dim=-1)
+        best = torch.argmax(dot_fma(d[:, None, :], tri_verts), dim=-1)
         tri = torch.gather(tri_verts, 1,
                            best[:, None, None].expand(-1, 1, 3))[:, 0]
         sup = torch.where((tag == shp.TRIANGLE)[:, None], tri, sup)
@@ -148,13 +175,23 @@ def support_core(tag, params, d, vertices=None, tri_verts=None,
                                  torch.full_like(radius, tri_margin), radius)
         first = p[:, 0].to(torch.int64)
         num = p[:, 1].to(torch.int64)
-        v_idx = torch.arange(vertices.shape[0], device=d.device)
-        dots = _dot3(d[:, None, :], vertices[None, :, :])
-        in_range = ((v_idx[None, :] >= first[:, None])
-                    & (v_idx[None, :] < (first + num)[:, None]))
-        dots = torch.where(in_range, dots, -torch.inf)
-        cvx = vertices[torch.argmax(dots, dim=-1)]
-        sup = torch.where(vtx_range[:, None], cvx, sup)
+        if window is None:
+            v_idx = torch.arange(vertices.shape[0], device=d.device)
+            dots = _dot3(d[:, None, :], vertices[None, :, :])
+            in_range = ((v_idx[None, :] >= first[:, None])
+                        & (v_idx[None, :] < (first + num)[:, None]))
+            dots = torch.where(in_range, dots, -torch.inf)
+            cvx = vertices[torch.argmax(dots, dim=-1)]
+            sup = torch.where(vtx_range[:, None], cvx, sup)
+        elif window > 0:
+            j = torch.arange(window, device=d.device)
+            idx = torch.clamp(first[:, None] + j, 0, vertices.shape[0] - 1)
+            dots = torch.where(j < num[:, None],
+                               _dot3(d[:, None, :], vertices[idx]),
+                               -torch.inf)
+            best = torch.gather(idx, 1, torch.argmax(dots, dim=-1,
+                                                     keepdim=True))[:, 0]
+            sup = torch.where(vtx_range[:, None], vertices[best], sup)
     return sup, radius
 
 
@@ -175,10 +212,11 @@ class _Cso:
     so the bits are those of two calls)."""
 
     def __init__(self, tag_a, par_a, tag_b, par_b, r_ab, t_ab,
-                 vertices=None):
+                 vertices=None, tri_verts_a=None, window=None):
         self.tag = torch.cat([tag_a, tag_b])
         self.par = torch.cat([par_a, par_b])
         self.r, self.t, self.vertices = r_ab, t_ab, vertices
+        self.tri_verts_a, self.window = tri_verts_a, window
 
     def __call__(self, d: torch.Tensor) -> CsoSupport:
         d3 = d[:, None, :] if d.dim() == 2 else d
@@ -189,9 +227,19 @@ class _Cso:
         if k > 1:
             tag = tag[:, None].expand(-1, k).reshape(-1)
             par = par[:, None].expand(-1, k, -1).reshape(-1, par.shape[-1])
-        sup, _ = support_core(tag, par,
-                              torch.cat([d3, -d_b]).reshape(-1, 3),
-                              self.vertices)
+        dirs = torch.cat([d3, -d_b]).reshape(-1, 3)
+        if self.tri_verts_a is None:
+            sup, _ = support_core(tag, par, dirs, self.vertices,
+                                  window=self.window)
+        else:
+            # A's rows take their triangle, B's the buffer (a TRIANGLE
+            # there reads its vertex range), as two calls
+            sup = torch.cat([
+                support_core(tag[:m * k], par[:m * k], dirs[:m * k],
+                             self.vertices, self.tri_verts_a,
+                             window=self.window)[0],
+                support_core(tag[m * k:], par[m * k:], dirs[m * k:],
+                             self.vertices, window=self.window)[0]])
         sup = sup.reshape(2 * m, k, 3)
         sup_a, sup_b_local = sup[:m], sup[m:]
         sup_b = self.t[:, None, :] + _dot3(self.r[:, None],
@@ -210,10 +258,12 @@ def relative_pose(pose_a: Sim, pose_b: Sim):
 
 
 def cso_support(tag_a, par_a, tag_b, par_b, r_ab, t_ab, d,
-                vertices=None) -> CsoSupport:
+                vertices=None, tri_verts_a=None) -> CsoSupport:
     """Support of A ⊖ B along d (A's frame); ``r_ab`` / ``t_ab``: B's
-    rotation matrix and translation in A's frame."""
-    return _Cso(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices)(d)
+    rotation matrix and translation in A's frame; ``tri_verts_a``: each
+    pair's triangle where A is a TRIANGLE."""
+    return _Cso(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices,
+                tri_verts_a)(d)
 
 
 # ---------------------------------------------------------------------------
@@ -351,28 +401,27 @@ class GjkResult:
     intersecting: torch.Tensor  # [N] bool: the cores overlap (EPA's case)
 
 
-def _no_triangle(tri_verts_a) -> None:
-    if tri_verts_a is not None:
-        raise NotImplementedError(
-            "tri_verts_a (the mesh narrow phase's per-pair triangles) "
-            "waits for the port of the meshes, ROADMAP item 6")
-
-
 def gjk_distance(tag_a, par_a, pose_a: Sim, tag_b, par_b, pose_b: Sim,
                  *, max_iters: int = MAX_ITERS, vertices=None,
-                 tri_verts_a=None) -> GjkResult:
+                 tri_verts_a=None, window: int | None = None,
+                 sync_free: bool | None = None) -> GjkResult:
     """Batched GJK distance between the shapes' cores, in A's frame.
 
-    The JAX package loops ``while i < max_iters and any(active)``. Here
-    the loop always runs ``max_iters`` times, with no host sync: a lane
-    that has retired (converged or found the origin) changes nothing
-    after that (``inter`` only gains ``active`` lanes, and the simplex and
-    its size only take ``new_active`` lanes, a subset of ``active``), so
-    the extra iterations leave every lane's bits as the early exit
-    would."""
-    _no_triangle(tri_verts_a)
+    The JAX package loops ``while i < max_iters and any(active)``. The
+    sync-free form (``sync_free``; the default on a CUDA tensor) always
+    runs ``max_iters`` iterations, with no host read: a lane that has
+    retired (converged or found the origin) changes nothing after that
+    (``inter`` only gains ``active`` lanes, and the simplex and its size
+    only take ``new_active`` lanes, a subset of ``active``), so the extra
+    iterations leave every lane's bits as the early exit would. On a CPU
+    tensor, where the read is free, the loop leaves once every lane has
+    retired, as JAX's does; ``sync_free=True`` runs the card's form there
+    (``tests/test_torch_gjk.py`` holds the two equal, bit for bit).
+    ``tri_verts_a`` [N, 3, 3]: A's triangle where A is a TRIANGLE (the
+    mesh narrow phase); ``window``: :func:`support_core`'s."""
     r_ab, t_ab = relative_pose(pose_a, pose_b)
-    cso = _Cso(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices)
+    cso = _Cso(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices,
+               tri_verts_a, window)
     n = t_ab.shape[0]
 
     # first direction: the centre offset (+x for concentric pairs)
@@ -386,8 +435,12 @@ def gjk_distance(tag_a, par_a, pose_a: Sim, tag_b, par_b, pose_b: Sim,
     size = torch.ones((n,), dtype=torch.int64, device=t_ab.device)
     active = torch.ones((n,), dtype=torch.bool, device=t_ab.device)
     inter = torch.zeros_like(active)
+    if sync_free is None:
+        sync_free = t_ab.device.type != "cpu"
 
     for _ in range(max_iters):
+        if not sync_free and not bool(active.any()):
+            break
         v, bary, contains = _simplex_closest(simplex[..., :3], size)
         vnorm = _norm3(v)
         hit = contains | (vnorm < EPS)
@@ -434,47 +487,74 @@ def _set_rows(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
 
 def pfm_contact(tag_a, par_a, pose_a: Sim, tag_b, par_b, pose_b: Sim,
                 mask=None, *, epa_cap: int = 256, vertices=None,
-                tri_verts_a=None, tri_margin: float = 0.0, use_epa=True):
+                tri_verts_a=None, tri_margin: float = 0.0, use_epa=True,
+                window: int | None = None, sync_free: bool | None = None):
     """One contact point for support-mapped pairs: GJK on the cores minus
     both dilation radii, and EPA for the pairs whose cores overlap (and
     ``mask`` allows), compacted into a batch of ``epa_cap``. As in the JAX
     package: the batch's empty slots run EPA on pair 0 and their results
     are dropped, and pairs past the cap keep GJK's answer.
 
+    ``tri_verts_a`` [N, 3, 3]: A's triangle where A is a TRIANGLE, dilated
+    by ``tri_margin``. ``use_epa=False`` (the mesh narrow phase, whose
+    triangles rely on their margin shell): a pair whose cores overlap
+    keeps GJK's point and distance and is pushed along the centre axis
+    instead. ``window``: :func:`support_core`'s. ``sync_free``:
+    :func:`gjk_distance`'s; outside that form (the default on a CPU
+    tensor) the EPA batch is also cut to the demand, read for free: each
+    slot's EPA is its own arithmetic, so the active slots keep their bits.
+
     Returns (normal [N, 3] A→B, point on A [N, 3], dist [N]), all in A's
-    frame, and the unclamped count of such pairs (a device scalar, no sync:
-    the EPA demand against ``epa_cap``)."""
+    frame, and the unclamped count of core-overlapping pairs that ``mask``
+    allows (a device scalar, no sync: the EPA demand against ``epa_cap``,
+    or the pushes along the centre axis)."""
     from wgmath_tpu_torch.queries.epa import epa_penetration
 
-    _no_triangle(tri_verts_a)
-    if tri_margin != 0.0:
+    if use_epa not in (True, False):
         raise NotImplementedError(
-            "tri_margin (the triangle shell of the mesh narrow phase) waits "
-            "for the port of the meshes, ROADMAP item 6")
-    if use_epa is not True:
-        raise NotImplementedError(
-            f"use_epa={use_epa!r}: the 2D EPA waits for ROADMAP item 4, the "
-            "fallback without EPA for the meshes, items 6 and 9")
+            f"use_epa={use_epa!r}: the 2D EPA waits for ROADMAP item 4")
     n = pose_a.translation.shape[0]
     dev = pose_a.translation.device
+    if sync_free is None:
+        sync_free = dev.type != "cpu"
     res = gjk_distance(tag_a, par_a, pose_a, tag_b, par_b, pose_b,
-                       vertices=vertices)
+                       vertices=vertices, tri_verts_a=tri_verts_a,
+                       window=window, sync_free=sync_free)
     d0 = _unit(1, res.normal)
-    _, rad = support_core(torch.cat([tag_a, tag_b]),
-                          torch.cat([par_a, par_b]), torch.cat([d0, d0]))
-    rad_a, rad_b = rad[:n], rad[n:]
+    if tri_verts_a is None and tri_margin == 0.0:
+        _, rad = support_core(torch.cat([tag_a, tag_b]),
+                              torch.cat([par_a, par_b]),
+                              torch.cat([d0, d0]))
+        rad_a, rad_b = rad[:n], rad[n:]
+    else:
+        rad_a = support_core(tag_a, par_a, d0, tri_verts=tri_verts_a,
+                             tri_margin=tri_margin)[1]
+        rad_b = support_core(tag_b, par_b, d0)[1]
     dist = res.distance - rad_a - rad_b
     normal = res.normal
     pt_a = res.point_a + normal * rad_a[:, None]
 
     flags = res.intersecting if mask is None else res.intersecting & mask
+    if use_epa is False:
+        # deep cores without EPA: push along the centre axis (A's frame)
+        t_c = quat.inv_mul_vec(pose_a.rotation,
+                               pose_b.translation - pose_a.translation)
+        t_n = _norm3(t_c, keepdim=True)
+        axis = torch.where(t_n > 1e-9, t_c / torch.clamp(t_n, min=1e-30),
+                           _unit(1, t_c))
+        return (torch.where(flags[:, None], axis, normal), pt_a, dist,
+                flags.sum())
+    demand = flags.sum()
+    if not sync_free:
+        epa_cap = min(epa_cap, int(demand))
+        if epa_cap == 0:
+            return normal, pt_a, dist, demand
     pos = torch.cumsum(flags.to(torch.int64), 0) - 1
     slot = torch.where(flags & (pos < epa_cap), pos,
                        torch.full_like(pos, epa_cap))
     sel = torch.zeros(epa_cap + 1, dtype=torch.int64, device=dev)
     sel.scatter_(0, slot, torch.arange(n, device=dev))
     sel = sel[:epa_cap]
-    demand = flags.sum()
     active = torch.arange(epa_cap, device=dev) < torch.clamp(demand,
                                                               max=epa_cap)
 

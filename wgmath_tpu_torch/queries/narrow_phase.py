@@ -6,8 +6,11 @@ Contacts reuse the pair slots 1:1. Each type-pair kernel is a masked
 vectorized pass over the pair list; ball-cuboid pairs are optionally
 compacted into a ``bc_capacity`` batch first, cuboid-cuboid pairs into a
 ``sat_capacity`` batch and the other support-mapped pairs (capsules,
-cylinders, cones against anything) into a ``pfm_capacity`` batch (their
+cylinders, cones, standalone segments and triangles and convex polyhedra,
+against anything but a mesh) into a ``pfm_capacity`` batch (their
 unclamped counts are returned so the host can regrow those capacities).
+Pairs with a trimesh get no row here: ``queries/mesh_contact.py`` appends
+theirs after these.
 """
 
 from __future__ import annotations
@@ -103,20 +106,24 @@ def _sat(pose_a: Sim, pose_b: Sim, he_a, he_b, prediction: float,
 
 
 def _pfm(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask,
-         prediction: float, p_max: int, vertices):
+         prediction: float, p_max: int, vertices, indices=None,
+         window: int | None = None):
     """The support-mapped kernel: ``pfm_contact``'s point, normal and
     distance, then (``p_max > 1``) ``pfm_manifold``'s points cut to the
     ``min(4, p_max)`` deepest. Returns ``(normal, points [N, k, 3], dist
     [N, k], num_points, epa_demand)``, the last ``pfm_contact``'s unclamped
-    count of core-overlapping pairs."""
+    count of core-overlapping pairs. ``indices`` (the shared index
+    buffer) gives convex polyhedra their hull faces in the clip;
+    ``window``: ``gjk.support_core``'s."""
     n_p, p_p, d_p, demand = pfm_contact(tag_a, par_a, pose_a, tag_b, par_b,
-                                        pose_b, mask=mask, vertices=vertices)
+                                        pose_b, mask=mask, vertices=vertices,
+                                        window=window)
     if p_max == 1:
         return (n_p, p_p[:, None], d_p[:, None], torch.ones_like(tag_a),
                 demand)
     pts, dist, num = pfm_manifold(tag_a, par_a, pose_a, tag_b, par_b, pose_b,
                                   n_p, p_p, d_p, prediction,
-                                  vertices=vertices)
+                                  vertices=vertices, indices=indices)
     k = min(4, p_max)
     if k < 4:  # the k deepest points (lax.top_k of -dist)
         neg_d, kidx = top_k_desc(-dist, k)
@@ -127,36 +134,31 @@ def _pfm(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask,
 
 # On the card the support-mapped kernel runs as a CUDA graph: GJK's 32
 # iterations, EPA's 14 and the clip are thousands of small launches, which
-# the host would otherwise enqueue one by one. One graph is kept per
-# (device, p_max, prediction) and replayed while the batch's shapes and
-# dtypes stay; a batch of another shape (a regrown capacity) replaces it
-# and frees the old graph's memory pool. A replay runs the same kernels on
-# the same shapes, so it gives the eager run's bits (tests/test_torch_cuda.py).
-_PFM_GRAPHS: dict = {}
+# the host would otherwise enqueue one by one; so does the mesh contacts'
+# per-triangle GJK (``mesh_contact.mesh_convex_contacts``). One graph is
+# kept per key (the device and the call's static arguments) and replayed
+# while the batch's shapes and dtypes stay; a batch of another shape (a
+# regrown capacity) replaces it and frees the old graph's memory pool. A
+# replay runs the same kernels on the same shapes, so it gives the eager
+# run's bits (tests/test_torch_cuda.py).
+_GRAPHS: dict = {}
 
 
-class _PfmGraph:
-    """A captured :func:`_pfm` with its static inputs and outputs."""
+class _Graph:
+    """``fn(*args)`` captured with copies of its tensor arguments as the
+    static inputs, and its outputs."""
 
-    def __init__(self, args, prediction: float, p_max: int, vertices):
+    def __init__(self, fn, args):
         self.inputs = [a.clone() for a in args]
         self.shapes = _batch_shapes(args)
-        run = lambda: _pfm(*self._unpack(), prediction, p_max,  # noqa: E731
-                           vertices)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            run()  # the warm-up makes the cached constants and workspaces
+            fn(*self.inputs)  # the warm-up makes the cached constants
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.outputs = run()
-
-    def _unpack(self):
-        ra, ta, sa, rb, tb, sb, tag_a, par_a, tag_b, par_b, mask = \
-            self.inputs
-        return (Sim(ra, ta, sa), Sim(rb, tb, sb), tag_a, par_a, tag_b,
-                par_b, mask)
+            self.outputs = fn(*self.inputs)
 
     def __call__(self, args):
         for dst, src in zip(self.inputs, args):
@@ -169,24 +171,37 @@ def _batch_shapes(args) -> tuple:
     return tuple((a.shape, a.dtype) for a in args)
 
 
-def _pfm_call(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask,
-              prediction: float, p_max: int, vertices):
-    """:func:`_pfm`, on the card through its CUDA graph."""
-    dev = pose_a.translation.device
-    if dev.type != "cuda" or vertices.shape[0]:
-        return _pfm(pose_a, pose_b, tag_a, par_a, tag_b, par_b, mask,
-                    prediction, p_max, vertices)
-    args = (pose_a.rotation, pose_a.translation, pose_a.scale,
-            pose_b.rotation, pose_b.translation, pose_b.scale, tag_a, par_a,
-            tag_b, par_b, mask)
-    key = (dev, float(prediction), p_max)
-    graph = _PFM_GRAPHS.get(key)
+def graph_call(key, fn, args: tuple) -> tuple:
+    """``fn(*args)`` (tensors in, a tuple of tensors out, no host read) as
+    the CUDA graph kept under ``key``, captured anew when the arguments'
+    shapes change."""
+    graph = _GRAPHS.get(key)
     if graph is None or graph.shapes != _batch_shapes(args):
         if graph is not None:
             graph.graph.reset()
-        graph = _PFM_GRAPHS[key] = _PfmGraph(args, prediction, p_max,
-                                             vertices)
+        graph = _GRAPHS[key] = _Graph(fn, args)
     return graph(args)
+
+
+def _pfm_call(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask,
+              prediction: float, p_max: int, vertices, indices=None,
+              window: int | None = None):
+    """:func:`_pfm`, on the card through its CUDA graph (a shape set
+    without vertices; with them, eagerly)."""
+    dev = pose_a.translation.device
+    if dev.type != "cuda" or vertices.shape[0]:
+        return _pfm(pose_a, pose_b, tag_a, par_a, tag_b, par_b, mask,
+                    prediction, p_max, vertices, indices, window)
+
+    def run(ra, ta, sa, rb, tb, sb, tag_a, par_a, tag_b, par_b, mask):
+        return _pfm(Sim(ra, ta, sa), Sim(rb, tb, sb), tag_a, par_a, tag_b,
+                    par_b, mask, prediction, p_max, vertices)
+
+    return graph_call(
+        ("pfm", dev, float(prediction), p_max), run,
+        (pose_a.rotation, pose_a.translation, pose_a.scale, pose_b.rotation,
+         pose_b.translation, pose_b.scale, tag_a, par_a, tag_b, par_b,
+         mask))
 
 
 def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
@@ -198,14 +213,13 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
     kernel run dense). ``p_max == 1`` asserts that no cuboid-cuboid pair
     can act and skips the SAT kernel, and gives the support-mapped pairs
     their one GJK / EPA point; a narrower ``p_max`` than 4 keeps each
-    manifold's deepest points. A shape set holding another kind (the
-    mesh-backed ones, standalone segments, triangles and convex shapes)
-    is refused."""
+    manifold's deepest points. A shape set holding a polyline is refused
+    (its contacts are 2D, ROADMAP item 4)."""
     kinds = shapes.kinds
     if not kinds <= shp.SUPPORTED_KINDS:
         raise NotImplementedError(
-            f"narrow phase: shape kinds {sorted(kinds)} outside ball, "
-            "cuboid, capsule, cone and cylinder")
+            f"narrow phase: shape kinds {sorted(kinds)} outside the 3D "
+            "kinds; polylines wait for 2D, ROADMAP item 4")
     dev = poses.translation.device
     a, b = pairs.body_a, pairs.body_b
     pose_a, pose_b = poses.take(a), poses.take(b)
@@ -310,12 +324,14 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
         supported = (((tag_a <= shp.TRIANGLE) | (tag_a == shp.CONVEX))
                      & ((tag_b <= shp.TRIANGLE) | (tag_b == shp.CONVEX)))
         pfm = ~handled & supported & pairs.valid
+        window = shp.vertex_window(shapes)
         if pfm_capacity:
             sel, act, pfm_needed = _compact_mask(pfm, pfm_capacity)
             n_p, pts_m, d_m, np_m, _ = _pfm_call(
                 poses.take(a[sel]), poses.take(b[sel]), tag_a[sel],
                 par_a[sel], tag_b[sel], par_b[sel], act,
-                prediction_distance, p_max, shapes.vertices)
+                prediction_distance, p_max, shapes.vertices, shapes.indices,
+                window)
             k = d_m.shape[1]
             sel_drop = torch.where(act, sel, torch.full_like(sel, c))
             normal_a = _set_rows(normal_a, sel_drop, n_p, c)
@@ -326,7 +342,8 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
         else:
             n_p, pts_m, d_m, np_m, _ = _pfm_call(
                 pose_a, pose_b, tag_a, par_a, tag_b, par_b, pfm,
-                prediction_distance, p_max, shapes.vertices)
+                prediction_distance, p_max, shapes.vertices, shapes.indices,
+                window)
             k = d_m.shape[1]
             normal_a = torch.where(pfm[:, None], n_p, normal_a)
             points_a[:, :k] = torch.where(pfm[:, None, None], pts_m,

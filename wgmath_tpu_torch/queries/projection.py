@@ -11,9 +11,11 @@ Every function is batched and works in local space; :func:`project`
 dispatches world-space points over the tagged union. Radii and half
 heights may be scalars or one value per point.
 
-Convex polyhedra (GJK/EPA, ROADMAP item 14) and meshes (the cluster
-descent of ``queries/mesh_accel.py``, item 15) are not ported: a shape set
-holding them raises ``NotImplementedError``.
+A convex polyhedron is projected by GJK / EPA (the point as a ball of
+radius 0 against the polyhedron); a trimesh or polyline by its nearest
+primitive, over the whole index buffer on a small mesh and by the cluster
+rounds of ``queries/mesh_accel.py`` on a large one (an open mesh has no
+inside).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from wgmath_tpu_torch.core.module import (
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.quat import cross, dot
 from wgmath_tpu_torch.geometry.sim import Sim
+from wgmath_tpu_torch.queries.gjk import dot_fma, fma, norm_fma
 from wgmath_tpu_torch.shapes import shape as shp
 
 
@@ -112,35 +115,38 @@ def project_capsule(pt, half_height, radius, *, boundary: bool):
 
 
 def project_triangle(pt, va, vb, vc):
-    """Closest point on a 3D triangle (Ericson's regions, branch-free)."""
+    """Closest point on a 3D triangle (Ericson's regions, branch-free). The
+    products that feed a sum are contracted as XLA contracts them
+    (:func:`fma`), so the distances a mesh ranks its triangles by are the
+    JAX package's to the bit and equal ones tie alike."""
     ab = vb - va
     ac = vc - va
     ap = pt - va
-    d1 = dot(ab, ap)
-    d2 = dot(ac, ap)
+    d1 = dot_fma(ab, ap)
+    d2 = dot_fma(ac, ap)
     bp = pt - vb
-    d3 = dot(ab, bp)
-    d4 = dot(ac, bp)
+    d3 = dot_fma(ab, bp)
+    d4 = dot_fma(ac, bp)
     cp = pt - vc
-    d5 = dot(ab, cp)
-    d6 = dot(ac, cp)
+    d5 = dot_fma(ab, cp)
+    d6 = dot_fma(ac, cp)
 
-    va_r = d3 * d6 - d5 * d4
-    vb_r = d5 * d2 - d1 * d6
-    vc_r = d1 * d4 - d3 * d2
+    va_r = fma(d3, d6, -(d5 * d4))
+    vb_r = fma(d5, d2, -(d1 * d6))
+    vc_r = fma(d1, d4, -(d3 * d2))
 
     denom = torch.clamp(va_r + vb_r + vc_r, min=1e-30)
     v = vb_r / denom
     w = vc_r / denom
-    p_face = va + ab * v[..., None] + ac * w[..., None]
+    p_face = fma(ac, w[..., None], fma(ab, v[..., None], va))
 
     t_ab = torch.clamp(d1 / torch.clamp(d1 - d3, min=1e-30), 0.0, 1.0)
-    p_ab = va + ab * t_ab[..., None]
+    p_ab = fma(ab, t_ab[..., None], va)
     t_ac = torch.clamp(d2 / torch.clamp(d2 - d6, min=1e-30), 0.0, 1.0)
-    p_ac = va + ac * t_ac[..., None]
+    p_ac = fma(ac, t_ac[..., None], va)
     t_bc = torch.clamp((d4 - d3) / torch.clamp((d4 - d3) + (d5 - d6),
                                                min=1e-30), 0.0, 1.0)
-    p_bc = vb + (vc - vb) * t_bc[..., None]
+    p_bc = fma(vc - vb, t_bc[..., None], vb)
 
     regions = (
         ((va_r <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0), p_bc),
@@ -231,11 +237,75 @@ def project_cylinder(pt, half_height, radius, *, boundary: bool):
     return Projection(torch.where(inside[..., None], in_pt, out_pt), inside)
 
 
+def _project_convex(shapes: shp.ShapeSet, p_loc, mask, *, boundary: bool,
+                    epa_cap: int):
+    """The closest point of convex polyhedron i to the LOCAL point: a ball
+    of radius 0 at the point against the polyhedron at the identity, GJK's
+    witness outside and EPA's exit inside."""
+    from wgmath_tpu_torch.queries.gjk import pfm_contact
+
+    n = p_loc.shape[0]
+    rot = torch.zeros((n, 4), device=p_loc.device)
+    rot[:, 3] = 1.0
+    ones = torch.ones((n,), device=p_loc.device)
+    normal, _, dist, _ = pfm_contact(
+        torch.zeros_like(shapes.tag), torch.zeros_like(shapes.params),
+        Sim(rot, p_loc, ones), shapes.tag, shapes.params,
+        Sim(rot, torch.zeros_like(p_loc), ones), mask=mask, epa_cap=epa_cap,
+        vertices=shapes.vertices, window=shp.vertex_window(shapes))
+    # A (the point) → B: the surface point is pt + n·dist outside (dist >
+    # 0) and inside (dist < 0, back out along −n)
+    surf = p_loc + normal * dist[..., None]
+    inside = dist < 0.0
+    point = surf if boundary else torch.where(inside[..., None], p_loc,
+                                              surf)
+    return Projection(point, inside)
+
+
+def _project_mesh(shapes: shp.ShapeSet, p_loc, mask, *,
+                  k_clusters: int = 4):
+    """The closest boundary point of mesh i (trimesh: triangles;
+    polyline: segments) to the LOCAL point; ``is_inside`` is False."""
+    from wgmath_tpu_torch.queries.mesh_accel import (
+        gather_prims,
+        point_topk_prims,
+        use_clusters,
+    )
+
+    first_idx = shapes.params[:, 2].to(torch.int64)
+    num_idx = torch.where(mask, shapes.params[:, 3],
+                          torch.zeros_like(shapes.params[:, 3])).to(
+                              torch.int64)
+    if shapes.indices.shape[1] == 3:
+        def proj_fn(pt, *verts):
+            return project_triangle(pt, *verts).point
+    else:
+        def proj_fn(pt, *verts):
+            return project_segment(pt, *verts).point
+
+    def score_fn(pt, *verts):
+        return norm_fma(proj_fn(pt, *verts) - pt)
+
+    if use_clusters(shapes):
+        best = point_topk_prims(shapes, first_idx, num_idx, p_loc, 1,
+                                score_fn, k_clusters=k_clusters)[0][:, 0]
+    else:  # a masked arg-min over the whole (small) index buffer
+        cand = torch.arange(max(shapes.indices.shape[0], 1),
+                            device=p_loc.device).expand(p_loc.shape[0], -1)
+        s = score_fn(p_loc[:, None, :], *gather_prims(shapes, cand))
+        ok = ((cand >= first_idx[:, None])
+              & (cand < (first_idx + num_idx)[:, None]))
+        best = torch.argmin(torch.where(ok, s, torch.inf), dim=-1)
+    verts = gather_prims(shapes, best[:, None])
+    return Projection(proj_fn(p_loc, *(v[:, 0] for v in verts)),
+                      _no_inside(p_loc))
+
+
 def project(shapes: shp.ShapeSet, poses: Sim, points: torch.Tensor,
-            *, boundary: bool = False) -> Projection:
+            *, boundary: bool = False, epa_cap: int = 256) -> Projection:
     """World-space projection of point i onto collider i (masked dispatch
     over the tags in ``shapes.kinds``; a tag without a projection raises
-    ``ValueError``)."""
+    ``ValueError``). ``epa_cap``: the EPA batch of the convex branch."""
     p_loc = sim_ops.inv_mul_pt(poses, points)
     par = shapes.params
     tag = shapes.tag
@@ -251,13 +321,6 @@ def project(shapes: shp.ShapeSet, poses: Sim, points: torch.Tensor,
         raise ValueError(
             f"project(): no projection kernel for shape tags {unhandled} "
             f"in {dim}D (scene kinds: {sorted(kinds)})")
-    if shp.CONVEX in kinds and dim == 3:
-        raise NotImplementedError(
-            "project(): convex shapes need queries/gjk.py and "
-            "queries/epa.py (ROADMAP item 14)")
-    if kinds & {shp.TRIMESH, shp.POLYLINE}:
-        raise NotImplementedError(
-            "project(): meshes need queries/mesh_accel.py (ROADMAP item 15)")
 
     res_pt = p_loc
     res_in = _no_inside(p_loc)
@@ -304,6 +367,13 @@ def project(shapes: shp.ShapeSet, poses: Sim, points: torch.Tensor,
         va, vb, vc = (shapes.vertices[torch.clamp(first + i, 0, vmax)]
                       for i in range(3))
         put(tag == shp.TRIANGLE, project_triangle(p_loc, va, vb, vc))
+    if shp.CONVEX in kinds and dim == 3:
+        put(tag == shp.CONVEX,
+            _project_convex(shapes, p_loc, tag == shp.CONVEX,
+                            boundary=boundary, epa_cap=epa_cap))
+    if kinds & {shp.TRIMESH, shp.POLYLINE}:
+        is_mesh = (tag == shp.TRIMESH) | (tag == shp.POLYLINE)
+        put(is_mesh, _project_mesh(shapes, p_loc, is_mesh))
 
     return Projection(sim_ops.mul_pt(poses, res_pt), res_in)
 

@@ -6,15 +6,18 @@ space; :func:`cast` moves each ray into its collider's frame and evaluates
 every analytic formula the scene's ``kinds`` can need, masked by tag.
 
 Meshes are cast densely (every ray against every triangle or segment of
-the index buffer, masked to its own range). The JAX package's clustered
-route for large meshes needs ``queries/mesh_accel.py``, which is not
-ported (ROADMAP item 15): a shape set that would take it raises.
+the index buffer, masked to its own range) below ``ACCEL_MIN_PRIMS``
+primitives, and through the clusters of ``queries/mesh_accel.py`` above
+it (:func:`_ray_mesh_clustered`: rounds of the nearest-entry clusters,
+one host read a round). Convex polyhedra are cast against the hull faces
+they store.
 """
 
 from __future__ import annotations
 
 import torch
 
+from wgmath_tpu_torch.core.dispatch import host_int
 from wgmath_tpu_torch.core.module import (
     EntryPoint,
     KernelModule,
@@ -23,12 +26,17 @@ from wgmath_tpu_torch.core.module import (
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.quat import cross, dot
 from wgmath_tpu_torch.geometry.sim import Sim
+from wgmath_tpu_torch.queries.mesh_accel import (  # noqa: F401 (the threshold)
+    ACCEL_MIN_PRIMS,
+    MESH_LEAF,
+    cluster_range,
+    gather_prims,
+    smallest_k,
+    use_clusters,
+)
 from wgmath_tpu_torch.shapes import shape as shp
 
 INF = float("inf")
-# the JAX package's threshold for the clustered mesh route
-# (queries/mesh_accel.py ACCEL_MIN_PRIMS)
-ACCEL_MIN_PRIMS = 2048
 
 
 def _safe_div(a, b):
@@ -191,21 +199,53 @@ def ray_segment_2d(origin, direction, va, vb):
     return torch.where(hit, t, INF)
 
 
-def _use_clusters(shapes: shp.ShapeSet) -> bool:
-    return (shapes.cluster_min.shape[0] > 0
-            and shapes.indices.shape[0] >= ACCEL_MIN_PRIMS)
+def _ray_mesh_clustered(origin, direction, shapes: shp.ShapeSet,
+                        first_idx, num_idx, prim_fn, k_clusters: int = 4):
+    """The exact nearest hit through the clusters: each round tests the
+    ``k_clusters`` remaining clusters of least slab-entry t of every ray
+    and retires them; the rounds end when no ray has a remaining cluster
+    entered before its best hit (a hit inside a cluster cannot precede
+    its entry). Memory is [rays, clusters]."""
+    cmin, cmax = shapes.cluster_min, shapes.cluster_max
+    dev = origin.device
+    n_rays = origin.shape[0]
+    fc, nc = cluster_range(first_idx, num_idx)
+    cid = torch.arange(cmin.shape[0], device=dev)
+    in_range = ((cid[None, :] >= fc[:, None])
+                & (cid[None, :] < (fc + nc)[:, None]))
+    inv_d = _safe_div(torch.ones_like(direction), direction)
+    t1 = (cmin[None] - origin[:, None, :]) * inv_d[:, None, :]
+    t2 = (cmax[None] - origin[:, None, :]) * inv_d[:, None, :]
+    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+    entry0 = torch.clamp(tmin, min=0.0)
+    entry = torch.where((tmax >= entry0) & in_range, entry0, INF)
+    lane = torch.arange(MESH_LEAF, device=dev)
+    last = (first_idx + num_idx)[:, None]
+    t_best = torch.full((n_rays,), INF, device=dev)
+    while host_int(torch.any(torch.amin(entry, dim=-1) < t_best)):
+        neg, best = smallest_k(entry, k_clusters)
+        cand = (best[:, :, None] * MESH_LEAF + lane).reshape(
+            n_rays, k_clusters * MESH_LEAF)
+        t = prim_fn(origin[:, None, :], direction[:, None, :],
+                    *gather_prims(shapes, cand))
+        ok = ((cand >= first_idx[:, None]) & (cand < last)
+              & torch.isfinite(neg).repeat_interleave(MESH_LEAF, dim=1))
+        t_best = torch.minimum(t_best, torch.amin(
+            torch.where(ok, t, INF), dim=-1))
+        entry = entry.scatter(1, best, INF)
+    return t_best
 
 
-def _ray_mesh_dense(origin, direction, shapes, first_idx, num_idx, prim_fn):
-    """Least t over each ray's own primitive range, every primitive of the
-    index buffer tested ([rays, P])."""
+def _ray_mesh(origin, direction, shapes, first_idx, num_idx, prim_fn):
+    """Least t over each ray's own primitive range: every primitive of the
+    index buffer tested ([rays, P]), or the clustered route."""
     prims = shapes.indices
     if prims.shape[0] == 0:
         return torch.full(origin.shape[:-1], INF, device=origin.device)
-    if _use_clusters(shapes):
-        raise NotImplementedError(
-            "the clustered mesh ray cast needs queries/mesh_accel.py "
-            "(ROADMAP item 15)")
+    if use_clusters(shapes):
+        return _ray_mesh_clustered(origin, direction, shapes, first_idx,
+                                   num_idx, prim_fn)
     verts = [shapes.vertices[prims[:, i]][None] for i in range(prims.shape[1])]
     t = prim_fn(origin[:, None, :], direction[:, None, :], *verts)
     ids = torch.arange(prims.shape[0], device=origin.device)
@@ -217,14 +257,14 @@ def _ray_mesh_dense(origin, direction, shapes, first_idx, num_idx, prim_fn):
 
 def ray_trimesh(origin, direction, shapes: shp.ShapeSet, first_idx, num_idx):
     """Least t over a mesh's triangle range."""
-    return _ray_mesh_dense(origin, direction, shapes, first_idx, num_idx,
+    return _ray_mesh(origin, direction, shapes, first_idx, num_idx,
                            ray_triangle)
 
 
 def ray_polyline(origin, direction, shapes: shp.ShapeSet, first_idx,
                  num_idx):
     """Least t over a 2D polyline's segment range."""
-    return _ray_mesh_dense(origin, direction, shapes, first_idx, num_idx,
+    return _ray_mesh(origin, direction, shapes, first_idx, num_idx,
                            ray_segment_2d)
 
 

@@ -2,8 +2,8 @@
 ``balls``, ``ball_pit``, ``boxes``, ``pyramid``,
 ``pyramid_levels_for_bodies``, ``keva_tower``, ``many_pyramids``,
 ``boxes_and_balls``, ``primitives3``, the jointed ``pendulum_chain``,
-``joint_chain`` and ``ball_net3``, and the 3D entries of ``SCENES`` that
-these build). Positions are computed in numpy and
+``joint_chain`` and ``ball_net3``, ``trimesh_scene``, and the 3D entries
+of ``SCENES`` that these build). Positions are computed in numpy and
 jitter comes from numpy ``default_rng``, as in the JAX package, so both
 build the same scene. Every builder takes ``device``; ``None`` means the
 card. The port steps 3D scenes only, so a builder given ``dim=2`` raises."""
@@ -301,6 +301,36 @@ def primitives3(per_kind: int = 40, *, device=None) -> PhysicsState:
     return _with_ground(shapes, torch.from_numpy(pos).to(dev), mp)
 
 
+def trimesh_scene(n_balls: int = 100, *, device=None) -> PhysicsState:
+    """Balls of radius 0.3 raining on a bumpy 16 x 16 heightfield (450
+    triangles, the static body 0): ``n_balls`` on a square lattice 0.75 m
+    apart, 3-5 m up (the reference's trimesh3 demo)."""
+    from wgmath_tpu_torch.shapes.mesh import heightfield
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(4)
+    xs = np.linspace(-2 * np.pi, 2 * np.pi, 16)
+    hills = (np.sin(xs)[:, None] * np.cos(xs)[None, :]).astype(np.float32)
+    r = 0.3
+    radii = torch.full((n_balls,), r, dtype=torch.float32, device=dev)
+    shapes = ShapeSet.concat(heightfield(hills, 1.0, 1.0, device=dev),
+                             ShapeSet.balls(radii))
+    side = int(np.ceil(np.sqrt(n_balls)))
+    coords = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                                  indexing="ij"), -1).reshape(-1, 2)[:n_balls]
+    pos = np.zeros((n_balls + 1, 3), np.float32)
+    pos[1:, [0, 2]] = (coords - side / 2.0) * 2.5 * r
+    pos[1:, 1] = 3.0 + rng.uniform(0, 2, n_balls)
+    n = n_balls + 1
+    poses = Sim(torch.tensor(_IDENTITY, device=dev).repeat(n, 1),
+                torch.from_numpy(pos).to(dev), torch.ones(n, device=dev))
+    mp = _merge_mprops(
+        cuboid_local_mprops(torch.tensor([[8.0, 1.0, 8.0]], device=dev),
+                            dynamic=torch.tensor([False], device=dev)),
+        ball_local_mprops(radii))
+    return new_state(Bodies(poses, Velocity.zero(n, device=dev), mp), shapes)
+
+
 def _ball_chain(links: int, dev):
     """``links`` + 1 balls of radius 0.2, 1 m apart along +x, the first
     one static: (bodies, shapes, dynamic mask, body_a, body_b, anchors_a,
@@ -450,4 +480,5 @@ SCENES = {
     "joint_prismatic3": lambda device=None: joint_chain(
         6, joint="prismatic", device=device),
     "ball_net3": lambda device=None: ball_net3(16, 16, device=device),
+    "trimesh3": lambda device=None: trimesh_scene(device=device),
 }

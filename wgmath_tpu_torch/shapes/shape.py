@@ -37,9 +37,14 @@ CONVEX = 9
 
 NUM_PARAMS = 8
 ALL_KINDS = frozenset(range(10))
-# the tags the physics step takes: analytic ball and cuboid contacts, the
-# support-mapped (GJK / EPA / PFM) contacts of the other three
-SUPPORTED_KINDS = frozenset((BALL, CUBOID, CAPSULE, CONE, CYLINDER))
+# the tags the 3D physics step takes: analytic ball and cuboid contacts,
+# the support-mapped (GJK / EPA / PFM) contacts of the primitives, the
+# standalone segments and triangles and the convex polyhedra, and the mesh
+# contacts of triangle meshes; a polyline's contacts are 2D
+SUPPORTED_KINDS = frozenset((BALL, CUBOID, CAPSULE, CONE, CYLINDER, SEGMENT,
+                             TRIANGLE, TRIMESH, CONVEX))
+# the vertex-range kinds: the GJK support's arg-max runs over their vertices
+VERTEX_RANGE_KINDS = frozenset((TRIANGLE, CONVEX))
 
 
 @dataclasses.dataclass
@@ -53,6 +58,10 @@ class ShapeSet:
     cluster_min: torch.Tensor | None = None  # f32 [C, dim]
     cluster_max: torch.Tensor | None = None  # f32 [C, dim]
     kinds: frozenset = ALL_KINDS
+    # the widest vertex range of a TRIANGLE or CONVEX row (a host value,
+    # read once: see vertex_window)
+    _window: int | None = dataclasses.field(default=None, init=False,
+                                            repr=False, compare=False)
 
     def __post_init__(self):
         if self.cluster_min is None:
@@ -114,12 +123,48 @@ class ShapeSet:
         return ShapeSet._of(CONE, ShapeSet._leading(half_heights, radii), 3)
 
     @staticmethod
+    def segments(a: torch.Tensor, b: torch.Tensor) -> "ShapeSet":
+        """Standalone segment colliders from ``a`` to ``b`` [N, dim]
+        (shape-local); params [a | b], the GJK support's core."""
+        a, b = a.to(torch.float32), b.to(torch.float32)
+        n, dim = a.shape
+        params = torch.zeros((n, NUM_PARAMS), dtype=torch.float32,
+                             device=a.device)
+        params[:, :dim] = a
+        params[:, dim:2 * dim] = b
+        return ShapeSet._of(SEGMENT, params, dim)
+
+    @staticmethod
+    def triangles(verts: torch.Tensor) -> "ShapeSet":
+        """Standalone triangle colliders, ``verts`` [N, 3, 3] shape-local,
+        stored as vertex-buffer ranges (params [first_vtx, 3]) like CONVEX,
+        with the symmetric per-axis max |vertex| in params[4:7]."""
+        verts = verts.to(torch.float32)
+        n, dev = verts.shape[0], verts.device
+        params = torch.zeros((n, NUM_PARAMS), dtype=torch.float32,
+                             device=dev)
+        params[:, 0] = torch.arange(n, dtype=torch.float32, device=dev) * 3
+        params[:, 1] = 3.0
+        params[:, 4:7] = torch.amax(torch.abs(verts), dim=1)
+        out = ShapeSet._of(TRIANGLE, params, 3)
+        out.vertices = verts.reshape(n * 3, 3)
+        return out
+
+    @staticmethod
     def concat(*sets: "ShapeSet") -> "ShapeSet":
-        """Concatenate shape sets, rebasing mesh buffer references."""
+        """Concatenate shape sets, rebasing mesh buffer references. With a
+        clustered mesh among them every set must hold one cluster a
+        ``MESH_LEAF`` index rows (mesh constructors do), so that cluster id
+        = primitive id // ``MESH_LEAF`` holds across the concatenation."""
+        from wgmath_tpu_torch.queries.mesh_accel import MESH_LEAF
+
         if any(s.cluster_min.shape[0] for s in sets):
-            raise NotImplementedError(
-                "concat of cluster-accelerated meshes needs "
-                "queries/mesh_accel.py (ROADMAP item 15)")
+            for s in sets:
+                if s.cluster_min.shape[0] * MESH_LEAF != s.indices.shape[0]:
+                    raise ValueError(
+                        "cluster-accelerated concat needs one cluster per "
+                        f"MESH_LEAF index rows: {s.cluster_min.shape[0]} "
+                        f"clusters vs {s.indices.shape[0]} index rows")
         params, idxs = [], []
         v_off = i_off = 0
         for s in sets:
@@ -134,7 +179,26 @@ class ShapeSet:
         return ShapeSet(torch.cat([s.tag for s in sets]), torch.cat(params),
                         torch.cat([s.vertices for s in sets]),
                         torch.cat(idxs),
+                        torch.cat([s.cluster_min for s in sets]),
+                        torch.cat([s.cluster_max for s in sets]),
                         kinds=frozenset().union(*(s.kinds for s in sets)))
+
+
+def vertex_window(shapes: ShapeSet) -> int:
+    """The widest vertex range among the TRIANGLE and CONVEX rows (0
+    without such a kind): the GJK support's arg-max then gathers that many
+    vertices a row (``gjk.support_core``'s ``window``) in place of a dot
+    with the whole shared buffer, which a trimesh fills. One host read the
+    first time, kept on the set."""
+    if shapes._window is None:
+        if shapes.kinds & VERTEX_RANGE_KINDS and shapes.vertices.shape[0]:
+            rng = ((shapes.tag == TRIANGLE) | (shapes.tag == CONVEX))
+            num = torch.where(rng, shapes.params[:, 1],
+                              torch.zeros_like(shapes.params[:, 1]))
+            shapes._window = int(num.max().item()) if num.numel() else 0
+        else:
+            shapes._window = 0
+    return shapes._window
 
 
 def local_aabb_half_extents(shapes: ShapeSet, dim: int) -> torch.Tensor:
@@ -183,3 +247,38 @@ def ball_radii_or_nan(shapes: ShapeSet, poses: Sim) -> torch.Tensor:
     r = shapes.params[:, 0] * poses.scale
     return torch.where(shapes.tag == BALL, r,
                        torch.full_like(r, float("nan")))
+
+
+def vertex_collider_ids(shapes: ShapeSet) -> torch.Tensor:
+    """[V] the shape owning each row of the shared vertex buffer, -1 for
+    rows no mesh-backed shape references (the reference's per-vertex
+    collider map). Mesh-backed shapes own disjoint (first_vtx, num_vtx)
+    runs, so a sort of the run starts and a search resolve each row."""
+    n_v = shapes.vertices.shape[0]
+    dev = shapes.vertices.device
+    tag = shapes.tag
+    is_mesh = ((tag == TRIANGLE) | (tag == POLYLINE) | (tag == TRIMESH)
+               | (tag == CONVEX))
+    first = torch.where(is_mesh, shapes.params[:, 0].to(torch.int64),
+                        torch.full_like(tag, n_v + 1))
+    num = torch.where(tag == TRIANGLE, torch.full_like(tag, 3),
+                      shapes.params[:, 1].to(torch.int64))
+    order = torch.argsort(first, stable=True)
+    v = torch.arange(n_v, device=dev)
+    j = torch.searchsorted(first[order], v, right=True) - 1
+    ids = order[torch.clamp(j, 0, tag.shape[0] - 1)]
+    ok = is_mesh[ids] & (v >= first[ids]) & (v < first[ids] + num[ids])
+    return torch.where(ok, ids, torch.full_like(ids, -1))
+
+
+def world_vertex_buffer(shapes: ShapeSet, poses: Sim,
+                        collider_ids: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """[V, dim] the shared vertex buffer moved into world space by each
+    row's owning collider pose; unowned rows pass through."""
+    from wgmath_tpu_torch.geometry import sim as sim_ops
+
+    ids = (vertex_collider_ids(shapes) if collider_ids is None
+           else collider_ids)
+    w = sim_ops.mul_pt(poses.take(torch.clamp(ids, min=0)), shapes.vertices)
+    return torch.where((ids >= 0)[:, None], w, shapes.vertices)
