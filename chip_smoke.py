@@ -3389,11 +3389,13 @@ def range_shares(run_once, module, ranges: dict, frames: int = 3,
                  events: bool = False) -> dict:
     """:func:`range_share` for several calls in one profiled window:
     ``ranges`` maps each range's label to the attribute of ``module`` it
-    wraps. Returns label -> figures."""
+    wraps, or to a (module, attribute) pair. Returns label -> figures."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    real = {attr: getattr(module, attr) for attr in ranges.values()}
+    ranges = {label: (at if isinstance(at, tuple) else (module, at))
+              for label, at in ranges.items()}
+    real = {at: getattr(*at) for at in ranges.values()}
     marks = {label: [] for label in ranges}
 
     def wrapper(label, fn):
@@ -3410,8 +3412,8 @@ def range_shares(run_once, module, ranges: dict, frames: int = 3,
                 return fn(*args, **kw)
         return wrapped
 
-    for label, attr in ranges.items():
-        setattr(module, attr, wrapper(label, real[attr]))
+    for label, at in ranges.items():
+        setattr(*at, wrapper(label, real[at]))
     try:
         torch.cuda.synchronize()
         with warnings.catch_warnings():
@@ -3424,8 +3426,8 @@ def range_shares(run_once, module, ranges: dict, frames: int = 3,
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        for attr, fn in real.items():
-            setattr(module, attr, fn)
+        for (mod, attr), fn in real.items():
+            setattr(mod, attr, fn)
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
                and e.key not in ranges]
@@ -5184,27 +5186,29 @@ def mesh_kernel_checks(runs: dict, params, summaries: dict) -> None:
                 "mesh10k_rungs": res[0]["rungs"]})
 
 
-def mesh_event_share(run_once, frames: int = 3) -> dict:
-    """The mesh contacts' time by CUDA events over ``frames`` unprofiled
-    calls of ``run_once`` against their wall (the profiler stretches a
-    step of ~37,000 kernels several times over), after one untimed call:
-    the first frame after another path captures the mesh GJK's CUDA graph
-    again (one graph is kept, ``narrow_phase.graph_call``)."""
-    from wgmath_tpu_torch.queries import mesh_contact
+def event_shares(run_once, ranges: dict, frames: int = 1) -> dict:
+    """Each range of ``ranges`` (label -> (module, attribute)) counted and
+    timed by CUDA events over ``frames`` unprofiled calls of ``run_once``
+    after one untimed call (a path's first frame after another path may
+    capture a CUDA graph again): calls a step, event ms a step and the
+    share of the wall."""
+    real = {at: getattr(*at) for at in ranges.values()}
+    marks = {label: [] for label in ranges}
 
-    real, marks = mesh_contact.append_mesh_contacts, []
-
-    def timed(*args, **kw):
-        start, end = (torch.cuda.Event(enable_timing=True)
-                      for _ in range(2))
-        start.record()
-        out = real(*args, **kw)
-        end.record()
-        marks.append((start, end))
-        return out
+    def wrapper(label, fn):
+        def wrapped(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks[label].append((start, end))
+            return out
+        return wrapped
 
     run_once()
-    mesh_contact.append_mesh_contacts = timed
+    for label, at in ranges.items():
+        setattr(*at, wrapper(label, real[at]))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5213,11 +5217,27 @@ def mesh_event_share(run_once, frames: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        mesh_contact.append_mesh_contacts = real
-    ev_ms = sum(a.elapsed_time(b) for a, b in marks)
-    return {"calls_per_step": len(marks) / frames,
-            "event_ms_per_step": ev_ms / frames,
-            "event_share_of_wall": ev_ms / wall_ms}
+        for (mod, attr), fn in real.items():
+            setattr(mod, attr, fn)
+    out = {}
+    for label, m in marks.items():
+        ev_ms = sum(a.elapsed_time(b) for a, b in m)
+        out[label] = {"calls_per_step": len(m) / frames,
+                      "event_ms_per_step": ev_ms / frames,
+                      "event_share_of_wall": ev_ms / wall_ms}
+    return out
+
+
+def mesh_event_share(run_once, frames: int = 3) -> dict:
+    """The mesh contacts' time by CUDA events over ``frames`` unprofiled
+    calls of ``run_once`` against their wall (the profiler stretches a
+    step of ~37,000 kernels several times over), after one untimed call:
+    the first frame after another path captures the mesh GJK's CUDA graph
+    again (one graph is kept, ``narrow_phase.graph_call``)."""
+    from wgmath_tpu_torch.queries import mesh_contact
+
+    return event_shares(run_once, {"mesh": (
+        mesh_contact, "append_mesh_contacts")}, frames)["mesh"]
 
 
 def mesh_share(run_once, calls_per_step: float, frames: int = 1) -> dict:
@@ -5241,6 +5261,228 @@ def mesh_share(run_once, calls_per_step: float, frames: int = 1) -> dict:
         out = {"range": f"not measured (inconsistent: {out} against "
                         f"{calls_per_step} calls a step unprofiled)"}
     return dict(out, window=shares["window"])
+
+
+# ---------------------------------------------------------------------------
+# 2D: every 2D scene three frames from JAX's states, the 10k revolute net
+# and the 10k box-and-ball pile (no port kernel: the JAX package's 2D
+# frame is plain XLA, its Pallas sweep 3D only)
+# ---------------------------------------------------------------------------
+
+PLANAR_PATHS = ("net2d10k", "mix2d10k")
+NET2D_SHAPE = (100, 100)  # 10,000 balls, 19,800 revolute joints
+PLANAR_WARM = 3
+PLANAR_TIMED = 10
+MIX2D_BODIES = 10_000
+MIX2D_FRAMES = 120  # checked frames from the built state
+MIX2D_EVERY = 10  # JAX's recording: one envelope every 10 frames
+# the pile's deepest contact and 99th percentile of depths above JAX's, m
+# (the H100 read up to 5.8 and 2.2 mm, PERF.md)
+MIX2D_PEN_SLACK, MIX2D_P99_SLACK = 2e-2, 1e-2
+
+
+def planar_envelopes(state) -> tuple[float, float]:
+    """Kinetic-energy proxy (sum |v|^2) and the deepest live contact point
+    of the state's last frame (its constraints), as the export records
+    JAX's."""
+    vel = state.bodies.vels.linear
+    depth = contact_depths(state)
+    return (float((vel * vel).sum()),
+            max(float(depth.max()) if depth.numel() else 0.0, 0.0))
+
+
+def planar_small_phase() -> dict:
+    """Every stored 2D case of ``artifacts/planar_jax.npz.xz`` three
+    frames on the card, each from JAX's state before it, held as on the
+    CPU (``tests.planar_inputs.frame_ok``: counts exact and translations
+    within 1e-5 m; on ``capsules2`` the bodies joined to JAX's C14 rows
+    within 2e-2 m and the contacts JAX's rows with the witness's validity
+    there, ROADMAP C14), no port kernel launched."""
+    from tests.planar_inputs import (
+        case_mode,
+        config_of,
+        frame_errors,
+        frame_ok,
+        params_of,
+        planar_state,
+        small_cases,
+    )
+
+    out = {}
+    for case in small_cases():
+        rows = []
+        for f in range(3):
+            st = planar_state(case, f, device="cuda")
+            cfg = config_of(f"{case}.config_json" if f == 0
+                            else f"{case}.ref.{f - 1}.config_json")
+            for mod, attr in PIT_COUNTERS.values():
+                setattr(mod, attr, 0)
+            new, _ = step_checked(st, params_of(case_mode(case)), cfg)
+            launched = {k: n for k, n in _pit_counts().items() if n}
+            check(not launched, f"{case} frame {f}: port kernels "
+                  f"{launched} launched on a 2D step")
+            check(_finite(new), f"{case} frame {f}: non-finite state")
+            m = frame_errors(case, f, st, new)
+            check(frame_ok(m), f"{case} frame {f}: off JAX's frame {m}")
+            rows.append(m)
+        out[case] = rows
+        print(f"planar {case}: {rows}")
+    return out
+
+
+def net2d_reference(params) -> tuple:
+    """``joint_net2(100, 100)`` built on the card, three frames against
+    JAX's (counts exact; the seeded sample within ``TRANSLATION_LIMITS``;
+    the largest joint stretch within ``STRETCH_AGREE`` of JAX's at frame
+    3). Returns (the state, its configuration, the frames' figures)."""
+    from tests.planar_inputs import config_of, planar_arrays
+
+    from wgmath_tpu_torch.scenes.builders import joint_net2
+
+    z = planar_arrays()
+    state = joint_net2(*NET2D_SHAPE, device="cuda")
+    cfg = config_of("net.config_json")
+    ids = torch.from_numpy(z["net.sample_ids"].astype(np.int64)).cuda()
+    frames = []
+    for f in range(3):
+        t0 = time.perf_counter()
+        state, cfg = step_checked(state, params, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = f"net.ref.{f}."
+        pc = state.pair_count.cpu().numpy()
+        err = float(np.abs(state.bodies.poses.translation[ids].cpu().numpy()
+                           - z[ref + "sample"]).max())
+        stretch = joint_stretch(state)
+        rec = {"pair_count": pc[:5].tolist(),
+               "jax_pair_count": z[ref + "pair_count"][:5].tolist(),
+               "sample_max_dx": err, "stretch": stretch,
+               "jax_stretch": float(z[ref + "stretch"]), "host_ms": 1e3 * dt}
+        frames.append(rec)
+        print(f"net2d10k reference frame {f}: {rec}")
+        check(np.array_equal(pc, z[ref + "pair_count"]),
+              f"net2d10k frame {f}: counts {pc[:5].tolist()} against JAX's")
+        check(err <= TRANSLATION_LIMITS[f], f"net2d10k frame {f}: sample "
+              f"off by {err:.3e}")
+        check(_finite(state), f"net2d10k frame {f}: non-finite state")
+    check(abs(frames[-1]["stretch"] - frames[-1]["jax_stretch"])
+          <= STRETCH_AGREE, "net2d10k: the largest stretch after frame 3 "
+          "is not JAX's within 1 mm")
+    return state, cfg, frames
+
+
+def mix2d_reference(params) -> tuple:
+    """``boxes_and_balls(10_000, dim=2)`` built on the card,
+    ``MIX2D_FRAMES`` checked frames: every pose finite, no dynamic centre
+    below the ground's top; every ``MIX2D_EVERY`` frames the deepest
+    contact at most JAX's + ``MIX2D_PEN_SLACK``, the 99th percentile of
+    the contact depths at most JAX's + ``MIX2D_P99_SLACK``, the 90th at
+    most JAX's + ``ENVELOPE_PEN_SLACK`` and the kinetic-energy proxy at
+    most ``ENVELOPE_KE_FACTOR`` x JAX's + ``ENVELOPE_KE_SLACK`` (the
+    bench's envelope gates). In this fall of a 100-layer column the
+    deepest contact is one body's impact, as deep as its travel in the
+    frame its contact is first seen (0.23 m in JAX's own run), so a
+    rounding that moves that frame moves it by millimetres: hence the
+    wider slacks of the deepest contact and the 99th percentile. Returns
+    (the state, its configuration, the record)."""
+    from tests.planar_inputs import config_of, planar_arrays
+
+    from wgmath_tpu_torch.scenes.builders import boxes_and_balls
+
+    z = planar_arrays()
+    env = z["mix.envelope"]
+    state = boxes_and_balls(MIX2D_BODIES, dim=2, device="cuda")
+    cfg = config_of("mix.config_json")
+    record = []
+    t0 = time.perf_counter()
+    for f in range(1, MIX2D_FRAMES + 1):
+        state, cfg = step_checked(state, params, cfg)
+        if f % MIX2D_EVERY:
+            continue
+        check(_finite(state), f"mix2d10k frame {f}: non-finite state")
+        low = float(state.bodies.poses.translation[1:, 1].min())
+        depth = contact_depths(state).cpu().numpy()
+        ke = float((state.bodies.vels.linear ** 2).sum())
+        j_f, j_ke, j_pen, j_p99, j_p90, j_mean, j_low = (
+            float(x) for x in env[f // MIX2D_EVERY - 1])
+        check(int(j_f) == f, "mix2d10k: the JAX record is out of step")
+        pen = float(depth.max()) if depth.size else 0.0
+        p99, p90, mean = ((float(np.percentile(depth, 99.0)),
+                           float(np.percentile(depth, 90.0)),
+                           float(depth.mean())) if depth.size
+                          else (0.0, 0.0, 0.0))
+        rec = {"frame": f, "ke": ke, "jax_ke": j_ke, "p90": p90,
+               "jax_p90": j_p90, "pen": pen, "jax_pen": j_pen,
+               "p99": p99, "jax_p99": j_p99, "mean": mean,
+               "jax_mean": j_mean, "low": low, "jax_low": j_low,
+               "pairs": int(state.pair_count[0]),
+               "jax_pairs": int(z[f"mix.ref.{f}.pair_count"][0])}
+        record.append(rec)
+        check(low > 0.0, f"mix2d10k frame {f}: a centre at y = {low:.3f}, "
+              "below the ground")
+        check(pen <= j_pen + MIX2D_PEN_SLACK
+              and p99 <= j_p99 + MIX2D_P99_SLACK
+              and p90 <= j_p90 + ENVELOPE_PEN_SLACK
+              and ke <= ENVELOPE_KE_FACTOR * j_ke + ENVELOPE_KE_SLACK,
+              f"mix2d10k frame {f}: outside JAX's envelope {rec}")
+    torch.cuda.synchronize()
+    print(f"mix2d10k: {MIX2D_FRAMES} checked frames in "
+          f"{time.perf_counter() - t0:.1f} s; every {MIX2D_EVERY}: "
+          f"{record}")
+    return state, cfg, record
+
+
+def planar_phase() -> dict:
+    """The 2D paths: the small scenes from JAX's states, then the 10k net
+    and the 10k pile against JAX's, each timed (``PLANAR_WARM`` warm and
+    ``PLANAR_TIMED`` timed frames, no port kernel launched)."""
+    from tests.planar_inputs import params_of
+
+    params = params_of("default")
+    checks = {"small": planar_small_phase()}
+    state, cfg, checks["net2d10k"] = net2d_reference(params)
+    runs = {"net2d10k": run_path(
+        "net2d10k", state, cfg, params, None, (), warm=PLANAR_WARM,
+        timed=PLANAR_TIMED, envelopes=planar_envelopes)}
+    state, cfg, checks["mix2d10k"] = mix2d_reference(params)
+    runs["mix2d10k"] = run_path(
+        "mix2d10k", state, cfg, params, None, (), warm=0,
+        timed=PLANAR_TIMED, envelopes=planar_envelopes)
+    for name in PLANAR_PATHS:
+        runs[name]["params"] = params
+    runs["planar_checks"] = checks
+    return runs
+
+
+def planar_shares(name: str, run_once) -> dict:
+    """The 2D step's shares: the narrow phase (``pipeline.narrow_phase``)
+    and, in it, the 2D SAT on the pile; the sweeps
+    (``solver.gs_color_major_pass``, plain PyTorch in 2D); the joints'
+    build and passes (``JointSolve``) on the net. ``unprofiled``: each
+    range by CUDA events (:func:`event_shares`); ``profiled``: one
+    profiled frame (:func:`range_shares`), a range's figures kept only
+    where it counts the unprofiled calls a step and its device time lies
+    within the window's (else "not measured" with the reason: a range
+    counted twice, or a graph captured again in the window); ``window``:
+    that frame's figures, as :func:`profile_window` gives them."""
+    ranges = {"narrow": (pipeline_mod, "narrow_phase"),
+              "solve_sweeps": (solver, "gs_color_major_pass")}
+    if name == "mix2d10k":
+        ranges["sat2d"] = (narrow_mod, "cuboid_cuboid_manifold_2d")
+    if name == "net2d10k":
+        ranges["joint_build"] = (solver.JointSolve, "build")
+        ranges["joint_passes"] = (solver.JointSolve, "run")
+    unprof = event_shares(run_once, ranges)
+    prof = range_shares(run_once, None, ranges, 1, events=True)
+    window = prof.pop("window")
+    for label, fig in prof.items():
+        calls = unprof[label]["calls_per_step"]
+        if not (fig["calls_per_step"] == calls
+                and fig["device_share"] is not None
+                and fig["device_share"] <= 1.0):
+            prof[label] = (f"not measured (inconsistent: {fig} against "
+                           f"{calls} calls a step unprofiled)")
+    return {"unprofiled": unprof, "profiled": prof, "window": window}
 
 
 KERNEL_TABLE = (
@@ -5345,12 +5587,15 @@ def main() -> int:
         t6 = time.perf_counter()
         runs.update(mesh_phase(params))
         mesh_kernel_checks(runs, params, summaries)
+        t7 = time.perf_counter()
+        runs.update(planar_phase())
         print(f"phase seconds: setup {t_setup - t_start:.1f}, kernels "
               f"{t_kernels - t_setup:.1f}, linalg and query paths "
               f"{t0 - t_kernels:.1f}, pit paths {t1 - t0:.1f}, box "
               f"{t2 - t1:.1f}, primitives {t3 - t2:.1f}, solve modes "
               f"{t4 - t3:.1f}, joints {t5 - t4:.1f}, lbvh {t6 - t5:.1f}, "
-              f"meshes {time.perf_counter() - t6:.1f}")
+              f"meshes {t7 - t6:.1f}, planar "
+              f"{time.perf_counter() - t7:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -5358,7 +5603,7 @@ def main() -> int:
     step_paths = (CONFIGS + tuple(BOX_PATHS) + tuple(PRIM_PATHS)
                   + tuple(SOLVE_PATHS) + tuple(JOINT_PATHS)
                   + tuple(NET_MODE_PATHS) + ("pit_lbvh",)
-                  + tuple(MESH_PATHS))
+                  + tuple(MESH_PATHS) + PLANAR_PATHS)
     profile_s = {}
     for name in step_paths:
         t_prof = time.perf_counter()
@@ -5388,6 +5633,10 @@ def main() -> int:
                 paths[name]["mesh"] = mesh_share(
                     stepper, unprof["calls_per_step"], 1)
                 prof = paths[name]["mesh"].pop("window")
+            elif name in PLANAR_PATHS:
+                # the shares' profiled frame is the step's window
+                paths[name]["shares"] = planar_shares(name, stepper)
+                prof = paths[name]["shares"].pop("window")
             else:
                 prof = profile_window(stepper, frames)
             paths[name]["profile"] = prof
@@ -5443,6 +5692,17 @@ def main() -> int:
                       f"{m['peak_mem_gb']:.3f} GB, bp_path mix "
                       f"{m['bp_path_mix']}; joints "
                       f"{m.get('joints', 'none')}")
+            if name in PLANAR_PATHS:
+                m = paths[name]
+                print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
+                      f"{prof['device_ms_per_step']:.3f} ms/step, "
+                      f"{prof['kernels_per_step']:.1f} kernels/step, "
+                      f"{m['host_syncs_per_step']:.2f} host syncs/step, "
+                      f"B1 {m['gs_math_rhs_launches_per_step']:.2f} B2 "
+                      f"{m['gs_math_block_launches_per_step']:.2f} "
+                      f"launches/step, busy {m['device_busy_share']:.3f}, "
+                      f"peak {m['peak_mem_gb']:.3f} GB; shares "
+                      f"{m['shares']}")
             if name in MESH_PATHS:
                 m = paths[name]
                 print(f"{name}: {m['ms_per_step']:.2f} ms/step, device "
@@ -5474,7 +5734,8 @@ def main() -> int:
                           runs["fused_joint_jax_frames"],
                       "joint_checks": runs["joint_checks"],
                       "lbvh_checks": runs["lbvh_checks"],
-                      "mesh_checks": runs["mesh_checks"]}))
+                      "mesh_checks": runs["mesh_checks"],
+                      "planar_checks": runs["planar_checks"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:

@@ -19,6 +19,7 @@ from wgmath_tpu_torch.broad_phase.grid import find_pairs_grid
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.scenes.builders import ball_pit
 from wgmath_tpu_torch.shapes import shape as shp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PRED = 0.002
 
@@ -163,7 +164,8 @@ def test_narrow_phase_matches_jax(bc_capacity):
 
 def test_narrow_phase_refuses_cuboid_manifolds():
     """The narrow phase refuses the shape kinds whose kernels lie outside
-    the port (a polyline's: its contacts are 2D, ROADMAP item 4; the
+    the 3D step (a polyline's: its contacts are 2D, which a 2D step
+    takes, ``tests/test_torch_planar.py``; the
     standalone segments, triangles and convex shapes take the
     support-mapped branch, ``tests/test_torch_mesh.py``, and trimeshes the
     mesh contacts the step appends). Cuboid-cuboid pairs at ``p_max`` 4
@@ -173,7 +175,7 @@ def test_narrow_phase_refuses_cuboid_manifolds():
     _, ts, _, tp = _scene(5, n=16)
     polylines = dataclasses.replace(ts.shapes,
                                     kinds=ts.shapes.kinds | {shp.POLYLINE})
-    with pytest.raises(NotImplementedError, match="outside the 3D kinds"):
+    with pytest.raises(NotImplementedError, match="in 3D"):
         narrow_phase(ts.bodies.poses, polylines, tp, PRED, p_max=4)
     wide, need = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=4,
                               sat_capacity=64)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from wgmath_tpu_torch.dynamics import solver
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "solve_modes_jax.npz")

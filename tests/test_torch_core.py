@@ -35,6 +35,7 @@ from wgmath_tpu_torch.core.module import (
 from wgmath_tpu_torch.core.testing import assert_close
 
 import wgmath_tpu_torch.ops  # noqa: F401  (registers the linalg modules)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _diamond(register, module_cls, entry_cls, example):

@@ -1650,3 +1650,102 @@ def test_native_bvh_builds_and_matches_its_twin_on_card_machine():
     for a, b in zip(build_bvh(c - 0.1, c + 0.2),
                     build_bvh_plain(c - 0.1, c + 0.2)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# 2D: no port kernel on the step, and the kernels refuse 2D rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["boxes_and_balls2", "pyramid2_jacobi",
+                                  "boxes_and_balls2_chained",
+                                  "joint_ball2", "polyline2"])
+def test_planar_step_on_card_launches_no_port_kernel(case):
+    """A 2D frame on the card from JAX's stored state: no B1 / B2 (or any
+    port kernel) launch, the CPU step's pair and contact counts, and
+    translations within 1e-5 m of the CPU's."""
+    _need_card()
+    from chip_smoke import PIT_COUNTERS, _pit_counts
+    from tests.planar_inputs import (
+        case_mode,
+        config_of,
+        params_of,
+        planar_state,
+    )
+
+    cfg = config_of(f"{case}.config_json")
+    params = params_of(case_mode(case))
+    cpu, _ = step_checked(planar_state(case, 0), params, cfg)
+    for mod, attr in PIT_COUNTERS.values():
+        setattr(mod, attr, 0)
+    card, _ = step_checked(planar_state(case, 0, device="cuda"), params, cfg)
+    torch.cuda.synchronize()
+    assert not any(_pit_counts().values()), _pit_counts()
+    assert torch.equal(card.pair_count.cpu()[:8], cpu.pair_count[:8])
+    err = (card.bodies.poses.translation.cpu()
+           - cpu.bodies.poses.translation).abs().max()
+    assert float(err) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sweep_kernels_refuse_2d_rows():
+    """B1 / B2 take 6-wide velocity rows: a 3-wide (2D) buffer raises
+    before any launch, on a whole sweep of the pit's plans (chained_ps for
+    B1, the ladder for B2) and on one rung."""
+    _need_card()
+    calls = pit_sweeps(NPZ, "cuda", 1) + pit_sweeps(NPZ_LADDER, "cuda", 1)
+    before = (gs_math.LAUNCHES, gs_math.LAUNCHES_BLOCK)
+    for call in calls:
+        pf2d, pf_meta = call.fields
+        buf3 = torch.zeros((call.buf.shape[0], 3), device="cuda")
+        kw = call.kw
+        with pytest.raises(ValueError, match="buf"):
+            if kw.get("rhs_mode") is not None:
+                gs_math.gs_sweep_rhs(
+                    call.plan, pf2d, pf_meta, call.cons.num_points, buf3,
+                    call.imp, mode=kw["rhs_mode"], consts=kw["rhs_consts"],
+                    p_max=kw["p_max"], s_len=kw["s_len"], pose=kw["pose"])
+            else:
+                gs_math.gs_sweep_block(
+                    call.plan, pf2d, pf_meta, call.cons.cfm_factor,
+                    call.cons.n_rhs, call.cons.t_rhs, call.cons.num_points,
+                    buf3, call.imp, p_max=kw["p_max"], s_len=kw["s_len"])
+    args, kw = gs_block_inputs(np.random.default_rng(3), 64, 4, "cuda")
+    args = list(args)
+    args[4], args[5] = (a[:, :3].contiguous() for a in args[4:6])
+    with pytest.raises(ValueError):
+        gs_math.gs_math_block(*args, **kw)
+    assert (gs_math.LAUNCHES, gs_math.LAUNCHES_BLOCK) == before
+
+
+@pytest.mark.cuda
+def test_planar_pfm_graph_replays_give_the_eager_bits_on_card():
+    """The 2D support-mapped kernel's CUDA graph (``_pfm2_call``) on
+    ``capsules2``'s three stored states gives its eager run's bits, and
+    the eager run on the card the CPU's rows within 1e-6 m (float64)."""
+    _need_card()
+    from wgmath_tpu_torch.queries import narrow_phase as narrow_mod
+    from tests.planar_inputs import planar_state
+
+    narrow_mod._GRAPHS.clear()
+    for i in range(3):
+        st = planar_state("capsules2", i, device="cuda")
+        b, sh = st.bodies, st.shapes
+        n = b.num_bodies
+        ia, ib = torch.triu_indices(n, n, 1, device="cuda")
+        keep = (sh.tag[ia] == 2) | (sh.tag[ib] == 2)
+        a, bb = ia[keep][:2048], ib[keep][:2048]
+        args = (b.poses.take(a), b.poses.take(bb), sh.tag[a],
+                sh.params[a], sh.tag[bb], sh.params[bb],
+                torch.ones_like(a, dtype=torch.bool))
+        eager = narrow_mod._pfm2(*args)
+        graphed = narrow_mod._pfm2_call(*args)
+        for e, g in zip(eager, graphed):
+            assert torch.equal(e, g)
+        cpu = narrow_mod._pfm2(*(x.cpu() if torch.is_tensor(x) else
+                                 type(x)(*(t.cpu() for t in (
+                                     x.rotation, x.translation, x.scale)))
+                                 for x in args))
+        assert float((eager[2].cpu() - cpu[2]).abs().max()) <= 1e-6
+    assert len([k for k in narrow_mod._GRAPHS if k[0] == "pfm2"]) == 1

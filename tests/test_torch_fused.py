@@ -35,6 +35,7 @@ from wgmath_tpu_torch.dynamics import gs_fused as tfused
 from wgmath_tpu_torch.dynamics.gs_math import PACK_FIELDS
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import sim as tsim
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's own tolerance for the fused sweep and the pose update
 # (tests/test_gs_fused.py)

@@ -26,6 +26,7 @@ import chip_smoke
 from wgmath_tpu_torch.dynamics import build_fused, gs_fused
 from wgmath_tpu_torch.dynamics.gs_math import _point_updates, rows_per_chunk
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_BODIES, WINDOWS, RUNG0 = 2000, (256,) * 12, 64
 KERNELS = ("fused_sweep", "fused_substep1")

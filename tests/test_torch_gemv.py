@@ -21,6 +21,7 @@ from wgmath_tpu.ops.gemv import gemv_xla as jax_gemv_xla
 from wgmath_tpu_torch.core.module import compile_check, compose, get_module
 from wgmath_tpu_torch.core.testing import assert_close
 from wgmath_tpu_torch.ops import gemv, gemv_torch, gemv_xla
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 gemv_mod = importlib.import_module("wgmath_tpu_torch.ops.gemv")
 

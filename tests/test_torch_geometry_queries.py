@@ -39,6 +39,7 @@ from wgmath_tpu_torch.queries import projection as tproj
 from wgmath_tpu_torch.queries import ray as tray
 from wgmath_tpu_torch.scenes import builders as tbuilders
 from wgmath_tpu_torch.shapes import shape as tshape
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 

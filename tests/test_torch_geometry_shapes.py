@@ -29,6 +29,7 @@ from wgmath_tpu_torch.geometry import sim as tsim
 from wgmath_tpu_torch.pipeline import fine_bucket
 from wgmath_tpu_torch.scenes.builders import ball_pit
 from wgmath_tpu_torch.shapes import shape as tshape
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # float32 elementwise math in another association order

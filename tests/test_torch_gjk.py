@@ -31,6 +31,7 @@ import torch
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.queries import epa, gjk
 from wgmath_tpu_torch.shapes import shape as shp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "gjk_pfm_jax.npz")
@@ -269,16 +270,18 @@ def test_sync_free_form_gives_the_cpu_bits(z, gjk_runs, pfm_runs):
 
 
 def test_mesh_and_2d_options_raise():
-    """The 2D EPA raises (ROADMAP item 4); the mesh narrow phase's options,
-    once refused, run (``tests/test_torch_mesh.py`` holds them against the
-    JAX package): a ball over a triangle dilated by its margin."""
+    """An unknown EPA option raises (the 2D EPA, once refused, runs:
+    ``tests/test_torch_planar.py`` holds it against the JAX package's);
+    the mesh narrow phase's options, once refused, run
+    (``tests/test_torch_mesh.py`` holds them against the JAX package): a
+    ball over a triangle dilated by its margin."""
     one = torch.zeros(1, dtype=torch.int64)
     par = torch.zeros((1, 8))
     pose = Sim(torch.tensor([[0.0, 0, 0, 1]]), torch.zeros((1, 3)),
                torch.ones(1))
     args = (one, par, pose, one, par, pose)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gjk.pfm_contact(*args, use_epa="2d")
+    with pytest.raises(ValueError, match="use_epa"):
+        gjk.pfm_contact(*args, use_epa="3d")
     tri = torch.tensor([[[-1.0, 0, -1], [1.0, 0, -1], [0.0, 0, 1]]])
     up = Sim(pose.rotation, torch.tensor([[0.0, 0.5, 0.0]]), torch.ones(1))
     ball = par.clone()

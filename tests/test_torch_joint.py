@@ -45,6 +45,7 @@ from wgmath_tpu_torch.dynamics import joint as tj
 from wgmath_tpu_torch.dynamics.body import Velocity, WorldMassProperties
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry.sim import Sim
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "joints_jax.npz")
@@ -335,9 +336,16 @@ def test_host_values_follow_the_tensors_of_any_made_set(case):
 
 
 def test_2d_joints_refused():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tj.fixed_joints([0], [1], [[0.0, 0.0]], [[1.0, 0.0]], dim=2,
-                        device="cpu")
+    """2D joints, once refused, are built: nine slots, the 2D groups
+    (``tests/test_torch_planar.py`` holds their build and pass against
+    the JAX package's)."""
+    js = tj.fixed_joints([0], [1], [[0.0, 0.0]], [[1.0, 0.0]], dim=2,
+                         device="cpu")
+    assert js.dim == 2 and js.slots == (3, 4, 5)
+    want = jj.fixed_joints([0], [1], [[0.0, 0.0]], [[1.0, 0.0]], dim=2)
+    got = joints_to_arrays(js)
+    for k, v in joints_to_arrays(want).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_convert_round_trips_a_jax_state_with_joints():

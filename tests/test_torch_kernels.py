@@ -21,6 +21,7 @@ import torch
 from wgmath_tpu_torch.convert import load_arrays
 from wgmath_tpu_torch.dynamics import gs_math
 from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's tolerance for this math (test_cm_gs_math_matches_row_major)
 RTOL, ATOL = 1e-4, 1e-5

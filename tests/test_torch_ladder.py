@@ -24,6 +24,7 @@ from wgmath_tpu_torch.dynamics import constraint as tcons
 from wgmath_tpu_torch.dynamics import solver as tsolver
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import sim as tsim
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "torch_ladder_jax.npz")

@@ -19,6 +19,7 @@ from wgmath_tpu.broad_phase import morton as jmorton
 from wgmath_tpu.utils import scan_sort as jscan
 from wgmath_tpu_torch.broad_phase import brute_force, grid, lbvh, morton
 from wgmath_tpu_torch.utils import scan_sort
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x):

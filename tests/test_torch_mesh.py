@@ -60,6 +60,7 @@ from wgmath_tpu_torch.shapes.mesh import (
     polyline,
     trimesh,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "mesh_jax.npz.xz")

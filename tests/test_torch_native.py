@@ -13,6 +13,7 @@ import pytest
 from wgmath_tpu.dynamics.joint import _greedy_color as jax_greedy_color
 from wgmath_tpu_torch.core import native_build
 from wgmath_tpu_torch.native import greedy_color, greedy_color_plain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _graph(seed: int, n_bodies: int, n_joints: int, static: int,

@@ -36,6 +36,7 @@ from wgmath_tpu_torch.ops import (
     op_assign_kernel,
     reduce,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the ops package re-exports functions under its submodules' names
 gemm_mod = importlib.import_module("wgmath_tpu_torch.ops.gemm")

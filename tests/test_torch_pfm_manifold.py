@@ -34,6 +34,7 @@ from wgmath_tpu_torch.pipeline import auto_manifold_points
 from wgmath_tpu_torch.queries import gjk, pfm_manifold as pm
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.shapes import shape as shp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "gjk_pfm_jax.npz")
@@ -269,10 +270,10 @@ def test_narrow_phase_keeps_the_deepest_pfm_points(narrow_runs):
 
 
 def test_narrow_phase_refuses_other_kinds(z):
-    """A polyline is refused (its contacts are 2D, ROADMAP item 4); the
-    standalone segment, triangle and convex kinds and the trimesh, once
-    refused, are taken, and declaring one that no row holds changes no
-    contact."""
+    """A polyline in 3D is refused (its contacts are 2D: a 2D step takes
+    it, ``tests/test_torch_planar.py``); the standalone segment, triangle
+    and convex kinds and the trimesh, once refused, are taken, and
+    declaring one that no row holds changes no contact."""
     pose, shapes, pairs = _scene(z)
     want, _ = narrow_phase(pose, shapes, pairs, PRED, p_max=4)
     for kind in (shp.SEGMENT, shp.TRIANGLE, shp.CONVEX, shp.TRIMESH,
@@ -280,7 +281,7 @@ def test_narrow_phase_refuses_other_kinds(z):
         odd = shp.ShapeSet(shapes.tag, shapes.params, shapes.vertices,
                            shapes.indices, kinds=shapes.kinds | {kind})
         if kind == shp.POLYLINE:
-            with pytest.raises(NotImplementedError, match="outside"):
+            with pytest.raises(NotImplementedError, match="in 3D"):
                 narrow_phase(pose, odd, pairs, PRED, p_max=4)
             continue
         got, _ = narrow_phase(pose, odd, pairs, PRED, p_max=4)
@@ -323,5 +324,13 @@ def test_auto_manifold_points_matches_jax():
                     shapes, 3, torch.from_numpy(mask)) == want, name
     assert auto_manifold_points(shapes_from_arrays(shapes_to_arrays(
         sets["capsules_on_ground"]), device="cpu"), 3) == 4
-    with pytest.raises(NotImplementedError, match="dim 2"):
-        auto_manifold_points(shapes, 2)
+    # 2D: the capsules take one point (the 2D support-mapped branch has no
+    # clip), a movable cuboid on the ground two, as JAX's
+    import jax.numpy as jnp2
+
+    flat = JaxShapeSet.concat(JaxShapeSet.cuboids(jnp2.full((2, 2), 0.4)),
+                              JaxShapeSet.capsules(r, r, dim=2))
+    got = shapes_from_arrays(shapes_to_arrays(flat), device="cpu")
+    for mask in (None, np.arange(5) > 0, np.arange(5) > 1):
+        assert auto_manifold_points(got, 2, mask) == jax_auto_points(
+            flat, 2, mask)

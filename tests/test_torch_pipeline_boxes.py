@@ -21,6 +21,7 @@ from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked
 from wgmath_tpu_torch.scenes import builders
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "boxes_small.npz")
@@ -157,5 +158,9 @@ def test_scenes_table_and_levels():
     for target in (1, 91, 9455, 42925, 42926):
         assert builders.pyramid_levels_for_bodies(target) == \
             jax_builders.pyramid_levels_for_bodies(target)
-    with pytest.raises(NotImplementedError, match="dim=2"):
-        builders.boxes(8, dim=2, device="cpu")
+    # 2D builds (the 2D scenes are tests/test_torch_pipeline_planar.py's)
+    got = state_to_arrays(builders.boxes(8, dim=2, device="cpu"))
+    want = state_to_arrays(jax_builders.boxes(8, dim=2))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

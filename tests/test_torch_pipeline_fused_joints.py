@@ -31,6 +31,7 @@ from tests.test_torch_pipeline_joints import (
 from wgmath_tpu_torch.convert import load_arrays
 from wgmath_tpu_torch.dynamics import solver
 from wgmath_tpu_torch.pipeline import step, step_checked
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "lbvh_fused_joints_jax.npz.xz")

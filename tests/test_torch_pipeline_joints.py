@@ -32,6 +32,7 @@ import torch
 from wgmath_tpu_torch.convert import joints_from_arrays, state_from_arrays
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "joints_jax.npz")
@@ -118,8 +119,9 @@ def test_cases_exercise_contacts_and_colours(z):
 
 def test_refuses_fused_and_2d_joints(z):
     """The fused solver with joints is taken (its frames against JAX's are
-    ``tests/test_torch_pipeline_fused_joints.py``); 2D joints are still
-    refused."""
+    ``tests/test_torch_pipeline_fused_joints.py``); 2D joints, once
+    refused, are taken (``tests/test_torch_pipeline_planar.py``), and a
+    3D state that carries them is an error."""
     state = case_state(z, "drape_ladder", "warmed")
     cfg = case_config(z, "drape_ladder.config_json")
     fused = step(state, SimParams(), dataclasses.replace(cfg, gs_fused=True))
@@ -133,5 +135,5 @@ def test_refuses_fused_and_2d_joints(z):
         flat[f"{f}.rotation"] = flat[f"{f}.rotation"][:, :2]
     state2d = dataclasses.replace(state, joints=joints_from_arrays(
         flat, device="cpu"))
-    with pytest.raises(NotImplementedError, match="2D joints"):
+    with pytest.raises(ValueError, match="2D joints on 3D bodies"):
         step(state2d, SimParams(), cfg)

@@ -68,6 +68,7 @@ from wgmath_tpu_torch.pipeline import (
 from wgmath_tpu_torch.scenes.builders import _merge_mprops
 from wgmath_tpu_torch.shapes.mesh import heightfield
 from wgmath_tpu_torch.shapes.shape import ShapeSet
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(ROOT, "artifacts", "mesh_jax.npz.xz")

@@ -35,6 +35,7 @@ from wgmath_tpu_torch.pipeline import (
 )
 from wgmath_tpu_torch.scenes.builders import pyramid
 from wgmath_tpu_torch.shapes.shape import BALL, CUBOID, POLYLINE, TRIMESH
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "solve_modes_jax.npz")
@@ -224,8 +225,10 @@ def test_check_slice_accepts_the_solve_modes(change):
 
 
 # once refused, now taken: the LBVH broad phase, the fused solver with
-# joints and the 3D mesh kinds (a ball on a trimesh)
-NOW_TAKEN = ("bp_algo=lbvh", "gs_fused with joints", "shape kinds")
+# joints, the 3D mesh kinds (a ball on a trimesh), 2D, 2D joints and the
+# polylines (tests/test_torch_pipeline_planar.py steps them)
+NOW_TAKEN = ("bp_algo=lbvh", "gs_fused with joints", "shape kinds", "2D",
+             "2D joints", "polylines wait for 2D")
 
 
 @pytest.mark.parametrize("state, change, shard, what", [

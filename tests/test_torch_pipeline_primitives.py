@@ -38,6 +38,7 @@ from wgmath_tpu_torch.dynamics import body as tbody
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked
 from wgmath_tpu_torch.scenes import builders
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "primitives3_small.npz")

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from chip_smoke import REDUCE_TOL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 reduce_ops = importlib.import_module("wgmath_tpu_torch.ops.reduce")
 

@@ -32,6 +32,7 @@ from wgmath_tpu_torch.pipeline import auto_manifold_points
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.queries.sat import cuboid_cuboid_manifold
 from wgmath_tpu_torch.shapes.shape import ShapeSet
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PRED = 0.002
 RTOL, ATOL = 1e-5, 2e-5
@@ -293,5 +294,8 @@ def test_auto_manifold_points_matches_jax(z):
             assert auto_manifold_points(shapes, 3, mask) == w, name
     assert auto_manifold_points(shapes_from_arrays(shapes_to_arrays(
         sets["mixed"]), device="cpu"), 3) == 4
-    with pytest.raises(NotImplementedError, match="dim 2"):
-        auto_manifold_points(shapes, 2)
+    # 2D: two cuboids that can move need 2 points, one a ball against it 1
+    # (tests/test_torch_pipeline_planar.py holds every 2D scene's to JAX's)
+    two = ShapeSet.cuboids(torch.full((2, 2), 0.5))
+    assert auto_manifold_points(two, 2) == 2
+    assert auto_manifold_points(two, 2, np.zeros(2, bool)) == 1

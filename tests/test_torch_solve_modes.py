@@ -26,6 +26,7 @@ from wgmath_tpu_torch.convert import state_from_arrays
 from wgmath_tpu_torch.dynamics import solver
 from wgmath_tpu_torch.dynamics.constraint import update_constraints
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "artifacts", "solve_modes_jax.npz")

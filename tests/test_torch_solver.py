@@ -22,6 +22,7 @@ from wgmath_tpu_torch.dynamics import solver as tsolver
 from wgmath_tpu_torch.dynamics.gs_math import pack_meta
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import sim as tsim
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the GS impulse math's tolerance (the JAX package's, for the same math)
 RTOL, ATOL = 1e-4, 1e-5

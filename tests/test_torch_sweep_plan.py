@@ -25,6 +25,7 @@ from wgmath_tpu_torch.dynamics.body import Velocity
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked
 from wgmath_tpu_torch.scenes.builders import ball_pit
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BASE = PipelineConfig(pair_capacity=2048, contact_capacity=1024,
                       max_colors=16, gs_cmax=512, bp_slack=0.03,

@@ -3,8 +3,8 @@
 
 1. Outliers (extent > 3× the median) go to a dense global list of at most
    ``global_cap`` bodies; the cell size is the largest remaining extent.
-2. Bodies sort by packed cell key (stable); each scans its 27 neighbour
-   cells, reading up to ``cell_cap`` occupants per cell.
+2. Bodies sort by packed cell key (stable); each scans its 27 (3D) or 9
+   (2D) neighbour cells, reading up to ``cell_cap`` occupants per cell.
 3. The first ``cand_budget`` occupied slots per body are kept, the global
    columns appended, and exact AABB (plus sphere, for ball pairs) tests
    run on them.
@@ -20,14 +20,18 @@ import torch
 from wgmath_tpu_torch.broad_phase.brute_force import PairList, compact_hits
 
 
-def _neighbor_offsets(device) -> torch.Tensor:
+def _neighbor_offsets(dim: int, device) -> torch.Tensor:
     r = torch.arange(-1, 2, device=device)
-    g = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1)
-    return g.reshape(27, 3)
+    g = torch.stack(torch.meshgrid(*([r] * dim), indexing="ij"), -1)
+    return g.reshape(3 ** dim, dim)
 
 
 def _pack_key(cells: torch.Tensor) -> torch.Tensor:
-    """10 bits per axis; wraparound only adds candidates."""
+    """10 bits per axis in 3D, 15 in 2D; wraparound only adds
+    candidates."""
+    if cells.shape[-1] == 2:
+        c = cells & 32767
+        return c[..., 0] | (c[..., 1] << 15)
     c = cells & 1023
     return c[..., 0] | (c[..., 1] << 10) | (c[..., 2] << 20)
 
@@ -57,9 +61,9 @@ def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
     so disjoint blocks partition the pair set). The cell table stays
     global; rows past N are inactive, so any block partition is exact.
     ``row_offset`` is an int or a device scalar."""
-    n = mins.shape[0]
+    n, dim = mins.shape
     dev = mins.device
-    n_off = 27
+    n_off = 3 ** dim
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dev)
     ext_max = torch.amax(maxs - mins, dim=-1)
@@ -100,7 +104,7 @@ def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
             return x[r_clamp]
     r_mins, r_maxs, r_center = rsl(mins), rsl(maxs), rsl(center)
     nkeys = _pack_key(rsl(cells)[:, None, :]
-                      + _neighbor_offsets(dev)[None, :, :])  # [NR, 27]
+                      + _neighbor_offsets(dim, dev)[None, :, :])  # [NR, 3^dim]
     dup = nkeys[:, :, None] == nkeys[:, None, :]
     earlier = torch.tril(torch.ones((n_off, n_off), dtype=torch.bool,
                                     device=dev), diagonal=-1)
@@ -156,13 +160,13 @@ def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
         mask_f = mask_f & (rsl(dynamic)[:, None] | dynamic[cand_f])
     c_mins, c_maxs = mins[cand_f], maxs[cand_f]
     overlap = torch.ones_like(mask_f)
-    for a in range(3):
+    for a in range(dim):
         overlap &= ((r_mins[:, a:a + 1] <= c_maxs[..., a])
                     & (c_mins[..., a] <= r_maxs[:, a:a + 1]))
     if ball_radius is not None:
         c_center = center[cand_f]
         d2 = torch.zeros_like(c_center[..., 0])
-        for a in range(3):
+        for a in range(dim):
             da = r_center[:, a:a + 1] - c_center[..., a]
             d2 = d2 + da * da
         lim = rsl(ball_radius)[:, None] + ball_radius[cand_f] + margin

@@ -161,7 +161,9 @@ def state_to_arrays(state) -> dict[str, np.ndarray]:
     out = {}
     b = state.bodies
     for key, (grp, field) in _BODY_FIELDS.items():
-        out[key] = _np(getattr(getattr(b, grp), field))
+        v = getattr(getattr(b, grp), field)
+        if v is not None:  # a 2D body has no inertia frame
+            out[key] = _np(v)
     if getattr(b, "kinematic", None) is not None:
         out["bodies.kinematic"] = _np(b.kinematic)
     s = state.shapes
@@ -215,7 +217,7 @@ def state_from_arrays(arrays: dict, device=None) -> PhysicsState:
     def t(key):
         return _tensor(arrays[key], dev)
 
-    g = {k: t(k) for k in _BODY_FIELDS}
+    g = {k: t(k) if k in arrays else None for k in _BODY_FIELDS}
     bodies = Bodies(
         Sim(g["bodies.poses.rotation"], g["bodies.poses.translation"],
             g["bodies.poses.scale"]),
@@ -226,11 +228,12 @@ def state_from_arrays(arrays: dict, device=None) -> PhysicsState:
             g["bodies.local_mprops.inv_principal_inertia"]),
         t("bodies.kinematic").to(torch.bool)
         if "bodies.kinematic" in arrays else None)
+    dim = g["bodies.poses.translation"].shape[-1]
     buffers = ((t("shapes.vertices"), t("shapes.indices"),
                 t("shapes.cluster_min"), t("shapes.cluster_max"))
                if "shapes.vertices" in arrays else
-               (torch.zeros((0, 3), device=dev),
-                torch.zeros((0, 3), dtype=torch.int64, device=dev)))
+               (torch.zeros((0, dim), device=dev),
+                torch.zeros((0, dim), dtype=torch.int64, device=dev)))
     shapes = ShapeSet(
         t("shapes.tag"), t("shapes.params"), *buffers,
         kinds=frozenset(int(k) for k in np.asarray(arrays["shapes.kind"])))

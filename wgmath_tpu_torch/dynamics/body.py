@@ -1,11 +1,13 @@
 """Rigid-body state and integration, structure of arrays (counterpart of
-``wgmath_tpu/dynamics/body.py``, 3D).
+``wgmath_tpu/dynamics/body.py``). The dimension is read from the shapes:
+2D bodies have a scalar angular velocity and inverse inertia.
 
 - ``inv_mass`` is a per-axis vector (axis locking).
-- Local inertia is (principal frame quaternion, inverse principal inertia);
-  world inverse inertia is R diag R^T.
+- 3D local inertia is (principal frame quaternion, inverse principal
+  inertia); world inverse inertia is R diag R^T. 2D has no inertia frame
+  (``None``) and a scalar inverse inertia, the same in the world.
 - Velocity integration is semi-implicit Euler about the COM with a
-  quaternion exponential map.
+  quaternion exponential map (3D) or a rotation by the angle (2D).
 """
 
 from __future__ import annotations
@@ -16,37 +18,38 @@ import math
 import torch
 
 from wgmath_tpu_torch.core.dispatch import resolve_device
-from wgmath_tpu_torch.geometry import quat
+from wgmath_tpu_torch.geometry import quat, rot2
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.sim import Sim
 
 
 @dataclasses.dataclass
 class Velocity:
-    linear: torch.Tensor  # [N, 3]
-    angular: torch.Tensor  # [N, 3]
+    linear: torch.Tensor  # [N, dim]
+    angular: torch.Tensor  # [N, 3] (3D) or [N] (2D)
 
     @staticmethod
-    def zero(n: int, *, device=None) -> "Velocity":
+    def zero(n: int, dim: int = 3, *, device=None) -> "Velocity":
         """Zero velocities; ``device`` None means the card."""
         device = resolve_device(device)
-        return Velocity(torch.zeros((n, 3), device=device),
-                        torch.zeros((n, 3), device=device))
+        return Velocity(torch.zeros((n, dim), device=device),
+                        torch.zeros((n, 3) if dim == 3 else (n,),
+                                    device=device))
 
 
 @dataclasses.dataclass
 class LocalMassProperties:
-    inv_mass: torch.Tensor  # [N, 3] per axis
-    com: torch.Tensor  # [N, 3]
-    inertia_ref_frame: torch.Tensor  # [N, 4]
-    inv_principal_inertia: torch.Tensor  # [N, 3]
+    inv_mass: torch.Tensor  # [N, dim] per axis
+    com: torch.Tensor  # [N, dim]
+    inertia_ref_frame: torch.Tensor | None  # [N, 4] (3D) or None (2D)
+    inv_principal_inertia: torch.Tensor  # [N, 3] (3D) or [N] (2D)
 
 
 @dataclasses.dataclass
 class WorldMassProperties:
-    inv_mass: torch.Tensor  # [N, 3]
-    com: torch.Tensor  # [N, 3]
-    inv_inertia: torch.Tensor  # [N, 3, 3]
+    inv_mass: torch.Tensor  # [N, dim]
+    com: torch.Tensor  # [N, dim]
+    inv_inertia: torch.Tensor  # [N, 3, 3] (3D) or [N] (2D)
 
 
 @dataclasses.dataclass
@@ -87,6 +90,9 @@ def update_mprops(poses: Sim,
                   local: LocalMassProperties) -> WorldMassProperties:
     """World-space mass properties from the pose."""
     world_com = sim_ops.mul_pt(poses, local.com)
+    if poses.translation.shape[-1] == 2:
+        return WorldMassProperties(local.inv_mass, world_com,
+                                   local.inv_principal_inertia)
     r = quat.to_matrix(quat.mul(poses.rotation, local.inertia_ref_frame))
     inv_inertia = torch.einsum("nik,nk,njk->nij", r,
                                local.inv_principal_inertia, r)
@@ -98,25 +104,49 @@ def integrate_velocity(poses: Sim, vels: Velocity, local_com: torch.Tensor,
     """Semi-implicit Euler pose update about the COM."""
     init_com = sim_ops.mul_pt(poses, local_com)
     init_tra = poses.translation
-    delta_ang = quat.from_scaled_axis(vels.angular * dt)
-    rotated = quat.mul_vec(delta_ang, init_tra - init_com)
-    new_rot = quat.normalize(quat.mul(delta_ang, poses.rotation))
+    if init_tra.shape[-1] == 2:
+        delta_ang = rot2.from_angle(vels.angular * dt)
+        rotated = rot2.mul_vec(delta_ang, init_tra - init_com)
+        new_rot = rot2.normalize(rot2.mul(delta_ang, poses.rotation))
+    else:
+        delta_ang = quat.from_scaled_axis(vels.angular * dt)
+        rotated = quat.mul_vec(delta_ang, init_tra - init_com)
+        new_rot = quat.normalize(quat.mul(delta_ang, poses.rotation))
     new_tra = init_com + rotated * poses.scale[..., None] + vels.linear * dt
     return Sim(new_rot, new_tra, poses.scale)
 
 
+def _dyn(n: int, dev, dynamic) -> torch.Tensor:
+    return (torch.ones(n, dtype=torch.bool, device=dev) if dynamic is None
+            else torch.as_tensor(dynamic, device=dev))
+
+
+def _planar(inv_m, inv_i) -> LocalMassProperties:
+    """2D mass properties: per-axis inverse mass, no inertia frame, the
+    scalar inverse inertia."""
+    n = inv_m.shape[0]
+    return LocalMassProperties(inv_m[:, None].repeat(1, 2),
+                               torch.zeros((n, 2), device=inv_m.device),
+                               None, inv_i)
+
+
 def ball_local_mprops(radius: torch.Tensor, density: float = 1.0, *,
-                      dynamic=None) -> LocalMassProperties:
-    """Uniform 3D ball mass properties."""
+                      dim: int = 3, dynamic=None) -> LocalMassProperties:
+    """Uniform ball (3D) or disk (2D) mass properties."""
     radius = radius.to(torch.float32)
     n = radius.shape[0]
     dev = radius.device
-    mass = density * (4.0 / 3.0) * math.pi * radius ** 3
-    inertia = 0.4 * mass * radius ** 2
-    dyn = (torch.ones(n, dtype=torch.bool, device=dev) if dynamic is None
-           else torch.as_tensor(dynamic, device=dev))
+    if dim == 3:
+        mass = density * (4.0 / 3.0) * math.pi * radius ** 3
+        inertia = 0.4 * mass * radius ** 2
+    else:
+        mass = density * math.pi * radius ** 2
+        inertia = 0.5 * mass * radius ** 2
+    dyn = _dyn(n, dev, dynamic)
     inv_m = torch.where(dyn, 1.0 / mass, torch.zeros_like(mass))
     inv_i = torch.where(dyn, 1.0 / inertia, torch.zeros_like(inertia))
+    if dim == 2:
+        return _planar(inv_m, inv_i)
     return LocalMassProperties(inv_m[:, None].repeat(1, 3),
                                torch.zeros((n, 3), device=dev),
                                quat.identity((n,), device=dev),
@@ -125,11 +155,18 @@ def ball_local_mprops(radius: torch.Tensor, density: float = 1.0, *,
 
 def cuboid_local_mprops(half_extents: torch.Tensor, density: float = 1.0,
                         *, dynamic=None) -> LocalMassProperties:
-    """Uniform 3D box mass properties, [N, 3] half extents."""
+    """Uniform box mass properties, [N, dim] half extents."""
     he = half_extents.to(torch.float32)
     n = he.shape[0]
     dev = he.device
     sides = 2.0 * he
+    if he.shape[1] == 2:
+        mass = density * sides[:, 0] * sides[:, 1]
+        inertia = mass / 12.0 * (sides[:, 0] ** 2 + sides[:, 1] ** 2)
+        dyn = _dyn(n, dev, dynamic)
+        return _planar(torch.where(dyn, 1.0 / mass, torch.zeros_like(mass)),
+                       torch.where(dyn, 1.0 / inertia,
+                                   torch.zeros_like(inertia)))
     mass = density * sides[:, 0] * sides[:, 1] * sides[:, 2]
     ix = mass / 12.0 * (sides[:, 1] ** 2 + sides[:, 2] ** 2)
     iy = mass / 12.0 * (sides[:, 0] ** 2 + sides[:, 2] ** 2)
@@ -159,11 +196,24 @@ def _axial_mprops(mass, inertia, com, dynamic) -> LocalMassProperties:
 
 
 def capsule_local_mprops(half_heights: torch.Tensor, radii: torch.Tensor,
-                         density: float = 1.0, *,
+                         density: float = 1.0, *, dim: int = 3,
                          dynamic=None) -> LocalMassProperties:
-    """Solid 3D capsule along local Y: a cylinder and two hemispheres."""
+    """Solid capsule along local Y: a cylinder and two hemispheres (3D), a
+    rectangle and two half disks (2D)."""
     hh = half_heights.to(torch.float32)
     r = radii.to(torch.float32)
+    if dim == 2:
+        m_rect = density * 2.0 * r * 2.0 * hh
+        m_half = density * math.pi * r ** 2 / 2.0
+        mass = m_rect + 2.0 * m_half
+        c = 4.0 * r / (3.0 * math.pi)
+        i_half_com = m_half * r ** 2 / 2.0 - m_half * c ** 2
+        inertia = (m_rect * (4.0 * r ** 2 + 4.0 * hh ** 2) / 12.0
+                   + 2.0 * (i_half_com + m_half * (hh + c) ** 2))
+        dyn = _dyn(hh.shape[0], hh.device, dynamic)
+        return _planar(torch.where(dyn, 1.0 / mass, torch.zeros_like(mass)),
+                       torch.where(dyn, 1.0 / inertia,
+                                   torch.zeros_like(inertia)))
     m_cyl = density * math.pi * r ** 2 * 2.0 * hh
     m_hemi = density * (2.0 / 3.0) * math.pi * r ** 3
     mass = m_cyl + 2.0 * m_hemi

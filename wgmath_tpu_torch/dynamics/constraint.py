@@ -1,9 +1,11 @@
 """Contact constraints: data layout and builder (counterpart of
-``wgmath_tpu/dynamics/constraint.py``, 3D).
+``wgmath_tpu/dynamics/constraint.py``).
 
 One structure of arrays over a fixed-capacity constraint buffer; a
 ``valid`` mask replaces a live count. Per-manifold points are a static
-trailing axis P, friction directions a trailing axis S = 2.
+trailing axis P, friction directions a trailing axis S (2 in 3D, 1 in 2D).
+Angular quantities are 3-vectors in 3D and scalars in 2D (``gcross``,
+``gdot``, ``ii_mul``).
 """
 
 from __future__ import annotations
@@ -23,12 +25,44 @@ from wgmath_tpu_torch.geometry.sim import Sim
 S_LEN = 2  # friction directions per contact point (3D)
 
 
+def sub_len(dim: int) -> int:
+    """Friction directions per contact point."""
+    return 2 if dim == 3 else 1
+
+
+def gcross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """vector x vector: the angular quantity (a scalar in 2D)."""
+    if a.shape[-1] == 2:
+        return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+    return cross(a, b)
+
+
+def gcross_av(ang: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """angular x vector: a vector."""
+    if v.shape[-1] == 2:
+        return ang[..., None] * torch.stack([-v[..., 1], v[..., 0]], dim=-1)
+    return cross(ang, v)
+
+
+def gdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """angular · angular: a scalar."""
+    if a.ndim == b.ndim and a.shape == b.shape and a.shape[-1:] == (3,):
+        return torch.sum(a * b, dim=-1)
+    return a * b
+
+
 def ii_mul(inv_inertia: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """The world inverse inertia applied to an angular quantity."""
+    if inv_inertia.ndim == 1:
+        return inv_inertia * ang
     return torch.einsum("nij,nj->ni", inv_inertia, ang)
 
 
 def orthonormal_vector(v: torch.Tensor) -> torch.Tensor:
-    """A unit vector orthogonal to unit v (branch-free Duff et al.)."""
+    """A unit vector orthogonal to unit v (branch-free Duff et al. in 3D,
+    the left normal in 2D)."""
+    if v.shape[-1] == 2:
+        return torch.stack([-v[..., 1], v[..., 0]], dim=-1)
     sign = torch.where(v[..., 2] >= 0.0, 1.0, -1.0)
     a = -1.0 / (sign + v[..., 2])
     b = v[..., 0] * v[..., 1] * a
@@ -36,8 +70,11 @@ def orthonormal_vector(v: torch.Tensor) -> torch.Tensor:
 
 
 def tangent_directions(force_dir, linvel1, linvel2) -> torch.Tensor:
-    """[..., 2, 3] friction basis: the relative-velocity direction when it
-    is large enough, else an arbitrary orthonormal vector."""
+    """[..., S, dim] friction basis: in 3D the relative-velocity direction
+    when it is large enough, else an arbitrary orthonormal vector; in 2D
+    the contact normal's left normal."""
+    if force_dir.shape[-1] == 2:
+        return orthonormal_vector(force_dir)[..., None, :]
     rel = linvel1 - linvel2
     t = rel - force_dir * torch.sum(force_dir * rel, dim=-1, keepdim=True)
     n = norm(t, keepdim=True)
@@ -60,8 +97,8 @@ class Contacts:
 
     body_a: torch.Tensor  # i64 [C]
     body_b: torch.Tensor  # i64 [C]
-    normal_a: torch.Tensor  # [C, 3]
-    points_a: torch.Tensor  # [C, P, 3]
+    normal_a: torch.Tensor  # [C, dim]
+    points_a: torch.Tensor  # [C, P, dim]
     dist: torch.Tensor  # [C, P]
     num_points: torch.Tensor  # i64 [C]
     valid: torch.Tensor  # bool [C]
@@ -73,7 +110,10 @@ class Contacts:
 
 @dataclasses.dataclass
 class ContactConstraints:
-    """Two-body contact constraints; trailing axes P points, S directions."""
+    """Two-body contact constraints; trailing axes P points, S directions.
+    The shapes below are 3D; in 2D every 3 is the dimension 2 where it
+    is a vector's, and angular terms are scalars (``n_torque_a`` [C, P],
+    ``t_torque_a`` [C, P, S]), ``t_r`` [C, P, 1] holds 1/r."""
 
     body_a: torch.Tensor  # i64 [C]
     body_b: torch.Tensor  # i64 [C]
@@ -115,6 +155,8 @@ def build_constraints(poses: Sim, vels: Velocity,
     """Vectorized contact → constraint conversion; invalid slots produce
     zero-impact constraints (masked by ``valid``)."""
     p_max = contacts.points_a.shape[1]
+    dim = contacts.normal_a.shape[-1]
+    s_len = sub_len(dim)
     id1, id2 = contacts.body_a, contacts.body_b
     pose1, pose2 = poses.take(id1), poses.take(id2)
     lin1, lin2 = vels.linear[id1], vels.linear[id2]
@@ -137,16 +179,15 @@ def build_constraints(poses: Sim, vels: Velocity,
         pt = sim_ops.mul_pt(pose1, pt_local)
         dp1 = pt - com1
         dp2 = pt - com2
-        cvel1 = lin1 + cross(ang1, dp1)
-        cvel2 = lin2 + cross(ang2, dp2)
-        td1 = cross(dp1, force_dir1)
-        td2 = cross(dp2, -force_dir1)
+        cvel1 = lin1 + gcross_av(ang1, dp1)
+        cvel2 = lin2 + gcross_av(ang2, dp2)
+        td1 = gcross(dp1, force_dir1)
+        td2 = gcross(dp2, -force_dir1)
         iitd1 = ii_mul(ii1, td1)
         iitd2 = ii_mul(ii2, td2)
         proj_mass = safe_inv(
             torch.sum(force_dir1 * (imsum * force_dir1), dim=-1)
-            + torch.sum(iitd1 * td1, dim=-1)
-            + torch.sum(iitd2 * td2, dim=-1))
+            + gdot(iitd1, td1) + gdot(iitd2, td2))
         dist = contacts.dist[:, k]
         rhs_wo_bias = (params.restitution
                        * torch.sum((cvel1 - cvel2) * force_dir1, dim=-1)
@@ -159,22 +200,25 @@ def build_constraints(poses: Sim, vels: Velocity,
         n_r.append(proj_mass)
 
         tq_a_j, iitq_a_j, tq_b_j, iitq_b_j, r_j = [], [], [], [], []
-        for j in range(S_LEN):
+        for j in range(s_len):
             tj = tangents1[:, j]
-            ttd1 = cross(dp1, tj)
-            ttd2 = cross(dp2, -tj)
+            ttd1 = gcross(dp1, tj)
+            ttd2 = gcross(dp2, -tj)
             tiitd1 = ii_mul(ii1, ttd1)
             tiitd2 = ii_mul(ii2, ttd2)
-            r_j.append(torch.sum(tj * (imsum * tj), dim=-1)
-                       + torch.sum(tiitd1 * ttd1, dim=-1)
-                       + torch.sum(tiitd2 * ttd2, dim=-1))
+            r = (torch.sum(tj * (imsum * tj), dim=-1)
+                 + gdot(tiitd1, ttd1) + gdot(tiitd2, ttd2))
+            r_j.append(safe_inv(r) if dim == 2 else r)
             tq_a_j.append(ttd1)
             iitq_a_j.append(tiitd1)
             tq_b_j.append(ttd2)
             iitq_b_j.append(tiitd2)
-        r_cross = 2.0 * (torch.sum(tq_a_j[0] * iitq_a_j[1], dim=-1)
-                         + torch.sum(tq_b_j[0] * iitq_b_j[1], dim=-1))
-        t_r.append(torch.stack(r_j + [r_cross], dim=-1))
+        if dim == 3:
+            r_cross = 2.0 * (torch.sum(tq_a_j[0] * iitq_a_j[1], dim=-1)
+                             + torch.sum(tq_b_j[0] * iitq_b_j[1], dim=-1))
+            t_r.append(torch.stack(r_j + [r_cross], dim=-1))
+        else:
+            t_r.append(torch.stack(r_j, dim=-1))
         t_tq_a.append(torch.stack(tq_a_j, dim=1))
         t_iitq_a.append(torch.stack(iitq_a_j, dim=1))
         t_tq_b.append(torch.stack(tq_b_j, dim=1))
@@ -188,7 +232,7 @@ def build_constraints(poses: Sim, vels: Velocity,
 
     c = contacts.capacity
     dev = id1.device
-    zeros_ps = torch.zeros((c, p_max, S_LEN), device=dev)
+    zeros_ps = torch.zeros((c, p_max, s_len), device=dev)
     zeros_p = torch.zeros((c, p_max), device=dev)
     n_rhs_t = stk(n_rhs)
     return ContactConstraints(
@@ -211,12 +255,14 @@ def build_constraints(poses: Sim, vels: Velocity,
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Dot product over a last axis of 3, summed left to right. A
+    """Dot product over a last axis of 3 (or 2), summed left to right. A
     ``torch.sum`` reduction may add in another order on the card; this one
     is the order of the impulse kernels' ``dot3``, so the rhs built here
     and the rhs rebuilt in kernel agree bit for bit. The products are one
     operation, then two adds: three kernels."""
     p = a * b
+    if p.shape[-1] == 2:
+        return p[..., 0] + p[..., 1]
     return p[..., 0] + p[..., 1] + p[..., 2]
 
 
@@ -229,16 +275,19 @@ def update_rhs_sorted(ss, poses: Sim, params: SimParams):
     rebuild (``csrc/gs_math.cu``), so the ladder and the rhs-in-rung sweep
     see the same bits. Returns ``(n_rhs, n_rhs_wo_bias, t_rhs)``."""
     c = ss.body_a.shape[0]
+    rw, dim = poses.rotation.shape[-1], poses.translation.shape[-1]
     # one gather of [rot | trans | scale] rows for both sides
     packed = torch.cat([poses.rotation, poses.translation,
                         poses.scale[:, None]], dim=-1)
     pp = packed[torch.cat([ss.body_a, ss.body_b])]
-    pose1 = Sim(pp[:c, None, :4], pp[:c, None, 4:7], pp[:c, None, 7])
-    pose2 = Sim(pp[c:, None, :4], pp[c:, None, 4:7], pp[c:, None, 7])
+    pose1 = Sim(pp[:c, None, :rw], pp[:c, None, rw:rw + dim],
+                pp[:c, None, rw + dim])
+    pose2 = Sim(pp[c:, None, :rw], pp[c:, None, rw:rw + dim],
+                pp[c:, None, rw + dim])
     inv_dt = params.inv_dt
     p1 = sim_ops.mul_pt(pose1, ss.local_pt_a)
     p2 = sim_ops.mul_pt(pose2, ss.local_pt_b)
-    drift = p1 - p2  # [C, P, 3]
+    drift = p1 - p2  # [C, P, dim]
     dist = ss.info_dist + _dot3(drift, ss.dir_a[:, None, :])
     rhs_wo_bias = ss.info_normal_vel + torch.clamp(dist, min=0.0) * inv_dt
     rhs_bias = torch.clamp((dist + params.allowed_linear_error)
@@ -336,7 +385,8 @@ def compact_contacts(contacts: Contacts, capacity: int, extra=None,
         p_shape = contacts.points_a.shape[1:]
         big = torch.cat([contacts.normal_a, contacts.points_a.reshape(c, -1),
                          contacts.dist], dim=1)[take]
-        w0, w1 = 3, 3 + contacts.points_a[0].numel()
+        w0 = contacts.normal_a.shape[1]
+        w1 = w0 + contacts.points_a[0].numel()
         out = Contacts(
             body_a=torch.where(valid_out, contacts.body_a[take], zero),
             body_b=torch.where(valid_out, contacts.body_b[take], zero),

@@ -221,7 +221,7 @@ def _sweep_color(c, off, rung, w_g, vt, n_imp, t_imp, winT, activeT, numpT,
     def sl(x):
         return x[:, off:off + rung]
 
-    pp = vt[:, idx_row[:2 * rung].long()]
+    pp = torch.index_select(vt, 1, idx_row[:2 * rung].long())
     v1l, v1a = pp[0:3, :rung], pp[3:6, :rung]
     v2l, v2a = pp[0:3, rung:], pp[3:6, rung:]
     f = _fields_cm(sl(winT), meta,
@@ -243,7 +243,7 @@ def _sweep_color(c, off, rung, w_g, vt, n_imp, t_imp, winT, activeT, numpT,
     # [6, 2 rung] deltas → a zero-padded [8, Wg] table; the inverse
     # permutation places each body's delta at its lane (trash lane = 0)
     d_pad = _pad_table(torch.cat([d1, d2]).T, ROWS, w_g)
-    v_add = d_pad[:, inv_row.long()]
+    v_add = torch.index_select(d_pad, 1, inv_row.long())
     return (v_add, new_n.T.reshape(p_max, rung),
             new_t.movedim(0, -1).reshape(p_max * s_len, rung))
 
@@ -299,7 +299,8 @@ def _ws_color(off, rung, w_g, n_imp, t_imp, winT, activeT, numpT, inv_row,
             d2l = d2l - tj * (f["im_b"] * timp)
             d2a = d2a + f["t_ii_torque_b"][k, j] * timp
     d12 = torch.cat([torch.cat([d1l, d1a]), torch.cat([d2l, d2a])], dim=1)
-    return _pad_table(d12, ROWS, w_g)[:, inv_row.long()]
+    return torch.index_select(_pad_table(d12, ROWS, w_g), 1,
+                              inv_row.long())
 
 
 def _rhs_color(off, rung, poseT, idx_row, winT, rhs_srcT, src_meta, meta,
@@ -308,7 +309,7 @@ def _rhs_color(off, rung, poseT, idx_row, winT, rhs_srcT, src_meta, meta,
     """The colour's substep rhs relinearized from the poses gathered
     through its index row. Returns (n_rhs [P, rung], n_rhs_wo [P, rung],
     t_rhs [P*S, rung])."""
-    pp = poseT[:, idx_row[:2 * rung].long()]
+    pp = torch.index_select(poseT, 1, idx_row[:2 * rung].long())
     q1, t1, s1 = pp[0:4, :rung], pp[4:7, :rung], pp[7:8, :rung]
     q2, t2, s2 = pp[0:4, rung:], pp[4:7, rung:], pp[7:8, rung:]
 

@@ -140,7 +140,11 @@ def _point_updates(f, cfm, n_rhs, t_rhs, num_points, active, p1, p2, prev_n,
     """``_cm_point_updates`` row-major: ``f`` the field views, ``cfm`` a
     float or [L], ``n_rhs`` [L, P], ``t_rhs`` [L, P, 2]. Returns (new_n,
     new_t, d1, d2), or the updated velocities in place of the deltas
-    (``deltas=False``)."""
+    (``deltas=False``). 2D rows (``dir_a`` [L, 2]) take
+    :func:`_point_updates_2d`."""
+    if f["dir_a"].shape[-1] == 2:
+        return _point_updates_2d(f, cfm, n_rhs, t_rhs, num_points, active,
+                                 p1, p2, prev_n, prev_t, p_max, deltas)
     dir_a, tang = f["dir_a"], f["tangent_a"]
     v1l, v1a = p1[:, :3], p1[:, 3:6]
     v2l, v2a = p2[:, :3], p2[:, 3:6]
@@ -190,6 +194,56 @@ def _point_updates(f, cfm, n_rhs, t_rhs, num_points, active, p1, p2, prev_n,
         w2l = w2l - lin_dir * im_b
         w2a = w2a + ib[:, 0] * dl[:, 0:1] + ib[:, 1] * dl[:, 1:2]
         new_t.append(t_new)
+    new_n, new_t = torch.stack(new_n, dim=1), torch.stack(new_t, dim=1)
+    if not deltas:
+        return (new_n, new_t, torch.cat([w1l, w1a], dim=-1),
+                torch.cat([w2l, w2a], dim=-1))
+    return (new_n, new_t, torch.cat([w1l - v1l, w1a - v1a], dim=-1),
+            torch.cat([w2l - v2l, w2a - v2a], dim=-1))
+
+
+def _point_updates_2d(f, cfm, n_rhs, t_rhs, num_points, active, p1, p2,
+                      prev_n, prev_t, p_max, deltas: bool = True):
+    """The JAX package's 2D ``_point_updates`` (as its XLA runs it: no
+    kernel): rows of [vx, vy, w] velocities, scalar angular terms, one
+    friction direction clamped to the friction cone and scaled by the
+    cfm. Returns as :func:`_point_updates`."""
+    dir_a, tj = f["dir_a"], f["tangent_a"][:, 0]
+    v1l, v1a = p1[:, :2], p1[:, 2:3]
+    v2l, v2a = p2[:, :2], p2[:, 2:3]
+    w1l, w1a, w2l, w2a = v1l, v1a, v2l, v2a
+    im_a, im_b, friction = f["im_a"], f["im_b"], f["limit"]
+    nump = num_points.to(torch.float32)
+    new_n, new_t = [], []
+    for k in range(p_max):
+        on = active & (nump > k)
+        prev = prev_n[:, k]
+        dvel = (_dot(dir_a, w1l) + f["n_torque_a"][:, k] * w1a[:, 0]
+                - _dot(dir_a, w2l) + f["n_torque_b"][:, k] * w2a[:, 0]
+                + n_rhs[:, k])
+        cand = cfm * torch.clamp(prev - f["n_r"][:, k] * dvel, min=0.0)
+        new_imp = torch.where(on, cand, prev)
+        d_imp = (new_imp - prev)[:, None]
+        w1l = w1l + dir_a * (im_a * d_imp)
+        w1a = w1a + f["n_ii_torque_a"][:, k, None] * d_imp
+        w2l = w2l - dir_a * (im_b * d_imp)
+        w2a = w2a + f["n_ii_torque_b"][:, k, None] * d_imp
+        limit = new_imp * friction
+        new_n.append(new_imp)
+
+        tp = prev_t[:, k, 0]
+        dvel = (_dot(tj, w1l) + f["t_torque_a"][:, k, 0] * w1a[:, 0]
+                - _dot(tj, w2l) + f["t_torque_b"][:, k, 0] * w2a[:, 0]
+                + t_rhs[:, k, 0])
+        cand = cfm * torch.clamp(tp - f["t_r"][:, k, 0] * dvel, min=-limit,
+                                 max=limit)
+        t_new = torch.where(on, cand, tp)
+        dl = (t_new - tp)[:, None]
+        w1l = w1l + tj * (im_a * dl)
+        w1a = w1a + f["t_ii_torque_a"][:, k, 0, None] * dl
+        w2l = w2l - tj * (im_b * dl)
+        w2a = w2a + f["t_ii_torque_b"][:, k, 0, None] * dl
+        new_t.append(t_new[:, None])
     new_n, new_t = torch.stack(new_n, dim=1), torch.stack(new_t, dim=1)
     if not deltas:
         return (new_n, new_t, torch.cat([w1l, w1a], dim=-1),

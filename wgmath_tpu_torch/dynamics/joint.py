@@ -1,5 +1,6 @@
-"""Impulse joints, 3D: generic 6-DoF joints with locked, limited,
-motorized and coupled axes (counterpart of ``wgmath_tpu/dynamics/joint.py``).
+"""Impulse joints: generic 6-DoF (3-DoF in 2D) joints with locked,
+limited, motorized and coupled axes (counterpart of
+``wgmath_tpu/dynamics/joint.py``).
 
 Every possible constraint element of a joint has a fixed slot, E = 18:
 [angular motors | linear motors] (group 1, orthogonalized together) and
@@ -9,7 +10,11 @@ package's. The joint graph is coloured greedily on the host when the set
 is built (``native.greedy_color``); the solve walks the colours, and
 within one colour no two joints share a dynamic body.
 
-Axis bit order: bits 0..2 linear x/y/z, bits 3..5 angular x/y/z.
+Axis bit order: bits 0..2 linear x/y/z, bits 3..5 angular x/y/z; in 2D
+bits 0..1 linear, bit 2 angular, and E = 9 slots: [angular motor | linear
+motors] (group 1) and [angular lock | linear locks | angular limit |
+linear limits] (group 2), with scalar angular terms and no coupled axes
+(the JAX package's ``_build_joint_constraints_2d``).
 
 The JAX package computes every slot of every joint in XLA. Here the work
 is eager PyTorch, one kernel an operation, so a :class:`JointSet` keeps two
@@ -24,8 +29,7 @@ no joint activates keeps zeros and ±``MAX``, as the JAX package leaves it,
 and every add it would make there is a zero. The Gram-Schmidt's inner loop
 runs over all later slots of the group at once. So the same numbers come
 out with no host sync. Every 3-term sum is taken left to right.
-
-Only 3D joints are ported; ``dim=2`` raises (ROADMAP item 4)."""
+"""
 
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from wgmath_tpu_torch.core.dispatch import resolve_device
 from wgmath_tpu_torch.dynamics.body import Velocity, WorldMassProperties
 from wgmath_tpu_torch.dynamics.constraint import _dot3
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
-from wgmath_tpu_torch.geometry import quat
+from wgmath_tpu_torch.geometry import quat, rot2
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.quat import cross
 from wgmath_tpu_torch.geometry.sim import Sim
@@ -51,17 +55,19 @@ FORCE_BASED = 1
 
 NUM_SLOTS_3D = 18
 GROUP1_END = 6
+NUM_SLOTS_2D = 9
+GROUP1_END_2D = 3
 
 
 def spatial_dim(dim: int) -> int:
     return 6 if dim == 3 else 3
 
 
-def _need_3d(dim: int) -> None:
-    if dim != 3:
-        raise NotImplementedError(
-            f"dim={dim}: the port's joints are 3D; 2D joints come with "
-            "2D (ROADMAP queue A item 4)")
+def slot_groups(dim: int) -> tuple:
+    """The two orthogonalization groups' slot ranges."""
+    if dim == 3:
+        return ((0, GROUP1_END), (GROUP1_END, NUM_SLOTS_3D))
+    return ((0, GROUP1_END_2D), (GROUP1_END_2D, NUM_SLOTS_2D))
 
 
 @dataclasses.dataclass
@@ -103,8 +109,9 @@ class JointSet:
             raise ValueError("a valid joint has no colour (colour < 1): "
                              "colour the set, as make_joint_set does")
         self.max_color = int(colors[valid].max()) if valid.any() else 0
+        slots_of = active_slots if self.dim == 3 else active_slots_2d
         self.slots = tuple(int(s) for s in np.flatnonzero(
-            active_slots(*host[:4], valid).any(0)))
+            slots_of(*host[:4], valid).any(0)))
 
     @property
     def num_joints(self) -> int:
@@ -152,6 +159,20 @@ def active_slots(locked, limit, motor, coupled, valid) -> np.ndarray:
     return np.stack(cols, -1) & np.asarray(valid, bool)[:, None]
 
 
+def active_slots_2d(locked, limit, motor, coupled, valid) -> np.ndarray:
+    """``[J, 9]`` bool: :func:`active_slots` for 2D joints (coupled axes
+    play no part there)."""
+    locked, limit, motor = (np.asarray(x, np.int64) for x in
+                            (locked, limit, motor))
+    motor_mask = motor & ~locked
+    limit_mask = limit & ~locked
+    cols = [(motor_mask & 4) != 0, (motor_mask & 1) != 0,
+            (motor_mask & 2) != 0, (locked & 4) != 0, (locked & 1) != 0,
+            (locked & 2) != 0, (limit_mask & 4) != 0, (limit_mask & 1) != 0,
+            (limit_mask & 2) != 0]
+    return np.stack(cols, -1) & np.asarray(valid, bool)[:, None]
+
+
 def make_joint_set(body_a, body_b, local_frame_a: Sim, local_frame_b: Sim,
                    *, locked_axes, limit_axes=None, motor_axes=None,
                    coupled_axes=None, limit_min=None, limit_max=None,
@@ -163,7 +184,6 @@ def make_joint_set(body_a, body_b, local_frame_a: Sim, local_frame_b: Sim,
     ``native.greedy_color`` (``dynamic_mask``: the bodies' dynamic flags;
     default every body up to the largest index dynamic)."""
     dim = local_frame_a.translation.shape[-1]
-    _need_3d(dim)
     dev = local_frame_a.translation.device
     body_a = np.asarray(body_a, np.int64)
     body_b = np.asarray(body_b, np.int64)
@@ -205,10 +225,16 @@ def make_joint_set(body_a, body_b, local_frame_a: Sim, local_frame_b: Sim,
 def _frames_at_anchor(n: int, anchors_a, anchors_b, axes=None, dim=3,
                       device=None):
     """The ``n`` joints' frames at their anchors: identity rotations, or
-    the rotation taking +x onto each of ``axes``."""
-    _need_3d(dim)
+    the rotation taking +x onto each of ``axes`` (in 2D the normalized
+    axis is that rotation's (cos, sin))."""
     dev = resolve_device(device)
-    if axes is None:
+    if dim == 2:
+        if axes is None:
+            rot = torch.tensor([1.0, 0.0], device=dev).repeat(n, 1)
+        else:
+            ax = torch.as_tensor(np.asarray(axes, np.float32), device=dev)
+            rot = ax / torch.linalg.norm(ax, dim=-1, keepdim=True)
+    elif axes is None:
         rot = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).repeat(n, 1)
     else:
         rot = _quat_from_x_axis(torch.as_tensor(
@@ -281,23 +307,28 @@ def revolute_joints(body_a, body_b, anchors_a, anchors_b, axes=None, *,
                     dim=3, dynamic_mask=None, device=None) -> JointSet:
     """A hinge about ``axes`` (the joint frame's +x): every axis locked but
     angular x. Optional rotation ``limits`` (min, max) and a velocity motor
-    (``motor_vel``, acceleration-based with ``motor_damping``)."""
-    _need_3d(dim)
-    if axes is None:
-        raise ValueError("3D revolute joints need hinge axes")
+    (``motor_vel``, acceleration-based with ``motor_damping``). In 2D the
+    hinge is out of the plane (no ``axes``): the linear axes locked, the
+    one angular axis free."""
     n = len(body_a)
+    s = spatial_dim(dim)
+    free = 3 if dim == 3 else 2  # the free angular axis
+    if dim == 3 and axes is None:
+        raise ValueError("3D revolute joints need hinge axes")
     fa, fb = _frames_at_anchor(n, anchors_a, anchors_b,
-                               axes=axes, device=device)
-    kw = {} if limits is None else _limits(n, 6, 3, *limits)
+                               axes=axes if dim == 3 else None, dim=dim,
+                               device=device)
+    kw = {} if limits is None else _limits(n, s, free, *limits)
     if motor_vel is not None:
-        tv = np.zeros((n, 6), np.float32)
-        tv[:, 3] = motor_vel
-        damp = np.zeros((n, 6), np.float32)
-        damp[:, 3] = motor_damping
-        kw.update(motor_axes=np.full(n, 1 << 3, np.int64),
+        tv = np.zeros((n, s), np.float32)
+        tv[:, free] = motor_vel
+        damp = np.zeros((n, s), np.float32)
+        damp[:, free] = motor_damping
+        kw.update(motor_axes=np.full(n, 1 << free, np.int64),
                   motor_target_vel=tv, motor_damping=damp)
+    locked = 0b110111 if dim == 3 else 0b011
     return make_joint_set(body_a, body_b, fa, fb,
-                          locked_axes=np.full(n, 0b110111, np.int64),
+                          locked_axes=np.full(n, locked, np.int64),
                           dynamic_mask=dynamic_mask, **kw)
 
 
@@ -305,7 +336,6 @@ def prismatic_joints(body_a, body_b, anchors_a, anchors_b, axes, *,
                      limits=None, dim=3, dynamic_mask=None,
                      device=None) -> JointSet:
     """A slider along ``axes``: every axis locked but linear x."""
-    _need_3d(dim)
     n = len(body_a)
     s = spatial_dim(dim)
     fa, fb = _frames_at_anchor(n, anchors_a, anchors_b,
@@ -335,11 +365,11 @@ class JointConstraints:
 
     body_a: torch.Tensor  # [J]
     body_b: torch.Tensor
-    im_a: torch.Tensor  # [J, 3]
+    im_a: torch.Tensor  # [J, dim]
     im_b: torch.Tensor
     active: torch.Tensor  # [J, E] bool
-    lin_jac: torch.Tensor  # [J, E, 3]
-    ang_jac_a: torch.Tensor
+    lin_jac: torch.Tensor  # [J, E, dim]
+    ang_jac_a: torch.Tensor  # [J, E, 3] (3D) or [J, E] (2D)
     ang_jac_b: torch.Tensor
     ii_ang_jac_a: torch.Tensor
     ii_ang_jac_b: torch.Tensor
@@ -423,7 +453,8 @@ def build_joint_constraints(jset: JointSet, poses: Sim,
     """The joints' constraint elements for this substep: ``poses`` are the
     substep's, ``mprops`` the frame's world mass properties, ``params`` the
     substep's parameters. Then :func:`_orthogonalize`."""
-    _need_3d(jset.dim)
+    if jset.dim == 2:
+        return _build_joint_constraints_2d(jset, poses, mprops, params)
     j, e = jset.num_joints, NUM_SLOTS_3D
     dev = poses.translation.device
     slots = set(jset.slots)
@@ -652,10 +683,17 @@ def build_joint_constraints(jset: JointSet, poses: Sim,
     return _orthogonalize(cons)
 
 
+def _adot(a: torch.Tensor, b: torch.Tensor, ang3: bool) -> torch.Tensor:
+    """angular · angular: over the last axis in 3D, a product in 2D."""
+    return _dot3(a, b) if ang3 else a * b
+
+
 def _orthogonalize(cons: JointConstraints) -> JointConstraints:
     """Masked modified Gram-Schmidt within the two slot groups, over the
     slots the set activates; each slot's eliminations from the later slots
-    of its group run at once."""
+    of its group run at once (the JAX package's ``_orthogonalize`` and
+    ``_orthogonalize_2d``)."""
+    ang3 = cons.ang_jac_a.ndim == 3
     imsum = cons.im_a + cons.im_b
     lin, aa, ab = (x.clone() for x in (cons.lin_jac, cons.ang_jac_a,
                                        cons.ang_jac_b))
@@ -663,13 +701,13 @@ def _orthogonalize(cons: JointConstraints) -> JointConstraints:
     rhs, rhs_wo = cons.rhs.clone(), cons.rhs_wo_bias.clone()
     cfm_gain, inv_lhs = cons.cfm_gain.clone(), cons.inv_lhs.clone()
     zero = torch.zeros((), device=lin.device)
-    for g0, g1 in ((0, GROUP1_END), (GROUP1_END, NUM_SLOTS_3D)):
+    for g0, g1 in slot_groups(3 if ang3 else 2):
         group = [s for s in cons.slots if g0 <= s < g1]
         for k, jj in enumerate(group):
             act_j = cons.active[:, jj]
             dot_jj = (_dot3(lin[:, jj], imsum * lin[:, jj])
-                      + _dot3(iia[:, jj], aa[:, jj])
-                      + _dot3(iib[:, jj], ab[:, jj]))
+                      + _adot(iia[:, jj], aa[:, jj], ang3)
+                      + _adot(iib[:, jj], ab[:, jj], ang3))
             new_gain = dot_jj * cons.cfm_coeff[:, jj] + cfm_gain[:, jj]
             inv_dot_jj = _pseudo_inv(dot_jj)
             inv_lhs[:, jj] = torch.where(act_j,
@@ -685,13 +723,14 @@ def _orthogonalize(cons: JointConstraints) -> JointConstraints:
             elim = act_j & (cons.bounds_min[:, jj] <= -MAX) & (
                 cons.bounds_max[:, jj] >= MAX)
             dot_ij = (_dot3(lin[:, ls], (imsum * lin[:, jj])[:, None])
-                      + _dot3(iia[:, ls], aa[:, jj][:, None])
-                      + _dot3(iib[:, ls], ab[:, jj][:, None]))
+                      + _adot(iia[:, ls], aa[:, jj][:, None], ang3)
+                      + _adot(iib[:, ls], ab[:, jj][:, None], ang3))
             coeff = torch.where(elim[:, None] & cons.active[:, ls],
                                 dot_ij * inv_dot_jj[:, None], zero)
             c3 = coeff[..., None]
             for x in (lin, aa, ab, iia, iib):
-                x[:, ls] = x[:, ls] + (-x[:, jj])[:, None] * c3
+                x[:, ls] = x[:, ls] + (-x[:, jj])[:, None] * (
+                    c3 if x.ndim == 3 else coeff)
             for x in (rhs, rhs_wo):
                 x[:, ls] = x[:, ls] + (-x[:, jj])[:, None] * coeff
     return dataclasses.replace(cons, lin_jac=lin, ang_jac_a=aa, ang_jac_b=ab,
@@ -714,6 +753,7 @@ def joint_gs_pass(cons: JointConstraints, vels: Velocity,
     a colour no two joints share a dynamic body, so each body takes at
     most one non-zero delta and the scatter-add's order cannot matter."""
     lin_v, ang_v = vels.linear, vels.angular
+    ang3 = cons.ang_jac_a.ndim == 3
     imp = cons.impulse.clone()
     both = torch.cat([cons.body_a, cons.body_b])
     for color in range(1, min(cons.max_color, max_colors) + 1):
@@ -724,8 +764,8 @@ def joint_gs_pass(cons: JointConstraints, vels: Velocity,
         for s in cons.slots:
             act = act_c & cons.active[:, s]
             dlin = _dot3(cons.lin_jac[:, s], v2l - v1l)
-            dang = (_dot3(cons.ang_jac_b[:, s], v2a)
-                    - _dot3(cons.ang_jac_a[:, s], v1a))
+            dang = (_adot(cons.ang_jac_b[:, s], v2a, ang3)
+                    - _adot(cons.ang_jac_a[:, s], v1a, ang3))
             old = imp[:, s]
             cand = torch.clamp(
                 old + cons.inv_lhs[:, s]
@@ -735,10 +775,153 @@ def joint_gs_pass(cons: JointConstraints, vels: Velocity,
             d = (new - old)[:, None]
             imp[:, s] = new
             lin_imp = cons.lin_jac[:, s] * d
+            da = d if ang3 else d[:, 0]
             v1l = v1l + lin_imp * cons.im_a
-            v1a = v1a + cons.ii_ang_jac_a[:, s] * d
+            v1a = v1a + cons.ii_ang_jac_a[:, s] * da
             v2l = v2l - lin_imp * cons.im_b
-            v2a = v2a - cons.ii_ang_jac_b[:, s] * d
+            v2a = v2a - cons.ii_ang_jac_b[:, s] * da
         lin_v = lin_v.index_add(0, both, torch.cat([v1l - i1l, v2l - i2l]))
         ang_v = ang_v.index_add(0, both, torch.cat([v1a - i1a, v2a - i2a]))
     return Velocity(lin_v, ang_v), dataclasses.replace(cons, impulse=imp)
+
+
+def _build_joint_constraints_2d(jset: JointSet, poses: Sim,
+                                mprops: WorldMassProperties,
+                                params: SimParams) -> JointConstraints:
+    """The 2D build (the JAX package's ``_build_joint_constraints_2d``):
+    rotations as (cos, sin), scalar angular jacobians (1 for the angular
+    slots, perp(r)·axis for the linear ones), the nine slots of the
+    module's docstring, over the slots the set activates. Then
+    :func:`_orthogonalize`."""
+    j, e = jset.num_joints, NUM_SLOTS_2D
+    dev = poses.translation.device
+    slots = set(jset.slots)
+    ba, bb = jset.body_a, jset.body_b
+    frame1 = sim_ops.mul(poses.take(ba), jset.local_frame_a)
+    frame2 = sim_ops.mul(poses.take(bb), jset.local_frame_b)
+    com1, com2 = mprops.com[ba], mprops.com[bb]
+    im1, im2 = mprops.inv_mass[ba], mprops.inv_mass[bb]
+    ii1, ii2 = mprops.inv_inertia[ba], mprops.inv_inertia[bb]
+
+    r1q, r2q = frame1.rotation, frame2.rotation
+    basis = rot2.to_matrix(r1q)  # columns: the joint axes in the world
+    lin_err = frame2.translation - frame1.translation
+    locked = jset.locked_axes
+    zero = torch.zeros((), device=dev)
+    t1 = frame2.translation
+    for i in range(2):
+        axis = basis[..., :, i]
+        has = (locked & (1 << i)) != 0
+        t1 = t1 - torch.where(has[:, None],
+                              axis * _dot3(axis, lin_err)[:, None], zero)
+    r1 = t1 - com1
+    r2 = frame2.translation - com2
+
+    def perp_dot(r, m):  # perp(r) · each column of m
+        perp = torch.stack([-r[..., 1], r[..., 0]], -1)
+        return torch.stack([_dot3(perp, m[..., :, i]) for i in range(2)],
+                           -1)
+
+    cmat1_basis = perp_dot(r1, basis)
+    cmat2_basis = perp_dot(r2, basis)
+    ang_err = rot2.mul(rot2.inv(r1q), r2q)
+    ang_err_angle = rot2.angle(ang_err)
+    ang_err_sin = ang_err[..., 1]
+
+    erp_inv_dt = params.joint_erp_inv_dt
+    cfm_coeff_j = torch.full((j,), params.joint_cfm_coeff, device=dev)
+    inv_dt = params.inv_dt
+    zeros = torch.zeros(j, device=dev)
+    ones = torch.ones(j, device=dev)
+    zeros2 = torch.zeros((j, 2), device=dev)
+    neg_max = torch.full((j,), -MAX, device=dev)
+    pos_max = torch.full((j,), MAX, device=dev)
+    no = torch.zeros(j, dtype=torch.bool, device=dev)
+    cols = {k: [default] * e for k, default in (
+        ("active", no), ("lin", zeros2), ("aa", zeros), ("ab", zeros),
+        ("rhs", zeros), ("rhs_wo", zeros), ("cfm_c", zeros),
+        ("cfm_g", zeros), ("bmin", neg_max), ("bmax", pos_max))}
+
+    def put(slot, act, lj, aa, ab, r, rw, cc, cg, lo, hi):
+        cols["lin"][slot] = torch.where(act[:, None], lj, zero)
+        for k, v, off in (("aa", aa, zero), ("ab", ab, zero),
+                          ("rhs", r, zero), ("rhs_wo", rw, zero),
+                          ("cfm_c", cc, zero), ("cfm_g", cg, zero),
+                          ("bmin", lo, -MAX), ("bmax", hi, MAX)):
+            cols[k][slot] = torch.where(act, v, off)
+        cols["active"][slot] = act
+
+    motor_mask = jset.motor_axes & ~locked
+    limit_mask = jset.limit_axes & ~locked
+    if 0 in slots:  # the angular motor (axis bit 2)
+        mp = _motor_params(jset, 2, params.dt)
+        r_wo = (_smallest_angle_diff(ang_err_angle, mp["target_pos"])
+                * mp["erp_inv_dt"]) - mp["target_vel"]
+        put(0, (motor_mask & 4) != 0, zeros2, ones, ones, r_wo, r_wo,
+            mp["cfm_coeff"], mp["cfm_gain"], -mp["max_impulse"],
+            mp["max_impulse"])
+    for i in range(2):  # the linear motors (axes 0, 1) -> slots 1, 2
+        if 1 + i not in slots:
+            continue
+        bit = 1 << i
+        mp = _motor_params(jset, i, params.dt)
+        lj = basis[..., :, i]
+        dist = _dot3(lin_err, lj)
+        has_lim = (limit_mask & bit) != 0
+        lo_l = torch.where(has_lim, jset.limit_min[:, i], neg_max)
+        hi_l = torch.where(has_lim, jset.limit_max[:, i], pos_max)
+        target_vel = torch.where(
+            has_lim,
+            torch.clamp(mp["target_vel"], (lo_l - dist) * inv_dt,
+                        (hi_l - dist) * inv_dt),
+            mp["target_vel"])
+        r_wo = (dist - mp["target_pos"]) * mp["erp_inv_dt"] - target_vel
+        put(1 + i, (motor_mask & bit) != 0, lj, cmat1_basis[:, i],
+            cmat2_basis[:, i], r_wo, r_wo, mp["cfm_coeff"], mp["cfm_gain"],
+            -mp["max_impulse"], mp["max_impulse"])
+    if 3 in slots:  # the angular lock
+        put(3, (locked & 4) != 0, zeros2, ones, ones,
+            ang_err_sin * erp_inv_dt, zeros, cfm_coeff_j, zeros, neg_max,
+            pos_max)
+    for i in range(2):  # the linear locks -> slots 4, 5
+        if 4 + i not in slots:
+            continue
+        lj = basis[..., :, i]
+        put(4 + i, (locked & (1 << i)) != 0, lj, cmat1_basis[:, i],
+            cmat2_basis[:, i], _dot3(lj, lin_err) * erp_inv_dt, zeros,
+            cfm_coeff_j, zeros, neg_max, pos_max)
+    if 6 in slots:  # the angular limit
+        s_min = torch.sin(jset.limit_min[:, 2] * 0.5)
+        s_max = torch.sin(jset.limit_max[:, 2] * 0.5)
+        s_ang = torch.sin(ang_err_angle * 0.5)
+        r_bias = (torch.clamp(s_ang - s_max, min=0.0)
+                  - torch.clamp(s_min - s_ang, min=0.0)) * erp_inv_dt
+        put(6, (limit_mask & 4) != 0, zeros2, ones, ones, r_bias, zeros,
+            cfm_coeff_j, zeros, torch.where(s_ang <= s_min, neg_max, zeros),
+            torch.where(s_max <= s_ang, pos_max, zeros))
+    for i in range(2):  # the linear limits -> slots 7, 8
+        if 7 + i not in slots:
+            continue
+        lj = basis[..., :, i]
+        dist = _dot3(lin_err, lj)
+        lo_l, hi_l = jset.limit_min[:, i], jset.limit_max[:, i]
+        r_bias = (torch.clamp(dist - hi_l, min=0.0)
+                  - torch.clamp(lo_l - dist, min=0.0)) * erp_inv_dt
+        put(7 + i, (limit_mask & (1 << i)) != 0, lj, cmat1_basis[:, i],
+            cmat2_basis[:, i], r_bias, zeros, cfm_coeff_j, zeros,
+            torch.where(dist <= lo_l, neg_max, zeros),
+            torch.where(hi_l <= dist, pos_max, zeros))
+
+    st = {k: torch.stack(v, 1) for k, v in cols.items()}
+    cons = JointConstraints(
+        body_a=ba, body_b=bb, im_a=im1, im_b=im2,
+        active=st["active"] & jset.valid[:, None],
+        lin_jac=st["lin"], ang_jac_a=st["aa"], ang_jac_b=st["ab"],
+        ii_ang_jac_a=ii1[:, None] * st["aa"],
+        ii_ang_jac_b=ii2[:, None] * st["ab"],
+        inv_lhs=torch.zeros((j, e), device=dev),
+        rhs=st["rhs"], rhs_wo_bias=st["rhs_wo"], cfm_gain=st["cfm_g"],
+        cfm_coeff=st["cfm_c"], bounds_min=st["bmin"], bounds_max=st["bmax"],
+        impulse=torch.zeros((j, e), device=dev), valid=jset.valid,
+        slots=jset.slots, max_color=jset.max_color)
+    return _orthogonalize(cons)

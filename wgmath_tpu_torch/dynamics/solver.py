@@ -314,27 +314,48 @@ def _build_sides(body_a, body_b, dyn_a, dyn_b, valid, n: int):
 
 
 def _ws_deltas(ns, n_imp, t_imp, mask, p_max):
-    """Per-side warmstart velocity deltas [2M, 6]."""
+    """Per-side warmstart velocity deltas [2M, dim + adim] (6 in 3D, 3 in
+    2D, where the angular terms are scalars)."""
     d1l = torch.zeros_like(ns.dir_a)
     d2l = torch.zeros_like(ns.dir_a)
     d1a = torch.zeros_like(ns.n_torque_a[:, 0])
     d2a = torch.zeros_like(d1a)
     zero = torch.zeros((), device=n_imp.device)
+
+    def col(x):  # an impulse against an angular term (a scalar in 2D)
+        return x[:, None] if d1a.ndim == 2 else x
+
     for k in range(p_max):
         on = mask & (k < ns.num_points)
         imp = torch.where(on, n_imp[:, k], zero)
         d1l = d1l + ns.dir_a * (ns.im_a * imp[:, None])
-        d1a = d1a + ns.n_ii_torque_a[:, k] * imp[:, None]
+        d1a = d1a + ns.n_ii_torque_a[:, k] * col(imp)
         d2l = d2l - ns.dir_a * (ns.im_b * imp[:, None])
-        d2a = d2a + ns.n_ii_torque_b[:, k] * imp[:, None]
+        d2a = d2a + ns.n_ii_torque_b[:, k] * col(imp)
         for j in range(ns.tangent_a.shape[-2]):
             timp = torch.where(on, t_imp[:, k, j], zero)
             tj = ns.tangent_a[:, j]
             d1l = d1l + tj * (ns.im_a * timp[:, None])
-            d1a = d1a + ns.t_ii_torque_a[:, k, j] * timp[:, None]
+            d1a = d1a + ns.t_ii_torque_a[:, k, j] * col(timp)
             d2l = d2l - tj * (ns.im_b * timp[:, None])
-            d2a = d2a + ns.t_ii_torque_b[:, k, j] * timp[:, None]
-    return torch.cat([torch.cat([d1l, d2l]), torch.cat([d1a, d2a])], dim=-1)
+            d2a = d2a + ns.t_ii_torque_b[:, k, j] * col(timp)
+    da = torch.cat([d1a, d2a])
+    return torch.cat([torch.cat([d1l, d2l]),
+                      da if da.ndim == 2 else da[:, None]], dim=-1)
+
+
+def _packed(vels: Velocity) -> torch.Tensor:
+    """[N, dim + adim] rows of linear then angular velocity."""
+    ang = vels.angular
+    return torch.cat([vels.linear, ang if ang.ndim == 2 else ang[:, None]],
+                     dim=-1)
+
+
+def _unpacked(rows: torch.Tensor, dim: int) -> Velocity:
+    """:func:`_packed`'s inverse (a scalar angular velocity in 2D)."""
+    if dim == 2:
+        return Velocity(rows[:, :2], rows[:, 2])
+    return Velocity(rows[:, :3], rows[:, 3:6])
 
 
 def _ws_apply(vels: Velocity, packed, sides) -> Velocity:
@@ -348,7 +369,10 @@ def _ws_apply(vels: Velocity, packed, sides) -> Velocity:
                                 device=packed.device),
                     torch.cumsum(packed_t, dim=1)], dim=1)
     seg = (cs[:, right] - cs[:, left]).t()
-    return Velocity(vels.linear + seg[:, :3], vels.angular + seg[:, 3:])
+    dim = vels.linear.shape[-1]
+    ang = seg[:, dim:]
+    return Velocity(vels.linear + seg[:, :dim],
+                    vels.angular + (ang if dim == 3 else ang[:, 0]))
 
 
 def _dyn_sides(cons):
@@ -720,9 +744,11 @@ def run_sweep(plan: SweepPlan, sorted_cons, packed_fields, buf, imp, *,
     ``rhs_mode`` "biased"): one kernel launch on CUDA tensors
     (``gs_math.gs_sweep_rhs`` with ``rhs_mode``, else
     ``gs_math.gs_sweep_block``; ``rung_by_rung`` launches the same kernel
-    once per rung), :func:`_sweep_torch` on CPU tensors."""
+    once per rung), :func:`_sweep_torch` on CPU tensors. A 2D sweep (rows
+    of three velocities) is :func:`_sweep_torch` on either device: the JAX
+    package runs it in XLA, and the kernels take 3D rows only."""
     pf2d, pf_meta = packed_fields
-    if buf.device.type != "cuda":
+    if buf.device.type != "cuda" or buf.shape[1] == 3:
         _sweep_torch(plan, sorted_cons, packed_fields, buf, imp,
                      rhs_mode=rhs_mode, rhs_consts=rhs_consts, p_max=p_max,
                      s_len=s_len, pose=pose)
@@ -763,14 +789,15 @@ def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
     if sweep_plan is None:
         sweep_plan = build_sweep_plan(sorted_cons, layout_host, windows,
                                       n_bodies, chain, p_max=p_max)
-    buf = torch.cat([vels.linear, vels.angular], dim=-1)
+    dim = vels.linear.shape[-1]
+    buf = _packed(vels)
     if rhs_mode is not None:
         assert chain is not None and rhs_consts is not None \
             and rhs_store is not None
         assert rhs_mode != "biased" or pose_tab is not None
     if chain is not None:
         # the velocity stream: body table + one 2w-row segment per colour
-        buf = torch.cat([buf, torch.zeros((2 * sum(windows), 6),
+        buf = torch.cat([buf, torch.zeros((2 * sum(windows), buf.shape[1]),
                                           device=dev)])
     pt = p_max * s_len
     # the impulses travel as one merged [C, P·(1+S)] matrix (the
@@ -784,7 +811,7 @@ def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
               pose=pose_tab if rhs_mode == "biased" else None, p_max=p_max,
               s_len=s_len)
     packed = buf[chain[1]] if chain is not None else buf
-    out = (Velocity(packed[:, :3], packed[:, 3:6]), imp[:, :p_max],
+    out = (_unpacked(packed, dim), imp[:, :p_max],
            imp[:, p_max:p_max + pt].reshape(t_imp_s.shape))
     if rhs_mode is not None:
         return out + (imp[:, p_max + pt:],)
@@ -840,7 +867,7 @@ def jacobi_pass(cons: ContactConstraints, vels: Velocity, csr, *,
     entries, offsets, counts = csr
     p_max = cons.n_impulse.shape[1]
     c = cons.body_a.shape[0]
-    snap = torch.cat([vels.linear, vels.angular], dim=-1)
+    snap = _packed(vels)
     own = snap
     imps = [torch.cat([x, torch.zeros_like(x[:1])]) for x in (
         cons.n_impulse, cons.n_impulse_jacobi, cons.t_impulse,
@@ -873,7 +900,7 @@ def jacobi_pass(cons: ContactConstraints, vels: Velocity, csr, *,
         own = torch.where(active[:, None],
                           torch.where(is_a[:, None], w1, w2), own)
     n_imp, n_imp_j, t_imp, t_imp_j = (x[:c] for x in imps)
-    return (Velocity(own[:, :3], own[:, 3:6]),
+    return (_unpacked(own, vels.linear.shape[-1]),
             dataclasses.replace(cons, n_impulse=n_imp,
                                 n_impulse_jacobi=n_imp_j, t_impulse=t_imp,
                                 t_impulse_jacobi=t_imp_j))
@@ -1066,11 +1093,12 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     standalone ``fused_sweep`` (B10) on the biased rhs, the integration,
     the unbiased joint pass and B10 again on the unbiased rhs (no B11,
     nothing carried)."""
-    sub = params.substep().with_dim(3)
+    dim = bodies.dim
+    sub = params.substep().with_dim(dim)
     n = bodies.num_bodies
     dev = bodies.poses.translation.device
     assert n < (1 << 16), f"{n} bodies: 16-bit pair keys alias"
-    use_fused = (fused and bool(gs_windows) and presorted
+    use_fused = (fused and bool(gs_windows) and presorted and dim == 3
                  and colors_in is not None and fused_class_counts is not None
                  and not use_jacobi)
     if use_fused:
@@ -1103,8 +1131,9 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     keep_v = (dynamic | bodies.is_kinematic())[:, None]
     zero = torch.zeros((), device=dev)
     vels = Velocity(torch.where(keep_v, bodies.vels.linear, zero),
-                    torch.where(keep_v, bodies.vels.angular, zero))
-    g = sub.gravity_array(3, device=dev)
+                    torch.where(keep_v if dim == 3 else keep_v[:, 0],
+                                bodies.vels.angular, zero))
+    g = sub.gravity_array(dim, device=dev)
     inc = torch.where(dynamic[:, None], g[None, :] * sub.dt, zero)
     joint_solve = (None if joints is None
                    else JointSolve(joints, mprops, sub, max_colors))
@@ -1139,7 +1168,7 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
             same=same, cache_in=cache_in, colors=colors,
             joint_solve=joint_solve)
     chained = chained and bool(windows)
-    use_rhs_rung = rhs_in_rung and chained
+    use_rhs_rung = rhs_in_rung and chained and dim == 3
     use_tail = bool(gs_tail_window and gs_tail_window < cmax and not windows)
 
     if same and cache_in is not None and [tuple(x.shape) for x in

@@ -48,8 +48,17 @@ contacts after the narrow phase's (``queries/mesh_contact.py``: the
 trimesh-ball pairs at ``mesh_pair_capacity``, the trimesh-convex pairs at
 half of it, ``mesh_k_best`` rows a pair), colours in the solve and
 transfers warmstart impulses by key: the rows of one pair re-pick their
-triangles each frame. Sharding, 2D, polylines, ``gs_static_slots`` and
-other broad phases are refused with ``NotImplementedError``.
+triangles each frame; a 2D scene with a polyline appends its ball and
+cuboid contacts the same way.
+
+2D scenes (bodies with 2D poses: rotations as (cos, sin), scalar angular
+velocities) run every configuration above as the JAX package runs them:
+the fused solver, the pair-slot layout and the rhs rebuilt in the sweep
+are 3D only there, so a 2D step takes the unfused sweep (``gs_fused`` and
+``gs_pair_slots`` change nothing) and the rhs of ``update_rhs_sorted``;
+its sweeps are plain PyTorch (``solver.run_sweep``), as the JAX package
+runs them in XLA. Sharding, ``gs_static_slots`` and other broad phases are
+refused with ``NotImplementedError``.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -77,6 +86,7 @@ from wgmath_tpu_torch.core.dispatch import (
 from wgmath_tpu_torch.dynamics.body import Bodies, update_mprops
 from wgmath_tpu_torch.dynamics.constraint import (
     ContactConstraints,
+    _dot3,
     compact_contacts,
 )
 from wgmath_tpu_torch.dynamics.joint import JointSet
@@ -89,7 +99,7 @@ from wgmath_tpu_torch.dynamics.solver import (
     transfer_pair_colors,
 )
 from wgmath_tpu_torch.queries import mesh_contact
-from wgmath_tpu_torch.queries.gjk import _norm3
+from wgmath_tpu_torch.queries.gjk import _sqrt
 from wgmath_tpu_torch.queries.narrow_phase import narrow_phase
 from wgmath_tpu_torch.shapes.shape import (
     BALL,
@@ -100,7 +110,6 @@ from wgmath_tpu_torch.shapes.shape import (
     CYLINDER,
     POLYLINE,
     SEGMENT,
-    SUPPORTED_KINDS,
     TRIANGLE,
     TRIMESH,
     ShapeSet,
@@ -186,24 +195,16 @@ class PipelineConfig:
 
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
-    """Refuse what the port does not take: sharding, 2D, shape kinds
-    outside ``SUPPORTED_KINDS`` (a polyline's contacts are 2D),
-    ``gs_static_slots``, broad phases other than the grid, the brute force
-    and the LBVH, and 2D joints."""
+    """Refuse what the port does not take: sharding (ROADMAP item 8),
+    ``gs_static_slots`` (item 4's last part) and broad phases other than
+    the grid, the brute force and the LBVH."""
     bad = []
     if shard is not None:
         bad.append("shard")
-    if state.bodies.dim != 3:
-        bad.append("2D (ROADMAP item 4)")
-    if not state.shapes.kinds <= SUPPORTED_KINDS:
-        bad.append(f"shape kinds {sorted(state.shapes.kinds)} (polylines "
-                   "wait for 2D, ROADMAP item 4)")
     if config.gs_static_slots:
         bad.append("gs_static_slots")
     if config.bp_algo not in ("auto", "grid", "brute", "lbvh"):
         bad.append(f"bp_algo={config.bp_algo}")
-    if state.joints is not None and state.joints.dim != 3:
-        bad.append("2D joints")
     if bad:
         raise NotImplementedError(
             "wgmath_tpu_torch.pipeline.step does not take these; refused: "
@@ -212,22 +213,18 @@ def _check_slice(state: PhysicsState, config: PipelineConfig,
 
 def auto_manifold_points(shapes: ShapeSet, dim: int, dynamic=None) -> int:
     """Narrowest safe manifold width for this scene, read from the shape
-    tags on the host: 4 where two cuboids can meet and one of them can
+    tags on the host. 3D: 4 where two cuboids can meet and one of them can
     move (cuboid-cuboid SAT clipping emits up to 4 points), or where a
     capsule, cylinder or cone can move or a cuboid can (the support-face
     clip of those pairs emits up to 4); else 1 (every other kernel emits
     one point a pair, and every solver pass costs in proportion to the
     width). The support-mapped kinds are the capsule, cone, cylinder,
-    convex polyhedron, segment and triangle. ``dynamic``: an optional
-    per-body dynamic mask; with every shape that could need more static
-    (ground and walls) the width stays 1. Pass the result as
-    ``PipelineConfig.manifold_points``. Raises for 2D and for shape kinds
-    the port's narrow phase does not take (ROADMAP item 4)."""
-    if dim != 3 or not shapes.kinds <= SUPPORTED_KINDS:
-        raise NotImplementedError(
-            f"auto_manifold_points: dim {dim}, shape kinds "
-            f"{sorted(shapes.kinds)}; 2D and polylines wait for ROADMAP "
-            "item 4")
+    convex polyhedron, segment and triangle. 2D: 2 where two cuboids can
+    meet and one can move, or a cuboid can meet a polyline and one of
+    them can move (both clip to 2 points); else 1. ``dynamic``: an
+    optional per-body dynamic mask; with every shape that could need more
+    static (ground and walls) the width stays 1. Pass the result as
+    ``PipelineConfig.manifold_points``."""
     tags = shapes.tag.cpu()
     dyn = None
     if dynamic is not None:
@@ -238,6 +235,13 @@ def auto_manifold_points(shapes: ShapeSet, dim: int, dynamic=None) -> int:
         return bool(mask.any()) if dyn is None else bool((mask & dyn).any())
 
     cuboid = tags == CUBOID
+    if dim == 2:
+        polyline = tags == POLYLINE
+        if (int(cuboid.sum()) >= 2 and any_dyn(cuboid)) or (
+                int(cuboid.sum()) >= 1 and POLYLINE in shapes.kinds
+                and any_dyn(cuboid | polyline)):
+            return 2
+        return 1
     if int(cuboid.sum()) >= 2 and any_dyn(cuboid):
         return 4
     pfm = ((tags == CAPSULE) | (tags == CONE) | (tags == CYLINDER)
@@ -259,6 +263,9 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
          warmstart: bool = True, shard=None) -> PhysicsState:
     """Advance one frame of ``params.dt``."""
     _check_slice(state, config, shard)
+    if state.joints is not None and state.joints.dim != state.bodies.dim:
+        raise ValueError(f"{state.joints.dim}D joints on "
+                         f"{state.bodies.dim}D bodies")
     bodies = state.bodies
     dev = bodies.poses.translation.device
     mprops = update_mprops(bodies.poses, bodies.local_mprops)
@@ -270,7 +277,8 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     use_grid = config.bp_algo == "grid" or (config.bp_algo == "auto"
                                             and n_bodies >= 1024)
     slack = config.bp_slack
-    dim_sqrt = float(math.sqrt(3))
+    dim = mins.shape[1]
+    dim_sqrt = float(math.sqrt(dim))
     dyn_mask = bodies.is_dynamic()
     move_mask = bodies.is_moving()
     mc = config.max_colors
@@ -286,7 +294,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     # contacts stay at their pair slots (not under the fused solver)
     use_pair_slots = (config.gs_pair_slots and color_with_bp
                       and config.gs_chained and bool(config.gs_windows)
-                      and not config.gs_fused)
+                      and not config.gs_fused and dim == 3)
 
     if slack > 0:
         # velocity-aware slack, quantized to three levels so consecutive
@@ -315,7 +323,8 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
             keep = p.valid & (dyn_mask[p.body_a] | dyn_mask[p.body_b])
             if radii_bp is not None:
                 centers = (mn + mx) * 0.5
-                d = _norm3(centers[p.body_a] - centers[p.body_b])
+                dc = centers[p.body_a] - centers[p.body_b]
+                d = _sqrt(_dot3(dc, dc))
                 lim = (radii_bp[p.body_a] + radii_bp[p.body_b]
                        + sphere_margin)
                 keep = keep & ~(d > lim)  # a NaN limit keeps the pair
@@ -496,7 +505,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
 
     contacts, np_needed = narrow_phase(
         bodies.poses, state.shapes, pairs, params.prediction_distance,
-        p_max=config.manifold_points or 4,
+        p_max=config.manifold_points or (4 if dim == 3 else 2),
         bc_capacity=config.bc_pair_capacity,
         sat_capacity=config.sat_pair_capacity,
         pfm_capacity=config.pfm_pair_capacity)
@@ -505,12 +514,13 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
             contacts, bodies.poses, state.shapes, pairs,
             params.prediction_distance,
             pair_capacity=config.mesh_pair_capacity,
-            k_best=config.mesh_k_best, p_max=config.manifold_points or 4)
+            k_best=config.mesh_k_best,
+            p_max=config.manifold_points or (4 if dim == 3 else 2))
     contact_colors = bp_colors[0] if color_with_bp else None
     # the fused layout needs the cached colours; without them the ladder
     # (or the uniform windows) runs unfused, as in the JAX package
     use_fused = (config.gs_fused and bool(config.gs_windows)
-                 and contact_colors is not None)
+                 and contact_colors is not None and dim == 3)
     fused_class_counts = None
     if use_pair_slots:
         # no compaction: the constraint buffer spans pair_capacity and

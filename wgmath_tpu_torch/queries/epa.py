@@ -6,17 +6,24 @@ the octahedron of the CSO's supports along ±x, ±y, ±z, then ``ITERS``
 expansions at the face nearest the origin; each expansion's horizon comes
 from counting directed edges among the faces the new point sees (an
 all-pairs masked compare, branch-free). A slab candidate taken from the
-seed's plane rescues flat CSOs (crossed segment cores). Plain tensor code
-on the caller's device, as in the JAX package; the 2D polygon EPA
-(``epa2_penetration``) waits for the 2D slice (ROADMAP item 4).
+seed's plane rescues flat CSOs (crossed segment cores). In 2D
+(``epa2_penetration``) the polytope is a polygon ring in the z = 0 plane.
+Plain tensor code on the caller's device, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from wgmath_tpu_torch.geometry.quat import cross
-from wgmath_tpu_torch.queries.gjk import _const, _Cso, _norm3, _weighted
+from wgmath_tpu_torch.queries.gjk import (
+    _const,
+    _Cso,
+    _norm3,
+    _sqrt,
+    _weighted,
+)
 from wgmath_tpu_torch.queries.sat import _dot3
 
 V_CAP = 30
@@ -213,3 +220,97 @@ def epa_penetration(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices=None):
     depth = torch.where(use_slab, slab_depth, depth)
     point_a = torch.where(use_slab[:, None], slab_pt, point_a)
     return n, depth, point_a
+
+
+# ---------------------------------------------------------------------------
+# 2D EPA: a polygon expanded in the embedded z = 0 plane (the 2D
+# support-mapped narrow phase)
+# ---------------------------------------------------------------------------
+
+V2_CAP = 24
+ITERS2 = 16
+_SEED2_ANGLES = 2.0 * np.pi * np.arange(8) / 8.0
+_SEED2_DIRS = tuple(map(tuple, np.stack(
+    [np.cos(_SEED2_ANGLES), np.sin(_SEED2_ANGLES),
+     np.zeros_like(_SEED2_ANGLES)], -1).astype(np.float32).tolist()))
+
+
+def _edge_planes(verts, nv):
+    """Each ring edge's outward normal [M, V2_CAP, 3] (z = 0), its offset
+    from the origin (``_BIG`` for a slot past the ring or a degenerate
+    edge) and its end's slot. A negative offset keeps its outward normal:
+    expanding there recovers the hull corner a collapsed seed missed."""
+    idx = torch.arange(V2_CAP, device=verts.device)
+    nxt = torch.where(idx[None, :] + 1 >= nv[:, None],
+                      idx[None, :] + 1 - nv[:, None], idx[None, :] + 1)
+    vj = torch.gather(verts, 1, nxt[..., None].expand(-1, -1, 3))
+    e = vj - verts
+    elen = _sqrt(e[..., 0] ** 2 + e[..., 1] ** 2)
+    inv = 1.0 / torch.clamp(elen, min=1e-30)
+    nx = e[..., 1] * inv
+    ny = -e[..., 0] * inv
+    d = nx * verts[..., 0] + ny * verts[..., 1]
+    ok = (idx[None, :] < nv[:, None]) & (elen > 1e-9)
+    d = torch.where(ok, d, torch.full_like(d, _BIG))
+    return torch.stack([nx, ny, torch.zeros_like(nx)], -1), d, nxt
+
+
+def epa2_penetration(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices=None):
+    """Penetration normal, depth and point for overlapping 2D pairs
+    embedded in 3D (z = 0), as :func:`epa_penetration` returns them (the
+    JAX package's ``epa2_penetration``): a counter-clockwise ring of at
+    most ``V2_CAP`` CSO vertices seeded by eight supports around the
+    circle, expanded ``ITERS2`` times at the edge nearest the origin (the
+    new vertex inserted after it), the witness lerped along the best
+    edge."""
+    m = t_ab.shape[0]
+    dev, dt = t_ab.device, t_ab.dtype
+    cso = _Cso(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices)
+    dirs = _const(_SEED2_DIRS, t_ab)
+    s = cso(dirs[None].expand(m, -1, -1))
+    verts = torch.zeros((m, V2_CAP, 3), dtype=dt, device=dev)
+    wit_a = torch.zeros((m, V2_CAP, 3), dtype=dt, device=dev)
+    verts[:, :8] = s.w
+    wit_a[:, :8] = s.p_a
+    nv = torch.full((m,), 8, dtype=torch.int64, device=dev)
+    done = torch.zeros((m,), dtype=torch.bool, device=dev)
+    idx = torch.arange(V2_CAP, device=dev)
+    prev_idx = torch.clamp(idx - 1, min=0)
+    for _ in range(ITERS2):
+        nrm, d, _ = _edge_planes(verts, nv)
+        best = torch.argmin(d, dim=-1)
+        bn = _take_rows(nrm, best)
+        bd = _take_rows(d, best)
+        s = cso(bn)
+        gap = _dot3(s.w, bn) - bd
+        grow = ~done & (gap >= 1e-4) & (nv < V2_CAP)
+        done = done | (gap < 1e-4) | (nv >= V2_CAP)
+        # insert the new vertex after ``best``: the support along the
+        # edge's normal lies angularly inside the edge, so the ring's
+        # order holds
+        keep = (idx[None, :] <= best[:, None])[..., None]
+        is_new = (idx[None, :] == best[:, None] + 1)[..., None]
+
+        def shift(arr, new):
+            out = torch.where(keep, arr, torch.where(
+                is_new, new[:, None, :], arr[:, prev_idx]))
+            return torch.where(grow[:, None, None], out, arr)
+
+        verts = shift(verts, s.w)
+        wit_a = shift(wit_a, s.p_a)
+        nv = torch.where(grow, nv + 1, nv)
+
+    nrm, d, nxt = _edge_planes(verts, nv)
+    best = torch.argmin(d, dim=-1)
+    n = _take_rows(nrm, best)
+    depth = _take_rows(d, best)
+    depth = torch.where(depth >= _BIG * 0.5, torch.zeros_like(depth), depth)
+    # the witness: the origin's projection on the best edge, lerped in A
+    bj = _take_rows(nxt, best)
+    vi, vj = _take_rows(verts, best), _take_rows(verts, bj)
+    ai, aj = _take_rows(wit_a, best), _take_rows(wit_a, bj)
+    e = vj - vi
+    t = (_dot3(n * depth[:, None] - vi, e)
+         / torch.clamp(_dot3(e, e), min=1e-30))
+    t = torch.clamp(t, 0.0, 1.0)
+    return n, depth, ai * (1.0 - t)[:, None] + aj * t[:, None]

@@ -496,7 +496,9 @@ def pfm_contact(tag_a, par_a, pose_a: Sim, tag_b, par_b, pose_b: Sim,
     are dropped, and pairs past the cap keep GJK's answer.
 
     ``tri_verts_a`` [N, 3, 3]: A's triangle where A is a TRIANGLE, dilated
-    by ``tri_margin``. ``use_epa=False`` (the mesh narrow phase, whose
+    by ``tri_margin``. ``use_epa="2d"``: 2D pairs embedded in the z = 0
+    plane, their EPA the polygon's (``epa.epa2_penetration``).
+    ``use_epa=False`` (the mesh narrow phase, whose
     triangles rely on their margin shell): a pair whose cores overlap
     keeps GJK's point and distance and is pushed along the centre axis
     instead. ``window``: :func:`support_core`'s. ``sync_free``:
@@ -508,11 +510,13 @@ def pfm_contact(tag_a, par_a, pose_a: Sim, tag_b, par_b, pose_b: Sim,
     frame, and the unclamped count of core-overlapping pairs that ``mask``
     allows (a device scalar, no sync: the EPA demand against ``epa_cap``,
     or the pushes along the centre axis)."""
-    from wgmath_tpu_torch.queries.epa import epa_penetration
+    from wgmath_tpu_torch.queries.epa import (
+        epa2_penetration,
+        epa_penetration,
+    )
 
-    if use_epa not in (True, False):
-        raise NotImplementedError(
-            f"use_epa={use_epa!r}: the 2D EPA waits for ROADMAP item 4")
+    if use_epa not in (True, False, "2d"):
+        raise ValueError(f"use_epa={use_epa!r}: True, False or '2d'")
     n = pose_a.translation.shape[0]
     dev = pose_a.translation.device
     if sync_free is None:
@@ -559,9 +563,9 @@ def pfm_contact(tag_a, par_a, pose_a: Sim, tag_b, par_b, pose_b: Sim,
                                                               max=epa_cap)
 
     r_ab, t_ab = relative_pose(pose_a.take(sel), pose_b.take(sel))
-    e_n, e_depth, e_pa = epa_penetration(tag_a[sel], par_a[sel], tag_b[sel],
-                                         par_b[sel], r_ab, t_ab,
-                                         vertices=vertices)
+    epa = epa2_penetration if use_epa == "2d" else epa_penetration
+    e_n, e_depth, e_pa = epa(tag_a[sel], par_a[sel], tag_b[sel], par_b[sel],
+                             r_ab, t_ab, vertices=vertices)
     sel_drop = torch.where(active, sel, torch.full_like(sel, n))
     normal = _set_rows(normal, sel_drop, e_n, n)
     dist = _set_rows(dist, sel_drop, -(e_depth + rad_a[sel] + rad_b[sel]), n)

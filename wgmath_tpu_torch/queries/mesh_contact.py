@@ -9,8 +9,9 @@ small mesh or by the certified cluster rounds of
 emits a one-point manifold. The rows of one pair share its dynamic body.
 Pairs past the batch's capacity are dropped without a count, as in the
 JAX package (ROADMAP C12; :func:`mesh_pair_demand` reads the demand).
-Plain tensor code on the caller's device, no kernel. The 2D polyline
-contacts wait for the port of 2D (ROADMAP item 4)."""
+In 2D the polylines take balls (the ``k_best`` nearest segments) and
+cuboids (the ``k_best`` deepest segments by a three-axis SAT, two points
+a face). Plain tensor code on the caller's device, no kernel."""
 
 from __future__ import annotations
 
@@ -22,14 +23,17 @@ from wgmath_tpu_torch.broad_phase.brute_force import PairList
 from wgmath_tpu_torch.dynamics.constraint import Contacts
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.sim import Sim
-from wgmath_tpu_torch.queries.gjk import _unit, norm_fma, pfm_contact
+from wgmath_tpu_torch.queries.gjk import _sqrt, _unit, norm_fma, pfm_contact
 from wgmath_tpu_torch.queries.mesh_accel import (
     point_topk_prims,
     smallest_k,
     use_clusters,
 )
 from wgmath_tpu_torch.queries.narrow_phase import _compact_mask, graph_call
-from wgmath_tpu_torch.queries.projection import project_triangle
+from wgmath_tpu_torch.queries.projection import (
+    project_segment,
+    project_triangle,
+)
 from wgmath_tpu_torch.shapes import shape as shp
 from wgmath_tpu_torch.shapes.mesh import TRI_MARGIN
 
@@ -268,7 +272,18 @@ def append_mesh_contacts(contacts: Contacts, poses: Sim,
                          k_best: int, p_max: int) -> Contacts:
     """The step's mesh rows after the narrow phase's: the trimesh-ball
     pairs at ``pair_capacity``, then the trimesh-convex pairs at half of
-    it, ``k_best`` rows a pair each (the JAX pipeline's order)."""
+    it, ``k_best`` rows a pair each; with a polyline its ball pairs, then
+    its cuboid pairs, each at half the capacity, two rows a pair (the JAX
+    pipeline's order)."""
+    if shp.POLYLINE in shapes.kinds:
+        if shp.BALL in shapes.kinds:
+            contacts = concat_contacts(contacts, polyline_ball_contacts(
+                poses, shapes, pairs, prediction,
+                pair_cap=pair_capacity // 2, k_best=2, p_max=p_max))
+        if shp.CUBOID in shapes.kinds:
+            contacts = concat_contacts(contacts, polyline_cuboid_contacts(
+                poses, shapes, pairs, prediction,
+                pair_cap=pair_capacity // 2, k_best=2))
     if shp.TRIMESH not in shapes.kinds:
         return contacts
     contacts = concat_contacts(contacts, mesh_ball_contacts(
@@ -277,3 +292,219 @@ def append_mesh_contacts(contacts: Contacts, poses: Sim,
     return concat_contacts(contacts, mesh_convex_contacts(
         poses, shapes, pairs, prediction, pair_cap=pair_capacity // 2,
         k_best=k_best, p_max=p_max))
+
+
+def _polyline_batch(shapes: shp.ShapeSet, pairs: PairList, other: int,
+                    pair_cap: int):
+    """The valid (polyline, ``other``-tag) pairs compacted into a batch of
+    ``pair_cap``: (polyline body, other body, active)."""
+    tag_a, tag_b = shapes.tag[pairs.body_a], shapes.tag[pairs.body_b]
+    flags = (((tag_a == shp.POLYLINE) & (tag_b == other))
+             | ((tag_b == shp.POLYLINE) & (tag_a == other))) & pairs.valid
+    sel, active, _ = _compact_mask(flags, pair_cap)
+    pa, pb = pairs.body_a[sel], pairs.body_b[sel]
+    mesh_is_a = shapes.tag[pa] == shp.POLYLINE
+    return (torch.where(mesh_is_a, pa, pb), torch.where(mesh_is_a, pb, pa),
+            active)
+
+
+def _seg_dist(pt, va, vb):
+    d = pt - project_segment(pt, va, vb).point
+    return _sqrt(torch.sum(d * d, dim=-1))
+
+
+def polyline_ball_contacts(poses: Sim, shapes: shp.ShapeSet,
+                           pairs: PairList, prediction: float, *,
+                           pair_cap: int = 256, k_best: int = 2,
+                           p_max: int = 2) -> Contacts:
+    """2D contacts of (polyline, ball) pairs, the ``k_best`` nearest
+    segments a pair (the JAX package's ``polyline_ball_contacts``): a
+    ``Contacts`` buffer of ``pair_cap * k_best`` rows with the ball as body
+    A, one point on its surface a row."""
+    dev = poses.translation.device
+    mesh_body, ball_body, active = _polyline_batch(shapes, pairs, shp.BALL,
+                                                   pair_cap)
+    mesh_pose, ball_pose = poses.take(mesh_body), poses.take(ball_body)
+    radius = shapes.params[ball_body, 0] * ball_pose.scale
+    first_idx = shapes.params[mesh_body, 2].to(torch.int64)
+    num_idx = shapes.params[mesh_body, 3].to(torch.int64)
+    c_local = sim_ops.inv_mul_pt(mesh_pose, ball_pose.translation)
+
+    def score_fn(pt, va, vb):
+        return _seg_dist(pt, va, vb) - radius[:, None]
+
+    best, best_d = _topk_by_score(
+        shapes, first_idx, num_idx, c_local, active, k_best, score_fn,
+        offset=radius, max_score=prediction)
+    hit = best_d < prediction
+    va, vb = _gather_prim_verts(shapes, best)
+    bpt = project_segment(c_local[:, None, :], va, vb).point
+    n_mesh = c_local[:, None, :] - bpt
+    nn = _sqrt(torch.sum(n_mesh * n_mesh, dim=-1, keepdim=True))
+    n_mesh = torch.where(nn > 1e-9, n_mesh / torch.clamp(nn, min=1e-30),
+                         _unit(1, n_mesh))
+    n_ab = -sim_ops.mul_unit_vec(_broadcast(mesh_pose), n_mesh)
+    ball_b = _broadcast(ball_pose)
+    n_a_local = sim_ops.inv_mul_unit_vec(ball_b, n_ab)
+    pt_world = ball_pose.translation[:, None, :] + n_ab * radius[:, None,
+                                                                 None]
+    pt_a_local = sim_ops.inv_mul_pt(ball_b, pt_world)
+    cap = pair_cap * k_best
+    valid = (hit & active[:, None]).reshape(cap)
+    points = torch.zeros((cap, p_max, 2), device=dev)
+    points[:, 0] = pt_a_local.reshape(cap, 2)
+    dists = torch.full((cap, p_max), 1e9, device=dev)
+    dists[:, 0] = best_d.reshape(cap)
+    return Contacts(
+        ball_body[:, None].expand(pair_cap, k_best).reshape(cap),
+        mesh_body[:, None].expand(pair_cap, k_best).reshape(cap),
+        n_a_local.reshape(cap, 2), points, dists, valid.to(torch.int64),
+        valid)
+
+
+def polyline_cuboid_contacts(poses: Sim, shapes: shp.ShapeSet,
+                             pairs: PairList, prediction: float, *,
+                             pair_cap: int = 256,
+                             k_best: int = 2) -> Contacts:
+    """2D contacts of (polyline, cuboid) pairs (the JAX package's
+    ``polyline_cuboid_contacts``): each segment against the box by SAT
+    over the box's two face axes and the segment's normal, the ``k_best``
+    deepest segments a pair, a face manifold of up to two points (the
+    segment clipped to the face's slab) or the deepest corner against the
+    segment. The box is body A; the arithmetic runs in its frame, so
+    normals and points come out in the output's convention."""
+    mesh_body, box_body, active = _polyline_batch(shapes, pairs, shp.CUBOID,
+                                                  pair_cap)
+    mesh_pose, box_pose = poses.take(mesh_body), poses.take(box_body)
+    he = shapes.params[box_body, :2]
+    first_idx = shapes.params[mesh_body, 2].to(torch.int64)
+    num_idx = shapes.params[mesh_body, 3].to(torch.int64)
+    c_box_local = sim_ops.inv_mul_pt(mesh_pose, box_pose.translation)
+    if use_clusters(shapes):
+        # a segment farther from the box centre than its reach is
+        # separated by more than the prediction: the preselect is exact
+        reach = ((_sqrt(torch.sum(he * he, dim=-1)) + prediction)
+                 * box_pose.scale / torch.clamp(mesh_pose.scale, min=1e-9))
+        pre_ids, pre_s = point_topk_prims(
+            shapes, first_idx, num_idx * active, c_box_local,
+            max(4 * k_best, 8), _seg_dist, offset=0.0, max_score=reach)
+        sv0, sv1 = _gather_prim_verts(shapes, pre_ids)
+        seg_mask = pre_s < torch.clamp(reach[:, None], max=1e8)
+    else:
+        segs = shapes.indices
+        sv0 = shapes.vertices[segs[:, 0]][None]
+        sv1 = shapes.vertices[segs[:, 1]][None]
+        seg_ids = torch.arange(max(segs.shape[0], 1), device=he.device)
+        seg_mask = ((seg_ids[None, :] >= first_idx[:, None])
+                    & (seg_ids[None, :] < (first_idx + num_idx)[:, None])
+                    & active[:, None])
+    mesh_b, box_b = _broadcast(mesh_pose), _broadcast(box_pose)
+    p0 = sim_ops.inv_mul_pt(box_b, sim_ops.mul_pt(mesh_b, sv0))
+    p1 = sim_ops.inv_mul_pt(box_b, sim_ops.mul_pt(mesh_b, sv1))
+
+    # SAT over three axes: the box's x and y, the segment's normal
+    lo, hi = torch.minimum(p0, p1), torch.maximum(p0, p1)
+    heb = he[:, None, :]
+    sep_pos, sep_neg = lo - heb, -hi - heb
+    face_sep_xy = torch.maximum(sep_pos, sep_neg)  # [P, S, 2]
+    face_sign = torch.where(sep_pos >= sep_neg, 1.0, -1.0)
+    face_sep, face_axis = torch.max(face_sep_xy, dim=-1)
+    d = p1 - p0
+    seg_len = _sqrt(torch.sum(d * d, dim=-1))
+    n_s = (torch.stack([-d[..., 1], d[..., 0]], dim=-1)
+           / torch.clamp(seg_len, min=1e-30)[..., None])
+    c = torch.sum(n_s * p0, dim=-1)
+    r_box = torch.sum(torch.abs(n_s) * heb, dim=-1)
+    sep_n = torch.where(seg_len > 1e-9, torch.abs(c) - r_box,
+                        torch.full_like(c, -1e9))
+    n_dir = n_s * torch.sign(c)[..., None]  # A→B (box → segment)
+    use_face = face_sep > sep_n - 1e-3  # face manifolds near ties
+    sep = torch.maximum(face_sep, sep_n)
+    best_sep, best = smallest_k(torch.where(seg_mask, sep, 1e9), k_best)
+
+    def takek(x):  # per (pair, selected segment)
+        if x.dim() == 2:
+            return torch.gather(x, 1, best)
+        return torch.gather(x, 1, best[..., None].expand(-1, -1,
+                                                         x.shape[-1]))
+
+    p0k, dk = takek(p0.expand(best.shape[0], -1, -1)), takek(
+        d.expand(best.shape[0], -1, -1))
+    axk = takek(face_axis)
+    sgk = takek(face_sign)
+    sgk = torch.where(axk == 0, sgk[..., 0], sgk[..., 1])
+    usek = takek(use_face)
+    n_dirk = takek(n_dir.expand(best.shape[0], -1, -1))
+    hit = (best_sep < prediction) & active[:, None]
+    hex_, hey = he[:, None, 0], he[:, None, 1]
+    he_i = torch.where(axk == 0, hex_, hey)
+    he_j = torch.where(axk == 0, hey, hex_)
+
+    def comp(v, i):  # component i (0 or 1) of [..., 2]
+        return torch.where(i == 0, v[..., 0], v[..., 1])
+
+    # the face case: the segment's parameters clipped to the tangential
+    # slab |x_j| <= he_j
+    j = 1 - axk
+    p0j, dj = comp(p0k, j), comp(dk, j)
+    tiny = torch.where(dj < 0, -1e-12, 1e-12)
+    inv_dj = 1.0 / torch.where(torch.abs(dj) < 1e-12, tiny, dj)
+    ta, tb = (-he_j - p0j) * inv_dj, (he_j - p0j) * inv_dj
+    t_lo = torch.clamp(torch.minimum(ta, tb), min=0.0)
+    t_hi = torch.clamp(torch.maximum(ta, tb), max=1.0)
+    slab_hit = t_hi >= t_lo
+    q0 = p0k + t_lo[..., None] * dk
+    q1 = p0k + t_hi[..., None] * dk
+    d0 = sgk * comp(q0, axk) - he_i
+    d1 = sgk * comp(q1, axk) - he_i
+    zk = torch.zeros_like(sgk)
+    x_face = (axk == 0)[..., None]
+    n_face = torch.where(x_face, torch.stack([sgk, zk], -1),
+                         torch.stack([zk, sgk], -1))
+
+    def on_face(q):  # the clipped point projected onto the face
+        qi = sgk * he_i
+        return torch.where(x_face, torch.stack([qi, q[..., 1]], -1),
+                           torch.stack([q[..., 0], qi], -1))
+
+    f_pt0, f_pt1 = on_face(q0), on_face(q1)
+    # the corner case: the deepest box corner against the segment
+    sgn_c = torch.where(n_dirk >= 0.0, 1.0, -1.0)
+    corner = sgn_c * torch.stack([hex_.expand_as(sgk), hey.expand_as(sgk)],
+                                 -1)
+    t_c = torch.clamp(torch.sum((corner - p0k) * dk, dim=-1)
+                      / torch.clamp(torch.sum(dk * dk, dim=-1), min=1e-30),
+                      0.0, 1.0)
+    delta = p0k + t_c[..., None] * dk - corner
+    d_c = _sqrt(torch.sum(delta * delta, dim=-1))
+    into = torch.sum(delta * n_dirk, dim=-1)
+    pen = into < 0.0  # the corner past the segment's line
+    n_corner = torch.where((pen | (d_c < 1e-9))[..., None], n_dirk,
+                           delta / torch.clamp(d_c, min=1e-30)[..., None])
+    dist_corner = torch.where(pen, into, d_c)
+
+    scale = box_pose.scale[:, None]
+    use_f = usek & slab_hit
+    n_out = torch.where(use_f[..., None], n_face, n_corner)
+    pt0 = torch.where(use_f[..., None], f_pt0, corner)
+    pt1 = torch.where(use_f[..., None], f_pt1, corner)
+    di0 = torch.where(use_f, d0, dist_corner) * scale
+    di1 = torch.where(use_f, d1, dist_corner) * scale
+    v0 = hit & (torch.where(use_f, d0, dist_corner) < prediction)
+    v1 = hit & use_f & (d1 < prediction)
+    # live points fill the first num_points slots: slot 1 moves down
+    # where slot 0 missed
+    shift = ~v0 & v1
+    pt0 = torch.where(shift[..., None], pt1, pt0)
+    di0 = torch.where(shift, di1, di0)
+    v0, v1 = v0 | shift, v1 & ~shift
+    cap = pair_cap * k_best
+    pts = torch.stack([pt0, pt1], dim=2).reshape(cap, 2, 2)
+    dis = torch.where(torch.stack([v0, v1], 2), torch.stack([di0, di1], 2),
+                      torch.full_like(di0, 1e9)[..., None]).reshape(cap, 2)
+    nump = (v0.to(torch.int64) + v1.to(torch.int64)).reshape(cap)
+    valid = (v0 | v1).reshape(cap)
+    return Contacts(
+        box_body[:, None].expand(pair_cap, k_best).reshape(cap),
+        mesh_body[:, None].expand(pair_cap, k_best).reshape(cap),
+        n_out.reshape(cap, 2), pts, dis, nump, valid)

@@ -1,6 +1,7 @@
 """Narrow phase: collision pairs → contact manifolds (counterpart of
-``wgmath_tpu/queries/narrow_phase.py``, 3D: the ball-ball, ball-cuboid,
-cuboid-cuboid and support-mapped kernels, gated on ``ShapeSet.kinds``).
+``wgmath_tpu/queries/narrow_phase.py``: the ball-ball, ball-cuboid,
+cuboid-cuboid and support-mapped kernels, gated on ``ShapeSet.kinds``, in
+3D and 2D).
 
 Contacts reuse the pair slots 1:1. Each type-pair kernel is a masked
 vectorized pass over the pair list; ball-cuboid pairs are optionally
@@ -9,8 +10,15 @@ compacted into a ``bc_capacity`` batch first, cuboid-cuboid pairs into a
 cylinders, cones, standalone segments and triangles and convex polyhedra,
 against anything but a mesh) into a ``pfm_capacity`` batch (their
 unclamped counts are returned so the host can regrow those capacities).
-Pairs with a trimesh get no row here: ``queries/mesh_contact.py`` appends
-theirs after these.
+Pairs with a trimesh or a polyline get no row here:
+``queries/mesh_contact.py`` appends theirs after these.
+
+In 2D the cuboid pairs take the 2D SAT (``sat.cuboid_cuboid_manifold_2d``)
+and the support-mapped pairs (capsules with anything but a cuboid pair or
+a ball pair) run densely, embedded in 3D: a rotation about z, cuboids
+given a tall z-extent so no z-face can win, and the polygon EPA
+(``pfm_contact(..., use_epa="2d")``), one point a pair, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -23,9 +31,12 @@ from wgmath_tpu_torch.dynamics.constraint import Contacts
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.quat import norm
 from wgmath_tpu_torch.geometry.sim import Sim
-from wgmath_tpu_torch.queries.gjk import _set_rows, pfm_contact
+from wgmath_tpu_torch.queries.gjk import _set_rows, _sqrt, pfm_contact
 from wgmath_tpu_torch.queries.pfm_manifold import pfm_manifold
-from wgmath_tpu_torch.queries.sat import cuboid_cuboid_manifold
+from wgmath_tpu_torch.queries.sat import (
+    cuboid_cuboid_manifold,
+    cuboid_cuboid_manifold_2d,
+)
 from wgmath_tpu_torch.shapes import shape as shp
 
 
@@ -94,13 +105,16 @@ def _compact_mask(mask: torch.Tensor, capacity: int):
 
 def _sat(pose_a: Sim, pose_b: Sim, he_a, he_b, prediction: float,
          p_max: int):
-    """``cuboid_cuboid_manifold`` cut to the ``p_max`` deepest points
-    (``lax.top_k`` of ``-dist``: equal depths keep the lower slot first)."""
-    n_l, pts, dist, num = cuboid_cuboid_manifold(pose_a, pose_b, he_a, he_b,
-                                                 prediction)
+    """``cuboid_cuboid_manifold`` (``_2d`` for 2D poses) cut to the
+    ``p_max`` deepest points (``lax.top_k`` of ``-dist``: equal depths keep
+    the lower slot first)."""
+    dim = pose_a.translation.shape[-1]
+    manifold = (cuboid_cuboid_manifold if dim == 3
+                else cuboid_cuboid_manifold_2d)
+    n_l, pts, dist, num = manifold(pose_a, pose_b, he_a, he_b, prediction)
     if p_max < dist.shape[1]:
         neg_d, kidx = top_k_desc(-dist, p_max)
-        pts = torch.gather(pts, 1, kidx[..., None].expand(-1, -1, 3))
+        pts = torch.gather(pts, 1, kidx[..., None].expand(-1, -1, dim))
         dist, num = -neg_d, torch.clamp(num, max=p_max)
     return n_l, pts, dist, num
 
@@ -204,6 +218,86 @@ def _pfm_call(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask,
          mask))
 
 
+def _embed(pose: Sim, tag, par):
+    """A 2D pose and shape row in 3D: the rotation about z, the
+    translation at z = 0, a cuboid 1e3 deep in z."""
+    cth, sth = pose.rotation[..., 0], pose.rotation[..., 1]
+    half = _sqrt(torch.clamp((1.0 + cth) * 0.5, min=0.0))
+    sh = torch.where(half > 1e-6, sth / torch.clamp(2.0 * half, min=1e-30),
+                     torch.ones_like(half))
+    zero = torch.zeros_like(cth)
+    q = torch.stack([zero, zero, sh, half], -1)
+    t3 = torch.cat([pose.translation, zero[:, None]], dim=-1)
+    par3 = par.clone()
+    par3[:, 2] = 1e3
+    par3 = torch.where((tag == shp.CUBOID)[:, None], par3, par)
+    return Sim(q, t3, pose.scale), par3
+
+
+def _f64(pose: Sim, par):
+    return (Sim(pose.rotation.double(), pose.translation.double(),
+                pose.scale.double()), par.double())
+
+
+def _pfm2(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b, mask):
+    """The 2D support-mapped kernel: the pairs embedded in 3D
+    (:func:`_embed`), ``pfm_contact`` with the polygon EPA in float64, the
+    normal brought back to the plane and renormalized. Returns (normal
+    [N, 2], point on A [N, 2], dist [N]), float32.
+
+    The JAX package runs this in float32, where a cuboid 1e3 deep in z
+    leaves GJK's simplex coordinates a thousand times the contact's scale:
+    on a few pairs a frame, which an ulp of rounding picks, the contact
+    leaves the exact one, by up to a quarter metre (ROADMAP C14). The same
+    arithmetic in float32 here picks other pairs, so it cannot give JAX's
+    rows either; in float64 every row is the exact contact within 1e-6
+    (``scripts/check_planar_c14.py``)."""
+    pose_a3, par_a3 = _f64(*_embed(pose_a, tag_a, par_a))
+    pose_b3, par_b3 = _f64(*_embed(pose_b, tag_b, par_b))
+    n_p3, p_p3, d_p, _ = pfm_contact(tag_a, par_a3, pose_a3, tag_b, par_b3,
+                                     pose_b3, mask=mask, vertices=None,
+                                     use_epa="2d")
+    n_p3, p_p3, d_p = (x.float() for x in (n_p3, p_p3, d_p))
+    n2 = n_p3[:, :2]
+    nn = _sqrt(n2[:, 0] * n2[:, 0] + n2[:, 1] * n2[:, 1])[:, None]
+    up = torch.zeros_like(n2)
+    up[:, 1] = 1.0
+    n2 = torch.where(nn > 1e-6, n2 / torch.clamp(nn, min=1e-30), up)
+    return n2, p_p3[:, :2], d_p
+
+
+def _pfm2_call(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b,
+               mask):
+    """:func:`_pfm2`, on the card through its CUDA graph over every pair
+    slot; on the CPU over the ``mask``'s slots only (each slot's
+    arithmetic is its own, so they keep their bits; the others, which the
+    narrow phase discards, are zeros). The CPU compaction keeps the CPU
+    tests' time down: ``capsules2`` has 16,384 pair slots, ~100 of them
+    live, and its frames take about three times as long without it. On
+    the card a compaction would read the count back and break the
+    graph."""
+    dev = pose_a.translation.device
+    if dev.type != "cuda":
+        idx = torch.nonzero(mask).flatten()
+        sub = _pfm2(pose_a.take(idx), pose_b.take(idx), tag_a[idx],
+                    par_a[idx], tag_b[idx], par_b[idx], mask[idx])
+        out = tuple(torch.zeros((mask.shape[0],) + x.shape[1:],
+                                dtype=x.dtype) for x in sub)
+        for o, x in zip(out, sub):
+            o[idx] = x
+        return out
+
+    def run(ra, ta, sa, rb, tb, sb, tag_a, par_a, tag_b, par_b, mask):
+        return _pfm2(Sim(ra, ta, sa), Sim(rb, tb, sb), tag_a, par_a, tag_b,
+                     par_b, mask)
+
+    return graph_call(
+        ("pfm2", dev), run,
+        (pose_a.rotation, pose_a.translation, pose_a.scale, pose_b.rotation,
+         pose_b.translation, pose_b.scale, tag_a, par_a, tag_b, par_b,
+         mask))
+
+
 def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
                  prediction_distance: float, *, p_max: int = 1,
                  bc_capacity: int = 0, sat_capacity: int = 0,
@@ -213,21 +307,23 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
     kernel run dense). ``p_max == 1`` asserts that no cuboid-cuboid pair
     can act and skips the SAT kernel, and gives the support-mapped pairs
     their one GJK / EPA point; a narrower ``p_max`` than 4 keeps each
-    manifold's deepest points. A shape set holding a polyline is refused
-    (its contacts are 2D, ROADMAP item 4)."""
+    manifold's deepest points. 2D takes balls, cuboids, capsules and
+    polylines (whose contacts ``mesh_contact`` appends); 3D takes
+    ``shp.SUPPORTED_KINDS``."""
     kinds = shapes.kinds
-    if not kinds <= shp.SUPPORTED_KINDS:
+    dim = poses.translation.shape[-1]
+    ok = (shp.SUPPORTED_KINDS if dim == 3 else shp.PLANAR_KINDS)
+    if not kinds <= ok:
         raise NotImplementedError(
-            f"narrow phase: shape kinds {sorted(kinds)} outside the 3D "
-            "kinds; polylines wait for 2D, ROADMAP item 4")
+            f"narrow phase: shape kinds {sorted(kinds)} in {dim}D")
     dev = poses.translation.device
     a, b = pairs.body_a, pairs.body_b
     pose_a, pose_b = poses.take(a), poses.take(b)
     par_a, par_b = shapes.params[a], shapes.params[b]
     tag_a, tag_b = shapes.tag[a], shapes.tag[b]
     c = pairs.capacity
-    normal_a = torch.zeros((c, 3), device=dev)
-    points_a = torch.zeros((c, p_max, 3), device=dev)
+    normal_a = torch.zeros((c, dim), device=dev)
+    points_a = torch.zeros((c, p_max, dim), device=dev)
     dist = torch.full((c, p_max), 1e9, device=dev)
     num_points = torch.zeros((c,), dtype=torch.int64, device=dev)
     bc_needed = torch.zeros((), dtype=torch.int64, device=dev)
@@ -259,7 +355,7 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
                                pb_s.translation),
                    torch.where(swap, pa_s.scale, pb_s.scale))
         r = torch.where(swap, par_b[sel, 0], par_a[sel, 0])
-        he = torch.where(swap[:, None], par_a[sel, :3], par_b[sel, :3])
+        he = torch.where(swap[:, None], par_a[sel, :dim], par_b[sel, :dim])
         pt_w, n_w, d_bc = ball_cuboid(pball, pbox, r, he)
         n_ab = torch.where(swap[:, None], n_w, -n_w)
         n_loc = sim_ops.inv_mul_unit_vec(pa_s, n_ab)
@@ -279,11 +375,11 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
             if swap:
                 m = (tag_a == shp.CUBOID) & (tag_b == shp.BALL)
                 pb, pc = pose_b, pose_a
-                r, he = par_b[:, 0], par_a[:, :3]
+                r, he = par_b[:, 0], par_a[:, :dim]
             else:
                 m = (tag_a == shp.BALL) & (tag_b == shp.CUBOID)
                 pb, pc = pose_a, pose_b
-                r, he = par_a[:, 0], par_b[:, :3]
+                r, he = par_a[:, 0], par_b[:, :dim]
             pt_w, n_w, d_bc = ball_cuboid(pb, pc, r, he)
             n_ab = n_w if swap else -n_w
             n_loc = sim_ops.inv_mul_unit_vec(pose_a, n_ab)
@@ -300,25 +396,38 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
         if sat_capacity:
             sel, act, sat_needed = _compact_mask(cc, sat_capacity)
             n_l, pts_l, d_cc, np_cc = _sat(
-                poses.take(a[sel]), poses.take(b[sel]), par_a[sel, :3],
-                par_b[sel, :3], prediction_distance, p_max)
+                poses.take(a[sel]), poses.take(b[sel]), par_a[sel, :dim],
+                par_b[sel, :dim], prediction_distance, p_max)
             sel_drop = torch.where(act, sel, torch.full_like(sel, c))
             normal_a = _set_rows(normal_a, sel_drop, n_l, c)
             points_a = _set_rows(points_a, sel_drop, pts_l, c)
             dist = _set_rows(dist, sel_drop, d_cc, c)
             num_points = _set_rows(num_points, sel_drop, np_cc, c)
         else:
-            n_l, pts_l, d_cc, np_cc = _sat(pose_a, pose_b, par_a[:, :3],
-                                           par_b[:, :3], prediction_distance,
-                                           p_max)
+            n_l, pts_l, d_cc, np_cc = _sat(pose_a, pose_b, par_a[:, :dim],
+                                           par_b[:, :dim],
+                                           prediction_distance, p_max)
             normal_a = torch.where(cc[:, None], n_l, normal_a)
             points_a = torch.where(cc[:, None, None], pts_l, points_a)
             dist = torch.where(cc[:, None], d_cc, dist)
             num_points = torch.where(cc, np_cc, num_points)
 
     # every pair no analytic kernel above takes, between support-mapped
-    # shapes: GJK / EPA and the support-face clip
-    if kinds - {shp.BALL, shp.CUBOID, shp.TRIMESH, shp.POLYLINE}:
+    # shapes: GJK / EPA and the support-face clip (3D), GJK and the polygon
+    # EPA, one point, in every pair slot (2D)
+    pfm_kinds = kinds - {shp.BALL, shp.CUBOID, shp.TRIMESH, shp.POLYLINE}
+    if pfm_kinds and dim == 2:
+        handled = (((tag_a == shp.BALL) | (tag_a == shp.CUBOID))
+                   & ((tag_b == shp.BALL) | (tag_b == shp.CUBOID)))
+        supported = (tag_a <= shp.CAPSULE) & (tag_b <= shp.CAPSULE)
+        pfm = ~handled & supported & pairs.valid
+        n2, p2, d2 = _pfm2_call(pose_a, pose_b, tag_a, par_a, tag_b, par_b,
+                                pfm)
+        normal_a = torch.where(pfm[:, None], n2, normal_a)
+        points_a[:, 0] = torch.where(pfm[:, None], p2, points_a[:, 0])
+        dist[:, 0] = torch.where(pfm, d2, dist[:, 0])
+        num_points = torch.where(pfm, 1, num_points)
+    elif pfm_kinds:
         handled = (((tag_a == shp.BALL) | (tag_a == shp.CUBOID))
                    & ((tag_b == shp.BALL) | (tag_b == shp.CUBOID)))
         supported = (((tag_a <= shp.TRIANGLE) | (tag_a == shp.CONVEX))

@@ -1,5 +1,6 @@
-"""SAT cuboid-cuboid contact manifolds in 3D (counterpart of
-``wgmath_tpu/queries/sat.py``: ``cuboid_cuboid_manifold`` and its helpers).
+"""SAT cuboid-cuboid contact manifolds (counterpart of
+``wgmath_tpu/queries/sat.py``: ``cuboid_cuboid_manifold`` and its helpers
+in 3D, ``cuboid_cuboid_manifold_2d``).
 
 Batched and branch-free, as in the JAX package: 15 candidate axes (6 face
 axes and 9 edge cross products), a preference for face axes over edge
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from wgmath_tpu_torch.geometry import quat
+from wgmath_tpu_torch.geometry import quat, rot2
 from wgmath_tpu_torch.geometry.sim import Sim
 
 _FACE_BIAS = 0.98  # relative preference for face axes over edge axes
@@ -318,3 +319,120 @@ def _edge_edge_point(r, t, he_a, he_b, normal, best_edge):
     p_a = center_a + d1 * s[:, None]
     p_b = center_b + d2 * u[:, None]
     return p_a, _dot3(p_b - p_a, normal)
+
+
+def _dot2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a · b over the last axis of 2."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+
+
+def _col(m: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Column ``idx[n]`` of each [N, 2, 2] matrix: [N, 2]."""
+    return torch.gather(m, 2, idx[:, None, None].expand(-1, 2, 1))[:, :, 0]
+
+
+def cuboid_cuboid_manifold_2d(pose_a: Sim, pose_b: Sim, he_a: torch.Tensor,
+                              he_b: torch.Tensor, prediction: float):
+    """Batched 2D box-box manifold (the JAX package's
+    ``cuboid_cuboid_manifold_2d``): four face axes, the reference edge
+    against the incident edge clipped to its side planes, up to two
+    points. Returns ``(normal_a [N, 2], points_a [N, 2, 2], dists [N, 2],
+    num_points [N])`` as :func:`cuboid_cuboid_manifold`."""
+    r_a = rot2.to_matrix(pose_a.rotation)  # world <- A
+    r_b = rot2.to_matrix(pose_b.rotation)
+    # B in A's frame: r = R_aᵀ R_b
+    r = _dot2(r_a.transpose(1, 2)[:, :, None, :],
+              r_b.transpose(1, 2)[:, None, :, :])
+    t = rot2.inv_mul_vec(pose_a.rotation,
+                         pose_b.translation - pose_a.translation)
+    t = t / pose_a.scale[..., None]
+    he_b_eff = he_b * (pose_b.scale / pose_a.scale)[..., None]
+    abs_r = torch.abs(r) + _EPS
+
+    def mat_vec(m, v):  # einsum("nij,nj->ni")
+        return _dot2(m, v[:, None, :])
+
+    def mat_t_vec(m, v):  # einsum("nij,ni->nj")
+        return _dot2(m.transpose(1, 2), v[:, None, :])
+
+    sep_a = torch.abs(t) - (he_a + mat_vec(abs_r, he_b_eff))
+    t_b = mat_t_vec(r, t)
+    sep_b = torch.abs(t_b) - (mat_t_vec(abs_r, he_a) + he_b_eff)
+    face_sep = torch.cat([sep_a, sep_b], dim=-1)  # [N, 4]
+    best = torch.argmax(face_sep, dim=-1)
+    separation = _take(face_sep, best)
+
+    eye = torch.eye(2, dtype=t.dtype, device=t.device)
+    n_a = eye[best % 2]
+    n_b = _col(r, torch.clamp(best - 2, min=0))
+    a_is_ref = best < 2
+    normal = torch.where(a_is_ref[:, None], n_a, n_b)
+    flip = _dot2(normal, t) < 0.0
+    normal = torch.where(flip[:, None], -normal, normal)
+    ref_n = torch.where(a_is_ref[:, None], normal, -normal)
+
+    def edge_verts(he, rot_cols, center, n_ref_in_box):
+        """The incident edge's two corners: the box's axis most parallel
+        to the reference normal, on the side facing it."""
+        ax = torch.argmax(torch.abs(n_ref_in_box), dim=-1)
+        sgn = -torch.sign(_take(n_ref_in_box, ax))
+        other = 1 - ax
+        he_ax, he_ot = _take(he, ax), _take(he, other)
+        col_ax, col_ot = _col(rot_cols, ax), _col(rot_cols, other)
+        mid = center + col_ax * (sgn * he_ax)[:, None]
+        return (mid + col_ot * he_ot[:, None],
+                mid - col_ot * he_ot[:, None])
+
+    eye_cols = eye.expand(r.shape[0], 2, 2)
+    n_ref_in_b = mat_t_vec(r, ref_n)
+    vb0, vb1 = edge_verts(he_b_eff, r, t, n_ref_in_b)
+    va0, va1 = edge_verts(he_a, eye_cols, torch.zeros_like(t), ref_n)
+    p0 = torch.where(a_is_ref[:, None], vb0, va0)
+    p1 = torch.where(a_is_ref[:, None], vb1, va1)
+
+    # clip against the reference edge's side planes
+    ref_he = torch.where(a_is_ref[:, None], he_a, he_b_eff)
+    ref_ax = torch.argmax(torch.abs(torch.where(a_is_ref[:, None], ref_n,
+                                                mat_t_vec(r, ref_n))),
+                          dim=-1)
+    ref_t_idx = 1 - ref_ax
+    t_dir_local = _col(torch.where(a_is_ref[:, None, None], eye_cols, r),
+                       ref_t_idx)
+    ref_center = torch.where(a_is_ref[:, None], torch.zeros_like(t), t)
+    he_t = _take(ref_he, ref_t_idx)
+
+    def clip(p0, p1, axis_dir, center, lim):
+        d0 = _dot2(p0 - center, axis_dir) - lim
+        d1 = _dot2(p1 - center, axis_dir) - lim
+        tt = d0 / torch.where(torch.abs(d0 - d1) < 1e-12,
+                              torch.full_like(d0, 1e-12), d0 - d1)
+        pi = p0 + (p1 - p0) * tt[:, None]
+        p0n = torch.where((d0 > 0)[:, None],
+                          torch.where((d1 <= 0)[:, None], pi, p0), p0)
+        p1n = torch.where((d1 > 0)[:, None],
+                          torch.where((d0 <= 0)[:, None], pi, p1), p1)
+        return p0n, p1n
+
+    for sgn_t in (1.0, -1.0):
+        p0, p1 = clip(p0, p1, sgn_t * t_dir_local, ref_center, he_t)
+
+    ref_face_n = torch.where(a_is_ref[:, None], normal, -normal)
+    he_n = _take(ref_he, ref_ax)
+    face_pt = ref_center + ref_face_n * he_n[:, None]
+    d0 = _dot2(p0 - face_pt, ref_face_n)
+    d1 = _dot2(p1 - face_pt, ref_face_n)
+    keep0, keep1 = d0 < prediction, d1 < prediction
+    # incident points slide onto A's surface when the reference face is A's
+    zero = torch.zeros_like(d0)
+    p0 = p0 - ref_face_n * torch.where(keep0 & a_is_ref, d0, zero)[:, None]
+    p1 = p1 - ref_face_n * torch.where(keep1 & a_is_ref, d1, zero)[:, None]
+    pts = torch.stack([p0, p1], dim=1)
+    big = torch.full_like(d0, 1e9)
+    dists = torch.stack([torch.where(keep0, d0, big),
+                         torch.where(keep1, d1, big)], dim=1)
+    swap = ~keep0 & keep1  # a kept point first
+    pts = torch.where(swap[:, None, None], torch.flip(pts, [1]), pts)
+    dists = torch.where(swap[:, None], torch.flip(dists, [1]), dists)
+    num = keep0.to(torch.int64) + keep1.to(torch.int64)
+    num = torch.where(separation < prediction, num, torch.zeros_like(num))
+    return normal, pts, dists, num

@@ -2,11 +2,13 @@
 ``balls``, ``ball_pit``, ``boxes``, ``pyramid``,
 ``pyramid_levels_for_bodies``, ``keva_tower``, ``many_pyramids``,
 ``boxes_and_balls``, ``primitives3``, the jointed ``pendulum_chain``,
-``joint_chain`` and ``ball_net3``, ``trimesh_scene``, and the 3D entries
-of ``SCENES`` that these build). Positions are computed in numpy and
-jitter comes from numpy ``default_rng``, as in the JAX package, so both
-build the same scene. Every builder takes ``device``; ``None`` means the
-card. The port steps 3D scenes only, so a builder given ``dim=2`` raises."""
+``joint_chain`` and ``ball_net3``, ``trimesh_scene``, the 2D
+``capsules2``, ``polyline2``, ``joint_net2`` and ``joint_prismatic2``
+(``balls``, ``boxes`` and ``boxes_and_balls`` take ``dim=2``), and the
+entries of ``SCENES`` that these build). Positions are computed in numpy
+and jitter comes from numpy ``default_rng``, as in the JAX package, so
+both build the same scene. Every builder takes ``device``; ``None`` means
+the card."""
 
 from __future__ import annotations
 
@@ -39,9 +41,16 @@ _IDENTITY = (0.0, 0.0, 0.0, 1.0)
 
 def _merge_mprops(*mp: LocalMassProperties) -> LocalMassProperties:
     return LocalMassProperties(
-        *(torch.cat([getattr(m, f) for m in mp])
+        *(None if getattr(mp[0], f) is None
+          else torch.cat([getattr(m, f) for m in mp])
           for f in ("inv_mass", "com", "inertia_ref_frame",
                     "inv_principal_inertia")))
+
+
+def _identity_rows(n: int, dim: int, dev) -> torch.Tensor:
+    """``n`` identity rotations: quaternions (3D) or (cos, sin) (2D)."""
+    return torch.tensor(_IDENTITY if dim == 3 else (1.0, 0.0),
+                        device=dev).repeat(n, 1)
 
 
 def _with_ground(shapes: ShapeSet, translations: torch.Tensor,
@@ -49,15 +58,18 @@ def _with_ground(shapes: ShapeSet, translations: torch.Tensor,
                  ground_he=(100.0, 1.0, 100.0),
                  rotations: torch.Tensor | None = None) -> PhysicsState:
     """A static ground cuboid (top face at y = 0) as body 0, then the
-    bodies; ``rotations`` default to the identity."""
+    bodies (the dimension is the translations'); ``rotations`` default to
+    the identity."""
     dev = translations.device
-    ground_he = torch.tensor([ground_he], dtype=torch.float32, device=dev)
+    dim = translations.shape[1]
+    ground_he = torch.tensor([ground_he[:dim]], dtype=torch.float32,
+                             device=dev)
     all_shapes = ShapeSet.concat(ShapeSet.cuboids(ground_he), shapes)
-    g_trans = torch.zeros((1, 3), device=dev)
+    g_trans = torch.zeros((1, dim), device=dev)
     g_trans[0, 1] = -float(ground_he[0, 1])
     trans = torch.cat([g_trans, translations])
     n = trans.shape[0]
-    rot = torch.tensor(_IDENTITY, device=dev).repeat(n, 1)
+    rot = _identity_rows(n, dim, dev)
     if rotations is not None:
         rot[1:] = rotations
     poses = Sim(rot, trans, torch.ones(n, device=dev))
@@ -65,26 +77,33 @@ def _with_ground(shapes: ShapeSet, translations: torch.Tensor,
         cuboid_local_mprops(ground_he,
                             dynamic=torch.tensor([False], device=dev)),
         mprops)
-    return new_state(Bodies(poses, Velocity.zero(n, device=dev), mp),
+    return new_state(Bodies(poses, Velocity.zero(n, dim, device=dev), mp),
                      all_shapes)
+
+
+def _centred(pos: np.ndarray) -> np.ndarray:
+    """``pos`` less its mean on every axis but y, in place (the JAX
+    package's ``pos -= pos.mean(0) * [1, 0, 1]``, ``[1, 0]`` in 2D)."""
+    dim = pos.shape[1]
+    pos -= pos.mean(0, keepdims=True) * np.asarray(
+        [1.0, 0.0] + [1.0] * (dim - 2))
+    return pos
 
 
 def balls(n: int = 1000, *, radius: float = 0.5, dim: int = 3,
           seed: int = 0, device=None) -> PhysicsState:
-    """Falling balls on a loose cubic lattice with seeded jitter, over the
-    ground. ``device=None`` means the card."""
-    _need_3d(dim)
+    """Falling balls on a loose cubic (square, in 2D) lattice with seeded
+    jitter, over the ground. ``device=None`` means the card."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     spacing = 2.0 * radius * 1.05
-    pos = _lattice(n, dim).astype(np.float32) * spacing
-    pos -= pos.mean(0, keepdims=True) * np.asarray([1.0, 0.0, 1.0])
+    pos = _centred(_lattice(n, dim).astype(np.float32) * spacing)
     pos[:, 1] += 2.0 * radius
     pos += rng.uniform(-0.05, 0.05, pos.shape).astype(np.float32) * radius
     radii = torch.full((n,), radius, dtype=torch.float32, device=dev)
-    return _with_ground(ShapeSet.balls(radii),
+    return _with_ground(ShapeSet.balls(radii, dim=dim),
                         torch.from_numpy(pos).to(dev, torch.float32),
-                        ball_local_mprops(radii))
+                        ball_local_mprops(radii, dim=dim))
 
 
 def ball_pit(n: int = 10_000, *, radius: float = 0.5, depth: int = 8,
@@ -131,17 +150,11 @@ def ball_pit(n: int = 10_000, *, radius: float = 0.5, depth: int = 8,
                         ground_he=(half_w + 4.0, 1.0, half_w + 4.0))
 
 
-def _need_3d(dim: int) -> None:
-    if dim != 3:
-        raise NotImplementedError(
-            f"dim={dim}: the port steps 3D scenes only")
-
-
 def _boxes_state(pos: np.ndarray, half_extent: float, dev,
                  ground_he=(100.0, 1.0, 100.0)) -> PhysicsState:
-    """Equal dynamic cubes at ``pos`` over the ground."""
-    he = torch.full((len(pos), 3), half_extent, dtype=torch.float32,
-                    device=dev)
+    """Equal dynamic cubes (squares, for 2D ``pos``) over the ground."""
+    he = torch.full((len(pos), pos.shape[1]), half_extent,
+                    dtype=torch.float32, device=dev)
     return _with_ground(ShapeSet.cuboids(he),
                         torch.from_numpy(pos).to(dev, torch.float32),
                         cuboid_local_mprops(he), ground_he=ground_he)
@@ -157,12 +170,10 @@ def _lattice(n: int, dim: int) -> np.ndarray:
 def boxes(n: int = 1000, *, half_extent: float = 0.5, dim: int = 3,
           seed: int = 0, device=None) -> PhysicsState:
     """Grid of falling cuboids with seeded jitter."""
-    _need_3d(dim)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     spacing = 2.0 * half_extent * 1.1
-    pos = _lattice(n, dim).astype(np.float32) * spacing
-    pos -= pos.mean(0, keepdims=True) * np.asarray([1.0, 0.0, 1.0])
+    pos = _centred(_lattice(n, dim).astype(np.float32) * spacing)
     pos[:, 1] += 2.0 * half_extent
     pos += rng.uniform(-0.02, 0.02, pos.shape).astype(np.float32)
     return _boxes_state(pos, half_extent, dev)
@@ -254,17 +265,17 @@ def many_pyramids(count: int = 4, levels: int = 10, *,
 def boxes_and_balls(n: int = 400, *, dim: int = 3,
                     device=None) -> PhysicsState:
     """Balls then boxes on one jittered lattice over the ground."""
-    _need_3d(dim)
     dev = resolve_device(device)
     rng = np.random.default_rng(3)
     half = n // 2
     r, he = 0.5, 0.5
     radii = torch.full((half,), r, dtype=torch.float32, device=dev)
-    hes = torch.full((n - half, 3), he, dtype=torch.float32, device=dev)
-    shapes = ShapeSet.concat(ShapeSet.balls(radii), ShapeSet.cuboids(hes))
-    mp = _merge_mprops(ball_local_mprops(radii), cuboid_local_mprops(hes))
-    pos = _lattice(n, dim).astype(np.float32) * 1.15
-    pos -= pos.mean(0, keepdims=True) * np.asarray([1.0, 0.0, 1.0])
+    hes = torch.full((n - half, dim), he, dtype=torch.float32, device=dev)
+    shapes = ShapeSet.concat(ShapeSet.balls(radii, dim=dim),
+                             ShapeSet.cuboids(hes))
+    mp = _merge_mprops(ball_local_mprops(radii, dim=dim),
+                       cuboid_local_mprops(hes))
+    pos = _centred(_lattice(n, dim).astype(np.float32) * 1.15)
     pos[:, 1] += 1.0
     pos += rng.uniform(-0.03, 0.03, pos.shape).astype(np.float32)
     return _with_ground(shapes, torch.from_numpy(pos).to(dev), mp)
@@ -430,6 +441,140 @@ def ball_net3(nk: int = 100, ni: int = 100, *, radius: float = 0.25,
     return new_state(base.bodies, base.shapes, joints)
 
 
+def capsules2(n: int = 100, *, device=None) -> PhysicsState:
+    """2D capsules then balls raining on the ground (the 2D support-mapped
+    narrow phase)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(13)
+    half = n // 2
+    hh, r = 0.3, 0.2
+
+    def full(k, v):
+        return torch.full((k,), v, dtype=torch.float32, device=dev)
+
+    shapes = ShapeSet.concat(
+        ShapeSet.capsules(full(half, hh), full(half, r), dim=2),
+        ShapeSet.balls(full(n - half, r), dim=2))
+    mp = _merge_mprops(
+        capsule_local_mprops(full(half, hh), full(half, r), dim=2),
+        ball_local_mprops(full(n - half, r), dim=2))
+    pos = np.zeros((n, 2), np.float32)
+    pos[:, 0] = rng.uniform(-8, 8, n)
+    pos[:, 1] = rng.uniform(1.5, 10, n)
+    return _with_ground(shapes, torch.from_numpy(pos).to(dev), mp,
+                        ground_he=(12.0, 1.0))
+
+
+def polyline2(n: int = 200, *, device=None) -> PhysicsState:
+    """2D balls then boxes raining on a jagged polyline terrain (41
+    vertices of 1.5·sin(0.6x) over [-20, 20], the static body 0)."""
+    from wgmath_tpu_torch.shapes.mesh import polyline
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(11)
+    xs = np.linspace(-20.0, 20.0, 41)
+    ys = np.sin(xs * 0.6) * 1.5
+    terrain = polyline(np.stack([xs, ys], -1).astype(np.float32),
+                       device=dev)
+    half = n // 2
+    r, he = 0.3, 0.3
+    radii = torch.full((half,), r, dtype=torch.float32, device=dev)
+    hes = torch.full((n - half, 2), he, dtype=torch.float32, device=dev)
+    shapes = ShapeSet.concat(terrain, ShapeSet.balls(radii, dim=2),
+                             ShapeSet.cuboids(hes))
+    pos = np.zeros((n, 2), np.float32)
+    pos[:, 0] = rng.uniform(-15, 15, n)
+    pos[:, 1] = rng.uniform(4, 14, n)
+    trans = torch.from_numpy(np.concatenate(
+        [np.zeros((1, 2), np.float32), pos])).to(dev)
+    total = n + 1
+    mp = _merge_mprops(
+        cuboid_local_mprops(torch.tensor([[20.0, 2.0]], device=dev),
+                            dynamic=torch.tensor([False], device=dev)),
+        ball_local_mprops(radii, dim=2), cuboid_local_mprops(hes))
+    poses = Sim(_identity_rows(total, 2, dev), trans,
+                torch.ones(total, device=dev))
+    return new_state(Bodies(poses, Velocity.zero(total, 2, device=dev), mp),
+                     shapes)
+
+
+def joint_net2(nk: int = 12, ni: int = 12, *, joint: str = "revolute",
+               device=None) -> PhysicsState:
+    """A 2D ``nk`` x ``ni`` net of balls (radius 0.4, 1 m apart) linked to
+    their right and lower neighbours by revolute joints at the upper /
+    left ball's centre, the outer fifths of the top row static; or by
+    fixed joints with the left column static, the net cantilevered off
+    it. 100 x 100 revolute is 10,000 balls and 19,800 joints."""
+    dev = resolve_device(device)
+    shift, r = 1.0, 0.4
+    n = nk * ni
+    pos = np.zeros((n, 2), np.float32)
+    dynamic = np.ones(n, bool)
+    body_a, body_b, anch_a, anch_b = [], [], [], []
+    for k in range(nk):
+        for i in range(ni):
+            pos[k * ni + i] = (k * shift, -i * shift)
+            if joint == "revolute":
+                if i == 0 and (k < nk // 5 or k >= (4 * nk) // 5):
+                    dynamic[k * ni + i] = False
+            elif k == 0:
+                dynamic[k * ni + i] = False
+            if i > 0:  # the vertical link, its pivot the parent's centre
+                body_a.append(k * ni + i - 1)
+                body_b.append(k * ni + i)
+                anch_a.append([0.0, 0.0])
+                anch_b.append([0.0, shift])
+            if k > 0:  # the horizontal link
+                body_a.append((k - 1) * ni + i)
+                body_b.append(k * ni + i)
+                anch_a.append([0.0, 0.0])
+                anch_b.append([-shift, 0.0])
+    radii = torch.full((n,), r, dtype=torch.float32, device=dev)
+    poses = Sim(_identity_rows(n, 2, dev), torch.from_numpy(pos).to(dev),
+                torch.ones(n, device=dev))
+    mp = ball_local_mprops(radii, dim=2,
+                           dynamic=torch.from_numpy(dynamic).to(dev))
+    bodies = Bodies(poses, Velocity.zero(n, 2, device=dev), mp)
+    make = revolute_joints if joint == "revolute" else fixed_joints
+    joints = make(body_a, body_b, anch_a, anch_b, dim=2,
+                  dynamic_mask=dynamic, device=dev)
+    return new_state(bodies, ShapeSet.balls(radii, dim=2), joints)
+
+
+def joint_prismatic2(chains: int = 4, num: int = 6, *,
+                     device=None) -> PhysicsState:
+    """2D prismatic chains: ``num`` boxes under each static head box,
+    sliding along alternating diagonals within (-1.5, 1.5)."""
+    dev = resolve_device(device)
+    shift, he = 1.0, 0.4
+    per = num + 1
+    n = chains * per
+    pos = np.zeros((n, 2), np.float32)
+    dynamic = np.ones(n, bool)
+    body_a, body_b, anch_a, anch_b, axes = [], [], [], [], []
+    s = 2.0 ** -0.5
+    for c in range(chains):
+        head = c * per
+        pos[head] = (c * shift * 4.0, 0.0)
+        dynamic[head] = False
+        for i in range(num):
+            pos[head + 1 + i] = (c * shift * 4.0, -(i + 1) * shift)
+            body_a.append(head + i)
+            body_b.append(head + 1 + i)
+            anch_a.append([0.0, 0.0])
+            anch_b.append([0.0, shift])
+            axes.append([s, s] if i % 2 == 0 else [-s, s])
+    hes = torch.full((n, 2), he, dtype=torch.float32, device=dev)
+    poses = Sim(_identity_rows(n, 2, dev), torch.from_numpy(pos).to(dev),
+                torch.ones(n, device=dev))
+    mp = cuboid_local_mprops(hes, dynamic=torch.from_numpy(dynamic).to(dev))
+    bodies = Bodies(poses, Velocity.zero(n, 2, device=dev), mp)
+    joints = prismatic_joints(body_a, body_b, anch_a, anch_b, axes,
+                              limits=(-1.5, 1.5), dim=2,
+                              dynamic_mask=dynamic, device=dev)
+    return new_state(bodies, ShapeSet.cuboids(hes), joints)
+
+
 def box_configs(n_bodies: int) -> dict:
     """The 4-point ``ladder`` and ``fused`` configurations the box scenes
     are stepped under, as ``PipelineConfig`` field dicts: the JAX package's
@@ -459,7 +604,7 @@ def primitive_configs(n_bodies: int) -> dict:
             for name, cfg in box_configs(n_bodies).items()}
 
 
-# the JAX package's 3D scenes that the port builds; each takes ``device``
+# the JAX package's scenes that the port builds; each takes ``device``
 SCENES = {
     "balls3": lambda device=None: balls(1000, device=device),
     "boxes3": lambda device=None: boxes(1000, device=device),
@@ -481,4 +626,19 @@ SCENES = {
         6, joint="prismatic", device=device),
     "ball_net3": lambda device=None: ball_net3(16, 16, device=device),
     "trimesh3": lambda device=None: trimesh_scene(device=device),
+    "balls2": lambda device=None: balls(300, dim=2, device=device),
+    "pyramid2": lambda device=None: boxes(200, dim=2, device=device),
+    "boxes_and_balls2": lambda device=None: boxes_and_balls(
+        200, dim=2, device=device),
+    "capsules2": lambda device=None: capsules2(device=device),
+    "polyline2": lambda device=None: polyline2(device=device),
+    "joint_ball2": lambda device=None: joint_net2(12, 12, joint="revolute",
+                                                  device=device),
+    "joint_fixed2": lambda device=None: joint_net2(8, 8, joint="fixed",
+                                                   device=device),
+    "joint_prismatic2": lambda device=None: joint_prismatic2(device=device),
 }
+# the 2D entries of SCENES (the JAX package registers eight)
+PLANAR_SCENES = ("balls2", "pyramid2", "boxes_and_balls2", "capsules2",
+                 "polyline2", "joint_ball2", "joint_fixed2",
+                 "joint_prismatic2")

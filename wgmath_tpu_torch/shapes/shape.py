@@ -40,9 +40,12 @@ ALL_KINDS = frozenset(range(10))
 # the tags the 3D physics step takes: analytic ball and cuboid contacts,
 # the support-mapped (GJK / EPA / PFM) contacts of the primitives, the
 # standalone segments and triangles and the convex polyhedra, and the mesh
-# contacts of triangle meshes; a polyline's contacts are 2D
+# contacts of triangle meshes
 SUPPORTED_KINDS = frozenset((BALL, CUBOID, CAPSULE, CONE, CYLINDER, SEGMENT,
                              TRIANGLE, TRIMESH, CONVEX))
+# the tags the 2D step takes: analytic ball and cuboid contacts, the
+# support-mapped capsule contacts and the polyline contacts
+PLANAR_KINDS = frozenset((BALL, CUBOID, CAPSULE, POLYLINE))
 # the vertex-range kinds: the GJK support's arg-max runs over their vertices
 VERTEX_RANGE_KINDS = frozenset((TRIANGLE, CONVEX))
 
