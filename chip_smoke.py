@@ -58,7 +58,7 @@ Three phases; any failed check ends the run with a non-zero exit:
    solve modes (colouring in the solve, uniform and split windows, the
    Jacobi solver): the README's quick start (``SCENES["pyramid3"]``,
    ``PipelineConfig(pair_capacity=16384)``, 300 ``step_checked`` frames)
-   and the testbed's ``--solver jacobi`` on the same scene (30 frames),
+   and the testbed's ``--solver jacobi`` on the same scene (20 frames),
    each against the JAX frames in ``artifacts/solve_modes_jax.npz`` and
    under the physical checks; the settled pit under the bench's
    ``steady_base`` (split windows over the cached colours) and the same
@@ -100,6 +100,25 @@ Three phases; any failed check ends the run with a non-zero exit:
    checks (no centre below the field, the deepest contact, the mesh-pair
    demand within the batches), B2 on its own plan and the mesh contacts'
    share of the step.
+
+Then the scale-out: the settled pit under the ``ladder``
+configuration stepped by ranks of ``parallel.sharded_pipeline`` spawned
+by ``tests/parallel_ranks.py`` (NCCL at world size 1, gloo at world size 2
+with both ranks on the card), three frames against the single-device
+``step`` (pair and contact counts exact, translations within 1e-6 m) and
+the JAX ladder frames, the ranks' states equal bit for bit after every
+frame, then ten timed frames with their collectives, bytes, B2 one-rung
+launches and host syncs a step beside the single-device step's time; B2's
+one-rung launch on each rank's slice of a rung against the whole rung (bit
+for bit) and its plain version; one frame of the round-1 body-sharded
+step (``parallel.sharded``) at world size 2, its pair count the brute
+force's. Last the testbed CLI as a subprocess (``--run-all --frames 3
+--verify --json``: every scene, finite; ``conveyor3`` on the oracle
+backend) and ``conveyor3`` three frames on the card against the JAX
+package's frames (``artifacts/parallel_jax.npz.xz``). To pay for these,
+the script runs the box, primitives and 10k-net paths 10, 10 and 8 timed
+frames (were 20, 20 and 15), ``pit_lbvh`` 10 (20), the 2D paths 5 (10),
+``quickstart_jacobi`` 20 frames (30) and ``pit_settle`` 40 (60).
 
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -2825,7 +2844,10 @@ BOX_LEVELS = 50  # 42,925 cuboids and the ground
 # the pyramid the physical checks hold: 20 levels, the README's pyramid3
 CHECK_LEVELS = 20
 BOX_WARM_FRAMES = 15
-BOX_TIMED_FRAMES = 20
+# 10 timed frames (were 20): the run's time limit, when the scale-out
+# and testbed phases came; the physical checks keep 35 frames
+BOX_TIMED_FRAMES = 10
+BOX_CHECK_FRAMES = 35
 # records of artifacts/pyramid43k.npz (the JAX package's 50-level run):
 # record r holds the positions after 1 + 10 (r - 1) steps
 NPZ_PYRAMID43K = os.path.join(ROOT, "artifacts", "pyramid43k.npz")
@@ -3049,14 +3071,14 @@ def box_physics_phase(params) -> dict:
         y0 = state.bodies.poses.translation[:, 1].clone()
         n = int(y0.shape[0])
         cfg = PipelineConfig(**box_configs(n)[name])
-        for _ in range(BOX_WARM_FRAMES + BOX_TIMED_FRAMES):
+        for _ in range(BOX_CHECK_FRAMES):
             state, cfg = step_checked(state, params, cfg)
         check(_finite(state), f"pyramid{CHECK_LEVELS} {name}: non-finite")
         m = _physics(state.bodies.poses.translation, y0, CHECK_LEVELS)
         env[name] = box_envelopes(state)
         m.update(kinetic_energy=env[name][0], max_penetration=env[name][1])
         _print_physics(f"pyramid{CHECK_LEVELS} {name} after "
-                       f"{BOX_WARM_FRAMES + BOX_TIMED_FRAMES} frames", m)
+                       f"{BOX_CHECK_FRAMES} frames", m)
         check(m["level0_max_off"] <= LEVEL0_TOL,
               f"pyramid{CHECK_LEVELS} {name}: level 0 left the ground")
         check(m["max_rise"] <= RISE_TOL,
@@ -3145,7 +3167,10 @@ PRIM_SCENE = "primitives3"  # the scene of NPZ_PRIMITIVES: per_kind 40
 PRIM_PER_KIND = 2000  # 10,000 dynamic bodies and the ground
 # the lower layers land by ~90 frames (the top one starts ~29.5 m up)
 PRIM_WARM_FRAMES = 90
-PRIM_TIMED_FRAMES = 20
+# 10 timed frames (were 20: the run's time limit); the
+# physical checks on primitives3(40) keep 110 frames
+PRIM_TIMED_FRAMES = 10
+PRIM_CHECK_FRAMES = 110
 PRIM_PATHS = {"prim_ladder": ("ladder", ("gs_math_block",)),
               "prim_fused": ("fused", FUSED_KERNELS)}
 # the timed window must hold this many support-mapped pairs a frame
@@ -3273,7 +3298,7 @@ def primitives_physics_phase(params) -> dict:
         cfg = PipelineConfig(**primitive_configs(
             int(state.bodies.poses.translation.shape[0]))[name])
         with epa_demands() as epa:
-            for _ in range(PRIM_WARM_FRAMES + PRIM_TIMED_FRAMES):
+            for _ in range(PRIM_CHECK_FRAMES):
                 state, cfg = step_checked(state, params, cfg)
         check(_finite(state), f"{PRIM_SCENE} {name}: non-finite")
         ke, pen = box_envelopes(state)
@@ -3281,7 +3306,7 @@ def primitives_physics_phase(params) -> dict:
                  max_penetration=pen,
                  epa_demand_max=int(torch.stack(epa).max()))
         print(f"{PRIM_SCENE} {name} after "
-              f"{PRIM_WARM_FRAMES + PRIM_TIMED_FRAMES} frames: lowest centre "
+              f"{PRIM_CHECK_FRAMES} frames: lowest centre "
               f"y = {m['min_y']:.4f} (limit {PRIM_GROUND_Y}), contact points "
               f"deeper than {PRIM_DEEPEST} m {m['deep_share']:.4f} of "
               f"{m['contact_points']} (limit {PRIM_DEEP_SHARE}), deepest "
@@ -3551,10 +3576,14 @@ NPZ_SOLVE_MODES = os.path.join(ROOT, "artifacts", "solve_modes_jax.npz")
 QUICK_LEVELS = 20  # SCENES["pyramid3"]: 2,870 cuboids and the ground
 QUICK_FRAMES = 300  # the last QUICK_TIMED of them timed
 QUICK_TIMED = 50
-JACOBI_FRAMES = 30  # the last JACOBI_TIMED of them timed (60 / 50 until
-JACOBI_TIMED = 20  # the meshes came: the run's time limit)
-SETTLE_FRAMES = 60  # the last SETTLE_TIMED of them timed
-SETTLE_TIMED = 50
+# the last JACOBI_TIMED of JACOBI_FRAMES timed: 60 / 50 until the meshes
+# came, 30 / 20 until the scale-out phases came (the run's time limit)
+JACOBI_FRAMES = 20
+JACOBI_TIMED = 10
+# the last SETTLE_TIMED of SETTLE_FRAMES timed (60 / 50 until the
+# scale-out phases came)
+SETTLE_FRAMES = 40
+SETTLE_TIMED = 30
 # the tail window of B2's split-plan check on the settled pit's first
 # frame: its tail classes (colour 9: 1,342 rows) fit the bench's 1,536, so
 # the check narrows the window to cut one
@@ -3758,7 +3787,7 @@ def pit_settle_path(params) -> dict:
 
 def solve_modes_phase(params, runs: dict) -> dict:
     """The solve modes: the quick start's JAX frames, ``quickstart`` (300
-    frames, the physical checks), ``quickstart_jacobi`` (30 frames),
+    frames, the physical checks), ``quickstart_jacobi`` (20 frames),
     ``pit_split`` and ``pit_uniform`` from the settled checkpoint (the
     bench's warm and timed frames, the short gate and the envelopes against
     ``runs["ladder"]``), and ``pit_settle``. Returns path name -> run, plus
@@ -3877,7 +3906,7 @@ JOINT_NET_TR_LIMIT = 1.02e-4
 # the 10k net from JAX's drape state: warm and timed frames (together the
 # export's NET_RUN, whose joint stretch after each frame is stored)
 NET_WARM_FRAMES = 5
-NET_TIMED_FRAMES = 15
+NET_TIMED_FRAMES = 8  # 15 until the scale-out phases (the time limit)
 # the other solve modes on the net: frames run from JAX's drape state, to
 # finite poses above the ground
 NET_MODE_FRAMES = 4
@@ -4319,7 +4348,7 @@ NPZ_LBVH_FUSED = os.path.join(ROOT, "artifacts",
 FUSED_JOINT_CASES = ("drape_fused", "chain_fused")
 # pit_lbvh: chained_ps with the LBVH broad phase, warm and timed frames
 # (each frame regrows the pair capacity, ROADMAP C11)
-LBVH_WARM_FRAMES, LBVH_TIMED_FRAMES = 2, 20
+LBVH_WARM_FRAMES, LBVH_TIMED_FRAMES = 2, 10  # 20 timed before scale-out
 # repeats of one LBVH refresh timed by CUDA events
 LBVH_REPEATS = 5
 
@@ -5272,7 +5301,7 @@ def mesh_share(run_once, calls_per_step: float, frames: int = 1) -> dict:
 PLANAR_PATHS = ("net2d10k", "mix2d10k")
 NET2D_SHAPE = (100, 100)  # 10,000 balls, 19,800 revolute joints
 PLANAR_WARM = 3
-PLANAR_TIMED = 10
+PLANAR_TIMED = 5  # 10 until the scale-out phases (the time limit)
 MIX2D_BODIES = 10_000
 MIX2D_FRAMES = 120  # checked frames from the built state
 MIX2D_EVERY = 10  # JAX's recording: one envelope every 10 frames
@@ -5485,6 +5514,327 @@ def planar_shares(name: str, run_once) -> dict:
     return {"unprofiled": unprof, "profiled": prof, "window": window}
 
 
+# ---------------------------------------------------------------------------
+# scale-out: the sharded pipeline and the body-sharded step on ranks of one
+# card (NCCL at world size 1, gloo at world size 2), and the testbed CLI
+# ---------------------------------------------------------------------------
+
+NPZ_PARALLEL = os.path.join(ROOT, "artifacts", "parallel_jax.npz.xz")
+SHARD_FRAMES = 3  # checked frames from the settled state
+SHARD_TIMED = 10
+SHARD_TR_LIMIT = 1e-6  # against the single-device step
+SHARD_WORLDS = ((1, "nccl"), (2, "gloo"))
+TESTBED_FRAMES = 3
+CONVEYOR_TR_LIMIT = 1e-5
+
+
+def _pit_start() -> tuple:
+    """The settled pit's state arrays and the stored ladder configuration
+    with the JAX package's ladder frames."""
+    z = dict(np.load(NPZ))
+    arrays = {k: v for k, v in z.items() if k != "config_json"}
+    zl = dict(np.load(NPZ_LADDER))
+    cfg = PipelineConfig.from_dict(json.loads(str(zl["config_json"])))
+    return arrays, cfg, zl
+
+
+def _single_frames(arrays, cfg, params, frames: int, timed: int) -> dict:
+    """The single-device ``step`` under a fixed configuration, as the
+    sharded step runs: each frame's translations and counts, then
+    ``timed`` frames on the host's clock after a sync."""
+    state = state_from_arrays(arrays, device="cuda")
+    out = {"translation": [], "pair_count": []}
+    for _ in range(frames):
+        state = step(state, params, cfg, warmstart=True)
+        out["translation"].append(state.bodies.poses.translation.cpu()
+                                  .numpy())
+        out["pair_count"].append(state.pair_count.cpu().numpy())
+    step(state, params, cfg, warmstart=True)
+    torch.cuda.synchronize()
+    s0 = dispatch.HOST_SYNCS
+    b0 = gs_math.LAUNCHES_BLOCK
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state = step(state, params, cfg, warmstart=True)
+    torch.cuda.synchronize()
+    out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / timed
+    out["host_syncs_per_step"] = (dispatch.HOST_SYNCS - s0) / timed
+    out["b2_launches_per_step"] = (gs_math.LAUNCHES_BLOCK - b0) / timed
+    return out
+
+
+def sharded_pit_checks(label: str, res: list, single: dict, zl) -> dict:
+    """One world size's ranks against the single-device frames and the
+    JAX package's ladder frames; the ranks' states equal bit for bit."""
+    r0 = res[0][0]
+    for f in range(SHARD_FRAMES):
+        digests = {r[0]["digest"][f] for r in res}
+        check(len(digests) == 1, f"{label} frame {f}: the ranks' states "
+              "differ")
+    check(len({r[0]["timed"]["digest"] for r in res}) == 1,
+          f"{label}: the ranks' states differ after the timed frames")
+    dx = []
+    for f in range(SHARD_FRAMES):
+        pc, want = r0["pair_count"][f], single["pair_count"][f]
+        check(list(pc[:2]) == list(want[:2]), f"{label} frame {f}: pairs / "
+              f"contacts {list(pc[:2])}, single device {list(want[:2])}")
+        d = float(np.abs(r0["translation"][f]
+                         - single["translation"][f]).max())
+        dx.append(d)
+        check(d <= SHARD_TR_LIMIT, f"{label} frame {f}: translations "
+              f"{d:.3e} m from the single-device step")
+        ref_pc = zl[f"ref.{f}.pair_count"]
+        rel = max(abs(int(pc[i]) - int(ref_pc[i])) / max(abs(int(
+            ref_pc[i])), 1) for i in (0, 1))
+        d_jax = float(np.abs(r0["translation"][f]
+                             - zl[f"ref.{f}.translation"]).max())
+        check(rel <= COUNT_REL_LIMIT and d_jax <= TRANSLATION_LIMITS[f],
+              f"{label} frame {f}: off the JAX ladder frame (counts "
+              f"{rel:.2e}, translations {d_jax:.3e})")
+        print(f"{label} frame {f}: pairs {pc[0]} contacts {pc[1]} (single "
+              f"device {want[0]} / {want[1]}, JAX {ref_pc[0]} / "
+              f"{ref_pc[1]}), max|dx| {d:.3e} against the single device, "
+              f"{d_jax:.3e} against JAX (limit {TRANSLATION_LIMITS[f]:.0e})")
+    t = r0["timed"]
+    check(t["b2_launches_per_step"] > 0, f"{label}: no B2 one-rung launch")
+    print(f"{label}: {t['ms_per_step']:.2f} ms/step over {t['frames']} "
+          f"frames (host clock after a sync), {t['collectives_per_step']:.1f}"
+          f" collectives/step, {t['bytes_per_step'] / 1e6:.3f} MB/step, B2 "
+          f"one-rung launches {t['b2_launches_per_step']:.1f}/step, host "
+          f"syncs {t['host_syncs_per_step']:.2f}/step; single-device ladder "
+          f"{single['ms_per_step']:.2f} ms/step")
+    return {"max_dx_vs_single": dx, **{k: v for k, v in t.items()
+                                       if k != "digest"}}
+
+
+def round1_pit_check(res: list, arrays, cfg, params) -> dict:
+    """The body-sharded step's frame: finite, its pair count the brute
+    force's on the same state, padded as ``shard_state`` pads it (the
+    10,005 bodies to 10,006 at world size 2: a static zero-radius ball at
+    the origin, which touches the ground's box, as in the JAX package)."""
+    from wgmath_tpu_torch.broad_phase.brute_force import find_pairs_partial
+    from wgmath_tpu_torch.core.collectives import Shard
+    from wgmath_tpu_torch.parallel.sharded import shard_state
+
+    state = state_from_arrays(arrays, device="cuda")
+    n = state.bodies.num_bodies
+    tr = np.concatenate([r[1]["translation"] for r in res])[:n]
+    check(bool(np.isfinite(tr).all()), "round-1 step: non-finite poses")
+    blocks = [shard_state(state, Shard(None, len(res), k))
+              for k in range(len(res))]
+    poses = Sim(*(torch.cat([getattr(b.poses, f) for b, _ in blocks])
+                  for f in ("rotation", "translation", "scale")))
+    shapes = blocks[0][1]
+    mins, maxs = shp.world_aabbs(shapes, poses,
+                                 margin=params.prediction_distance)
+    radii = shp.ball_radii_or_nan(shapes, poses)
+    brute = find_pairs_partial(mins, maxs, 0, mins, maxs,
+                               capacity=cfg.pair_capacity,
+                               block=cfg.broad_phase_block,
+                               max_per_row=cfg.broad_phase_max_per_row,
+                               ball_radius=radii,
+                               margin=params.prediction_distance)
+    counts = {r[1]["pair_count"] for r in res}
+    check(counts == {int(brute.count)}, f"round-1 step: pair counts "
+          f"{counts}, brute force {int(brute.count)}")
+    print(f"round-1 body-sharded step at world size {len(res)} (gloo): "
+          f"{counts.pop()} pairs (the brute force's on the padded "
+          f"{mins.shape[0]} bodies), finite, {res[0][1]['ms']:.1f} ms on "
+          "rank 0")
+    return {"pairs": int(brute.count), "ms": res[0][1]["ms"]}
+
+
+def _b2_args(rec, device="cuda") -> tuple[tuple, dict]:
+    """A recorded B2 launch's arguments back on ``device``."""
+    args, kw, _ = rec
+    win, meta, view, *rest = args
+    view = SimpleNamespace(**{k: v.to(device) for k, v in view.items()})
+    return ((win.to(device), meta, view) + tuple(x.to(device)
+                                                 for x in rest)), kw
+
+
+def b2_slice_check(res: list) -> dict:
+    """B2's one-rung launches as the sharded pit runs them: each rank's
+    launches of the first frame's first sweep, recorded inside the ranks
+    (``tests/parallel_ranks.py``, ``record_b2``), rank k's slice of a rung
+    of m rows being ``[k·l, (k+1)·l)`` with l = m over the rank count,
+    rounded up (``solver._sweep_torch``). Each recorded launch is launched
+    again on its own inputs (the recorded bits) and held against its plain
+    version (max abs error, the kernel's tolerance); the ranks' inputs of
+    a rung, put together, are the whole rung's, whose one launch gives
+    every rank's rows bit for bit. Rank 0's launches are timed one by one,
+    beside their plain versions and bounds."""
+    n = len(res)
+    rung_rows = res[0][0]["b2_rungs"]
+    check(len(rung_rows) > 0 and all(r[0]["b2_rungs"] == rung_rows
+                                     for r in res),
+          f"B2 rungs recorded by rank: {[r[0]['b2_rungs'] for r in res]}")
+    recs = [iter(r[0]["b2_calls"]) for r in res]
+    err, rows, k_ms, p_ms, b_ms = 0.0, [], [], [], []
+    for i, m in enumerate(rung_rows):
+        lw = -(-m // n)
+        parts = []
+        for k in range(n):
+            lo = min(k * lw, m)
+            hi = min(lo + lw, m)
+            if hi > lo:
+                rec = next(recs[k], None)
+                check(rec is not None and rec[0][0].shape[0] == hi - lo,
+                      f"B2 rung {i} rank {k}: no launch of {hi - lo} rows")
+                parts.append((k, rec, _b2_args(rec)))
+        outs = []
+        for k, rec, (args, kw) in parts:
+            got = gs_math.gs_math_block(*args, **kw)
+            plain = gs_block_plain(*args, **kw)
+            for g, want, q in zip(got, rec[2], plain):
+                check(torch.equal(g.cpu(), want), f"B2 rung {i} rank {k}: "
+                      "not the bits the rank launched")
+                err = max(err, float((g - q).abs().max()))
+                check(bool(torch.allclose(g, q, rtol=RTOL, atol=ATOL)),
+                      f"B2 rung {i} rank {k}: off its plain version")
+            outs.append(got)
+        (win, meta, view, *_), kw = parts[0][2]
+        cat = [torch.cat(xs) for xs in zip(*(
+            (a[0],) + tuple(a[3:]) for _, _, (a, _) in parts))]
+        v = SimpleNamespace(**{f: torch.cat([getattr(a[2], f)
+                                             for _, _, (a, _) in parts])
+                               for f in vars(view)})
+        whole = gs_math.gs_math_block(cat[0], meta, v, *cat[1:], **kw)
+        for j, w in enumerate(whole):
+            check(torch.equal(torch.cat([o[j] for o in outs]), w),
+                  f"B2 rung {i}: the ranks' rows are not the whole rung's")
+        args, kw = parts[0][2]
+        rows.append(args[0].shape[0])
+        k_ms.append(statistics.median(device_times_ms(
+            lambda: gs_math.gs_math_block(*args, **kw))))
+        p_ms.append(statistics.median(device_times_ms(
+            lambda: gs_block_plain(*args, **kw), n=5)))
+        b_ms.append(bound_ms(*gs_block_work(rows[-1], kw["p_max"]))[0])
+    check(all(next(it, None) is None for it in recs),
+          "B2: launches recorded beyond the sweep's rungs")
+    out = {
+        "rungs": rung_rows, "rank0_rows": rows,
+        "max_abs_err_vs_plain": err,
+        "ms_per_launch": sum(k_ms) / len(k_ms),
+        "plain_ms_per_launch": sum(p_ms) / len(p_ms),
+        "bound_ms_per_launch": sum(b_ms) / len(b_ms),
+        "ms_per_sweep_rank0": sum(k_ms), "plain_ms_per_sweep_rank0":
+            sum(p_ms), "bound_ms_per_sweep_rank0": sum(b_ms),
+        "bound_by": bound_ms(*gs_block_work(max(rows), kw["p_max"]))[1]}
+    print(f"B2 one-rung on the sharded pit's slices ({n} ranks, the first "
+          f"sweep's rungs {rung_rows}, rank 0's rows {rows}): the recorded "
+          f"bits, the whole rung's bits; rank 0's launches "
+          f"{out['ms_per_launch'] * 1e3:.2f} us each on average (plain "
+          f"{out['plain_ms_per_launch'] * 1e3:.2f} us, bound "
+          f"{out['bound_ms_per_launch'] * 1e3:.3f} us, {out['bound_by']}), "
+          f"a sweep {out['ms_per_sweep_rank0']:.4f} ms (plain "
+          f"{out['plain_ms_per_sweep_rank0']:.4f}, bound "
+          f"{out['bound_ms_per_sweep_rank0']:.4f} ms), max abs err "
+          f"{err:.3e} against the plain version")
+    return out
+
+
+def parallel_phase(params) -> dict:
+    """The settled pit under the ``ladder`` configuration, stepped by
+    ranks of ``parallel.sharded_pipeline`` (NCCL at world size 1, gloo at
+    world size 2 with both ranks on the card, spawned by
+    ``tests/parallel_ranks.py``): ``SHARD_FRAMES`` frames against the
+    single-device step and the JAX ladder frames, the ranks' bits equal
+    every frame, then ``SHARD_TIMED`` timed frames; and one frame of the
+    round-1 body-sharded step at world size 2."""
+    from tests.parallel_ranks import run_ranks
+
+    arrays, cfg, zl = _pit_start()
+    single = _single_frames(arrays, cfg, params, SHARD_FRAMES, SHARD_TIMED)
+    print(f"single-device ladder (step, fixed configuration): "
+          f"{single['ms_per_step']:.2f} ms/step over {SHARD_TIMED} frames, "
+          f"B2 {single['b2_launches_per_step']:.1f} launches/step, "
+          f"{single['host_syncs_per_step']:.2f} host syncs/step")
+    pipeline_job = ("pipeline", dict(arrays=arrays, params=params, config=cfg,
+                                     frames=SHARD_FRAMES, timed=SHARD_TIMED))
+    out = {"single": {k: v for k, v in single.items()
+                      if k not in ("translation", "pair_count")}}
+    for world, backend in SHARD_WORLDS:
+        jobs = [pipeline_job]
+        if world == 2:
+            jobs = [(pipeline_job[0], dict(pipeline_job[1], record_b2=True))]
+            jobs.append(("round1", dict(arrays=arrays, params=params,
+                                        config=cfg)))
+        t0 = time.perf_counter()
+        try:
+            res = run_ranks(jobs, world, backend, device="cuda")
+        except RuntimeError as e:
+            raise SmokeFailure(str(e))
+        label = f"sharded pit ({backend}, world size {world})"
+        out[f"{backend}{world}"] = sharded_pit_checks(label, res, single, zl)
+        out[f"{backend}{world}"]["wall_s"] = time.perf_counter() - t0
+        if world == 2:
+            out["b2_slices"] = b2_slice_check(res)
+            out["round1"] = round1_pit_check(res, arrays, cfg, params)
+    return out
+
+
+def testbed_phase(params) -> dict:
+    """The testbed CLI as a user runs it: every scene ``TESTBED_FRAMES``
+    checked frames on the card with ``--verify --json``, ``conveyor3`` on
+    the oracle backend, and ``conveyor3`` three frames against the JAX
+    package's frames."""
+    from wgmath_tpu_torch.scenes.builders import SCENES
+    from wgmath_tpu_torch.testbed.runner import BackendConfig
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cli = [sys.executable, "-m", "wgmath_tpu_torch.testbed.runner"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli + ["--run-all", "--frames",
+                                 str(TESTBED_FRAMES), "--verify", "--json"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    run_all_s = time.perf_counter() - t0
+    check(proc.returncode == 0, "testbed --run-all failed: "
+          + proc.stderr[-2000:])
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    check([x["scene"] for x in lines] == list(SCENES),
+          f"testbed --run-all gave {len(lines)} scenes")
+    for x in lines:
+        check(x["counters"]["steps"] == TESTBED_FRAMES and x["finite"],
+              f"testbed {x['scene']}: {x}")
+    ms = {x["scene"]: round(x["phase_ms"].get("step", 0.0)
+                            / max(TESTBED_FRAMES - 1, 1), 2) for x in lines}
+    print(f"testbed --run-all --frames {TESTBED_FRAMES} --verify --json: "
+          f"{len(lines)} scenes, every pose finite, {run_all_s:.1f} s; "
+          f"ms/step {ms}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli + ["--example", "conveyor3", "--backend",
+                                 "oracle", "--frames", "5"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0 and "steps" in proc.stdout,
+          "testbed --backend oracle failed: " + proc.stderr[-2000:])
+    oracle_s = time.perf_counter() - t0
+    z = load_arrays(NPZ_PARALLEL)
+    st = SCENES["conveyor3"](device="cuda")
+    prm = SimParams.tgs_soft()
+    cfg = BackendConfig().pipeline_config(
+        manifold_points=pipeline_mod.auto_manifold_points(st.shapes, 3))
+    dx = []
+    for f in range(3):
+        st, cfg = step_checked(st, prm, cfg)
+        tr = st.bodies.poses.translation.cpu().numpy()
+        dx.append(float(np.abs(tr - z[f"conveyor3.frame{f}.translation"])
+                        .max()))
+        pc = st.pair_count.cpu().numpy()
+        check(list(pc[:2]) == list(z[f"conveyor3.frame{f}.pair_count"][:2])
+              and dx[-1] <= CONVEYOR_TR_LIMIT,
+              f"conveyor3 frame {f}: counts {list(pc[:2])}, max|dx| "
+              f"{dx[-1]:.3e} against JAX's")
+    print(f"conveyor3 on the card against JAX's frames: max|dx| {dx} "
+          f"(limit {CONVEYOR_TR_LIMIT:.0e}), counts exact; the oracle "
+          f"backend {oracle_s:.1f} s for 5 frames")
+    return {"run_all_s": run_all_s, "ms_per_step": ms, "conveyor3_dx": dx,
+            "oracle_s": oracle_s}
+
+
 KERNEL_TABLE = (
     ("gs_math_rhs", "chained_ps", "wgmath_tpu_torch/csrc/gs_math.cu",
      "wgmath_tpu/dynamics/gs_pallas.py:330",
@@ -5589,13 +5939,17 @@ def main() -> int:
         mesh_kernel_checks(runs, params, summaries)
         t7 = time.perf_counter()
         runs.update(planar_phase())
+        t8 = time.perf_counter()
+        runs["parallel"] = parallel_phase(params)
+        t9 = time.perf_counter()
+        runs["testbed"] = testbed_phase(params)
         print(f"phase seconds: setup {t_setup - t_start:.1f}, kernels "
               f"{t_kernels - t_setup:.1f}, linalg and query paths "
               f"{t0 - t_kernels:.1f}, pit paths {t1 - t0:.1f}, box "
               f"{t2 - t1:.1f}, primitives {t3 - t2:.1f}, solve modes "
               f"{t4 - t3:.1f}, joints {t5 - t4:.1f}, lbvh {t6 - t5:.1f}, "
-              f"meshes {t7 - t6:.1f}, planar "
-              f"{time.perf_counter() - t7:.1f}")
+              f"meshes {t7 - t6:.1f}, planar {t8 - t7:.1f}, parallel "
+              f"{t9 - t8:.1f}, testbed {time.perf_counter() - t9:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -5735,7 +6089,9 @@ def main() -> int:
                       "joint_checks": runs["joint_checks"],
                       "lbvh_checks": runs["lbvh_checks"],
                       "mesh_checks": runs["mesh_checks"],
-                      "planar_checks": runs["planar_checks"]}))
+                      "planar_checks": runs["planar_checks"],
+                      "parallel": runs["parallel"],
+                      "testbed": runs["testbed"]}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:
@@ -5750,6 +6106,10 @@ def main() -> int:
                                  for c in step_paths},
             **({"standalone_launches": m["launches"][name]}
                if counter != name else {}),
+            **({"sharded_one_rung_launches_per_step": {
+                w: runs["parallel"][w]["b2_launches_per_step"]
+                for w in ("nccl1", "gloo2")}}
+               if name == "gs_math_block" else {}),
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
             "plain_ms": summary["plain_ms"],
             "bound_ms": summary["bound_ms"],

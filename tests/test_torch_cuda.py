@@ -1749,3 +1749,61 @@ def test_planar_pfm_graph_replays_give_the_eager_bits_on_card():
                                  for x in args))
         assert float((eager[2].cpu() - cpu[2]).abs().max()) <= 1e-6
     assert len([k for k in narrow_mod._GRAPHS if k[0] == "pfm2"]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_max", [1, 4])
+def test_b2_on_a_ranks_slice_matches_the_rung_bit_for_bit(p_max):
+    """Sharding does not change B2's arithmetic: the one-rung launch on
+    each rank's slice of a rung (``solver._sweep_torch`` under a shard of
+    2 and 3 ranks) gives the whole rung's rows bit for bit, and its plain version
+    on the same slice within the kernel's tolerance (B2 and its plain
+    version do not sum in one order: not bit for bit, sharded or not)."""
+    _need_card()
+    (win, meta, view, active, p1, p2, prev_n, prev_t), kw = gs_block_inputs(
+        np.random.default_rng(19 + p_max), 4096, p_max, "cuda")
+    whole = gs_math.gs_math_block(win, meta, view, active, p1, p2, prev_n,
+                                  prev_t, **kw)
+    for ranks in (2, 3):
+        lw = -(-4096 // ranks)
+        for k in range(ranks):
+            sl = slice(k * lw, min((k + 1) * lw, 4096))
+            v = SimpleNamespace(**{f: getattr(view, f)[sl] for f in (
+                "cfm_factor", "n_rhs", "t_rhs", "num_points")})
+            args = (win[sl], meta, v, active[sl], p1[sl], p2[sl],
+                    prev_n[sl], prev_t[sl])
+            launches = gs_math.LAUNCHES_BLOCK
+            part = gs_math.gs_math_block(*args, **kw)
+            assert gs_math.LAUNCHES_BLOCK == launches + 1
+            plain = gs_block_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for g, w, p in zip(part, whole, plain):
+                assert torch.equal(g, w[sl])
+                torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_sharded_step_is_replicated_bit_for_bit_on_card():
+    """Two gloo ranks on the card, each running the sharded pipeline
+    twice from one stored state (``balls(192)`` after JAX's 25 warm
+    frames, with contacts in every colour): every rank's state after every
+    frame is the same bits, in both runs, and B2 ran one-rung on the
+    ranks' slices."""
+    _need_card()
+    from chip_smoke import NPZ_PARALLEL
+    from tests.parallel_ranks import run_ranks
+    from wgmath_tpu_torch.convert import load_arrays
+
+    z = load_arrays(NPZ_PARALLEL)
+    arrays = {k[len("ladder.state."):]: v for k, v in z.items()
+              if k.startswith("ladder.state.")}
+    cfg = PipelineConfig.from_dict(json.loads(str(z["ladder.config_json"])))
+    cfg = dataclasses.replace(cfg, bp_force="miss")
+    job = ("pipeline", dict(arrays=arrays, params=SimParams(), config=cfg,
+                            frames=3, timed=2))
+    res = run_ranks([job, job], 2, "gloo", device="cuda")
+    digests = {(tuple(r[i]["digest"]), r[i]["timed"]["digest"])
+               for r in res for i in range(2)}
+    assert len(digests) == 1
+    assert all(r[i]["timed"]["b2_launches_per_step"] > 0
+               for r in res for i in range(2))

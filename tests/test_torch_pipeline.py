@@ -178,6 +178,9 @@ def test_step_refuses_flags_outside_the_slice(warmed, change):
 
 
 def test_step_refuses_sharding(warmed):
+    """The step takes a shard of an initialised ``torch.distributed``
+    group (``tests/test_torch_parallel.py`` runs it on gloo ranks) and
+    refuses one that names no group."""
     tstate, tcfg = _port(*warmed)
-    with pytest.raises(NotImplementedError, match="shard"):
+    with pytest.raises(ValueError, match="shard"):
         step(tstate, SimParams(), tcfg, shard=("x", 4))

@@ -224,11 +224,12 @@ def test_check_slice_accepts_the_solve_modes(change):
                  dataclasses.replace(PipelineConfig(), **change), None)
 
 
-# once refused, now taken: the LBVH broad phase, the fused solver with
-# joints, the 3D mesh kinds (a ball on a trimesh), 2D, 2D joints and the
-# polylines (tests/test_torch_pipeline_planar.py steps them)
-NOW_TAKEN = ("bp_algo=lbvh", "gs_fused with joints", "shape kinds", "2D",
-             "2D joints", "polylines wait for 2D")
+# once refused, now taken: sharding (tests/test_torch_parallel.py), the
+# LBVH broad phase, the fused solver with joints, the 3D mesh kinds (a
+# ball on a trimesh), 2D, 2D joints and the polylines
+# (tests/test_torch_pipeline_planar.py steps them)
+NOW_TAKEN = ("shard", "bp_algo=lbvh", "gs_fused with joints", "shape kinds",
+             "2D", "2D joints", "polylines wait for 2D")
 
 
 @pytest.mark.parametrize("state, change, shard, what", [

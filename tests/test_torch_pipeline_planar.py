@@ -20,8 +20,9 @@
 - ``gs_fused=True`` gives a 2D step the unfused solve's bits, as the JAX
   package does (its fused solver is 3D only).
 - ``convert`` carries a 2D state with joints across and back.
-- ``_check_slice`` refuses only sharding, ``gs_static_slots`` and an
-  unknown broad phase.
+- ``_check_slice`` refuses only ``gs_static_slots`` and an unknown broad
+  phase; a shard that names no initialised process group is refused by
+  the step.
 """
 
 import dataclasses
@@ -121,6 +122,9 @@ def test_check_slice_refuses_only_the_listed(bad):
     if bad is None:
         new = step(st, params_of("default"), cfg, warmstart=False)
         assert new.bodies.dim == 2
+    elif bad == "shard":
+        with pytest.raises(ValueError, match="no torch.distributed"):
+            step(st, params_of("default"), cfg, warmstart=False, **kw)
     else:
         with pytest.raises(NotImplementedError, match="refused"):
             step(st, params_of("default"), cfg, warmstart=False, **kw)

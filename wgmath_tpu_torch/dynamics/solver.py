@@ -51,6 +51,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from wgmath_tpu_torch.core import collectives
 from wgmath_tpu_torch.core.dispatch import host_int, host_list, to_device
 from wgmath_tpu_torch.dynamics.body import (
     Bodies,
@@ -86,6 +87,7 @@ from wgmath_tpu_torch.dynamics.gs_math import (
     _gs_math_torch,
     _point_updates,
     _size,
+    gs_math_block,
     gs_sweep_block,
     gs_sweep_rhs,
     rows_per_chunk,
@@ -683,62 +685,97 @@ def build_sweep_plan(sorted_cons, layout_host, windows: tuple,
 
 def _sweep_torch(plan: SweepPlan, sorted_cons, packed_fields, buf, imp, *,
                  rhs_mode: str | None, rhs_consts: tuple | None, p_max: int,
-                 s_len: int, pose=None) -> None:
+                 s_len: int, pose=None, shard=None) -> None:
     """Plain PyTorch version of one sweep kernel (``gs_math.gs_sweep_rhs``
     / ``gs_sweep_block``), rung by rung in place on ``buf`` / ``imp``: the
     same table and the same row math. A side that writes gets its row as
     the row it read with ``v + (w - v)``; a side that does not writes back
     the row it read (the same bits: nothing else in the rung writes it),
-    which keeps the scatter free of a mask."""
+    which keeps the scatter free of a mask.
+
+    ``shard`` (a ``core.collectives.Shard``) splits each rung across the
+    ranks: rank k runs the rung's rows ``[k·l, (k+1)·l)`` (l the rows over
+    the rank count, rounded up) through the row math, on a CUDA tensor
+    with 3D rows as one launch of B2 (``gs_math.gs_math_block``), and one
+    all-reduce carries the rung's velocity deltas and new impulses. Every
+    row is one rank's and zeros on the others, so the sum is exact and the
+    same on every rank, which then scatters the whole rung as above."""
     pf2d, pf_meta = packed_fields
     sides = plan.sides.long()
     pt = p_max * s_len
     dev = buf.device
+    width = buf.shape[1]
+    kernel = shard is not None and dev.type == "cuda" and width == 6
     for r in plan.rungs:
         m, w = r.rows, r.window
         if m == 0:
             continue
-        rows = slice(r.start, r.start + m)
         slot = torch.arange(m, device=dev)
         e = sides[torch.cat([2 * r.w_off + slot, 2 * r.w_off + w + slot])]
         pp = buf[e[:, 0]]
-        p1, p2 = pp[:m], pp[m:]
-        active = (e[:m, 3] & 1) != 0
-        win_i = imp[rows]
-        prev_n = win_i[:, :p_max]
-        prev_t = win_i[:, p_max:p_max + pt].reshape(m, p_max, s_len)
-        num_pts = sorted_cons.num_points[rows]
-        if rhs_mode is not None:
-            kw = dict(mode=rhs_mode, consts=rhs_consts, p_max=p_max,
-                      s_len=s_len)
-            if rhs_mode == "biased":
-                body = e[:, 3] >> 1
-                new_n, new_t, d1, d2, rhs_wo = _gs_math_rhs_torch(
-                    pf2d[rows], pf_meta, num_pts, active, p1, p2, prev_n,
-                    prev_t, pose1=pose[body[:m]], pose2=pose[body[m:]],
-                    **kw)
+        lo, hi = 0, m
+        if shard is not None:
+            lw = -(-m // shard.n)
+            lo = min(shard.rank * lw, m)
+            hi = min(lo + lw, m)
+        k = hi - lo
+        rows = slice(r.start + lo, r.start + hi)
+        new_cols = []
+        if k:
+            p1, p2 = pp[lo:hi], pp[m + lo:m + hi]
+            active = (e[lo:hi, 3] & 1) != 0
+            win_i = imp[rows]
+            prev_n = win_i[:, :p_max]
+            prev_t = win_i[:, p_max:p_max + pt].reshape(k, p_max, s_len)
+            num_pts = sorted_cons.num_points[rows]
+            if rhs_mode is not None:
+                kw = dict(mode=rhs_mode, consts=rhs_consts, p_max=p_max,
+                          s_len=s_len)
+                if rhs_mode == "biased":
+                    body = e[:, 3] >> 1
+                    new_n, new_t, d1, d2, rhs_wo = _gs_math_rhs_torch(
+                        pf2d[rows], pf_meta, num_pts, active, p1, p2,
+                        prev_n, prev_t, pose1=pose[body[lo:hi]],
+                        pose2=pose[body[m + lo:m + hi]], **kw)
+                else:
+                    rhs_wo = win_i[:, p_max + pt:]
+                    new_n, new_t, d1, d2 = _gs_math_rhs_torch(
+                        pf2d[rows], pf_meta, num_pts, active, p1, p2,
+                        prev_n, prev_t, n_rhs_wo=rhs_wo, **kw)
+                new_cols = [new_n, new_t.reshape(k, -1), rhs_wo]
+            elif kernel:
+                view = SimpleNamespace(
+                    cfm_factor=sorted_cons.cfm_factor[rows],
+                    n_rhs=sorted_cons.n_rhs[rows],
+                    t_rhs=sorted_cons.t_rhs[rows], num_points=num_pts)
+                new_n, new_t, d1, d2 = gs_math_block(
+                    pf2d[rows], pf_meta, view, active, p1, p2, prev_n,
+                    prev_t, p_max=p_max, s_len=s_len)
+                new_cols = [new_n, new_t.reshape(k, -1)]
             else:
-                rhs_wo = win_i[:, p_max + pt:]
-                new_n, new_t, d1, d2 = _gs_math_rhs_torch(
-                    pf2d[rows], pf_meta, num_pts, active, p1, p2, prev_n,
-                    prev_t, n_rhs_wo=rhs_wo, **kw)
-            new_cols = [new_n, new_t.reshape(m, -1), rhs_wo]
-        else:
-            new_n, new_t, d1, d2 = _gs_math_torch(
-                pf2d[rows], pf_meta, sorted_cons.cfm_factor[rows],
-                sorted_cons.n_rhs[rows], sorted_cons.t_rhs[rows], num_pts,
-                active, p1, p2, prev_n, prev_t, p_max=p_max, s_len=s_len)
-            new_cols = [new_n, new_t.reshape(m, -1)]
+                new_n, new_t, d1, d2 = _gs_math_torch(
+                    pf2d[rows], pf_meta, sorted_cons.cfm_factor[rows],
+                    sorted_cons.n_rhs[rows], sorted_cons.t_rhs[rows],
+                    num_pts, active, p1, p2, prev_n, prev_t, p_max=p_max,
+                    s_len=s_len)
+                new_cols = [new_n, new_t.reshape(k, -1)]
+        if shard is not None:
+            payload = torch.zeros((m, 2 * width + imp.shape[1]), device=dev)
+            if k:
+                payload[lo:hi] = torch.cat([d1, d2] + new_cols, dim=1)
+            collectives.all_reduce_sum(payload, shard)
+            d1, d2 = payload[:, :width], payload[:, width:2 * width]
+            new_cols = [payload[:, 2 * width:]]
         writes = e[:, 1] >= 0
         buf[torch.where(writes, e[:, 1], e[:, 0])] = torch.where(
             writes[:, None], pp + torch.cat([d1, d2]), pp)
-        imp[rows] = torch.cat(new_cols, dim=1)
+        imp[r.start:r.start + m] = torch.cat(new_cols, dim=1)
 
 
 def run_sweep(plan: SweepPlan, sorted_cons, packed_fields, buf, imp, *,
               rhs_mode: str | None = None, rhs_consts: tuple | None = None,
               pose=None, p_max: int, s_len: int,
-              rung_by_rung: bool = False) -> None:
+              rung_by_rung: bool = False, shard=None) -> None:
     """One sweep in place on the velocity buffer ``buf`` and the merged
     impulse matrix ``imp`` (``pose``: the bodies' [n, 8] poses, for
     ``rhs_mode`` "biased"): one kernel launch on CUDA tensors
@@ -746,12 +783,15 @@ def run_sweep(plan: SweepPlan, sorted_cons, packed_fields, buf, imp, *,
     ``gs_math.gs_sweep_block``; ``rung_by_rung`` launches the same kernel
     once per rung), :func:`_sweep_torch` on CPU tensors. A 2D sweep (rows
     of three velocities) is :func:`_sweep_torch` on either device: the JAX
-    package runs it in XLA, and the kernels take 3D rows only."""
+    package runs it in XLA, and the kernels take 3D rows only. Under a
+    ``shard`` every rung is split across the ranks in :func:`_sweep_torch`
+    (B2 launched on each rank's slice on a CUDA tensor)."""
     pf2d, pf_meta = packed_fields
-    if buf.device.type != "cuda" or buf.shape[1] == 3:
+    if (buf.device.type != "cuda" or buf.shape[1] == 3
+            or shard is not None):
         _sweep_torch(plan, sorted_cons, packed_fields, buf, imp,
                      rhs_mode=rhs_mode, rhs_consts=rhs_consts, p_max=p_max,
-                     s_len=s_len, pose=pose)
+                     s_len=s_len, pose=pose, shard=shard)
     elif rhs_mode is not None:
         gs_sweep_rhs(plan, pf2d, pf_meta, sorted_cons.num_points, buf, imp,
                      mode=rhs_mode, consts=rhs_consts, p_max=p_max,
@@ -767,7 +807,8 @@ def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
                         layout_host, windows: tuple, chain=None, *,
                         packed_fields, rhs_mode: str | None = None,
                         rhs_consts: tuple | None = None, rhs_store=None,
-                        pose_tab=None, sweep_plan: SweepPlan | None = None):
+                        pose_tab=None, sweep_plan: SweepPlan | None = None,
+                        shard=None):
     """One PGS sweep over the colour-major constraints, colour by colour
     along the window ladder (:func:`run_sweep`: one kernel launch on CUDA
     tensors).
@@ -780,8 +821,10 @@ def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
     rhs_wo_bias; "unbiased" consumes that store with cfm = 1; ``None``
     takes ``cfm_factor`` / ``n_rhs`` / ``t_rhs`` from ``sorted_cons``.
     ``sweep_plan`` is the per-solve table of :func:`build_sweep_plan`
-    (built here when absent). Impulses stay in sorted space. Returns (vels,
-    n_imp_s, t_imp_s[, rhs_store])."""
+    (built here when absent). ``shard`` (a ``core.collectives.Shard``,
+    the ladder only) splits each rung across the ranks
+    (:func:`_sweep_torch`). Impulses stay in sorted space. Returns
+    (vels, n_imp_s, t_imp_s[, rhs_store])."""
     p_max = n_imp_s.shape[1]
     s_len = sorted_cons.tangent_a.shape[-2]
     n_bodies = vels.linear.shape[0]
@@ -809,7 +852,7 @@ def gs_color_major_pass(sorted_cons, vels: Velocity, n_imp_s, t_imp_s,
     run_sweep(sweep_plan, sorted_cons, packed_fields, buf, imp,
               rhs_mode=rhs_mode, rhs_consts=rhs_consts,
               pose=pose_tab if rhs_mode == "biased" else None, p_max=p_max,
-              s_len=s_len)
+              s_len=s_len, shard=shard)
     packed = buf[chain[1]] if chain is not None else buf
     out = (_unpacked(packed, dim), imp[:, :p_max],
            imp[:, p_max:p_max + pt].reshape(t_imp_s.shape))
@@ -1042,7 +1085,7 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           cache_in=None, presorted: bool = False, chained: bool = False,
           rhs_in_rung: bool = False, fused: bool = False,
           fused_rung0: int = 0, fused_class_counts=None, joints=None,
-          stable_slots: bool = True):
+          stable_slots: bool = True, shard=None):
     """Complete constraint solve for one frame. Returns ``(poses, vels,
     constraints, max_class, colors, solve_cache)``.
 
@@ -1092,7 +1135,17 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     row through the body-sorted sides, the biased joint pass, one
     standalone ``fused_sweep`` (B10) on the biased rhs, the integration,
     the unbiased joint pass and B10 again on the unbiased rhs (no B11,
-    nothing carried)."""
+    nothing carried).
+
+    ``shard`` (a ``core.collectives.Shard``, or ``(group, n_ranks)``):
+    every rank holds the whole solve, and each colour's rows are split
+    across the ranks (:func:`_sweep_torch`), as the JAX package splits
+    its colour windows under ``shard_map``. The windows and ``cmax`` round
+    up to multiples of the rank count; the fused solver, the presorted
+    layout, the chained sweep, the rhs rebuilt in the sweep and the split
+    windows are off, as in the JAX package; Jacobi and the joints stay
+    replicated."""
+    shard = collectives.resolve(shard)
     dim = bodies.dim
     sub = params.substep().with_dim(dim)
     n = bodies.num_bodies
@@ -1100,7 +1153,7 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     assert n < (1 << 16), f"{n} bodies: 16-bit pair keys alias"
     use_fused = (fused and bool(gs_windows) and presorted and dim == 3
                  and colors_in is not None and fused_class_counts is not None
-                 and not use_jacobi)
+                 and not use_jacobi and shard is None)
     if use_fused:
         cons, big_t, big_meta = build_constraints_fused(
             bodies.poses, bodies.vels, mprops, contacts, params)
@@ -1154,12 +1207,19 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     windows = tuple(gs_windows[:max_colors])
     if windows:
         assert len(gs_windows) >= max_colors
+        if shard is not None:
+            windows = tuple(-(-w // shard.n) * shard.n for w in windows)
         cmax = max(windows)
     else:
         # a class holds at most one constraint a dynamic body
         cmax = min(c_cap, n + 64)
         if gs_cmax:
             cmax = min(cmax, gs_cmax)
+    if shard is not None:
+        # colour windows split evenly across the ranks
+        cmax = -(-cmax // shard.n) * shard.n
+        presorted = chained = rhs_in_rung = False
+        gs_tail_window = 0
     if use_fused:
         return _solve_fused(
             bodies, cons, big_t, big_meta, vels, inc, sub, params,
@@ -1208,6 +1268,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     sweep_kw = dict(packed_fields=packed_fields,
                     sweep_plan=build_sweep_plan(ss, layout_host, windows, n,
                                                 chain, p_max=p_max))
+    if shard is not None:
+        sweep_kw["shard"] = shard
     poses = bodies.poses
     com = bodies.local_mprops.com
     if use_rhs_rung:

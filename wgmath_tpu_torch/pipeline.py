@@ -57,8 +57,29 @@ the fused solver, the pair-slot layout and the rhs rebuilt in the sweep
 are 3D only there, so a 2D step takes the unfused sweep (``gs_fused`` and
 ``gs_pair_slots`` change nothing) and the rhs of ``update_rhs_sorted``;
 its sweeps are plain PyTorch (``solver.run_sweep``), as the JAX package
-runs them in XLA. Sharding, ``gs_static_slots`` and other broad phases are
-refused with ``NotImplementedError``.
+runs them in XLA. ``gs_static_slots`` and other broad phases are refused
+with ``NotImplementedError``.
+
+``shard=(group, n_ranks)`` runs the step on ``n_ranks`` ``torch.distributed``
+ranks, each holding the whole state (``parallel/sharded_pipeline.py``), and
+splits the heavy phases across them as the JAX package's ``shard`` does:
+each rank takes a row block of the grid (or brute-force) broad phase, a
+share of the pairs in the narrow phase, and a slice of each colour of the
+Gauss-Seidel sweep (``solver.solve``). The pairs ride one all-gather a
+refresh and are compacted in rank order, which is the single-device
+step's order (the colouring hashes pair slots, so the sharded step
+colours as the single-device one does). The compacted pairs lie at the
+front of the list, so the narrow phase gives rank k every n-th slot from
+k (where the JAX package, whose gathered list keeps a gap after each
+rank's block, gives it a block of slots); an overflow
+rides the sign (one rank negative makes the total negative), and a rank
+that fills its share of the capacity reports its share times the rank
+count, so that ``step_checked`` regrows ``pair_capacity``. The contacts
+come back slot for slot in one all-gather a dtype, and the compaction
+demands are the largest rank's times the rank count. The fused solver,
+the pair slots, the chained sweep and the split windows are off under a
+shard, as in the JAX package; the rest runs replicated and deterministic
+on every rank.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -78,6 +99,8 @@ from wgmath_tpu_torch.broad_phase.brute_force import (
 )
 from wgmath_tpu_torch.broad_phase.grid import find_pairs_grid, top_k_desc
 from wgmath_tpu_torch.broad_phase.lbvh import find_pairs_lbvh
+from wgmath_tpu_torch.broad_phase.brute_force import find_pairs_partial
+from wgmath_tpu_torch.core import collectives
 from wgmath_tpu_torch.core.dispatch import (
     capacity_bucket,
     host_int,
@@ -86,6 +109,7 @@ from wgmath_tpu_torch.core.dispatch import (
 from wgmath_tpu_torch.dynamics.body import Bodies, update_mprops
 from wgmath_tpu_torch.dynamics.constraint import (
     ContactConstraints,
+    Contacts,
     _dot3,
     compact_contacts,
 )
@@ -195,12 +219,11 @@ class PipelineConfig:
 
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
-    """Refuse what the port does not take: sharding (ROADMAP item 8),
-    ``gs_static_slots`` (item 4's last part) and broad phases other than
-    the grid, the brute force and the LBVH."""
+    """Refuse what the port does not take: ``gs_static_slots`` (ROADMAP
+    item 4's last part) and broad phases other than the grid, the brute
+    force and the LBVH. (A shard is checked against its process group by
+    ``core.collectives.resolve``.)"""
     bad = []
-    if shard is not None:
-        bad.append("shard")
     if config.gs_static_slots:
         bad.append("gs_static_slots")
     if config.bp_algo not in ("auto", "grid", "brute", "lbvh"):
@@ -263,6 +286,10 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
          warmstart: bool = True, shard=None) -> PhysicsState:
     """Advance one frame of ``params.dt``."""
     _check_slice(state, config, shard)
+    sh = collectives.resolve(shard)
+    if sh is not None and config.pair_capacity % sh.n:
+        raise ValueError(f"pair_capacity {config.pair_capacity} must be a "
+                         f"multiple of the rank count {sh.n}")
     if state.joints is not None and state.joints.dim != state.bodies.dim:
         raise ValueError(f"{state.joints.dim}D joints on "
                          f"{state.bodies.dim}D bodies")
@@ -294,7 +321,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     # contacts stay at their pair slots (not under the fused solver)
     use_pair_slots = (config.gs_pair_slots and color_with_bp
                       and config.gs_chained and bool(config.gs_windows)
-                      and not config.gs_fused and dim == 3)
+                      and not config.gs_fused and dim == 3 and sh is None)
 
     if slack > 0:
         # velocity-aware slack, quantized to three levels so consecutive
@@ -313,7 +340,60 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         infl, radii_bp = None, radii
     sphere_margin = params.prediction_distance
 
+    def sharded_bp(mn, mx):
+        """This rank's row block of the grid or the brute force (the LBVH
+        has no row blocks: under a shard it runs the brute force, as in
+        the JAX package), gathered and compacted in rank order."""
+        cap_l = config.pair_capacity // sh.n
+        nb_l = -(-n_bodies // sh.n)
+        off = sh.rank * nb_l
+        if use_grid:
+            p = find_pairs_grid(
+                mn, mx, capacity=cap_l,
+                max_per_body=config.broad_phase_max_per_row,
+                cell_cap=config.bp_cell_cap,
+                global_cap=config.bp_global_cap,
+                cand_budget=config.bp_cand_budget, ball_radius=radii_bp,
+                margin=sphere_margin, dynamic=dyn_mask, row_offset=off,
+                row_count=nb_l)
+        else:
+            def rsl(x):
+                pad = torch.zeros((nb_l * sh.n - n_bodies,) + x.shape[1:],
+                                  dtype=x.dtype, device=dev)
+                return torch.cat([x, pad])[off:off + nb_l]
+
+            p = find_pairs_partial(
+                rsl(mn), rsl(mx), off, mn, mx, capacity=cap_l,
+                row_active=rsl(torch.ones(n_bodies, dtype=torch.bool,
+                                          device=dev)),
+                block=config.broad_phase_block,
+                max_per_row=config.broad_phase_max_per_row,
+                ball_radius=radii_bp,
+                row_ball_radius=None if radii_bp is None else rsl(radii_bp),
+                margin=sphere_margin, dynamic=dyn_mask,
+                row_dynamic=rsl(dyn_mask))
+        g = collectives.all_gather_cat(torch.cat([
+            p.body_a, p.body_b, p.valid.to(torch.int64),
+            p.count.reshape(1).to(torch.int64)])[None], sh)
+        counts = g[:, -1]
+        neg = torch.any(counts < 0)
+        tot = counts.abs().sum()
+        # a rank that fills its share may have dropped pairs the single
+        # device keeps: report its share times the ranks (a regrow)
+        full = counts.abs().amax()
+        tot = torch.where(full > cap_l, torch.maximum(tot, full * sh.n), tot)
+        count = torch.where(neg, -torch.clamp(tot, min=1), tot)
+        valid = g[:, 2 * cap_l:3 * cap_l].reshape(-1) != 0
+        out_a, out_b, emit = compact_hits(
+            valid, g[:, :cap_l].reshape(-1), g[:, cap_l:2 * cap_l].reshape(-1),
+            config.pair_capacity)
+        valid = (torch.arange(config.pair_capacity, device=dev)
+                 < torch.clamp(emit, max=config.pair_capacity))
+        return PairList(out_a, out_b, valid, count)
+
     def run_bp(mn, mx):
+        if sh is not None:
+            return sharded_bp(mn, mx)
         if config.bp_algo == "lbvh":
             # the tree knows no balls and no statics: the grid's sphere
             # prefilter and static-static drop run on its pairs instead,
@@ -503,24 +583,28 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         bp_path = 2
         pairs, bp_ref, bp_colors = colored_bp(mins - infl, maxs + infl)
 
-    contacts, np_needed = narrow_phase(
-        bodies.poses, state.shapes, pairs, params.prediction_distance,
-        p_max=config.manifold_points or (4 if dim == 3 else 2),
-        bc_capacity=config.bc_pair_capacity,
-        sat_capacity=config.sat_pair_capacity,
-        pfm_capacity=config.pfm_pair_capacity)
+    p_max = config.manifold_points or (4 if dim == 3 else 2)
+    if sh is None:
+        contacts, np_needed = narrow_phase(
+            bodies.poses, state.shapes, pairs, params.prediction_distance,
+            p_max=p_max, bc_capacity=config.bc_pair_capacity,
+            sat_capacity=config.sat_pair_capacity,
+            pfm_capacity=config.pfm_pair_capacity)
+    else:
+        contacts, np_needed = _sharded_narrow_phase(
+            bodies.poses, state.shapes, pairs, params, config, p_max, sh)
     if has_mesh:
         contacts = mesh_contact.append_mesh_contacts(
             contacts, bodies.poses, state.shapes, pairs,
             params.prediction_distance,
             pair_capacity=config.mesh_pair_capacity,
             k_best=config.mesh_k_best,
-            p_max=config.manifold_points or (4 if dim == 3 else 2))
+            p_max=p_max)
     contact_colors = bp_colors[0] if color_with_bp else None
     # the fused layout needs the cached colours; without them the ladder
     # (or the uniform windows) runs unfused, as in the JAX package
     use_fused = (config.gs_fused and bool(config.gs_windows)
-                 and contact_colors is not None and dim == 3)
+                 and contact_colors is not None and dim == 3 and sh is None)
     fused_class_counts = None
     if use_pair_slots:
         # no compaction: the constraint buffer spans pair_capacity and
@@ -564,7 +648,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         presorted=presorted, chained=config.gs_chained,
         rhs_in_rung=config.gs_rhs_in_rung, fused=use_fused,
         fused_rung0=config.gs_rung0, fused_class_counts=fused_class_counts,
-        joints=state.joints, stable_slots=not has_mesh)
+        joints=state.joints, stable_slots=not has_mesh, shard=sh)
     new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
     head = torch.stack([pairs.count.to(torch.int64), contact_count,
                         max_class[0],
@@ -575,6 +659,47 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     return PhysicsState(new_bodies, state.shapes, cons, counts, colors,
                         pairs if slack > 0 else None, bp_ref, bp_colors,
                         solve_cache, state.joints)
+
+
+def _sharded_narrow_phase(poses, shapes, pairs: PairList, params,
+                          config: PipelineConfig, p_max: int,
+                          sh: collectives.Shard):
+    """Rank k's pair slots ``k, k + n, k + 2n, ...`` through the narrow
+    phase, at the compaction capacities over the rank count n. The pairs
+    lie packed at the front of the list, so a stride gives every rank its
+    share of them (blocks of slots would give the first rank nearly all).
+    The manifolds come back slot for slot, and the demands are the largest
+    rank's times the rank count."""
+    cap_l = config.pair_capacity // sh.n
+    sl = slice(sh.rank, None, sh.n)
+    part = PairList(pairs.body_a[sl].contiguous(),
+                    pairs.body_b[sl].contiguous(),
+                    pairs.valid[sl].contiguous(), pairs.count)
+
+    def div(cap):
+        return -(-cap // sh.n) if cap else 0
+
+    c_l, need_l = narrow_phase(
+        poses, shapes, part, params.prediction_distance, p_max=p_max,
+        bc_capacity=div(config.bc_pair_capacity),
+        sat_capacity=div(config.sat_pair_capacity),
+        pfm_capacity=div(config.pfm_pair_capacity))
+    names = [f.name for f in dataclasses.fields(Contacts)]
+    fields = [getattr(c_l, f) for f in names]
+    # the demands ride the integer buffer as a column of the first rows
+    need = torch.zeros((cap_l, need_l.shape[0]), dtype=torch.int64,
+                       device=need_l.device)
+    need[0] = need_l
+    got = collectives.gather_fields(fields + [need], sh)
+    np_needed = got[-1].reshape(sh.n, cap_l, -1)[:, 0].amax(0) * sh.n
+
+    def slot_order(x):
+        # rank-major [n, cap_l] -> slot j·n + k
+        return x.reshape((sh.n, cap_l) + x.shape[1:]).transpose(
+            0, 1).reshape(x.shape)
+
+    return (Contacts(**{f: slot_order(x) for f, x in zip(names, got[:-1])}),
+            np_needed)
 
 
 def fine_bucket(n: int, *, floor: int = 2048, quantum: int = 1024,

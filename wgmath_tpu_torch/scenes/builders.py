@@ -2,10 +2,11 @@
 ``balls``, ``ball_pit``, ``boxes``, ``pyramid``,
 ``pyramid_levels_for_bodies``, ``keva_tower``, ``many_pyramids``,
 ``boxes_and_balls``, ``primitives3``, the jointed ``pendulum_chain``,
-``joint_chain`` and ``ball_net3``, ``trimesh_scene``, the 2D
-``capsules2``, ``polyline2``, ``joint_net2`` and ``joint_prismatic2``
-(``balls``, ``boxes`` and ``boxes_and_balls`` take ``dim=2``), and the
-entries of ``SCENES`` that these build). Positions are computed in numpy
+``joint_chain`` and ``ball_net3``, ``trimesh_scene``, the kinematic
+``conveyor``, the 2D ``balls2d``, ``capsules2``, ``polyline2``,
+``joint_net2`` and ``joint_prismatic2`` (``balls``, ``boxes`` and
+``boxes_and_balls`` take ``dim=2``), and ``SCENES``, the JAX package's 25
+entries in its order). Positions are computed in numpy
 and jitter comes from numpy ``default_rng``, as in the JAX package, so
 both build the same scene. Every builder takes ``device``; ``None`` means
 the card."""
@@ -604,7 +605,52 @@ def primitive_configs(n_bodies: int) -> dict:
             for name, cfg in box_configs(n_bodies).items()}
 
 
-# the JAX package's scenes that the port builds; each takes ``device``
+def balls2d(n: int = 300, *, device=None) -> PhysicsState:
+    """``balls(n, dim=2)``: falling discs over the ground."""
+    return balls(n, dim=2, device=device)
+
+
+def conveyor(n_balls: int = 48, *, speed: float = 1.0, radius: float = 0.4,
+             device=None) -> PhysicsState:
+    """A kinematic platform (one-way coupling) dragging a grid of dynamic
+    balls: body 0 the static ground slab, body 1 the platform, with zero
+    inverse mass and a prescribed +x velocity of ``speed`` that enters
+    every contact's relative velocity, so friction spins the resting balls
+    up toward the belt's speed while the platform's pose integrates at
+    exactly ``speed``·t. Statics and kinematics come first.
+    ``device=None`` means the card."""
+    dev = resolve_device(device)
+    plat_he = np.asarray([[6.0, 0.25, 4.0]], np.float32)
+    ground_he = np.asarray([[40.0, 1.0, 40.0]], np.float32)
+    side = int(np.ceil(np.sqrt(n_balls)))
+    xs, zs = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    grid = np.stack([xs, zs], -1).reshape(-1, 2)[:n_balls]
+    spacing = 2.0 * radius * 1.1
+    pos = np.zeros((n_balls, 3), np.float32)
+    pos[:, [0, 2]] = (grid - grid.mean(0, keepdims=True)) * spacing
+    # the balls rest about on the belt (the platform's top at y = 1.5)
+    pos[:, 1] = 1.5 + radius * 1.02
+    he = torch.from_numpy(np.concatenate([ground_he, plat_he])).to(dev)
+    radii = torch.full((n_balls,), radius, dtype=torch.float32, device=dev)
+    shapes = ShapeSet.concat(ShapeSet.cuboids(he), ShapeSet.balls(radii))
+    trans = torch.from_numpy(np.concatenate([
+        np.asarray([[0.0, -1.0, 0.0], [0.0, 1.25, 0.0]], np.float32),
+        pos])).to(dev)
+    n = n_balls + 2
+    poses = Sim(_identity_rows(n, 3, dev), trans, torch.ones(n, device=dev))
+    mp = _merge_mprops(
+        cuboid_local_mprops(he, dynamic=torch.zeros(2, dtype=torch.bool,
+                                                    device=dev)),
+        ball_local_mprops(radii))
+    vels = Velocity.zero(n, 3, device=dev)
+    vels.linear[1, 0] = speed
+    kin = torch.zeros(n, dtype=torch.bool, device=dev)
+    kin[1] = True
+    return new_state(Bodies(poses, vels, mp, kin), shapes)
+
+
+# the JAX package's scenes, in its order (``--list`` prints them so);
+# each takes ``device``
 SCENES = {
     "balls3": lambda device=None: balls(1000, device=device),
     "boxes3": lambda device=None: boxes(1000, device=device),
@@ -615,28 +661,31 @@ SCENES = {
     "ball_pit": lambda device=None: ball_pit(10_000, device=device),
     "keva3": lambda device=None: keva_tower(device=device),
     "many_pyramids3": lambda device=None: many_pyramids(device=device),
-    "primitives3": lambda device=None: primitives3(device=device),
     "joint_ball3": lambda device=None: pendulum_chain(
         8, joint="spherical", device=device),
     "joint_revolute3": lambda device=None: pendulum_chain(
         8, joint="revolute", device=device),
+    "trimesh3": lambda device=None: trimesh_scene(device=device),
+    "balls2": lambda device=None: balls2d(device=device),
+    "pyramid2": lambda device=None: boxes(200, dim=2, device=device),
+    "conveyor3": lambda device=None: conveyor(device=device),
+    "capsules2": lambda device=None: capsules2(device=device),
+    "primitives3": lambda device=None: primitives3(device=device),
+    "boxes_and_balls3": lambda device=None: boxes_and_balls(
+        400, dim=3, device=device),
+    "boxes_and_balls2": lambda device=None: boxes_and_balls(
+        200, dim=2, device=device),
+    "polyline2": lambda device=None: polyline2(device=device),
     "joint_fixed3": lambda device=None: joint_chain(8, joint="fixed",
                                                     device=device),
     "joint_prismatic3": lambda device=None: joint_chain(
         6, joint="prismatic", device=device),
-    "ball_net3": lambda device=None: ball_net3(16, 16, device=device),
-    "trimesh3": lambda device=None: trimesh_scene(device=device),
-    "balls2": lambda device=None: balls(300, dim=2, device=device),
-    "pyramid2": lambda device=None: boxes(200, dim=2, device=device),
-    "boxes_and_balls2": lambda device=None: boxes_and_balls(
-        200, dim=2, device=device),
-    "capsules2": lambda device=None: capsules2(device=device),
-    "polyline2": lambda device=None: polyline2(device=device),
     "joint_ball2": lambda device=None: joint_net2(12, 12, joint="revolute",
                                                   device=device),
     "joint_fixed2": lambda device=None: joint_net2(8, 8, joint="fixed",
                                                    device=device),
     "joint_prismatic2": lambda device=None: joint_prismatic2(device=device),
+    "ball_net3": lambda device=None: ball_net3(16, 16, device=device),
 }
 # the 2D entries of SCENES (the JAX package registers eight)
 PLANAR_SCENES = ("balls2", "pyramid2", "boxes_and_balls2", "capsules2",
