@@ -120,6 +120,26 @@ the script runs the box, primitives and 10k-net paths 10, 10 and 8 timed
 frames (were 20, 20 and 15), ``pit_lbvh`` 10 (20), the 2D paths 5 (10),
 ``quickstart_jacobi`` 20 frames (30) and ``pit_settle`` 40 (60).
 
+The static pair slots (``gs_static_slots``): ``chained_ss``, the stored
+``chained_ps`` configuration with static rung placement, on the settled
+pit, three frames against the JAX package's
+(``artifacts/static_slots_jax.npz.xz``) under the same limits, static
+placement shown to be on (the capacity holds the ladder and a tail of
+256, the layout flag is the ladder's, every valid pair below the tail in
+its colour's rung) with its tail rows each frame, then ten timed frames
+beside ``chained_ps``; B1 on the static plan's first two sweeps (its rung
+starts the host constants) against its plain version, timed; the bench's
+3-step short gate from its warmed state against ``ladder`` and
+``chained_ps``, the same after the bench's own warm-up from the bench's
+initial configuration, and against the ladder at ``chained_ss``'s pair
+capacity (which keeps the cached colours), printed beside the JAX
+package's readings and not gated. The small-matrix geometry
+(``geometry/decomp.py``, ``inv.py``): each decomposition, solve and
+inverse on 1,048,576 matrices a size, timed, with its kernels a call,
+``tests/test_geometry.py``'s residual checks on the card's output and its
+first 4,096 rows against the CPU's. Last the five ``examples/torch_core_*.py`` as subprocesses on
+the card, each exiting 0.
+
 The last lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits 1 before printing any result.
@@ -141,6 +161,7 @@ import subprocess
 import sys
 import time
 import warnings
+import zlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -160,7 +181,7 @@ from wgmath_tpu_torch.dynamics import build_fused, gs_fused, gs_math, solver
 from wgmath_tpu_torch.dynamics.constraint import Contacts
 from wgmath_tpu_torch.dynamics.gs_math import UPDATE_FIELDS, pack_meta
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
-from wgmath_tpu_torch.geometry import quat
+from wgmath_tpu_torch.geometry import decomp, quat
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
@@ -175,6 +196,7 @@ gemv_ops = importlib.import_module("wgmath_tpu_torch.ops.gemv")
 reduce_ops = importlib.import_module("wgmath_tpu_torch.ops.reduce")
 elementwise_ops = importlib.import_module("wgmath_tpu_torch.ops.elementwise")
 narrow_mod = importlib.import_module("wgmath_tpu_torch.queries.narrow_phase")
+inv_mod = importlib.import_module("wgmath_tpu_torch.geometry.inv")
 pipeline_mod = importlib.import_module("wgmath_tpu_torch.pipeline")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -182,6 +204,8 @@ NPZ = os.path.join(ROOT, "artifacts", "ball_pit10k_settled.npz")
 NPZ_LADDER = os.path.join(ROOT, "artifacts", "ball_pit10k_ladder.npz")
 NPZ_FUSED = os.path.join(ROOT, "artifacts", "ball_pit10k_fused.npz")
 NPZ_RAYS = os.path.join(ROOT, "artifacts", "rays100k_jax.npz")
+NPZ_STATIC = os.path.join(ROOT, "artifacts", "static_slots_jax.npz.xz")
+EXAMPLES = ("compose", "hot_reload", "overwrite", "profiling", "readback")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense f32 (non-tensor) rate, and
 # the dense tensor-core rates in TF32 and bf16
@@ -200,6 +224,7 @@ TRANSLATION_LIMITS = (1e-4, 1e-3, 1e-3)
 COUNT_REL_LIMIT = 1e-3
 WARM_FRAMES = 6  # the bench warms every candidate by six checked frames
 TIMED_FRAMES = 50  # the bench's K
+SS_TIMED_FRAMES = 10  # chained_ss, beside chained_ps's TIMED_FRAMES
 # the bench's gates (bench.py bench_physics): a short-gated candidate
 # against the ladder over three steps from one warmed state; a K-gated one
 # against the ladder's end positions; the envelope of a short-gated one
@@ -479,13 +504,15 @@ def record_sweeps(run, count: int) -> list:
     return calls
 
 
-def pit_sweeps(path: str, device, count: int = 2) -> list:
+def pit_sweeps(path: str | None, device, count: int = 2,
+               cfg: PipelineConfig | None = None) -> list:
     """The first ``count`` sweeps of the first frame of the settled 10k pit
-    under the configuration stored in ``path`` (substep 1: biased, then
-    unbiased)."""
+    under the configuration stored in ``path``, or ``cfg`` (substep 1:
+    biased, then unbiased)."""
     z = dict(np.load(NPZ))
-    cfg = PipelineConfig.from_dict(json.loads(str(np.load(path)[
-        "config_json"])))
+    if cfg is None:
+        cfg = PipelineConfig.from_dict(json.loads(str(np.load(path)[
+            "config_json"])))
     return record_sweeps(lambda: step_checked(
         state_from_arrays(z, device=device), SimParams(), cfg), count)
 
@@ -932,6 +959,10 @@ def sweep_phase(rung_errs: dict) -> dict:
             "work": f"one substep of {what} at frame 1: 2 sweeps, "
                     f"{cases[0]['rungs']} rungs, {cases[0]['rows']} class "
                     f"rows, P=1; one launch a sweep"}
+    out["gs_math_rhs"]["static_slots"] = static_sweeps()
+    out["gs_math_rhs"]["max_abs_err"] = max(
+        out["gs_math_rhs"]["max_abs_err"],
+        out["gs_math_rhs"]["static_slots"]["max_abs_err"])
     for chained, mode in ((True, "biased"), (True, "unbiased"),
                           (True, None), (False, None)):
         name = "gs_math_rhs" if mode else "gs_math_block"
@@ -942,6 +973,35 @@ def sweep_phase(rung_errs: dict) -> dict:
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        r["max_abs_err"])
     return out
+
+
+def static_sweeps() -> dict:
+    """B1 over the first substep of the settled pit's first frame under
+    ``chained_ss`` (the static pair slots): each rung starts at the static
+    layout's host constant, and each sweep is held as ``_sweep_case``
+    holds the others (rung by rung and repeats bit for bit, the plain
+    version within tolerance), timed."""
+    cfg = _config_of(static_arrays()["config_json"])
+    starts = solver.static_offsets(tuple(cfg.gs_windows[:cfg.max_colors]))
+    calls = pit_sweeps(None, torch.device("cuda"), cfg=cfg)
+    for call in calls:
+        moved = [(r.colour, r.start) for r in call.plan.rungs
+                 if r.start != starts[r.colour]]
+        check(not moved, f"chained_ss: rungs off the static offsets {moved}")
+    cases = [_sweep_case("gs_math_rhs", f"chained_ss frame 1 sweep {k + 1}",
+                         call, True) for k, call in enumerate(calls)]
+    nbytes = sum(c["bytes"] for c in cases)
+    flops = sum(c["flops"] for c in cases)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": sum(c["ms"] for c in cases),
+            "rungs_ms": sum(c["rungs_ms"] for c in cases),
+            "plain_ms": sum(c["plain_ms"] for c in cases),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "rung_starts": [r.start for r in calls[0].plan.rungs],
+            "work": f"one substep of chained_ss at frame 1: 2 sweeps, "
+                    f"{cases[0]['rungs']} rungs at the static offsets, "
+                    f"{cases[0]['rows']} class rows, P=1"}
 
 
 # ---------------------------------------------------------------------------
@@ -2406,6 +2466,197 @@ def geometry_path_phase() -> dict:
     return paths
 
 
+# the small-matrix geometry: DECOMP_N matrices a size; the first
+# DECOMP_CPU_ROWS rows of each output against the port's CPU run of the
+# same rows, within DECOMP_CPU_TOL (the card adds a sum over a matrix's
+# rows in another order than the CPU, which QR's reflections and the
+# solves carry to ~3e-6; the eigen and SVD routines renormalise with
+# rsqrt, within 2 ulp on the card, through 8 Jacobi sweeps, and an SVD's
+# bases move by ~eps·σ₁²/gap where two singular values nearly meet: 1.6e-4
+# on one of 4,096 random 3x3 matrices), LU's pivots exactly;
+# tests/test_geometry.py's residual limits on every output row, but that
+# a solve or an inverse may miss them on a matrix whose float64 condition
+# number exceeds DECOMP_COND (counted: the residual of a backward-stable
+# solve grows with it)
+DECOMP_N, DECOMP_CPU_ROWS, DECOMP_COND = 1 << 20, 4096, 1e3
+DECOMP_CPU_TOL = {"lu": (1e-5, 1e-6), "lu_solve": (1e-5, 1e-5),
+                  "qr": (1e-5, 1e-5), "cholesky": (1e-5, 1e-6),
+                  "cholesky_solve": (1e-5, 1e-5), "eig": (1e-4, 1e-5),
+                  "svd": (1e-3, 1e-3), "inv": (1e-5, 1e-6),
+                  "det": (1e-5, 1e-6)}
+
+
+def _f64(fn, x):
+    """``fn`` of ``x`` in float64 on the CPU (LAPACK: cuSOLVER's batched
+    eigensolver refuses these batches), back in float32 on ``x``'s
+    device."""
+    return fn(x.double().cpu()).float().to(x.device)
+
+
+def _residual_rows(got, want, rtol, atol):
+    """Rows (leading axis) of ``got`` outside ``atol + rtol·|want|``."""
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    return bad.reshape(bad.shape[0], -1).any(dim=1)
+
+
+def decomp_phase(device="cuda", n_mats: int = DECOMP_N) -> dict:
+    """Each decomposition, solve, inverse and determinant of
+    ``geometry/decomp.py`` / ``inv.py`` on ``n_mats`` seeded matrices a
+    size on the card: ms a call by CUDA events, kernels a call by the
+    profiler, ``tests/test_geometry.py``'s residual checks on the whole
+    output, and the first rows against the CPU's."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = slice(0, DECOMP_CPU_ROWS)
+    out = {}
+
+    def case(label, key, fn, args, residual):
+        """Time ``fn(*args)``, hold it against the CPU on the first rows,
+        and run ``residual(outputs)``: a dict of row masks that miss the
+        limits, each with the matrices whose condition may excuse them
+        (or None: no row may miss)."""
+        got = fn(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        cpu = fn(*(a[rows].cpu() for a in args))
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        rtol, atol = DECOMP_CPU_TOL[key]
+        worst = 0.0
+        for g, c in zip(got, cpu):
+            g = g[rows].cpu()
+            if not g.is_floating_point():
+                check(torch.equal(g, c), f"{label}: the card's pivots are "
+                      "not the CPU's")
+                continue
+            worst = max(worst, float(((g - c).abs() / (atol + rtol * c.abs()))
+                                     .max()))
+        check(worst <= 1.0, f"{label}: the card's first {DECOMP_CPU_ROWS} "
+              f"rows are {worst:.2f}x the tolerance off the CPU's")
+        missed = {}
+        for what, (bad, mats) in residual(got).items():
+            n_bad = int(bad.sum())
+            if n_bad and mats is not None:
+                cond = torch.linalg.cond(mats[bad].double().cpu())
+                check(bool((cond > DECOMP_COND).all()),
+                      f"{label}: {what} misses its limit on a matrix of "
+                      f"condition {float(cond.min()):.3e}")
+            else:
+                check(n_bad == 0, f"{label}: {what} misses its limit on "
+                      f"{n_bad} rows")
+            missed[what] = n_bad
+        ms = statistics.median(device_times_ms(lambda: fn(*args), n=5,
+                                               warmup=1))
+        kernels = profile_window(lambda: fn(*args), 1)["kernels_per_step"]
+        res = {"ms": ms, "kernels_per_call": kernels, "vs_cpu_tol_ratio":
+               worst, "rows_excused_by_condition": missed}
+        print(f"decomp {label} at {n_mats} matrices: {ms:.3f} ms a call, "
+              f"{kernels:.0f} kernels a call, card vs CPU {worst:.3f}x the "
+              f"tolerance, residual rows past their limits (each of "
+              f"condition > {DECOMP_COND:.0e}) {missed}")
+        out[label] = res
+
+    for n in (2, 3, 4):
+        eye = torch.eye(n, device=dev)
+        a = torch.randn((n_mats, n, n), generator=gen, device=dev)
+        b = torch.randn((n_mats, n), generator=gen, device=dev)
+        a1 = a + eye
+
+        def lu_res(o, a1=a1):
+            l, u = decomp.lu_unpack(o[0])
+            pa = torch.gather(a1, 1, o[1].long()[..., None].expand(a1.shape))
+            return {"L·U = P·A": (_residual_rows(l @ u, pa, 1e-2, 1e-3),
+                                  None)}
+        case(f"lu{n}", "lu", decomp.lu, (a1,), lu_res)
+        packed, perm = decomp.lu(a1)
+        case(f"lu_solve{n}", "lu_solve", decomp.lu_solve, (packed, perm, b),
+             lambda o, a1=a1, b=b: {"A·x = b": (_residual_rows(
+                 (a1 @ o[0][..., None])[..., 0], b, 1e-2, 1e-2), a1)})
+
+        def qr_res(o, a=a, eye=eye):
+            q, r = o
+            low = torch.tril(r, -1).abs().reshape(r.shape[0], -1).amax(1)
+            return {"Q·R = A": (_residual_rows(q @ r, a, 1e-2, 1e-3), None),
+                    "QᵀQ = I": (_residual_rows(
+                        q.transpose(1, 2) @ q, eye.expand(q.shape), 1e-3,
+                        1e-3), None),
+                    "R upper": (low >= 1e-3, None)}
+        case(f"qr{n}", "qr", decomp.qr, (a,), qr_res)
+        spd = a.transpose(1, 2) @ a + 0.5 * eye
+        case(f"cholesky{n}", "cholesky", decomp.cholesky, (spd,),
+             lambda o, spd=spd: {"L·Lᵀ = A": (_residual_rows(
+                 o[0] @ o[0].transpose(1, 2), spd, 1e-2, 1e-3), None)})
+        chol = decomp.cholesky(spd)
+        case(f"cholesky_solve{n}", "cholesky_solve", decomp.cholesky_solve,
+             (chol, b), lambda o, spd=spd, b=b: {"A·x = b": (_residual_rows(
+                 (spd @ o[0][..., None])[..., 0], b, 1e-2, 1e-2), spd)})
+        sym = (a + a.transpose(1, 2)) / 2
+
+        def eig_res(o, sym=sym):
+            w, v = o
+            wn = _f64(torch.linalg.eigvalsh, sym)
+            return {"V·diag(w)·Vᵀ = A": (_residual_rows(
+                v @ torch.diag_embed(w) @ v.transpose(1, 2), sym, 1e-2,
+                1e-3), None),
+                "w = eigvalsh(A)": (_residual_rows(w, wn, 1e-3, 1e-3), None)}
+        case(f"eig{n}", "eig", decomp.symmetric_eigen, (sym,), eig_res)
+        ai = a + n * eye
+        inv_n = getattr(inv_mod, f"inv{n}")
+        det_n = getattr(inv_mod, f"det{n}")
+        case(f"inv{n}", "inv", inv_n, (ai,), lambda o, ai=ai: {
+            "inv(A)": (_residual_rows(o[0], _f64(torch.linalg.inv, ai),
+                                      5e-3, 1e-3), ai)})
+        case(f"det{n}", "det", det_n, (ai,), lambda o, ai=ai: {
+            "det(A)": (_residual_rows(o[0][:, None], _f64(
+                torch.linalg.det, ai)[:, None], 5e-3, 1e-3), ai)})
+        if n == 4:
+            continue
+
+        def svd_res(o, a=a, eye=eye):
+            u, s_, vt = o
+            sn = _f64(torch.linalg.svdvals, a)
+            return {"U·Σ·Vᵀ = A": (_residual_rows(
+                u @ torch.diag_embed(s_) @ vt, a, 1e-2, 1e-3), None),
+                "UᵀU = I": (_residual_rows(u.transpose(1, 2) @ u,
+                                            eye.expand(u.shape), 1e-3,
+                                            2e-3), None),
+                "σ = svdvals(A)": (_residual_rows(s_, sn, 1e-3, 1e-3), None),
+                "σ descending": (torch.diff(s_, dim=-1).amax(1) > 1e-5,
+                                 None)}
+        case(f"svd{n}", "svd", decomp.svd, (a,), svd_res)
+    return out
+
+
+def examples_phase() -> dict:
+    """The five ``examples/torch_core_*.py`` as subprocesses on the card,
+    started together; each must exit 0. Returns name -> (exit code,
+    seconds, its last line)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      f"torch_core_{name}.py")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name in EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            so, se = proc.communicate(timeout=300)
+            last = (so.strip().splitlines() or [""])[-1]
+            out[name] = {"exit": proc.returncode, "last_line": last,
+                         "seconds": time.perf_counter() - t0}
+            print(f"example torch_core_{name}.py on the card: exit "
+                  f"{proc.returncode} after {out[name]['seconds']:.1f} s; "
+                  f"{last}")
+            check(proc.returncode == 0,
+                  f"examples/torch_core_{name}.py exited {proc.returncode}: "
+                  f"{se.strip()[-600:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def ray_bench_arrays(n: int = RAY_N, seed: int = 3) -> dict:
     """The bench's raycast inputs (``bench.py`` ``bench_rays``), drawn by
     the same numpy calls in the same order: tags, params, poses, origins
@@ -2604,14 +2855,16 @@ def run_path(name: str, arrays: dict, cfg: PipelineConfig, params,
         ref_pc = refs[f"ref.{f}.pair_count"]
         tr = state.bodies.poses.translation.cpu().numpy()
         d_tr = float(np.abs(tr - refs[f"ref.{f}.translation"]).max())
-        d_v = float(np.abs(state.bodies.vels.linear.cpu().numpy()
-                           - refs[f"ref.{f}.linear"]).max())
+        d_v = "not stored"
+        if f"ref.{f}.linear" in refs:
+            lin = state.bodies.vels.linear.cpu().numpy()
+            d_v = f"{float(np.abs(lin - refs[f'ref.{f}.linear']).max()):.3e}"
         rel = [abs(int(pc[i]) - int(ref_pc[i])) / max(abs(int(ref_pc[i])), 1)
                for i in (0, 1)]
         print(f"{name} reference frame {f}: pairs {pc[0]} (ref {ref_pc[0]}) "
               f"contacts {pc[1]} (ref {ref_pc[1]}) bp_path {pc[3]} "
               f"max|dx| {d_tr:.3e} (limit {TRANSLATION_LIMITS[f]:.0e}) "
-              f"max|dv| {d_v:.3e} host {dt * 1e3:.1f} ms")
+              f"max|dv| {d_v} host {dt * 1e3:.1f} ms")
         check(max(rel) <= COUNT_REL_LIMIT,
               f"{name} reference frame {f}: pair/contact counts off by "
               f"{max(rel):.2e} (limit {COUNT_REL_LIMIT})")
@@ -2755,6 +3008,66 @@ def gates(runs: dict, params) -> dict:
     return out
 
 
+def static_gates(runs: dict, params, z: dict, zs: dict) -> dict:
+    """``chained_ss``'s readings of the bench's short gate, printed beside
+    the JAX package's and not gated (the JAX package's own reading
+    diverges there): three ``step`` s of ``chained_ss`` against three of the
+    warmed ``ladder`` and of ``chained_ps``, from (1) ``chained_ss``'s
+    warmed state (warmed under the stored configuration), (2) the state
+    after the bench's own warm-up, six checked frames from the settled
+    state under the bench's initial configuration (broad-phase budgets of
+    64 / 8 / 16 / 48 and rungs of 128), as the JAX package's reading was
+    taken, and (3) from (1) against the ladder at ``chained_ss``'s pair
+    capacity. The ladder's cache check ignores the slot layout but not
+    the capacity: at its own capacity (37,888 against 41,984) it refreshes
+    and colours the pairs anew, at ``chained_ss``'s it keeps the cached
+    colours, so (3) holds the same colour classes on both sides."""
+    lad_cfg = runs["ladder"]["warmed"][1]
+    ps_cfg = runs["chained_ps"]["warmed"][1]
+
+    def short(st, cfg_ss, others=(("ladder", lad_cfg),
+                                  ("chained_ps", ps_cfg))) -> dict:
+        out = {}
+        for name, other in others:
+            ends = []
+            for cfg in (cfg_ss, other):
+                s = st
+                for _ in range(SHORT_GATE_STEPS):
+                    s = step(s, params, cfg)
+                ends.append(s.bodies.poses.translation)
+            out[f"vs_{name}"] = _max_dp(*ends)
+        return out
+
+    st, cfg = runs["chained_ss"]["warmed"]
+    stored = short(st, cfg)
+    s, c = (state_from_arrays(z, device="cuda"),
+            _config_of(zs["initial_config_json"]))
+    warm = []
+    for _ in range(WARM_FRAMES):
+        s, c = step_checked(s, params, c)
+        pc = s.pair_count.cpu().numpy()
+        warm.append((int(pc[0]), int(pc[3])))
+    bench = short(s, c)
+    same_colours = short(st, cfg, (("ladder", dataclasses.replace(
+        lad_cfg, pair_capacity=cfg.pair_capacity)),))
+    jax = {f"vs_{n}": float(zs[f"short_gate.{n}"])
+           for n in ("ladder", "chained_ps")}
+    jax_frames = {k: [float(zs[f"{k}_dp.{f}"]) for f in range(3)]
+                  for k in ("ladder", "ps")}
+    print(f"short gate chained_ss over {SHORT_GATE_STEPS} steps (not "
+          f"gated): from its warmed state {stored}; after the bench's "
+          f"warm-up (pairs, bp_path a frame {warm}) {bench}; against the "
+          f"ladder at its pair capacity (the same colours) {same_colours}; "
+          f"the JAX package's after "
+          f"its warm-up {jax}, and its reference frames 1-3 against the "
+          f"ladder's {jax_frames['ladder']} and chained_ps's "
+          f"{jax_frames['ps']}")
+    return {"chained_ss_short_gate": {
+        "stored_warmup": stored, "bench_warmup": bench,
+        "ladder_same_colours": same_colours, "bench_warmup_frames": warm,
+        "jax_bench_warmup": jax, "jax_reference_frames": jax_frames}}
+
+
 def fused_gates(runs: dict, params) -> dict:
     """``fused`` against the ladder: the short gate and the envelope gate
     (both checked), and the bench's K-gate distance to the ladder's end
@@ -2807,28 +3120,103 @@ def fused_gates(runs: dict, params) -> dict:
     return out
 
 
+def _config_of(blob) -> PipelineConfig:
+    return PipelineConfig.from_dict(json.loads(str(blob)))
+
+
+def static_arrays() -> dict:
+    """The settled pit's ``chained_ss`` group of the JAX package's static
+    slots export, without its ``pit.`` prefix."""
+    return {k[len("pit."):]: v for k, v in load_arrays(NPZ_STATIC).items()
+            if k.startswith("pit.")}
+
+
+def static_refs(z: dict, zs: dict) -> dict:
+    """``run_path``'s references from the stored offsets: each frame's
+    translations (the settled state's plus the offset) and counts."""
+    tr0 = z["bodies.poses.translation"]
+    refs = {}
+    for f in range(3):
+        refs[f"ref.{f}.translation"] = tr0 + zs[f"ref.{f}.offset"]
+        refs[f"ref.{f}.pair_count"] = zs[f"ref.{f}.pair_count"]
+    return refs
+
+
+def static_layout(state, cfg: PipelineConfig, what: str) -> dict:
+    """Static placement is on and holds: the capacity holds the ladder and
+    a tail of 256, the cached tag's flag is the ladder's (not 1, the
+    colour-major layout's), every valid pair below the tail sits in its
+    colour's rung. Returns the flag, the ladder's sum and the tail rows."""
+    w = np.concatenate([[0], np.cumsum(cfg.gs_windows[:cfg.max_colors])])
+    flag = 2 + zlib.crc32(repr(tuple(
+        cfg.gs_windows[:cfg.max_colors])).encode()) % 2000000000
+    valid = state.bp_pairs.valid.cpu().numpy()
+    cols = state.bp_colors[0].cpu().numpy()
+    slots = np.nonzero(valid[:w[-1]])[0]
+    c = np.clip(cols[slots], 1, cfg.max_colors)
+    placed = bool(((cols[slots] >= 1) & (w[c - 1] <= slots)
+                   & (slots < w[c])).all())
+    tail = int(valid[w[-1]:].sum())
+    check(cfg.pair_capacity >= w[-1] + 256 and state.bp_colors[3] == flag
+          and flag != 1 and placed,
+          f"{what}: static placement is not on (capacity "
+          f"{cfg.pair_capacity} for a ladder of {w[-1]}, flag "
+          f"{state.bp_colors[3]} for {flag}, rows in their rungs {placed})")
+    return {"flag": int(flag), "ladder_rows": int(w[-1]),
+            "pair_capacity": cfg.pair_capacity, "tail_rows": tail}
+
+
+def static_slots_checks(run: dict, zs: dict) -> dict:
+    """``chained_ss``'s layout after the warm frames and after each timed
+    frame (its tail rows), beside the JAX package's reference frames."""
+    out = {"warmed": static_layout(*run["warmed"], "chained_ss warmed"),
+           "jax_tail_rows": [int(zs[f"ref.{f}.tail_rows"])
+                             for f in range(3)],
+           "jax_flags": [int(zs[f"ref.{f}.slot_flag"]) for f in range(3)]}
+    end_cfg = run["end"][1]
+    w = sum(end_cfg.gs_windows[:end_cfg.max_colors])
+    out["timed_tail_rows"] = [int(v[w:].sum()) for v, _ in run["recorded"]]
+    out["timed_flags"] = sorted({f for _, f in run["recorded"]})
+    out["end"] = static_layout(*run["end"], "chained_ss end")
+    print(f"chained_ss static placement: warmed {out['warmed']}, end "
+          f"{out['end']}; tail rows after each timed frame "
+          f"{out['timed_tail_rows']} (flags {out['timed_flags']}); the JAX "
+          f"package's reference frames: tail rows {out['jax_tail_rows']}, "
+          f"flags {out['jax_flags']}")
+    return out
+
+
 def path_phase() -> dict:
-    """The four configurations, then the gates. Returns name → run."""
+    """The configurations (``chained_ss`` with ``SS_TIMED_FRAMES`` timed
+    frames), then the gates. Returns name → run."""
     z = dict(np.load(NPZ))
     zl = dict(np.load(NPZ_LADDER))
     zf = dict(np.load(NPZ_FUSED))
+    zs = static_arrays()
     params = SimParams()
-    cfg_ps = PipelineConfig.from_dict(json.loads(str(z["config_json"])))
-    cfg_lad = PipelineConfig.from_dict(json.loads(str(zl["config_json"])))
-    cfg_fused = PipelineConfig.from_dict(json.loads(str(zf["config_json"])))
+    cfg_ps = _config_of(z["config_json"])
+    cfg_lad = _config_of(zl["config_json"])
+    cfg_fused = _config_of(zf["config_json"])
     rep = dataclasses.replace
     plan = (
-        ("chained_ps", cfg_ps, z, ("gs_math_rhs",)),
-        ("ladder", cfg_lad, zl, ("gs_math_block",)),
+        ("chained_ps", cfg_ps, z, ("gs_math_rhs",), {}),
+        ("ladder", cfg_lad, zl, ("gs_math_block",), {}),
         ("chained", rep(cfg_lad, gs_chained=True), None,
-         ("gs_math_block",)),
+         ("gs_math_block",), {}),
         ("chained_rr", rep(cfg_lad, gs_chained=True, gs_rhs_in_rung=True),
-         None, ("gs_math_rhs",)),
-        ("fused", cfg_fused, zf, FUSED_KERNELS),
+         None, ("gs_math_rhs",), {}),
+        ("fused", cfg_fused, zf, FUSED_KERNELS, {}),
+        ("chained_ss", _config_of(zs["config_json"]), static_refs(z, zs),
+         ("gs_math_rhs",), dict(
+             timed=SS_TIMED_FRAMES,
+             record=lambda s: (s.bp_pairs.valid.clone(), s.bp_colors[3]))),
     )
-    runs = {name: run_path(name, z, cfg, params, refs, expect)
-            for name, cfg, refs, expect in plan}
+    runs = {name: run_path(name, z, cfg, params, refs, expect, **kw)
+            for name, cfg, refs, expect, kw in plan}
+    runs["chained_ss"]["static"] = static_slots_checks(runs["chained_ss"],
+                                                       zs)
     runs["gates"] = gates(runs, params)
+    runs["gates"].update(static_gates(runs, params, z, zs))
     return runs
 
 
@@ -5879,7 +6267,8 @@ LINALG_KERNEL_TABLE = (
      "wgmath_tpu/ops/gemv.py:110", "ops/gemv.py:_gemv_tr_pallas",
      "gemv_tr4096"),
 )
-CONFIGS = ("chained_ps", "ladder", "chained", "chained_rr", "fused")
+CONFIGS = ("chained_ps", "ladder", "chained", "chained_rr", "fused",
+           "chained_ss")
 
 
 def _pit_stepper(state, cfg, params):
@@ -5917,6 +6306,9 @@ def main() -> int:
         linalg_paths.update(gemv_path_phase())
         query_paths = geometry_path_phase()
         query_paths.update(ray_path_phase())
+        t_q = time.perf_counter()
+        decomps = decomp_phase()
+        t_decomp = time.perf_counter()
         params = SimParams()
         t0 = time.perf_counter()
         runs = path_phase()
@@ -5943,13 +6335,18 @@ def main() -> int:
         runs["parallel"] = parallel_phase(params)
         t9 = time.perf_counter()
         runs["testbed"] = testbed_phase(params)
+        t10 = time.perf_counter()
+        examples = examples_phase()
         print(f"phase seconds: setup {t_setup - t_start:.1f}, kernels "
               f"{t_kernels - t_setup:.1f}, linalg and query paths "
-              f"{t0 - t_kernels:.1f}, pit paths {t1 - t0:.1f}, box "
+              f"{t_q - t_kernels:.1f}, small-matrix geometry "
+              f"{t_decomp - t_q:.1f}, pit paths (with chained_ss) "
+              f"{t1 - t0:.1f}, box "
               f"{t2 - t1:.1f}, primitives {t3 - t2:.1f}, solve modes "
               f"{t4 - t3:.1f}, joints {t5 - t4:.1f}, lbvh {t6 - t5:.1f}, "
               f"meshes {t7 - t6:.1f}, planar {t8 - t7:.1f}, parallel "
-              f"{t9 - t8:.1f}, testbed {time.perf_counter() - t9:.1f}")
+              f"{t9 - t8:.1f}, testbed {t10 - t9:.1f}, examples "
+              f"{time.perf_counter() - t10:.1f}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -6073,6 +6470,14 @@ def main() -> int:
             paths[name]["profile"] = (f"not measured ({type(e).__name__}: "
                                       f"{e})")
         profile_s[name] = round(time.perf_counter() - t_prof, 1)
+    ss, ps = paths["chained_ss"], paths["chained_ps"]
+    print("chained_ss beside chained_ps: " + "; ".join(
+        f"{k} " + " / ".join(
+            (f"{m[k]:.3f}" if k in m else
+             f"{m['profile'][k]:.3f}" if isinstance(m["profile"], dict)
+             else "not measured") for m in (ss, ps))
+        for k in ("ms_per_step", "device_ms_per_step", "kernels_per_step",
+                  "host_syncs_per_step", "gs_math_rhs_launches_per_step")))
     print(f"profile seconds: {profile_s}; chip_smoke so far "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": paths, "linalg_paths": linalg_paths,
@@ -6091,7 +6496,9 @@ def main() -> int:
                       "mesh_checks": runs["mesh_checks"],
                       "planar_checks": runs["planar_checks"],
                       "parallel": runs["parallel"],
-                      "testbed": runs["testbed"]}))
+                      "testbed": runs["testbed"],
+                      "static_slots": runs["chained_ss"]["static"],
+                      "decomp": decomps, "examples": examples}))
     print(setup["nvidia_smi"])
     kernels = []
     for name, path, source, replaces, tpu_source in KERNEL_TABLE:
@@ -6110,6 +6517,9 @@ def main() -> int:
                 w: runs["parallel"][w]["b2_launches_per_step"]
                 for w in ("nccl1", "gloo2")}}
                if name == "gs_math_block" else {}),
+            **({"static_slots_launches_per_step":
+                paths["chained_ss"]["gs_math_rhs_launches_per_step"]}
+               if name == "gs_math_rhs" else {}),
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
             "plain_ms": summary["plain_ms"],
             "bound_ms": summary["bound_ms"],

@@ -1,6 +1,7 @@
 """Export the JAX package's steps of the 160-ball pit that the port's
 whole-step CPU tests compare against, as a JAX-free ``.npz``:
-``artifacts/pit160_jax.npz``.
+``artifacts/pit160_jax.npz.xz`` (an uncompressed ``.npz`` compressed whole
+with xz, read by ``wgmath_tpu_torch.convert.load_arrays``).
 
 Three groups, one per test file, each warmed from ``ball_pit(160)`` by 30
 JAX frames under one fixed scaled-down configuration (budgets and rungs
@@ -37,6 +38,7 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 import jax  # noqa: E402
 
@@ -50,8 +52,9 @@ from wgmath_tpu.dynamics import SimParams  # noqa: E402
 from wgmath_tpu.pipeline import PipelineConfig, step, step_checked  # noqa: E402
 from wgmath_tpu.scenes.builders import ball_pit  # noqa: E402
 from wgmath_tpu_torch.convert import state_to_arrays  # noqa: E402
+from export_box_npz import savez_xz  # noqa: E402
 
-OUT = os.path.join(ROOT, "artifacts", "pit160_jax.npz")
+OUT = os.path.join(ROOT, "artifacts", "pit160_jax.npz.xz")
 WARM_FRAMES = 30
 BASE = dict(pair_capacity=2048, contact_capacity=1024, bp_slack=0.03,
             bp_algo="grid", manifold_points=1)
@@ -123,7 +126,7 @@ def main():
         arrays[f"fused.regrow.{f}.pair_count"] = np.asarray(js.pair_count)
         arrays[f"fused.regrow.{f}.config_json"] = _json(jc)
     print(f"fused done ({time.time() - t0:.0f} s)", flush=True)
-    np.savez_compressed(OUT, **arrays)
+    savez_xz(OUT, arrays)
     print(f"wrote {OUT} ({os.path.getsize(OUT) / 1e6:.2f} MB)")
 
 

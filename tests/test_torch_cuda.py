@@ -34,6 +34,7 @@ from chip_smoke import (
     NPZ_MESH,
     NPZ_PRIMITIVES,
     NPZ_SOLVE_MODES,
+    NPZ_STATIC,
     OP_ASSIGN_RTOL,
     PRIM_FAR_ATOL,
     PRIM_NEAR_SHARE,
@@ -69,6 +70,7 @@ from chip_smoke import (
     pit_fused_calls,
     pit_sweeps,
     prim_counts_match,
+    record_sweeps,
     ray_bench_arrays,
     run_fused,
     run_recorded,
@@ -177,7 +179,8 @@ SWEEP_CASES = ("pit-chained_ps-biased", "pit-chained_ps-unbiased",
                "pit-ladder-biased", "pyr6-ladder-biased",
                "pyr6-ladder-unbiased", "p4-chained-biased",
                "p4-chained-unbiased", "p4-chained", "p4-ladder",
-               "uniform-p1", "uniform-p4", "split-p1", "split-p4")
+               "uniform-p1", "uniform-p4", "split-p1", "split-p4",
+               "ss-balls-biased", "ss-balls-unbiased")
 # the split windows of the synthetic windowless sweeps: colours past
 # SPLIT_AT sweep TAIL_ROWS rows, fewer than their classes hold
 SPLIT_AT, TAIL_ROWS = 4, 96
@@ -191,11 +194,20 @@ def sweep(request):
     B2), of the warmed ``pyramid(6)``'s first frame under the ladder (B2
     at P = 4), ``chip_smoke.synthetic_sweep`` at P = 4, or B2 on a
     seeded windowless plan (``chip_smoke.synthetic_windowless_sweep``):
-    uniform windows, or split ones with truncated tail rungs."""
+    uniform windows, or split ones with truncated tail rungs; or B1 on the
+    static pair slots' plan (``ss-``: ``balls(256)`` from the JAX package's
+    warmed state under ``chained_ss``, its rungs at the ladder's fixed
+    offsets)."""
     _need_card()
     name = request.param
     if name not in _SWEEPS:
-        if name.startswith("pyr6-"):
+        if name.startswith("ss-"):
+            state, cfg = _static_balls("cuda")
+            calls = record_sweeps(lambda: step_checked(state, SimParams(),
+                                                       cfg), 2)
+            _SWEEPS["ss-balls-biased"] = calls[0]
+            _SWEEPS["ss-balls-unbiased"] = calls[1]
+        elif name.startswith("pyr6-"):
             calls = box_sweeps("cuda")
             _SWEEPS["pyr6-ladder-biased"] = calls[0]
             _SWEEPS["pyr6-ladder-unbiased"] = calls[1]
@@ -1807,3 +1819,103 @@ def test_sharded_step_is_replicated_bit_for_bit_on_card():
     assert len(digests) == 1
     assert all(r[i]["timed"]["b2_launches_per_step"] > 0
                for r in res for i in range(2))
+
+
+# --- static pair slots and the small-matrix geometry (no kernel of their
+# own: B1 on the static plan, and plain tensor code card against CPU) ---
+
+
+def _static_balls(device):
+    """``balls(256)`` from the JAX package's warmed state under its
+    ``chained_ss`` configuration (``static_slots_jax.npz.xz``)."""
+    from wgmath_tpu_torch.convert import load_arrays
+
+    z = load_arrays(NPZ_STATIC)
+    arrays = {k[len("balls.warmed."):]: v for k, v in z.items()
+              if k.startswith("balls.warmed.")}
+    cfg = PipelineConfig.from_dict(json.loads(str(z["balls.config_json"])))
+    return state_from_arrays(arrays, device=device), cfg
+
+
+@pytest.mark.cuda
+def test_chained_ss_step_on_card_matches_cpu():
+    """One checked ``chained_ss`` frame of ``balls(256)`` on the card and
+    on the CPU: counts, the cached pairs' static slots, colours and flag
+    exactly, translations within 1e-5 m, and B1 launched on the card."""
+    _need_card()
+    from wgmath_tpu_torch.dynamics.solver import static_offsets
+
+    got_s, cfg = _static_balls("cuda")
+    want_s, _ = _static_balls("cpu")
+    n0 = gs_math.LAUNCHES
+    got, got_cfg = step_checked(got_s, SimParams(), cfg)
+    torch.cuda.synchronize()
+    assert gs_math.LAUNCHES > n0
+    want, want_cfg = step_checked(want_s, SimParams(), cfg)
+    assert got_cfg == want_cfg
+    assert torch.equal(got.pair_count.cpu(), want.pair_count)
+    for f in ("body_a", "body_b", "valid"):
+        assert torch.equal(getattr(got.bp_pairs, f).cpu(),
+                           getattr(want.bp_pairs, f))
+    assert torch.equal(got.bp_colors[0].cpu(), want.bp_colors[0])
+    assert got.bp_colors[1:] == want.bp_colors[1:] and got.bp_colors[3] != 1
+    assert torch.equal(got.solve_cache[1].cpu(), torch.tensor(static_offsets(
+        tuple(cfg.gs_windows[:cfg.max_colors]))))
+    torch.testing.assert_close(got.bodies.poses.translation.cpu(),
+                               want.bodies.poses.translation, rtol=0,
+                               atol=1e-5)
+
+
+DECOMP_CASES = [f"{k}{n}" for n in (2, 3, 4) for k in (
+    "lu", "lu_solve", "qr", "cholesky", "cholesky_solve", "eig", "inv",
+    "det")] + ["svd2", "svd3"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECOMP_CASES)
+def test_small_matrix_geometry_on_card_matches_cpu(case):
+    """Each decomposition, solve, inverse and determinant on 4,096 seeded
+    matrices on the card against the same call on the CPU, within
+    ``chip_smoke.DECOMP_CPU_TOL`` (LU's pivots exactly)."""
+    _need_card()
+    import importlib
+
+    from chip_smoke import DECOMP_CPU_TOL
+    from wgmath_tpu_torch.geometry import decomp
+
+    inv_mod = importlib.import_module("wgmath_tpu_torch.geometry.inv")
+    name, n = case[:-1], int(case[-1])
+    rng = np.random.default_rng(len(case) * 10 + n)
+    a = rng.normal(size=(4096, n, n)).astype(np.float32)
+    b = rng.normal(size=(4096, n)).astype(np.float32)
+    eye = np.eye(n, dtype=np.float32)
+    inputs = {
+        "lu": (a + eye,), "qr": (a,), "svd": (a,),
+        "cholesky": (np.einsum("nki,nkj->nij", a, a) + 0.5 * eye,),
+        "eig": ((a + np.swapaxes(a, 1, 2)) / 2,),
+        "inv": (a + n * eye,), "det": (a + n * eye,)}
+    fns = {"lu": decomp.lu, "qr": decomp.qr, "svd": decomp.svd,
+           "cholesky": decomp.cholesky, "eig": decomp.symmetric_eigen,
+           "inv": getattr(inv_mod, f"inv{n}"),
+           "det": getattr(inv_mod, f"det{n}")}
+    if name == "lu_solve":
+        fn = decomp.lu_solve
+        args = decomp.lu(torch.from_numpy(a + eye)) + (torch.from_numpy(b),)
+    elif name == "cholesky_solve":
+        fn = decomp.cholesky_solve
+        args = (decomp.cholesky(torch.from_numpy(inputs["cholesky"][0])),
+                torch.from_numpy(b))
+    else:
+        fn = fns[name]
+        args = tuple(torch.from_numpy(x) for x in inputs[name])
+    got = fn(*(x.cuda() for x in args))
+    want = fn(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rtol, atol = DECOMP_CPU_TOL[name]
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        if w.is_floating_point():
+            torch.testing.assert_close(g.cpu(), w, rtol=rtol, atol=atol)
+        else:
+            assert torch.equal(g.cpu(), w)

@@ -5,7 +5,7 @@ rhs-in-rung sweeps), carried across with ``state_from_arrays``, then
 stepped by both — one frame (integers exact) and ten more frames including
 a forced full refresh and a forced repair. The JAX package's warmup and
 frames are stored by ``scripts/export_pit160_npz.py`` in
-``artifacts/pit160_jax.npz`` (group ``chained_ps``), so this file makes no
+``artifacts/pit160_jax.npz.xz`` (group ``chained_ps``), so this file makes no
 JAX step of its own."""
 
 import dataclasses
@@ -16,20 +16,20 @@ import numpy as np
 import pytest
 import torch
 
-from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
+from wgmath_tpu_torch.convert import (load_arrays, state_from_arrays,
+                                      state_to_arrays)
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "artifacts", "pit160_jax.npz")
+    __file__))), "artifacts", "pit160_jax.npz.xz")
 
 
 @pytest.fixture(scope="module")
 def z():
-    with np.load(NPZ) as f:
-        return {k[len("chained_ps."):]: v for k, v in f.items()
-                if k.startswith("chained_ps.")}
+    return {k[len("chained_ps."):]: v for k, v in load_arrays(NPZ).items()
+            if k.startswith("chained_ps.")}
 
 
 def _sub(z, prefix):
@@ -150,10 +150,13 @@ def _contact_set(state):
     return set(zip(c.body_a[c.valid].tolist(), c.body_b[c.valid].tolist()))
 
 
-# gs_static_slots is still refused, alone and beside the solve modes the
-# port takes (Jacobi, no ladder, no class cap, no slack, colour
-# minimization); bp_algo="lbvh" is taken beside them, and one checked frame
-# with a full broad-phase refresh has the grid's contact set
+# gs_static_slots is taken, alone and beside the solve modes the port
+# takes (Jacobi, no ladder, the split windows): on this state it changes
+# nothing, as in the JAX package (the 16 rungs of 256 need a capacity of
+# 4,352, and Jacobi and the windowless modes have no pair slots), and the
+# checked step grows the capacity for it; bp_algo="lbvh" is taken beside
+# the solve modes, and one checked frame with a full broad-phase refresh
+# has the grid's contact set
 @pytest.mark.parametrize("change", [
     dict(gs_static_slots=True), dict(gs_static_slots=True, use_jacobi=True),
     dict(gs_static_slots=True, gs_windows=()),
@@ -163,9 +166,24 @@ def _contact_set(state):
 def test_step_refuses_flags_outside_the_slice(warmed, change):
     tstate, tcfg = _port(*warmed)
     cfg = dataclasses.replace(tcfg, **change)
-    if cfg.bp_algo != "lbvh":
-        with pytest.raises(NotImplementedError, match="refused"):
-            step(tstate, SimParams(), cfg)
+    if cfg.gs_static_slots:
+        got = step(tstate, SimParams(), cfg)
+        want = step(tstate, SimParams(),
+                    dataclasses.replace(cfg, gs_static_slots=False))
+        for g, w in ((got.pair_count, want.pair_count),
+                     (got.bodies.poses.translation,
+                      want.bodies.poses.translation),
+                     (got.bodies.poses.rotation, want.bodies.poses.rotation),
+                     (got.bodies.vels.linear, want.bodies.vels.linear),
+                     (got.bodies.vels.angular, want.bodies.vels.angular)):
+            assert torch.equal(g, w)
+        if got.bp_pairs is not None:
+            assert torch.equal(got.bp_pairs.body_a, want.bp_pairs.body_a)
+            assert got.bp_colors[1:] == want.bp_colors[1:]
+        if cfg.gs_windows and not cfg.use_jacobi:
+            _, got_cfg = step_checked(tstate, SimParams(), cfg)
+            assert got_cfg.pair_capacity >= sum(
+                got_cfg.gs_windows[:got_cfg.max_colors]) + 256
         return
     cfg = dataclasses.replace(cfg, bp_force="miss")
     got, got_cfg = step_checked(tstate, SimParams(), cfg)

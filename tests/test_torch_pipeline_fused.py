@@ -9,7 +9,7 @@ the fused step against the ladder step, the rung regrow of
 the precedence of ``gs_fused`` over the pair-slot layout, and
 ``gs_fused_pallas``, which changes nothing. The JAX package's warmup, step
 and regrow frames are stored by ``scripts/export_pit160_npz.py`` in
-``artifacts/pit160_jax.npz`` (group ``fused``), so this file makes no JAX
+``artifacts/pit160_jax.npz.xz`` (group ``fused``), so this file makes no JAX
 step of its own."""
 
 import dataclasses
@@ -20,21 +20,20 @@ import numpy as np
 import pytest
 import torch
 
-from wgmath_tpu_torch.convert import state_from_arrays
+from wgmath_tpu_torch.convert import load_arrays, state_from_arrays
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "artifacts", "pit160_jax.npz")
+    __file__))), "artifacts", "pit160_jax.npz.xz")
 MAX_COLORS = 12
 
 
 @pytest.fixture(scope="module")
 def z():
-    with np.load(NPZ) as f:
-        return {k[len("fused."):]: v for k, v in f.items()
-                if k.startswith("fused.")}
+    return {k[len("fused."):]: v for k, v in load_arrays(NPZ).items()
+            if k.startswith("fused.")}
 
 
 def _sub(z, prefix):

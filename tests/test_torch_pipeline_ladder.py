@@ -5,7 +5,7 @@ colour-major contact compaction, the window ladder), carried across with
 ``state_from_arrays``, then stepped once by both packages under each
 configuration — integers exact, floats at the stated tolerances. The JAX
 package's warmup and steps are stored by ``scripts/export_pit160_npz.py``
-in ``artifacts/pit160_jax.npz`` (group ``ladder``), so this file makes no
+in ``artifacts/pit160_jax.npz.xz`` (group ``ladder``), so this file makes no
 JAX step of its own."""
 
 import dataclasses
@@ -16,14 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays
+from wgmath_tpu_torch.convert import (load_arrays, state_from_arrays,
+                                      state_to_arrays)
 from wgmath_tpu_torch.core.dispatch import capacity_bucket
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.pipeline import PipelineConfig, step, step_checked
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "artifacts", "pit160_jax.npz")
+    __file__))), "artifacts", "pit160_jax.npz.xz")
 # the bench's candidates on top of the ladder; the last is the ladder with
 # no contact compaction (the solve sorts the fields itself)
 CONFIGS = {
@@ -36,9 +37,8 @@ CONFIGS = {
 
 @pytest.fixture(scope="module")
 def z():
-    with np.load(NPZ) as f:
-        return {k[len("ladder."):]: v for k, v in f.items()
-                if k.startswith("ladder.")}
+    return {k[len("ladder."):]: v for k, v in load_arrays(NPZ).items()
+            if k.startswith("ladder.")}
 
 
 def _sub(z, prefix):

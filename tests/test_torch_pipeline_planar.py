@@ -122,6 +122,15 @@ def test_check_slice_refuses_only_the_listed(bad):
     if bad is None:
         new = step(st, params_of("default"), cfg, warmstart=False)
         assert new.bodies.dim == 2
+    elif bad == "gs_static_slots":
+        # taken: in 2D the flag changes nothing, as in the JAX package
+        new = step(st, params_of("default"), cfg, warmstart=False)
+        plain = step(st, params_of("default"), dataclasses.replace(
+            cfg, gs_static_slots=False), warmstart=False)
+        assert torch.equal(new.pair_count, plain.pair_count)
+        assert torch.equal(new.bodies.poses.translation,
+                           plain.bodies.poses.translation)
+        assert torch.equal(new.bodies.vels.angular, plain.bodies.vels.angular)
     elif bad == "shard":
         with pytest.raises(ValueError, match="no torch.distributed"):
             step(st, params_of("default"), cfg, warmstart=False, **kw)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from wgmath_tpu_torch.broad_phase.brute_force import PairList, compact_hits
+from wgmath_tpu_torch.core.module import KernelModule, register_module
 
 
 def _neighbor_offsets(dim: int, device) -> torch.Tensor:
@@ -194,3 +195,17 @@ def find_pairs_grid(mins: torch.Tensor, maxs: torch.Tensor, *,
                                                              max=capacity)
     return PairList(torch.minimum(out_a, out_b), torch.maximum(out_a, out_b),
                     valid, count)
+
+
+# The dependency names a module that neither package registers: the JAX
+# package declares it so, and ``dependency_order("broad_phase.grid")`` (so
+# ``compose`` and ``flat_source``) raises ``KeyError`` in both packages.
+register_module(
+    KernelModule(
+        "broad_phase.grid",
+        deps=("broad_phase.brute_force",),
+        provides={"find_pairs_grid": find_pairs_grid},
+        doc="Sorted uniform-grid broad phase (the reference's LBVH "
+            "find_pairs contract, with the particle-grid algorithm).",
+    )
+)

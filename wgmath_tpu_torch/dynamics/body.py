@@ -18,6 +18,11 @@ import math
 import torch
 
 from wgmath_tpu_torch.core.dispatch import resolve_device
+from wgmath_tpu_torch.core.module import (
+    EntryPoint,
+    KernelModule,
+    register_module,
+)
 from wgmath_tpu_torch.geometry import quat, rot2
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.sim import Sim
@@ -99,6 +104,27 @@ def update_mprops(poses: Sim,
     return WorldMassProperties(local.inv_mass, world_com, inv_inertia)
 
 
+def apply_impulse(mprops: WorldMassProperties, vel: Velocity,
+                  lin_imp: torch.Tensor, ang_imp: torch.Tensor) -> Velocity:
+    """Velocities after an impulse: the inverse mass times the linear part,
+    the world inverse inertia times the angular part."""
+    dlin = mprops.inv_mass * lin_imp
+    if mprops.inv_inertia.dim() == vel.angular.dim() + 1:  # 3D matrix
+        dang = torch.einsum("...ij,...j->...i", mprops.inv_inertia, ang_imp)
+    else:
+        dang = mprops.inv_inertia * ang_imp
+    return Velocity(vel.linear + dlin, vel.angular + dang)
+
+
+def integrate_forces(mprops: WorldMassProperties, vel: Velocity,
+                     lin_force: torch.Tensor, ang_force: torch.Tensor,
+                     dt) -> Velocity:
+    """Explicit Euler on the velocities."""
+    v = apply_impulse(mprops, vel, lin_force, ang_force)
+    return Velocity(vel.linear + (v.linear - vel.linear) * dt,
+                    vel.angular + (v.angular - vel.angular) * dt)
+
+
 def integrate_velocity(poses: Sim, vels: Velocity, local_com: torch.Tensor,
                        dt: float) -> Sim:
     """Semi-implicit Euler pose update about the COM."""
@@ -114,6 +140,16 @@ def integrate_velocity(poses: Sim, vels: Velocity, local_com: torch.Tensor,
         new_rot = quat.normalize(quat.mul(delta_ang, poses.rotation))
     new_tra = init_com + rotated * poses.scale[..., None] + vels.linear * dt
     return Sim(new_rot, new_tra, poses.scale)
+
+
+def velocity_at_point(com: torch.Tensor, vels: Velocity,
+                      point: torch.Tensor) -> torch.Tensor:
+    """v + ω × (p - com) (2D: ω times the arm turned a quarter)."""
+    arm = point - com
+    if point.shape[-1] == 2:
+        perp = torch.stack([-arm[..., 1], arm[..., 0]], dim=-1)
+        return vels.linear + vels.angular[..., None] * perp
+    return vels.linear + quat.cross(vels.angular, arm)
 
 
 def _dyn(n: int, dev, dynamic) -> torch.Tensor:
@@ -256,3 +292,37 @@ def cone_local_mprops(half_heights: torch.Tensor, radii: torch.Tensor,
     com[:, 1] = -hh / 2.0
     return _axial_mprops(mass, torch.stack([ix, iy, ix], dim=-1), com,
                          dynamic)
+
+
+def _example_bodies(device) -> tuple:
+    n = 64
+    return (Bodies(sim_ops.identity((n,), dim=3, device=device),
+                   Velocity.zero(n, 3, device=device),
+                   ball_local_mprops(torch.ones(n, device=device), dim=3)),)
+
+
+register_module(
+    KernelModule(
+        "dynamics.body",
+        deps=("geometry.sim",),
+        provides={
+            "update_mprops": update_mprops,
+            "apply_impulse": apply_impulse,
+            "integrate_forces": integrate_forces,
+            "integrate_velocity": integrate_velocity,
+            "velocity_at_point": velocity_at_point,
+        },
+        entries={
+            "update_mprops": EntryPoint(
+                fn=lambda b: update_mprops(b.poses, b.local_mprops),
+                example_args=_example_bodies),
+            "integrate": EntryPoint(
+                fn=lambda b: integrate_velocity(b.poses, b.vels,
+                                                b.local_mprops.com,
+                                                1.0 / 60.0),
+                example_args=_example_bodies),
+        },
+        doc="Rigid-body state + integration (the reference's "
+            "dynamics/body).",
+    )
+)

@@ -1015,9 +1015,18 @@ class JointSolve:
         return self.run(vels)
 
 
+def static_offsets(static_layout: tuple) -> list:
+    """The class offsets of the static rung placement (``gs_static_slots``)
+    on the host: class c >= 1 starts at ``sum(static_layout[:c-1])``, the
+    residue (0) and the invalid rows (``max_colors + 1``) at the tail,
+    ``sum(static_layout)``."""
+    w = np.concatenate([[0], np.cumsum(static_layout)]).astype(np.int64)
+    return [int(x) for x in np.concatenate([[w[-1]], w[:-1], [w[-1]]])]
+
+
 def _layout_sides(cons, colors, bodies: Bodies, *, max_colors: int,
                   cmax: int, windows: tuple, presorted: bool, layout_valid,
-                  chained: bool):
+                  chained: bool, static_layout: tuple | None = None):
     """The solve bundle (order_padded, offsets, counts, side order, left,
     right[, chain src, last writer]) and its offsets + counts on the host.
 
@@ -1025,7 +1034,9 @@ def _layout_sides(cons, colors, bodies: Bodies, *, max_colors: int,
     is the identity. ``layout_valid`` (pair slots) is the PAIR validity:
     layout, sides and chain then cover every cached pair and read no
     per-frame contact data, so the bundle can be cached while the
-    broad-phase cache holds."""
+    broad-phase cache holds. ``static_layout`` (presorted only, the static
+    pair slots' ladder): the offsets are the host constants of
+    :func:`static_offsets`, so only the counts are read back."""
     dev = colors.device
     c_cap = cons.body_a.shape[0]
     n = bodies.num_bodies
@@ -1036,8 +1047,13 @@ def _layout_sides(cons, colors, bodies: Bodies, *, max_colors: int,
         counts = torch.zeros(max_colors + 2, dtype=torch.int64,
                              device=dev).index_add_(0, key,
                                                     lv.to(torch.int64))
-        offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                             torch.cumsum(counts, 0)[:-1]])
+        if static_layout is not None:
+            offsets = to_device(torch.tensor(static_offsets(static_layout)),
+                                dev)
+        else:
+            offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                             device=dev),
+                                 torch.cumsum(counts, 0)[:-1]])
         order_padded = torch.cat([torch.arange(c_cap, device=dev),
                                   torch.full((cmax,), c_cap,
                                              dtype=torch.int64, device=dev)])
@@ -1059,12 +1075,20 @@ def _layout_sides(cons, colors, bodies: Bodies, *, max_colors: int,
     dyn_a_p, dyn_b_p = dyn_a[idxp], dyn_b[idxp]
     bundle = (order_padded, offsets, counts) + _build_sides(
         ba_p, bb_p, dyn_a_p, dyn_b_p, lv_s[idxp] & ~padv, n)
-    off_h = host_list(torch.cat([offsets, counts]))
+    off_h = _layout_host(bundle, static_layout if presorted else None)
     if chained:
         bundle += build_gs_chain(ba_p, bb_p, dyn_a_p, dyn_b_p,
                                  off_h[:max_colors + 2],
                                  off_h[max_colors + 2:], windows, n)
     return bundle, off_h
+
+
+def _layout_host(bundle, static_layout: tuple | None) -> list:
+    """A solve bundle's offsets and counts on the host: one read, of the
+    counts only where the offsets are the static layout's constants."""
+    if static_layout is not None:
+        return static_offsets(static_layout) + host_list(bundle[2])
+    return host_list(torch.cat([bundle[1], bundle[2]]))
 
 
 def _bundle_shapes(c_cap, cmax, max_colors, n, windows, chained: bool):
@@ -1085,7 +1109,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           cache_in=None, presorted: bool = False, chained: bool = False,
           rhs_in_rung: bool = False, fused: bool = False,
           fused_rung0: int = 0, fused_class_counts=None, joints=None,
-          stable_slots: bool = True, shard=None):
+          stable_slots: bool = True, shard=None,
+          static_layout: tuple | None = None):
     """Complete constraint solve for one frame. Returns ``(poses, vels,
     constraints, max_class, colors, solve_cache)``.
 
@@ -1120,7 +1145,11 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     triangles in the same slots) transfers by key even then.
     ``chained`` selects the chained sweep, ``rhs_in_rung`` (chained only)
     the in-kernel rhs rebuild; both need the ladder, and without it the
-    sweep is the unchained one, as in the JAX package.
+    sweep is the unchained one, as in the JAX package. ``static_layout``
+    (the static pair slots' ladder, with ``presorted`` pair slots): class
+    c's rows start at the fixed ``sum(static_layout[:c-1])``, so the
+    layout's offsets are host constants (:func:`static_offsets`) and
+    only its counts are read back.
 
     ``fused`` (with ``presorted`` contacts in the static rung-padded layout
     of ``compact_contacts(static_windows=...)`` and their TRUE per-class
@@ -1235,12 +1264,12 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
                                           cache_in] == _bundle_shapes(
             c_cap, cmax, max_colors, n, windows, chained):
         bundle = tuple(cache_in)
-        off_h = host_list(torch.cat([bundle[1], bundle[2]]))
+        off_h = _layout_host(bundle, static_layout if presorted else None)
     else:
         bundle, off_h = _layout_sides(
             cons, colors, bodies, max_colors=max_colors, cmax=cmax,
             windows=windows, presorted=presorted, layout_valid=layout_valid,
-            chained=chained)
+            chained=chained, static_layout=static_layout)
     order_padded, _, class_counts = bundle[:3]
     ws_sides = bundle[3:6]
     chain = bundle[6:8] if chained else None

@@ -27,6 +27,13 @@ solver configurations the bench calls
 - ``chained_rr`` (+ ``gs_rhs_in_rung``): the rhs rebuilt in the kernel;
 - ``chained_ps`` (+ ``gs_pair_slots``): contacts stay at their cached
   colour-major pair slots;
+- ``chained_ss`` (+ ``gs_static_slots``): the cached pairs of colour c sit
+  at the fixed slots ``[W[c-1], W[c-1] + count_c)``, W the running sum of
+  the ladder, and what does not fit its rung (and uncoloured residue) in
+  a tail past ``sum(gs_windows)``, unswept for a frame; the solve's class
+  offsets are then host constants. It needs ``pair_capacity >=
+  sum(gs_windows) + 256``, which ``step_checked`` keeps; below it the
+  step runs ``chained_ps``;
 - ``fused`` (``gs_fused``): contacts compacted to the static rung-padded
   colour-major layout (``gs_rung0`` rows of residue, then one rung per
   colour; ``contact_capacity`` is ignored), the fused constraint build,
@@ -57,8 +64,9 @@ the fused solver, the pair-slot layout and the rhs rebuilt in the sweep
 are 3D only there, so a 2D step takes the unfused sweep (``gs_fused`` and
 ``gs_pair_slots`` change nothing) and the rhs of ``update_rhs_sorted``;
 its sweeps are plain PyTorch (``solver.run_sweep``), as the JAX package
-runs them in XLA. ``gs_static_slots`` and other broad phases are refused
-with ``NotImplementedError``.
+runs them in XLA (``gs_static_slots`` changes nothing there either).
+Broad phases other than the grid, the brute force and the LBVH are
+refused with ``NotImplementedError``.
 
 ``shard=(group, n_ranks)`` runs the step on ``n_ranks`` ``torch.distributed``
 ranks, each holding the whole state (``parallel/sharded_pipeline.py``), and
@@ -77,9 +85,9 @@ that fills its share of the capacity reports its share times the rank
 count, so that ``step_checked`` regrows ``pair_capacity``. The contacts
 come back slot for slot in one all-gather a dtype, and the compaction
 demands are the largest rank's times the rank count. The fused solver,
-the pair slots, the chained sweep and the split windows are off under a
-shard, as in the JAX package; the rest runs replicated and deterministic
-on every rank.
+the pair slots (static ones too), the chained sweep and the split
+windows are off under a shard, as in the JAX package; the rest runs
+replicated and deterministic on every rank.
 
 ``pair_count`` = [pairs, contacts, head class, bp_path (0 hit, 1 repair,
 2 full), tail class, bc/sat/pfm compaction demand, class counts...].
@@ -89,7 +97,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import zlib
 
+import numpy as np
 import torch
 
 from wgmath_tpu_torch.broad_phase.brute_force import (
@@ -105,6 +115,7 @@ from wgmath_tpu_torch.core.dispatch import (
     capacity_bucket,
     host_int,
     host_list,
+    to_device,
 )
 from wgmath_tpu_torch.dynamics.body import Bodies, update_mprops
 from wgmath_tpu_torch.dynamics.constraint import (
@@ -219,13 +230,10 @@ class PipelineConfig:
 
 def _check_slice(state: PhysicsState, config: PipelineConfig,
                  shard) -> None:
-    """Refuse what the port does not take: ``gs_static_slots`` (ROADMAP
-    item 4's last part) and broad phases other than the grid, the brute
-    force and the LBVH. (A shard is checked against its process group by
-    ``core.collectives.resolve``.)"""
+    """Refuse what the port does not take: broad phases other than the
+    grid, the brute force and the LBVH. (A shard is checked against its
+    process group by ``core.collectives.resolve``.)"""
     bad = []
-    if config.gs_static_slots:
-        bad.append("gs_static_slots")
     if config.bp_algo not in ("auto", "grid", "brute", "lbvh"):
         bad.append(f"bp_algo={config.bp_algo}")
     if bad:
@@ -322,6 +330,15 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     use_pair_slots = (config.gs_pair_slots and color_with_bp
                       and config.gs_chained and bool(config.gs_windows)
                       and not config.gs_fused and dim == 3 and sh is None)
+    # static pair slots: each colour at a fixed slot range of the cached
+    # list. The tag's flag says which layout the cache holds (1: colour-
+    # major, 2 + a hash of the ladder: static rungs), so a cache written
+    # under another layout or ladder refreshes
+    swin = tuple(config.gs_windows[:mc]) if use_pair_slots else ()
+    use_static_slots = (use_pair_slots and config.gs_static_slots
+                        and config.pair_capacity >= sum(swin) + 256)
+    slot_flag = (2 + zlib.crc32(repr(swin).encode()) % 2000000000
+                 if use_static_slots else 1)
 
     if slack > 0:
         # velocity-aware slack, quantized to three levels so consecutive
@@ -458,12 +475,62 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     def sort_pairs_cm(p, cols):
         """Colour-major pair order: valid pairs by colour (residue 0
         first), invalid tail; stable."""
+        if use_static_slots:
+            return sort_pairs_static(p, cols)
         key = torch.where(p.valid, torch.clamp(cols, 0, mc),
                           torch.full_like(cols, mc + 1))
         perm = torch.argsort(key, stable=True)
         return (PairList(p.body_a[perm], p.body_b[perm], p.valid[perm],
                          p.count),
-                (cols[perm], config.gs_cmax, mc, 1))
+                (cols[perm], config.gs_cmax, mc, slot_flag))
+
+    def sort_pairs_static(p, cols):
+        """Static rung placement: colour c's valid pairs at slots
+        ``[W[c-1], W[c-1] + count_c)`` in their colour-major order, W the
+        running sum of the ladder. Valid pairs that do not fit (a class
+        past its rung, uncoloured residue) go to the tail ``[sum(W),
+        cap)``; invalid rows are dropped. A tail that does not fit drops
+        its last pairs and turns the count negative, of magnitude at
+        least ``sum(W)`` + the tail + 256, so that ``step_checked`` regrows
+        the capacity."""
+        cap = p.body_a.shape[0]
+        w_np = np.concatenate([[0], np.cumsum(swin)]).astype(np.int64)
+        total = int(w_np[-1])
+        tab = to_device(torch.from_numpy(np.concatenate(
+            [w_np[:-1], np.asarray(swin, np.int64)])), dev)
+        w_start, win = tab[:len(swin)], tab[len(swin):]
+        cls = torch.clamp(cols, 0, mc)
+        in_class = p.valid & (cls >= 1)
+        key = torch.where(in_class, cls, torch.full_like(cls, mc + 1))
+        perm = torch.argsort(key, stable=True)
+        skey, valid_s = key[perm], p.valid[perm]
+        counts = torch.bincount(skey, minlength=mc + 2)
+        dyn_off = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(cap, device=dev) - dyn_off[skey]
+        ci = torch.clamp(skey - 1, 0, len(swin) - 1)
+        # class rows are valid by construction
+        fits = (skey <= mc) & (rank < win[ci])
+        tail_need = valid_s & ~fits
+        tail_rank = torch.cumsum(tail_need.to(torch.int64), 0) - 1
+        tail_ok = tail_need & (total + tail_rank < cap)
+        dst = torch.where(fits, w_start[ci] + rank,
+                          torch.where(tail_ok, total + tail_rank,
+                                      torch.full_like(rank, cap)))
+        n_drop = (tail_need & ~tail_ok).sum()
+
+        def scatter(x):
+            # slot ``cap`` collects the dropped rows and is cut off
+            out = torch.zeros(cap + 1, dtype=x.dtype, device=dev)
+            out[dst] = x[perm]
+            return out[:cap]
+
+        need = total + tail_need.sum() + 256
+        mag = torch.maximum(p.count.abs(), need)
+        count = torch.where((p.count < 0) | (n_drop > 0),
+                            -torch.clamp(mag, min=1), p.count)
+        return (PairList(scatter(p.body_a), scatter(p.body_b),
+                         scatter(p.valid), count),
+                (scatter(cols), config.gs_cmax, mc, slot_flag))
 
     def colored_bp(mn, mx, reuse=None):
         p = run_bp(mn, mx)
@@ -556,10 +623,11 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
             tag = state.bp_colors
             knobs_ok = tag[1] == config.gs_cmax and tag[2] == mc
             if use_pair_slots:
-                # the pair-slot layout needs a cached list sorted
-                # colour-major (flag 1); a cache written by another
+                # the pair-slot layout needs a cached list sorted under
+                # the same slot scheme (flag 1: colour-major, 2 + a hash
+                # of the ladder: static rungs); a cache written by another
                 # configuration refreshes
-                knobs_ok = knobs_ok and len(tag) > 3 and tag[3] == 1
+                knobs_ok = knobs_ok and len(tag) > 3 and tag[3] == slot_flag
         if knobs_ok and n_esc == 0:
             bp_path = 0
         elif (knobs_ok and config.bp_repair_cap > 0
@@ -648,7 +716,8 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         presorted=presorted, chained=config.gs_chained,
         rhs_in_rung=config.gs_rhs_in_rung, fused=use_fused,
         fused_rung0=config.gs_rung0, fused_class_counts=fused_class_counts,
-        joints=state.joints, stable_slots=not has_mesh, shard=sh)
+        joints=state.joints, stable_slots=not has_mesh, shard=sh,
+        static_layout=swin if use_static_slots else None)
     new_bodies = Bodies(poses, vels, bodies.local_mprops, bodies.kinematic)
     head = torch.stack([pairs.count.to(torch.int64), contact_count,
                         max_class[0],
@@ -786,6 +855,16 @@ def step_checked(state: PhysicsState, params: SimParams,
         if config.gs_fused and cc[0] > config.gs_rung0:
             regrow["gs_rung0"] = max(
                 256, -(-int(cc[0]) * 23 // 20 // 256) * 256)
+    if config.gs_static_slots and config.gs_windows:
+        # static rung placement needs pair_capacity >= sum(windows) + 256
+        # (grow-only, bucketed as the count-driven regrow; after this
+        # frame's rung regrow)
+        rungs_now = (regrow.get("gs_windows")
+                     or config.gs_windows)[:config.max_colors]
+        need = sum(rungs_now) + 256
+        have = regrow.get("pair_capacity", config.pair_capacity)
+        if have < need:
+            regrow["pair_capacity"] = max(bucket(need), have)
     if regrow:
         config = dataclasses.replace(config, **regrow)
         if stats is not None:
