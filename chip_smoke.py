@@ -3221,6 +3221,181 @@ def path_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# pipeline.multi_step on the settled pit: the burn-in frame and the frames
+# after it against a loop of step calls, bit for bit, and against the JAX
+# package's frame 3; then multi_step timed beside the loop
+# ---------------------------------------------------------------------------
+
+MULTI_STEP_N = 2  # frames after the burn-in (the settled state is cold)
+MULTI_STEP_TIMED = 10  # frames a timed call
+MULTI_STEP_ROUNDS = 2  # timed calls of each, in rounds of A B B A
+MULTI_STEP_PROFILED = 3  # frames of the profiled call of each
+MULTI_STEP_PATHS = {"chained_ps": (NPZ, ("gs_math_rhs",)),
+                    "ladder": (NPZ_LADDER, ("gs_math_block",)),
+                    "fused": (NPZ_FUSED, FUSED_KERNELS)}
+
+
+def _state_bits(state) -> tuple:
+    b = state.bodies
+    return (b.poses.translation, b.poses.rotation, b.vels.linear,
+            b.vels.angular, state.pair_count)
+
+
+def _step_loop(state, params, cfg, n: int):
+    """``multi_step``'s frames as separate ``step`` calls: the burn-in
+    frame (``state`` is cold here) and ``n`` frames after it."""
+    state = step(state, params, cfg, warmstart=False)
+    for _ in range(n):
+        state = step(state, params, cfg, warmstart=True)
+    return state
+
+
+def _timed_frames(run, frames: int) -> dict:
+    """ms a frame by CUDA events, host syncs and port-kernel launches a
+    frame over one call of ``run`` (``frames`` frames)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    n0, syncs0 = _pit_counts(), dispatch.HOST_SYNCS
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    n1 = _pit_counts()
+    return {"ms_per_step": start.elapsed_time(end) / frames,
+            "host_syncs_per_step": (dispatch.HOST_SYNCS - syncs0) / frames,
+            "launches_per_step": {k: (n1[k] - n0[k]) / frames for k in n1
+                                  if n1[k] - n0[k]}}
+
+
+def multi_step_timing(state, params, cfg) -> dict:
+    """``multi_step(state, cfg, MULTI_STEP_TIMED)`` beside a loop of as
+    many ``step`` calls from the same warmed state, the same frames (the
+    bits are checked): timed by CUDA events in ``MULTI_STEP_ROUNDS``
+    rounds of multi_step, loop, loop, multi_step (each figure the median
+    of its calls, beside the fastest and slowest), then one profiled call
+    of each, ``MULTI_STEP_PROFILED`` frames, for device time and kernels
+    a frame."""
+    k = MULTI_STEP_TIMED
+
+    def run_multi(frames=k):
+        box["multi"] = pipeline_mod.multi_step(state, params, cfg, frames)
+
+    def run_loop(frames=k):
+        s = state
+        for _ in range(frames):
+            s = step(s, params, cfg, warmstart=True)
+        box["loop"] = s
+
+    box = {}
+    runs = {"multi_step": [], "step_loop": []}
+    for name in ("multi_step", "step_loop", "step_loop",
+                 "multi_step") * MULTI_STEP_ROUNDS:
+        runs[name].append(_timed_frames(
+            run_multi if name == "multi_step" else run_loop, k))
+        if "multi" in box and "loop" in box:
+            check(all(torch.equal(a, b) for a, b in zip(
+                _state_bits(box["multi"]), _state_bits(box["loop"]))),
+                  "multi_step timing: multi_step and the step loop differ "
+                  "from the same warmed state")
+    out = {}
+    for name, calls in runs.items():
+        p = MULTI_STEP_PROFILED
+        prof = profile_window(functools.partial(
+            run_multi if name == "multi_step" else run_loop, p), 1)
+        ms = [c["ms_per_step"] for c in calls]
+        syncs = {c["host_syncs_per_step"] for c in calls}
+        launches = [c["launches_per_step"] for c in calls]
+        check(len(syncs) == 1 and all(x == launches[0] for x in launches),
+              f"multi_step timing: {name}'s calls differ in host syncs or "
+              f"launches ({syncs}, {launches})")
+        out[name] = {
+            "ms_per_step": statistics.median(ms),
+            "ms_per_step_calls": ms,
+            "host_syncs_per_step": syncs.pop(),
+            "launches_per_step": launches[0],
+            "device_ms_per_step": prof["device_ms_per_step"] / p,
+            "kernels_per_step": prof["kernels_per_step"] / p,
+            "frames_per_call": k, "profiled_frames": p,
+        }
+        m = out[name]
+        print(f"{name} ({k} frames a call, chained_ps, warmed pit): "
+              f"{m['ms_per_step']:.2f} ms/step (median of {len(ms)} calls, "
+              f"{min(ms):.2f} to {max(ms):.2f}), device (over {p} profiled "
+              f"frames) "
+              f"{m['device_ms_per_step']:.3f} ms/step, "
+              f"{m['kernels_per_step']:.1f} kernels/step, "
+              f"{m['host_syncs_per_step']:.2f} host syncs/step, port "
+              f"kernel launches/step {m['launches_per_step']}")
+    return out
+
+
+def multi_step_phase(params) -> dict:
+    """``pipeline.multi_step(state, params, cfg, MULTI_STEP_N)`` from the
+    settled pit (cold: one burn-in frame, then ``MULTI_STEP_N``) under
+    ``chained_ps`` (B1), ``ladder`` (B2) and ``fused`` (B9-B12), each
+    configuration the warmed one stored beside the JAX package's frames.
+    The kernel counts are set to 0 just before each ``multi_step`` call
+    and read just after: the configuration's kernels, and no other pit
+    kernel, must have launched. Each result must equal the port's own
+    ``step(warmstart=False)`` and ``MULTI_STEP_N`` ``step`` calls bit for
+    bit, and lie within ``TRANSLATION_LIMITS[2]`` of the JAX package's
+    third frame where its stored configurations did not regrow. Then
+    ``chained_ps`` is timed beside the step loop."""
+    z = dict(np.load(NPZ))
+    out = {}
+    warmed = None
+    for name, (path, expect) in MULTI_STEP_PATHS.items():
+        refs = z if path == NPZ else dict(np.load(path))
+        cfg = _config_of(refs["config_json"])
+        state = state_from_arrays(z, device="cuda")
+        torch.cuda.synchronize()
+        for mod, attr in PIT_COUNTERS.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        got = pipeline_mod.multi_step(state, params, cfg, MULTI_STEP_N)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _pit_counts()
+        for kernel, n in launches.items():
+            check((n > 0) == (kernel in expect),
+                  f"multi_step {name}: kernel {kernel} launched {n} times "
+                  f"(expected {'some' if kernel in expect else 'none'})")
+        check(_finite(got), f"multi_step {name}: non-finite state")
+        want = _step_loop(state_from_arrays(z, device="cuda"), params, cfg,
+                          MULTI_STEP_N)
+        same = all(torch.equal(a, b) for a, b in zip(_state_bits(got),
+                                                     _state_bits(want)))
+        check(same, f"multi_step {name}: not the step loop's bits")
+        regrew = [f for f in range(3) if json.loads(str(
+            refs[f"ref.{f}.config_json"])) != json.loads(str(
+                refs["config_json"]))]
+        d_ref = float(np.abs(got.bodies.poses.translation.cpu().numpy()
+                             - refs["ref.2.translation"]).max())
+        if not regrew:
+            check(d_ref <= TRANSLATION_LIMITS[2],
+                  f"multi_step {name}: {d_ref:.3e} m from the JAX "
+                  f"package's frame 3 (limit {TRANSLATION_LIMITS[2]:.0e})")
+        pc = got.pair_count.cpu().numpy()
+        out[name] = {"frames": MULTI_STEP_N + 1, "launches": launches,
+                     "bits_equal_step_loop": same,
+                     "max_dp_jax_frame3": d_ref,
+                     "jax_configs_regrew": regrew,
+                     "pair_count": [int(x) for x in pc[:5]],
+                     "wall_s": wall}
+        print(f"multi_step {name}: {MULTI_STEP_N + 1} frames from the "
+              f"settled pit (burn-in + {MULTI_STEP_N}) in {wall:.2f} s "
+              f"wall, bits equal to step(warmstart=False) + {MULTI_STEP_N} "
+              f"steps; max|dx| to JAX's frame 3 {d_ref:.3e} m ("
+              + (f"limit {TRANSLATION_LIMITS[2]:.0e}" if not regrew else
+                 f"not gated: JAX's configuration regrew at {regrew}")
+              + f"); launches {launches}; counts {pc[:5].tolist()}")
+        if name == "chained_ps":
+            warmed = (got, cfg)
+    out["timing"] = multi_step_timing(warmed[0], params, warmed[1])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the box scenes: cuboid-cuboid SAT manifolds, 4-point constraints through
 # B2 (ladder) and B9-B11 (fused)
 # ---------------------------------------------------------------------------
@@ -3317,7 +3492,8 @@ def contact_depths(state) -> torch.Tensor:
         return -cons.info_dist[live]
     c, _ = narrow_mod.narrow_phase(state.bodies.poses, state.shapes,
                                    state.bp_pairs,
-                                   SimParams().prediction_distance, p_max=4)
+                                   SimParams().prediction_distance, p_max=4,
+                                   with_overflow=True)
     slot = torch.arange(4, device=c.dist.device)
     live = c.valid[:, None] & (slot[None, :] < c.num_points[:, None])
     return -c.dist[live]
@@ -6225,22 +6401,22 @@ def testbed_phase(params) -> dict:
 
 KERNEL_TABLE = (
     ("gs_math_rhs", "chained_ps", "wgmath_tpu_torch/csrc/gs_math.cu",
-     "wgmath_tpu/dynamics/gs_pallas.py:330",
+     "wgmath_tpu/dynamics/gs_pallas.py:381",
      "dynamics/gs_pallas.py:_gs_math_rhs_pallas_call"),
     ("gs_math_block", "ladder", "wgmath_tpu_torch/csrc/gs_math_block.cu",
-     "wgmath_tpu/dynamics/gs_pallas.py:246",
+     "wgmath_tpu/dynamics/gs_pallas.py:287",
      "dynamics/gs_pallas.py:_gs_math_pallas_call"),
     ("build_fused", "fused", "wgmath_tpu_torch/csrc/build_fused.cu",
-     "wgmath_tpu/dynamics/build_pallas.py:234",
+     "wgmath_tpu/dynamics/build_pallas.py:253",
      "dynamics/build_pallas.py:_build_pallas_call"),
     ("fused_sweep", "fused", "wgmath_tpu_torch/csrc/gs_fused.cu",
-     "wgmath_tpu/dynamics/gs_fused.py:320",
+     "wgmath_tpu/dynamics/gs_fused.py:356",
      "dynamics/gs_fused.py:_fused_sweep_pallas"),
     ("fused_substep1", "fused", "wgmath_tpu_torch/csrc/gs_fused.cu",
-     "wgmath_tpu/dynamics/gs_fused.py:448",
+     "wgmath_tpu/dynamics/gs_fused.py:500",
      "dynamics/gs_fused.py:_substep1_pallas"),
     ("fused_integrate", "fused", "wgmath_tpu_torch/csrc/gs_fused.cu",
-     "wgmath_tpu/dynamics/gs_fused.py:582",
+     "wgmath_tpu/dynamics/gs_fused.py:595",
      "dynamics/gs_fused.py:fused_integrate"),
 )
 # a kernel whose main-path launches another counter counts: B12, carried
@@ -6312,6 +6488,7 @@ def main() -> int:
         params = SimParams()
         t0 = time.perf_counter()
         runs = path_phase()
+        runs["multi_step"] = multi_step_phase(params)
         t1 = time.perf_counter()
         runs.update(box_phase(params))
         box_kernel_checks(runs, params, summaries)
@@ -6340,8 +6517,8 @@ def main() -> int:
         print(f"phase seconds: setup {t_setup - t_start:.1f}, kernels "
               f"{t_kernels - t_setup:.1f}, linalg and query paths "
               f"{t_q - t_kernels:.1f}, small-matrix geometry "
-              f"{t_decomp - t_q:.1f}, pit paths (with chained_ss) "
-              f"{t1 - t0:.1f}, box "
+              f"{t_decomp - t_q:.1f}, pit paths (with chained_ss and "
+              f"multi_step) {t1 - t0:.1f}, box "
               f"{t2 - t1:.1f}, primitives {t3 - t2:.1f}, solve modes "
               f"{t4 - t3:.1f}, joints {t5 - t4:.1f}, lbvh {t6 - t5:.1f}, "
               f"meshes {t7 - t6:.1f}, planar {t8 - t7:.1f}, parallel "
@@ -6498,6 +6675,7 @@ def main() -> int:
                       "parallel": runs["parallel"],
                       "testbed": runs["testbed"],
                       "static_slots": runs["chained_ss"]["static"],
+                      "multi_step": runs["multi_step"],
                       "decomp": decomps, "examples": examples}))
     print(setup["nvidia_smi"])
     kernels = []
@@ -6520,6 +6698,10 @@ def main() -> int:
             **({"static_slots_launches_per_step":
                 paths["chained_ss"]["gs_math_rhs_launches_per_step"]}
                if name == "gs_math_rhs" else {}),
+            "multi_step_launches": {
+                c: r["launches"][counter]
+                for c, r in runs["multi_step"].items()
+                if c in MULTI_STEP_PATHS and r["launches"][counter]},
             "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
             "plain_ms": summary["plain_ms"],
             "bound_ms": summary["bound_ms"],

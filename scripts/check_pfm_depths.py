@@ -53,7 +53,7 @@ def main():
             st = state_from_arrays({k[len(pre):]: v for k, v in z.items()
                                     if k.startswith(pre)}, device="cpu")
             c, _ = narrow_phase(st.bodies.poses, st.shapes, st.bp_pairs,
-                                PRED, **CAPS)
+                                PRED, **CAPS, with_overflow=True)
             port = _depths(c.valid.numpy(), c.num_points.numpy(),
                            c.dist.numpy())
             if run is None:

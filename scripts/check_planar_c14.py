@@ -17,6 +17,7 @@ Runs on the CPU, no JAX, ~20 s::
 
 from __future__ import annotations
 
+import importlib
 import os
 import sys
 
@@ -37,7 +38,7 @@ from tests.planar_inputs import (  # noqa: E402
 )
 from wgmath_tpu_torch.broad_phase.brute_force import find_pairs  # noqa: E402
 from wgmath_tpu_torch.pipeline import step_checked  # noqa: E402
-from wgmath_tpu_torch.queries import narrow_phase as tnp  # noqa: E402
+tnp = importlib.import_module("wgmath_tpu_torch.queries.narrow_phase")
 from wgmath_tpu_torch.shapes.shape import (  # noqa: E402
     ball_radii_or_nan,
     world_aabbs,
@@ -57,7 +58,7 @@ def port_rows(state, cfg, rows):
                    max_per_row=cfg.broad_phase_max_per_row,
                    ball_radius=ball_radii_or_nan(sh, b.poses), margin=pred,
                    dynamic=b.is_dynamic())
-    c, _ = tnp.narrow_phase(b.poses, sh, p, pred, p_max=2)
+    c, _ = tnp.narrow_phase(b.poses, sh, p, pred, p_max=2, with_overflow=True)
     r = torch.from_numpy(rows)
     return (c.dist[r, 0].numpy(), c.normal_a[r].numpy(),
             c.points_a[r, 0].numpy())

@@ -11,6 +11,7 @@ machine with the card::
 
 from __future__ import annotations
 
+import importlib
 import os
 import subprocess
 import sys
@@ -23,7 +24,8 @@ import torch  # noqa: E402
 from wgmath_tpu_torch.core import dispatch  # noqa: E402
 from wgmath_tpu_torch.dynamics.sim_params import SimParams  # noqa: E402
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked  # noqa: E402
-from wgmath_tpu_torch.queries import narrow_phase  # noqa: E402
+narrow_phase = importlib.import_module(
+    "wgmath_tpu_torch.queries.narrow_phase")
 from wgmath_tpu_torch.scenes.builders import (  # noqa: E402
     primitive_configs,
     primitives3,

@@ -56,7 +56,7 @@ def main():
                     c, need = narrow_phase(st.bodies.poses, st.shapes,
                                            st.bp_pairs,
                                            SimParams().prediction_distance,
-                                           p_max=4)
+                                           p_max=4, with_overflow=True)
                     live = c.valid[:, None] & (torch.arange(4, device="cuda")[None]
                                                < c.num_points[:, None])
                     pen = float(torch.where(live, -c.dist,

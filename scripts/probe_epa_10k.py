@@ -29,6 +29,7 @@ same logic at a small size on the CPU.
 
 from __future__ import annotations
 
+import importlib
 import argparse
 import os
 import subprocess
@@ -46,7 +47,8 @@ from wgmath_tpu_torch.dynamics.sim_params import SimParams  # noqa: E402
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked  # noqa: E402
 from wgmath_tpu_torch.queries import epa as epa_mod  # noqa: E402
 from wgmath_tpu_torch.queries import gjk  # noqa: E402
-from wgmath_tpu_torch.queries import narrow_phase as narrow_mod  # noqa: E402
+narrow_mod = importlib.import_module(
+    "wgmath_tpu_torch.queries.narrow_phase")
 from wgmath_tpu_torch.scenes.builders import (  # noqa: E402
     primitive_configs,
     primitives3,
@@ -176,7 +178,7 @@ def figures(state, depths: bool = False) -> dict:
         c, _ = narrow_mod.narrow_phase(state.bodies.poses, state.shapes,
                                        state.bp_pairs,
                                        SimParams().prediction_distance,
-                                       p_max=4)
+                                       p_max=4, with_overflow=True)
         slot = torch.arange(4, device=c.dist.device)
         live = c.valid[:, None] & (slot[None, :] < c.num_points[:, None])
         depth = -c.dist[live]

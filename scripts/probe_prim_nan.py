@@ -21,6 +21,7 @@ semantics).
 
 from __future__ import annotations
 
+import importlib
 import argparse
 import dataclasses
 import functools
@@ -41,7 +42,8 @@ from wgmath_tpu_torch.convert import state_from_arrays, state_to_arrays  # noqa:
 from wgmath_tpu_torch.dynamics.sim_params import SimParams  # noqa: E402
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked  # noqa: E402
 from wgmath_tpu_torch.queries import gjk  # noqa: E402
-from wgmath_tpu_torch.queries import narrow_phase as narrow_mod  # noqa: E402
+narrow_mod = importlib.import_module(
+    "wgmath_tpu_torch.queries.narrow_phase")
 from wgmath_tpu_torch.scenes.builders import (  # noqa: E402
     primitive_configs,
     primitives3,

@@ -11,6 +11,7 @@ repository root::
 
 from __future__ import annotations
 
+import importlib
 import argparse
 import functools
 import json
@@ -29,7 +30,8 @@ from wgmath_tpu_torch.convert import state_from_arrays  # noqa: E402
 from wgmath_tpu_torch.dynamics.sim_params import SimParams  # noqa: E402
 from wgmath_tpu_torch.pipeline import PipelineConfig, step_checked  # noqa: E402
 from wgmath_tpu_torch.queries import gjk  # noqa: E402
-from wgmath_tpu_torch.queries import narrow_phase as narrow_mod  # noqa: E402
+narrow_mod = importlib.import_module(
+    "wgmath_tpu_torch.queries.narrow_phase")
 
 
 def jax_pairs(poses, shapes, bodies) -> None:

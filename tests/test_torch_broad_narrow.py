@@ -142,7 +142,8 @@ def test_narrow_phase_matches_jax(bc_capacity):
                                  p_max=1, bc_capacity=bc_capacity,
                                  with_overflow=True)
     got, got_need = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED,
-                                 p_max=1, bc_capacity=bc_capacity)
+                                 p_max=1, bc_capacity=bc_capacity,
+                                 with_overflow=True)
     np.testing.assert_array_equal(got_need.numpy(), np.asarray(want_need))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_array_equal(got.num_points.numpy(),
@@ -178,8 +179,9 @@ def test_narrow_phase_refuses_cuboid_manifolds():
     with pytest.raises(NotImplementedError, match="in 3D"):
         narrow_phase(ts.bodies.poses, polylines, tp, PRED, p_max=4)
     wide, need = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=4,
-                              sat_capacity=64)
-    one, _ = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=1)
+                              sat_capacity=64, with_overflow=True)
+    one, _ = narrow_phase(ts.bodies.poses, ts.shapes, tp, PRED, p_max=1,
+                          with_overflow=True)
     tag = ts.shapes.tag
     cc = (tag[tp.body_a] == shp.CUBOID) & (tag[tp.body_b] == shp.CUBOID)
     assert int(need[1]) == int((cc & tp.valid).sum()) > 0

@@ -9,6 +9,7 @@ so the machine with the card runs them without the repository's conftest::
 """
 
 import dataclasses
+import importlib
 import json
 import time
 from types import SimpleNamespace
@@ -483,7 +484,7 @@ def test_sat_narrow_phase_on_card_matches_cpu(sat_capacity):
         out[dev] = narrow_phase(state.bodies.poses, state.shapes,
                                 state.bp_pairs,
                                 SimParams().prediction_distance, p_max=4,
-                                sat_capacity=sat_capacity)
+                                sat_capacity=sat_capacity, with_overflow=True)
     (cc, nc), (cg, ng) = out["cpu"], out["cuda"]
     np.testing.assert_array_equal(ng.cpu().numpy(), nc.numpy())
     if sat_capacity:
@@ -517,7 +518,7 @@ def _pfm_narrow(dev, p_max, cap, state=None):
     return narrow_phase(state.bodies.poses, state.shapes, state.bp_pairs,
                         SimParams().prediction_distance, p_max=p_max,
                         sat_capacity=1024, bc_capacity=256,
-                        pfm_capacity=cap)
+                        pfm_capacity=cap, with_overflow=True)
 
 
 @pytest.mark.cuda
@@ -586,7 +587,8 @@ def test_pfm_graph_replays_give_the_eager_bits_on_card(monkeypatch):
     of another shape replaces the graph of its (device, p_max,
     prediction) and gives the eager bits too."""
     _need_card()
-    from wgmath_tpu_torch.queries import narrow_phase as narrow_mod
+    narrow_mod = importlib.import_module(
+        "wgmath_tpu_torch.queries.narrow_phase")
 
     first = _prim_state("ladder", "cuda")[0]
     later = state_from_arrays(box_arrays(
@@ -1622,7 +1624,8 @@ def test_mesh_gjk_graph_replays_give_the_eager_bits_on_card(monkeypatch):
     state and replayed on another, gives the eager run's bits."""
     _need_card()
     from wgmath_tpu_torch.queries import mesh_contact
-    from wgmath_tpu_torch.queries import narrow_phase as narrow_mod
+    narrow_mod = importlib.import_module(
+        "wgmath_tpu_torch.queries.narrow_phase")
 
     from chip_smoke import grid_pairs
 
@@ -1737,7 +1740,8 @@ def test_planar_pfm_graph_replays_give_the_eager_bits_on_card():
     ``capsules2``'s three stored states gives its eager run's bits, and
     the eager run on the card the CPU's rows within 1e-6 m (float64)."""
     _need_card()
-    from wgmath_tpu_torch.queries import narrow_phase as narrow_mod
+    narrow_mod = importlib.import_module(
+        "wgmath_tpu_torch.queries.narrow_phase")
     from tests.planar_inputs import planar_state
 
     narrow_mod._GRAPHS.clear()

@@ -210,7 +210,7 @@ def _scene(z, dtype=torch.float32):
 def _narrow(z, name, dtype=torch.float32):
     p, cap = NP_VARIANTS[name]
     return narrow_phase(*_scene(z, dtype), PRED, p_max=p, sat_capacity=512,
-                        pfm_capacity=cap, bc_capacity=64)
+                        pfm_capacity=cap, bc_capacity=64, with_overflow=True)
 
 
 @pytest.fixture(scope="module")
@@ -275,7 +275,8 @@ def test_narrow_phase_refuses_other_kinds(z):
     and convex kinds and the trimesh, once refused, are taken, and
     declaring one that no row holds changes no contact."""
     pose, shapes, pairs = _scene(z)
-    want, _ = narrow_phase(pose, shapes, pairs, PRED, p_max=4)
+    want, _ = narrow_phase(pose, shapes, pairs, PRED, p_max=4,
+                           with_overflow=True)
     for kind in (shp.SEGMENT, shp.TRIANGLE, shp.CONVEX, shp.TRIMESH,
                  shp.POLYLINE):
         odd = shp.ShapeSet(shapes.tag, shapes.params, shapes.vertices,
@@ -284,7 +285,8 @@ def test_narrow_phase_refuses_other_kinds(z):
             with pytest.raises(NotImplementedError, match="in 3D"):
                 narrow_phase(pose, odd, pairs, PRED, p_max=4)
             continue
-        got, _ = narrow_phase(pose, odd, pairs, PRED, p_max=4)
+        got, _ = narrow_phase(pose, odd, pairs, PRED, p_max=4,
+                              with_overflow=True)
         for f in ("normal_a", "points_a", "dist", "num_points", "valid"):
             assert torch.equal(getattr(got, f), getattr(want, f)), (kind, f)
 

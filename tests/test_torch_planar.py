@@ -25,6 +25,7 @@ numpy inputs (each JAX function jitted once on them; no pipeline is compiled).
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -56,12 +57,13 @@ from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry.sim import Sim
 from wgmath_tpu_torch.queries import epa as tepa
 from wgmath_tpu_torch.queries import mesh_contact as tmc
-from wgmath_tpu_torch.queries import narrow_phase as tnp
 from wgmath_tpu_torch.queries import sat as tsat
 from wgmath_tpu_torch.scenes import builders as tbuild
 from wgmath_tpu_torch.shapes import shape as shp
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
+# the module: the package exports the function of the same name, as JAX's
+tnp = importlib.import_module("wgmath_tpu_torch.queries.narrow_phase")
 TOL = 1e-5
 EPA_TOL = 1e-4
 JOINT_TOL = 5e-5
@@ -195,7 +197,8 @@ def test_pfm_2d_branch_against_a_witness(i):
                        max_per_row=cfg.broad_phase_max_per_row,
                        ball_radius=shp.ball_radii_or_nan(sh, b.poses),
                        margin=PRED, dynamic=b.is_dynamic())
-    got, _ = tnp.narrow_phase(b.poses, sh, p, PRED, p_max=2)
+    got, _ = tnp.narrow_phase(b.poses, sh, p, PRED, p_max=2,
+                              with_overflow=True)
     k = z[f"capsules2.np{i}.dist"].shape[0]
     assert int(p.count) < k
     _close(p.body_a[:k], z[f"capsules2.np{i}.body_a"].astype(np.int64))

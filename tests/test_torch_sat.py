@@ -210,7 +210,8 @@ def narrow_results(z):
                                       for f in NARROW_FIELDS}),
                    z[f"narrow.{name}.need"]) for name in NP_VARIANTS}
     got = {name: narrow_phase(tpose, tshapes, tpairs, PRED, p_max=p,
-                              sat_capacity=cap, bc_capacity=64)
+                              sat_capacity=cap, bc_capacity=64,
+                              with_overflow=True)
            for name, (p, cap) in NP_VARIANTS.items()}
     return got, want, tshapes, tpairs
 

@@ -17,4 +17,5 @@ from wgmath_tpu_torch.core.dispatch import (  # noqa: F401
     capacity_bucket,
     resolve_device,
 )
+from wgmath_tpu_torch.core.profiling import RunStats, PhaseTimer  # noqa: F401
 from wgmath_tpu_torch.core.tensor import View, view_of  # noqa: F401

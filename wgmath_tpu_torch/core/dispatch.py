@@ -2,10 +2,10 @@
 
 Counterpart of ``wgmath_tpu/core/dispatch.py``: ``cdiv`` / ``round_up`` size
 kernel grids, ``capacity_bucket`` bounds the distinct capacities a run
-re-buckets through. The JAX package's backend probes (``on_tpu``,
-``pallas_interpret``) become :func:`resolve_device`: the port runs on the
-card unless the caller asks for the CPU, and a missing card is an error,
-never a silent fallback.
+re-buckets through, ``length_mask`` masks a fixed-capacity buffer. The
+JAX package's backend probes (``on_tpu``, ``pallas_interpret``) become
+:func:`resolve_device`: the port runs on the card unless the caller asks
+for the CPU, and a missing card is an error, never a silent fallback.
 
 Every host read of a device value on the step path goes through
 :func:`host_int` / :func:`host_list`, so a run can count its host syncs
@@ -45,6 +45,14 @@ def capacity_bucket(n: int, *, floor: int = 1024) -> int:
     if p // 2 * 3 // 2 >= n and p // 2 * 3 // 2 >= floor:
         return p // 2 * 3 // 2
     return p
+
+
+def length_mask(capacity: int, count: torch.Tensor) -> torch.Tensor:
+    """Validity mask of the first ``count`` slots of a ``capacity`` buffer
+    (on ``count``'s device): kernels run over the whole capacity and mask
+    the slots from ``count`` on, in place of an indirect dispatch."""
+    return (torch.arange(capacity, device=count.device)
+            < count.to(torch.int64))
 
 
 def resolve_device(device=None) -> torch.device:

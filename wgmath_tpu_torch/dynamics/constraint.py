@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from wgmath_tpu_torch.core.dispatch import resolve_device
 from wgmath_tpu_torch.dynamics.body import Velocity, WorldMassProperties
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
 from wgmath_tpu_torch.geometry import sim as sim_ops
@@ -23,6 +24,11 @@ from wgmath_tpu_torch.geometry.quat import cross, norm
 from wgmath_tpu_torch.geometry.sim import Sim
 
 S_LEN = 2  # friction directions per contact point (3D)
+
+
+def max_points(dim: int) -> int:
+    """Contact points a manifold holds at most: 4 in 3D, 2 in 2D."""
+    return 4 if dim == 3 else 2
 
 
 def sub_len(dim: int) -> int:
@@ -90,6 +96,21 @@ def safe_inv(x: torch.Tensor) -> torch.Tensor:
                        1.0 / torch.where(zero, torch.ones_like(x), x))
 
 
+def maybe_inv(x: torch.Tensor, eps: float = 1.0e-20) -> torch.Tensor:
+    """1/x where |x| > eps, else 0."""
+    ok = torch.abs(x) > eps
+    return torch.where(ok, 1.0 / torch.where(ok, x, torch.ones_like(x)),
+                       torch.zeros_like(x))
+
+
+def cap_magnitude(v: torch.Tensor, limit: torch.Tensor) -> torch.Tensor:
+    """``v`` [..., d] scaled down to a norm of at most ``limit`` [...]."""
+    n = norm(v)
+    scale = torch.where(n > limit, limit / torch.clamp(n, min=1e-30),
+                        torch.ones_like(n))
+    return v * scale[..., None]
+
+
 @dataclasses.dataclass
 class Contacts:
     """Fixed-capacity contact manifolds; ``normal_a``/``points_a`` in body
@@ -106,6 +127,27 @@ class Contacts:
     @property
     def capacity(self) -> int:
         return self.body_a.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.normal_a.shape[-1]
+
+    @staticmethod
+    def empty(capacity: int, dim: int, device=None) -> "Contacts":
+        """``capacity`` invalid zero slots of ``max_points(dim)`` points,
+        on ``device`` (default the card)."""
+        dev = resolve_device(device)
+        p = max_points(dim)
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return Contacts(zeros(capacity, dtype=torch.int64),
+                        zeros(capacity, dtype=torch.int64),
+                        zeros(capacity, dim), zeros(capacity, p, dim),
+                        zeros(capacity, p),
+                        zeros(capacity, dtype=torch.int64),
+                        zeros(capacity, dtype=torch.bool))
 
 
 @dataclasses.dataclass
@@ -147,6 +189,10 @@ class ContactConstraints:
     local_pt_b: torch.Tensor  # [C, P, 3]
     info_dist: torch.Tensor  # [C, P]
     info_normal_vel: torch.Tensor  # [C, P]
+
+    @property
+    def dim(self) -> int:
+        return self.dir_a.shape[-1]
 
 
 def build_constraints(poses: Sim, vels: Velocity,

@@ -184,8 +184,14 @@ def _color_edges(cons, dyn_a, dyn_b, num_bodies: int, *, max_colors: int,
     return colors
 
 
-def pair_key(ba, bb, valid):
-    """u32 key (a<<16 | b) per pair; invalid slots → 0xFFFFFFFF."""
+def pair_key(ba, bb, valid, num_bodies: int | None = None):
+    """u32 key (a<<16 | b) per pair; invalid slots → 0xFFFFFFFF. The
+    keys alias from 65,536 bodies on (the same-contact-set predicate
+    shares them): ``num_bodies`` checks that, raising ``ValueError``
+    where the JAX package fails an assertion."""
+    if num_bodies is not None and num_bodies >= (1 << 16):
+        raise ValueError(f"{num_bodies} bodies: 16-bit pair keys alias at "
+                         ">= 65536")
     k = ((ba << 16) & _MASK32) | (bb & 0xFFFF)
     return torch.where(valid, k, torch.full_like(k, _INF32))
 
@@ -384,6 +390,20 @@ def _dyn_sides(cons):
             torch.any(cons.im_b != 0.0, dim=-1))
 
 
+def warmstart_apply(cons: ContactConstraints, vels: Velocity) -> Velocity:
+    """Apply the constraints' stored impulses to the velocities: every
+    side's delta added onto its body row by one ``index_add`` over the
+    a-sides then the b-sides (the JAX package's order of adds; on the
+    card the adds of one body meet in atomics, in no fixed order).
+    :func:`warmstart_apply_sorted` is the scatter-free form the solve
+    runs."""
+    deltas = _ws_deltas(cons, cons.n_impulse, cons.t_impulse, cons.valid,
+                        cons.n_impulse.shape[1])
+    rows = _packed(vels).index_add(
+        0, torch.cat([cons.body_a, cons.body_b]), deltas)
+    return _unpacked(rows, vels.linear.shape[-1])
+
+
 def build_sorted_sides(cons: ContactConstraints, n: int):
     """Per-frame prep for :func:`warmstart_apply_sorted`: the 2C constraint
     sides ordered by body, and each body's [left, right) segment."""
@@ -451,6 +471,42 @@ def transfer_warmstart(cons: ContactConstraints, prev: ContactConstraints,
 # ---------------------------------------------------------------------------
 
 
+def gs_colored_pass(cons: ContactConstraints, vels: Velocity, colors, *,
+                    max_colors: int = 32, num_colors=None):
+    """One Gauss-Seidel sweep over the unsorted constraints, colour after
+    colour (1 to ``num_colors``) and every row of a colour at once: gather
+    both sides' velocities, run the point updates
+    (``gs_math._point_updates``), keep the active rows' new impulses and
+    add each side's velocity delta back onto its body. ``num_colors``
+    (an int or a device scalar) defaults to the largest colour of a valid
+    row, read on the host. ``max_colors`` is the JAX package's argument
+    and bounds nothing here. Returns ``(Velocity, cons with the new
+    impulses)``. The solve sweeps the colour-major layout instead
+    (:func:`gs_color_major_pass`)."""
+    if num_colors is None:
+        num_colors = torch.amax(torch.where(cons.valid, colors,
+                                            torch.zeros_like(colors)))
+    if isinstance(num_colors, torch.Tensor):
+        num_colors = host_int(num_colors)
+    dim = cons.dim
+    p_max = cons.n_impulse.shape[1]
+    f = {name: getattr(cons, name) for name in UPDATE_FIELDS}
+    sides = torch.cat([cons.body_a, cons.body_b])
+    rows = _packed(vels)
+    n_imp, t_imp = cons.n_impulse, cons.t_impulse
+    for color in range(1, num_colors + 1):
+        active = cons.valid & (colors == color)
+        new_n, new_t, d1, d2 = _point_updates(
+            f, cons.cfm_factor, cons.n_rhs, cons.t_rhs, cons.num_points,
+            active, rows[cons.body_a], rows[cons.body_b], n_imp, t_imp,
+            p_max)
+        n_imp = torch.where(active[:, None], new_n, n_imp)
+        t_imp = torch.where(active[:, None, None], new_t, t_imp)
+        rows = rows.index_add(0, sides, torch.cat([d1, d2]))
+    return (_unpacked(rows, dim),
+            dataclasses.replace(cons, n_impulse=n_imp, t_impulse=t_imp))
+
+
 def build_color_layout(colors, valid, *, max_colors: int, cmax: int):
     """Colour-major constraint ordering: ``order`` sorted by colour
     (stable; invalid slots last) with per-colour ``offsets`` / ``counts``;
@@ -510,6 +566,30 @@ def _sorted_namespace(big, meta, ints: dict):
     k_pack = meta[last][0] + _size(meta[last][1])
     return SimpleNamespace(**fields), (big[:, :k_pack],
                                        {f: meta[f] for f in PACK_FIELDS})
+
+
+SORT_FIELDS = ("dir_a", "tangent_a", "im_a", "im_b", "cfm_factor", "limit",
+               "num_points", "n_torque_a", "n_torque_b", "n_ii_torque_a",
+               "n_ii_torque_b", "n_rhs", "n_r", "t_torque_a", "t_torque_b",
+               "t_ii_torque_a", "t_ii_torque_b", "t_rhs", "t_r", "body_a",
+               "body_b", "n_rhs_wo_bias", "t_rhs_wo_bias", "valid",
+               "local_pt_a", "local_pt_b", "info_dist", "info_normal_vel")
+
+
+def sort_solver_fields(cons: ContactConstraints, order_padded):
+    """The solver-read fields (``SORT_FIELDS``) gathered field by field
+    into colour-major order; padding entries of ``order_padded`` (= C)
+    become invalid rows with no points. Returns a namespace of them.
+    :func:`sort_solver_fields_packed` is the one-gather form the solve
+    runs."""
+    c = cons.body_a.shape[0]
+    idx = torch.clamp(order_padded, max=c - 1)
+    pad = order_padded >= c
+    ns = {f: getattr(cons, f)[idx] for f in SORT_FIELDS}
+    ns["num_points"] = torch.where(pad, torch.zeros_like(ns["num_points"]),
+                                   ns["num_points"])
+    ns["valid"] = ns["valid"] & ~pad
+    return SimpleNamespace(**ns)
 
 
 def sort_solver_fields_packed(cons: ContactConstraints, order_padded):
@@ -1105,7 +1185,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
           colors_in: torch.Tensor | None = None, gs_windows: tuple = (),
           prev_colors=None, use_jacobi: bool = False,
           max_per_body: int = 32, gs_tail_window: int = 0, gs_split: int = 8,
-          layout_valid=None, stable_hint: bool | None = None,
+          pair_slots: bool = False, layout_valid=None,
+          stable_hint: bool | None = None,
           cache_in=None, presorted: bool = False, chained: bool = False,
           rhs_in_rung: bool = False, fused: bool = False,
           fused_rung0: int = 0, fused_class_counts=None, joints=None,
@@ -1134,9 +1215,10 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     ``presorted``: the contacts (hence the constraints and ``colors_in``)
     are colour-major already (pair slots, or
     ``compact_contacts(sort_by_extra=True)``): identity layout, no field
-    sort. ``layout_valid`` (given exactly when contacts sit at their cached
-    pair slots) is the pair validity, and ``stable_hint`` (the host's
-    "broad-phase cache hit") then says the slots are bitwise stable.
+    sort. ``pair_slots``: the contacts sit at their cached pair slots;
+    ``layout_valid`` is then the pair validity, and ``stable_hint`` (the
+    host's "broad-phase cache hit") says the slots are bitwise stable
+    (both are read only under ``pair_slots``, as in the JAX package).
     Without pair slots that predicate is the bitwise equality of this
     frame's pair keys with last frame's (one host sync). Stable slots reuse
     the cached bundle (and ``prev_colors``) and warmstart slot by slot;
@@ -1189,6 +1271,8 @@ def solve(bodies: Bodies, mprops: WorldMassProperties, contacts: Contacts,
     else:
         cons = build_constraints(bodies.poses, bodies.vels, mprops, contacts,
                                  params)
+    if not pair_slots:
+        layout_valid = stable_hint = None
     same = None
     if (warmstart_from is not None
             and warmstart_from.body_a.shape == cons.body_a.shape):

@@ -137,10 +137,8 @@ def make_sharded_step(mesh: collectives.Shard, params: SimParams,
             max_per_row=config.broad_phase_max_per_row, ball_radius=radii,
             row_ball_radius=None if radii is None else radii[rows],
             margin=params.prediction_distance)
-        dim = bodies.dim
-        c_local, _ = narrow_phase(bodies.poses, shapes, pairs,
-                                  params.prediction_distance,
-                                  p_max=4 if dim == 3 else 2)
+        c_local = narrow_phase(bodies.poses, shapes, pairs,
+                               params.prediction_distance)
         names = [f.name for f in dataclasses.fields(Contacts)]
         contacts = Contacts(**dict(zip(names, collectives.gather_fields(
             [getattr(c_local, f) for f in names], mesh))))

@@ -1,8 +1,8 @@
 """One physics frame: mass properties → broad phase (slack cache, repair,
 refresh) → narrow phase → constraints → Gauss-Seidel solve under the
 window ladder → integration (counterpart of ``wgmath_tpu/pipeline.py``:
-``PhysicsState``, ``PipelineConfig``, ``step``, ``step_checked``,
-``fine_bucket``).
+``PhysicsState``, ``PipelineConfig``, ``step``, ``multi_step``,
+``step_checked``, ``fine_bucket``).
 
 The JAX step is one jitted program whose branches are ``lax.cond`` /
 ``lax.switch``; here each branch is a Python branch on a host value (one
@@ -123,6 +123,7 @@ from wgmath_tpu_torch.dynamics.constraint import (
     Contacts,
     _dot3,
     compact_contacts,
+    max_points,
 )
 from wgmath_tpu_torch.dynamics.joint import JointSet
 from wgmath_tpu_torch.dynamics.sim_params import SimParams
@@ -290,6 +291,21 @@ def new_state(bodies: Bodies, shapes: ShapeSet,
                         joints=joints)
 
 
+def _color_gate(shapes: ShapeSet, config: PipelineConfig) -> tuple:
+    """``(has_mesh, color_with_bp)``: whether the scene holds a triangle
+    mesh or a polyline, and whether the pair colours ride the broad-phase
+    cache. They ride it only under a slack and a class cap (which parks
+    colouring residue in an unswept class and signals it); otherwise, for
+    Jacobi, and with a mesh (the k rows of one pair share its dynamic
+    body, so pair colours would break a colour's disjointness), the solve
+    colours (or needs no colours). :func:`step` and :func:`multi_step`'s
+    burn-in gate both read it, so the two cannot drift apart."""
+    has_mesh = bool(shapes.kinds & {TRIMESH, POLYLINE})
+    color_with_bp = (config.bp_slack > 0 and not config.use_jacobi
+                     and config.gs_cmax > 0 and not has_mesh)
+    return has_mesh, color_with_bp
+
+
 def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
          warmstart: bool = True, shard=None) -> PhysicsState:
     """Advance one frame of ``params.dt``."""
@@ -317,14 +333,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     dyn_mask = bodies.is_dynamic()
     move_mask = bodies.is_moving()
     mc = config.max_colors
-    # the pair colours ride the broad-phase cache only under a class cap
-    # (which parks colouring residue in an unswept class and signals it);
-    # otherwise, for Jacobi, and with a mesh (the k rows of one pair share
-    # its dynamic body, so pair colours would break a colour's
-    # disjointness), the solve colours (or needs no colours)
-    has_mesh = bool(state.shapes.kinds & {TRIMESH, POLYLINE})
-    color_with_bp = (slack > 0 and not config.use_jacobi
-                     and config.gs_cmax > 0 and not has_mesh)
+    has_mesh, color_with_bp = _color_gate(state.shapes, config)
     # pair-slot layout: the cached pair list is kept colour-major and the
     # contacts stay at their pair slots (not under the fused solver)
     use_pair_slots = (config.gs_pair_slots and color_with_bp
@@ -651,13 +660,13 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         bp_path = 2
         pairs, bp_ref, bp_colors = colored_bp(mins - infl, maxs + infl)
 
-    p_max = config.manifold_points or (4 if dim == 3 else 2)
+    p_max = config.manifold_points or max_points(dim)
     if sh is None:
         contacts, np_needed = narrow_phase(
             bodies.poses, state.shapes, pairs, params.prediction_distance,
             p_max=p_max, bc_capacity=config.bc_pair_capacity,
             sat_capacity=config.sat_pair_capacity,
-            pfm_capacity=config.pfm_pair_capacity)
+            pfm_capacity=config.pfm_pair_capacity, with_overflow=True)
     else:
         contacts, np_needed = _sharded_narrow_phase(
             bodies.poses, state.shapes, pairs, params, config, p_max, sh)
@@ -710,6 +719,7 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
         prev_colors=state.prev_colors if warmstart else None,
         use_jacobi=config.use_jacobi, max_per_body=config.max_per_body,
         gs_tail_window=config.gs_tail_window, gs_split=config.gs_split,
+        pair_slots=use_pair_slots,
         layout_valid=pairs.valid if use_pair_slots else None,
         stable_hint=bp_path == 0 if use_pair_slots else None,
         cache_in=state.solve_cache if warmstart else None,
@@ -728,6 +738,47 @@ def step(state: PhysicsState, params: SimParams, config: PipelineConfig, *,
     return PhysicsState(new_bodies, state.shapes, cons, counts, colors,
                         pairs if slack > 0 else None, bp_ref, bp_colors,
                         solve_cache, state.joints)
+
+
+def multi_step(state: PhysicsState, params: SimParams, config: PipelineConfig,
+               n_steps: int) -> PhysicsState:
+    """Advance ``n_steps`` frames under one configuration, for serving and
+    benchmark loops: the JAX package's ``multi_step``, frame for frame.
+
+    A state that does not fit the configuration's carry first takes one
+    burn-in :func:`step` (warmstarted when it holds constraints), so such
+    a state advances ``n_steps + 1`` frames: no constraints or colours
+    yet; a broad-phase cache needed but absent, at another
+    ``pair_capacity``, or without the colours that ride it
+    (:func:`_color_gate`, the predicate :func:`step` reads); ``pair_count``
+    not of the configuration's length (8, and ``max_colors + 2`` class
+    counts more under ``gs_windows`` without Jacobi); or a cache present
+    under ``bp_slack <= 0``. Then ``n_steps`` frames of ``step(...,
+    warmstart=True)``. No capacity regrows (``step_checked`` does that).
+
+    The JAX package compiles the frames into one program (``lax.scan``);
+    here they are a Python loop over :func:`step`, the same bits as
+    calling it ``n_steps`` times, because a step still reads device
+    values on the host to choose its branches. It runs where the state's
+    tensors lie and raises where :func:`step` raises."""
+    _, color_with_bp = _color_gate(state.shapes, config)
+    slack = config.bp_slack
+    needs_bp_cache = slack > 0 and (
+        state.bp_pairs is None
+        or state.bp_pairs.body_a.shape[0] != config.pair_capacity
+        or (color_with_bp and state.bp_colors is None))
+    expected_counts = 8 + ((config.max_colors + 2)
+                           if (config.gs_windows and not config.use_jacobi)
+                           else 0)
+    if (state.prev_constraints is None or state.prev_colors is None
+            or needs_bp_cache
+            or state.pair_count.shape[0] != expected_counts
+            or (slack <= 0 and state.bp_pairs is not None)):
+        state = step(state, params, config,
+                     warmstart=state.prev_constraints is not None)
+    for _ in range(n_steps):
+        state = step(state, params, config, warmstart=True)
+    return state
 
 
 def _sharded_narrow_phase(poses, shapes, pairs: PairList, params,
@@ -752,7 +803,7 @@ def _sharded_narrow_phase(poses, shapes, pairs: PairList, params,
         poses, shapes, part, params.prediction_distance, p_max=p_max,
         bc_capacity=div(config.bc_pair_capacity),
         sat_capacity=div(config.sat_pair_capacity),
-        pfm_capacity=div(config.pfm_pair_capacity))
+        pfm_capacity=div(config.pfm_pair_capacity), with_overflow=True)
     names = [f.name for f in dataclasses.fields(Contacts)]
     fields = [getattr(c_l, f) for f in names]
     # the demands ride the integer buffer as a column of the first rows

@@ -258,10 +258,15 @@ def relative_pose(pose_a: Sim, pose_b: Sim):
 
 
 def cso_support(tag_a, par_a, tag_b, par_b, r_ab, t_ab, d,
-                vertices=None, tri_verts_a=None) -> CsoSupport:
+                vertices=None, tri_verts_a=None,
+                tri_margin: float = 0.0) -> CsoSupport:
     """Support of A ⊖ B along d (A's frame); ``r_ab`` / ``t_ab``: B's
     rotation matrix and translation in A's frame; ``tri_verts_a``: each
-    pair's triangle where A is a TRIANGLE."""
+    pair's triangle where A is a TRIANGLE. ``tri_margin`` is that
+    triangle's dilation radius: the samples are of the shapes' cores, so
+    it moves none of them (as in the JAX package, which passes it to
+    ``support_core`` and drops the radius)."""
+    del tri_margin  # a radius, which the core samples do not carry
     return _Cso(tag_a, par_a, tag_b, par_b, r_ab, t_ab, vertices,
                 tri_verts_a)(d)
 

@@ -27,7 +27,7 @@ import torch
 
 from wgmath_tpu_torch.broad_phase.brute_force import PairList
 from wgmath_tpu_torch.broad_phase.grid import top_k_desc
-from wgmath_tpu_torch.dynamics.constraint import Contacts
+from wgmath_tpu_torch.dynamics.constraint import Contacts, max_points
 from wgmath_tpu_torch.geometry import sim as sim_ops
 from wgmath_tpu_torch.geometry.quat import norm
 from wgmath_tpu_torch.geometry.sim import Sim
@@ -299,19 +299,22 @@ def _pfm2_call(pose_a: Sim, pose_b: Sim, tag_a, par_a, tag_b, par_b,
 
 
 def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
-                 prediction_distance: float, *, p_max: int = 1,
+                 prediction_distance: float, *, p_max: int = 0,
                  bc_capacity: int = 0, sat_capacity: int = 0,
-                 pfm_capacity: int = 0):
-    """One manifold per pair slot. Returns ``(contacts, np_needed)`` with
-    ``np_needed`` = [bc, sat, pfm] unclamped compaction demands (0 for a
-    kernel run dense). ``p_max == 1`` asserts that no cuboid-cuboid pair
-    can act and skips the SAT kernel, and gives the support-mapped pairs
-    their one GJK / EPA point; a narrower ``p_max`` than 4 keeps each
-    manifold's deepest points. 2D takes balls, cuboids, capsules and
-    polylines (whose contacts ``mesh_contact`` appends); 3D takes
-    ``shp.SUPPORTED_KINDS``."""
+                 pfm_capacity: int = 0, with_overflow: bool = False):
+    """One manifold per pair slot. Returns the contacts, and with
+    ``with_overflow=True`` ``(contacts, np_needed)`` with ``np_needed`` =
+    [bc, sat, pfm] unclamped compaction demands (0 for a kernel run
+    dense), as in the JAX package. ``p_max`` is the manifold width (0:
+    ``max_points(dim)``, 4 in 3D and 2 in 2D); ``p_max == 1`` asserts
+    that no cuboid-cuboid pair can act and skips the SAT kernel, and
+    gives the support-mapped pairs their one GJK / EPA point; a narrower
+    ``p_max`` than 4 keeps each manifold's deepest points. 2D takes
+    balls, cuboids, capsules and polylines (whose contacts
+    ``mesh_contact`` appends); 3D takes ``shp.SUPPORTED_KINDS``."""
     kinds = shapes.kinds
     dim = poses.translation.shape[-1]
+    p_max = p_max or max_points(dim)
     ok = (shp.SUPPORTED_KINDS if dim == 3 else shp.PLANAR_KINDS)
     if not kinds <= ok:
         raise NotImplementedError(
@@ -462,6 +465,8 @@ def narrow_phase(poses: Sim, shapes: shp.ShapeSet, pairs: PairList,
 
     valid = pairs.valid & (num_points > 0) & (dist[:, 0] < prediction_distance)
     contacts = Contacts(a, b, normal_a, points_a, dist, num_points, valid)
+    if not with_overflow:
+        return contacts
     return contacts, torch.stack([bc_needed.to(torch.int64),
                                   sat_needed.to(torch.int64),
                                   pfm_needed.to(torch.int64)])
